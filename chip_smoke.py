@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive surfjax_torch's fused-frame path on one CUDA GPU and check it.
+"""Drive surfjax_torch's fused-frame and split (mesh) paths on one CUDA GPU
+and check them.
 
     python3 chip_smoke.py
 
 Phases (each prints its own line with its seconds; any failure raises, so
 the script exits non-zero and never prints its last line):
   0. versions, the card's name and power limit; refuses to run without CUDA;
-  1. builds the CUDA kernel from surfjax_torch/kernels/csrc;
+  1. builds the CUDA kernels from surfjax_torch/kernels/csrc (one nvcc per
+     source, in parallel) and prints ptxas' registers and spills;
   2. kernel against its plain PyTorch twin on the card, bitwise, at
      256x256 x 2 frames: c1, c2, c5 and c3 (LoD and exact modes), and c3
      with the portable log in exact mode;
@@ -17,11 +19,24 @@ the script exits non-zero and never prints its last line):
      counts, output checks;
   4. the kernel at the main path's shape (48 frames of 1920x1080) against
      the twin, bitwise, on the first, middle and last frame, in both
-     modes, both timed per frame.
+     modes, both timed per frame;
+  5. the split path's kernels (render_tile = K1, trace_rays = K2, ao_fix,
+     mesh_tile) against their plain versions on the card, bitwise, on
+     every kernel call of a 256x256 frame of: c4 in the `config` and `ao`
+     modes, a mesh + SDF sphere + plane scene (AO, soft shadows) and a
+     two-mesh scene;
+  6. the mesh main path: configs/c4_mesh.yaml at 1920x1080, 16 camera
+     positions in one render_sequence call per mode (`config`: the yaml's
+     settings; `ao`: AO and soft shadows on), one warm-up call and three
+     timed with CUDA events; launch counts (every split kernel > 0, the
+     fused kernel 0), output checks, frame 0 against render();
+  7. every split kernel call of one 1080p c4 frame against its plain
+     version, bitwise, both timed, in both modes.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches, errors and times (ms per 1080p frame in
-value_exact mode).
+the kernels with their launches on the main paths, largest errors, times
+per 1080p frame (value_exact mode for the fused kernel, `ao` mode for the
+split kernels) and bounds.
 """
 
 from __future__ import annotations
@@ -37,6 +52,49 @@ sys.path.insert(0, ROOT)
 
 SEED = 0   # numpy seed of the camera jitter of phase 2
 NINE = ("r", "g", "b", "depth", "obj", "nx", "ny", "nz", "hit")
+# NVIDIA H100 SXM data-sheet peaks at the full 700 W limit
+FP32_OPS_PER_S = 67e12
+BYTES_PER_S = 3.35e12
+MT_TEST_OPS = 50   # FP32 operations of one Moller-Trumbore test
+LAUNCH_REPS = 10   # back-to-back launches per timed sample (phase 7)
+# hit-fraction bounds of the mesh main path (phase 6): on the H100 the
+# hit fraction moved by at most 2.07e-5 from one frame to the next and by
+# 2.45e-4 from frame 0 to frame 15 in both modes; each bound is about
+# twice that
+MESH_STEP_MAX = 5e-5
+MESH_DRIFT_MAX = 5e-4
+
+
+def bound(n_ops: float, n_bytes: float):
+    """-> (least ms, "operations" or "bytes"): the larger of the two."""
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_bytes = n_bytes / BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(tensors) -> int:
+    from surfjax_torch.tools.kernel_check import flat
+    return sum(t.numel() * t.element_size() for t in flat(tensors))
+
+
+def bytes_read(kname: str, args) -> int:
+    """-> the bytes one recorded split-kernel call must read, each array
+    once, only on the lanes whose thread reads it: K2 reads o, l and
+    soft_k only where the shadow segment is not empty (not dist <= 0),
+    ao_fix reads p_off and n only where need > 0.5; the other ray arrays
+    on every lane. The mesh kernel counts its whole triangle and candidate
+    tables (it is bound by operations)."""
+    if kname == "mesh_tile":
+        return nbytes(args[:6])   # table, candidates, counts, rays
+    if kname == "trace_rays":
+        dist = args[4]
+        lanes = int((~(dist <= 0.0)).sum())
+        return nbytes(dist) + 7 * dist.element_size() * lanes
+    if kname == "ao_fix":
+        need, ao_in = args[4], args[5]
+        lanes = int((need > 0.5).sum())
+        return nbytes((need, ao_in)) + 6 * need.element_size() * lanes
+    return nbytes(args[2:])
 
 
 def log(msg: str) -> None:
@@ -74,11 +132,19 @@ def main() -> int:
     from surfjax_torch.core.scene_compile import params_to_device
     from surfjax_torch.core.types import FrameBuffers
     from surfjax_torch.kernels import _build
+    from surfjax_torch.kernels.mesh_tile import (
+        mesh_tile, mesh_tile_reference,
+    )
     from surfjax_torch.kernels.render_tile import (
-        SceneTensors, frame_buffers, frame_fused, frame_fused_reference,
+        SceneTensors, ao_fix, count_ops, frame_buffers, frame_fused,
+        frame_fused_reference, render_tile, trace_rays,
+    )
+    from surfjax_torch.tools.kernel_check import (
+        KERNELS, capture_calls, compare,
     )
     from surfjax_torch.tools.workload import (
-        EXACT, cam_rows_of, cuda_ms, gpu_line, main_path, poses, reframe,
+        EXACT, cam_rows_of, cuda_ms, gpu_line, main_path, mesh_main_path,
+        mesh_modes, mesh_soft_ao_scene, poses, reframe, two_mesh_scene,
     )
     smi = gpu_line()
     log(f"phase 0: gpu {smi} ({time.perf_counter() - t0:.2f} s)")
@@ -90,7 +156,8 @@ def main() -> int:
     info = _build.build()
     _build.load()
     ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln or "stack frame" in ln]
+             if "Compiling entry" in ln or "registers" in ln or "spill" in ln
+             or "stack frame" in ln]
     for ln in ptxas:
         log(f"  ptxas: {ln}")
     log(f"phase 1: built {os.path.relpath(info['path'], ROOT)} "
@@ -214,17 +281,170 @@ def main() -> int:
     log(f"phase 4: kernel vs plain at 1920x1080 x {n_frames} frames "
         f"({time.perf_counter() - t4:.1f} s) on {smi}")
 
+    # KF's bound: the twin's operations on frame 0 in value_exact mode
+    with count_ops() as kf_ops:
+        frame_fused_reference(scene_t, modes["value_exact"],
+                              camera.intrinsics, rows[:1])
+    kf_bound = bound(kf_ops["ops"], 9 * 4 * W * H)
+    log(f"  fused kernel bound per 1080p frame: {kf_ops['ops']:.4g} ops, "
+        f"{kf_bound[0]:.4f} ms ({kf_bound[1]})")
+
+    # -- phase 5 ------------------------------------------------------------
+    t5 = time.perf_counter()
+    import surfjax_torch.api as api
+    split = ("render_tile", "trace_rays", "ao_fix", "mesh_tile")
+    c4_path = os.path.join(ROOT, "configs/c4_mesh.yaml")
+    c4_scene, c4_cam, c4_st, _ = load_config(c4_path)
+    cases = [(f"c4 {mode}", c4_scene, reframe(c4_cam, 256, 256), st)
+             for mode, st in mesh_modes(c4_st).items()]
+    cases += [(name, *build(api, 256)) for name, build in
+              (("mesh_soft_ao", mesh_soft_ao_scene),
+               ("two_meshes", two_mesh_scene))]
+    split_err = dict.fromkeys(split, 0.0)
+    for name, scene5, cam5, st5 in cases:
+        with capture_calls() as calls:
+            render(scene5, cam5, st5, device=dev)
+        for k, (kname, args) in enumerate(calls):
+            err, _, _ = compare(kname, args, f"{name} call {k}")
+            split_err[kname] = max(split_err[kname], err)
+        log(f"  {name}: {len(calls)} kernel calls bitwise equal "
+            f"({', '.join(sorted({c[0] for c in calls}))})")
+    log(f"phase 5: split kernels vs plain on the card passed for "
+        f"{len(cases)} scenes at 256x256 ({time.perf_counter() - t5:.1f} s)")
+
+    # -- phase 6 ------------------------------------------------------------
+    t6 = time.perf_counter()
+    scene, camera, Rs, ps, modes = mesh_main_path(c4_path)
+    n_frames = len(ps)
+    n_objects = len(scene.objects)
+    H, W = camera.intrinsics.height, camera.intrinsics.width
+    wrappers = dict(zip(split, (render_tile, trace_rays, ao_fix, mesh_tile)))
+    mesh_results, mesh_launches = {}, {}
+    for mode, st in modes.items():
+        call = lambda st=st: render_sequence(scene, camera, (Rs, ps), st,
+                                             device=dev)
+        for w in list(wrappers.values()) + [frame_fused]:
+            w.launches = 0
+        call()
+        torch.cuda.synchronize()
+        times, fb = cuda_ms(call, 3)
+        mesh_launches[mode] = {name: w.launches
+                               for name, w in wrappers.items()}
+        mesh_launches[mode]["frame_fused"] = frame_fused.launches
+        mesh_results[mode] = (times, st, fb)
+    for mode, (times, st, fb) in mesh_results.items():
+        counts = mesh_launches[mode]
+        needed = [k for k in split if k != "ao_fix" or st.ao]
+        if any(counts[k] < 1 for k in needed) or counts["frame_fused"]:
+            raise AssertionError(f"{mode}: launch counts {counts}")
+        for field in ("rgb", "depth", "normal", "hit"):
+            if not bool(torch.isfinite(getattr(fb, field)).all()):
+                raise AssertionError(f"{mode}: non-finite {field}")
+        if not (int(fb.obj_id.min()) >= -1
+                and int(fb.obj_id.max()) < n_objects):
+            raise AssertionError(f"{mode}: obj_id out of [-1, {n_objects})")
+        # 1e-4 per frame of camera motion on each axis
+        hit_frac = fb.hit.mean(dim=(1, 2))
+        step = float((hit_frac[1:] - hit_frac[:-1]).abs().max())
+        drift = float((hit_frac - hit_frac[0]).abs().max())
+        if step > MESH_STEP_MAX or drift > MESH_DRIFT_MAX:
+            raise AssertionError(
+                f"{mode}: hit fraction moves by {step} between frames and "
+                f"by {drift} from frame 0 (bounds {MESH_STEP_MAX} and "
+                f"{MESH_DRIFT_MAX})")
+        single = render(scene, dataclasses.replace(
+            camera, position=tuple(float(x) for x in ps[0])), st, device=dev)
+        for field in FrameBuffers._fields:
+            if not torch.equal(getattr(single, field), getattr(fb, field)[0]):
+                raise AssertionError(f"{mode}: frame 0 of the sequence "
+                                     f"differs from render() in {field}")
+        n_hits = float(fb.hit.sum()) / n_frames
+        rays = float(W * H) + n_hits * len(scene.lights) * st.shadows \
+            + n_hits * st.ao_samples * st.ao
+        s_frame = min(times) / 1e3 / n_frames
+        mesh_results[mode] = dict(
+            ms_per_frame=min(times) / n_frames,
+            ms_per_call=[round(t, 3) for t in times],
+            frames_per_s=1.0 / s_frame, rays_per_frame=rays,
+            mrays_per_s=rays / s_frame / 1e6, hit_fraction=n_hits / (W * H),
+            hit_fraction_drift=drift, hit_fraction_max_step=step,
+            launches=counts)
+        log(f"  {mode}: " + json.dumps(mesh_results[mode]))
+    log(f"phase 6: mesh main path 1920x1080 x {n_frames} frames "
+        f"({time.perf_counter() - t6:.1f} s) on {smi}")
+
+    # -- phase 7 ------------------------------------------------------------
+    # every split kernel call of one 1080p frame, kernel against plain
+    t7 = time.perf_counter()
+    cam0 = dataclasses.replace(camera,
+                               position=tuple(float(x) for x in ps[0]))
+    per_kernel = {}
+    for mode, st in modes.items():
+        with capture_calls() as calls:
+            render(scene, cam0, st, device=dev)
+        stats = {k: dict(ms=0.0, call_ms=0.0, plain_ms=0.0, ops=0, bytes=0,
+                         calls=0) for k in split}
+        for k, (kname, args) in enumerate(calls):
+            wrapper = KERNELS[kname][0]
+            c_ms, _ = cuda_ms(lambda: wrapper(*args), 3)
+            # the kernel alone: prepared once, launched back to back
+            launch, _ = KERNELS[kname][3](*args)
+            launch()
+            k_ms, _ = cuda_ms(lambda: [launch() for _ in range(LAUNCH_REPS)],
+                              3)
+            p_ms, _ = cuda_ms(lambda: KERNELS[kname][1](*args), 1)
+            err, got, _ = compare(kname, args, f"c4 {mode} 1080p call {k}")
+            split_err[kname] = max(split_err[kname], err)
+            if kname == "mesh_tile":
+                tests = mesh_tile_reference(*args, count_tests=True)[-1]
+                ops = MT_TEST_OPS * int(tests.sum())
+            else:
+                with count_ops() as c:
+                    KERNELS[kname][1](*args)
+                ops = c["ops"]
+            s_ = stats[kname]
+            s_["ms"] += min(k_ms) / LAUNCH_REPS
+            s_["call_ms"] += min(c_ms)
+            s_["plain_ms"] += p_ms[0]
+            s_["ops"] += ops
+            s_["bytes"] += bytes_read(kname, args) + nbytes(got)
+            s_["calls"] += 1
+        per_kernel[mode] = stats
+        log(f"  {mode}: " + json.dumps(stats))
+    log(f"phase 7: split kernels vs plain at one 1920x1080 frame "
+        f"({time.perf_counter() - t7:.1f} s) on {smi}")
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    # times per 1080p frame in value_exact mode; the error is the largest
-    # over every buffer of every case of phases 2 and 4
+    # the fused kernel: times per 1080p frame in value_exact mode, the
+    # error the largest over every buffer of phases 2 and 4; the split
+    # kernels: times per 1080p frame of c4 in `ao` mode (all calls of the
+    # frame, each kernel launched back to back), launches over both modes
+    # of phase 6, errors over phases 5 and 7
     kernels = [{
         "name": "frame_fused", "route": "cuda",
         "source": "surfjax_torch/kernels/csrc/frame_fused.cu",
         "replaces": "surfjax/kernels/render_tile.py:2196",
         "launches": main_launches, "max_abs_err": max_err,
         "ms": per_frame["value_exact"][0],
-        "plain_ms": per_frame["value_exact"][1]}]
+        "plain_ms": per_frame["value_exact"][1],
+        "bound_ms": kf_bound[0], "bound_by": kf_bound[1],
+        "library_ms": None}]
+    sources = {"render_tile": ("split_path.cu", "render_tile.py:2005"),
+               "trace_rays": ("split_path.cu", "render_tile.py:2037"),
+               "ao_fix": ("split_path.cu", "render_tile.py:1954"),
+               "mesh_tile": ("mesh_tile.cu", "mesh_tile.py:348")}
+    for name in split:
+        st7 = per_kernel["ao"][name]
+        b = bound(st7["ops"], st7["bytes"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"surfjax_torch/kernels/csrc/{sources[name][0]}",
+            "replaces": f"surfjax/kernels/{sources[name][1]}",
+            "launches": sum(mesh_launches[m][name] for m in modes),
+            "max_abs_err": split_err[name], "ms": st7["ms"],
+            "plain_ms": st7["plain_ms"], "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None})
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

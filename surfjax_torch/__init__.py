@@ -1,11 +1,13 @@
 """surfjax_torch -- the PyTorch + CUDA port of surfjax.
 
 The same scene API, settings and outputs as `surfjax`, rendered with
-PyTorch tensors on any device. `RenderSettings(backend="jnp")` runs the
-eager tensor pipeline; `backend="pallas"` runs the fused-frame path, which
-launches the hand-written CUDA kernel (kernels/csrc/frame_fused.cu) for a
-CUDA device and its plain PyTorch twin on the CPU. The package imports
-torch and numpy, never jax.
+PyTorch tensors on the CUDA device, or on the CPU when the caller passes
+device="cpu". `RenderSettings(backend="jnp")` runs the eager tensor
+pipeline; `backend="pallas"` runs the kernel paths: the fused frame for
+mesh-free scenes, the split pipeline with the mesh packet kernel for mesh
+scenes. Each launches its hand-written CUDA kernels (kernels/csrc/) on a
+CUDA device and their plain PyTorch versions on the CPU. The package
+imports torch and numpy, never jax.
 
 Public API:
     Scene, Camera, Material, PointLight, DirectionalLight,

@@ -1,9 +1,11 @@
 """Command line.
 
-    python -m surfjax_torch render --config configs/c1_sphere.yaml \\
-        [--backend jnp|pallas] [--device cuda] --out frame.png
+    python -m surfjax_torch render --config configs/c4_mesh.yaml \\
+        [--backend jnp|pallas] [--device cpu] --out frame.png
     python -m surfjax_torch animate --config configs/c5_anim.yaml \\
-        --frames 16 [--device cuda] --out-dir frames/
+        --frames 16 [--device cpu] --out-dir frames/
+
+Both run on the CUDA device unless --device names another.
 """
 
 from __future__ import annotations
@@ -86,8 +88,9 @@ def main(argv=None):
         sp = sub.add_parser(name, help=helptext)
         sp.add_argument("--config", required=True)
         sp.add_argument("--backend", choices=("jnp", "pallas"), default=None)
-        sp.add_argument("--device", default="cpu",
-                        help="torch device, e.g. cpu or cuda")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the "
+                             "plain versions of the kernels)")
         sp.set_defaults(fn=fn)
         if name == "render":
             sp.add_argument("--out", default="frame.png")

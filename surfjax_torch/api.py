@@ -92,8 +92,10 @@ class Mandelbulb(SceneNode):
 
 @dataclasses.dataclass(frozen=True)
 class TriangleMesh(SceneNode):
-    """Triangle mesh. Declared for API parity; the port does not render
-    meshes yet (scene compilation raises)."""
+    """Triangle mesh, intersected by the packet kernel (kernels/mesh_tile)
+    on the pallas backend and by the grid DDA (engines/mesh) on the jnp
+    backend. vertices: (V, 3) float array-like; faces: (F, 3) int
+    array-like; grid_res None sizes the grid from the triangle count."""
     vertices: object
     faces: object
     grid_res: Optional[Tuple[int, int, int]] = None
@@ -226,16 +228,18 @@ class Camera:
 
 def render(scene: Scene, camera: Camera,
            settings: RenderSettings = RenderSettings(),
-           device="cpu") -> FrameBuffers:
-    """Render one frame on `device`; tensors come back on that device."""
+           device="cuda") -> FrameBuffers:
+    """Render one frame on `device` (the card unless the caller asks for
+    "cpu"); tensors come back on that device."""
     from surfjax_torch.pipeline.frame import render_frame
     return render_frame(scene, camera, settings, device=device)
 
 
 def render_sequence(scene: Scene, camera: Camera, poses,
                     settings: RenderSettings = RenderSettings(),
-                    device="cpu") -> FrameBuffers:
-    """Render a batch of frames on `device`.
+                    device="cuda") -> FrameBuffers:
+    """Render a batch of frames on `device` (the card unless the caller
+    asks for "cpu").
 
     poses: (R_flats (F, 9), positions (F, 3)) world_from_cam poses."""
     from surfjax_torch.pipeline.frame import render_sequence as _rs

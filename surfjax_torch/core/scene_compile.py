@@ -5,9 +5,10 @@ own `api` types, producing the same structures:
   * SceneIR -- the static structure (tuples of ints, hashable); CSG trees
     are post-order node tapes;
   * params  -- a dict of float32 tables (leaf parameter rows, smooth-k
-    table, materials, lights, ambient).
+    table, materials, lights, ambient) plus, per triangle mesh i, the
+    `mesh{i}_*` arrays of engines/mesh.build_grid (int32 for faces and the
+    CSR grid).
 
-Meshes are not part of this slice: compiling a TriangleMesh raises.
 `from_reference` carries a scene frozen by surfjax across unchanged.
 """
 
@@ -45,9 +46,6 @@ LEAF_PARAM_W = 8     # leaf_params row width
 MAT_PARAM_W = 9      # albedo3, ka, kd, ks, spec3
 LIGHT_PARAM_W = 7    # pos/dir3, color3, radius
 
-MESH_SLICE_MSG = ("triangle meshes are not ported yet (engines/mesh.py and "
-                  "kernels/mesh_tile.py come in the mesh slice)")
-
 
 class LeafIR(NamedTuple):
     kind: int
@@ -82,7 +80,8 @@ class SceneIR(NamedTuple):
 
 
 class SceneWithMeshes(NamedTuple):
-    """Hashable static scene: SceneIR + per-mesh static descriptors."""
+    """Hashable static scene: SceneIR + per-mesh static grid descriptors
+    (engines/mesh.MeshStatic)."""
     ir: SceneIR
     mesh_static: Tuple
 
@@ -140,11 +139,21 @@ def compile_scene(scene: Scene):
     objects = []
     leaf_rows = []
     node_k = []
+    mesh_tables = []
 
     for obj in scene.objects:
         node = obj.node
+        m = obj.material
         if obj.engine == "mesh" or _node_has_mesh(node):
-            raise NotImplementedError(MESH_SLICE_MSG)
+            if not isinstance(node, TriangleMesh):
+                raise ValueError("TriangleMesh must be a bare scene object "
+                                 "(no CSG over meshes)")
+            from surfjax_torch.engines.mesh import build_grid
+            objects.append((ObjectIR(ENGINE_MESH, (), (), mat=-1,
+                                     shininess=int(m.shininess),
+                                     mesh=len(mesh_tables)), m))
+            mesh_tables.append(build_grid(node))
+            continue
         if obj.engine == "sdf":
             engine = ENGINE_SDF
         elif obj.engine == "analytic":
@@ -179,7 +188,6 @@ def compile_scene(scene: Scene):
             return len(nodes) - 1
 
         walk(node, +1)
-        m = obj.material
         objects.append((ObjectIR(engine, tuple(nodes), tuple(leaves),
                                  mat=-1, shininess=int(m.shininess),
                                  mesh=-1), m))
@@ -228,35 +236,46 @@ def compile_scene(scene: Scene):
         "lights": lights,
         "ambient": np.asarray(scene.ambient, np.float32),
     }
+    for i, tbl in enumerate(mesh_tables):
+        for key, arr in tbl.arrays.items():
+            params[f"mesh{i}_{key}"] = arr
     ir = SceneIR(tuple(final_objects), tuple(light_kinds),
-                 n_leaves=len(leaf_rows), n_meshes=0)
-    return SceneWithMeshes(ir, ()), params
+                 n_leaves=len(leaf_rows), n_meshes=len(mesh_tables))
+    return SceneWithMeshes(ir, tuple(t.static for t in mesh_tables)), params
 
 
 def params_to_device(params, device) -> Dict[str, torch.Tensor]:
-    """numpy float32 tables -> float32 tensors on `device`."""
-    return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
-            for k, v in params.items()}
+    """numpy tables -> tensors on `device`: integer tables (mesh faces and
+    grids) as int32, everything else as float32."""
+    out = {}
+    for k, v in params.items():
+        a = np.asarray(v)
+        dt = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
+        out[k] = torch.as_tensor(np.asarray(a, dt), device=device)
+    return out
 
 
 def from_reference(static, params, device="cpu"):
     """A scene frozen by surfjax -> (this package's SceneWithMeshes, dict of
-    float32 tensors on `device`).
+    tensors on `device`).
 
-    `static` is surfjax's SceneWithMeshes of namedtuples and `params` its
-    dict of np.float32 arrays; both are read by field name, so surfjax
-    itself is never imported."""
+    `static` is surfjax's SceneWithMeshes of namedtuples (mesh statics
+    included) and `params` its dict of numpy arrays; both are read by
+    field name, so surfjax itself is never imported."""
+    from surfjax_torch.engines.mesh import MeshStatic
     ir = static.ir
-    if ir.n_meshes or static.mesh_static:
-        raise NotImplementedError(MESH_SLICE_MSG)
     objects = tuple(
         ObjectIR(int(o.engine),
                  tuple(NodeIR(*map(int, nd)) for nd in o.nodes),
                  tuple(LeafIR(*map(int, lf)) for lf in o.leaves),
                  int(o.mat), int(o.shininess), int(o.mesh))
         for o in ir.objects)
-    if any(o.engine == ENGINE_MESH for o in objects):
-        raise NotImplementedError(MESH_SLICE_MSG)
+    meshes = tuple(
+        MeshStatic(int(ms.nx), int(ms.ny), int(ms.nz), int(ms.n_tris),
+                   int(ms.len_cell_tris), int(ms.k_max),
+                   tuple(float(x) for x in ms.bbox_min),
+                   tuple(float(x) for x in ms.cell_size), bool(ms.smooth))
+        for ms in static.mesh_static)
     port_ir = SceneIR(objects, tuple(int(k) for k in ir.lights),
-                      int(ir.n_leaves), 0)
-    return SceneWithMeshes(port_ir, ()), params_to_device(params, device)
+                      int(ir.n_leaves), int(ir.n_meshes))
+    return SceneWithMeshes(port_ir, meshes), params_to_device(params, device)

@@ -18,9 +18,10 @@ class RenderSettings:
     backend selects the render path:
       "jnp"    -- the eager tensor pipeline (pipeline/frame.py), the
                   counterpart of surfjax's jax.numpy path;
-      "pallas" -- the fused-frame path (kernels/render_tile.py): the
-                  hand-written CUDA kernel for tensors on a CUDA device,
-                  its plain PyTorch twin for tensors on the CPU.
+      "pallas" -- the kernel paths (kernels/render_tile.py): the fused
+                  frame for mesh-free scenes, the split pipeline for mesh
+                  scenes; the hand-written CUDA kernels for tensors on a
+                  CUDA device, their plain PyTorch versions on the CPU.
     The name is kept from surfjax so that settings carry over unchanged.
     """
     # trace
@@ -54,8 +55,10 @@ class RenderSettings:
     # shading
     background: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     backend: str = "jnp"
-    # TPU tiling knobs of surfjax; carried for field parity, unused here
+    # split path: rows of 128 rays per mesh-candidate tile (a multiple of
+    # 8); the fused path ignores it
     tile_rows: int = 64
+    # a TPU workaround of surfjax; carried for field parity, unused here
     subtile_rows: int = 0
     # cone-march priming (not ported yet: must stay False on the fused path)
     prime: bool = False

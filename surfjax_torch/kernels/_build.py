@@ -1,12 +1,12 @@
 """Build and bind the hand-written CUDA kernels.
 
 The sources in `csrc/` are compiled by `nvcc` into one shared library with
-a plain C interface (no PyTorch headers) and loaded with ctypes. The
-library is built at first use into `build/surfjax_torch/` at the root of
-the checkout, keyed by a hash of the sources and the flags, and written
-to a per-process temp file that is renamed into place, so concurrent
-builders never load a partial file. A failed build or load raises: there
-is no fallback.
+a plain C interface (no PyTorch headers) and loaded with ctypes: one nvcc
+per source, all started together, then one link. The library is built at
+first use into `build/surfjax_torch/` at the root of the checkout, keyed
+by a hash of the sources and the flags, and written to a per-process temp
+file that is renamed into place, so concurrent builders never load a
+partial file. A failed build or load raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -23,10 +23,10 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "surfjax_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
-SOURCES = ("frame_fused.cu",)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+                     "-Xcompiler", "-fPIC")
+SOURCES = ("frame_fused.cu", "split_path.cu", "mesh_tile.cu")
 
 
 def _source_files():
@@ -70,30 +70,62 @@ def build() -> dict:
                 log = fh.read()
         return {"path": out, "built": False, "seconds": 0.0, "log": log}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    tmp = f"{out}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = f"{tmp}.{src[:-3]}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", CSRC, "-o", obj,
+               os.path.join(CSRC, src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (rc {proc.returncode}):\n{text}")
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", f"{tmp}.so", *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (rc {proc.returncode}):\n"
+                          f"{logs[-1]}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    log = "".join(logs)
     with open(log_path, "w") as fh:
         fh.write(log)
-    os.replace(tmp, out)
+    os.replace(f"{tmp}.so", out)
     return {"path": out, "built": True, "seconds": seconds, "log": log}
 
 
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures."""
-    from surfjax_torch.kernels.render_tile import KFSettings, KFTables
+    from surfjax_torch.kernels.mesh_tile import MeshTileArgs
+    from surfjax_torch.kernels.render_tile import (
+        KFSettings, KFTables, SplitRays,
+    )
     lib = ctypes.CDLL(build()["path"])
     lib.kf_frame_fused.argtypes = [KFTables, KFSettings, ctypes.c_int,
                                    ctypes.c_void_p]
-    lib.kf_frame_fused.restype = ctypes.c_int
+    for name in ("sp_render_tile", "sp_trace_rays", "sp_ao_fix"):
+        getattr(lib, name).argtypes = [KFTables, KFSettings, SplitRays,
+                                       ctypes.c_int, ctypes.c_void_p]
+    lib.mt_mesh_tile.argtypes = [MeshTileArgs, ctypes.c_int,
+                                 ctypes.c_void_p]
+    for name in ("kf_frame_fused", "sp_render_tile", "sp_trace_rays",
+                 "sp_ao_fix", "mt_mesh_tile"):
+        getattr(lib, name).restype = ctypes.c_int
     lib.kf_error_string.argtypes = [ctypes.c_int]
     lib.kf_error_string.restype = ctypes.c_char_p
     return lib

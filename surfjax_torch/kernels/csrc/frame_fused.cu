@@ -30,6 +30,8 @@
 //   * Built with -fmad=false and without fast math: division and sqrtf are
 //     IEEE and no multiply-add is contracted, so each operation rounds as
 //     the PyTorch twin's does (render_tile.frame_fused_reference).
+//   * The trace, normal, AO and visibility cores are device functions of
+//     frame_fused.cuh, shared with the split-path kernels (split_path.cu).
 //
 // C interface (bound with ctypes, no PyTorch headers):
 //   int kf_frame_fused(KFTables tables, KFSettings settings, int device,
@@ -37,28 +39,6 @@
 //   const char* kf_error_string(int err)
 
 #include "frame_fused.cuh"
-
-__constant__ float AO_DIRS[9][3] = {
-    {F(0.0), F(0.0), F(1.0)},
-    {F(0.7), F(0.0), F(0.7141428)},
-    {F(-0.7), F(0.0), F(0.7141428)},
-    {F(0.0), F(0.7), F(0.7141428)},
-    {F(0.0), F(-0.7), F(0.7141428)},
-    {F(0.5), F(0.5), F(0.7071068)},
-    {F(-0.5), F(0.5), F(0.7071068)},
-    {F(0.5), F(-0.5), F(0.7071068)},
-    {F(-0.5), F(-0.5), F(0.7071068)},
-};
-
-__device__ __forceinline__ const int* object_row(const KFTables& T, int oi) {
-  return T.objects + oi * KF_OBJ_W;
-}
-
-__device__ __forceinline__ const float* first_leaf_params(const KFTables& T,
-                                                          const int* ob) {
-  return T.leaf_params +
-      T.leaves[ob[O_LEAF0] * KF_LEAF_W + 1] * KF_LEAF_PARAM_W;
-}
 
 __device__ __forceinline__ float pow_int(float x, int n) {
   if (n == 0) return 1.0f;
@@ -73,129 +53,6 @@ __device__ __forceinline__ float pow_int(float x, int n) {
     if (n) base = base * base;
   }
   return result;
-}
-
-// AO factor at the offset receiver q0 with normal n. Per tap the occlusion
-// of the unboundable objects (one scene-min group) and of every bounded
-// object within 2*ao_radius combine by max; a farther object contributes
-// exactly zero and is skipped.
-__device__ __noinline__ float ao_factor(const KFTables& T, const KFSettings& S,
-                                        V3 q0, V3 n) {
-  unsigned long long near = 0ull;
-  bool any_unbounded = false;
-  const float gate = 2.0f * S.ao_radius;
-  for (int oi = 0; oi < S.n_objects; ++oi) {
-    const int* ob = object_row(T, oi);
-    if (!ob[O_BOUNDABLE]) {
-      any_unbounded = true;
-      continue;
-    }
-    Bound b = object_bound(T, ob, 1, 0.0f);
-    float dx = q0.x - b.cx, dy = q0.y - b.cy, dz = q0.z - b.cz;
-    float hb = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
-    if (hb <= gate) near |= 1ull << oi;
-  }
-  bool big_y = fabsf(n.y) > F(0.9);
-  float hx = big_y ? 1.0f : 0.0f, hy = big_y ? 0.0f : 1.0f;
-  V3 t1 = vnormalize(V3{hy * n.z, -hx * n.z, hx * n.y - hy * n.x});
-  V3 t2{n.y * t1.z - n.z * t1.y, n.z * t1.x - n.x * t1.z,
-        n.x * t1.y - n.y * t1.x};
-  const int cap = S.ao_lod;
-  float occ = 0.0f;
-  for (int s = 0; s < S.ao_samples; ++s) {
-    const float ax = AO_DIRS[s][0], ay = AO_DIRS[s][1], az = AO_DIRS[s][2];
-    V3 dd{(ax * t1.x + ay * t2.x) + az * n.x,
-          (ax * t1.y + ay * t2.y) + az * n.y,
-          (ax * t1.z + ay * t2.z) + az * n.z};
-    for (int tap = 1; tap <= 4; ++tap) {
-      const float r = (S.ao_radius * (float)tap) * 0.25f;
-      const float azr = az * r;
-      V3 q{q0.x + dd.x * r, q0.y + dd.y * r, q0.z + dd.z * r};
-      float term = 0.0f;
-      if (any_unbounded) {
-        float hmin = 0.0f;
-        bool first = true;
-        for (int oi = 0; oi < S.n_objects; ++oi) {
-          const int* ob = object_row(T, oi);
-          if (ob[O_BOUNDABLE]) continue;
-          float h = eval_obj(T, S, ob, q, cap);
-          hmin = first ? h : fminf(hmin, h);
-          first = false;
-        }
-        term = fmaxf(azr - hmin, 0.0f) / r;
-      }
-      for (int oi = 0; oi < S.n_objects; ++oi) {
-        if (!((near >> oi) & 1ull)) continue;
-        float h = eval_obj(T, S, object_row(T, oi), q, cap);
-        term = fmaxf(term, fmaxf(azr - h, 0.0f) / r);
-      }
-      occ = (s == 0 && tap == 1) ? term : occ + term;
-    }
-  }
-  occ = occ / (float)(S.ao_samples * 4);
-  return sat(1.0f - S.ao_strength * occ);
-}
-
-// Visibility of one light from the offset receiver o along l over
-// [.., dist]; kf is the penumbra sharpness.
-__device__ __noinline__ float visibility(const KFTables& T,
-                                         const KFSettings& S, V3 o, V3 l,
-                                         float dist, float kf) {
-  if (S.soft_shadows) {
-    const float t0 = S.soft_shadow_tmin;
-    const int* ord = T.order + S.n_ana + S.n_sdf;
-    float soft_vis = 1.0f;
-    for (int k = 0; k < S.n_objects; ++k) {
-      const int* ob = object_row(T, ord[k]);
-      const int cf = ob[O_CLOSED_FORM];
-      if (cf >= 0) {
-        const float* prm = first_leaf_params(T, ob);
-        float v = cf == LEAF_PLANE ? penumbra_plane(prm, o, l, t0, dist, kf)
-                                   : penumbra_sphere(prm, o, l, t0, dist, kf);
-        soft_vis = fminf(soft_vis, v);
-        continue;
-      }
-      const float dist_i = soft_vis <= 0.0f ? 0.0f : dist;
-      float v;
-      if (ob[O_BOUNDABLE]) {
-        Bound b = object_bound(T, ob, 1, 0.0f);
-        float t_lo, t_hi;
-        influence_window(b, o, l, t0, dist_i, kf, t_lo, t_hi);
-        v = soft_march(T, S, ob, o, l, fmaxf(t_lo, t0), fminf(dist_i, t_hi),
-                       kf);
-      } else {
-        v = soft_march(T, S, ob, o, l, t0, dist_i, kf);
-      }
-      soft_vis = fminf(soft_vis, v);
-    }
-    return soft_vis;
-  }
-  float vis = 1.0f;
-  for (int k = 0; k < S.n_ana; ++k) {
-    int leaf;
-    float ti = intersect_analytic(T, object_row(T, T.order[k]), o, l,
-                                  S.shadow_eps, dist, leaf);
-    vis = vis * (ti < dist ? 0.0f : 1.0f);
-  }
-  for (int k = 0; k < S.n_sdf; ++k) {
-    const int* ob = object_row(T, T.order[S.n_ana + k]);
-    float dist_i = vis <= 0.0f ? 0.0f : dist;
-    float t1, clip2;
-    if (ob[O_BOUNDABLE]) {
-      Bound b = object_bound(T, ob, 0, S.exit_margin);
-      // a segment clear of the cover sphere by more than the worst hit
-      // epsilon cannot register an occlusion
-      if (seg_bound_dist(b, o, l, S.shadow_eps, dist) > S.exit_margin)
-        dist_i = 0.0f;
-      bound_entry(b, o, l, S.shadow_eps, dist_i, S.default_shell, t1, clip2);
-    } else {
-      t1 = S.shadow_eps;
-      clip2 = dist_i;
-    }
-    bool hit = march(T, S, ob, o, l, t1, clip2);
-    vis = vis * ((hit && t1 < dist_i) ? 0.0f : 1.0f);
-  }
-  return vis;
 }
 
 __global__ void __launch_bounds__(128)
@@ -214,65 +71,15 @@ kf_frame_kernel(const KFTables T, const KFSettings S) {
                              (cam[6] * xc + cam[7] * yc) + cam[8]});
   const V3 o{0.0f + cam[9], 0.0f + cam[10], 0.0f + cam[11]};
 
-  // primary trace: analytic objects exactly, then SDF marches cheapest
-  // tape first, each clipped by the nearest hit so far
-  float t = KF_BIG, obj = -1.0f;
-  int leaf = 0;
-  for (int k = 0; k < S.n_ana; ++k) {
-    const int oi = T.order[k];
-    int li;
-    float ti = intersect_analytic(T, object_row(T, oi), o, d, S.t_min,
-                                  S.t_max, li);
-    if (ti < t) { t = ti; obj = (float)oi; leaf = li; }
-  }
-  if (S.n_sdf > 0) {
-    float t_clip = fminf(t, S.t_max);
-    for (int k = 0; k < S.n_sdf; ++k) {
-      const int oi = T.order[S.n_ana + k];
-      const int* ob = object_row(T, oi);
-      float t1, clip2;
-      if (ob[O_BOUNDABLE]) {
-        Bound b = object_bound(T, ob, 0, S.exit_margin);
-        bound_entry(b, o, d, S.t_min, t_clip, entry_shell(T, S, ob), t1,
-                    clip2);
-      } else {
-        t1 = S.t_min;
-        clip2 = t_clip;
-      }
-      bool hit_i = march(T, S, ob, o, d, t1, clip2);
-      if (hit_i && t1 < t) { t = t1; obj = (float)oi; leaf = 0; }
-      t_clip = fminf(t_clip, t);
-    }
-  }
+  // primary trace, then the normal of the winning object
+  float t, obj;
+  int leaf;
+  trace_primary(T, S, o, d, t, obj, leaf);
   const bool hit = t < KF_BIG * 0.5f;
   const float hitf = hit ? 1.0f : 0.0f;
   const float t_sane = hit ? t : 0.0f;
   const V3 p = along(o, d, t_sane);
-
-  // normal of the winning object, face-forwarded
-  V3 n{0.0f, 0.0f, 1.0f};
-  if (obj >= 0.0f) {
-    const int* ob = object_row(T, (int)obj);
-    if (ob[O_ENGINE] == ENGINE_ANALYTIC && !S.normals_fd) {
-      const int* lf = T.leaves + (ob[O_LEAF0] + leaf) * KF_LEAF_W;
-      V3 nl = leaf_normal(lf[0], T.leaf_params + lf[1] * KF_LEAF_PARAM_W, p);
-      const float s = (float)lf[2];
-      n = V3{nl.x * s, nl.y * s, nl.z * s};
-    } else {
-      const float e = S.normal_eps;
-      float s0 = eval_obj(T, S, ob, V3{p.x + e, p.y - e, p.z - e}, 0);
-      float s1 = eval_obj(T, S, ob, V3{p.x - e, p.y - e, p.z + e}, 0);
-      float s2 = eval_obj(T, S, ob, V3{p.x - e, p.y + e, p.z - e}, 0);
-      float s3 = eval_obj(T, S, ob, V3{p.x + e, p.y + e, p.z + e}, 0);
-      float nx = ((s0 - s1) - s2) + s3;
-      float ny = ((-s0 - s1) + s2) + s3;
-      float nz = ((-s0 + s1) - s2) + s3;
-      float inv = 1.0f / sqrtf((nx * nx + ny * ny) + nz * nz);
-      n = V3{nx * inv, ny * inv, nz * inv};
-    }
-  }
-  const float sgn = vdot(n, d) > 0.0f ? -1.0f : 1.0f;
-  n = V3{n.x * sgn, n.y * sgn, n.z * sgn};
+  const V3 n = hit_normal(T, S, obj, leaf, p, d);
 
   const size_t plane = (size_t)S.F * S.H * S.W;
   float* out = T.out + ((size_t)f * S.H + i) * S.W + j;

@@ -1,8 +1,10 @@
-// Device side of the fused-frame kernel (see frame_fused.cu for the design
-// note). Every function here is the per-lane arithmetic of the PyTorch twin
+// Device side shared by the fused-frame kernel (frame_fused.cu, whose
+// design note covers the scene tables) and the split-path kernels
+// (split_path.cu): primary trace, normals, AO and light visibility. Every
+// function here is the per-lane arithmetic of the PyTorch plain versions
 // in surfjax_torch/kernels/render_tile.py, written in the same association
-// order; the file is built with -fmad=false and without fast math, so each
-// float operation rounds exactly as the twin's does.
+// order; the sources are built with -fmad=false and without fast math, so
+// each float operation rounds exactly as the plain version's does.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,7 +29,7 @@
 enum { LEAF_SPHERE = 0, LEAF_PLANE = 1, LEAF_BOX = 2, LEAF_MANDELBULB = 3 };
 enum { OP_LEAF = 0, OP_UNION = 1, OP_INTERSECT = 2, OP_SUBTRACT = 3,
        OP_SMOOTH_UNION = 4, OP_SMOOTH_INTERSECT = 5, OP_SMOOTH_SUBTRACT = 6 };
-enum { ENGINE_ANALYTIC = 0, ENGINE_SDF = 1 };
+enum { ENGINE_ANALYTIC = 0, ENGINE_SDF = 1, ENGINE_MESH = 2 };
 enum { LIGHT_POINT = 0 };
 // Columns of an object row.
 enum { O_ENGINE = 0, O_MAT, O_SHIN, O_NODE0, O_NNODES, O_LEAF0, O_NLEAVES,
@@ -35,21 +37,24 @@ enum { O_ENGINE = 0, O_MAT, O_SHIN, O_NODE0, O_NNODES, O_LEAF0, O_NLEAVES,
 
 // Device pointers, one struct by value (render_tile.KFTables).
 struct KFTables {
-  const int* objects;       // (n_objects, KF_OBJ_W)
+  const int* objects;       // (n_objects, KF_OBJ_W), meshes included
   const int* nodes;         // (total nodes, KF_NODE_W): op, a, b, leaf, pslot
   const int* leaves;        // (total leaves, KF_LEAF_W): kind slot sign p0 p1
-  const int* order;         // analytic, SDF by nodes, all objects by nodes
+  const int* order;         // analytic, SDF by nodes, non-mesh by nodes
   const int* light_kinds;   // (n_lights,)
   const float* leaf_params; // (n_leaf_rows, 8)
   const float* node_params; // (n_k, 1) smooth-op k
   const float* lights;      // (n_lights, 7)
   const float* materials;   // (n_mats, 9)
   const float* ambient;     // (3,)
-  const float* cam_rows;    // (F, 12): R_flat(9), position(3)
-  float* out;               // (9, F, H, W): r g b depth obj nx ny nz hit
+  const float* cam_rows;    // (F, 12): R_flat(9), position(3); KF only
+  float* out;               // (9, F, H, W): r g b depth obj nx ny nz hit;
+                            // KF only
 };
 
 // Settings by value (render_tile.KFSettings); floats already rounded to f32.
+// n_objects counts mesh objects too; n_ana + n_sdf are the non-mesh ones
+// (the split path intersects meshes in mesh_tile.cu).
 struct KFSettings {
   int F, H, W, n_objects, n_ana, n_sdf, n_lights;
   int max_steps, shadow_steps, shadows, soft_shadows, ao, ao_samples;
@@ -128,7 +133,7 @@ __device__ __forceinline__ float portable_log(float x) {
 
 // Power-8 Mandelbulb DE, early-exit form: at most `iterations` updates,
 // stopping once the orbit escapes. rsqrt is an exact 1/sqrtf.
-__device__ __noinline__ float bulb_de(const float* prm, V3 p, int iterations,
+static __device__ __noinline__ float bulb_de(const float* prm, V3 p, int iterations,
                                       int cheb, int portable) {
   float scale = prm[3];
   float bailout2 = prm[4] * prm[4] * 16.0f;
@@ -206,7 +211,7 @@ __device__ __forceinline__ float eval_leaf(const KFSettings& S, int kind,
 }
 
 // The object's post-order CSG tape, interpreted per thread.
-__device__ __noinline__ float eval_obj(const KFTables& T, const KFSettings& S,
+static __device__ __noinline__ float eval_obj(const KFTables& T, const KFSettings& S,
                                        const int* ob, V3 p, int cap) {
   float vals[KF_MAX_NODES];
   const int n0 = ob[O_NODE0], nn = ob[O_NNODES], l0 = ob[O_LEAF0];
@@ -323,7 +328,7 @@ __device__ __forceinline__ bool eval_tree(const KFTables& T, const int* ob,
 }
 
 // Nearest hit of one analytic object in (t_min, t_max) -> t (BIG on miss).
-__device__ __noinline__ float intersect_analytic(const KFTables& T,
+static __device__ __noinline__ float intersect_analytic(const KFTables& T,
                                                  const int* ob, V3 o, V3 d,
                                                  float t_min, float t_max,
                                                  int& leaf_out) {
@@ -389,7 +394,7 @@ __device__ __forceinline__ V3 leaf_normal(int kind, const float* prm, V3 p) {
 
 // Bounding sphere of a boundable SDF object. lower: the pointwise lower
 // bound; otherwise the hit-region cover valid up to `margin`.
-__device__ __noinline__ Bound object_bound(const KFTables& T, const int* ob,
+static __device__ __noinline__ Bound object_bound(const KFTables& T, const int* ob,
                                            int lower, float margin) {
   const int nl = ob[O_NLEAVES], l0 = ob[O_LEAF0];
   float sx = 0.0f, sy = 0.0f, sz = 0.0f;
@@ -459,7 +464,7 @@ __device__ __forceinline__ void bound_entry(Bound b, V3 o, V3 d,
 }
 
 // Bounded (over-relaxed) sphere march of one object; returns hit, t in t.
-__device__ __noinline__ bool march(const KFTables& T, const KFSettings& S,
+static __device__ __noinline__ bool march(const KFTables& T, const KFSettings& S,
                                    const int* ob, V3 o, V3 d, float& t,
                                    float t_clip) {
   bool done = t >= t_clip, hit = false;
@@ -484,7 +489,7 @@ __device__ __noinline__ bool march(const KFTables& T, const KFSettings& S,
 }
 
 // Penumbra march of one object over [t, t_max] -> visibility in [0, 1].
-__device__ __noinline__ float soft_march(const KFTables& T,
+static __device__ __noinline__ float soft_march(const KFTables& T,
                                          const KFSettings& S, const int* ob,
                                          V3 o, V3 l, float t, float t_max,
                                          float kf) {
@@ -584,4 +589,222 @@ __device__ __forceinline__ float seg_bound_dist(Bound bd, V3 o, V3 l,
   proj = fminf(fmaxf(proj, t_lo), fmaxf(dist, t_lo));
   float qx = wx - proj * l.x, qy = wy - proj * l.y, qz = wz - proj * l.z;
   return sqrtf((qx * qx + qy * qy) + qz * qz) - bd.R;
+}
+
+// ---------------------------------------------------------------------------
+// Scene-level cores shared by KF and the split path
+// ---------------------------------------------------------------------------
+
+static __constant__ float AO_DIRS[9][3] = {
+    {F(0.0), F(0.0), F(1.0)},
+    {F(0.7), F(0.0), F(0.7141428)},
+    {F(-0.7), F(0.0), F(0.7141428)},
+    {F(0.0), F(0.7), F(0.7141428)},
+    {F(0.0), F(-0.7), F(0.7141428)},
+    {F(0.5), F(0.5), F(0.7071068)},
+    {F(-0.5), F(0.5), F(0.7071068)},
+    {F(0.5), F(-0.5), F(0.7071068)},
+    {F(-0.5), F(-0.5), F(0.7071068)},
+};
+
+__device__ __forceinline__ const int* object_row(const KFTables& T, int oi) {
+  return T.objects + oi * KF_OBJ_W;
+}
+
+__device__ __forceinline__ const float* first_leaf_params(const KFTables& T,
+                                                          const int* ob) {
+  return T.leaf_params +
+      T.leaves[ob[O_LEAF0] * KF_LEAF_W + 1] * KF_LEAF_PARAM_W;
+}
+
+// Primary trace over (t_min, t_max) of the non-mesh objects: analytic
+// objects exactly, then SDF marches cheapest tape first, each clipped by
+// the nearest hit so far. t is KF_BIG and obj -1 on a miss.
+__device__ __forceinline__ void trace_primary(const KFTables& T,
+                                              const KFSettings& S, V3 o,
+                                              V3 d, float& t, float& obj,
+                                              int& leaf) {
+  t = KF_BIG;
+  obj = -1.0f;
+  leaf = 0;
+  for (int k = 0; k < S.n_ana; ++k) {
+    const int oi = T.order[k];
+    int li;
+    float ti = intersect_analytic(T, object_row(T, oi), o, d, S.t_min,
+                                  S.t_max, li);
+    if (ti < t) { t = ti; obj = (float)oi; leaf = li; }
+  }
+  if (S.n_sdf > 0) {
+    float t_clip = fminf(t, S.t_max);
+    for (int k = 0; k < S.n_sdf; ++k) {
+      const int oi = T.order[S.n_ana + k];
+      const int* ob = object_row(T, oi);
+      float t1, clip2;
+      if (ob[O_BOUNDABLE]) {
+        Bound b = object_bound(T, ob, 0, S.exit_margin);
+        bound_entry(b, o, d, S.t_min, t_clip, entry_shell(T, S, ob), t1,
+                    clip2);
+      } else {
+        t1 = S.t_min;
+        clip2 = t_clip;
+      }
+      bool hit_i = march(T, S, ob, o, d, t1, clip2);
+      if (hit_i && t1 < t) { t = t1; obj = (float)oi; leaf = 0; }
+      t_clip = fminf(t_clip, t);
+    }
+  }
+}
+
+// Normal of the winning object at p (analytic leaf normal, or the FD
+// tetrahedron of its tape), (0, 0, 1) on a miss; face-forwarded against d.
+__device__ __forceinline__ V3 hit_normal(const KFTables& T,
+                                         const KFSettings& S, float obj,
+                                         int leaf, V3 p, V3 d) {
+  V3 n{0.0f, 0.0f, 1.0f};
+  if (obj >= 0.0f) {
+    const int* ob = object_row(T, (int)obj);
+    if (ob[O_ENGINE] == ENGINE_ANALYTIC && !S.normals_fd) {
+      const int* lf = T.leaves + (ob[O_LEAF0] + leaf) * KF_LEAF_W;
+      V3 nl = leaf_normal(lf[0], T.leaf_params + lf[1] * KF_LEAF_PARAM_W, p);
+      const float s = (float)lf[2];
+      n = V3{nl.x * s, nl.y * s, nl.z * s};
+    } else {
+      const float e = S.normal_eps;
+      float s0 = eval_obj(T, S, ob, V3{p.x + e, p.y - e, p.z - e}, 0);
+      float s1 = eval_obj(T, S, ob, V3{p.x - e, p.y - e, p.z + e}, 0);
+      float s2 = eval_obj(T, S, ob, V3{p.x - e, p.y + e, p.z - e}, 0);
+      float s3 = eval_obj(T, S, ob, V3{p.x + e, p.y + e, p.z + e}, 0);
+      float nx = ((s0 - s1) - s2) + s3;
+      float ny = ((-s0 - s1) + s2) + s3;
+      float nz = ((-s0 + s1) - s2) + s3;
+      float inv = 1.0f / sqrtf((nx * nx + ny * ny) + nz * nz);
+      n = V3{nx * inv, ny * inv, nz * inv};
+    }
+  }
+  const float sgn = vdot(n, d) > 0.0f ? -1.0f : 1.0f;
+  return V3{n.x * sgn, n.y * sgn, n.z * sgn};
+}
+
+// AO factor at the offset receiver q0 with normal n, over the non-mesh
+// objects. Per tap the occlusion of the unboundable objects (one
+// scene-min group) and of every bounded object within 2*ao_radius combine
+// by max; a farther object contributes exactly zero and is skipped.
+static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettings& S,
+                                        V3 q0, V3 n) {
+  unsigned long long near = 0ull;
+  bool any_unbounded = false;
+  const float gate = 2.0f * S.ao_radius;
+  for (int oi = 0; oi < S.n_objects; ++oi) {
+    const int* ob = object_row(T, oi);
+    if (ob[O_ENGINE] == ENGINE_MESH) continue;
+    if (!ob[O_BOUNDABLE]) {
+      any_unbounded = true;
+      continue;
+    }
+    Bound b = object_bound(T, ob, 1, 0.0f);
+    float dx = q0.x - b.cx, dy = q0.y - b.cy, dz = q0.z - b.cz;
+    float hb = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
+    if (hb <= gate) near |= 1ull << oi;
+  }
+  bool big_y = fabsf(n.y) > F(0.9);
+  float hx = big_y ? 1.0f : 0.0f, hy = big_y ? 0.0f : 1.0f;
+  V3 t1 = vnormalize(V3{hy * n.z, -hx * n.z, hx * n.y - hy * n.x});
+  V3 t2{n.y * t1.z - n.z * t1.y, n.z * t1.x - n.x * t1.z,
+        n.x * t1.y - n.y * t1.x};
+  const int cap = S.ao_lod;
+  float occ = 0.0f;
+  for (int s = 0; s < S.ao_samples; ++s) {
+    const float ax = AO_DIRS[s][0], ay = AO_DIRS[s][1], az = AO_DIRS[s][2];
+    V3 dd{(ax * t1.x + ay * t2.x) + az * n.x,
+          (ax * t1.y + ay * t2.y) + az * n.y,
+          (ax * t1.z + ay * t2.z) + az * n.z};
+    for (int tap = 1; tap <= 4; ++tap) {
+      const float r = (S.ao_radius * (float)tap) * 0.25f;
+      const float azr = az * r;
+      V3 q{q0.x + dd.x * r, q0.y + dd.y * r, q0.z + dd.z * r};
+      float term = 0.0f;
+      if (any_unbounded) {
+        float hmin = 0.0f;
+        bool first = true;
+        for (int oi = 0; oi < S.n_objects; ++oi) {
+          const int* ob = object_row(T, oi);
+          if (ob[O_ENGINE] == ENGINE_MESH || ob[O_BOUNDABLE]) continue;
+          float h = eval_obj(T, S, ob, q, cap);
+          hmin = first ? h : fminf(hmin, h);
+          first = false;
+        }
+        term = fmaxf(azr - hmin, 0.0f) / r;
+      }
+      for (int oi = 0; oi < S.n_objects; ++oi) {
+        if (!((near >> oi) & 1ull)) continue;
+        float h = eval_obj(T, S, object_row(T, oi), q, cap);
+        term = fmaxf(term, fmaxf(azr - h, 0.0f) / r);
+      }
+      occ = (s == 0 && tap == 1) ? term : occ + term;
+    }
+  }
+  occ = occ / (float)(S.ao_samples * 4);
+  return sat(1.0f - S.ao_strength * occ);
+}
+
+// Visibility of one light from the offset receiver o along l over
+// [.., dist] through the non-mesh objects; kf is the penumbra sharpness.
+static __device__ __noinline__ float visibility(const KFTables& T,
+                                         const KFSettings& S, V3 o, V3 l,
+                                         float dist, float kf) {
+  if (S.soft_shadows) {
+    const float t0 = S.soft_shadow_tmin;
+    const int* ord = T.order + S.n_ana + S.n_sdf;
+    float soft_vis = 1.0f;
+    for (int k = 0; k < S.n_ana + S.n_sdf; ++k) {
+      const int* ob = object_row(T, ord[k]);
+      const int cf = ob[O_CLOSED_FORM];
+      if (cf >= 0) {
+        const float* prm = first_leaf_params(T, ob);
+        float v = cf == LEAF_PLANE ? penumbra_plane(prm, o, l, t0, dist, kf)
+                                   : penumbra_sphere(prm, o, l, t0, dist, kf);
+        soft_vis = fminf(soft_vis, v);
+        continue;
+      }
+      const float dist_i = soft_vis <= 0.0f ? 0.0f : dist;
+      float v;
+      if (ob[O_BOUNDABLE]) {
+        Bound b = object_bound(T, ob, 1, 0.0f);
+        float t_lo, t_hi;
+        influence_window(b, o, l, t0, dist_i, kf, t_lo, t_hi);
+        v = soft_march(T, S, ob, o, l, fmaxf(t_lo, t0), fminf(dist_i, t_hi),
+                       kf);
+      } else {
+        v = soft_march(T, S, ob, o, l, t0, dist_i, kf);
+      }
+      soft_vis = fminf(soft_vis, v);
+    }
+    return soft_vis;
+  }
+  float vis = 1.0f;
+  for (int k = 0; k < S.n_ana; ++k) {
+    int leaf;
+    float ti = intersect_analytic(T, object_row(T, T.order[k]), o, l,
+                                  S.shadow_eps, dist, leaf);
+    vis = vis * (ti < dist ? 0.0f : 1.0f);
+  }
+  for (int k = 0; k < S.n_sdf; ++k) {
+    const int* ob = object_row(T, T.order[S.n_ana + k]);
+    float dist_i = vis <= 0.0f ? 0.0f : dist;
+    float t1, clip2;
+    if (ob[O_BOUNDABLE]) {
+      Bound b = object_bound(T, ob, 0, S.exit_margin);
+      // a segment clear of the cover sphere by more than the worst hit
+      // epsilon cannot register an occlusion
+      if (seg_bound_dist(b, o, l, S.shadow_eps, dist) > S.exit_margin)
+        dist_i = 0.0f;
+      bound_entry(b, o, l, S.shadow_eps, dist_i, S.default_shell, t1, clip2);
+    } else {
+      t1 = S.shadow_eps;
+      clip2 = dist_i;
+    }
+    bool hit = march(T, S, ob, o, l, t1, clip2);
+    vis = vis * ((hit && t1 < dist_i) ? 0.0f : 1.0f);
+  }
+  return vis;
 }

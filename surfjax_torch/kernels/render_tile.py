@@ -1,6 +1,7 @@
-"""The fused-frame path: a plain PyTorch twin of surfjax's KF algorithm, the
-`frame_fused` wrapper that launches the hand-written CUDA kernel
-(csrc/frame_fused.cu), and the frame/sequence drivers.
+"""The kernel paths of the pallas backend: the fused frame (KF) for
+mesh-free scenes and the split pipeline (K1 -> mesh merge -> ao_fix -> K2
+-> shading) for mesh scenes, each kernel with its plain PyTorch version,
+its wrapper and the frame/sequence drivers.
 
 KF (`surfjax/kernels/render_tile.py::frame_fused_kernel`) renders a whole
 frame in one pass: ray generation, primary trace (exact analytic hits, then
@@ -12,33 +13,46 @@ twin gates per lane; since every such gate is value-exact, a lane's
 result never depends on which lanes share its batch. The CUDA kernel runs
 the same per-lane program, one thread per pixel.
 
-`frame_fused` launches the kernel for CUDA tensors and runs the twin for
-CPU tensors; it never falls back from one to the other.
+The split path (surfjax `_pallas_primary`, `_pallas_vis`,
+`_render_padded`) runs three kernels built on the same cores:
+`render_tile` (K1: trace + normals + AO of the non-mesh objects),
+`trace_rays` (K2: one light's visibility) and `ao_fix` (AO again at the
+receivers a mesh won), plus the mesh packet kernel of kernels/mesh_tile.py.
+Shading and the merges are tensor code, as XLA code is in surfjax.
+
+Every wrapper (`frame_fused`, `render_tile`, `trace_rays`, `ao_fix`)
+launches its CUDA kernel for CUDA tensors, counting the launch, and runs
+its plain version for CPU tensors; it never falls back from one to the
+other.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from surfjax_torch.api import OP_LEAF, OP_SMOOTH_UNION
 from surfjax_torch.core.math import (
     BIG, clamp, f32, fdiv, maximum, minimum, sqrt, vnormalize,
 )
 from surfjax_torch.core.scene_compile import (
     ENGINE_ANALYTIC, ENGINE_MESH, ENGINE_SDF, LEAF_BOX, LEAF_MANDELBULB,
-    LEAF_PLANE, LEAF_SPHERE, LIGHT_POINT, MESH_SLICE_MSG,
+    LEAF_PLANE, LEAF_SPHERE, LIGHT_POINT,
 )
 from surfjax_torch.core.types import FrameBuffers, RenderSettings
 from surfjax_torch.engines.analytic import (
     intersect_analytic, object_normal_analytic,
 )
 from surfjax_torch.engines.sdf import (
-    POWER8_ONLY_MSG, _AO_DIRS, ao_tap_points, ao_tap_term,
-    ao_terms_to_factor, eval_sdf, make_leaf_fast,
+    POWER8_ONLY_MSG, _AO_DIRS, _bulb_canonical, _new_w_cheb, _new_w_std,
+    ao_tap_points, ao_tap_term, ao_terms_to_factor, eval_sdf, make_leaf_fast,
 )
+from surfjax_torch.kernels import record_call
 from surfjax_torch.shade import shade_object
 
 # Bulb bounding-radius factors (canonical units x leaf scale), as in
@@ -53,14 +67,75 @@ _PROXY_SWITCH = 0.08   # default entry-shell inflation of a bound sphere
 MAX_TAPE_NODES = 32    # value array of the tape walker
 MAX_ANALYTIC_LEAVES = 16   # interval arrays of the event CSG
 MAX_OBJECTS = 64       # AO near-object bit mask
+LANES = 128            # lanes of a padded split-path ray row, as in surfjax
+
+
+# --- operation counts -------------------------------------------------------
+# While `count_ops` is active the plain versions tally the FP32 operations
+# their lanes need: lower estimates per step (adds, multiplies, divides,
+# roots, min/max and compares; selects and copies are free), lanes that a
+# per-lane gate skips count nothing, and a Mandelbulb DE counts the
+# iterations each lane ran. chip_smoke.py divides the total by the card's
+# FP32 rate for the kernels' operation bound.
+_LEAF_OPS = {LEAF_SPHERE: 10, LEAF_PLANE: 6, LEAF_BOX: 22,
+             LEAF_MANDELBULB: 25}
+_ANALYTIC_LEAF_OPS = {LEAF_SPHERE: 20, LEAF_PLANE: 12, LEAF_BOX: 36}
+BULB_ITER_OPS = 60     # one power-8 update of the DE orbit
+# n: the running total (None while not counting); bulb: per-lane
+# Mandelbulb iterations of the DE evaluations not yet tallied
+_OPS = {"n": None, "bulb": None}
+
+
+@contextlib.contextmanager
+def count_ops():
+    """Count the operations of the plain versions run inside the block ->
+    a dict whose "ops" holds the total once the block has ended."""
+    res = {}
+    _OPS.update(n=0, bulb=None)
+    try:
+        yield res
+    finally:
+        res["ops"] = _OPS["n"]
+        _OPS.update(n=None, bulb=None)
+
+
+def _tally(lanes, per_lane: int) -> None:
+    """Add per_lane operations for each lane of a bool mask (or count)."""
+    if _OPS["n"] is not None:
+        n = int(lanes.sum()) if isinstance(lanes, torch.Tensor) else lanes
+        _OPS["n"] += per_lane * int(n)
+
+
+def _tape_ops(oir) -> int:
+    return (sum(_LEAF_OPS[lf.kind] for lf in oir.leaves)
+            + sum(12 if nd.op >= OP_SMOOTH_UNION else 2
+                  for nd in oir.nodes if nd.op != OP_LEAF))
+
+
+def _analytic_ops(oir) -> int:
+    return sum(_ANALYTIC_LEAF_OPS[lf.kind] for lf in oir.leaves)
+
+
+def _tally_de(fn, lanes, evals: int = 1) -> None:
+    """Tally `evals` DE evaluations of fn's objects on the `lanes` mask,
+    with the Mandelbulb iterations those evaluations ran there."""
+    if _OPS["n"] is None:
+        return
+    iters = _OPS["bulb"]
+    _OPS["bulb"] = None
+    _tally(lanes, evals * sum(_tape_ops(o) for o in fn.objs))
+    if iters is not None:
+        _OPS["n"] += BULB_ITER_OPS * int((iters * lanes).sum())
 
 
 def _split(static):
+    """-> (analytic, sdf, mesh) lists of (object index, ObjectIR)."""
     objs = static.ir.objects
     analytic = [(i, o) for i, o in enumerate(objs)
                 if o.engine == ENGINE_ANALYTIC]
     sdf = [(i, o) for i, o in enumerate(objs) if o.engine == ENGINE_SDF]
-    return analytic, sdf
+    mesh = [(i, o) for i, o in enumerate(objs) if o.engine == ENGINE_MESH]
+    return analytic, sdf, mesh
 
 
 def _exit_margin(settings: RenderSettings) -> float:
@@ -68,8 +143,42 @@ def _exit_margin(settings: RenderSettings) -> float:
     return settings.hit_eps + settings.hit_eps_scale * float(settings.t_max)
 
 
+def _bulb_iters(prm, p, iterations: int, bulb_iter: str):
+    """Per-lane count of the orbit updates the fused-path Mandelbulb DE
+    runs at p (it stops a lane once m > bailout2): the orbit evaluated a
+    second time, for count_ops."""
+    _, bailout2, px, py, pz = _bulb_canonical(prm, p)
+    new_w = (_new_w_cheb if bulb_iter == "cheb" else _new_w_std)(
+        px, py, pz, f32(1e-4))
+    wx, wy, wz = px, py, pz
+    m = (px * px + py * py) + pz * pz
+    iters = torch.zeros_like(m, dtype=torch.int32)
+    for _ in range(iterations):
+        active = m <= bailout2
+        if not bool(active.any()):
+            break
+        iters += active
+        wx_new, wy_new, wz_new = new_w(wx, wy, wz)
+        wx = torch.where(active, wx_new, wx)
+        wy = torch.where(active, wy_new, wy)
+        wz = torch.where(active, wz_new, wz)
+        m = torch.where(active, (wx * wx + wy * wy) + wz * wz, m)
+    return iters
+
+
 def _fast_leaf_fn(settings: RenderSettings, cap: int = 0):
-    return make_leaf_fast(settings.bulb_iter, settings.bulb_log, cap)
+    leaf_fn = make_leaf_fast(settings.bulb_iter, settings.bulb_log, cap)
+    if _OPS["n"] is None:
+        return leaf_fn
+
+    def counting(kind, prm, p, p0=0, p1=0):
+        if kind == LEAF_MANDELBULB:
+            iters = _bulb_iters(prm, p, min(p1, cap) if cap else p1,
+                                settings.bulb_iter)
+            prev = _OPS["bulb"]
+            _OPS["bulb"] = iters if prev is None else prev + iters
+        return leaf_fn(kind, prm, p, p0, p1)
+    return counting
 
 
 def _leaf_bound_scalars(lf, lp, lower: bool = False,
@@ -190,6 +299,8 @@ def _march(sdf_fn, o, d, t_init, t_clip, max_steps: int, hit_eps: float,
         if bool(done.all()):
             break
         h = sdf_fn((o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]))
+        _tally_de(sdf_fn, ~done)
+        _tally(~done, 12)
         if relaxed:
             ovr = st_prev > h_prev + torch.abs(h)
             ok = ~ovr
@@ -226,23 +337,26 @@ def _fd_normal(sdf_fn, p, eps: float):
 
 
 def _object_sdf(oir, lp, nparams, leaf_fn):
-    return lambda p: eval_sdf(oir, lp, nparams, p, leaf_fn=leaf_fn)
+    fn = lambda p: eval_sdf(oir, lp, nparams, p, leaf_fn=leaf_fn)  # noqa
+    fn.objs = (oir,)
+    return fn
 
 
 def trace_core(static, settings: RenderSettings, lp, nparams, o, d):
-    """Primary trace over (settings.t_min, settings.t_max) -> (t, obj f32,
-    leaf f32, hit_f f32).
+    """Primary trace over (settings.t_min, settings.t_max) of the non-mesh
+    objects -> (t, obj f32, leaf f32, hit_f f32).
 
     Analytic objects are intersected exactly (scene order); then each SDF
     object, cheapest tape first, is marched from its bound-sphere entry,
     clipped by the nearest hit so far."""
-    analytic, sdf_objs = _split(static)
+    analytic, sdf_objs, _ = _split(static)
     t_a = torch.full_like(o[0], BIG)
     obj = torch.full_like(o[0], -1.0)
     leaf = torch.zeros_like(o[0])
     t_min, t_max = settings.t_min, settings.t_max
     for i, oir in analytic:
         t_i, leaf_i = intersect_analytic(oir, lp, o, d, t_min, t_max)
+        _tally(t_i.numel(), _analytic_ops(oir))
         better = t_i < t_a
         t_a = torch.where(better, t_i, t_a)
         obj = torch.where(better, float(i), obj)
@@ -280,7 +394,7 @@ def normals_core(static, settings: RenderSettings, lp, nparams, p, obj,
     """Face-forwarded normals of trace_core hits: analytic normals for
     analytic objects under normals="auto", otherwise the FD tetrahedron of
     the winning object's own tape (evaluated only where it won)."""
-    analytic, sdf_objs = _split(static)
+    analytic, sdf_objs, _ = _split(static)
     nx = torch.zeros_like(p[0])
     ny = torch.zeros_like(p[0])
     nz = torch.ones_like(p[0])
@@ -289,6 +403,7 @@ def normals_core(static, settings: RenderSettings, lp, nparams, p, obj,
         for i, oir in analytic:
             n_i = object_normal_analytic(oir, lp, p, leaf.to(torch.int32))
             sel = obj == float(i)
+            _tally(sel, 6)
             nx = torch.where(sel, n_i[0], nx)
             ny = torch.where(sel, n_i[1], ny)
             nz = torch.where(sel, n_i[2], nz)
@@ -299,8 +414,10 @@ def normals_core(static, settings: RenderSettings, lp, nparams, p, obj,
         sel = obj == float(i)
         if not bool(sel.any()):
             continue
-        n_s = _fd_normal(_object_sdf(oir, lp, nparams, fast_fn), p,
-                         settings.normal_eps)
+        fn = _object_sdf(oir, lp, nparams, fast_fn)
+        n_s = _fd_normal(fn, p, settings.normal_eps)
+        _tally_de(fn, sel, evals=4)
+        _tally(sel, 30)
         nx = torch.where(sel, n_s[0], nx)
         ny = torch.where(sel, n_s[1], ny)
         nz = torch.where(sel, n_s[2], nz)
@@ -429,6 +546,8 @@ def _soft_march(sdf_fn, o, d, t_init, t_max, k, steps: int,
         if bool(done.all()):
             break
         h = sdf_fn((o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]))
+        _tally_de(sdf_fn, ~done)
+        _tally(~done, 18)
         if relaxed:
             ovr = st_prev > h_prev + torch.abs(h)
             okf = torch.where(ovr, 0.0, 1.0)
@@ -452,14 +571,15 @@ def _soft_march(sdf_fn, o, d, t_init, t_max, k, steps: int,
 
 def visibility_core(static, settings: RenderSettings, lp, nparams,
                     o, l, dist, soft_k=None):
-    """Shadow visibility of secondary rays -> vis.
+    """Shadow visibility of secondary rays through the non-mesh objects
+    -> vis.
 
     Soft shadows: every object's penumbra factor, combined by min (closed
     forms for single plane/sphere leaves, influence-window marches for
     bounded objects; lanes already dark skip later objects). Hard shadows:
     analytic objects occlude exactly, SDF objects by any-hit marches that
     skip segments clear of the object's cover sphere."""
-    analytic, sdf_objs = _split(static)
+    analytic, sdf_objs, _ = _split(static)
     vis = torch.ones_like(o[0])
     eps = settings.shadow_eps
 
@@ -474,6 +594,7 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
         for i, oir in nonmesh:
             cf = _single_leaf_closed_form(oir)
             if cf is not None:
+                _tally(dist > 0.0, 16 if cf == LEAF_PLANE else 70)
                 prm = lp[oir.leaves[0].slot]
                 pen = _penumbra_plane if cf == LEAF_PLANE else \
                     _penumbra_sphere
@@ -484,6 +605,7 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
             dist_i = torch.where(soft_vis <= 0.0, 0.0, dist)
             b = _object_bound(oir, lp, nparams, lower=True)
             if b is not None:
+                _tally(dist_i > 0.0, 30)
                 t_lo, t_hi = _influence_window(b, o, l, t0, dist_i, kf)
                 v_i = _soft_march(sdf_i, o, l, maximum(t_lo, t0),
                                   torch.minimum(dist_i, t_hi), kf,
@@ -498,6 +620,7 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
 
     for _, oir in analytic:
         t_i, _ = intersect_analytic(oir, lp, o, l, eps, dist)
+        _tally(dist > 0.0, _analytic_ops(oir))
         vis = vis * torch.where(t_i < dist, 0.0, 1.0)
     if sdf_objs:
         fast_fn = _fast_leaf_fn(settings)
@@ -509,6 +632,7 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
             if b is not None:
                 # a segment clear of the cover sphere by more than the
                 # worst hit epsilon cannot register an occlusion
+                _tally(dist_i > 0.0, 30)
                 dseg = _seg_bound_dist(b, o, l, f32(eps), dist)
                 dist_i = torch.where(dseg > f32(eps_margin), 0.0, dist_i)
                 t1, clip2 = _bound_entry(b, o, l,
@@ -531,21 +655,30 @@ def _scene_sdf(objs, lp, nparams, leaf_fn):
             v = torch.minimum(v, eval_sdf(oir, lp, nparams, p,
                                           leaf_fn=leaf_fn))
         return v
+    f.objs = tuple(oir for _, oir in objs)
     return f
 
 
-def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n):
-    """AO probes over every object. Per tap, the occlusion terms of object
-    groups combine exactly by max: unbounded objects (plane leaves) as one
-    scene-min group, each bounded object on its own, gated per lane: a
-    receiver more than 2*ao_radius outside the object's lower-bound sphere
-    gets exactly zero from it at every tap, so its terms are not computed."""
-    analytic, sdf_only = _split(static)
+def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n,
+                already_offset: bool = False, need=None):
+    """AO probes over every non-mesh object. Per tap, the occlusion terms
+    of object groups combine exactly by max: unbounded objects (plane
+    leaves) as one scene-min group, each bounded object on its own, gated
+    per lane: a receiver more than 2*ao_radius outside the object's
+    lower-bound sphere gets exactly zero from it at every tap, so its terms
+    are not computed.
+
+    already_offset: p is a receiver already offset by the caller (mesh
+    hits, offset along the geometric normal); otherwise it is offset here
+    along n by shadow_eps. need: the lanes whose AO the caller uses (all
+    by default); it only limits what count_ops counts."""
+    analytic, sdf_only, _ = _split(static)
     objs = analytic + sdf_only
     if not objs:
         return torch.ones_like(p[0])
     eps = f32(settings.shadow_eps)
-    p_off = (p[0] + n[0] * eps, p[1] + n[1] * eps, p[2] + n[2] * eps)
+    p_off = p if already_offset else \
+        (p[0] + n[0] * eps, p[1] + n[1] * eps, p[2] + n[2] * eps)
     cap = settings.ao_lod_iters or settings.secondary_lod_iters
     lod_fn = _fast_leaf_fn(settings, cap)
     samples, radius = settings.ao_samples, settings.ao_radius
@@ -565,10 +698,14 @@ def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n):
         gated.append(((i, oir), hb <= f32(2.0 * f32(radius))))
 
     n_terms = min(samples, len(_AO_DIRS)) * 4
+    need = torch.ones_like(p_off[0], dtype=torch.bool) if need is None \
+        else need
+    _tally(need, 30 + 10 * n_terms)
     taps = list(ao_tap_points(p_off, n, samples, radius))
     if unbounded:
         fn = _scene_sdf(unbounded, lp, nparams, lod_fn)
         terms = [ao_tap_term(az, r, fn(q)) for az, r, q in taps]
+        _tally_de(fn, need, evals=n_terms)
     else:
         terms = [torch.zeros_like(p_off[0]) for _ in range(n_terms)]
     for (i, oir), near in gated:
@@ -579,6 +716,8 @@ def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n):
                                                 ao_tap_term(az, r, fn(q)),
                                           0.0))
                  for acc, (az, r, q) in zip(terms, taps)]
+        _tally_de(fn, near & need, evals=n_terms)
+        _tally(near & need, 4 * n_terms)
     return ao_terms_to_factor(terms, samples, settings.ao_strength)
 
 
@@ -591,7 +730,7 @@ def scene_march_twin(static, settings: RenderSettings, leaf_params,
     t_sane = torch.where(hit_f > 0.5, t, 0.0)
     p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
     n = normals_core(static, settings, lp, nparams, p, obj, leaf, d)
-    analytic, sdf_objs = _split(static)
+    analytic, sdf_objs, _ = _split(static)
     if settings.ao and (analytic or sdf_objs):
         ao = _ao_compute(static, settings, lp, nparams, p, n)
     else:
@@ -605,7 +744,7 @@ def scene_march_twin(static, settings: RenderSettings, leaf_params,
 
 class SceneTensors(NamedTuple):
     """A compiled scene on a device: the static SceneWithMeshes plus the
-    dict of float32 parameter tensors."""
+    dict of parameter tensors (params_to_device)."""
     static: object
     params: dict
 
@@ -651,9 +790,11 @@ def frame_fused_reference(scene_t, settings: RenderSettings, intr, cam_rows):
     p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
     n = normals_core(static, settings, lp, nparams, p, obj, leaf, d)
     if settings.ao and static.ir.objects:
-        ao = _ao_compute(static, settings, lp, nparams, p, n)
+        ao = _ao_compute(static, settings, lp, nparams, p, n, need=hit)
     else:
         ao = torch.ones_like(p[0])
+    _tally(t.numel(), 20)                                  # ray generation
+    _tally(hit, 10 + 40 * len(static.ir.lights))           # shading
 
     eps = f32(settings.shadow_eps)
     p_off = (p[0] + n[0] * eps, p[1] + n[1] * eps, p[2] + n[2] * eps)
@@ -709,8 +850,10 @@ def frame_fused_reference(scene_t, settings: RenderSettings, intr, cam_rows):
     return tuple(a.reshape(F, H, W) for a in out)
 
 
-def check_fused(static, settings: RenderSettings) -> None:
-    """Raise on anything the fused path (twin and kernel) does not take."""
+def check_scene(static, settings: RenderSettings, meshes: bool = False
+                ) -> None:
+    """Raise on anything the kernels and their plain versions do not take;
+    meshes=False for the fused path, which takes no mesh objects."""
     if settings.vector_objects:
         raise NotImplementedError(
             "vector_objects (the crowd loops) is not ported yet: it comes "
@@ -734,21 +877,27 @@ def check_fused(static, settings: RenderSettings) -> None:
     if settings.normals not in ("auto", "fd"):
         raise ValueError(f"normals must be 'auto' or 'fd'; got "
                          f"{settings.normals!r}")
+    if meshes and (settings.tile_rows <= 0 or settings.tile_rows % 8):
+        raise ValueError(f"tile_rows must be a positive multiple of 8; got "
+                         f"{settings.tile_rows}")
     if len(static.ir.objects) > MAX_OBJECTS:
         raise ValueError(f"scene has {len(static.ir.objects)} objects; the "
-                         f"fused kernel takes at most {MAX_OBJECTS}")
+                         f"kernels take at most {MAX_OBJECTS}")
     for oir in static.ir.objects:
         if oir.engine == ENGINE_MESH:
-            raise NotImplementedError(MESH_SLICE_MSG)
+            if not meshes:
+                raise ValueError("the fused path takes no mesh objects; "
+                                 "mesh scenes take the split path")
+            continue
         if len(oir.nodes) > MAX_TAPE_NODES:
             raise ValueError(
-                f"object tape has {len(oir.nodes)} nodes; the fused kernel "
-                f"takes at most {MAX_TAPE_NODES}")
+                f"object tape has {len(oir.nodes)} nodes; the kernels take "
+                f"at most {MAX_TAPE_NODES}")
         if len(oir.leaves) > MAX_ANALYTIC_LEAVES and \
                 oir.engine == ENGINE_ANALYTIC:
             raise ValueError(
-                f"analytic object has {len(oir.leaves)} leaves; the fused "
-                f"kernel takes at most {MAX_ANALYTIC_LEAVES}")
+                f"analytic object has {len(oir.leaves)} leaves; the "
+                f"kernels take at most {MAX_ANALYTIC_LEAVES}")
         for lf in oir.leaves:
             if lf.kind == LEAF_MANDELBULB and lf.p0 != 8:
                 raise NotImplementedError(POWER8_ONLY_MSG)
@@ -798,7 +947,7 @@ def pack_scene(static):
                         int(_bulb_shell_static(oir))])
         nodes.extend(list(nd) for nd in oir.nodes)
         leaves.extend(list(lf) for lf in oir.leaves)
-    analytic, sdf_objs = _split(static)
+    analytic, sdf_objs, _ = _split(static)
     by_nodes = lambda io: len(io[1].nodes)  # noqa: E731
     order = ([i for i, _ in analytic]
              + [i for i, _ in sorted(sdf_objs, key=by_nodes)]
@@ -818,9 +967,13 @@ def pack_scene(static):
 def kernel_settings(static, settings: RenderSettings, intr, F: int,
                     n_ana: int, n_sdf: int) -> KFSettings:
     """The by-value settings struct; every float is rounded to float32
-    on the host exactly as the twin rounds it."""
+    on the host exactly as the twin rounds it. The split kernels take no
+    camera: intr None leaves F, H, W and the intrinsics 0."""
     em = _exit_margin(settings)
     bg = settings.background
+    if intr is None:
+        from surfjax_torch.core.camera import Intrinsics
+        intr = Intrinsics(0, 0, 0.0, 0.0, 0.0, 0.0)
     return KFSettings(
         F=F, H=intr.height, W=intr.width,
         n_objects=len(static.ir.objects), n_ana=n_ana, n_sdf=n_sdf,
@@ -850,36 +1003,53 @@ def kernel_settings(static, settings: RenderSettings, intr, F: int,
         bg_r=f32(bg[0]), bg_g=f32(bg[1]), bg_b=f32(bg[2]))
 
 
-def _launch_kernel(scene_t, settings: RenderSettings, intr, cam_rows):
-    from surfjax_torch.kernels import _build
+@functools.lru_cache(maxsize=16)
+def _packed_on(static, device: str):
+    """pack_scene's int tables as tensors on `device`, kept across calls
+    (the wrappers run once per frame and light)."""
+    *tables, n_ana, n_sdf = pack_scene(static)
+    return [torch.as_tensor(a, device=device) for a in tables], n_ana, n_sdf
+
+
+def _scene_tables(scene_t, dev):
+    """The host-packed int tables and the float parameter tensors of a
+    scene on `dev`, in KFTables order up to `cam_rows` -> (tensors, n_ana,
+    n_sdf). Raises on a parameter tensor the kernels do not take."""
     static, params = scene_t
-    dev = cam_rows.device
-    F, H, W = cam_rows.shape[0], intr.height, intr.width
-    objects, nodes, leaves, order, light_kinds, n_ana, n_sdf = \
-        pack_scene(static)
-    ints = [torch.as_tensor(a, device=dev) for a in
-            (objects, nodes, leaves, order, light_kinds)]
-    floats = [params[k] for k in ("leaf_params", "node_params", "lights",
-                                  "materials", "ambient")]
-    for name, ten in zip(("leaf_params", "node_params", "lights",
-                          "materials", "ambient", "cam_rows"),
-                         floats + [cam_rows]):
+    ints, n_ana, n_sdf = _packed_on(static, str(dev))
+    names = ("leaf_params", "node_params", "lights", "materials", "ambient")
+    floats = [params[k] for k in names]
+    for name, ten in zip(names, floats):
         if ten.device != dev or ten.dtype != torch.float32 or \
                 not ten.is_contiguous():
             raise ValueError(f"{name}: need a contiguous float32 tensor on "
                              f"{dev}; got {ten.dtype} on {ten.device}")
+    return list(ints) + floats, n_ana, n_sdf
+
+
+def _raise_on(err: int, entry: str) -> None:
+    if err != 0:
+        from surfjax_torch.kernels import _build
+        raise RuntimeError(f"{entry} launch failed: cudaError {err} "
+                           f"({_build.error_string(err)})")
+
+
+def _launch_kernel(scene_t, settings: RenderSettings, intr, cam_rows):
+    from surfjax_torch.kernels import _build
+    static, _ = scene_t
+    dev = cam_rows.device
+    F, H, W = cam_rows.shape[0], intr.height, intr.width
+    tables, n_ana, n_sdf = _scene_tables(scene_t, dev)
+    if not cam_rows.is_contiguous():
+        raise ValueError("cam_rows: need a contiguous float32 tensor")
     out = torch.empty((9, F, H, W), dtype=torch.float32, device=dev)
-    keep = ints + floats + [cam_rows, out]
-    tab = KFTables(*[t.data_ptr() for t in keep])
+    tab = KFTables(*[t.data_ptr() for t in tables + [cam_rows, out]])
     ks = kernel_settings(static, settings, intr, F, n_ana, n_sdf)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.kf_frame_fused(tab, ks, dev.index, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"kf_frame_fused launch failed: cudaError {err} "
-            f"({_build.error_string(err)})")
+    _raise_on(err, "kf_frame_fused")
     frame_fused.launches += 1
     return tuple(out[k] for k in range(9))
 
@@ -892,7 +1062,7 @@ def frame_fused(scene_t, settings: RenderSettings, intr, cam_rows):
     `frame_fused.launches`); CPU tensors run the plain twin. Anything the
     kernel does not take raises."""
     static, params = scene_t
-    check_fused(static, settings)
+    check_scene(static, settings)
     if cam_rows.dim() != 2 or cam_rows.shape[1] != 12:
         raise ValueError(f"cam_rows must be (F, 12); got "
                          f"{tuple(cam_rows.shape)}")
@@ -923,11 +1093,26 @@ def frame_buffers(out) -> FrameBuffers:
     )
 
 
+
+
+def fused_frame_ok(static, settings: RenderSettings) -> bool:
+    """True when a frame takes KF: a mesh-free scene. Mesh scenes take the
+    split pipeline (the reference also sends the capped-march residual
+    there; caps are not ported and raise)."""
+    return not _split(static)[2]
+
+
 def render_sequence_pallas(static, intr, settings: RenderSettings, params,
                            R_flats, positions) -> FrameBuffers:
-    """F frames through one fused call -> FrameBuffers with a leading frame
-    axis (see frame_buffers)."""
+    """F frames -> FrameBuffers with a leading frame axis (see
+    frame_buffers): one fused call for a mesh-free scene, else one split
+    frame after another (surfjax's vmap of frame_step)."""
     F = R_flats.shape[0]
+    if not fused_frame_ok(static, settings):
+        frames = [render_frame_pallas(static, intr, settings, params,
+                                      R_flats[f], positions[f])
+                  for f in range(F)]
+        return FrameBuffers(*(torch.stack(parts) for parts in zip(*frames)))
     cam_rows = torch.cat([R_flats.reshape(F, 9), positions.reshape(F, 3)],
                          dim=1).to(torch.float32).contiguous()
     return frame_buffers(frame_fused(SceneTensors(static, params), settings,
@@ -936,7 +1121,369 @@ def render_sequence_pallas(static, intr, settings: RenderSettings, params,
 
 def render_frame_pallas(static, intr, settings: RenderSettings, params,
                         R_flat, cam_pos) -> FrameBuffers:
-    """One frame through the fused path -> FrameBuffers (H, W, ...)."""
-    fb = render_sequence_pallas(static, intr, settings, params,
-                                R_flat.reshape(1, 9), cam_pos.reshape(1, 3))
-    return FrameBuffers(*(a[0] for a in fb))
+    """One frame -> FrameBuffers (H, W, ...): the fused path for a
+    mesh-free scene; else the split path on SQUARE pixel tiles, each
+    (tile_rows, 128) block of the padded ray arrays a tile_rows x 128
+    rectangle of the image (the mesh kernel's candidate sets are per
+    tile, so spatial coherence keeps them small)."""
+    if fused_frame_ok(static, settings):
+        fb = render_sequence_pallas(static, intr, settings, params,
+                                    R_flat.reshape(1, 9),
+                                    cam_pos.reshape(1, 3))
+        return FrameBuffers(*(a[0] for a in fb))
+    from surfjax_torch.core.camera import camera_ray_dirs_dyn
+    check_scene(static, settings, meshes=True)
+    dev = R_flat.device
+    H, W = intr.height, intr.width
+    R = settings.tile_rows
+    H2 = ((H + R - 1) // R) * R
+    W2 = ((W + LANES - 1) // LANES) * LANES
+    ty, tx = H2 // R, W2 // LANES
+    rows = torch.clamp(torch.arange(H2, dtype=torch.float32, device=dev),
+                       max=float(H - 1))
+    cols = torch.clamp(torch.arange(W2, dtype=torch.float32, device=dev),
+                       max=float(W - 1))
+    rr, cc = torch.meshgrid(rows, cols, indexing="ij")
+
+    def tile_layout(a):
+        return (a.reshape(ty, R, tx, LANES).permute(0, 2, 1, 3)
+                .reshape(ty * tx * R, LANES))
+
+    def untile(a):
+        a = a.reshape(ty, tx, R, LANES).permute(0, 2, 1, 3)
+        return a.reshape(H2, W2)[:H, :W]
+
+    rr_t, cc_t = tile_layout(rr), tile_layout(cc)
+    d = tuple(c.contiguous() for c in
+              camera_ray_dirs_dyn(intr, R_flat, rr_t, cc_t))
+    o = tuple(cam_pos[k].expand(rr_t.shape).contiguous() for k in range(3))
+    fb = _render_padded(static, settings, params, o, d)
+    return FrameBuffers(
+        rgb=torch.stack([untile(fb.rgb[..., k]) for k in range(3)], dim=-1),
+        depth=untile(fb.depth),
+        normal=torch.stack([untile(fb.normal[..., k]) for k in range(3)],
+                           dim=-1),
+        hit=untile(fb.hit),
+        obj_id=untile(fb.obj_id),
+    )
+
+
+# ---------------------------------------------------------------------------
+# The split path: K1, K2, ao_fix (plain versions, wrappers) and drivers
+# ---------------------------------------------------------------------------
+
+
+class SplitRays(ctypes.Structure):
+    """Flat ray arrays of a split-kernel launch (csrc/split_path.cu)."""
+    _fields_ = [("inp", ctypes.c_void_p * 8), ("out", ctypes.c_void_p * 8),
+                ("n", ctypes.c_int)]
+
+
+def render_tile_reference(scene_t, settings: RenderSettings, o, d):
+    """Plain version of K1 -> (t, obj, nx, ny, nz, ao, hit_f): the raw
+    trace t of the non-mesh objects (BIG on a miss), the object index as a
+    float (-1 on a miss), the face-forwarded normal, AO at the hit (on
+    every lane, as surfjax's K1 does) and the hit flag."""
+    static, params = scene_t
+    t, obj, n, ao, hit_f = scene_march_twin(
+        static, settings, params["leaf_params"], params["node_params"], o, d)
+    return (t, obj, n[0], n[1], n[2], ao, hit_f)
+
+
+def trace_rays_reference(scene_t, settings: RenderSettings, o, l, dist,
+                         soft_k):
+    """Plain version of K2 -> vis of one light along l over [.., dist]
+    through the non-mesh objects (soft_k: per-lane penumbra sharpness)."""
+    static, params = scene_t
+    return visibility_core(static, settings, params["leaf_params"],
+                           params["node_params"], o, l, dist,
+                           soft_k=soft_k)
+
+
+def ao_fix_reference(scene_t, settings: RenderSettings, p_off, n, need,
+                     ao_in):
+    """Plain version of ao_fix -> AO at the pre-offset receivers p_off
+    where need > 0.5, ao_in elsewhere."""
+    static, params = scene_t
+    ao_new = _ao_compute(static, settings, params["leaf_params"],
+                         params["node_params"], p_off, n,
+                         already_offset=True, need=need > 0.5)
+    return torch.where(need > 0.5, ao_new, ao_in)
+
+
+def _ray_arrays(args):
+    """The plain version's ray arguments (tensors or component tuples) ->
+    the flat list of float32 arrays of one shape, on one device."""
+    ins = [c for a in args for c in (a if isinstance(a, tuple) else (a,))]
+    shape, dev = ins[0].shape, ins[0].device
+    for k, a in enumerate(ins):
+        if a.device != dev or a.dtype != torch.float32 or a.shape != shape:
+            raise ValueError(f"ray array {k}: need float32 {tuple(shape)} on "
+                             f"{dev}; got {a.dtype} {tuple(a.shape)} on "
+                             f"{a.device}")
+    return ins
+
+
+def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
+                   n_out: int):
+    """Prepare one launch of the split kernel `entry` on CUDA tensors ->
+    (launch, outputs): launch() enqueues the kernel on the current stream,
+    writing `outputs`, and raises if the launch was refused. The wrappers
+    launch once; chip_smoke.py times repeated launches."""
+    from surfjax_torch.kernels import _build
+    static, _ = scene_t
+    ins = [a.contiguous() for a in _ray_arrays(args)]
+    shape, dev = ins[0].shape, ins[0].device
+    tables, n_ana, n_sdf = _scene_tables(scene_t, dev)
+    out = torch.empty((n_out,) + tuple(shape), dtype=torch.float32,
+                      device=dev)
+    tab = KFTables(*[t.data_ptr() for t in tables], None, None)
+    ks = kernel_settings(static, settings, None, 0, n_ana, n_sdf)
+    rays = SplitRays()
+    for k, a in enumerate(ins):
+        rays.inp[k] = a.data_ptr()
+    for k in range(n_out):
+        rays.out[k] = out[k].data_ptr()
+    rays.n = out[0].numel()
+    fn = getattr(_build.load(), entry)
+
+    def launch():
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _raise_on(fn(tab, ks, rays, dev.index, ctypes.c_void_p(stream)),
+                      entry)
+        # the arrays the kernel reads stay alive as long as launch does
+        return ins, tables
+
+    return launch, tuple(out[k] for k in range(n_out))
+
+
+def _split_call(wrapper, entry: str, reference, scene_t,
+                settings: RenderSettings, args, n_out: int):
+    """Check the scene and the ray arrays (`args`: the plain version's ray
+    arguments), then launch the CUDA kernel `entry` (CUDA tensors, counted
+    in `wrapper.launches`) or run `reference` (CPU)."""
+    check_scene(scene_t.static, settings, meshes=True)
+    dev = _ray_arrays(args)[0].device
+    record_call(wrapper.__name__, (scene_t, settings) + tuple(args))
+    if dev.type == "cpu":
+        out = reference(scene_t, settings, *args)
+        return out if isinstance(out, tuple) else (out,)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    launch, out = split_launcher(entry, scene_t, settings, args, n_out)
+    launch()
+    wrapper.launches += 1
+    return out
+
+
+def render_tile(scene_t, settings: RenderSettings, o, d):
+    """K1 over rays of any shape -> the 7 tensors of render_tile_reference.
+    CUDA tensors launch the kernel (csrc/split_path.cu), counted in
+    `render_tile.launches`; CPU tensors run the plain version."""
+    return _split_call(render_tile, "sp_render_tile", render_tile_reference,
+                       scene_t, settings, (tuple(o), tuple(d)), 7)
+
+
+def trace_rays(scene_t, settings: RenderSettings, o, l, dist, soft_k):
+    """K2 -> vis (see trace_rays_reference); kernel or plain version as
+    render_tile; launches counted in `trace_rays.launches`."""
+    return _split_call(trace_rays, "sp_trace_rays", trace_rays_reference,
+                       scene_t, settings,
+                       (tuple(o), tuple(l), dist, soft_k), 1)[0]
+
+
+def ao_fix(scene_t, settings: RenderSettings, p_off, n, need, ao_in):
+    """ao_fix -> ao (see ao_fix_reference); kernel or plain version as
+    render_tile; launches counted in `ao_fix.launches`."""
+    return _split_call(ao_fix, "sp_ao_fix", ao_fix_reference, scene_t,
+                       settings, (tuple(p_off), tuple(n), need, ao_in), 1)[0]
+
+
+render_tile.launches = trace_rays.launches = ao_fix.launches = 0
+
+
+def _pad_rays(arrs, rows: int):
+    """Flat (N,) ray components -> (rows_total, 128) padded by repeating
+    the last ray, and N."""
+    n = arrs[0].shape[0]
+    block = rows * LANES
+    n_pad = ((n + block - 1) // block) * block
+    out = []
+    for a in arrs:
+        a = torch.cat([a, a[-1:].expand(n_pad - n)])
+        out.append(a.reshape(n_pad // LANES, LANES))
+    return tuple(out), n
+
+
+def render_rays_pallas(static, settings: RenderSettings, params, o, d
+                       ) -> FrameBuffers:
+    """Split-path render of a flat ray batch (padded to whole tiles)."""
+    (ox, oy, oz, dx, dy, dz), n_rays = _pad_rays(
+        (o[0], o[1], o[2], d[0], d[1], d[2]), settings.tile_rows)
+    fb = _render_padded(static, settings, params, (ox, oy, oz), (dx, dy, dz))
+    return FrameBuffers(*(a.reshape((-1,) + a.shape[2:])[:n_rays]
+                          for a in fb))
+
+
+def _face_forward(nv, d):
+    flip = (nv[0] * d[0] + nv[1] * d[1]) + nv[2] * d[2] > 0.0
+    s = torch.where(flip, -1.0, 1.0)
+    return (nv[0] * s, nv[1] * s, nv[2] * s)
+
+
+def _pallas_primary(static, settings: RenderSettings, params, o2, d2):
+    """Primary stage on (rows_total, 128)-tiled rays: K1 -> merge of each
+    mesh's packet-kernel hits -> AO fix at the receivers a mesh won.
+    -> (t, obj, n, n_geom, ao, hit_f); t is the raw t (callers mask by
+    hit_f)."""
+    from surfjax_torch.engines.mesh import (
+        _mesh_arrays, intersect_mesh, mesh_normal,
+    )
+    from surfjax_torch.kernels.mesh_tile import (
+        MAX_PACKET_TRIS, mesh_tile_kernel,
+    )
+    scene_t = SceneTensors(static, params)
+    _, _, mesh = _split(static)
+    t, obj, nx, ny, nz, ao, hit_f = render_tile(scene_t, settings, o2, d2)
+    n = (nx, ny, nz)
+    n_geom = n
+    mesh_won = torch.zeros_like(t)
+    for i, oir in mesh:
+        ms = static.mesh_static[oir.mesh]
+        arrays = _mesh_arrays(params, oir.mesh)
+        if ms.n_tris > MAX_PACKET_TRIS:
+            import warnings
+            warnings.warn(
+                f"mesh with {ms.n_tris} tris exceeds the packet kernel "
+                f"budget ({MAX_PACKET_TRIS}); using grid-DDA",
+                RuntimeWarning)
+            shp = o2[0].shape
+            o_f = tuple(c.reshape(-1) for c in o2)
+            d_f = tuple(c.reshape(-1) for c in d2)
+            t_f, tri_f = intersect_mesh(ms, oir.mesh, params, o_f, d_f,
+                                        settings.t_min, settings.t_max)
+            t_hit = torch.where(t_f < f32(BIG * 0.5), t_f, 0.0)
+            p_f = tuple(o_f[k] + t_hit * d_f[k] for k in range(3))
+            n_f = mesh_normal(ms, oir.mesh, params, p_f, tri_f)
+            gn = arrays["tri_n"][tri_f.long()]
+            t_m = t_f.reshape(shp)
+            n_s = tuple(c.reshape(shp) for c in n_f)
+            n_g = tuple(gn[:, k].reshape(shp) for k in range(3))
+        else:
+            t_m, n_s, n_g = mesh_tile_kernel(ms, settings,
+                                             arrays["tri_packed"], o2, d2,
+                                             settings.t_max)
+        better = t_m < torch.where(hit_f > 0.5, t, BIG)
+        t = torch.where(better, t_m, t)
+        obj = torch.where(better, float(i), obj)
+        hit_f = torch.where(better, 1.0, hit_f)
+        # face-forward both the shading and the geometric mesh normals
+        n_s = _face_forward(n_s, d2)
+        n_g = _face_forward(n_g, d2)
+        n = tuple(torch.where(better, a, b) for a, b in zip(n_s, n))
+        n_geom = tuple(torch.where(better, a, b) for a, b in zip(n_g, n_geom))
+        mesh_won = torch.where(better, 1.0, mesh_won)
+
+    # AO at mesh-won lanes: K1 probed its own pre-merge hit, so AO is
+    # taken again at the merged receiver, offset along the geometric
+    # normal, against the non-mesh objects
+    if mesh and settings.ao and len(static.ir.objects) > len(mesh):
+        t_sane = torch.where(hit_f > 0.5, t, 0.0)
+        p_off = _offset(o2, d2, t_sane, n_geom, settings)
+        ao = ao_fix(scene_t, settings, p_off, n, mesh_won, ao)
+    return t, obj, n, n_geom, ao, hit_f
+
+
+def _offset(o2, d2, t_sane, n_geom, settings: RenderSettings):
+    """Receivers p = o + t*d offset by shadow_eps along the geometric
+    normal (shadow-terminator safety for smooth meshes; n_geom == n for
+    non-mesh hits)."""
+    eps = f32(settings.shadow_eps)
+    return tuple((o2[k] + t_sane * d2[k]) + n_geom[k] * eps for k in range(3))
+
+
+def _pallas_vis(static, settings: RenderSettings, params, p_off, l,
+                dist_eff, soft_k):
+    """One light's visibility on (rows, 128)-tiled receivers: K2 through
+    the non-mesh objects, then every mesh's any-hit occlusion."""
+    from surfjax_torch.engines.mesh import _mesh_arrays, intersect_mesh
+    from surfjax_torch.kernels.mesh_tile import (
+        MAX_PACKET_TRIS, mesh_tile_kernel,
+    )
+    vis = trace_rays(SceneTensors(static, params), settings, p_off, l,
+                     dist_eff, soft_k)
+    for _, oir in _split(static)[2]:
+        ms = static.mesh_static[oir.mesh]
+        if ms.n_tris > MAX_PACKET_TRIS:
+            t_f, _ = intersect_mesh(ms, oir.mesh, params,
+                                    tuple(c.reshape(-1) for c in p_off),
+                                    tuple(c.reshape(-1) for c in l),
+                                    settings.shadow_eps, dist_eff.reshape(-1))
+            t_m = t_f.reshape(p_off[0].shape)
+        else:
+            t_m, _, _ = mesh_tile_kernel(
+                ms, settings, _mesh_arrays(params, oir.mesh)["tri_packed"],
+                p_off, l, dist_eff, any_hit=True)
+        vis = vis * torch.where(t_m < dist_eff, 0.0, 1.0)
+    return vis
+
+
+def _render_padded(static, settings: RenderSettings, params, o2, d2
+                   ) -> FrameBuffers:
+    """The split pipeline on (rows_total, 128)-tiled rays -> FrameBuffers
+    of the same layout: rgb/normal (rows, 128, 3), depth/hit (rows, 128),
+    obj_id int32."""
+    t, obj, n, n_geom, ao, hit_f = _pallas_primary(static, settings, params,
+                                                   o2, d2)
+    t_sane = torch.where(hit_f > 0.5, t, 0.0)
+    p_off = _offset(o2, d2, t_sane, n_geom, settings)
+
+    light_terms = []
+    for li, kind in enumerate(static.ir.lights):
+        lrow = params["lights"][li]
+        if kind == LIGHT_POINT:
+            lv = tuple(lrow[k] - p_off[k] for k in range(3))
+            dist = sqrt((lv[0] * lv[0] + lv[1] * lv[1]) + lv[2] * lv[2])
+            inv = 1.0 / dist
+            l = tuple(c * inv for c in lv)
+        else:
+            l = tuple(torch.ones_like(t) * -lrow[k] for k in range(3))
+            dist = torch.full_like(t, f32(settings.t_max))
+        lcol = (lrow[3], lrow[4], lrow[5])
+        if settings.shadows:
+            # area lights: penumbra sharpness k = dist / radius
+            radius = lrow[6]
+            if bool(radius > 0.0):
+                soft_k = dist / radius
+            else:
+                soft_k = torch.full_like(dist, f32(settings.soft_shadow_k))
+            # miss lanes need no shadow ray: an empty segment
+            dist_eff = torch.where(hit_f > 0.5, dist, 0.0)
+            vis = _pallas_vis(static, settings, params, p_off, l, dist_eff,
+                              soft_k)
+        else:
+            vis = torch.ones_like(t)
+        light_terms.append((l, lcol, vis))
+
+    v = (-d2[0], -d2[1], -d2[2])
+    amb = params["ambient"]
+    ambient = (amb[0], amb[1], amb[2])
+    bg = settings.background
+    rgb = [torch.full_like(t, f32(bg[k])) for k in range(3)]
+    hit = hit_f > 0.5
+    mats = params["materials"]
+    for i, oir in enumerate(static.ir.objects):
+        sel = hit & (obj == float(i))
+        if not bool(sel.any()):
+            continue
+        shaded = shade_object(mats[oir.mat], oir.shininess, ambient, ao, n,
+                              v, light_terms)
+        rgb = [torch.where(sel, a, b) for a, b in zip(shaded, rgb)]
+    return FrameBuffers(
+        rgb=torch.stack(rgb, dim=-1),
+        depth=t_sane,
+        normal=torch.stack([c * hit_f for c in n], dim=-1),
+        hit=hit_f,
+        obj_id=torch.where(hit, obj.to(torch.int32), -1).to(torch.int32),
+    )

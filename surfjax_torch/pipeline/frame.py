@@ -1,11 +1,15 @@
-"""Frame pipeline: the eager tensor path and the dispatch to the fused path.
+"""Frame pipeline: the eager tensor path and the dispatch to the kernels.
 
 Counterpart of `surfjax/pipeline/frame.py`. With backend="jnp" a frame is
 traced, shaded and written by the eager functions below (primary hits ->
-normals -> shadow rays -> AO probes -> shading). With backend="pallas" a
-scene goes to the fused path (kernels/render_tile.py), which raises
-NotImplementedError, naming the slice that will port it, for what this
-slice does not carry (meshes, crowds, priming, march caps).
+normals -> shadow rays -> AO probes -> shading; meshes through the grid
+DDA of engines/mesh.py). With backend="pallas" a mesh-free scene goes to
+the fused path and a mesh scene to the split path, frame by frame
+(kernels/render_tile.py); both raise NotImplementedError for what the
+port does not carry yet (crowds, priming, march caps).
+
+The entry points run on the CUDA device unless the caller passes
+device="cpu"; without a card a CUDA request raises.
 """
 
 from __future__ import annotations
@@ -16,12 +20,15 @@ import torch
 from surfjax_torch.core.camera import Intrinsics, camera_ray_dirs_dyn
 from surfjax_torch.core.math import BIG, f32, sqrt, vdot
 from surfjax_torch.core.scene_compile import (
-    ENGINE_ANALYTIC, ENGINE_SDF, LIGHT_POINT, MESH_SLICE_MSG,
-    SceneWithMeshes, params_to_device,
+    ENGINE_ANALYTIC, ENGINE_MESH, ENGINE_SDF, LIGHT_POINT, SceneWithMeshes,
+    params_to_device,
 )
 from surfjax_torch.core.types import FrameBuffers, Hit, RenderSettings
 from surfjax_torch.engines.analytic import (
     intersect_analytic, object_normal_analytic,
+)
+from surfjax_torch.engines.mesh import (
+    _mesh_arrays, clamp_ids, intersect_mesh, mesh_normal,
 )
 from surfjax_torch.engines.sdf import (
     ao_probes, eval_sdf, normal_fd, soft_shadow_march, sphere_trace,
@@ -45,8 +52,11 @@ def trace_scene(static: SceneWithMeshes, settings: RenderSettings, params,
                 t_min, t_max, settings.max_steps, settings.hit_eps,
                 settings.hit_eps_scale)
             leaf_i = torch.zeros_like(t_i, dtype=torch.int32)
+        elif oir.engine == ENGINE_MESH:
+            t_i, leaf_i = intersect_mesh(static.mesh_static[oir.mesh],
+                                         oir.mesh, params, o, d, t_min, t_max)
         else:
-            raise NotImplementedError(MESH_SLICE_MSG)
+            raise ValueError(f"unknown engine {oir.engine}")
         better = t_i < t_best
         t_best = torch.where(better, t_i, t_best)
         obj_best = torch.where(better, i, obj_best).to(torch.int32)
@@ -56,7 +66,8 @@ def trace_scene(static: SceneWithMeshes, settings: RenderSettings, params,
 
 
 def _nonmesh_scene_sdf(static: SceneWithMeshes, params):
-    """Scene-level SDF = min over all objects (soft shadows / AO)."""
+    """Scene-level SDF = min over all non-mesh objects (soft shadows /
+    AO)."""
     sdf_objs = [oir for oir in static.ir.objects
                 if oir.engine in (ENGINE_ANALYTIC, ENGINE_SDF)]
     if not sdf_objs:
@@ -75,7 +86,7 @@ def _nonmesh_scene_sdf(static: SceneWithMeshes, params):
 def compute_normals(static: SceneWithMeshes, settings: RenderSettings,
                     params, p, hit: Hit, d):
     """Per-hit normals: analytic where possible, FD tetrahedron for SDF
-    objects, face-forwarded against the ray."""
+    objects, barycentric for meshes, face-forwarded against the ray."""
     nx = torch.zeros_like(p[0])
     ny = torch.zeros_like(p[0])
     nz = torch.ones_like(p[0])
@@ -83,9 +94,12 @@ def compute_normals(static: SceneWithMeshes, settings: RenderSettings,
         if oir.engine == ENGINE_ANALYTIC and settings.normals == "auto":
             n_i = object_normal_analytic(oir, params["leaf_params"], p,
                                          hit.leaf_id)
-        else:
+        elif oir.engine in (ENGINE_ANALYTIC, ENGINE_SDF):
             n_i = normal_fd(oir, params["leaf_params"],
                             params["node_params"], p, settings.normal_eps)
+        else:
+            n_i = mesh_normal(static.mesh_static[oir.mesh], oir.mesh, params,
+                              p, hit.leaf_id)
         sel = hit.obj_id == i
         nx = torch.where(sel, n_i[0], nx)
         ny = torch.where(sel, n_i[1], ny)
@@ -98,7 +112,8 @@ def compute_normals(static: SceneWithMeshes, settings: RenderSettings,
 def light_visibility(static: SceneWithMeshes, settings: RenderSettings,
                      params, p_off, scene_sdf):
     """Per-light (direction, color, visibility) terms. Hard shadows trace
-    every object; soft shadows march the scene SDF's penumbra."""
+    every object; soft shadows march the non-mesh scene SDF's penumbra,
+    and meshes still occlude hard."""
     ir = static.ir
     terms = []
     for li, kind in enumerate(ir.lights):
@@ -127,6 +142,12 @@ def light_visibility(static: SceneWithMeshes, settings: RenderSettings,
                 vis = vis * soft_shadow_march(
                     scene_sdf, p_off, l, settings.soft_shadow_tmin, dist,
                     soft_k, settings.shadow_steps)
+                for oir in ir.objects:
+                    if oir.engine == ENGINE_MESH:
+                        t_i, _ = intersect_mesh(
+                            static.mesh_static[oir.mesh], oir.mesh, params,
+                            p_off, l, settings.shadow_eps, dist)
+                        vis = vis * torch.where(t_i < dist, 0.0, 1.0)
             else:
                 sh = trace_scene(static, settings, params, p_off, l,
                                  settings.shadow_eps, dist)
@@ -144,8 +165,24 @@ def render_rays(static: SceneWithMeshes, settings: RenderSettings, params,
     t = torch.where(hit.mask, hit.t, 0.0)
     p = (o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2])
     n = compute_normals(static, settings, params, p, hit, d)
+    # secondary-ray origins offset along the GEOMETRIC normal for meshes:
+    # a smooth (barycentric) normal can push the origin under the adjacent
+    # facet's plane and give shadow-terminator acne
+    n_off = n
+    for i, oir in enumerate(ir.objects):
+        if oir.engine == ENGINE_MESH:
+            tri_n = _mesh_arrays(params, oir.mesh)["tri_n"][clamp_ids(
+                hit.leaf_id, static.mesh_static[oir.mesh].n_tris)]
+            gx, gy, gz = tri_n[:, 0], tri_n[:, 1], tri_n[:, 2]
+            flip = (gx * d[0] + gy * d[1]) + gz * d[2] > 0.0
+            s = torch.where(flip, -1.0, 1.0)
+            sel = hit.obj_id == i
+            n_off = (torch.where(sel, gx * s, n_off[0]),
+                     torch.where(sel, gy * s, n_off[1]),
+                     torch.where(sel, gz * s, n_off[2]))
     eps = f32(settings.shadow_eps)
-    p_off = (p[0] + n[0] * eps, p[1] + n[1] * eps, p[2] + n[2] * eps)
+    p_off = (p[0] + n_off[0] * eps, p[1] + n_off[1] * eps,
+             p[2] + n_off[2] * eps)
 
     scene_sdf = _nonmesh_scene_sdf(static, params)
     light_terms = light_visibility(static, settings, params, p_off,
@@ -190,8 +227,8 @@ def _pixel_grid(intr: Intrinsics, device):
 
 
 def _check_backend(settings: RenderSettings) -> None:
-    """The fused path raises on what it does not port (kernels/render_tile
-    .check_fused); here only the backend name is checked."""
+    """The kernel paths raise on what they do not port (kernels/render_tile
+    .check_scene); here only the backend name is checked."""
     if settings.backend not in ("jnp", "pallas"):
         raise ValueError(f"backend must be 'jnp' or 'pallas'; got "
                          f"{settings.backend!r}")
@@ -244,7 +281,7 @@ def _check_device(device) -> torch.device:
 
 @torch.no_grad()
 def render_frame(scene, camera, settings: RenderSettings = RenderSettings(),
-                 device="cpu") -> FrameBuffers:
+                 device="cuda") -> FrameBuffers:
     device = _check_device(device)
     static, params = scene.freeze()
     params = params_to_device(params, device)
@@ -256,11 +293,13 @@ def render_frame(scene, camera, settings: RenderSettings = RenderSettings(),
 @torch.no_grad()
 def render_sequence(scene, camera, poses,
                     settings: RenderSettings = RenderSettings(),
-                    device="cpu") -> FrameBuffers:
+                    device="cuda") -> FrameBuffers:
     """Batched camera path, all frames on `device`.
 
     poses: (R_flats (F, 9), positions (F, 3)). Returns FrameBuffers with a
-    leading frame axis."""
+    leading frame axis. With backend="pallas" a mesh-free scene renders
+    every frame in one fused launch and a mesh scene frame by frame
+    through the split path, as surfjax's _sequence_jit does."""
     device = _check_device(device)
     static, params = scene.freeze()
     _check_backend(settings)

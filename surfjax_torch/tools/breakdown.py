@@ -1,14 +1,16 @@
-"""Where the main path's time goes on a CUDA GPU.
+"""Where the main paths' time goes on a CUDA GPU.
 
     python -m surfjax_torch.tools.breakdown
 
-For each fidelity mode of the main path (see `workload`) it times, with
-CUDA events and five calls each:
+For each fidelity mode of the fused path's main path (see `workload`) it
+times, with CUDA events and five calls each:
   * the kernel alone (`frame_fused` on device tensors) with every feature
     on, with AO off, with shadows off and with both off;
   * the whole `render_sequence` call;
 and traces one call with `torch.profiler` for the device time, the device's
-idle share of the call's wall time and the six dearest operations.
+idle share of the call's wall time and the six dearest operations. For
+each mode of the mesh main path (c4, split path) it times the whole
+`render_sequence` call the same way and traces one call.
 
 Prints the card's name, power limit, SM clock, power draw and temperature
 before and after, one JSON line per mode, and a last JSON line with all of
@@ -28,10 +30,11 @@ from surfjax_torch.api import render_sequence
 from surfjax_torch.core.scene_compile import params_to_device
 from surfjax_torch.kernels.render_tile import SceneTensors, frame_fused
 from surfjax_torch.tools.workload import cam_rows_of, cuda_ms, gpu_line, \
-    main_path
+    main_path, mesh_main_path
 
 _CARD = "name,power.limit,clocks.sm,power.draw,temperature.gpu"
 REPS = 5
+TOP = 10
 
 
 def profile_call(call) -> dict:
@@ -53,7 +56,7 @@ def profile_call(call) -> dict:
                 + e.time_range.elapsed_us() / 1e3
     device = sum(per_op.values())
     top = sorted(((ms, name[:60]) for name, ms in per_op.items()),
-                 reverse=True)[:6]
+                 reverse=True)[:TOP]
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": 1.0 - device / wall, "top": top}
 
@@ -90,6 +93,18 @@ def main() -> int:
         out["profile"] = profile_call(call)
         res[mode] = out
         print(mode, json.dumps(out), flush=True)
+    scene, camera, Rs, ps, modes = mesh_main_path("configs/c4_mesh.yaml")
+    F = len(ps)
+    for mode, st in modes.items():
+        call = lambda st=st: render_sequence(scene, camera, (Rs, ps), st,
+                                             device=dev)
+        call()
+        torch.cuda.synchronize()
+        ms, _ = cuda_ms(call, REPS)
+        out = {"render_sequence": [t / F for t in ms],
+               "profile": profile_call(call)}
+        res[f"c4 {mode}"] = out
+        print(f"c4 {mode}", json.dumps(out), flush=True)
     print(gpu_line(_CARD), flush=True)
     print(json.dumps(res), flush=True)
     return 0

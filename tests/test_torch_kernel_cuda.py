@@ -1,13 +1,14 @@
-"""The hand-written CUDA kernel against its plain PyTorch twin, on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.
 
 Marked `cuda`: without a CUDA device every test here skips (the decision
 is taken inside the fixture). On the card, where jax is absent and so
 tests/conftest.py cannot load: `python -m pytest --noconftest -m cuda
 tests/test_torch_kernel_cuda.py`.
 
-Both sides round every float operation on its own (the kernel is built
-with -fmad=false and IEEE division and sqrt), so the kernel must equal
-the twin bitwise on every buffer.
+Both sides round every float operation on its own (the kernels are built
+with -fmad=false and IEEE division and sqrt), so each kernel must equal
+its plain version bitwise on every buffer.
 """
 
 import os
@@ -75,5 +76,58 @@ def test_render_sequence_on_cuda_uses_the_kernel(cuda_device):
     fb = render_sequence(scene, cam, (R, pos), st.with_(backend="pallas"),
                          device=cuda_device)
     assert frame_fused.launches == before + 1
+    assert fb.rgb.device.type == "cuda"
+    assert bool(torch.isfinite(fb.rgb).all())
+
+
+# --- the split path's kernels (K1, K2, ao_fix, mesh_tile) -------------------
+
+def _split_scene(name):
+    from surfjax_torch import api
+    from surfjax_torch.tools.workload import (
+        mesh_modes, mesh_soft_ao_scene, two_mesh_scene,
+    )
+    if name.startswith("c4"):
+        scene, cam, st, _ = load_config(os.path.join(ROOT, "configs",
+                                                     "c4_mesh.yaml"))
+        cam = api.Camera(Intrinsics.from_fov(64, 48, 40.0), cam.rotation,
+                         cam.position)
+        return scene, cam, mesh_modes(st)[name.split()[1]].with_(tile_rows=8)
+    build = mesh_soft_ao_scene if name == "mesh_soft_ao" else two_mesh_scene
+    scene, cam, st = build(api, 48)
+    return scene, cam, st.with_(tile_rows=8)
+
+
+@pytest.mark.parametrize("name", ["c4 config", "c4 ao", "mesh_soft_ao",
+                                  "two_meshes"])
+def test_split_kernels_match_plain(cuda_device, name):
+    """Every kernel call of one split-path frame, replayed through the
+    kernel and the plain version on the same inputs: bitwise equal."""
+    from surfjax_torch.api import render
+    from surfjax_torch.tools.kernel_check import capture_calls, compare
+    scene, cam, st = _split_scene(name)
+    with capture_calls() as calls:
+        fb = render(scene, cam, st, device=cuda_device)
+    torch.cuda.synchronize()
+    names = {c[0] for c in calls}
+    assert {"render_tile", "trace_rays", "mesh_tile"} <= names, names
+    if st.ao and name != "two_meshes":
+        assert "ao_fix" in names
+    for k, (kname, args) in enumerate(calls):
+        compare(kname, args, f"{name} call {k}")
+    assert float(fb.hit.mean()) > 0.1
+
+
+def test_render_on_cuda_uses_the_split_kernels(cuda_device):
+    from surfjax_torch.api import render
+    from surfjax_torch.kernels.mesh_tile import mesh_tile
+    from surfjax_torch.kernels.render_tile import ao_fix, render_tile, \
+        trace_rays
+    scene, cam, st = _split_scene("c4 ao")
+    wrappers = (render_tile, trace_rays, ao_fix, mesh_tile, frame_fused)
+    before = [w.launches for w in wrappers]
+    fb = render(scene, cam, st, device=cuda_device)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [1, 1, 1, 2, 0]
     assert fb.rgb.device.type == "cuda"
     assert bool(torch.isfinite(fb.rgb).all())

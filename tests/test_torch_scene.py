@@ -132,17 +132,29 @@ def test_main_path_workload_matches_bench():
     assert dataclasses.asdict(modes["value_exact"]) == {**value, **EXACT}
 
 
-def test_port_raises_on_mesh():
-    scene = pt_api.Scene()
+def test_port_compiles_meshes_like_reference():
+    """The three mesh inputs that the port refused before it had the mesh
+    engine now compile: a scene holding a TriangleMesh, c4_mesh.yaml
+    through the port's loader (the generated octasphere), and a c4 scene
+    frozen by surfjax carried across by from_reference. Each gives
+    surfjax's SceneIR, MeshStatic and tables bit for bit (int32 for faces
+    and the CSR grid)."""
+    from surfjax import api as sj_api
     verts = np.array([[0, 0, 3], [1, 0, 3], [0, 1, 3]], np.float32)
-    scene.add(pt_api.TriangleMesh(vertices=verts,
-                                  faces=np.array([[0, 1, 2]], np.int32)))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        scene.freeze()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pt_config.load_config(os.path.join(CONFIG_DIR, "c4_mesh.yaml"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        from surfjax.config import load_config
-        ref_static, ref_params = load_config(
-            os.path.join(CONFIG_DIR, "c4_mesh.yaml"))[0].freeze()
-        from_reference(ref_static, ref_params)
+    faces = np.array([[0, 1, 2]], np.int32)
+    pairs = [(pt_api.Scene().add(pt_api.TriangleMesh(verts, faces)).freeze(),
+              sj_api.Scene().add(sj_api.TriangleMesh(verts, faces)).freeze())]
+    path = os.path.join(CONFIG_DIR, "c4_mesh.yaml")
+    ref = sj_config.load_config(path)[0].freeze()
+    pairs.append((pt_config.load_config(path)[0].freeze(), ref))
+    static, params = from_reference(*ref)
+    pairs.append(((static, {k: v.numpy() for k, v in params.items()}), ref))
+    for (static, params), (ref_static, ref_params) in pairs:
+        assert static == ref_static
+        assert static.ir.n_meshes == len(static.mesh_static) == 1
+        assert sorted(params) == sorted(ref_params)
+        for key, a in ref_params.items():
+            b = np.asarray(params[key])
+            assert b.dtype == a.dtype and b.shape == a.shape, key
+            assert b.tobytes() == a.tobytes(), key
+    assert pairs[1][0][0].mesh_static[0].n_tris == 8192
