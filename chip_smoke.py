@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive surfjax_torch's fused-frame and split (mesh) paths on one CUDA GPU
-and check them.
+"""Drive surfjax_torch's fused-frame, split (mesh), crowd and primed paths on
+one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -31,12 +31,30 @@ the script exits non-zero and never prints its last line):
      timed with CUDA events; launch counts (every split kernel > 0, the
      fused kernel 0), output checks, frame 0 against render();
   7. every split kernel call of one 1080p c4 frame against its plain
-     version, bitwise, both timed, in both modes.
+     version, bitwise, both timed, in both modes;
+  8. the crowd loops (settings.vector_objects) in KF, K1, K2 and ao_fix
+     against their plain versions, bitwise, at 256x256 x 2 frames: nine
+     and four small objects with hard shadows + AO and with soft shadows,
+     a crowd with no floor, pairs of all six CSG ops, analytic members,
+     configs/crowd_demo.yaml in both modes, and a crowd beside a mesh
+     through the split path; each also with the crowd off: geometry
+     bitwise equal, rgb within 2 ULP;
+  9. the crowd main path: configs/crowd_demo.yaml (49 objects) at
+     1920x1080, 48 camera positions in one render_sequence call, modes
+     `config` (hard shadows + AO) and `soft` (soft shadows on): launch
+     counts, outputs checked, frames 0, 24 and 47 of `config` against the
+     twin, bitwise; once per mode with the crowd off, for the record;
+ 10. the priming kernel against its plain version, bitwise, at 256x256 and
+     at 1920x1080; the primed main path: render(prime=True) on c3 at
+     1920x1080 launches prime_tile then KF with its t0; hit mask against
+     the unprimed frame's, times with and without priming;
+ 11. member-count scaling: crowds of 16, 64 and 256 spheres at 1920x1080.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
 per 1080p frame (value_exact mode for the fused kernel, `ao` mode for the
-split kernels) and bounds.
+split kernels, crowd_demo `config` for the fused kernel's crowd
+instantiation) and bounds.
 """
 
 from __future__ import annotations
@@ -63,6 +81,16 @@ LAUNCH_REPS = 10   # back-to-back launches per timed sample (phase 7)
 # twice that
 MESH_STEP_MAX = 5e-5
 MESH_DRIFT_MAX = 5e-4
+# the crowd main path (phase 9): on the H100 the hit fraction did not move
+# at all over 48 frames (the floor fills the frame below the horizon and
+# every object stands in front of it), so the bounds only catch a frame
+# that loses its floor; that the frames differ is checked on their depth
+CROWD_STEP_MAX = 1e-5
+CROWD_DRIFT_MAX = 1e-4
+# the fused kernel on c3 before the crowd and t0 existed (value_exact,
+# 48 frames per launch, NVIDIA H100 80GB HBM3 at 700 W), for comparison
+KF_BEFORE = "3.338 ms/frame, 72 registers, 264/416 bytes of spills"
+PRIME_HIT_MAX = 1e-4   # share of pixels whose hit flag priming may change
 
 
 def bound(n_ops: float, n_bytes: float):
@@ -117,6 +145,43 @@ def bitwise(out, ref, names, label: str) -> float:
     return max(errs)
 
 
+def check_sequence(mode: str, fb, n_objects: int, step_max: float,
+                   drift_max: float):
+    """Finite buffers, object ids in range, and a hit fraction that moves
+    between frames no more than the camera's 1e-4 per axis can explain.
+    -> (largest step, drift from frame 0)."""
+    import torch
+    for field in ("rgb", "depth", "normal", "hit"):
+        if not bool(torch.isfinite(getattr(fb, field)).all()):
+            raise AssertionError(f"{mode}: non-finite {field}")
+    if not (int(fb.obj_id.min()) >= -1 and int(fb.obj_id.max()) < n_objects):
+        raise AssertionError(f"{mode}: obj_id out of [-1, {n_objects})")
+    hit_frac = fb.hit.mean(dim=(1, 2))
+    step = float((hit_frac[1:] - hit_frac[:-1]).abs().max())
+    drift = float((hit_frac - hit_frac[0]).abs().max())
+    if step > step_max or drift > drift_max:
+        raise AssertionError(
+            f"{mode}: hit fraction moves by {step} between frames and by "
+            f"{drift} from frame 0 (bounds {step_max} and {drift_max})")
+    return step, drift
+
+
+def on_equals_off(label: str, on, off) -> int:
+    """Crowd on against crowd off: depth, normal, hit and obj_id bitwise
+    equal, rgb within 2 ULP -> the largest rgb ULP distance."""
+    import torch
+    for field in ("depth", "normal", "hit", "obj_id"):
+        if not torch.equal(getattr(on, field), getattr(off, field)):
+            raise AssertionError(f"{label}: crowd on differs from crowd off "
+                                 f"in {field}")
+    ulp = int((on.rgb.view(torch.int32) - off.rgb.view(torch.int32))
+              .abs().max())
+    if ulp > 2:
+        raise AssertionError(f"{label}: rgb differs by {ulp} ULP between "
+                             "crowd on and off (bound 2)")
+    return ulp
+
+
 def main() -> int:
     # -- phase 0 ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -144,7 +209,11 @@ def main() -> int:
     )
     from surfjax_torch.tools.workload import (
         EXACT, cam_rows_of, cuda_ms, gpu_line, main_path, mesh_main_path,
-        mesh_modes, mesh_soft_ao_scene, poses, reframe, two_mesh_scene,
+        crowd_cases, crowd_main_path, mesh_modes, mesh_soft_ao_scene, poses,
+        reframe, sphere_crowd, two_mesh_scene,
+    )
+    from surfjax_torch.kernels.render_tile import (
+        prime_frame, prime_tile, split_crowd,
     )
     smi = gpu_line()
     log(f"phase 0: gpu {smi} ({time.perf_counter() - t0:.2f} s)")
@@ -160,6 +229,8 @@ def main() -> int:
              or "stack frame" in ln]
     for ln in ptxas:
         log(f"  ptxas: {ln}")
+    log(f"  the fused kernel on c3 before the crowd loops and t0: "
+        f"{KF_BEFORE}; now: see kf_frame_kernel<false> above and phase 4")
     log(f"phase 1: built {os.path.relpath(info['path'], ROOT)} "
         f"(nvcc {info['seconds']:.1f} s, built={info['built']}) "
         f"({time.perf_counter() - t1:.1f} s)")
@@ -216,23 +287,11 @@ def main() -> int:
     if main_launches < 1:
         raise AssertionError("the main path launched no kernel")
     for mode, (times, st, fb) in results.items():
-        for field in ("rgb", "depth", "normal", "hit"):
-            if not bool(torch.isfinite(getattr(fb, field)).all()):
-                raise AssertionError(f"{mode}: non-finite {field}")
-        if not (int(fb.obj_id.min()) >= -1
-                and int(fb.obj_id.max()) < n_objects):
-            raise AssertionError(f"{mode}: obj_id out of [-1, {n_objects})")
         # the camera moves 1e-4 per frame on each axis; on the H100 the hit
         # fraction moved by at most 3.7e-5 from one frame to the next and
         # by 1.26e-3 from frame 0 to frame 47 (the twin agrees), so each
         # bound below leaves about twice that, or five times for a step
-        hit_frac = fb.hit.mean(dim=(1, 2))
-        step = float((hit_frac[1:] - hit_frac[:-1]).abs().max())
-        drift = float((hit_frac - hit_frac[0]).abs().max())
-        if step > 2e-4 or drift > 2.5e-3:
-            raise AssertionError(f"{mode}: hit fraction moves by {step} "
-                                 f"between frames and by {drift} from frame "
-                                 "0 (bounds 2e-4 and 2.5e-3)")
+        step, drift = check_sequence(mode, fb, n_objects, 2e-4, 2.5e-3)
         single = render(scene, dataclasses.replace(
             camera, position=tuple(float(x) for x in ps[0])), st, device=dev)
         for field in FrameBuffers._fields:
@@ -337,21 +396,8 @@ def main() -> int:
         needed = [k for k in split if k != "ao_fix" or st.ao]
         if any(counts[k] < 1 for k in needed) or counts["frame_fused"]:
             raise AssertionError(f"{mode}: launch counts {counts}")
-        for field in ("rgb", "depth", "normal", "hit"):
-            if not bool(torch.isfinite(getattr(fb, field)).all()):
-                raise AssertionError(f"{mode}: non-finite {field}")
-        if not (int(fb.obj_id.min()) >= -1
-                and int(fb.obj_id.max()) < n_objects):
-            raise AssertionError(f"{mode}: obj_id out of [-1, {n_objects})")
-        # 1e-4 per frame of camera motion on each axis
-        hit_frac = fb.hit.mean(dim=(1, 2))
-        step = float((hit_frac[1:] - hit_frac[:-1]).abs().max())
-        drift = float((hit_frac - hit_frac[0]).abs().max())
-        if step > MESH_STEP_MAX or drift > MESH_DRIFT_MAX:
-            raise AssertionError(
-                f"{mode}: hit fraction moves by {step} between frames and "
-                f"by {drift} from frame 0 (bounds {MESH_STEP_MAX} and "
-                f"{MESH_DRIFT_MAX})")
+        step, drift = check_sequence(mode, fb, n_objects, MESH_STEP_MAX,
+                                     MESH_DRIFT_MAX)
         single = render(scene, dataclasses.replace(
             camera, position=tuple(float(x) for x in ps[0])), st, device=dev)
         for field in FrameBuffers._fields:
@@ -414,13 +460,236 @@ def main() -> int:
     log(f"phase 7: split kernels vs plain at one 1920x1080 frame "
         f"({time.perf_counter() - t7:.1f} s) on {smi}")
 
+    # -- phase 8 ------------------------------------------------------------
+    # the crowd loops: kernel against plain and crowd on against crowd off
+    t8 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    demo_path = os.path.join(ROOT, "configs/crowd_demo.yaml")
+    demo_scene, demo_cam, demo_st, _ = load_config(demo_path)
+    if not demo_st.vector_objects:
+        raise AssertionError("crowd_demo.yaml no longer sets vector_objects")
+    cases = {name: (sc, reframe(cam, 256, 256), st)
+             for name, (sc, cam, st) in crowd_cases(api).items()}
+    for mode, over in (("config", {}), ("soft", dict(soft_shadows=True))):
+        cases[f"crowd_demo {mode}"] = (
+            demo_scene, reframe(demo_cam, 256, 256),
+            demo_st.with_(backend="pallas", vector_objects=False, **over))
+    crowd_err, crowd_ulp = 0.0, 0
+    for name, (scene8, cam8, st8) in cases.items():
+        on = st8.with_(vector_objects=True)
+        static, params = scene8.freeze()
+        if split_crowd(static, on)[0] is None:
+            raise AssertionError(f"{name}: no crowd formed")
+        Rs, ps = poses(cam8, 2, rng.normal(0.0, 1e-3, (2, 3)))
+        if name == "crowd + mesh":
+            with capture_calls() as calls:
+                fb_on = render_sequence(scene8, cam8, (Rs, ps), on,
+                                        device=dev)
+            if not {"render_tile", "trace_rays", "ao_fix", "mesh_tile"} <= \
+                    {c[0] for c in calls}:
+                raise AssertionError(f"{name}: calls {[c[0] for c in calls]}")
+            for k, (kname, args) in enumerate(calls):
+                err, _, _ = compare(kname, args, f"{name} call {k}")
+                split_err[kname] = max(split_err[kname], err)
+            log(f"  {name}: {len(calls)} split kernel calls bitwise equal")
+        else:
+            scene_t = SceneTensors(static, params_to_device(params, dev))
+            before = frame_fused.launches
+            fb_on = render_sequence(scene8, cam8, (Rs, ps), on, device=dev)
+            if frame_fused.launches != before + 1:
+                raise AssertionError(f"{name}: expected one kernel launch")
+            ref = frame_fused_reference(scene_t, on, cam8.intrinsics,
+                                        cam_rows_of(Rs, ps, dev))
+            crowd_err = max(crowd_err, bitwise(
+                fb_on, frame_buffers(ref), FrameBuffers._fields, name))
+        fb_off = render_sequence(scene8, cam8, (Rs, ps), st8, device=dev)
+        ulp = on_equals_off(name, fb_on, fb_off)
+        crowd_ulp = max(crowd_ulp, ulp)
+        log(f"  {name}: crowd on == crowd off (geometry bitwise, rgb "
+            f"{ulp} ULP)")
+    log(f"phase 8: crowd kernels vs plain and crowd on vs off passed for "
+        f"{len(cases)} scenes at 256x256 x 2 frames, rgb max ULP "
+        f"{crowd_ulp} ({time.perf_counter() - t8:.1f} s)")
+
+    # -- phase 9 ------------------------------------------------------------
+    # the crowd main path: crowd_demo at 1920x1080 x 48 frames
+    t9 = time.perf_counter()
+    scene, camera, Rs, ps, modes = crowd_main_path(demo_path)
+    n_frames = len(ps)
+    H, W = camera.intrinsics.height, camera.intrinsics.width
+    static, params = scene.freeze()
+    scene_t = SceneTensors(static, params_to_device(params, dev))
+    rows = cam_rows_of(Rs, ps, dev)
+    crowd_results = {}
+    frame_fused.launches = 0
+    for mode, st in modes.items():
+        call = lambda st=st: render_sequence(scene, camera, (Rs, ps), st,
+                                             device=dev)
+        call()
+        torch.cuda.synchronize()
+        times, fb = cuda_ms(call, 3)
+        crowd_results[mode] = (times, st, fb)
+    crowd_launches = frame_fused.launches
+    if crowd_launches < 1:
+        raise AssertionError("the crowd main path launched no kernel")
+    for mode, (times, st, fb) in crowd_results.items():
+        step, drift = check_sequence(mode, fb, len(scene.objects),
+                                     CROWD_STEP_MAX, CROWD_DRIFT_MAX)
+        if len(torch.unique(fb.obj_id[0])) < 40:
+            raise AssertionError(f"{mode}: fewer than 40 objects in view")
+        if torch.equal(fb.depth[0], fb.depth[-1]):
+            raise AssertionError(f"{mode}: the camera path did not move")
+        # the same call with the crowd off (49 objects fit the per-object
+        # path), once, for the record
+        off_ms, fb_off = cuda_ms(lambda st=st: render_sequence(
+            scene, camera, (Rs, ps), st.with_(vector_objects=False),
+            device=dev), 1)
+        ulp = on_equals_off(f"crowd_demo {mode} 1080p", fb, fb_off)
+        n_hits = float(fb.hit.sum()) / n_frames
+        rays = float(W * H) + n_hits * len(scene.lights) * st.shadows \
+            + n_hits * st.ao_samples * st.ao
+        s_frame = min(times) / 1e3 / n_frames
+        crowd_results[mode] = dict(
+            ms_per_frame=min(times) / n_frames,
+            ms_per_call=[round(t, 3) for t in times],
+            ms_per_frame_crowd_off=off_ms[0] / n_frames, rgb_ulp_vs_off=ulp,
+            frames_per_s=1.0 / s_frame, rays_per_frame=rays,
+            mrays_per_s=rays / s_frame / 1e6, hit_fraction=n_hits / (W * H),
+            hit_fraction_drift=drift, hit_fraction_max_step=step)
+        log(f"  {mode}: " + json.dumps(crowd_results[mode]))
+    # the kernel alone at the main path's shape, frames 0, 24 and 47 of the
+    # config mode against the twin
+    st = modes["config"]
+    frame_fused(scene_t, st, camera.intrinsics, rows)
+    k_ms, k_out = cuda_ms(
+        lambda: frame_fused(scene_t, st, camera.intrinsics, rows), 3)
+    p_ms = []
+    for f in (0, n_frames // 2, n_frames - 1):
+        ms, ref = cuda_ms(lambda: frame_fused_reference(
+            scene_t, st, camera.intrinsics, rows[f:f + 1]), 1)
+        p_ms += ms
+        crowd_err = max(crowd_err, bitwise(
+            tuple(a[f:f + 1] for a in k_out), ref, NINE,
+            f"crowd_demo config 1080p frame {f}"))
+    crowd_frame = (min(k_ms) / n_frames, sum(p_ms) / len(p_ms))
+    with count_ops() as crowd_ops:
+        frame_fused_reference(scene_t, st, camera.intrinsics, rows[:1])
+    crowd_bound = bound(crowd_ops["ops"], 9 * 4 * W * H)
+    log(f"  config: kernel {crowd_frame[0]:.4f} ms/frame ({n_frames} frames "
+        f"per launch), plain twin {crowd_frame[1]:.1f} ms/frame; bound "
+        f"{crowd_ops['ops']:.4g} ops, {crowd_bound[0]:.4f} ms "
+        f"({crowd_bound[1]})")
+    log(f"phase 9: crowd main path 1920x1080 x {n_frames} frames, kernel "
+        f"launches {crowd_launches} ({time.perf_counter() - t9:.1f} s) on "
+        f"{smi}")
+
+    # -- phase 10 -----------------------------------------------------------
+    # cone priming: the kernel against plain, then primed c3 at 1080p
+    t10 = time.perf_counter()
+    c3_scene, c3_cam, c3_st, _ = load_config(
+        os.path.join(ROOT, "configs/c3_sdf.yaml"))
+    c3_st = c3_st.with_(backend="pallas", prime=True)
+    prime_err = 0.0
+    for size in ((256, 256), (1920, 1080)):
+        cam10 = reframe(c3_cam, *size)
+        st10 = c3_st.with_(prime_min=min(c3_st.prime_min, 256))
+        prime_tile.launches = frame_fused.launches = 0
+        with capture_calls() as calls:
+            primed = render(c3_scene, cam10, st10, device=dev)
+        counts = (prime_tile.launches, frame_fused.launches)
+        if counts != (1, 1) or [c[0] for c in calls] != ["prime_tile"]:
+            raise AssertionError(f"primed frame {size}: launches {counts}, "
+                                 f"calls {[c[0] for c in calls]}")
+        args = calls[0][1]
+        err, got, _ = compare("prime_tile", args, f"prime_tile {size}")
+        prime_err = max(prime_err, err)
+        unprimed = render(c3_scene, cam10, st10.with_(prime=False),
+                          device=dev)
+        differ = int((primed.hit != unprimed.hit).sum())
+        rgb_gap = float((primed.rgb - unprimed.rgb).abs().mean())
+        log(f"  prime_tile {size[0]}x{size[1]}: {got[0].numel()} coarse rays "
+            f"bitwise equal; primed hit mask differs from the unprimed on "
+            f"{differ} pixels, mean |rgb| difference {rgb_gap:.3e}")
+        if differ > PRIME_HIT_MAX * size[0] * size[1]:
+            raise AssertionError(
+                f"priming changed the hit flag of {differ} pixels (bound "
+                f"{PRIME_HIT_MAX} of the frame)")
+        if not bool(torch.isfinite(primed.rgb).all()):
+            raise AssertionError("primed frame: non-finite rgb")
+    prime_launches = counts[0]
+    # times at 1080p: the priming kernel launched back to back, KF on one
+    # frame with and without its t0, and the two render() calls
+    launch, _ = KERNELS["prime_tile"][3](*args)
+    launch()
+    pk_ms, _ = cuda_ms(lambda: [launch() for _ in range(LAUNCH_REPS)], 3)
+    pp_ms, _ = cuda_ms(lambda: KERNELS["prime_tile"][1](*args), 1)
+    with count_ops() as prime_ops:
+        KERNELS["prime_tile"][1](*args)
+    n_coarse = got[0].numel()
+    prime_bound = bound(prime_ops["ops"], 7 * 4 * n_coarse)
+    static, params = c3_scene.freeze()
+    scene_t = SceneTensors(static, params_to_device(params, dev))
+    R10, pos10 = (torch.as_tensor(np.asarray(a, np.float32).reshape(-1),
+                                  device=dev)
+                  for a in (cam10.rotation, cam10.position))
+    t0 = prime_frame(static, cam10.intrinsics, st10, scene_t.params, R10,
+                     pos10)[None]
+    row = torch.cat([R10, pos10]).reshape(1, 12)
+    kf_t0, out_t0 = cuda_ms(lambda: frame_fused(
+        scene_t, st10, cam10.intrinsics, row, t0), 5)
+    kf_no, _ = cuda_ms(lambda: frame_fused(
+        scene_t, st10, cam10.intrinsics, row), 5)
+    ref = frame_fused_reference(scene_t, st10, cam10.intrinsics, row, t0)
+    prime_err = max(prime_err, bitwise(out_t0, ref, NINE,
+                                       "c3 value 1080p primed"))
+    call_p, _ = cuda_ms(lambda: render(c3_scene, cam10, st10, device=dev), 5)
+    call_u, _ = cuda_ms(lambda: render(
+        c3_scene, cam10, st10.with_(prime=False), device=dev), 5)
+    prime_stats = dict(
+        prime_tile_ms=min(pk_ms) / LAUNCH_REPS, plain_ms=pp_ms[0],
+        ops=prime_ops["ops"], coarse_rays=n_coarse,
+        kf_ms_with_t0=min(kf_t0), kf_ms_without_t0=min(kf_no),
+        render_ms_primed=min(call_p), render_ms_unprimed=min(call_u),
+        mean_t0=float(t0[t0 < st10.t_max].mean()))
+    log("  primed c3 1080p: " + json.dumps(prime_stats))
+    log(f"phase 10: priming kernel vs plain and the primed main path "
+        f"({time.perf_counter() - t10:.1f} s) on {smi}")
+
+    # -- phase 11 -----------------------------------------------------------
+    # member-count scaling: sphere crowds at 1080p, 8 frames per call
+    t11 = time.perf_counter()
+    for n_members in (16, 64, 256):
+        sc, cam11, st11 = sphere_crowd(api, n_members, size=(1920, 1080))
+        Rs11, ps11 = poses(cam11, 8, rng.normal(0.0, 1e-3, (8, 3)))
+        row = {}
+        for label, vo in (("on", True), ("off", False)):
+            if not vo and n_members + 1 > 64:
+                row[label] = None      # the per-object path takes 64
+                continue
+            call = lambda vo=vo: render_sequence(
+                sc, cam11, (Rs11, ps11), st11.with_(vector_objects=vo),
+                device=dev)
+            call()
+            torch.cuda.synchronize()
+            ms, fb = cuda_ms(call, 3)
+            row[label] = min(ms) / 8
+            row["hit_fraction"] = float(fb.hit.mean())
+            row["objects_in_view"] = len(torch.unique(fb.obj_id[0])) - 1
+        if row["objects_in_view"] < min(n_members, 40) // 2:
+            raise AssertionError(f"{n_members} members: {row}")
+        log(f"  {n_members} members: " + json.dumps(row))
+    log(f"phase 11: member-count scaling at 1920x1080, ms/frame "
+        f"({time.perf_counter() - t11:.1f} s) on {smi}")
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     # the fused kernel: times per 1080p frame in value_exact mode, the
     # error the largest over every buffer of phases 2 and 4; the split
     # kernels: times per 1080p frame of c4 in `ao` mode (all calls of the
     # frame, each kernel launched back to back), launches over both modes
-    # of phase 6, errors over phases 5 and 7
+    # of phase 6, errors over phases 5, 7 and 8; the crowd instantiation:
+    # crowd_demo `config` per 1080p frame, launches of phase 9, errors over
+    # phases 8 and 9; the priming kernel: the 1080p frame of phase 10
     kernels = [{
         "name": "frame_fused", "route": "cuda",
         "source": "surfjax_torch/kernels/csrc/frame_fused.cu",
@@ -429,6 +698,22 @@ def main() -> int:
         "ms": per_frame["value_exact"][0],
         "plain_ms": per_frame["value_exact"][1],
         "bound_ms": kf_bound[0], "bound_by": kf_bound[1],
+        "library_ms": None}, {
+        # the fused kernel's instantiation with the crowd's member loops
+        "name": "frame_fused_crowd", "route": "cuda",
+        "source": "surfjax_torch/kernels/csrc/frame_fused.cu",
+        "replaces": "surfjax/kernels/render_tile.py:1013",
+        "launches": crowd_launches, "max_abs_err": crowd_err,
+        "ms": crowd_frame[0], "plain_ms": crowd_frame[1],
+        "bound_ms": crowd_bound[0], "bound_by": crowd_bound[1],
+        "library_ms": None}, {
+        "name": "prime_tile", "route": "cuda",
+        "source": "surfjax_torch/kernels/csrc/prime_tile.cu",
+        "replaces": "surfjax/kernels/render_tile.py:634",
+        "launches": prime_launches, "max_abs_err": prime_err,
+        "ms": prime_stats["prime_tile_ms"],
+        "plain_ms": prime_stats["plain_ms"],
+        "bound_ms": prime_bound[0], "bound_by": prime_bound[1],
         "library_ms": None}]
     sources = {"render_tile": ("split_path.cu", "render_tile.py:2005"),
                "trace_rays": ("split_path.cu", "render_tile.py:2037"),
@@ -441,7 +726,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"surfjax_torch/kernels/csrc/{sources[name][0]}",
             "replaces": f"surfjax/kernels/{sources[name][1]}",
-            "launches": sum(mesh_launches[m][name] for m in modes),
+            "launches": sum(c[name] for c in mesh_launches.values()),
             "max_abs_err": split_err[name], "ms": st7["ms"],
             "plain_ms": st7["plain_ms"], "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None})

@@ -115,6 +115,7 @@ OP_SUBTRACT = 3
 OP_SMOOTH_UNION = 4
 OP_SMOOTH_INTERSECT = 5
 OP_SMOOTH_SUBTRACT = 6
+SMOOTH_OPS = (OP_SMOOTH_UNION, OP_SMOOTH_INTERSECT, OP_SMOOTH_SUBTRACT)
 
 
 @dataclasses.dataclass(frozen=True)

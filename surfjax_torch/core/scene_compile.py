@@ -23,8 +23,7 @@ from surfjax_torch import api
 from surfjax_torch.api import (
     Box, CSG, DirectionalLight, Mandelbulb, Plane, PointLight, Scene,
     SceneNode, Sphere, TriangleMesh,
-    OP_LEAF, OP_SMOOTH_INTERSECT, OP_SMOOTH_SUBTRACT, OP_SMOOTH_UNION,
-    OP_SUBTRACT,
+    OP_LEAF, OP_SMOOTH_SUBTRACT, OP_SUBTRACT, SMOOTH_OPS as _SMOOTH,
 )
 
 # Leaf kinds
@@ -84,9 +83,6 @@ class SceneWithMeshes(NamedTuple):
     (engines/mesh.MeshStatic)."""
     ir: SceneIR
     mesh_static: Tuple
-
-
-_SMOOTH = (OP_SMOOTH_UNION, OP_SMOOTH_INTERSECT, OP_SMOOTH_SUBTRACT)
 
 
 def _node_needs_sdf(node: SceneNode) -> bool:

@@ -60,7 +60,9 @@ class RenderSettings:
     tile_rows: int = 64
     # a TPU workaround of surfjax; carried for field parity, unused here
     subtile_rows: int = 0
-    # cone-march priming (not ported yet: must stay False on the fused path)
+    # cone-march priming on the kernel paths: a 1/4-resolution pass finds a
+    # safe SDF-march start for every 4x4 pixel block; frames smaller than
+    # prime_min pixels a side, and scenes with an active crowd, skip it
     prime: bool = False
     prime_min: int = 256
     # Mandelbulb iteration form on the fused path: "cheb" | "std"
@@ -68,8 +70,10 @@ class RenderSettings:
     # Mandelbulb DE epilogue log on the fused path: "hw" (the platform
     # log) | "portable" (core.math.portable_log, bitwise across backends)
     bulb_log: str = "hw"
-    # vectorized object loop ("crowd"; not ported yet: must stay False on
-    # the fused path)
+    # kernel paths: single sphere/box objects and two-leaf SDF pairs form a
+    # "crowd" taken by member loops (kernels/render_tile.py) instead of one
+    # table-driven object each; geometry is bitwise equal either way, and
+    # only objects outside the crowd count against the 64-object limit
     vector_objects: bool = False
 
     def with_(self, **kw) -> "RenderSettings":

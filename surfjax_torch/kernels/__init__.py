@@ -1,7 +1,8 @@
 """The pallas backend's kernels, each with its plain PyTorch version."""
 
 # While tools/kernel_check.capture_calls records, the list that collects
-# (wrapper name, arguments) of every split-path kernel-wrapper call;
+# (wrapper name, arguments) of every split-path and priming kernel-wrapper
+# call;
 # None otherwise.
 RECORDED_CALLS = None
 

@@ -26,7 +26,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
                      "-Xcompiler", "-fPIC")
-SOURCES = ("frame_fused.cu", "split_path.cu", "mesh_tile.cu")
+SOURCES = ("frame_fused.cu", "split_path.cu", "mesh_tile.cu",
+           "prime_tile.cu")
 
 
 def _source_files():
@@ -113,7 +114,7 @@ def load() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures."""
     from surfjax_torch.kernels.mesh_tile import MeshTileArgs
     from surfjax_torch.kernels.render_tile import (
-        KFSettings, KFTables, SplitRays,
+        KFSettings, KFTables, PrimeArgs, SplitRays,
     )
     lib = ctypes.CDLL(build()["path"])
     lib.kf_frame_fused.argtypes = [KFTables, KFSettings, ctypes.c_int,
@@ -121,10 +122,12 @@ def load() -> ctypes.CDLL:
     for name in ("sp_render_tile", "sp_trace_rays", "sp_ao_fix"):
         getattr(lib, name).argtypes = [KFTables, KFSettings, SplitRays,
                                        ctypes.c_int, ctypes.c_void_p]
+    lib.pt_prime_tile.argtypes = [KFTables, KFSettings, PrimeArgs,
+                                  ctypes.c_int, ctypes.c_void_p]
     lib.mt_mesh_tile.argtypes = [MeshTileArgs, ctypes.c_int,
                                  ctypes.c_void_p]
     for name in ("kf_frame_fused", "sp_render_tile", "sp_trace_rays",
-                 "sp_ao_fix", "mt_mesh_tile"):
+                 "sp_ao_fix", "pt_prime_tile", "mt_mesh_tile"):
         getattr(lib, name).restype = ctypes.c_int
     lib.kf_error_string.argtypes = [ctypes.c_int]
     lib.kf_error_string.restype = ctypes.c_char_p

@@ -4,7 +4,7 @@
 // Pallas TPU kernel whose body is _kframe_body): for F frames it generates
 // each pixel's camera ray, traces the scene (exact analytic hits, then one
 // bounded over-relaxed sphere march per SDF object, entered at its bounding
-// sphere), takes the normal, the AO probes, the soft or hard visibility of
+// sphere and, on a primed frame, not before the pixel's t0), takes the normal, the AO probes, the soft or hard visibility of
 // every light, and Blinn-Phong shading, and writes r, g, b, depth, object
 // id (as a float, -1 on a miss), normal and hit for every pixel.
 //
@@ -32,6 +32,13 @@
 //     the PyTorch twin's does (render_tile.frame_fused_reference).
 //   * The trace, normal, AO and visibility cores are device functions of
 //     frame_fused.cuh, shared with the split-path kernels (split_path.cu).
+//   * Large scenes (settings.vector_objects) replace surfjax's crowd
+//     sections (_crowd_trace, _crowd_normals, _crowd_ao_terms,
+//     _crowd_hard_vis, _crowd_soft_vis, _crowd_shade): single sphere/box
+//     objects and two-leaf pairs are taken by loops over member rows in
+//     those cores, which read a member's leaves directly instead of walking
+//     its tape. A crowd member is shaded like any object, from its row of
+//     the object table (material row, shininess).
 //
 // C interface (bound with ctypes, no PyTorch headers):
 //   int kf_frame_fused(KFTables tables, KFSettings settings, int device,
@@ -55,6 +62,7 @@ __device__ __forceinline__ float pow_int(float x, int n) {
   return result;
 }
 
+template <bool CROWD>
 __global__ void __launch_bounds__(128)
 kf_frame_kernel(const KFTables T, const KFSettings S) {
   const int j = blockIdx.x * 16 + (threadIdx.x & 15);
@@ -74,12 +82,13 @@ kf_frame_kernel(const KFTables T, const KFSettings S) {
   // primary trace, then the normal of the winning object
   float t, obj;
   int leaf;
-  trace_primary(T, S, o, d, t, obj, leaf);
+  const float t0 = T.t0 ? T.t0[((size_t)f * S.H + i) * S.W + j] : 0.0f;
+  trace_primary<CROWD>(T, S, o, d, t0, t, obj, leaf);
   const bool hit = t < KF_BIG * 0.5f;
   const float hitf = hit ? 1.0f : 0.0f;
   const float t_sane = hit ? t : 0.0f;
   const V3 p = along(o, d, t_sane);
-  const V3 n = hit_normal(T, S, obj, leaf, p, d);
+  const V3 n = hit_normal<CROWD>(T, S, obj, leaf, p, d);
 
   const size_t plane = (size_t)S.F * S.H * S.W;
   float* out = T.out + ((size_t)f * S.H + i) * S.W + j;
@@ -89,7 +98,7 @@ kf_frame_kernel(const KFTables T, const KFSettings S) {
     const float eps = S.shadow_eps;
     const V3 p_off{p.x + n.x * eps, p.y + n.y * eps, p.z + n.z * eps};
     const float ao =
-        (S.ao && S.n_objects > 0) ? ao_factor(T, S, p_off, n) : 1.0f;
+        (S.ao && S.n_objects > 0) ? ao_factor<CROWD>(T, S, p_off, n) : 1.0f;
     const int* ob = object_row(T, (int)obj);
     const float* mat = T.materials + ob[O_MAT] * KF_MAT_W;
     const int shin = ob[O_SHIN];
@@ -115,7 +124,7 @@ kf_frame_kernel(const KFTables T, const KFSettings S) {
       if (S.shadows) {
         const float radius = lrow[6];
         const float kf = radius > 0.0f ? dist / radius : S.soft_shadow_k;
-        vis = visibility(T, S, p_off, l, dist, kf);
+        vis = visibility<CROWD>(T, S, p_off, l, dist, kf);
       }
       // Blinn-Phong term of this light (shade.py::shade_object)
       float ndotl = fmaxf(vdot(n, l), 0.0f);
@@ -149,7 +158,14 @@ extern "C" int kf_frame_fused(KFTables tables, KFSettings settings,
   if (settings.F <= 0 || settings.H <= 0 || settings.W <= 0) return 0;
   dim3 block(128);
   dim3 grid((settings.W + 15) / 16, (settings.H + 7) / 8, settings.F);
-  kf_frame_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(tables, settings);
+  // scenes without a crowd take the instantiation without member loops
+  if (settings.n_crowd > 0) {
+    kf_frame_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        tables, settings);
+  } else {
+    kf_frame_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        tables, settings);
+  }
   return (int)cudaGetLastError();
 }
 

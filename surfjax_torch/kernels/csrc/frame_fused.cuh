@@ -12,10 +12,13 @@
 // Fixed per-thread bounds; the Python wrapper raises above them.
 #define KF_MAX_NODES 32        // tape value array (MAX_TAPE_NODES)
 #define KF_MAX_LEAVES 16       // event-CSG intervals (MAX_ANALYTIC_LEAVES)
-#define KF_MAX_OBJECTS 64      // AO near-object bit mask (MAX_OBJECTS)
+#define KF_MAX_OBJECTS 64      // AO near-object bit mask (MAX_OBJECTS):
+                               // the objects outside the crowd
+#define KF_MAX_AO_TAPS 36      // 9 AO directions x 4 taps
 
 // Row widths of the host-packed tables (render_tile.pack_scene).
-#define KF_OBJ_W 10
+#define KF_OBJ_W 12
+#define KF_CROWD_W 8
 #define KF_NODE_W 5
 #define KF_LEAF_W 5
 #define KF_LEAF_PARAM_W 8
@@ -33,32 +36,46 @@ enum { ENGINE_ANALYTIC = 0, ENGINE_SDF = 1, ENGINE_MESH = 2 };
 enum { LIGHT_POINT = 0 };
 // Columns of an object row.
 enum { O_ENGINE = 0, O_MAT, O_SHIN, O_NODE0, O_NNODES, O_LEAF0, O_NLEAVES,
-       O_BOUNDABLE, O_CLOSED_FORM, O_BULB_SHELL };
+       O_BOUNDABLE, O_CLOSED_FORM, O_BULB_SHELL,
+       O_CROWD,         // the object's crowd member row, -1 outside the crowd
+       O_PROXY_BOUND }; // the priming proxy takes its lower-bound sphere
+// Columns of a crowd row: crowd_meta's six, then the member's type and its
+// tag (is_sphere for a single; is_sphere0 | is_sphere1 << 1 | op << 2 for a
+// pair). Members [0, crowd_sdf_end) are SDF singles, up to crowd_single_end
+// analytic singles, the rest SDF pairs; spheres come before boxes.
+enum { C_SLOT0 = 0, C_OBJ, C_MAT, C_SHIN_GROUP, C_SLOT1, C_PSLOT, C_TYPE,
+       C_TAG };
+enum { CROWD_SDF = 0, CROWD_ANALYTIC = 1, CROWD_PAIR = 2 };
 
 // Device pointers, one struct by value (render_tile.KFTables).
 struct KFTables {
   const int* objects;       // (n_objects, KF_OBJ_W), meshes included
   const int* nodes;         // (total nodes, KF_NODE_W): op, a, b, leaf, pslot
   const int* leaves;        // (total leaves, KF_LEAF_W): kind slot sign p0 p1
-  const int* order;         // analytic, SDF by nodes, non-mesh by nodes
+  const int* order;         // of the objects outside the crowd: analytic,
+                            // SDF by nodes, both by nodes
   const int* light_kinds;   // (n_lights,)
+  const int* crowd;         // (max(1, n_crowd), KF_CROWD_W)
   const float* leaf_params; // (n_leaf_rows, 8)
   const float* node_params; // (n_k, 1) smooth-op k
   const float* lights;      // (n_lights, 7)
   const float* materials;   // (n_mats, 9)
   const float* ambient;     // (3,)
   const float* cam_rows;    // (F, 12): R_flat(9), position(3); KF only
+  const float* t0;          // (F, H, W) primed march starts or null; KF only
   float* out;               // (9, F, H, W): r g b depth obj nx ny nz hit;
                             // KF only
 };
 
 // Settings by value (render_tile.KFSettings); floats already rounded to f32.
-// n_objects counts mesh objects too; n_ana + n_sdf are the non-mesh ones
-// (the split path intersects meshes in mesh_tile.cu).
+// n_objects counts mesh objects and crowd members too; n_ana + n_sdf are
+// the non-mesh objects outside the crowd (the split path intersects meshes
+// in mesh_tile.cu).
 struct KFSettings {
   int F, H, W, n_objects, n_ana, n_sdf, n_lights;
   int max_steps, shadow_steps, shadows, soft_shadows, ao, ao_samples;
   int normals_fd, relaxed, bulb_cheb, bulb_portable, secondary_lod, ao_lod;
+  int n_crowd, crowd_sdf_end, crowd_single_end;
   float fx, fy, cx, cy, t_min, t_max, hit_eps, hit_eps_scale, over_relax;
   float normal_eps, soft_shadow_k, soft_shadow_tmin, shadow_eps, ao_radius;
   float ao_strength, exit_margin, default_shell, bg_r, bg_g, bg_b;
@@ -463,14 +480,16 @@ __device__ __forceinline__ void bound_entry(Bound b, V3 o, V3 d,
   clip2 = none ? t_clip : fminf(t_clip, t_out);
 }
 
-// Bounded (over-relaxed) sphere march of one object; returns hit, t in t.
-static __device__ __noinline__ bool march(const KFTables& T, const KFSettings& S,
-                                   const int* ob, V3 o, V3 d, float& t,
-                                   float t_clip) {
+// Bounded (over-relaxed) sphere march along o + t*d of the SDF `sdf`;
+// returns hit, t in t.
+template <class Sdf>
+__device__ __forceinline__ bool march_loop(const KFSettings& S, Sdf sdf,
+                                           V3 o, V3 d, float& t,
+                                           float t_clip) {
   bool done = t >= t_clip, hit = false;
   float h_prev = 0.0f, st_prev = 0.0f;
   for (int i = 0; i < S.max_steps && !done; ++i) {
-    float h = eval_obj(T, S, ob, along(o, d, t), 0);
+    float h = sdf(along(o, d, t));
     bool ovr = S.relaxed && (st_prev > h_prev + fabsf(h));
     float okf = ovr ? 0.0f : 1.0f;
     bool hit_now = !ovr && (h < S.hit_eps + S.hit_eps_scale * t);
@@ -488,15 +507,15 @@ static __device__ __noinline__ bool march(const KFTables& T, const KFSettings& S
   return hit;
 }
 
-// Penumbra march of one object over [t, t_max] -> visibility in [0, 1].
-static __device__ __noinline__ float soft_march(const KFTables& T,
-                                         const KFSettings& S, const int* ob,
-                                         V3 o, V3 l, float t, float t_max,
-                                         float kf) {
+// Penumbra march of the SDF `sdf` over [t, t_max] -> visibility in [0, 1].
+template <class Sdf>
+__device__ __forceinline__ float soft_march_loop(const KFSettings& S, Sdf sdf,
+                                                 V3 o, V3 l, float t,
+                                                 float t_max, float kf) {
   float res = 1.0f, h_prev = 0.0f, st_prev = 0.0f;
   bool done = t > t_max;
   for (int i = 0; i < S.shadow_steps && !done; ++i) {
-    float h = eval_obj(T, S, ob, along(o, l, t), S.secondary_lod);
+    float h = sdf(along(o, l, t));
     bool ovr = S.relaxed && (st_prev > h_prev + fabsf(h));
     float okf = ovr ? 0.0f : 1.0f;
     float res_new = fminf(res, kf * h / t);
@@ -513,6 +532,135 @@ static __device__ __noinline__ float soft_march(const KFTables& T,
     }
   }
   return clampf(res, 0.0f, 1.0f);
+}
+
+// The marches of one object, through its tape.
+static __device__ __noinline__ bool march(const KFTables& T, const KFSettings& S,
+                                   const int* ob, V3 o, V3 d, float& t,
+                                   float t_clip) {
+  return march_loop(S, [&](V3 p) { return eval_obj(T, S, ob, p, 0); }, o, d,
+                    t, t_clip);
+}
+
+static __device__ __noinline__ float soft_march(const KFTables& T,
+                                         const KFSettings& S, const int* ob,
+                                         V3 o, V3 l, float t, float t_max,
+                                         float kf) {
+  return soft_march_loop(
+      S, [&](V3 p) { return eval_obj(T, S, ob, p, S.secondary_lod); }, o, l,
+      t, t_max, kf);
+}
+
+// ---------------------------------------------------------------------------
+// The crowd: one member of the member loops (render_tile.py, "The crowd").
+// A member's SDF and bound come straight from its leaf rows, not through
+// the tape walker; the arithmetic is the tape's for the same object.
+// ---------------------------------------------------------------------------
+
+struct CrowdMember {
+  const float* prm0;
+  const float* prm1;   // the second leaf of a pair
+  float k;             // blend radius of a smooth pair
+  float obj;           // object index, as the trace carries it
+  int type;            // CROWD_SDF, CROWD_ANALYTIC or CROWD_PAIR
+  bool s0, s1;         // leaf 0 / leaf 1 is a sphere (else a box)
+  int op;              // a pair's CSG op
+};
+
+__device__ __forceinline__ CrowdMember crowd_member(const KFTables& T,
+                                                    int j) {
+  const int* row = T.crowd + j * KF_CROWD_W;
+  CrowdMember m;
+  m.prm0 = T.leaf_params + row[C_SLOT0] * KF_LEAF_PARAM_W;
+  m.prm1 = T.leaf_params + row[C_SLOT1] * KF_LEAF_PARAM_W;
+  m.obj = (float)row[C_OBJ];
+  m.type = row[C_TYPE];
+  const int tag = row[C_TAG];
+  m.s0 = tag & 1;
+  m.s1 = (tag >> 1) & 1;
+  m.op = m.type == CROWD_PAIR ? tag >> 2 : OP_LEAF;
+  m.k = m.op >= OP_SMOOTH_UNION ? T.node_params[row[C_PSLOT]] : 0.0f;
+  return m;
+}
+
+__device__ __forceinline__ float crowd_leaf(const float* prm, bool sphere,
+                                            V3 p) {
+  return sphere ? sdf_sphere(prm, p) : sdf_box(prm, p);
+}
+
+__device__ __forceinline__ float crowd_sdf(const CrowdMember& m, V3 p) {
+  const float a = crowd_leaf(m.prm0, m.s0, p);
+  if (m.op == OP_LEAF) return a;
+  const float b = crowd_leaf(m.prm1, m.s1, p);
+  const float k = m.k;
+  switch (m.op) {
+    case OP_UNION: return fminf(a, b);
+    case OP_INTERSECT: return fmaxf(a, b);
+    case OP_SUBTRACT: return fmaxf(a, -b);
+    case OP_SMOOTH_UNION: {
+      float h = sat(0.5f + 0.5f * (b - a) / k);
+      return (b + (a - b) * h) - k * h * (1.0f - h);
+    }
+    case OP_SMOOTH_INTERSECT: {
+      float h = sat(0.5f - 0.5f * (b - a) / k);
+      return (b + (a - b) * h) + k * h * (1.0f - h);
+    }
+    default: {
+      float h = sat(0.5f - 0.5f * (b + a) / k);
+      return (a + (-b - a) * h) + k * h * (1.0f - h);
+    }
+  }
+}
+
+__device__ __forceinline__ Bound crowd_leaf_bound(const float* prm,
+                                                  bool sphere) {
+  const float r = sphere ? prm[3]
+      : sqrtf((prm[3] * prm[3] + prm[4] * prm[4]) + prm[5] * prm[5]);
+  return Bound{prm[0], prm[1], prm[2], r};
+}
+
+// Bounding sphere of a member: the leaf's own, or for a pair the mean
+// centre, the larger leaf reach and k/4 for a smooth op (object_bound's
+// arithmetic for a two-leaf tape). Cover and lower bound at once.
+__device__ __forceinline__ Bound crowd_bound(const CrowdMember& m) {
+  const Bound b0 = crowd_leaf_bound(m.prm0, m.s0);
+  if (m.op == OP_LEAF) return b0;
+  const Bound b1 = crowd_leaf_bound(m.prm1, m.s1);
+  const float cx = (b0.cx + b1.cx) * 0.5f, cy = (b0.cy + b1.cy) * 0.5f;
+  const float cz = (b0.cz + b1.cz) * 0.5f;
+  float dx = b0.cx - cx, dy = b0.cy - cy, dz = b0.cz - cz;
+  float R = sqrtf((dx * dx + dy * dy) + dz * dz) + b0.R;
+  dx = b1.cx - cx; dy = b1.cy - cy; dz = b1.cz - cz;
+  R = fmaxf(R, sqrtf((dx * dx + dy * dy) + dz * dz) + b1.R);
+  if (m.op >= OP_SMOOTH_UNION) R = R + m.k * 0.25f;
+  return Bound{cx, cy, cz, R};
+}
+
+static __device__ __noinline__ bool crowd_march(const KFSettings& S,
+                                                const CrowdMember& m, V3 o,
+                                                V3 d, float& t, float t_clip) {
+  return march_loop(S, [&](V3 p) { return crowd_sdf(m, p); }, o, d, t,
+                    t_clip);
+}
+
+static __device__ __noinline__ float crowd_soft_march(const KFSettings& S,
+                                                      const CrowdMember& m,
+                                                      V3 o, V3 l, float t,
+                                                      float t_max, float kf) {
+  return soft_march_loop(S, [&](V3 p) { return crowd_sdf(m, p); }, o, l, t,
+                         t_max, kf);
+}
+
+// Nearest boundary of a member's single sphere/box leaf in (t_min, t_max),
+// KF_BIG on a miss: intersect_analytic's single-leaf case.
+__device__ __forceinline__ float crowd_exact_t(const CrowdMember& m, V3 o,
+                                               V3 d, float t_min,
+                                               float t_max) {
+  float i0, i1;
+  leaf_interval(m.s0 ? LEAF_SPHERE : LEAF_BOX, m.prm0, o, d, i0, i1);
+  bool e0 = (i0 > t_min) && (i0 < t_max);
+  bool e1 = (i1 > t_min) && (i1 < t_max);
+  return e0 ? i0 : (e1 ? i1 : KF_BIG);
 }
 
 // ---------------------------------------------------------------------------
@@ -618,12 +766,21 @@ __device__ __forceinline__ const float* first_leaf_params(const KFTables& T,
 }
 
 // Primary trace over (t_min, t_max) of the non-mesh objects: analytic
-// objects exactly, then SDF marches cheapest tape first, each clipped by
-// the nearest hit so far. t is KF_BIG and obj -1 on a miss.
+// objects exactly, then the analytic crowd members; then the SDF marches,
+// the crowd's members first (singles, then pairs), then the other objects
+// cheapest tape first, each clipped by the nearest hit so far. t0 is the
+// primed start of the SDF marches (0 when the frame is not primed). t is
+// KF_BIG and obj -1 on a miss.
+//
+// The cores below are templates on CROWD: the kernels are instantiated
+// once without the member loops, for scenes with no crowd (n_crowd == 0),
+// whose code and register use are then what they were before the crowd
+// existed, and once with them.
+template <bool CROWD>
 __device__ __forceinline__ void trace_primary(const KFTables& T,
                                               const KFSettings& S, V3 o,
-                                              V3 d, float& t, float& obj,
-                                              int& leaf) {
+                                              V3 d, float t0, float& t,
+                                              float& obj, int& leaf) {
   t = KF_BIG;
   obj = -1.0f;
   leaf = 0;
@@ -634,36 +791,81 @@ __device__ __forceinline__ void trace_primary(const KFTables& T,
                                   S.t_max, li);
     if (ti < t) { t = ti; obj = (float)oi; leaf = li; }
   }
-  if (S.n_sdf > 0) {
-    float t_clip = fminf(t, S.t_max);
-    for (int k = 0; k < S.n_sdf; ++k) {
-      const int oi = T.order[S.n_ana + k];
-      const int* ob = object_row(T, oi);
+  if constexpr (CROWD) {
+    for (int j = S.crowd_sdf_end; j < S.crowd_single_end; ++j) {
+      const CrowdMember m = crowd_member(T, j);
+      float tj = crowd_exact_t(m, o, d, S.t_min, S.t_max);
+      if (tj < t) { t = tj; obj = m.obj; leaf = 0; }
+    }
+  }
+  const float t_start = fmaxf(t0, S.t_min);
+  float t_clip = fminf(t, S.t_max);
+  if constexpr (CROWD) {
+    for (int j = 0; j < S.n_crowd; ++j) {
+      if (j == S.crowd_sdf_end) j = S.crowd_single_end;  // SDF members only
+      if (j >= S.n_crowd) break;
+      const CrowdMember m = crowd_member(T, j);
       float t1, clip2;
-      if (ob[O_BOUNDABLE]) {
-        Bound b = object_bound(T, ob, 0, S.exit_margin);
-        bound_entry(b, o, d, S.t_min, t_clip, entry_shell(T, S, ob), t1,
-                    clip2);
-      } else {
-        t1 = S.t_min;
-        clip2 = t_clip;
-      }
-      bool hit_i = march(T, S, ob, o, d, t1, clip2);
-      if (hit_i && t1 < t) { t = t1; obj = (float)oi; leaf = 0; }
+      bound_entry(crowd_bound(m), o, d, t_start, t_clip, S.default_shell,
+                  t1, clip2);
+      // a ray that misses the bound is done before its first step
+      bool hit_j = t1 < clip2 && crowd_march(S, m, o, d, t1, clip2);
+      if (hit_j && t1 < t) { t = t1; obj = m.obj; leaf = 0; }
       t_clip = fminf(t_clip, t);
     }
   }
+  for (int k = 0; k < S.n_sdf; ++k) {
+    const int oi = T.order[S.n_ana + k];
+    const int* ob = object_row(T, oi);
+    float t1, clip2;
+    if (ob[O_BOUNDABLE]) {
+      Bound b = object_bound(T, ob, 0, S.exit_margin);
+      bound_entry(b, o, d, t_start, t_clip, entry_shell(T, S, ob), t1,
+                  clip2);
+    } else {
+      t1 = t_start;
+      clip2 = t_clip;
+    }
+    bool hit_i = march(T, S, ob, o, d, t1, clip2);
+    if (hit_i && t1 < t) { t = t1; obj = (float)oi; leaf = 0; }
+    t_clip = fminf(t_clip, t);
+  }
+}
+
+// The FD tetrahedron's normal from its four SDF samples.
+__device__ __forceinline__ V3 fd_normal(float s0, float s1, float s2,
+                                        float s3) {
+  float nx = ((s0 - s1) - s2) + s3;
+  float ny = ((-s0 - s1) + s2) + s3;
+  float nz = ((-s0 + s1) - s2) + s3;
+  float inv = 1.0f / sqrtf((nx * nx + ny * ny) + nz * nz);
+  return V3{nx * inv, ny * inv, nz * inv};
 }
 
 // Normal of the winning object at p (analytic leaf normal, or the FD
 // tetrahedron of its tape), (0, 0, 1) on a miss; face-forwarded against d.
+template <bool CROWD>
 __device__ __forceinline__ V3 hit_normal(const KFTables& T,
                                          const KFSettings& S, float obj,
                                          int leaf, V3 p, V3 d) {
   V3 n{0.0f, 0.0f, 1.0f};
   if (obj >= 0.0f) {
     const int* ob = object_row(T, (int)obj);
-    if (ob[O_ENGINE] == ENGINE_ANALYTIC && !S.normals_fd) {
+    if (CROWD && ob[O_CROWD] >= 0) {
+      // a crowd member: its leaf's closed-form normal (analytic members,
+      // normals "auto") or the FD tetrahedron of its own SDF
+      const CrowdMember m = crowd_member(T, ob[O_CROWD]);
+      if (m.type == CROWD_ANALYTIC && !S.normals_fd) {
+        n = leaf_normal(m.s0 ? LEAF_SPHERE : LEAF_BOX, m.prm0, p);
+      } else {
+        const float e = S.normal_eps;
+        float s0 = crowd_sdf(m, V3{p.x + e, p.y - e, p.z - e});
+        float s1 = crowd_sdf(m, V3{p.x - e, p.y - e, p.z + e});
+        float s2 = crowd_sdf(m, V3{p.x - e, p.y + e, p.z - e});
+        float s3 = crowd_sdf(m, V3{p.x + e, p.y + e, p.z + e});
+        n = fd_normal(s0, s1, s2, s3);
+      }
+    } else if (ob[O_ENGINE] == ENGINE_ANALYTIC && !S.normals_fd) {
       const int* lf = T.leaves + (ob[O_LEAF0] + leaf) * KF_LEAF_W;
       V3 nl = leaf_normal(lf[0], T.leaf_params + lf[1] * KF_LEAF_PARAM_W, p);
       const float s = (float)lf[2];
@@ -674,11 +876,7 @@ __device__ __forceinline__ V3 hit_normal(const KFTables& T,
       float s1 = eval_obj(T, S, ob, V3{p.x - e, p.y - e, p.z + e}, 0);
       float s2 = eval_obj(T, S, ob, V3{p.x - e, p.y + e, p.z - e}, 0);
       float s3 = eval_obj(T, S, ob, V3{p.x + e, p.y + e, p.z + e}, 0);
-      float nx = ((s0 - s1) - s2) + s3;
-      float ny = ((-s0 - s1) + s2) + s3;
-      float nz = ((-s0 + s1) - s2) + s3;
-      float inv = 1.0f / sqrtf((nx * nx + ny * ny) + nz * nz);
-      n = V3{nx * inv, ny * inv, nz * inv};
+      n = fd_normal(s0, s1, s2, s3);
     }
   }
   const float sgn = vdot(n, d) > 0.0f ? -1.0f : 1.0f;
@@ -687,16 +885,22 @@ __device__ __forceinline__ V3 hit_normal(const KFTables& T,
 
 // AO factor at the offset receiver q0 with normal n, over the non-mesh
 // objects. Per tap the occlusion of the unboundable objects (one
-// scene-min group) and of every bounded object within 2*ao_radius combine
-// by max; a farther object contributes exactly zero and is skipped.
+// scene-min group), of every other bounded object and of every crowd member
+// within 2*ao_radius combine by max; a farther one contributes exactly
+// zero and is skipped. The objects outside the crowd are at most
+// KF_MAX_OBJECTS (one bit each); crowd members are not counted: with a
+// crowd the tap terms are kept per thread and each near member is folded
+// into them in turn (max is exact in any order).
+template <bool CROWD>
 static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettings& S,
                                         V3 q0, V3 n) {
   unsigned long long near = 0ull;
   bool any_unbounded = false;
   const float gate = 2.0f * S.ao_radius;
-  for (int oi = 0; oi < S.n_objects; ++oi) {
-    const int* ob = object_row(T, oi);
-    if (ob[O_ENGINE] == ENGINE_MESH) continue;
+  const int n_rest = S.n_ana + S.n_sdf;
+  const int* rest = T.order + n_rest;
+  for (int k = 0; k < n_rest; ++k) {
+    const int* ob = object_row(T, rest[k]);
     if (!ob[O_BOUNDABLE]) {
       any_unbounded = true;
       continue;
@@ -704,7 +908,7 @@ static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettin
     Bound b = object_bound(T, ob, 1, 0.0f);
     float dx = q0.x - b.cx, dy = q0.y - b.cy, dz = q0.z - b.cz;
     float hb = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
-    if (hb <= gate) near |= 1ull << oi;
+    if (hb <= gate) near |= 1ull << k;
   }
   bool big_y = fabsf(n.y) > F(0.9);
   float hx = big_y ? 1.0f : 0.0f, hy = big_y ? 0.0f : 1.0f;
@@ -712,6 +916,7 @@ static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettin
   V3 t2{n.y * t1.z - n.z * t1.y, n.z * t1.x - n.x * t1.z,
         n.x * t1.y - n.y * t1.x};
   const int cap = S.ao_lod;
+  float terms[CROWD ? KF_MAX_AO_TAPS : 1];
   float occ = 0.0f;
   for (int s = 0; s < S.ao_samples; ++s) {
     const float ax = AO_DIRS[s][0], ay = AO_DIRS[s][1], az = AO_DIRS[s][2];
@@ -726,22 +931,50 @@ static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettin
       if (any_unbounded) {
         float hmin = 0.0f;
         bool first = true;
-        for (int oi = 0; oi < S.n_objects; ++oi) {
-          const int* ob = object_row(T, oi);
-          if (ob[O_ENGINE] == ENGINE_MESH || ob[O_BOUNDABLE]) continue;
+        for (int k = 0; k < n_rest; ++k) {
+          const int* ob = object_row(T, rest[k]);
+          if (ob[O_BOUNDABLE]) continue;
           float h = eval_obj(T, S, ob, q, cap);
           hmin = first ? h : fminf(hmin, h);
           first = false;
         }
         term = fmaxf(azr - hmin, 0.0f) / r;
       }
-      for (int oi = 0; oi < S.n_objects; ++oi) {
-        if (!((near >> oi) & 1ull)) continue;
-        float h = eval_obj(T, S, object_row(T, oi), q, cap);
+      for (int k = 0; k < n_rest; ++k) {
+        if (!((near >> k) & 1ull)) continue;
+        float h = eval_obj(T, S, object_row(T, rest[k]), q, cap);
         term = fmaxf(term, fmaxf(azr - h, 0.0f) / r);
       }
-      occ = (s == 0 && tap == 1) ? term : occ + term;
+      if constexpr (CROWD) {
+        terms[s * 4 + tap - 1] = term;
+      } else {
+        occ = (s == 0 && tap == 1) ? term : occ + term;
+      }
     }
+  }
+  if constexpr (CROWD) {
+    for (int j = 0; j < S.n_crowd; ++j) {
+      const CrowdMember m = crowd_member(T, j);
+      const Bound b = crowd_bound(m);
+      float dx = q0.x - b.cx, dy = q0.y - b.cy, dz = q0.z - b.cz;
+      if (!(sqrtf((dx * dx + dy * dy) + dz * dz) - b.R <= gate)) continue;
+      for (int s = 0; s < S.ao_samples; ++s) {
+        const float ax = AO_DIRS[s][0], ay = AO_DIRS[s][1];
+        const float az = AO_DIRS[s][2];
+        V3 dd{(ax * t1.x + ay * t2.x) + az * n.x,
+              (ax * t1.y + ay * t2.y) + az * n.y,
+              (ax * t1.z + ay * t2.z) + az * n.z};
+        for (int tap = 1; tap <= 4; ++tap) {
+          const float r = (S.ao_radius * (float)tap) * 0.25f;
+          V3 q{q0.x + dd.x * r, q0.y + dd.y * r, q0.z + dd.z * r};
+          float h = crowd_sdf(m, q);
+          float& term = terms[s * 4 + tap - 1];
+          term = fmaxf(term, fmaxf(az * r - h, 0.0f) / r);
+        }
+      }
+    }
+    for (int i = 0; i < S.ao_samples * 4; ++i)
+      occ = i == 0 ? terms[0] : occ + terms[i];
   }
   occ = occ / (float)(S.ao_samples * 4);
   return sat(1.0f - S.ao_strength * occ);
@@ -749,6 +982,7 @@ static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettin
 
 // Visibility of one light from the offset receiver o along l over
 // [.., dist] through the non-mesh objects; kf is the penumbra sharpness.
+template <bool CROWD>
 static __device__ __noinline__ float visibility(const KFTables& T,
                                          const KFSettings& S, V3 o, V3 l,
                                          float dist, float kf) {
@@ -756,6 +990,21 @@ static __device__ __noinline__ float visibility(const KFTables& T,
     const float t0 = S.soft_shadow_tmin;
     const int* ord = T.order + S.n_ana + S.n_sdf;
     float soft_vis = 1.0f;
+    // the crowd: spheres in closed form, boxes and pairs by windowed
+    // marches; a lane already dark gains nothing from a further member
+    for (int j = 0; CROWD && j < S.n_crowd && soft_vis > 0.0f; ++j) {
+      const CrowdMember m = crowd_member(T, j);
+      float v;
+      if (m.op == OP_LEAF && m.s0) {
+        v = penumbra_sphere(m.prm0, o, l, t0, dist, kf);
+      } else {
+        float t_lo, t_hi;
+        influence_window(crowd_bound(m), o, l, t0, dist, kf, t_lo, t_hi);
+        v = crowd_soft_march(S, m, o, l, fmaxf(t_lo, t0), fminf(dist, t_hi),
+                             kf);
+      }
+      soft_vis = fminf(soft_vis, v);
+    }
     for (int k = 0; k < S.n_ana + S.n_sdf; ++k) {
       const int* ob = object_row(T, ord[k]);
       const int cf = ob[O_CLOSED_FORM];
@@ -787,6 +1036,27 @@ static __device__ __noinline__ float visibility(const KFTables& T,
     float ti = intersect_analytic(T, object_row(T, T.order[k]), o, l,
                                   S.shadow_eps, dist, leaf);
     vis = vis * (ti < dist ? 0.0f : 1.0f);
+  }
+  // the crowd: SDF members (singles, then pairs) by any-hit marches, then
+  // the analytic members exactly; an occluded lane stays occluded
+  for (int pass = 0; CROWD && pass < 2; ++pass) {
+    for (int j = 0; j < S.n_crowd && vis > 0.0f; ++j) {
+      const CrowdMember m = crowd_member(T, j);
+      if ((m.type == CROWD_ANALYTIC) != (pass == 1)) continue;
+      if (pass == 1) {
+        float tj = crowd_exact_t(m, o, l, S.shadow_eps, dist);
+        vis = vis * (tj < dist ? 0.0f : 1.0f);
+        continue;
+      }
+      const Bound b = crowd_bound(m);
+      float dist_j = dist;
+      if (seg_bound_dist(b, o, l, S.shadow_eps, dist_j) > S.exit_margin)
+        dist_j = 0.0f;
+      float t1, clip2;
+      bound_entry(b, o, l, S.shadow_eps, dist_j, S.default_shell, t1, clip2);
+      bool hit = t1 < clip2 && crowd_march(S, m, o, l, t1, clip2);
+      vis = vis * ((hit && t1 < dist_j) ? 0.0f : 1.0f);
+    }
   }
   for (int k = 0; k < S.n_sdf; ++k) {
     const int* ob = object_row(T, T.order[S.n_ana + k]);

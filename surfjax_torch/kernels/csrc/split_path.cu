@@ -5,7 +5,8 @@
 //   * sp_render_tile_kernel <- surfjax/kernels/render_tile.py
 //     ::render_tile_kernel (K1, body _k1_body): primary trace of the
 //     non-mesh objects, the face-forwarded normal, and AO at the pre-merge
-//     hit, for rays given from outside;
+//     hit, for rays given from outside, with an optional per-ray primed
+//     march start (in[6], null when the frame is not primed);
 //   * sp_trace_rays_kernel <- ::trace_rays_kernel (K2, body _k2_body): the
 //     hard or soft visibility of one light through the non-mesh objects;
 //   * sp_ao_fix_kernel <- ::ao_fix_kernel (body _ao_fix_body): AO again at
@@ -14,7 +15,8 @@
 // Each is the per-lane program of the PyTorch plain version in
 // surfjax_torch/kernels/render_tile.py (render_tile_reference,
 // trace_rays_reference, ao_fix_reference), through the device functions
-// of frame_fused.cuh that the fused kernel runs too.
+// of frame_fused.cuh that the fused kernel runs too; the crowd's member
+// loops (settings.vector_objects) live there, so all three take a crowd.
 //
 // What bounds them on this card: the scene's DE evaluations (FP32 ALU and
 // divergence) where the scene has SDF objects; on a mesh scene whose only
@@ -46,6 +48,7 @@ struct SplitRays {
 
 #define SP_BLOCK 128
 
+template <bool CROWD>
 __global__ void __launch_bounds__(SP_BLOCK)
 sp_render_tile_kernel(const KFTables T, const KFSettings S,
                       const SplitRays R) {
@@ -55,15 +58,15 @@ sp_render_tile_kernel(const KFTables T, const KFSettings S,
   const V3 d{R.in[3][i], R.in[4][i], R.in[5][i]};
   float t, obj;
   int leaf;
-  trace_primary(T, S, o, d, t, obj, leaf);
+  trace_primary<CROWD>(T, S, o, d, R.in[6] ? R.in[6][i] : 0.0f, t, obj, leaf);
   const float hitf = t < KF_BIG * 0.5f ? 1.0f : 0.0f;
   const float t_sane = hitf > 0.5f ? t : 0.0f;
   const V3 p = along(o, d, t_sane);
-  const V3 n = hit_normal(T, S, obj, leaf, p, d);
+  const V3 n = hit_normal<CROWD>(T, S, obj, leaf, p, d);
   float ao = 1.0f;
-  if (S.ao && S.n_ana + S.n_sdf > 0) {
+  if (S.ao && S.n_ana + S.n_sdf + S.n_crowd > 0) {
     const float eps = S.shadow_eps;
-    ao = ao_factor(T, S, V3{p.x + n.x * eps, p.y + n.y * eps,
+    ao = ao_factor<CROWD>(T, S, V3{p.x + n.x * eps, p.y + n.y * eps,
                             p.z + n.z * eps}, n);
   }
   R.out[0][i] = t;
@@ -75,6 +78,7 @@ sp_render_tile_kernel(const KFTables T, const KFSettings S,
   R.out[6][i] = hitf;
 }
 
+template <bool CROWD>
 __global__ void __launch_bounds__(SP_BLOCK)
 sp_trace_rays_kernel(const KFTables T, const KFSettings S,
                      const SplitRays R) {
@@ -83,47 +87,55 @@ sp_trace_rays_kernel(const KFTables T, const KFSettings S,
   const float dist = R.in[6][i];
   float vis = 1.0f;
   if (!(dist <= 0.0f)) {
-    vis = visibility(T, S, V3{R.in[0][i], R.in[1][i], R.in[2][i]},
+    vis = visibility<CROWD>(T, S, V3{R.in[0][i], R.in[1][i], R.in[2][i]},
                      V3{R.in[3][i], R.in[4][i], R.in[5][i]}, dist,
                      R.in[7][i]);
   }
   R.out[0][i] = vis;
 }
 
+template <bool CROWD>
 __global__ void __launch_bounds__(SP_BLOCK)
 sp_ao_fix_kernel(const KFTables T, const KFSettings S, const SplitRays R) {
   const int i = blockIdx.x * SP_BLOCK + threadIdx.x;
   if (i >= R.n) return;
   float ao = R.in[7][i];
   if (R.in[6][i] > 0.5f) {
-    ao = ao_factor(T, S, V3{R.in[0][i], R.in[1][i], R.in[2][i]},
+    ao = ao_factor<CROWD>(T, S, V3{R.in[0][i], R.in[1][i], R.in[2][i]},
                    V3{R.in[3][i], R.in[4][i], R.in[5][i]});
   }
   R.out[0][i] = ao;
 }
 
+// Launch `with` for a scene with a crowd, else `without`, the
+// instantiation that carries no member loops.
 template <typename Kernel>
-static int launch_rays(Kernel kernel, const KFTables& T, const KFSettings& S,
-                       const SplitRays& R, int device, void* stream) {
+static int launch_rays(Kernel with, Kernel without, const KFTables& T,
+                       const KFSettings& S, const SplitRays& R, int device,
+                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R.n <= 0) return 0;
   dim3 grid((R.n + SP_BLOCK - 1) / SP_BLOCK);
+  Kernel kernel = S.n_crowd > 0 ? with : without;
   kernel<<<grid, SP_BLOCK, 0, (cudaStream_t)stream>>>(T, S, R);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sp_render_tile(KFTables T, KFSettings S, SplitRays R,
                               int device, void* stream) {
-  return launch_rays(sp_render_tile_kernel, T, S, R, device, stream);
+  return launch_rays(sp_render_tile_kernel<true>,
+                     sp_render_tile_kernel<false>, T, S, R, device, stream);
 }
 
 extern "C" int sp_trace_rays(KFTables T, KFSettings S, SplitRays R,
                              int device, void* stream) {
-  return launch_rays(sp_trace_rays_kernel, T, S, R, device, stream);
+  return launch_rays(sp_trace_rays_kernel<true>, sp_trace_rays_kernel<false>,
+                     T, S, R, device, stream);
 }
 
 extern "C" int sp_ao_fix(KFTables T, KFSettings S, SplitRays R, int device,
                          void* stream) {
-  return launch_rays(sp_ao_fix_kernel, T, S, R, device, stream);
+  return launch_rays(sp_ao_fix_kernel<true>, sp_ao_fix_kernel<false>, T, S,
+                     R, device, stream);
 }

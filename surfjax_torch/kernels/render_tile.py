@@ -20,10 +20,18 @@ The split path (surfjax `_pallas_primary`, `_pallas_vis`,
 receivers a mesh won), plus the mesh packet kernel of kernels/mesh_tile.py.
 Shading and the merges are tensor code, as XLA code is in surfjax.
 
-Every wrapper (`frame_fused`, `render_tile`, `trace_rays`, `ao_fix`)
-launches its CUDA kernel for CUDA tensors, counting the launch, and runs
-its plain version for CPU tensors; it never falls back from one to the
-other.
+Two more pieces ride on those paths. With settings.vector_objects the
+single sphere/box objects and two-leaf SDF pairs of a scene form a "crowd"
+that the cores take by loops over member rows (surfjax's `_crowd_*`
+sections; "The crowd" below). With settings.prime a cone march on a
+1/4-resolution grid (`prime_tile`, surfjax's `prime_tile_kernel`) finds for
+every 4x4 pixel block a start t0 before which no SDF surface lies, and the
+frame's SDF marches begin there.
+
+Every wrapper (`frame_fused`, `render_tile`, `trace_rays`, `ao_fix`,
+`prime_tile`) launches its CUDA kernel for CUDA tensors, counting the
+launch, and runs its plain version for CPU tensors; it never falls back
+from one to the other.
 """
 
 from __future__ import annotations
@@ -36,9 +44,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from surfjax_torch.api import OP_LEAF, OP_SMOOTH_UNION
+from surfjax_torch.api import (
+    OP_INTERSECT, OP_LEAF, OP_SMOOTH_INTERSECT, OP_SMOOTH_SUBTRACT,
+    OP_SMOOTH_UNION, OP_SUBTRACT, OP_UNION, SMOOTH_OPS,
+)
 from surfjax_torch.core.math import (
-    BIG, clamp, f32, fdiv, maximum, minimum, sqrt, vnormalize,
+    BIG, clamp, f32, fdiv, maximum, minimum, mix, saturate, sqrt, vnormalize,
 )
 from surfjax_torch.core.scene_compile import (
     ENGINE_ANALYTIC, ENGINE_MESH, ENGINE_SDF, LEAF_BOX, LEAF_MANDELBULB,
@@ -46,11 +57,12 @@ from surfjax_torch.core.scene_compile import (
 )
 from surfjax_torch.core.types import FrameBuffers, RenderSettings
 from surfjax_torch.engines.analytic import (
-    intersect_analytic, object_normal_analytic,
+    intersect_analytic, leaf_interval, leaf_normal, object_normal_analytic,
 )
 from surfjax_torch.engines.sdf import (
     POWER8_ONLY_MSG, _AO_DIRS, _bulb_canonical, _new_w_cheb, _new_w_std,
     ao_tap_points, ao_tap_term, ao_terms_to_factor, eval_sdf, make_leaf_fast,
+    sdf_box, sdf_sphere,
 )
 from surfjax_torch.kernels import record_call
 from surfjax_torch.shade import shade_object
@@ -123,7 +135,8 @@ def _tally_de(fn, lanes, evals: int = 1) -> None:
         return
     iters = _OPS["bulb"]
     _OPS["bulb"] = None
-    _tally(lanes, evals * sum(_tape_ops(o) for o in fn.objs))
+    _tally(lanes, evals * (sum(_tape_ops(o) for o in fn.objs)
+                           + getattr(fn, "flat_ops", 0)))
     if iters is not None:
         _OPS["n"] += BULB_ITER_OPS * int((iters * lanes).sum())
 
@@ -277,6 +290,96 @@ def _bound_entry(b, o, d, t_start, t_clip, exit_margin: float, shell=None):
     return t1, clip2
 
 
+def _proxy_exact(oir) -> bool:
+    """True for an object the priming proxy evaluates exactly: at most two
+    tape nodes and no fractal leaf; the others are replaced by their
+    lower-bound sphere where they have one."""
+    return len(oir.nodes) <= 2 and not any(
+        lf.kind == LEAF_MANDELBULB for lf in oir.leaves)
+
+
+def _proxy_bounded(oir) -> bool:
+    """True for an object the proxy replaces by its lower-bound sphere."""
+    return not _proxy_exact(oir) and not any(
+        lf.kind == LEAF_PLANE for lf in oir.leaves)
+
+
+def _proxy_sdf_fn(sdf_objs, lp, nparams, leaf_fn):
+    """-> the proxy scene of the priming pass, a pointwise lower bound of
+    the scene SDF that is cheap to evaluate, or None when no object gains
+    from one. An object that has no bound sphere (a plane leaf) is
+    evaluated exactly with `leaf_fn`, the evaluator of the true scene."""
+    exact, bounds = [], []
+    for _, oir in sdf_objs:
+        if _proxy_bounded(oir):
+            bounds.append(_object_bound(oir, lp, nparams, lower=True))
+        else:
+            exact.append(oir)
+    if not bounds:
+        return None
+
+    def proxy(p):
+        v = None
+        for oir in exact:
+            h = eval_sdf(oir, lp, nparams, p, leaf_fn=leaf_fn)
+            v = h if v is None else torch.minimum(v, h)
+        for cx, cy, cz, R in bounds:
+            dx = p[0] - cx
+            dy = p[1] - cy
+            dz = p[2] - cz
+            h = sqrt((dx * dx + dy * dy) + dz * dz) - R
+            v = h if v is None else torch.minimum(v, h)
+        return v
+
+    proxy.objs = tuple(exact)
+    proxy.flat_ops = 11 * len(bounds)
+    return proxy
+
+
+def _inv_one_plus(k_m: float) -> float:
+    """1 / (1 + k_m) in float32 arithmetic."""
+    return f32(np.float32(1.0) / (np.float32(1.0) + np.float32(k_m)))
+
+
+def _prime_march(proxy_fn, sdf_fn, o, d, t_min: float, t_max: float,
+                 k_m: float, steps: int):
+    """Cone march, gated per lane -> the largest t_safe such that every
+    ray within angle k_m/2 of this one (same origin) has SDF > 0 on
+    [t_min, t_safe].
+
+    A step s = (h - k*t)/(1 + k) keeps every point within radius k*t' of
+    the centre ray outside the surface along [t, t + s]. Phase 1 marches
+    the proxy scene and hands a lane over once h < 0.08 or the cone is
+    blocked (s <= 1e-3*t); phase 2 goes on with the true SDF from the
+    same t. Each phase has its own budget of `steps`; a stopped lane keeps
+    its last proven t, a lane that reaches t_max is clear all the way."""
+    k = f32(k_m)
+    inv1k = _inv_one_plus(k_m)
+    tmax = f32(t_max)
+
+    def phase(fn, t, handoff):
+        done = t >= tmax
+        for _ in range(steps):
+            if bool(done.all()):
+                break
+            h = fn((o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]))
+            _tally_de(fn, ~done)
+            _tally(~done, 14)
+            s_all = (h - k * t) * inv1k
+            stop = s_all <= t * f32(1e-3)
+            if handoff is not None:
+                stop = stop | (h < f32(handoff))
+            act = ~(done | stop)
+            t = torch.where(act, minimum(t + s_all, tmax), t)
+            done = done | stop | (act & (t >= tmax))
+        return t
+
+    t_safe = torch.full_like(o[0], f32(t_min))
+    if proxy_fn is not None:
+        t_safe = phase(proxy_fn, t_safe, _PROXY_SWITCH)
+    return phase(sdf_fn, t_safe, None)
+
+
 def _march(sdf_fn, o, d, t_init, t_clip, max_steps: int, hit_eps: float,
            relax: float = 1.0, eps_scale: float = 0.0):
     """Bounded march, gated per lane -> (t, hit).
@@ -342,14 +445,461 @@ def _object_sdf(oir, lp, nparams, leaf_fn):
     return fn
 
 
-def trace_core(static, settings: RenderSettings, lp, nparams, o, d):
+# ---------------------------------------------------------------------------
+# The crowd: member loops for large scenes (settings.vector_objects)
+#
+# Single-leaf positive sphere/box objects (SDF or analytic engine) and SDF
+# two-leaf pairs op(leaf0, leaf1) form a "crowd": instead of one table-driven
+# object each, they are traced, shaded and shadowed by loops over member
+# rows of `crowd_meta`, which read the member's parameters by index. The
+# per-member arithmetic is that of the per-object path, so geometry is
+# bitwise equal with the crowd on or off. Members are ordered spheres
+# first, section by section, and ties between members are decided by a
+# strict `<`, so the section order is part of the result.
+#
+# surfjax gates some member work per TPU tile (a member's AO terms when no
+# lane of the tile is near it, its FD normal when no lane picked it); each
+# gate is value-exact per lane (a far member's term is exactly 0, an
+# unpicked lane's normal is discarded), so the plain versions here gate per
+# lane and the CUDA kernels per thread.
+# ---------------------------------------------------------------------------
+
+class CrowdIR(NamedTuple):
+    """Crowd membership in statically kinded sections: members = sdf
+    spheres ++ sdf boxes ++ analytic spheres ++ analytic boxes ++ SDF pairs
+    grouped by (leaf kinds, op) in first-seen order (scene order within a
+    section)."""
+    members: tuple      # ((obj_idx, ObjectIR), ...) in section order
+    n_sph_sdf: int
+    n_box_sdf: int
+    n_sph_ana: int
+    n_box_ana: int
+    shin_groups: tuple  # distinct shininess values, in member order
+    pair_specs: tuple = ()   # ((is_sphere0, is_sphere1, op, count), ...)
+
+    @property
+    def sdf_ranges(self):
+        a = self.n_sph_sdf
+        return ((0, a, True), (a, a + self.n_box_sdf, False))
+
+    @property
+    def ana_ranges(self):
+        s = self.n_sph_sdf + self.n_box_sdf
+        a = s + self.n_sph_ana
+        return ((s, a, True), (a, a + self.n_box_ana, False))
+
+    @property
+    def all_ranges(self):
+        return self.sdf_ranges + self.ana_ranges
+
+    @property
+    def n_singles(self):
+        return (self.n_sph_sdf + self.n_box_sdf + self.n_sph_ana
+                + self.n_box_ana)
+
+    @property
+    def pair_ranges(self):
+        """((lo, hi, (is_sphere0, is_sphere1, op)), ...): the tag of a
+        pair section is its spec where a single section has is_sphere."""
+        out = []
+        lo = self.n_singles
+        for is_s0, is_s1, op, cnt in self.pair_specs:
+            out.append((lo, lo + cnt, (is_s0, is_s1, op)))
+            lo += cnt
+        return tuple(out)
+
+    @property
+    def has_sdf(self):
+        return self.n_sph_sdf + self.n_box_sdf > 0 or bool(self.pair_specs)
+
+    @property
+    def has_ana(self):
+        return self.n_sph_ana + self.n_box_ana > 0
+
+
+def _pair_spec(oir):
+    """(is_sphere0, is_sphere1, op) of an eligible SDF pair, else None:
+    the tape is exactly op(leaf0, leaf1), both leaves sphere/box, and the
+    leaf signs are the op's own parity (negative only on the subtracted
+    operand)."""
+    if len(oir.nodes) != 3 or len(oir.leaves) != 2:
+        return None
+    n0, n1, n2 = oir.nodes
+    if not (n0.op == OP_LEAF and n1.op == OP_LEAF and n2.op != OP_LEAF
+            and n2.a == 0 and n2.b == 1):
+        return None
+    l0, l1 = oir.leaves
+    if any(lf.kind not in (LEAF_SPHERE, LEAF_BOX) for lf in (l0, l1)):
+        return None
+    sub = n2.op in (OP_SUBTRACT, OP_SMOOTH_SUBTRACT)
+    if l0.sign <= 0 or (l1.sign > 0) == sub:
+        return None
+    return (l0.kind == LEAF_SPHERE, l1.kind == LEAF_SPHERE, n2.op)
+
+
+def split_crowd(static, settings: RenderSettings):
+    """-> (CrowdIR | None, rest_analytic, rest_sdf), each rest a list of
+    that engine's (object index, ObjectIR) outside the crowd. The crowd
+    forms only with settings.vector_objects and at least two eligible
+    members; planes, bulbs, deeper tapes, analytic pairs and meshes stay
+    per-object."""
+    analytic, sdf_objs, _ = _split(static)
+    if not settings.vector_objects:
+        return None, analytic, sdf_objs
+
+    def single(oir):
+        lf = oir.leaves[0] if len(oir.leaves) == 1 else None
+        return (len(oir.nodes) == 1 and lf is not None and lf.sign > 0
+                and lf.kind in (LEAF_SPHERE, LEAF_BOX))
+
+    def pick(objs, allow_pairs):
+        singles = [m for m in objs if single(m[1])]
+        pairs = [m for m in objs if allow_pairs and not single(m[1])
+                 and _pair_spec(m[1]) is not None]
+        taken = {i for i, _ in singles + pairs}
+        rest = [m for m in objs if m[0] not in taken]
+        sph = [m for m in singles if m[1].leaves[0].kind == LEAF_SPHERE]
+        box = [m for m in singles if m[1].leaves[0].kind == LEAF_BOX]
+        return sph, box, pairs, rest
+
+    sph_s, box_s, pairs_s, rest_sdf = pick(sdf_objs, True)
+    sph_a, box_a, _, rest_ana = pick(analytic, False)
+    by_spec = {}    # insertion order = first-seen order of the specs
+    for m in pairs_s:
+        by_spec.setdefault(_pair_spec(m[1]), []).append(m)
+    pair_specs = tuple(sp + (len(ms),) for sp, ms in by_spec.items())
+    members = sph_s + box_s + sph_a + box_a + \
+        [m for ms in by_spec.values() for m in ms]
+    if len(members) < 2:
+        return None, analytic, sdf_objs
+    groups = []
+    for _, oir in members:
+        if oir.shininess not in groups:
+            groups.append(oir.shininess)
+    return (CrowdIR(tuple(members), len(sph_s), len(box_s), len(sph_a),
+                    len(box_a), tuple(groups), pair_specs),
+            rest_ana, rest_sdf)
+
+
+@functools.lru_cache(maxsize=64)
+def _crowd_meta_cached(static, vector_objects: bool):
+    crowd = split_crowd(static, RenderSettings(
+        vector_objects=vector_objects))[0]
+    if crowd is None:
+        return np.zeros((1, 6), np.int32)
+    rows = []
+    for i, oir in crowd.members:
+        slot1 = oir.leaves[1].slot if len(oir.leaves) == 2 else 0
+        pslot = max(oir.nodes[-1].pslot, 0) if len(oir.nodes) == 3 else 0
+        rows.append([oir.leaves[0].slot, i, oir.mat,
+                     crowd.shin_groups.index(oir.shininess), slot1, pslot])
+    return np.asarray(rows, np.int32)
+
+
+def crowd_meta(static, settings: RenderSettings) -> np.ndarray:
+    """(max(1, n), 6) int32 rows [leaf_slot0, obj_idx, mat_idx, shin_group,
+    leaf_slot1, node_pslot], row j = member j; slot1 and pslot are 0 for
+    single-leaf members. One zero row stands in when there is no crowd."""
+    return _crowd_meta_cached(static, bool(settings.vector_objects))
+
+
+def _crowd_refs(static, settings: RenderSettings, lp, nparams):
+    """The (meta rows, leaf_params, node_params) triple the member loops
+    read through."""
+    return crowd_meta(static, settings), lp, nparams
+
+
+def _crowd_bound(prm, is_sphere: bool):
+    """Bounding sphere of a sphere/box leaf (cover and pointwise lower
+    bound coincide), the formulas of _leaf_bound_scalars."""
+    if is_sphere:
+        return (prm[0], prm[1], prm[2], prm[3])
+    r = sqrt((prm[3] * prm[3] + prm[4] * prm[4]) + prm[5] * prm[5])
+    return (prm[0], prm[1], prm[2], r)
+
+
+def _crowd_leaf_sdf(prm, is_sphere: bool):
+    if is_sphere:
+        return lambda p: sdf_sphere(prm, p)
+    return lambda p: sdf_box(prm, p)
+
+
+def _crowd_pair_sdf(prm0, is_s0: bool, prm1, is_s1: bool, op: int, k):
+    """op(leaf0, leaf1) in the arithmetic and association of eval_sdf's
+    tape for the same 3-node object."""
+    f0 = _crowd_leaf_sdf(prm0, is_s0)
+    f1 = _crowd_leaf_sdf(prm1, is_s1)
+    if op == OP_UNION:
+        return lambda p: torch.minimum(f0(p), f1(p))
+    if op == OP_INTERSECT:
+        return lambda p: torch.maximum(f0(p), f1(p))
+    if op == OP_SUBTRACT:
+        return lambda p: torch.maximum(f0(p), -f1(p))
+
+    def f(p):
+        a, b = f0(p), f1(p)
+        if op == OP_SMOOTH_UNION:
+            h = saturate(0.5 + 0.5 * (b - a) / k)
+            return mix(b, a, h) - k * h * (1.0 - h)
+        if op == OP_SMOOTH_INTERSECT:
+            h = saturate(0.5 - 0.5 * (b - a) / k)
+            return mix(b, a, h) + k * h * (1.0 - h)
+        h = saturate(0.5 - 0.5 * (b + a) / k)
+        return mix(a, -b, h) + k * h * (1.0 - h)
+    return f
+
+
+def _crowd_pair_bound(prm0, is_s0: bool, prm1, is_s1: bool, op: int, k):
+    """Bounding sphere of a pair in the arithmetic of _object_bound for a
+    two-leaf tape: mean centre, largest leaf reach, + k/4 for a smooth op.
+    It covers every op's surface and lower-bounds every op's SDF."""
+    b0 = _crowd_bound(prm0, is_s0)
+    b1 = _crowd_bound(prm1, is_s1)
+    cx = (b0[0] + b1[0]) * 0.5
+    cy = (b0[1] + b1[1]) * 0.5
+    cz = (b0[2] + b1[2]) * 0.5
+    R = None
+    for bx, by, bz, br in (b0, b1):
+        dx, dy, dz = bx - cx, by - cy, bz - cz
+        rr = sqrt((dx * dx + dy * dy) + dz * dz) + br
+        R = rr if R is None else torch.maximum(R, rr)
+    if op in SMOOTH_OPS:
+        R = R + k * 0.25
+    return cx, cy, cz, R
+
+
+def _crowd_shape(crowd, crowd_refs, j: int, tag):
+    """Member j's (bounding sphere, SDF); tag is the static tag of its
+    section: is_sphere, or a pair's (is_sphere0, is_sphere1, op)."""
+    cm, lp, nparams = crowd_refs
+    prm0 = lp[int(cm[j, 0])]
+    if isinstance(tag, tuple):
+        is_s0, is_s1, op = tag
+        prm1 = lp[int(cm[j, 4])]
+        k = nparams[int(cm[j, 5]), 0]
+        b = _crowd_pair_bound(prm0, is_s0, prm1, is_s1, op, k)
+        fn = _crowd_pair_sdf(prm0, is_s0, prm1, is_s1, op, k)
+    else:
+        b = _crowd_bound(prm0, tag)
+        fn = _crowd_leaf_sdf(prm0, tag)
+    fn.objs = (crowd.members[j][1],)    # for count_ops
+    return b, fn
+
+
+def _crowd_sections(ranges, fn, carry):
+    """carry = fn(j, tag, carry) over the member ranges ((lo, hi, tag),
+    ...), in order."""
+    for lo, hi, tag in ranges:
+        for j in range(lo, hi):
+            carry = fn(j, tag, carry)
+    return carry
+
+
+def _leaf_exact_t(prm, is_sphere: bool, o, d, t_min, t_max):
+    """Nearest boundary of a positive sphere/box leaf in (t_min, t_max),
+    BIG on a miss: intersect_analytic's single-leaf case."""
+    t0, t1 = leaf_interval(LEAF_SPHERE if is_sphere else LEAF_BOX, prm, o, d)
+    e0 = (t0 > t_min) & (t0 < t_max)
+    e1 = (t1 > t_min) & (t1 < t_max)
+    return torch.where(e0, t0, torch.where(e1, t1, BIG))
+
+
+def _crowd_analytic_trace(crowd, crowd_refs, o, d, t_min, t_max, state):
+    """Exact nearest hits of the analytic members, merged like analytic
+    objects. state -> (t_a, obj, leaf)."""
+    cm, lp, _ = crowd_refs
+
+    def member(j, is_sphere, carry):
+        t_a, obj, leaf = carry
+        t_j = _leaf_exact_t(lp[int(cm[j, 0])], is_sphere, o, d, f32(t_min),
+                            f32(t_max))
+        _tally(t_j.numel(), _ANALYTIC_LEAF_OPS[LEAF_SPHERE if is_sphere
+                                               else LEAF_BOX])
+        better = t_j < t_a
+        return (torch.where(better, t_j, t_a),
+                torch.where(better, float(cm[j, 1]), obj),
+                torch.where(better, 0.0, leaf))
+
+    return _crowd_sections(crowd.ana_ranges, member, state)
+
+
+def _crowd_trace(crowd, crowd_refs, o, d, t_start, settings, exit_margin,
+                 state):
+    """Bound entry and march of every SDF member (singles, then pairs),
+    each clipped by the nearest hit so far. state -> (t, obj, leaf,
+    t_clip)."""
+    cm = crowd_refs[0]
+
+    def member(j, tag, carry):
+        t, obj, leaf, t_clip = carry
+        b, sdf_j = _crowd_shape(crowd, crowd_refs, j, tag)
+        _tally(t.numel(), 30)
+        t1, clip2 = _bound_entry(b, o, d, t_start, t_clip, exit_margin)
+        t_j, hit_j = _march(sdf_j, o, d, t1, clip2, settings.max_steps,
+                            settings.hit_eps, relax=settings.over_relax,
+                            eps_scale=settings.hit_eps_scale)
+        better = hit_j & (t_j < t)
+        t = torch.where(better, t_j, t)
+        return (t, torch.where(better, float(cm[j, 1]), obj),
+                torch.where(better, 0.0, leaf), torch.minimum(t_clip, t))
+
+    return _crowd_sections(crowd.sdf_ranges + crowd.pair_ranges, member,
+                           state)
+
+
+def _crowd_normals(crowd, crowd_refs, p, obj, settings, n):
+    """Normals of the lanes a member won: the FD tetrahedron of the
+    member's own SDF, or the closed-form leaf normal for analytic members
+    under normals="auto"."""
+    cm, lp, _ = crowd_refs
+
+    def pick(sel, n_s, carry):
+        return tuple(torch.where(sel, a, b) for a, b in zip(n_s, carry))
+
+    def member_fd(j, tag, carry):
+        sel = obj == float(cm[j, 1])
+        if not bool(sel.any()):
+            return carry
+        _, sdf_j = _crowd_shape(crowd, crowd_refs, j, tag)
+        _tally_de(sdf_j, sel, evals=4)
+        _tally(sel, 30)
+        return pick(sel, _fd_normal(sdf_j, p, settings.normal_eps), carry)
+
+    def member_analytic(j, is_sphere, carry):
+        sel = obj == float(cm[j, 1])
+        _tally(sel, 6)
+        kind = LEAF_SPHERE if is_sphere else LEAF_BOX
+        return pick(sel, leaf_normal(kind, lp[int(cm[j, 0])], p), carry)
+
+    if settings.normals == "auto":
+        n = _crowd_sections(crowd.sdf_ranges, member_fd, n)
+        n = _crowd_sections(crowd.ana_ranges, member_analytic, n)
+    else:
+        n = _crowd_sections(crowd.all_ranges, member_fd, n)
+    return _crowd_sections(crowd.pair_ranges, member_fd, n)
+
+
+def _crowd_ao_terms(crowd, crowd_refs, p_off, taps, settings, terms, need):
+    """Every member's AO tap terms, max-combined into `terms`, with the
+    far gate of _ao_compute: a receiver more than 2*ao_radius outside the
+    member's bound gets exactly zero from it."""
+    gate = f32(2.0 * f32(settings.ao_radius))
+
+    def member(j, tag, terms):
+        (cx, cy, cz, R), sdf_j = _crowd_shape(crowd, crowd_refs, j, tag)
+        dx = p_off[0] - cx
+        dy = p_off[1] - cy
+        dz = p_off[2] - cz
+        near = sqrt((dx * dx + dy * dy) + dz * dz) - R <= gate
+        _tally(need, 10)
+        if not bool(near.any()):
+            return terms
+        _tally_de(sdf_j, near & need, evals=len(taps))
+        _tally(near & need, 4 * len(taps))
+        return [torch.maximum(acc, torch.where(
+            near, ao_tap_term(az, r, sdf_j(q)), 0.0))
+            for acc, (az, r, q) in zip(terms, taps)]
+
+    return _crowd_sections(crowd.all_ranges + crowd.pair_ranges, member,
+                           terms)
+
+
+def _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings, eps_margin,
+                    vis):
+    """Hard shadows of the crowd: SDF members (singles, then pairs) by
+    any-hit marches with the segment skip and the bound entry/exit clip,
+    analytic members exactly. -> vis."""
+    cm, lp, _ = crowd_refs
+    eps = f32(settings.shadow_eps)
+
+    def member(j, tag, vis):
+        b, sdf_j = _crowd_shape(crowd, crowd_refs, j, tag)
+        dist_j = torch.where(vis <= 0.0, 0.0, dist)
+        _tally(dist_j > 0.0, 30)
+        dseg = _seg_bound_dist(b, o, l, eps, dist_j)
+        dist_j = torch.where(dseg > f32(eps_margin), 0.0, dist_j)
+        t1, clip2 = _bound_entry(b, o, l, torch.full_like(dist_j, eps),
+                                 dist_j, eps_margin)
+        t_s, hit_s = _march(sdf_j, o, l, t1, clip2, settings.max_steps,
+                            settings.hit_eps, relax=settings.over_relax,
+                            eps_scale=settings.hit_eps_scale)
+        return vis * torch.where(hit_s & (t_s < dist_j), 0.0, 1.0)
+
+    def member_analytic(j, is_sphere, vis):
+        t_j = _leaf_exact_t(lp[int(cm[j, 0])], is_sphere, o, l, eps, dist)
+        _tally(dist > 0.0, _ANALYTIC_LEAF_OPS[LEAF_SPHERE if is_sphere
+                                             else LEAF_BOX])
+        return vis * torch.where(t_j < dist, 0.0, 1.0)
+
+    vis = _crowd_sections(crowd.sdf_ranges + crowd.pair_ranges, member, vis)
+    return _crowd_sections(crowd.ana_ranges, member_analytic, vis)
+
+
+def _crowd_soft_vis(crowd, crowd_refs, o, l, dist, settings, kf, soft_vis):
+    """Penumbrae of the crowd: sphere members in closed form (no march),
+    boxes and pairs by influence-window marches. -> soft_vis."""
+    cm, lp, _ = crowd_refs
+    t0 = f32(settings.soft_shadow_tmin)
+
+    def member(j, tag, soft_vis):
+        if tag is True:
+            _tally(dist > 0.0, 70)
+            return torch.minimum(soft_vis, _penumbra_sphere(
+                lp[int(cm[j, 0])], o, l, t0, dist, kf))
+        b, sdf_j = _crowd_shape(crowd, crowd_refs, j, tag)
+        dist_j = torch.where(soft_vis <= 0.0, 0.0, dist)
+        _tally(dist_j > 0.0, 30)
+        t_lo, t_hi = _influence_window(b, o, l, t0, dist_j, kf)
+        v_j = _soft_march(sdf_j, o, l, maximum(t_lo, t0),
+                          torch.minimum(dist_j, t_hi), kf,
+                          settings.shadow_steps, relax=settings.over_relax)
+        return torch.minimum(soft_vis, v_j)
+
+    return _crowd_sections(crowd.all_ranges + crowd.pair_ranges, member,
+                           soft_vis)
+
+
+def _crowd_shade(crowd, crowd_refs, n_objects: int, mat_table, obj, hit,
+                 ambient, ao, n, v, light_terms, rgb):
+    """Shade the lanes a member won: each lane gathers its member's
+    material row by mat_idx, and shade_object runs once per distinct
+    shininess. Per lane this is the per-object shading arithmetic on the
+    same material values. rgb -> (r, g, b)."""
+    cm = crowd_refs[0]
+    dev = obj.device
+    # member row of every object index; the spare last slot takes obj -1
+    row_of_obj = torch.full((n_objects + 1,), -1, dtype=torch.long,
+                            device=dev)
+    row_of_obj[torch.as_tensor(cm[:, 1].astype(np.int64), device=dev)] = \
+        torch.arange(len(cm), device=dev)
+    row = row_of_obj[obj.long()]
+    is_member = hit & (row >= 0)
+    row = torch.clamp(row, min=0)
+    mats = mat_table[torch.as_tensor(cm[:, 2].astype(np.int64),
+                                     device=dev)[row]]
+    grp = torch.as_tensor(cm[:, 3].astype(np.int64), device=dev)[row]
+    mat_cols = tuple(mats[..., k] for k in range(9))
+    for gi, shin in enumerate(crowd.shin_groups):
+        sel = is_member & (grp == gi)
+        if not bool(sel.any()):
+            continue
+        shaded = shade_object(mat_cols, shin, ambient, ao, n, v, light_terms)
+        rgb = tuple(torch.where(sel, a, b) for a, b in zip(shaded, rgb))
+    return rgb
+
+
+def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
+               t0=None):
     """Primary trace over (settings.t_min, settings.t_max) of the non-mesh
     objects -> (t, obj f32, leaf f32, hit_f f32).
 
-    Analytic objects are intersected exactly (scene order); then each SDF
-    object, cheapest tape first, is marched from its bound-sphere entry,
-    clipped by the nearest hit so far."""
-    analytic, sdf_objs, _ = _split(static)
+    Analytic objects are intersected exactly (scene order), then the
+    analytic crowd members; then the crowd's SDF members are marched, then
+    each remaining SDF object, cheapest tape first, every march from its
+    bound-sphere entry and clipped by the nearest hit so far. t0 (per
+    lane, from the priming pass) is a start before which no SDF surface
+    lies: SDF marches begin at max(t_min, t0), analytic hits ignore it."""
+    crowd, analytic, sdf_objs = split_crowd(static, settings)
     t_a = torch.full_like(o[0], BIG)
     obj = torch.full_like(o[0], -1.0)
     leaf = torch.zeros_like(o[0])
@@ -361,13 +911,24 @@ def trace_core(static, settings: RenderSettings, lp, nparams, o, d):
         t_a = torch.where(better, t_i, t_a)
         obj = torch.where(better, float(i), obj)
         leaf = torch.where(better, leaf_i.to(torch.float32), leaf)
+    crowd_refs = _crowd_refs(static, settings, lp, nparams)
+    if crowd is not None and crowd.has_ana:
+        t_a, obj, leaf = _crowd_analytic_trace(
+            crowd, crowd_refs, o, d, t_min, t_max, (t_a, obj, leaf))
     t = t_a
+    if t0 is None:
+        t_start = torch.full_like(o[0], f32(t_min))
+    else:
+        t_start = maximum(t0, f32(t_min))
+    exit_margin = _exit_margin(settings)
+    if crowd is not None and crowd.has_sdf:
+        t, obj, leaf, _ = _crowd_trace(
+            crowd, crowd_refs, o, d, t_start, settings, exit_margin,
+            (t, obj, leaf, minimum(t, f32(t_max))))
     if sdf_objs:
         fast_fn = _fast_leaf_fn(settings)
         order = sorted(sdf_objs, key=lambda io: len(io[1].nodes))
         t_clip = minimum(t, f32(t_max))
-        t_start = torch.full_like(o[0], f32(t_min))
-        exit_margin = _exit_margin(settings)
         for i, oir in order:
             sdf_i = _object_sdf(oir, lp, nparams, fast_fn)
             b_i = _object_bound(oir, lp, nparams, cover_margin=exit_margin)
@@ -394,10 +955,14 @@ def normals_core(static, settings: RenderSettings, lp, nparams, p, obj,
     """Face-forwarded normals of trace_core hits: analytic normals for
     analytic objects under normals="auto", otherwise the FD tetrahedron of
     the winning object's own tape (evaluated only where it won)."""
-    analytic, sdf_objs, _ = _split(static)
+    crowd, analytic, sdf_objs = split_crowd(static, settings)
     nx = torch.zeros_like(p[0])
     ny = torch.zeros_like(p[0])
     nz = torch.ones_like(p[0])
+    if crowd is not None:
+        nx, ny, nz = _crowd_normals(
+            crowd, _crowd_refs(static, settings, lp, nparams), p, obj,
+            settings, (nx, ny, nz))
     fd_objs = list(sdf_objs)
     if settings.normals == "auto":
         for i, oir in analytic:
@@ -579,11 +1144,12 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
     bounded objects; lanes already dark skip later objects). Hard shadows:
     analytic objects occlude exactly, SDF objects by any-hit marches that
     skip segments clear of the object's cover sphere."""
-    analytic, sdf_objs, _ = _split(static)
+    crowd, analytic, sdf_objs = split_crowd(static, settings)
+    crowd_refs = _crowd_refs(static, settings, lp, nparams)
     vis = torch.ones_like(o[0])
     eps = settings.shadow_eps
 
-    if settings.soft_shadows and (analytic or sdf_objs):
+    if settings.soft_shadows and (analytic or sdf_objs or crowd):
         nonmesh = sorted(analytic + sdf_objs,
                          key=lambda io: len(io[1].nodes))
         k = soft_k if soft_k is not None else settings.soft_shadow_k
@@ -591,6 +1157,9 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
         t0 = f32(settings.soft_shadow_tmin)
         lod_fn = _fast_leaf_fn(settings, settings.secondary_lod_iters)
         soft_vis = torch.ones_like(o[0])
+        if crowd is not None:
+            soft_vis = _crowd_soft_vis(crowd, crowd_refs, o, l, dist,
+                                       settings, kf, soft_vis)
         for i, oir in nonmesh:
             cf = _single_leaf_closed_form(oir)
             if cf is not None:
@@ -622,9 +1191,12 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
         t_i, _ = intersect_analytic(oir, lp, o, l, eps, dist)
         _tally(dist > 0.0, _analytic_ops(oir))
         vis = vis * torch.where(t_i < dist, 0.0, 1.0)
+    eps_margin = _exit_margin(settings)
+    if crowd is not None:
+        vis = _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings,
+                              eps_margin, vis)
     if sdf_objs:
         fast_fn = _fast_leaf_fn(settings)
-        eps_margin = _exit_margin(settings)
         for i, oir in sorted(sdf_objs, key=lambda io: len(io[1].nodes)):
             sdf_i = _object_sdf(oir, lp, nparams, fast_fn)
             dist_i = torch.where(vis <= 0.0, 0.0, dist)
@@ -663,8 +1235,8 @@ def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n,
                 already_offset: bool = False, need=None):
     """AO probes over every non-mesh object. Per tap, the occlusion terms
     of object groups combine exactly by max: unbounded objects (plane
-    leaves) as one scene-min group, each bounded object on its own, gated
-    per lane: a receiver more than 2*ao_radius outside the object's
+    leaves) as one scene-min group, each crowd member and each other
+    bounded object on its own, gated per lane: a receiver more than 2*ao_radius outside the object's
     lower-bound sphere gets exactly zero from it at every tap, so its terms
     are not computed.
 
@@ -672,9 +1244,9 @@ def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n,
     hits, offset along the geometric normal); otherwise it is offset here
     along n by shadow_eps. need: the lanes whose AO the caller uses (all
     by default); it only limits what count_ops counts."""
-    analytic, sdf_only, _ = _split(static)
+    crowd, analytic, sdf_only = split_crowd(static, settings)
     objs = analytic + sdf_only
-    if not objs:
+    if not objs and crowd is None:
         return torch.ones_like(p[0])
     eps = f32(settings.shadow_eps)
     p_off = p if already_offset else \
@@ -708,6 +1280,10 @@ def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n,
         _tally_de(fn, need, evals=n_terms)
     else:
         terms = [torch.zeros_like(p_off[0]) for _ in range(n_terms)]
+    if crowd is not None:
+        terms = _crowd_ao_terms(
+            crowd, _crowd_refs(static, settings, lp, nparams), p_off, taps,
+            settings, terms, need)
     for (i, oir), near in gated:
         if not bool(near.any()):
             continue
@@ -722,11 +1298,12 @@ def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n,
 
 
 def scene_march_twin(static, settings: RenderSettings, leaf_params,
-                     node_params, o, d):
+                     node_params, o, d, t0=None):
     """Trace + normals + AO of flat rays -> (t, obj, n, ao, hit_f); the
-    counterpart of surfjax's scene_march_twin."""
+    counterpart of surfjax's scene_march_twin. t0: see trace_core."""
     lp, nparams = leaf_params, node_params
-    t, obj, leaf, hit_f = trace_core(static, settings, lp, nparams, o, d)
+    t, obj, leaf, hit_f = trace_core(static, settings, lp, nparams, o, d,
+                                     t0=t0)
     t_sane = torch.where(hit_f > 0.5, t, 0.0)
     p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
     n = normals_core(static, settings, lp, nparams, p, obj, leaf, d)
@@ -770,8 +1347,10 @@ def frame_rays(intr, cam_rows):
     return o, d
 
 
-def frame_fused_reference(scene_t, settings: RenderSettings, intr, cam_rows):
-    """Plain PyTorch twin of KF over F frames.
+def frame_fused_reference(scene_t, settings: RenderSettings, intr, cam_rows,
+                          t0=None):
+    """Plain PyTorch twin of KF over F frames; t0 (F, H, W) or None: the
+    primed march starts of trace_core.
 
     -> (r, g, b, depth, obj, nx, ny, nz, hit), each float32 (F, H, W):
     depth is 0 on a miss, obj carries the object index as a float (-1 on a
@@ -784,7 +1363,9 @@ def frame_fused_reference(scene_t, settings: RenderSettings, intr, cam_rows):
     o = tuple(c.reshape(-1) for c in o3)
     d = tuple(c.reshape(-1) for c in d3)
 
-    t, obj, leaf, hit_f = trace_core(static, settings, lp, nparams, o, d)
+    t, obj, leaf, hit_f = trace_core(
+        static, settings, lp, nparams, o, d,
+        t0=None if t0 is None else t0.reshape(-1))
     hit = hit_f > 0.5
     t_sane = torch.where(hit, t, 0.0)
     p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
@@ -834,33 +1415,43 @@ def frame_fused_reference(scene_t, settings: RenderSettings, intr, cam_rows):
     r = zeros + f32(bg[0])
     g = zeros + f32(bg[1])
     b = zeros + f32(bg[2])
-    mats = params["materials"]
-    for i, oir in enumerate(static.ir.objects):
-        sel = hit & (obj == float(i))
-        if not bool(sel.any()):
-            continue
-        ri, gi, bi = shade_object(mats[oir.mat], oir.shininess, ambient, ao,
-                                  n, v, light_terms)
-        r = torch.where(sel, ri, r)
-        g = torch.where(sel, gi, g)
-        b = torch.where(sel, bi, b)
+    r, g, b = _shade_hits(static, settings, params, obj, hit, ambient, ao, n,
+                          v, light_terms, (r, g, b))
 
     out = (r, g, b, t_sane, obj, n[0] * hit_f, n[1] * hit_f, n[2] * hit_f,
            hit_f)
     return tuple(a.reshape(F, H, W) for a in out)
 
 
+def _shade_hits(static, settings: RenderSettings, params, obj, hit, ambient,
+                ao, n, v, light_terms, rgb):
+    """Blinn-Phong shading of every hit lane, object by object; crowd
+    members through the gathered-material loop. rgb -> (r, g, b)."""
+    crowd = split_crowd(static, settings)[0]
+    crowd_objs = {i for i, _ in crowd.members} if crowd else ()
+    mats = params["materials"]
+    for i, oir in enumerate(static.ir.objects):
+        if i in crowd_objs:
+            continue
+        sel = hit & (obj == float(i))
+        if not bool(sel.any()):
+            continue
+        shaded = shade_object(mats[oir.mat], oir.shininess, ambient, ao, n,
+                              v, light_terms)
+        rgb = tuple(torch.where(sel, a, b) for a, b in zip(shaded, rgb))
+    if crowd is not None:
+        rgb = _crowd_shade(
+            crowd, _crowd_refs(static, settings, params["leaf_params"],
+                               params["node_params"]),
+            len(static.ir.objects), mats, obj, hit, ambient, ao, n, v,
+            light_terms, rgb)
+    return rgb
+
+
 def check_scene(static, settings: RenderSettings, meshes: bool = False
                 ) -> None:
     """Raise on anything the kernels and their plain versions do not take;
     meshes=False for the fused path, which takes no mesh objects."""
-    if settings.vector_objects:
-        raise NotImplementedError(
-            "vector_objects (the crowd loops) is not ported yet: it comes "
-            "with the crowd slice")
-    if settings.prime:
-        raise NotImplementedError(
-            "cone-march priming (prime=True) is not ported yet")
     if settings.march_cap or settings.shadow_march_cap:
         raise NotImplementedError(
             "march_cap / shadow_march_cap are not ported yet")
@@ -880,9 +1471,12 @@ def check_scene(static, settings: RenderSettings, meshes: bool = False
     if meshes and (settings.tile_rows <= 0 or settings.tile_rows % 8):
         raise ValueError(f"tile_rows must be a positive multiple of 8; got "
                          f"{settings.tile_rows}")
-    if len(static.ir.objects) > MAX_OBJECTS:
-        raise ValueError(f"scene has {len(static.ir.objects)} objects; the "
-                         f"kernels take at most {MAX_OBJECTS}")
+    _, rest_ana, rest_sdf = split_crowd(static, settings)
+    if len(rest_ana) + len(rest_sdf) > MAX_OBJECTS:
+        raise ValueError(
+            f"scene has {len(rest_ana) + len(rest_sdf)} non-mesh objects "
+            f"outside the crowd; the kernels take at most {MAX_OBJECTS} "
+            "(crowd members, see vector_objects, are not counted)")
     for oir in static.ir.objects:
         if oir.engine == ENGINE_MESH:
             if not meshes:
@@ -905,18 +1499,22 @@ def check_scene(static, settings: RenderSettings, meshes: bool = False
 
 # --- the CUDA route ---------------------------------------------------------
 
-# Per-object row of the int table the kernel reads (see frame_fused.cuh).
-OBJ_W = 10
+# Row widths of the int tables the kernels read (see frame_fused.cuh).
+OBJ_W = 12
 NODE_W = 5
 LEAF_W = 5
+CROWD_W = 8     # crowd_meta's six columns, then the member's type and tag
+# member types of a crowd row, and the tag: is_sphere for a single,
+# is_sphere0 | is_sphere1 << 1 | op << 2 for a pair
+CROWD_SDF, CROWD_ANALYTIC, CROWD_PAIR = 0, 1, 2
 
 
 class KFTables(ctypes.Structure):
     """Device pointers handed to kf_frame_fused (frame_fused.cuh)."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "objects", "nodes", "leaves", "order", "light_kinds",
+        "objects", "nodes", "leaves", "order", "light_kinds", "crowd",
         "leaf_params", "node_params", "lights", "materials", "ambient",
-        "cam_rows", "out")]
+        "cam_rows", "t0", "out")]
 
 
 class KFSettings(ctypes.Structure):
@@ -925,29 +1523,55 @@ class KFSettings(ctypes.Structure):
         "F", "H", "W", "n_objects", "n_ana", "n_sdf", "n_lights",
         "max_steps", "shadow_steps", "shadows", "soft_shadows", "ao",
         "ao_samples", "normals_fd", "relaxed", "bulb_cheb", "bulb_portable",
-        "secondary_lod", "ao_lod")] + [(name, ctypes.c_float) for name in (
+        "secondary_lod", "ao_lod", "n_crowd", "crowd_sdf_end",
+        "crowd_single_end")] + [(name, ctypes.c_float) for name in (
         "fx", "fy", "cx", "cy", "t_min", "t_max", "hit_eps", "hit_eps_scale",
         "over_relax", "normal_eps", "soft_shadow_k", "soft_shadow_tmin",
         "shadow_eps", "ao_radius", "ao_strength", "exit_margin",
         "default_shell", "bg_r", "bg_g", "bg_b")]
 
 
-def pack_scene(static):
-    """Host-side statics of a scene -> int32 numpy tables for the kernel:
+def _crowd_rows(crowd, meta) -> np.ndarray:
+    """crowd_meta's rows widened to CROWD_W with each member's type and
+    tag, so that a kernel thread can take any member on its own."""
+    rows = np.zeros((len(meta), CROWD_W), np.int32)
+    rows[:, :6] = meta
+    if crowd is None:
+        return rows
+    for typ, ranges in ((CROWD_SDF, crowd.sdf_ranges),
+                        (CROWD_ANALYTIC, crowd.ana_ranges),
+                        (CROWD_PAIR, crowd.pair_ranges)):
+        for lo, hi, tag in ranges:
+            if isinstance(tag, tuple):
+                tag = int(tag[0]) | int(tag[1]) << 1 | tag[2] << 2
+            rows[lo:hi, 6] = typ
+            rows[lo:hi, 7] = int(tag)
+    return rows
+
+
+def pack_scene(static, settings: RenderSettings = RenderSettings()):
+    """Host-side statics of a scene -> int32 numpy tables for the kernels:
     objects (n, OBJ_W), nodes (total, NODE_W), leaves (total, LEAF_W),
-    order (analytic in scene order ++ SDF by node count ++ all objects by
-    node count, the stable sorts of surfjax) and light kinds."""
+    order (of the objects outside the crowd: analytic in scene order ++
+    SDF by node count ++ both by node count, the stable sorts of surfjax),
+    light kinds and the crowd rows (_crowd_rows); then the counts (n_ana,
+    n_sdf, n_crowd, crowd_sdf_end, crowd_single_end): crowd members
+    [0, crowd_sdf_end) are SDF singles, up to crowd_single_end analytic
+    singles, the rest pairs."""
+    crowd, analytic, sdf_objs = split_crowd(static, settings)
+    member_row = {i: j for j, (i, _) in enumerate(crowd.members)} \
+        if crowd else {}
     objects, nodes, leaves = [], [], []
-    for oir in static.ir.objects:
+    for i, oir in enumerate(static.ir.objects):
         cf = _single_leaf_closed_form(oir)
         boundable = not any(lf.kind == LEAF_PLANE for lf in oir.leaves)
         objects.append([oir.engine, oir.mat, oir.shininess, len(nodes),
                         len(oir.nodes), len(leaves), len(oir.leaves),
                         int(boundable), -1 if cf is None else cf,
-                        int(_bulb_shell_static(oir))])
+                        int(_bulb_shell_static(oir)), member_row.get(i, -1),
+                        int(_proxy_bounded(oir))])
         nodes.extend(list(nd) for nd in oir.nodes)
         leaves.extend(list(lf) for lf in oir.leaves)
-    analytic, sdf_objs, _ = _split(static)
     by_nodes = lambda io: len(io[1].nodes)  # noqa: E731
     order = ([i for i, _ in analytic]
              + [i for i, _ in sorted(sdf_objs, key=by_nodes)]
@@ -957,20 +1581,25 @@ def pack_scene(static):
         a = np.asarray(rows, np.int32).reshape(-1, width)
         return a if a.size else np.zeros((1, width), np.int32)
 
+    n_crowd = len(crowd.members) if crowd else 0
+    sdf_end = crowd.n_sph_sdf + crowd.n_box_sdf if crowd else 0
     return (table(objects, OBJ_W), table(nodes, NODE_W),
             table(leaves, LEAF_W),
             np.asarray(order or [0], np.int32),
             np.asarray(list(static.ir.lights) or [0], np.int32),
-            len(analytic), len(sdf_objs))
+            _crowd_rows(crowd, crowd_meta(static, settings)),
+            (len(analytic), len(sdf_objs), n_crowd, sdf_end,
+             crowd.n_singles if crowd else 0))
 
 
 def kernel_settings(static, settings: RenderSettings, intr, F: int,
-                    n_ana: int, n_sdf: int) -> KFSettings:
+                    counts) -> KFSettings:
     """The by-value settings struct; every float is rounded to float32
     on the host exactly as the twin rounds it. The split kernels take no
     camera: intr None leaves F, H, W and the intrinsics 0."""
     em = _exit_margin(settings)
     bg = settings.background
+    n_ana, n_sdf, n_crowd, crowd_sdf_end, crowd_single_end = counts
     if intr is None:
         from surfjax_torch.core.camera import Intrinsics
         intr = Intrinsics(0, 0, 0.0, 0.0, 0.0, 0.0)
@@ -988,6 +1617,8 @@ def kernel_settings(static, settings: RenderSettings, intr, F: int,
         bulb_portable=int(settings.bulb_log == "portable"),
         secondary_lod=settings.secondary_lod_iters,
         ao_lod=settings.ao_lod_iters or settings.secondary_lod_iters,
+        n_crowd=n_crowd, crowd_sdf_end=crowd_sdf_end,
+        crowd_single_end=crowd_single_end,
         fx=f32(intr.fx), fy=f32(intr.fy), cx=f32(intr.cx), cy=f32(intr.cy),
         t_min=f32(settings.t_min), t_max=f32(settings.t_max),
         hit_eps=f32(settings.hit_eps),
@@ -1004,27 +1635,33 @@ def kernel_settings(static, settings: RenderSettings, intr, F: int,
 
 
 @functools.lru_cache(maxsize=16)
-def _packed_on(static, device: str):
-    """pack_scene's int tables as tensors on `device`, kept across calls
-    (the wrappers run once per frame and light)."""
-    *tables, n_ana, n_sdf = pack_scene(static)
-    return [torch.as_tensor(a, device=device) for a in tables], n_ana, n_sdf
+def _packed_on(static, vector_objects: bool, device: str):
+    """pack_scene's int tables as tensors on `device` and its counts, kept
+    across calls (the wrappers run once per frame and light)."""
+    *tables, counts = pack_scene(
+        static, RenderSettings(vector_objects=vector_objects))
+    return [torch.as_tensor(a, device=device) for a in tables], counts
 
 
-def _scene_tables(scene_t, dev):
+def _scene_tables(scene_t, settings: RenderSettings, dev):
     """The host-packed int tables and the float parameter tensors of a
-    scene on `dev`, in KFTables order up to `cam_rows` -> (tensors, n_ana,
-    n_sdf). Raises on a parameter tensor the kernels do not take."""
+    scene on `dev`, in KFTables order up to `cam_rows` -> (tensors,
+    counts). Raises on a parameter tensor the kernels do not take."""
     static, params = scene_t
-    ints, n_ana, n_sdf = _packed_on(static, str(dev))
+    ints, counts = _packed_on(static, bool(settings.vector_objects),
+                              str(dev))
     names = ("leaf_params", "node_params", "lights", "materials", "ambient")
     floats = [params[k] for k in names]
     for name, ten in zip(names, floats):
-        if ten.device != dev or ten.dtype != torch.float32 or \
-                not ten.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous float32 tensor on "
-                             f"{dev}; got {ten.dtype} on {ten.device}")
-    return list(ints) + floats, n_ana, n_sdf
+        _check_f32_on(name, ten, dev)
+    return list(ints) + floats, counts
+
+
+def _check_f32_on(name: str, ten, dev) -> None:
+    if ten.device != dev or ten.dtype != torch.float32 or \
+            not ten.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous float32 tensor on "
+                         f"{dev}; got {ten.dtype} on {ten.device}")
 
 
 def _raise_on(err: int, entry: str) -> None:
@@ -1034,17 +1671,20 @@ def _raise_on(err: int, entry: str) -> None:
                            f"({_build.error_string(err)})")
 
 
-def _launch_kernel(scene_t, settings: RenderSettings, intr, cam_rows):
+def _launch_kernel(scene_t, settings: RenderSettings, intr, cam_rows, t0):
     from surfjax_torch.kernels import _build
     static, _ = scene_t
     dev = cam_rows.device
     F, H, W = cam_rows.shape[0], intr.height, intr.width
-    tables, n_ana, n_sdf = _scene_tables(scene_t, dev)
+    tables, counts = _scene_tables(scene_t, settings, dev)
     if not cam_rows.is_contiguous():
         raise ValueError("cam_rows: need a contiguous float32 tensor")
+    if t0 is not None:
+        _check_f32_on("t0", t0, dev)
     out = torch.empty((9, F, H, W), dtype=torch.float32, device=dev)
-    tab = KFTables(*[t.data_ptr() for t in tables + [cam_rows, out]])
-    ks = kernel_settings(static, settings, intr, F, n_ana, n_sdf)
+    tab = KFTables(*[t.data_ptr() for t in tables + [cam_rows]],
+                   None if t0 is None else t0.data_ptr(), out.data_ptr())
+    ks = kernel_settings(static, settings, intr, F, counts)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1054,9 +1694,10 @@ def _launch_kernel(scene_t, settings: RenderSettings, intr, cam_rows):
     return tuple(out[k] for k in range(9))
 
 
-def frame_fused(scene_t, settings: RenderSettings, intr, cam_rows):
+def frame_fused(scene_t, settings: RenderSettings, intr, cam_rows, t0=None):
     """KF for F frames -> the 9 float32 (F, H, W) tensors of
-    frame_fused_reference.
+    frame_fused_reference; t0 (F, H, W) float32 or None: the primed march
+    starts.
 
     CUDA tensors launch the hand-written kernel (and count the launch in
     `frame_fused.launches`); CPU tensors run the plain twin. Anything the
@@ -1068,10 +1709,14 @@ def frame_fused(scene_t, settings: RenderSettings, intr, cam_rows):
                          f"{tuple(cam_rows.shape)}")
     if cam_rows.dtype != torch.float32:
         raise ValueError(f"cam_rows must be float32; got {cam_rows.dtype}")
+    if t0 is not None and tuple(t0.shape) != (
+            cam_rows.shape[0], intr.height, intr.width):
+        raise ValueError(f"t0 must be (F, H, W); got {tuple(t0.shape)}")
     if cam_rows.device.type == "cuda":
-        return _launch_kernel(scene_t, settings, intr, cam_rows.contiguous())
+        return _launch_kernel(scene_t, settings, intr, cam_rows.contiguous(),
+                              t0)
     if cam_rows.device.type == "cpu":
-        return frame_fused_reference(scene_t, settings, intr, cam_rows)
+        return frame_fused_reference(scene_t, settings, intr, cam_rows, t0)
     raise ValueError(f"unsupported device {cam_rows.device}")
 
 
@@ -1102,37 +1747,104 @@ def fused_frame_ok(static, settings: RenderSettings) -> bool:
     return not _split(static)[2]
 
 
+def _maybe_warn_crowd(static, settings: RenderSettings) -> None:
+    """A large scene with the crowd off -> point the user at
+    vector_objects."""
+    if settings.vector_objects:
+        return
+    probe = split_crowd(static, settings.with_(vector_objects=True))[0]
+    if probe is not None and len(probe.members) >= 24:
+        import warnings
+        warnings.warn(
+            f"scene has {len(probe.members)} crowd-eligible objects; "
+            "consider RenderSettings(vector_objects=True): member loops "
+            f"with bitwise-equal geometry, and no limit of {MAX_OBJECTS} "
+            "objects", RuntimeWarning)
+
+
 def render_sequence_pallas(static, intr, settings: RenderSettings, params,
                            R_flats, positions) -> FrameBuffers:
     """F frames -> FrameBuffers with a leading frame axis (see
-    frame_buffers): one fused call for a mesh-free scene, else one split
-    frame after another (surfjax's vmap of frame_step)."""
+    frame_buffers): one fused call for a mesh-free scene without priming,
+    else one frame after another (priming is a single-frame pass, and a
+    mesh scene takes the split path), as surfjax's _sequence_jit routes
+    them."""
     F = R_flats.shape[0]
-    if not fused_frame_ok(static, settings):
+    if settings.prime or not fused_frame_ok(static, settings):
         frames = [render_frame_pallas(static, intr, settings, params,
                                       R_flats[f], positions[f])
                   for f in range(F)]
         return FrameBuffers(*(torch.stack(parts) for parts in zip(*frames)))
+    _maybe_warn_crowd(static, settings)
     cam_rows = torch.cat([R_flats.reshape(F, 9), positions.reshape(F, 3)],
                          dim=1).to(torch.float32).contiguous()
     return frame_buffers(frame_fused(SceneTensors(static, params), settings,
                                      intr, cam_rows))
 
 
+PRIME_BLOCK = 4    # a coarse ray of the priming pass stands for 4x4 pixels
+
+
+def prime_frame(static, intr, settings: RenderSettings, params, R_flat,
+                cam_pos):
+    """The priming pass of one frame -> t0 (H, W), a safe SDF-march start
+    for every pixel, or None when the frame is not primed: priming needs
+    settings.prime, an SDF object, min(H, W) >= settings.prime_min and no
+    active crowd (members are cheap primitives; the pass does not know
+    them).
+
+    One coarse ray per 4x4 pixel block, through the middle of the block's
+    (edge-clamped) pixel range, so every child pixel lies within 1.5 px of
+    it on each axis; the cone marched is twice as wide as the block, which
+    leaves each child a clearance of k_blk*t at t_safe."""
+    from surfjax_torch.core.camera import camera_ray_dirs_dyn
+    H, W = intr.height, intr.width
+    crowd, _, sdf_objs = split_crowd(static, settings)
+    if not (settings.prime and sdf_objs and min(H, W) >= settings.prime_min
+            and crowd is None):
+        return None
+    dev = R_flat.device
+    C = PRIME_BLOCK
+    Hc, Wc = (H + C - 1) // C, (W + C - 1) // C
+
+    def centres(n_coarse: int, n_px: int):
+        i = torch.arange(n_coarse, dtype=torch.float32, device=dev)
+        last = float(n_px - 1)
+        return (torch.clamp(i * C, max=last)
+                + torch.clamp(i * C + (C - 1), max=last)) * 0.5
+
+    rr_c, cc_c = torch.meshgrid(centres(Hc, H), centres(Wc, W),
+                                indexing="ij")
+    d_c = tuple(c.contiguous() for c in
+                camera_ray_dirs_dyn(intr, R_flat, rr_c, cc_c))
+    o_c = tuple(cam_pos[k].expand(rr_c.shape).contiguous() for k in range(3))
+    k_blk = 1.5 * np.sqrt(2.0) / min(intr.fx, intr.fy)
+    t0_c = prime_tile(SceneTensors(static, params), settings,
+                      float(2.0 * k_blk), o_c, d_c)
+    return (t0_c.repeat_interleave(C, dim=0).repeat_interleave(C, dim=1)
+            [:H, :W].contiguous())
+
+
 def render_frame_pallas(static, intr, settings: RenderSettings, params,
                         R_flat, cam_pos) -> FrameBuffers:
-    """One frame -> FrameBuffers (H, W, ...): the fused path for a
-    mesh-free scene; else the split path on SQUARE pixel tiles, each
-    (tile_rows, 128) block of the padded ray arrays a tile_rows x 128
-    rectangle of the image (the mesh kernel's candidate sets are per
-    tile, so spatial coherence keeps them small)."""
-    if fused_frame_ok(static, settings):
-        fb = render_sequence_pallas(static, intr, settings, params,
-                                    R_flat.reshape(1, 9),
-                                    cam_pos.reshape(1, 3))
+    """One frame -> FrameBuffers (H, W, ...): the priming pass where it
+    applies (prime_frame), then the fused path for a mesh-free scene; else
+    the split path on SQUARE pixel tiles, each (tile_rows, 128) block of
+    the padded ray arrays a tile_rows x 128 rectangle of the image (the
+    mesh kernel's candidate sets are per tile, so spatial coherence keeps
+    them small)."""
+    fused = fused_frame_ok(static, settings)
+    _maybe_warn_crowd(static, settings)
+    check_scene(static, settings, meshes=not fused)
+    t0 = prime_frame(static, intr, settings, params, R_flat, cam_pos)
+    if fused:
+        cam_rows = torch.cat([R_flat.reshape(9), cam_pos.reshape(3)]
+                             ).reshape(1, 12).to(torch.float32).contiguous()
+        fb = frame_buffers(frame_fused(
+            SceneTensors(static, params), settings, intr, cam_rows,
+            None if t0 is None else t0[None]))
         return FrameBuffers(*(a[0] for a in fb))
     from surfjax_torch.core.camera import camera_ray_dirs_dyn
-    check_scene(static, settings, meshes=True)
     dev = R_flat.device
     H, W = intr.height, intr.width
     R = settings.tile_rows
@@ -1157,7 +1869,10 @@ def render_frame_pallas(static, intr, settings: RenderSettings, params,
     d = tuple(c.contiguous() for c in
               camera_ray_dirs_dyn(intr, R_flat, rr_t, cc_t))
     o = tuple(cam_pos[k].expand(rr_t.shape).contiguous() for k in range(3))
-    fb = _render_padded(static, settings, params, o, d)
+    if t0 is not None:
+        # a padded lane repeats an edge pixel's ray and takes its start
+        t0 = tile_layout(t0[rr.long(), cc.long()]).contiguous()
+    fb = _render_padded(static, settings, params, o, d, t0=t0)
     return FrameBuffers(
         rgb=torch.stack([untile(fb.rgb[..., k]) for k in range(3)], dim=-1),
         depth=untile(fb.depth),
@@ -1179,14 +1894,16 @@ class SplitRays(ctypes.Structure):
                 ("n", ctypes.c_int)]
 
 
-def render_tile_reference(scene_t, settings: RenderSettings, o, d):
+def render_tile_reference(scene_t, settings: RenderSettings, o, d, t0=None):
     """Plain version of K1 -> (t, obj, nx, ny, nz, ao, hit_f): the raw
     trace t of the non-mesh objects (BIG on a miss), the object index as a
     float (-1 on a miss), the face-forwarded normal, AO at the hit (on
-    every lane, as surfjax's K1 does) and the hit flag."""
+    every lane, as surfjax's K1 does) and the hit flag. t0: the primed
+    march starts of trace_core, or None."""
     static, params = scene_t
     t, obj, n, ao, hit_f = scene_march_twin(
-        static, settings, params["leaf_params"], params["node_params"], o, d)
+        static, settings, params["leaf_params"], params["node_params"], o, d,
+        t0=t0)
     return (t, obj, n[0], n[1], n[2], ao, hit_f)
 
 
@@ -1234,11 +1951,11 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
     static, _ = scene_t
     ins = [a.contiguous() for a in _ray_arrays(args)]
     shape, dev = ins[0].shape, ins[0].device
-    tables, n_ana, n_sdf = _scene_tables(scene_t, dev)
+    tables, counts = _scene_tables(scene_t, settings, dev)
     out = torch.empty((n_out,) + tuple(shape), dtype=torch.float32,
                       device=dev)
-    tab = KFTables(*[t.data_ptr() for t in tables], None, None)
-    ks = kernel_settings(static, settings, None, 0, n_ana, n_sdf)
+    tab = KFTables(*[t.data_ptr() for t in tables], None, None, None)
+    ks = kernel_settings(static, settings, None, 0, counts)
     rays = SplitRays()
     for k, a in enumerate(ins):
         rays.inp[k] = a.data_ptr()
@@ -1277,12 +1994,13 @@ def _split_call(wrapper, entry: str, reference, scene_t,
     return out
 
 
-def render_tile(scene_t, settings: RenderSettings, o, d):
+def render_tile(scene_t, settings: RenderSettings, o, d, t0=None):
     """K1 over rays of any shape -> the 7 tensors of render_tile_reference.
     CUDA tensors launch the kernel (csrc/split_path.cu), counted in
     `render_tile.launches`; CPU tensors run the plain version."""
+    rays = (tuple(o), tuple(d)) + (() if t0 is None else (t0,))
     return _split_call(render_tile, "sp_render_tile", render_tile_reference,
-                       scene_t, settings, (tuple(o), tuple(d)), 7)
+                       scene_t, settings, rays, 7)
 
 
 def trace_rays(scene_t, settings: RenderSettings, o, l, dist, soft_k):
@@ -1300,7 +2018,91 @@ def ao_fix(scene_t, settings: RenderSettings, p_off, n, need, ao_in):
                        settings, (tuple(p_off), tuple(n), need, ao_in), 1)[0]
 
 
+class PrimeArgs(ctypes.Structure):
+    """Ray arrays and cone of a pt_prime_tile launch (csrc/prime_tile.cu)."""
+    _fields_ = [("inp", ctypes.c_void_p * 6), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_int), ("has_proxy", ctypes.c_int),
+                ("k_m", ctypes.c_float), ("inv1k", ctypes.c_float)]
+
+
+def _prime_fns(scene_t, settings: RenderSettings):
+    """-> (proxy_fn or None, sdf_fn) of the priming pass over the scene's
+    SDF objects: the proxy scene and the true scene SDF, both with the
+    primary march's leaf evaluator."""
+    static, params = scene_t
+    lp, nparams = params["leaf_params"], params["node_params"]
+    sdf_objs = _split(static)[1]
+    leaf_fn = _fast_leaf_fn(settings)
+    return (_proxy_sdf_fn(sdf_objs, lp, nparams, leaf_fn),
+            _scene_sdf(sdf_objs, lp, nparams, leaf_fn))
+
+
+def prime_tile_reference(scene_t, settings: RenderSettings, k_m: float,
+                         o, d):
+    """Plain version of the priming kernel -> t0, the cone march of
+    _prime_march along the coarse rays (o, d) with cone slope k_m."""
+    proxy_fn, sdf_fn = _prime_fns(scene_t, settings)
+    return _prime_march(proxy_fn, sdf_fn, o, d, settings.t_min,
+                        settings.t_max, k_m, settings.max_steps)
+
+
+def prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d):
+    """Prepare one launch of the priming kernel on CUDA tensors ->
+    (launch, (t0,)), as split_launcher."""
+    from surfjax_torch.kernels import _build
+    static, _ = scene_t
+    ins = [a.contiguous() for a in _ray_arrays((tuple(o), tuple(d)))]
+    dev = ins[0].device
+    tables, counts = _scene_tables(scene_t, settings, dev)
+    out = torch.empty_like(ins[0])
+    tab = KFTables(*[t.data_ptr() for t in tables], None, None, None)
+    ks = kernel_settings(static, settings, None, 0, counts)
+    args = PrimeArgs()
+    for k, a in enumerate(ins):
+        args.inp[k] = a.data_ptr()
+    args.out = out.data_ptr()
+    args.n = out.numel()
+    args.has_proxy = int(any(_proxy_bounded(oir)
+                             for _, oir in _split(static)[1]))
+    args.k_m = f32(k_m)
+    args.inv1k = _inv_one_plus(k_m)
+    fn = _build.load().pt_prime_tile
+
+    def launch():
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _raise_on(fn(tab, ks, args, dev.index, ctypes.c_void_p(stream)),
+                      "pt_prime_tile")
+        return ins, tables
+
+    return launch, (out,)
+
+
+def prime_tile(scene_t, settings: RenderSettings, k_m: float, o, d):
+    """The priming kernel over coarse rays of any shape -> t0 (see
+    prime_tile_reference). CUDA tensors launch the kernel
+    (csrc/prime_tile.cu), counted in `prime_tile.launches`; CPU tensors
+    run the plain version."""
+    check_scene(scene_t.static, settings,
+                meshes=bool(_split(scene_t.static)[2]))
+    if split_crowd(scene_t.static, settings)[0] is not None:
+        raise ValueError("the priming pass does not take a crowd: "
+                         "prime_frame skips it when one is active")
+    o, d = tuple(o), tuple(d)
+    dev = _ray_arrays((o, d))[0].device
+    record_call("prime_tile", (scene_t, settings, k_m, o, d))
+    if dev.type == "cpu":
+        return prime_tile_reference(scene_t, settings, k_m, o, d)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    launch, (out,) = prime_launcher(scene_t, settings, k_m, o, d)
+    launch()
+    prime_tile.launches += 1
+    return out
+
+
 render_tile.launches = trace_rays.launches = ao_fix.launches = 0
+prime_tile.launches = 0
 
 
 def _pad_rays(arrs, rows: int):
@@ -1332,7 +2134,8 @@ def _face_forward(nv, d):
     return (nv[0] * s, nv[1] * s, nv[2] * s)
 
 
-def _pallas_primary(static, settings: RenderSettings, params, o2, d2):
+def _pallas_primary(static, settings: RenderSettings, params, o2, d2,
+                    t0=None):
     """Primary stage on (rows_total, 128)-tiled rays: K1 -> merge of each
     mesh's packet-kernel hits -> AO fix at the receivers a mesh won.
     -> (t, obj, n, n_geom, ao, hit_f); t is the raw t (callers mask by
@@ -1345,7 +2148,8 @@ def _pallas_primary(static, settings: RenderSettings, params, o2, d2):
     )
     scene_t = SceneTensors(static, params)
     _, _, mesh = _split(static)
-    t, obj, nx, ny, nz, ao, hit_f = render_tile(scene_t, settings, o2, d2)
+    t, obj, nx, ny, nz, ao, hit_f = render_tile(scene_t, settings, o2, d2,
+                                                t0=t0)
     n = (nx, ny, nz)
     n_geom = n
     mesh_won = torch.zeros_like(t)
@@ -1429,13 +2233,13 @@ def _pallas_vis(static, settings: RenderSettings, params, p_off, l,
     return vis
 
 
-def _render_padded(static, settings: RenderSettings, params, o2, d2
-                   ) -> FrameBuffers:
+def _render_padded(static, settings: RenderSettings, params, o2, d2,
+                   t0=None) -> FrameBuffers:
     """The split pipeline on (rows_total, 128)-tiled rays -> FrameBuffers
     of the same layout: rgb/normal (rows, 128, 3), depth/hit (rows, 128),
-    obj_id int32."""
+    obj_id int32. t0: the primed march starts, same layout, or None."""
     t, obj, n, n_geom, ao, hit_f = _pallas_primary(static, settings, params,
-                                                   o2, d2)
+                                                   o2, d2, t0=t0)
     t_sane = torch.where(hit_f > 0.5, t, 0.0)
     p_off = _offset(o2, d2, t_sane, n_geom, settings)
 
@@ -1470,16 +2274,10 @@ def _render_padded(static, settings: RenderSettings, params, o2, d2
     amb = params["ambient"]
     ambient = (amb[0], amb[1], amb[2])
     bg = settings.background
-    rgb = [torch.full_like(t, f32(bg[k])) for k in range(3)]
     hit = hit_f > 0.5
-    mats = params["materials"]
-    for i, oir in enumerate(static.ir.objects):
-        sel = hit & (obj == float(i))
-        if not bool(sel.any()):
-            continue
-        shaded = shade_object(mats[oir.mat], oir.shininess, ambient, ao, n,
-                              v, light_terms)
-        rgb = [torch.where(sel, a, b) for a, b in zip(shaded, rgb)]
+    rgb = _shade_hits(static, settings, params, obj, hit, ambient, ao, n, v,
+                      light_terms,
+                      tuple(torch.full_like(t, f32(bg[k])) for k in range(3)))
     return FrameBuffers(
         rgb=torch.stack(rgb, dim=-1),
         depth=t_sane,

@@ -5,8 +5,10 @@ traced, shaded and written by the eager functions below (primary hits ->
 normals -> shadow rays -> AO probes -> shading; meshes through the grid
 DDA of engines/mesh.py). With backend="pallas" a mesh-free scene goes to
 the fused path and a mesh scene to the split path, frame by frame
-(kernels/render_tile.py); both raise NotImplementedError for what the
-port does not carry yet (crowds, priming, march caps).
+(kernels/render_tile.py), with the crowd loops (settings.vector_objects)
+and the cone-priming pass (settings.prime) where the settings ask for
+them; both raise NotImplementedError for the march caps, which the port
+does not carry.
 
 The entry points run on the CUDA device unless the caller passes
 device="cpu"; without a card a CUDA request raises.
@@ -298,8 +300,9 @@ def render_sequence(scene, camera, poses,
 
     poses: (R_flats (F, 9), positions (F, 3)). Returns FrameBuffers with a
     leading frame axis. With backend="pallas" a mesh-free scene renders
-    every frame in one fused launch and a mesh scene frame by frame
-    through the split path, as surfjax's _sequence_jit does."""
+    every frame in one fused launch; a mesh scene (the split path) and a
+    primed one (a priming pass per frame) go frame by frame, as surfjax's
+    _sequence_jit routes them."""
     device = _check_device(device)
     static, params = scene.freeze()
     _check_backend(settings)

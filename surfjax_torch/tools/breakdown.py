@@ -10,7 +10,12 @@ times, with CUDA events and five calls each:
 and traces one call with `torch.profiler` for the device time, the device's
 idle share of the call's wall time and the six dearest operations. For
 each mode of the mesh main path (c4, split path) it times the whole
-`render_sequence` call the same way and traces one call.
+`render_sequence` call the same way and traces one call. For each mode of
+the crowd main path (configs/crowd_demo.yaml) it times the kernel with the
+same features switched off, and with every feature on but the crowd off
+(one table-driven object per member), then the whole call, and traces one.
+For primed c3 it times `render` of one 1080p frame with and without
+priming and traces one primed call.
 
 Prints the card's name, power limit, SM clock, power draw and temperature
 before and after, one JSON line per mode, and a last JSON line with all of
@@ -26,11 +31,12 @@ import time
 
 import torch
 
-from surfjax_torch.api import render_sequence
+from surfjax_torch.api import render, render_sequence
+from surfjax_torch.config import load_config
 from surfjax_torch.core.scene_compile import params_to_device
 from surfjax_torch.kernels.render_tile import SceneTensors, frame_fused
-from surfjax_torch.tools.workload import cam_rows_of, cuda_ms, gpu_line, \
-    main_path, mesh_main_path
+from surfjax_torch.tools.workload import cam_rows_of, crowd_main_path, \
+    cuda_ms, gpu_line, main_path, mesh_main_path, reframe
 
 _CARD = "name,power.limit,clocks.sm,power.draw,temperature.gpu"
 REPS = 5
@@ -61,24 +67,18 @@ def profile_call(call) -> dict:
             "idle_share": 1.0 - device / wall, "top": top}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("breakdown: torch.cuda.is_available() is false")
-    print(gpu_line(_CARD), flush=True)
-    dev = torch.device("cuda", 0)
-    scene, camera, Rs, ps, modes = main_path("configs/c3_sdf.yaml")
+def fused_path(label: str, workload, dev, variants, res) -> None:
+    """One fused main path: per mode the kernel alone in every variant of
+    `variants(base)` (name, settings), the whole call, and a traced call;
+    results into res[f"{label} {mode}"], ms per frame."""
+    scene, camera, Rs, ps, modes = workload
     static, params = scene.freeze()
     scene_t = SceneTensors(static, params_to_device(params, dev))
     rows = cam_rows_of(Rs, ps, dev)
     F = len(ps)
-    res = {}
     for mode, base in modes.items():
         out = {}
-        for name, st in (("full", base),
-                         ("no_ao", base.with_(ao=False)),
-                         ("no_shadows", base.with_(shadows=False)),
-                         ("no_ao_no_shadows",
-                          base.with_(ao=False, shadows=False))):
+        for name, st in variants(base):
             frame_fused(scene_t, st, camera.intrinsics, rows)
             torch.cuda.synchronize()
             ms, _ = cuda_ms(lambda st=st: frame_fused(
@@ -91,8 +91,42 @@ def main() -> int:
         ms, _ = cuda_ms(call, REPS)
         out["render_sequence"] = [t / F for t in ms]
         out["profile"] = profile_call(call)
-        res[mode] = out
-        print(mode, json.dumps(out), flush=True)
+        res[f"{label} {mode}"] = out
+        print(f"{label} {mode}", json.dumps(out), flush=True)
+
+
+def features_off(base):
+    return (("full", base), ("no_ao", base.with_(ao=False)),
+            ("no_shadows", base.with_(shadows=False)),
+            ("no_ao_no_shadows", base.with_(ao=False, shadows=False)))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("breakdown: torch.cuda.is_available() is false")
+    print(gpu_line(_CARD), flush=True)
+    dev = torch.device("cuda", 0)
+    res = {}
+    fused_path("c3", main_path("configs/c3_sdf.yaml"), dev, features_off,
+               res)
+    fused_path("crowd_demo", crowd_main_path("configs/crowd_demo.yaml"), dev,
+               lambda base: features_off(base) + (
+                   ("full_crowd_off", base.with_(vector_objects=False)),),
+               res)
+    # primed c3: one 1080p frame per call
+    scene, camera, st, _ = load_config("configs/c3_sdf.yaml")
+    camera = reframe(camera, 1920, 1080)
+    st = st.with_(backend="pallas")
+    out = {}
+    for name, st_p in (("primed", st.with_(prime=True)), ("unprimed", st)):
+        call = lambda st_p=st_p: render(scene, camera, st_p, device=dev)
+        call()
+        torch.cuda.synchronize()
+        out[f"render_{name}"] = cuda_ms(call, REPS)[0]
+    out["profile"] = profile_call(lambda: render(
+        scene, camera, st.with_(prime=True), device=dev))
+    res["c3 primed"] = out
+    print("c3 primed", json.dumps(out), flush=True)
     scene, camera, Rs, ps, modes = mesh_main_path("configs/c4_mesh.yaml")
     F = len(ps)
     for mode, st in modes.items():

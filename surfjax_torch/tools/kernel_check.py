@@ -1,8 +1,9 @@
-"""Hold the split path's kernels against their plain versions.
+"""Hold the split path's kernels and the priming kernel against their
+plain versions.
 
-`capture_calls` records the arguments of every call the split path makes
-to a kernel wrapper (render_tile, trace_rays, ao_fix, mesh_tile) while a
-frame renders; `compare` runs one recorded call through the wrapper (the
+`capture_calls` records the arguments of every call a frame makes to one
+of their wrappers (render_tile, trace_rays, ao_fix, mesh_tile, prime_tile)
+while it renders; `compare` runs one recorded call through the wrapper (the
 CUDA kernel, for CUDA tensors) and through the plain version on the same
 inputs, and holds them bitwise; `KERNELS` also gives each kernel's
 launcher, which prepares a launch once for timing. `chip_smoke.py` and
@@ -40,6 +41,8 @@ KERNELS = {
     "mesh_tile": (mt.mesh_tile, mt.mesh_tile_reference,
                   ("t", "nsx", "nsy", "nsz", "ngx", "ngy", "ngz"),
                   mt.mesh_tile_launcher),
+    "prime_tile": (rt.prime_tile, rt.prime_tile_reference, ("t0",),
+                   rt.prime_launcher),
 }
 
 

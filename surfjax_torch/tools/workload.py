@@ -128,6 +128,168 @@ def two_mesh_scene(api, size: int):
             api.RenderSettings(shadows=True, backend="pallas"))
 
 
+# --- crowd scenes (settings.vector_objects) ---------------------------------
+# Built with the package's `api` module, so that the same scene can be
+# built for surfjax; every random number comes from a seeded numpy
+# generator. The settings leave vector_objects off: callers switch it.
+
+_CROWD_MATS = (dict(albedo=(0.7, 0.4, 0.3)),
+               dict(albedo=(0.3, 0.6, 0.8), shininess=16),
+               dict(albedo=(0.8, 0.8, 0.3), shininess=32))
+
+
+def _crowd_mats(api, n: int):
+    return [api.Material.blinn_phong(**kw) if "shininess" in kw
+            else api.Material.lambert(**kw) for kw in _CROWD_MATS[:n]]
+
+
+def _crowd_view(api, scene, size=(128, 96), **settings):
+    scene.add_light(api.PointLight(position=(3.0, 5.0, -1.0)))
+    cam = api.Camera.pinhole(size[0], size[1], fov_y_deg=50.0,
+                             position=(0.0, 0.6, -0.5),
+                             target=(0.0, 0.0, 3.0))
+    st = api.RenderSettings(backend="pallas", tile_rows=8, max_steps=96,
+                            **settings)
+    return scene, cam, st
+
+
+def _spot(rng, y=(-0.6, 1.0), z=(2.2, 4.2)):
+    return (float(rng.uniform(-1.6, 1.6)), float(rng.uniform(*y)),
+            float(rng.uniform(*z)))
+
+
+def crowd_scene(api, n_spheres=9, n_boxes=4, with_plane=True, engine="sdf",
+                n_sdf_spheres=0, mesh=False, size=(128, 96), seed=7,
+                **settings):
+    """Small spheres and boxes (three materials, two of them shiny) over
+    an optional floor -> (scene, camera, settings). engine None makes them
+    analytic members; n_sdf_spheres more SDF spheres let both engines
+    share the crowd; mesh adds a 128-triangle mesh, which sends the frame
+    down the split path."""
+    rng = np.random.default_rng(seed)
+    scene = api.Scene()
+    mats = _crowd_mats(api, 3 if engine else 2)
+    for k in range(n_spheres):
+        c = _spot(rng)
+        scene.add(api.Sphere(center=c, radius=float(rng.uniform(0.15, 0.35))),
+                  mats[k % len(mats)], engine=engine)
+    for k in range(n_boxes):
+        c = _spot(rng)
+        h = tuple(float(x) for x in rng.uniform(0.1, 0.3, 3))
+        scene.add(api.Box(center=c, half_extents=h),
+                  mats[(k + 1) % len(mats)], engine=engine)
+    for k in range(n_sdf_spheres):
+        scene.add(api.Sphere(center=_spot(rng), radius=0.2),
+                  mats[k % len(mats)], engine="sdf")
+    if with_plane:
+        scene.add(api.Plane(normal=(0.0, 1.0, 0.0), offset=-1.0),
+                  api.Material.lambert(albedo=(0.5, 0.5, 0.5)))
+    if mesh:
+        v, f = octasphere(2)
+        v = v * 0.5 + np.asarray([1.2, 0.0, 3.4], np.float32)
+        scene.add(api.TriangleMesh(vertices=v, faces=f),
+                  api.Material.blinn_phong(albedo=(0.7, 0.7, 0.75),
+                                           shininess=32))
+    return _crowd_view(api, scene, size, **settings)
+
+
+def pair_scene(api, n_pairs=6, n_singles=3, size=(128, 96), seed=11,
+               **settings):
+    """Two-leaf SDF pairs rotating through all six CSG ops, one more hard
+    union, single spheres, a Mandelbulb (which stays outside the crowd)
+    and a floor -> (scene, camera, settings)."""
+    rng = np.random.default_rng(seed)
+    scene = api.Scene()
+    mats = _crowd_mats(api, 2)
+    S, B = api.Sphere, api.Box
+    for k in range(n_pairs):
+        c = _spot(rng, y=(-0.5, 1.0), z=(2.4, 4.2))
+        a = S(center=c, radius=float(rng.uniform(0.15, 0.3)))
+        if k % 2 == 0:
+            b = S(center=(c[0] + 0.25, c[1], c[2]),
+                  radius=float(rng.uniform(0.12, 0.25)))
+        else:
+            b = B(center=(c[0] + 0.2, c[1] + 0.1, c[2]), half_extents=tuple(
+                float(x) for x in rng.uniform(0.08, 0.2, 3)))
+        kk = float(rng.uniform(0.08, 0.25))
+        # intersect and subtract keep the second leaf inside the first
+        inner = S(center=(c[0] + 0.1, c[1], c[2]), radius=0.22)
+        carve = S(center=(c[0] + 0.12, c[1] + 0.08, c[2]), radius=0.15)
+        node = (api.union(a, b), api.intersect(a, inner),
+                api.subtract(a, carve), api.smooth_union(a, b, kk),
+                api.smooth_intersect(a, inner, kk),
+                api.smooth_subtract(a, carve, kk))[k % 6]
+        scene.add(node, mats[k % 2], engine="sdf")
+    scene.add(api.union(S(center=(1.3, 1.2, 3.0), radius=0.2),
+                        S(center=(1.55, 1.2, 3.0), radius=0.18)),
+              mats[0], engine="sdf")
+    for k in range(n_singles):
+        scene.add(S(center=(-1.5 + 0.5 * k, 1.3, 3.2), radius=0.18),
+                  mats[(k + 1) % 2], engine="sdf")
+    scene.add(api.Mandelbulb(center=(0.0, -0.6, 4.6), scale=0.5),
+              api.Material.lambert(albedo=(0.85, 0.6, 0.3)))
+    scene.add(api.Plane(normal=(0.0, 1.0, 0.0), offset=-1.0),
+              api.Material.lambert(albedo=(0.5, 0.5, 0.5)))
+    return _crowd_view(api, scene, size, **settings)
+
+
+def sphere_crowd(api, n_members: int, size=(64, 48), seed=11, **settings):
+    """n_members SDF spheres of radius 0.25 (two materials) over a floor,
+    hard shadows -> (scene, camera, settings): the member-count scaling
+    scene."""
+    rng = np.random.default_rng(seed)
+    scene = api.Scene()
+    for i in range(n_members):
+        c = (float(rng.uniform(-3, 3)), float(rng.uniform(-1.5, 2)),
+             float(rng.uniform(3, 8)))
+        scene.add(api.Sphere(center=c, radius=0.25),
+                  api.Material.lambert((0.3 + 0.4 * (i % 2), 0.5, 0.7)),
+                  engine="sdf")
+    scene.add(api.Plane(normal=(0, 1, 0), offset=-2.0),
+              api.Material.lambert((0.5, 0.5, 0.5)))
+    scene.add_light(api.PointLight(position=(3, 6, -1)))
+    cam = api.Camera.pinhole(size[0], size[1], fov_y_deg=50.0,
+                             position=(0, 0.5, -1), target=(0, 0, 4))
+    st = api.RenderSettings(shadows=True, backend="pallas", tile_rows=8,
+                            max_steps=48, **settings)
+    return scene, cam, st
+
+
+def crowd_cases(api, size=(128, 96)):
+    """-> {name: (scene, camera, settings)}: the crowd shapes the kernels
+    are held to (vector_objects still off in the settings)."""
+    return {
+        "crowd hard+ao": crowd_scene(api, size=size, shadows=True, ao=True),
+        "crowd soft": crowd_scene(api, size=size, shadows=True,
+                                  soft_shadows=True),
+        "crowd only": crowd_scene(api, with_plane=False, size=size,
+                                  shadows=True, ao=True),
+        "pairs all ops": pair_scene(api, size=size, shadows=True, ao=True),
+        "pairs soft": pair_scene(api, size=size, shadows=True,
+                                 soft_shadows=True),
+        "analytic members": crowd_scene(
+            api, n_spheres=6, n_boxes=3, engine=None, n_sdf_spheres=3,
+            seed=13, size=size, shadows=True, ao=True),
+        "analytic members soft": crowd_scene(
+            api, n_spheres=6, n_boxes=3, engine=None, n_sdf_spheres=3,
+            seed=13, size=size, shadows=True, ao=True, soft_shadows=True),
+        "crowd + mesh": crowd_scene(api, n_spheres=5, n_boxes=2, mesh=True,
+                                    size=size, shadows=True, ao=True),
+    }
+
+
+def crowd_main_path(config_path: str, n_frames: int = 48):
+    """-> (scene, camera at 1920x1080, R_flats, positions, modes) of a
+    crowd config: `config` (the yaml's settings) and `soft` (soft shadows
+    on), both with backend pallas."""
+    scene, camera, settings, _ = load_config(config_path)
+    camera = reframe(camera, 1920, 1080)
+    Rs, ps = poses(camera, n_frames, _jitter(n_frames))
+    modes = {"config": settings.with_(backend="pallas"),
+             "soft": settings.with_(backend="pallas", soft_shadows=True)}
+    return scene, camera, Rs, ps, modes
+
+
 def cuda_ms(fn, reps: int):
     """-> (list of per-call ms by CUDA events, last result)."""
     times, out = [], None

@@ -131,3 +131,117 @@ def test_render_on_cuda_uses_the_split_kernels(cuda_device):
         [1, 1, 1, 2, 0]
     assert fb.rgb.device.type == "cuda"
     assert bool(torch.isfinite(fb.rgb).all())
+
+
+# --- the crowd loops in KF, K1, K2 and ao_fix; the priming kernel -----------
+
+def _crowd_case(name):
+    from surfjax_torch import api
+    from surfjax_torch.tools.workload import crowd_cases, reframe
+    if name.startswith("crowd_demo"):
+        scene, cam, st, _ = load_config(os.path.join(ROOT, "configs",
+                                                     "crowd_demo.yaml"))
+        st = st.with_(backend="pallas", vector_objects=False,
+                      soft_shadows=name.endswith("soft"))
+        return scene, reframe(cam, 96, 64), st
+    return crowd_cases(api, (96, 64))[name]
+
+
+@pytest.mark.parametrize("name", [
+    "crowd hard+ao", "crowd soft", "crowd only", "pairs all ops",
+    "pairs soft", "analytic members", "analytic members soft",
+    "crowd_demo", "crowd_demo soft"])
+def test_crowd_kernel_matches_twin_and_crowd_off(cuda_device, name):
+    """KF with the crowd on against its twin, bitwise; and against the
+    same frame with the crowd off: geometry bitwise, rgb within 2 ULP."""
+    from surfjax_torch.api import render
+    scene, cam, st = _crowd_case(name)
+    on = st.with_(vector_objects=True)
+    static, params = scene.freeze()
+    scene_t = SceneTensors(static, params_to_device(params, cuda_device))
+    rows = torch.as_tensor(np.concatenate(
+        [np.asarray(cam.rotation, np.float32).reshape(1, 9),
+         np.asarray(cam.position, np.float32).reshape(1, 3)], axis=1),
+        device=cuda_device)
+    before = frame_fused.launches
+    got = frame_fused(scene_t, on, cam.intrinsics, rows)
+    torch.cuda.synchronize()
+    assert frame_fused.launches == before + 1
+    ref = frame_fused_reference(scene_t, on, cam.intrinsics, rows)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    fb_on = render(scene, cam, on, device=cuda_device)
+    fb_off = render(scene, cam, st, device=cuda_device)
+    for field in ("depth", "normal", "hit", "obj_id"):
+        assert torch.equal(getattr(fb_on, field), getattr(fb_off, field))
+    ulp = (fb_on.rgb.view(torch.int32) - fb_off.rgb.view(torch.int32)).abs()
+    assert int(ulp.max()) <= 2
+    assert float(fb_on.hit.mean()) > 0.1
+
+
+def test_crowd_split_kernels_match_plain(cuda_device):
+    """A crowd beside a mesh: K1, ao_fix and K2 run with the crowd active
+    (and the mesh kernel beside them); every call bitwise equal to its
+    plain version."""
+    from surfjax_torch.api import render
+    from surfjax_torch.tools.kernel_check import capture_calls, compare
+    scene, cam, st = _crowd_case("crowd + mesh")
+    with capture_calls() as calls:
+        fb = render(scene, cam, st.with_(vector_objects=True),
+                    device=cuda_device)
+    torch.cuda.synchronize()
+    assert {"render_tile", "trace_rays", "ao_fix", "mesh_tile"} <= \
+        {c[0] for c in calls}
+    for k, (kname, args) in enumerate(calls):
+        compare(kname, args, f"crowd + mesh call {k}")
+    assert int((fb.obj_id == len(scene.objects) - 1).sum()) > 10
+
+
+def test_large_crowd_renders_on_the_card(cuda_device):
+    """256 members: the 64-object mask does not bound the crowd."""
+    from surfjax_torch import api
+    from surfjax_torch.tools.workload import sphere_crowd
+    scene, cam, st = sphere_crowd(api, 256, size=(128, 96))
+    fb = api.render(scene, cam, st.with_(vector_objects=True),
+                    device=cuda_device)
+    assert float(fb.hit.mean()) > 0.3
+    assert len(torch.unique(fb.obj_id)) > 100
+
+
+@pytest.mark.parametrize("name", ["c3_sdf", "c3_sdf_portlog"])
+def test_prime_kernel_matches_plain_and_feeds_kf(cuda_device, name):
+    """The priming kernel against its plain version, bitwise, on the
+    coarse rays of a 128x96 frame; then KF with that t0 against its twin
+    with the same t0, bitwise; the primed hit mask differs from the
+    unprimed one on at most one pixel in a thousand."""
+    from surfjax_torch.api import render
+    from surfjax_torch.kernels.render_tile import (
+        prime_frame, prime_tile, prime_tile_reference,
+    )
+    from surfjax_torch.tools.kernel_check import capture_calls
+    from surfjax_torch.tools.workload import reframe
+    scene, cam, st, _ = load_config(os.path.join(ROOT, "configs",
+                                                 name + ".yaml"))
+    cam = reframe(cam, 128, 96)
+    st = st.with_(backend="pallas", prime=True, prime_min=64)
+    before = prime_tile.launches
+    with capture_calls() as calls:
+        primed = render(scene, cam, st, device=cuda_device)
+    assert prime_tile.launches == before + 1
+    (kname, args), = calls
+    assert kname == "prime_tile"
+    assert torch.equal(prime_tile(*args), prime_tile_reference(*args))
+    static, params = scene.freeze()
+    scene_t = SceneTensors(static, params_to_device(params, cuda_device))
+    R = torch.as_tensor(np.asarray(cam.rotation, np.float32).reshape(9),
+                        device=cuda_device)
+    pos = torch.as_tensor(np.asarray(cam.position, np.float32),
+                          device=cuda_device)
+    t0 = prime_frame(static, cam.intrinsics, st, scene_t.params, R, pos)[None]
+    rows = torch.cat([R, pos]).reshape(1, 12)
+    got = frame_fused(scene_t, st, cam.intrinsics, rows, t0)
+    ref = frame_fused_reference(scene_t, st, cam.intrinsics, rows, t0)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    unprimed = render(scene, cam, st.with_(prime=False), device=cuda_device)
+    assert float((primed.hit != unprimed.hit).float().mean()) <= 1e-3

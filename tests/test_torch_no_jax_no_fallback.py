@@ -35,6 +35,18 @@ for backend in ("jnp", "pallas"):
     fb = render(scene, cam, st.with_(backend=backend), device="cpu")
     assert tuple(fb.rgb.shape) == (16, 16, 3), fb.rgb.shape
     assert float(fb.hit.mean()) > 0.1
+# the crowd loops, the priming pass and the tools the chip scripts use
+from surfjax_torch import api
+from surfjax_torch.tools import breakdown, kernel_check, workload
+scene, cam, st = workload.crowd_scene(api, size=(16, 12), shadows=True)
+fb = render(scene, cam, st.with_(vector_objects=True), device="cpu")
+assert float(fb.hit.mean()) > 0.1
+scene, cam, st, _ = load_config("configs/c3_sdf.yaml")
+cam = Camera(Intrinsics.from_fov(16, 16, 45.0), cam.rotation, cam.position)
+with kernel_check.capture_calls() as calls:
+    render(scene, cam, st.with_(backend="pallas", prime=True, prime_min=16,
+                                max_steps=32), device="cpu")
+assert [c[0] for c in calls] == ["prime_tile"], calls
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "surfjax"))
 print("LOADED", loaded)
@@ -102,18 +114,50 @@ def test_fused_wrapper_takes_only_cpu_or_cuda_tensors():
     assert frame_fused.launches == before
 
 
+def test_prime_and_crowd_wrappers_take_only_cpu_or_cuda_tensors():
+    """The priming wrapper and the split wrappers with a crowd active
+    refuse a tensor on another device and count no launch."""
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools import workload
+    scene, cam, st = workload.crowd_scene(api, size=(16, 8), shadows=True)
+    static, params = scene.freeze()
+    on = st.with_(vector_objects=True)
+    assert rt.split_crowd(static, on)[0] is not None
+    scene_t = SceneTensors(static, params_to_device(params, "meta"))
+    rays = tuple(torch.zeros((8, 128), device="meta") for _ in range(3))
+    wrappers = (rt.render_tile, rt.trace_rays, rt.ao_fix, rt.prime_tile,
+                frame_fused)
+    before = [w.launches for w in wrappers]
+    with pytest.raises(ValueError, match="unsupported device"):
+        rt.render_tile(scene_t, on, rays, rays)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rt.trace_rays(scene_t, on, rays, rays, rays[0], rays[0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        rt.ao_fix(scene_t, on, rays, rays, rays[0], rays[0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        rt.prime_tile(scene_t, st, 0.01, rays, rays)
+    with pytest.raises(ValueError, match="unsupported device"):
+        frame_fused(scene_t, on, cam.intrinsics,
+                    torch.zeros((1, 12), device="meta"))
+    assert [w.launches for w in wrappers] == before
+
+
 def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
     scene, cam, st = _c1()
     static, params = scene.freeze()
     scene_t = SceneTensors(static, params_to_device(params, "cpu"))
     rows = torch.zeros((1, 12), dtype=torch.float32)
-    for bad, exc in ((dict(vector_objects=True), NotImplementedError),
-                     (dict(prime=True), NotImplementedError),
-                     (dict(march_cap=16), NotImplementedError),
+    for bad, exc in ((dict(march_cap=16), NotImplementedError),
                      (dict(shadow_march_cap=8), NotImplementedError),
                      (dict(bulb_iter="trig"), ValueError)):
         with pytest.raises(exc):
             frame_fused(scene_t, st.with_(**bad), cam.intrinsics, rows)
+    # the crowd and priming are carried: their settings no longer raise
+    for ok in (dict(vector_objects=True), dict(prime=True)):
+        out = frame_fused(scene_t, st.with_(**ok), cam.intrinsics, rows)
+        assert len(out) == 9 and out[0].shape == (1, 8, 8)
+    with pytest.raises(ValueError, match=r"\(F, H, W\)"):
+        frame_fused(scene_t, st, cam.intrinsics, rows, t0=torch.zeros(8, 8))
     bulb = api.Scene()
     bulb.add(api.Mandelbulb(power=6))
     bstatic, bparams = bulb.freeze()

@@ -59,8 +59,9 @@ def test_compile_matches_reference(name):
 
 
 def test_crowd_demo_fused_path_raises():
-    """crowd_demo keeps vector_objects on; the crowd loops are not ported,
-    so the fused path refuses the scene instead of rendering it otherwise."""
+    """crowd_demo keeps vector_objects on. The crowd loops are carried, so
+    the fused path renders the scene through them; what it still does not
+    carry (the march caps) it refuses instead of rendering otherwise."""
     scene, cam, st, _ = pt_config.load_config(
         os.path.join(CONFIG_DIR, "crowd_demo.yaml"))
     assert st.vector_objects
@@ -68,9 +69,13 @@ def test_crowd_demo_fused_path_raises():
         cam, intrinsics=pt_camera.Intrinsics.from_fov(8, 8, 55.0))
     R = np.asarray(cam.rotation, np.float32).reshape(1, 9)
     pos = np.asarray(cam.position, np.float32).reshape(1, 3)
-    with pytest.raises(NotImplementedError, match="crowd"):
+    fb = pt_api.render_sequence(scene, cam, (R, pos),
+                                st.with_(backend="pallas"), device="cpu")
+    assert fb.rgb.shape == (1, 8, 8, 3) and float(fb.hit.mean()) > 0.3
+    with pytest.raises(NotImplementedError, match="march_cap"):
         pt_api.render_sequence(scene, cam, (R, pos),
-                               st.with_(backend="pallas"), device="cpu")
+                               st.with_(backend="pallas", march_cap=16),
+                               device="cpu")
 
 
 def test_render_settings_fields_and_defaults():

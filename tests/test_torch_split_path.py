@@ -264,8 +264,8 @@ def test_split_wrappers_cpu_runs_plain_and_others_raise():
         pt_rt.render_tile(scene_t, st, meta, tuple(c.to("meta") for c in d))
     with pytest.raises(ValueError, match="float32"):
         pt_rt.render_tile(scene_t, st, tuple(c.double() for c in o), d)
-    for bad in (dict(march_cap=16), dict(tile_rows=12),
-                dict(vector_objects=True)):
+    for bad in (dict(march_cap=16), dict(shadow_march_cap=8),
+                dict(tile_rows=12)):
         with pytest.raises((NotImplementedError, ValueError)):
             pt_rt.render_tile(scene_t, st.with_(**bad), o, d)
 
