@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive surfjax_torch's fused-frame, split (mesh), crowd and primed paths on
-one CUDA GPU and check them.
+"""Drive surfjax_torch's fused-frame, split (mesh), crowd, primed and fit
+paths and its FP32 roofline probe on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -48,13 +48,30 @@ the script exits non-zero and never prints its last line):
      at 1920x1080; the primed main path: render(prime=True) on c3 at
      1920x1080 launches prime_tile then KF with its t0; hit mask against
      the unprimed frame's, times with and without priming;
- 11. member-count scaling: crowds of 16, 64 and 256 spheres at 1920x1080.
+ 11. member-count scaling: crowds of 16, 64 and 256 spheres at 1920x1080;
+ 12. the FP32 roofline probe (tools/fp32_peak.py): every entry built with
+     -fmad=false against its plain version, bitwise (the explicit-FMA chains
+     within 1 ULP of their float64 plain versions), the contracted entries
+     within 1e-5, at K = 16 on 64 x 256 x 128 lanes and every unroll; then
+     the timed sweep at the tool's defaults: ps per iteration-lane and
+     Tflop/s per row, contracted over uncontracted, and what c3's Mandelbulb
+     iteration-lanes per 1080p frame cost at the probe's rate;
+ 13. the kernel-forward differentiable render (diff/hybrid.py) on c5 at
+     256x256: forward bitwise equal to render_rays_pallas; the pose loss
+     and gradient on `pallas` against `jnp` and against the same run on the
+     CPU's plain versions; a central finite-difference check;
+ 14. the fit main path: configs/c5_anim.yaml as it is (256x256, its `fit:`
+     block, backend pallas): fit_pose from the command line's start, then
+     fit_sdf from its perturbed leaf parameters, launch counts (K1 once and
+     K2 once per light and step, the fused kernel never), both timed per
+     step; then the pose-fit step at 1920x1080 on both backends.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
 per 1080p frame (value_exact mode for the fused kernel, `ao` mode for the
 split kernels, crowd_demo `config` for the fused kernel's crowd
-instantiation) and bounds.
+instantiation; the probe's entries per launch at its defaults, unroll 4)
+and bounds.
 """
 
 from __future__ import annotations
@@ -91,6 +108,13 @@ CROWD_DRIFT_MAX = 1e-4
 # 48 frames per launch, NVIDIA H100 80GB HBM3 at 700 W), for comparison
 KF_BEFORE = "3.338 ms/frame, 72 registers, 264/416 bytes of spills"
 PRIME_HIT_MAX = 1e-4   # share of pixels whose hit flag priming may change
+PROBE_K = 16           # substeps of the probe's comparison with plain
+PROBE_UNROLL = 4       # the sweep row whose launch time the kernels line gives
+# the hybrid's pose gradient against the eager pipeline's (the marches stop
+# at different points inside the hit band): the bounds surfjax holds its
+# own two backends to
+FIT_LOSS_REL, FIT_GRAD_REL, FIT_GRAD_COS = 2e-3, 0.1, 0.995
+FIT_CPU_REL = 1e-3     # the card's hybrid gradient against the CPU's
 
 
 def bound(n_ops: float, n_bytes: float):
@@ -347,6 +371,15 @@ def main() -> int:
     kf_bound = bound(kf_ops["ops"], 9 * 4 * W * H)
     log(f"  fused kernel bound per 1080p frame: {kf_ops['ops']:.4g} ops, "
         f"{kf_bound[0]:.4f} ms ({kf_bound[1]})")
+    # Mandelbulb iteration-lanes of frame 0 in both modes, for phase 12
+    with count_ops() as kf_ops_value:
+        frame_fused_reference(scene_t, modes["value"], camera.intrinsics,
+                              rows[:1])
+    c3_bulb = {"value": kf_ops_value["bulb_iters"],
+               "value_exact": kf_ops["bulb_iters"]}
+    c3_bulb_form = modes["value"].bulb_iter
+    log(f"  Mandelbulb iteration-lanes per 1080p frame ({c3_bulb_form}): "
+        + json.dumps(c3_bulb))
 
     # -- phase 5 ------------------------------------------------------------
     t5 = time.perf_counter()
@@ -681,15 +714,286 @@ def main() -> int:
     log(f"phase 11: member-count scaling at 1920x1080, ms/frame "
         f"({time.perf_counter() - t11:.1f} s) on {smi}")
 
+
+    # -- phase 12 -----------------------------------------------------------
+    # the FP32 roofline probe: entries against plain, then the timed sweep
+    t12 = time.perf_counter()
+    from surfjax_torch.tools import fp32_peak as fp
+    seeds = fp.seeds(fp.DEFAULT_ROWS, fp.DEFAULT_GRID, dev)
+    n_lanes = seeds[0].numel()
+    probe = {}     # entry -> dict(err, plain_ms, kind, fma)
+    for pk in fp.KINDS:
+        ref = fp.fp32_peak_reference(pk, *seeds, PROBE_K)
+        for fma in ((False,) if pk in fp.CHAINS else (False, True)):
+            entry = fp.entry_name(pk, fma)
+            err = 0.0
+            for unroll in fp.UNROLLS:
+                got = fp.fp32_peak(pk, *seeds, PROBE_K, unroll, fma)
+                torch.cuda.synchronize()
+                err = max(err, float((got.double() - ref.double())
+                                     .abs().max()))
+                if fma:
+                    rel = float(((got - ref).abs() / ref.abs()).max())
+                    ok, how = rel <= 1e-5, f"relative gap {rel:.3e}"
+                elif pk in fp.CHAINS:
+                    ulp = int((got.view(torch.int32) - ref.view(torch.int32))
+                              .abs().max())
+                    ok, how = ulp <= 1, f"{ulp} ULP"
+                else:
+                    ok, how = torch.equal(got, ref), "not bitwise equal"
+                if not ok:
+                    raise AssertionError(f"{entry} unroll {unroll}: differs "
+                                         f"from its plain version ({how})")
+            probe[entry] = dict(err=err, kind=pk, fma=fma)
+            log(f"  {entry}: K = {PROBE_K}, {n_lanes} lanes, unrolls "
+                f"{fp.UNROLLS}: "
+                + ("within 1e-5 of" if fma else
+                   "within 1 ULP of" if pk in fp.CHAINS else
+                   "bitwise equal to") + " the plain version")
+    fp.fp32_peak.launches.clear()
+    sweep = fp.run()
+    probe_launches = dict(fp.fp32_peak.launches)
+    for name, row in sweep.items():
+        log("  " + fp.format_row(name, row))
+    for mix in ("bulb_mix", "cheb_mix"):
+        log(f"  {mix}: time with contraction over time without: "
+            + json.dumps({f"u{u}": sweep[f"{mix}_fma@u{u}"]["ps_per_iter_lane"]
+                          / sweep[f"{mix}@u{u}"]["ps_per_iter_lane"]
+                          for u in fp.UNROLLS}))
+    # what c3's Mandelbulb iterations cost at the probe's rate, beside
+    # what the fused kernel achieves per iteration-lane with all its other
+    # work (divergence, the march around the DE, AO, shadows) on top
+    mix = "cheb_mix" if c3_bulb_form == "cheb" else "bulb_mix"
+    best_ps = min(sweep[f"{mix}@u{u}"]["ps_per_iter_lane"]
+                  for u in fp.UNROLLS)
+    for mode, iters in c3_bulb.items():
+        floor_ms = iters * best_ps * 1e-9
+        log(f"  c3 {mode}: {iters} Mandelbulb iteration-lanes per 1080p "
+            f"frame x {best_ps:.3f} ps ({mix}, best unroll) = "
+            f"{floor_ms:.4f} ms of the fused kernel's "
+            f"{per_frame[mode][0]:.4f} ms/frame "
+            f"({floor_ms / per_frame[mode][0]:.1%}); the kernel achieves "
+            f"{per_frame[mode][0] * 1e9 / iters:.3f} ps per iteration-lane "
+            "all told")
+    for entry, info in probe.items():
+        pk, fma = info["kind"], info["fma"]
+        k = fp.DEFAULT_ITERS * (fp.FMA_K_SCALE if pk in fp.CHAINS else 1)
+        info["ms"] = sweep[f"{pk}{'_fma' if fma else ''}@u{PROBE_UNROLL}"][
+            "ms_launch_K"]
+        info["plain_ms"] = cuda_ms(
+            lambda: fp.fp32_peak_reference(pk, *seeds, k), 1)[0][0]
+        n_in = 1 if pk in fp.CHAINS else 3
+        info["bound"] = bound(fp.ops_per_iter(pk) * float(n_lanes) * k,
+                              4 * (n_in + 1) * n_lanes)
+        if probe_launches.get(entry, 0) < 1:
+            raise AssertionError(f"the sweep launched {entry} no time")
+    log(f"phase 12: FP32 roofline probe, launches {probe_launches} "
+        f"({time.perf_counter() - t12:.1f} s) on {smi}")
+
+    # -- phase 13 -----------------------------------------------------------
+    # the kernel-forward differentiable render on the card
+    t13 = time.perf_counter()
+    from surfjax_torch.core.camera import flat_camera_rays
+    from surfjax_torch.diff import fit as fit_mod
+    from surfjax_torch.diff.hybrid import render_rays_hybrid
+    from surfjax_torch.kernels.render_tile import render_rays_pallas
+    from surfjax_torch.tools.workload import fit_main_path, sdf_fit_start
+    c5_path = os.path.join(ROOT, "configs/c5_anim.yaml")
+    scene, camera, st, fit_cfg, pose_init = fit_main_path(c5_path)
+    if (camera.intrinsics.width, camera.intrinsics.height) != (256, 256):
+        raise AssertionError("c5_anim.yaml is no longer 256x256")
+    static, params = scene.freeze()
+    params_d = params_to_device(params, dev)
+    R5, pos5 = (torch.as_tensor(np.asarray(a, np.float32).reshape(-1),
+                                device=dev)
+                for a in (camera.rotation, camera.position))
+    o5, d5, _ = flat_camera_rays(camera.intrinsics, R5, pos5)
+    with torch.no_grad():
+        fb_p = render_rays_pallas(static, st, params_d, o5, d5)
+    lp5 = params_d["leaf_params"].clone().requires_grad_(True)
+    render_tile.launches = trace_rays.launches = 0
+    fb_h = render_rays_hybrid(static, st, dict(params_d, leaf_params=lp5),
+                              o5, d5)
+    if (render_tile.launches, trace_rays.launches) != (1, len(scene.lights)):
+        raise AssertionError(
+            f"hybrid forward: launches K1 {render_tile.launches}, K2 "
+            f"{trace_rays.launches}")
+    hybrid_err = bitwise(tuple(a.detach() for a in fb_h), fb_p,
+                         FrameBuffers._fields, "c5 hybrid forward vs "
+                         "render_rays_pallas")
+    if not fb_h.rgb.requires_grad:
+        raise AssertionError("the hybrid's rgb carries no gradient")
+
+    def flat_grad(g):
+        return np.concatenate([g["w"], g["dt"]]).astype(np.float64)
+
+    def gaps(l_a, g_a, l_b, g_b):
+        a, b = flat_grad(g_a), flat_grad(g_b)
+        return (abs(l_a - l_b) / max(abs(l_b), 1e-12),
+                float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12)),
+                float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b),
+                                  1e-30)))
+
+    l_h, g_h = fit_mod.pose_loss_and_grad(scene, camera, st, device=dev)
+    l_j, g_j = fit_mod.pose_loss_and_grad(
+        scene, camera, st.with_(backend="jnp"), device=dev)
+    l_c, g_c = fit_mod.pose_loss_and_grad(scene, camera, st, device="cpu")
+    vs_jnp = gaps(l_h, g_h, l_j, g_j)
+    vs_cpu = gaps(l_h, g_h, l_c, g_c)
+    log(f"  pose probe: loss {l_h:.6g}; pallas vs jnp on the card: loss "
+        f"{vs_jnp[0]:.3e} relative, gradient relative L2 {vs_jnp[1]:.3e}, "
+        f"cosine {vs_jnp[2]:.6f}; card vs CPU plain versions: loss "
+        f"{vs_cpu[0]:.3e}, gradient relative L2 {vs_cpu[1]:.3e}")
+    if vs_jnp[0] > FIT_LOSS_REL or vs_jnp[1] > FIT_GRAD_REL or \
+            vs_jnp[2] < FIT_GRAD_COS:
+        raise AssertionError(f"hybrid vs eager pose gradient: {vs_jnp}")
+    if vs_cpu[1] > FIT_CPU_REL or vs_cpu[0] > FIT_CPU_REL:
+        raise AssertionError(f"hybrid gradient, card vs CPU: {vs_cpu}")
+    if not np.isfinite(flat_grad(g_h)).all():
+        raise AssertionError("non-finite pose gradient")
+    # central finite differences of a smooth observable: the mean hit depth
+    # over the central 8x8 pixels of one SDF sphere, to its leaf parameters
+    fd_scene = api.Scene()
+    fd_scene.add(api.Sphere(center=(0.0, 0.0, 3.0), radius=0.8),
+                 api.Material.lambert((0.6, 0.4, 0.3)), engine="sdf")
+    fd_scene.add_light(api.PointLight(position=(2.0, 3.0, -1.0)))
+    fd_cam = api.Camera.pinhole(24, 24, 45.0, position=(0.0, 0.0, 0.0),
+                                target=(0.0, 0.0, 3.0))
+    fd_st = api.RenderSettings(backend="pallas", tile_rows=8, shadows=False)
+    fd_static, fd_params = fd_scene.freeze()
+    fd_params = params_to_device(fd_params, dev)
+    o_fd, d_fd, _ = flat_camera_rays(
+        fd_cam.intrinsics,
+        torch.as_tensor(np.asarray(fd_cam.rotation, np.float32).reshape(9),
+                        device=dev),
+        torch.as_tensor(np.asarray(fd_cam.position, np.float32), device=dev))
+    w_fd = torch.zeros((24, 24), device=dev)
+    w_fd[8:16, 8:16] = 1.0 / 64.0
+    w_fd = w_fd.reshape(-1)
+
+    def depth_loss(lp):
+        return (render_rays_hybrid(
+            fd_static, fd_st, dict(fd_params, leaf_params=lp), o_fd,
+            d_fd).depth * w_fd).sum()
+
+    lp_fd = fd_params["leaf_params"]
+    lp_g = lp_fd.clone().requires_grad_(True)
+    g_fd, = torch.autograd.grad(depth_loss(lp_g), lp_g)
+    v_fd = np.zeros(tuple(lp_fd.shape), np.float32)
+    v_fd[0, :4] = np.random.default_rng(3).standard_normal(4)
+    v_fd = torch.as_tensor(v_fd / np.linalg.norm(v_fd), device=dev)
+    with torch.no_grad():
+        fd = (float(depth_loss(lp_fd + 1e-3 * v_fd))
+              - float(depth_loss(lp_fd - 1e-3 * v_fd))) / 2e-3
+    an = float((g_fd * v_fd).sum())
+    if abs(fd - an) > 2e-3 * max(abs(fd), abs(an), 1e-6):
+        raise AssertionError(f"hybrid IFT gradient {an} against central "
+                             f"finite differences {fd}")
+    log(f"  IFT gradient {an:.6f} against central finite differences "
+        f"{fd:.6f}")
+    log(f"phase 13: hybrid render on the card passed "
+        f"({time.perf_counter() - t13:.1f} s)")
+
+    # -- phase 14 -----------------------------------------------------------
+    # the fit main path: c5 as it is, pose then sdf, then the 1080p step
+    t14 = time.perf_counter()
+    from surfjax_torch.tools.fit_bench import bench_backend
+    steps, lr, n_lights = fit_cfg["steps"], fit_cfg["lr"], len(scene.lights)
+    frame_fused.launches = 0
+    target = render(scene, camera, st, device=dev).rgb
+    if frame_fused.launches != 1:
+        raise AssertionError("the fit's target did not come from the fused "
+                             "kernel")
+    fit_counters = (render_tile, trace_rays, ao_fix, mesh_tile, frame_fused)
+    fit_launches = {"render_tile": 0, "trace_rays": 0}
+
+    def counted_fit(label, call):
+        """Run one fit with every count at 0 -> (result, ms per step);
+        holds the launch counts to one K1 and one K2 per light and step."""
+        for w in fit_counters:
+            w.launches = 0
+        ms, out = cuda_ms(call, 1)
+        got = [w.launches for w in fit_counters]
+        if got != [steps, steps * n_lights, 0, 0, 0]:
+            raise AssertionError(f"{label}: launches (K1, K2, ao_fix, mesh, "
+                                 f"fused) {got} over {steps} steps")
+        fit_launches["render_tile"] += got[0]
+        fit_launches["trace_rays"] += got[1]
+        return out, ms[0] / steps
+
+    (R_fit, pos_fit, losses), pose_ms = counted_fit(
+        "fit_pose", lambda: fit_mod.fit_pose(
+            scene, camera, target, steps=steps, lr=lr, settings=st,
+            init=pose_init, device=dev))
+    if len(losses) != steps or not np.isfinite(losses).all() or \
+            not losses[-1] < 0.05 * losses[0]:
+        raise AssertionError(f"fit_pose did not converge: loss {losses[0]} "
+                             f"-> {losses[-1]}")
+    log(f"  fit_pose: {steps} steps, loss {losses[0]:.4e} -> "
+        f"{losses[-1]:.4e}, {pose_ms:.3f} ms/step; position error "
+        f"{float(np.abs(pos_fit - np.asarray(camera.position)).max()):.4f}")
+    true_lp, init_lp, mask = sdf_fit_start(scene)
+    (lp_fit, sdf_losses), sdf_ms = counted_fit(
+        "fit_sdf", lambda: fit_mod.fit_sdf(
+            scene, camera, target, steps=steps, lr=lr, settings=st,
+            init_leaf_params=init_lp, param_mask=mask, device=dev))
+    err0 = float(np.abs(init_lp - true_lp).max())
+    err1 = float(np.abs(lp_fit - true_lp).max())
+    if not (np.isfinite(sdf_losses).all() and sdf_losses[-1] < sdf_losses[0]
+            and err1 < err0):
+        raise AssertionError(f"fit_sdf did not improve: loss "
+                             f"{sdf_losses[0]} -> {sdf_losses[-1]}, "
+                             f"parameter error {err0} -> {err1}")
+    log(f"  fit_sdf: {steps} steps, loss {sdf_losses[0]:.4e} -> "
+        f"{sdf_losses[-1]:.4e}, parameter error {err0:.4f} -> {err1:.4f}, "
+        f"{sdf_ms:.3f} ms/step")
+    # the pose-fit step where the card has real work: 1920x1080
+    render_tile.launches = trace_rays.launches = 0
+    big = {be: bench_backend(be, n, 1, size=(1920, 1080), device=dev)
+           for be, n in (("pallas", 20), ("jnp", 5))}
+    if (render_tile.launches, trace_rays.launches) != (21, 21 * n_lights):
+        raise AssertionError(
+            f"1080p fit steps: launches K1 {render_tile.launches}, K2 "
+            f"{trace_rays.launches}")
+    fit_launches["render_tile"] += render_tile.launches
+    fit_launches["trace_rays"] += trace_rays.launches
+    for be, r in big.items():
+        if not np.isfinite(r["final_loss"]):
+            raise AssertionError(f"1080p fit step on {be}: {r}")
+        log(f"  pose-fit step at 1920x1080, {be}: " + json.dumps(r))
+    # every K1 and K2 call of one fit step, kernel against plain, at the
+    # shapes the fit gives them (a scene without a mesh, at both sizes)
+    from surfjax_torch.tools.fit_bench import pose_step_fn
+    for size in (None, (1920, 1080)):
+        step_fn, x0, state0, intr = pose_step_fn("pallas", steps, size, dev)
+        with capture_calls() as calls:
+            step_fn(x0, state0)
+        names = [c[0] for c in calls]
+        if names != ["render_tile"] + ["trace_rays"] * n_lights:
+            raise AssertionError(f"fit step at {intr.width}x{intr.height}: "
+                                 f"kernel calls {names}")
+        with torch.no_grad():
+            for k, (kname, args) in enumerate(calls):
+                err, _, _ = compare(kname, args, f"c5 fit step "
+                                    f"{intr.width}x{intr.height} call {k}")
+                split_err[kname] = max(split_err[kname], err)
+        log(f"  fit step at {intr.width}x{intr.height}: {len(calls)} kernel "
+            f"calls bitwise equal ({', '.join(names)})")
+    log(f"phase 14: fit main path, launches {fit_launches} "
+        f"({time.perf_counter() - t14:.1f} s) on {smi}")
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     # the fused kernel: times per 1080p frame in value_exact mode, the
     # error the largest over every buffer of phases 2 and 4; the split
     # kernels: times per 1080p frame of c4 in `ao` mode (all calls of the
     # frame, each kernel launched back to back), launches over both modes
-    # of phase 6, errors over phases 5, 7 and 8; the crowd instantiation:
+    # of phase 6, errors over phases 5, 7 and 8 and (K1, K2) the fit steps
+    # held in phase 14; the crowd instantiation:
     # crowd_demo `config` per 1080p frame, launches of phase 9, errors over
-    # phases 8 and 9; the priming kernel: the 1080p frame of phase 10
+    # phases 8 and 9; the priming kernel: the 1080p frame of phase 10; K1
+    # and K2 also count the fit's launches (phase 14); the probe's entries:
+    # one launch at the tool's defaults (unroll 4), launches of its sweep
     kernels = [{
         "name": "frame_fused", "route": "cuda",
         "source": "surfjax_torch/kernels/csrc/frame_fused.cu",
@@ -726,9 +1030,20 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"surfjax_torch/kernels/csrc/{sources[name][0]}",
             "replaces": f"surfjax/kernels/{sources[name][1]}",
-            "launches": sum(c[name] for c in mesh_launches.values()),
+            "launches": sum(c[name] for c in mesh_launches.values())
+            + fit_launches.get(name, 0),
             "max_abs_err": split_err[name], "ms": st7["ms"],
             "plain_ms": st7["plain_ms"], "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None})
+    for entry, info in probe.items():
+        kernels.append({
+            "name": entry, "route": "cuda",
+            "source": "surfjax_torch/kernels/csrc/fp32_peak"
+                      + ("_fma.cu" if info["fma"] else ".cu"),
+            "replaces": "tools/vpu_peak.py:264",
+            "launches": probe_launches[entry], "max_abs_err": info["err"],
+            "ms": info["ms"], "plain_ms": info["plain_ms"],
+            "bound_ms": info["bound"][0], "bound_by": info["bound"][1],
             "library_ms": None})
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -6,8 +6,9 @@ device="cpu". `RenderSettings(backend="jnp")` runs the eager tensor
 pipeline; `backend="pallas"` runs the kernel paths: the fused frame for
 mesh-free scenes, the split pipeline with the mesh packet kernel for mesh
 scenes. Each launches its hand-written CUDA kernels (kernels/csrc/) on a
-CUDA device and their plain PyTorch versions on the CPU. The package
-imports torch and numpy, never jax.
+CUDA device and their plain PyTorch versions on the CPU. `surfjax_torch.diff`
+fits poses and SDF parameters through either backend. The package imports
+torch and numpy, never jax.
 
 Public API:
     Scene, Camera, Material, PointLight, DirectionalLight,

@@ -4,8 +4,10 @@
         [--backend jnp|pallas] [--device cpu] --out frame.png
     python -m surfjax_torch animate --config configs/c5_anim.yaml \\
         --frames 16 [--device cpu] --out-dir frames/
+    python -m surfjax_torch fit --config configs/c5_anim.yaml \\
+        [--mode pose|sdf] [--steps 60] [--backend jnp|pallas] [--device cpu]
 
-Both run on the CUDA device unless --device names another.
+All run on the CUDA device unless --device names another.
 """
 
 from __future__ import annotations
@@ -79,12 +81,55 @@ def cmd_animate(args):
     print(f"wrote {n} PNGs to {args.out_dir}")
 
 
+def cmd_fit(args):
+    """Inverse-rendering demo: render a target with the config's true
+    parameters, perturb them, then recover them."""
+    from surfjax_torch import render
+    from surfjax_torch.diff import fit_pose, fit_sdf
+    from surfjax_torch.tools.workload import FIT_POSE_INIT, sdf_fit_start
+
+    scene, camera, settings, extras = _load(args)
+    fit_cfg = extras.get("fit", {})
+    mode = args.mode or fit_cfg.get("type", "pose")
+    steps = (int(fit_cfg.get("steps", 100)) if args.steps is None
+             else args.steps)
+    lr = float(fit_cfg.get("lr", 2e-2))
+
+    target = render(scene, camera, settings, device=args.device).rgb
+    t0 = time.perf_counter()
+    if mode == "pose":
+        init = tuple(np.asarray(v, np.float32) for v in FIT_POSE_INIT)
+        R, t, losses = fit_pose(scene, camera, target, steps=steps, lr=lr,
+                                settings=settings, init=init, verbose=True,
+                                device=args.device)
+        print(f"fit_pose: loss {losses[0]:.3e} -> {losses[-1]:.3e} "
+              f"in {time.perf_counter() - t0:.1f}s "
+              f"({settings.backend} on {args.device})")
+        print("recovered R:\n", R.reshape(3, 3).round(4))
+        print("recovered t:", t.round(4))
+    elif mode == "sdf":
+        true_lp, init, mask = sdf_fit_start(scene)
+        lp, losses = fit_sdf(scene, camera, target, steps=steps, lr=lr,
+                             settings=settings, init_leaf_params=init,
+                             param_mask=mask, verbose=True,
+                             device=args.device)
+        err0 = np.abs(init - true_lp).max()
+        err1 = np.abs(lp - true_lp).max()
+        print(f"fit_sdf: loss {losses[0]:.3e} -> {losses[-1]:.3e}, "
+              f"param err {err0:.4f} -> {err1:.4f} "
+              f"in {time.perf_counter() - t0:.1f}s "
+              f"({settings.backend} on {args.device})")
+    else:
+        raise SystemExit(f"unknown fit mode {mode!r}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="surfjax_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     for name, fn, helptext in (
             ("render", cmd_render, "render one frame from a config"),
-            ("animate", cmd_animate, "render an orbit camera path")):
+            ("animate", cmd_animate, "render an orbit camera path"),
+            ("fit", cmd_fit, "inverse-rendering demo (pose or sdf)")):
         sp = sub.add_parser(name, help=helptext)
         sp.add_argument("--config", required=True)
         sp.add_argument("--backend", choices=("jnp", "pallas"), default=None)
@@ -94,6 +139,9 @@ def main(argv=None):
         sp.set_defaults(fn=fn)
         if name == "render":
             sp.add_argument("--out", default="frame.png")
+        elif name == "fit":
+            sp.add_argument("--mode", choices=("pose", "sdf"), default=None)
+            sp.add_argument("--steps", type=int, default=None)
         else:
             sp.add_argument("--frames", type=int, default=None)
             sp.add_argument("--out-dir", default="frames")

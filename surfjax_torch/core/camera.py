@@ -85,6 +85,26 @@ def camera_ray_dirs_dyn(intr: Intrinsics, R_flat, rows, cols):
     return vnormalize((dx, dy, dz))
 
 
+def flat_camera_rays(intr: Intrinsics, R_flat, cam_pos, pad_to: int = 1):
+    """Flat (row-major) per-pixel rays of a pose given as tensors: the one
+    definition of the pixel grid the fit loop renders. pad_to > 1 pads the
+    ray count to a multiple by repeating the last pixel.
+    -> (o tuple, d tuple, number of real pixels)."""
+    n = intr.width * intr.height
+    n_pad = ((n + pad_to - 1) // pad_to) * pad_to
+    dev = R_flat.device
+    rows = torch.arange(intr.height, dtype=torch.float32,
+                        device=dev).repeat_interleave(intr.width)
+    cols = torch.arange(intr.width, dtype=torch.float32,
+                        device=dev).repeat(intr.height)
+    if n_pad > n:
+        rows = torch.cat([rows, rows[-1:].expand(n_pad - n)])
+        cols = torch.cat([cols, cols[-1:].expand(n_pad - n)])
+    d = camera_ray_dirs_dyn(intr, R_flat, rows, cols)
+    o = tuple(cam_pos[k].expand(rows.shape) for k in range(3))
+    return o, d, n
+
+
 def orbit_pose(radius, height, theta):
     """Camera orbiting the origin at (radius, height), looking at the
     origin. Tensor inputs (0-d float32) -> (R_flat (9,), eye (3,))."""

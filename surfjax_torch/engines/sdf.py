@@ -1,5 +1,6 @@
-"""SDF engine, forward only: leaf SDFs, the CSG tape, the bounded sphere
-tracer, FD normals, the soft-shadow march and the AO probes.
+"""SDF engine: leaf SDFs, the CSG tape, the bounded sphere tracer with its
+implicit-function-theorem adjoint, FD normals, the soft-shadow march and the
+AO probes.
 
 Counterpart of `surfjax/engines/sdf.py`. Masked loops stop as soon as
 every lane is done; updates to a done lane are identity, so a lane's
@@ -139,20 +140,15 @@ def sdf_mandelbulb(prm, p, power: int, iterations: int):
     return _far_guard(de, px, py, pz, scale)
 
 
-def _bulb_while_driver(prm, p, power: int, iterations: int, new_w_builder,
-                       log_fn=None):
-    """Fused-path Mandelbulb DE: each lane runs at most `iterations`
-    updates and stops once it escapes (m > bailout2). The rsqrt of the
-    reference is an exact 1/sqrt here, as in the CUDA kernel."""
-    if power != 8:
-        raise NotImplementedError(POWER8_ONLY_MSG)
-    scale, bailout2, px, py, pz = _bulb_canonical(prm, p)
-    m0 = (px * px + py * py) + pz * pz
-    tiny = f32(1e-4)
-    new_w = new_w_builder(px, py, pz, tiny)
+def _bulb_orbit(px, py, pz, bailout2, iterations: int, new_w_builder):
+    """The DE loop of the fused path: at most `iterations` power-8 updates
+    of the orbit seeded at (px, py, pz), a lane frozen once m > bailout2
+    -> (wx, wy, wz, dz, m). The rsqrt of the reference is an exact 1/sqrt
+    here, as in the CUDA kernels (csrc/frame_fused.cuh::bulb_substep)."""
+    new_w = new_w_builder(px, py, pz, f32(1e-4))
     wx, wy, wz = px, py, pz
-    dz = torch.ones_like(m0)
-    m = m0
+    m = (px * px + py * py) + pz * pz
+    dz = torch.ones_like(m)
     for _ in range(iterations):
         active = m <= bailout2
         if not bool(active.any()):
@@ -167,6 +163,19 @@ def _bulb_while_driver(prm, p, power: int, iterations: int, new_w_builder,
         wz = torch.where(active, wz_new, wz)
         dz = torch.where(active, dz_new, dz)
         m = torch.where(active, (wx * wx + wy * wy) + wz * wz, m)
+    return wx, wy, wz, dz, m
+
+
+def _bulb_while_driver(prm, p, power: int, iterations: int, new_w_builder,
+                       log_fn=None):
+    """Fused-path Mandelbulb DE: each lane runs at most `iterations`
+    updates and stops once it escapes (m > bailout2)."""
+    if power != 8:
+        raise NotImplementedError(POWER8_ONLY_MSG)
+    scale, bailout2, px, py, pz = _bulb_canonical(prm, p)
+    m0 = (px * px + py * py) + pz * pz
+    _, _, _, dz, m = _bulb_orbit(px, py, pz, bailout2, iterations,
+                                 new_w_builder)
     r = sqrt(m)
     log_fn = log_fn or torch.log
     de = 0.25 * log_fn(maximum(m, f32(1e-30))) * r / dz
@@ -310,12 +319,24 @@ def eval_sdf(oir: ObjectIR, leaf_params, node_params, p, leaf_fn=None):
 
 
 # ---------------------------------------------------------------------------
-# Bounded sphere tracer (forward; the IFT adjoint comes with the fit slice)
+# Bounded sphere tracer, with the implicit-function-theorem adjoint
 # ---------------------------------------------------------------------------
+#
+# The march defines t(theta, o, d) implicitly by f_theta(o + t d) = 0 at the
+# hit. Its backward does not unroll the loop; it is the IFT at the hit point:
+#   dt/dtheta = -(df/dtheta) / (grad f . d),
+#   dt/do     = -grad f / (grad f . d),
+#   dt/dd     = -t grad f / (grad f . d).
+# Miss lanes get zero gradient. At silhouettes grad f . d -> 0, so its
+# magnitude is clamped from below: a lane there scales its cotangent by at
+# most 1/clamp (the usual bias of inverse rendering through SDFs). The value
+# is surfjax's default.
+_IFT_DENOM_CLAMP = 1e-2
 
-def sphere_trace(oir: ObjectIR, leaf_params, node_params, o, d,
-                 t_min, t_max, max_steps: int, hit_eps: float,
-                 eps_scale: float = 0.0):
+
+def _sphere_trace_march(oir: ObjectIR, leaf_params, node_params, o, d,
+                        t_min, t_max, max_steps: int, hit_eps: float,
+                        eps_scale: float = 0.0):
     """Masked bounded march -> (t, hit_mask); miss: t == BIG. t_max may be
     a per-ray tensor."""
     eps = f32(hit_eps)
@@ -342,8 +363,115 @@ def sphere_trace(oir: ObjectIR, leaf_params, node_params, o, d,
     return t, hit
 
 
-def normal_fd(oir: ObjectIR, leaf_params, node_params, p, eps: float):
-    """4-tap tetrahedron finite-difference normal."""
+def _grads_or_zeros(outputs, inputs, cotangent, retain_graph: bool):
+    """torch.autograd.grad with zeros for the inputs the output does not
+    reach (or when nothing of it requires grad)."""
+    if not outputs.requires_grad:
+        return [torch.zeros_like(x) for x in inputs]
+    grads = torch.autograd.grad(outputs, inputs, cotangent,
+                                retain_graph=retain_graph, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for g, x in zip(grads, inputs)]
+
+
+def ift_adjoint(f, leaf_params, node_params, o, d, t, hit, g_t,
+                plane_normal=None):
+    """The IFT backward of a hit distance: f(lp, nparams, p) is the
+    defining function (evaluated once at the hit points, with autograd on),
+    g_t the cotangent of t -> (g_lp, g_nparams, g_o tuple, g_d tuple).
+
+    plane_normal, if given, is (mask, (nx, ny, nz)): on `mask` lanes the
+    defining function is the plane of that (constant) normal through the
+    hit point, which has no parameters, instead of f."""
+    t_safe = torch.where(hit, t, 0.0)
+    o = tuple(c.detach() for c in o)
+    d = tuple(c.detach() for c in d)
+    with torch.enable_grad():
+        lp = leaf_params.detach().requires_grad_(True)
+        nparams = node_params.detach().requires_grad_(True)
+        p = tuple((o[k] + t_safe * d[k]).requires_grad_(True)
+                  for k in range(3))
+        val = f(lp, nparams, p)
+    gx, gy, gz = _grads_or_zeros(val, p, torch.ones_like(t), True)
+    if plane_normal is not None:
+        on_plane, n_geom = plane_normal
+        gx = torch.where(on_plane, n_geom[0], gx)
+        gy = torch.where(on_plane, n_geom[1], gy)
+        gz = torch.where(on_plane, n_geom[2], gz)
+    denom = (gx * d[0] + gy * d[1]) + gz * d[2]
+    clamp_ = f32(_IFT_DENOM_CLAMP)
+    denom = torch.where(denom.abs() < clamp_,
+                        torch.where(denom >= 0.0, clamp_, -clamp_), denom)
+    scale = torch.where(hit, -g_t / denom, 0.0)
+    scale_f = scale
+    if plane_normal is not None:
+        scale_f = torch.where(on_plane, 0.0, scale)
+    g_lp, g_np, sgx, sgy, sgz = _grads_or_zeros(
+        val, (lp, nparams) + p, scale_f, False)
+    if plane_normal is not None:
+        scale_m = torch.where(on_plane, scale, 0.0)
+        sgx = sgx + scale_m * n_geom[0]
+        sgy = sgy + scale_m * n_geom[1]
+        sgz = sgz + scale_m * n_geom[2]
+    g_o = (sgx, sgy, sgz)
+    g_d = (t_safe * sgx, t_safe * sgy, t_safe * sgz)
+    return g_lp, g_np, g_o, g_d
+
+
+class _SphereTrace(torch.autograd.Function):
+    """sphere_trace as a differentiable function of (leaf_params,
+    node_params, o, d): the forward is the march under no_grad, the
+    backward the IFT adjoint at the hit points (t_max gets no gradient)."""
+
+    @staticmethod
+    def forward(ctx, oir, t_min, t_max, max_steps, hit_eps, eps_scale,
+                leaf_params, node_params, ox, oy, oz, dx, dy, dz):
+        t, hit = _sphere_trace_march(
+            oir, leaf_params, node_params, (ox, oy, oz), (dx, dy, dz),
+            t_min, t_max, max_steps, hit_eps, eps_scale)
+        ctx.oir = oir
+        ctx.save_for_backward(leaf_params, node_params, ox, oy, oz,
+                              dx, dy, dz, t, hit)
+        ctx.mark_non_differentiable(hit)
+        return t, hit
+
+    @staticmethod
+    def backward(ctx, g_t, _g_hit):
+        lp, nparams, ox, oy, oz, dx, dy, dz, t, hit = ctx.saved_tensors
+        oir = ctx.oir
+        g_lp, g_np, g_o, g_d = ift_adjoint(
+            lambda lp_, np_, p: eval_sdf(oir, lp_, np_, p),
+            lp, nparams, (ox, oy, oz), (dx, dy, dz), t, hit, g_t)
+        return (None,) * 6 + (g_lp, g_np) + tuple(g_o) + tuple(g_d)
+
+
+def sphere_trace(oir: ObjectIR, leaf_params, node_params, o, d,
+                 t_min, t_max, max_steps: int, hit_eps: float,
+                 eps_scale: float = 0.0):
+    """Masked bounded march -> (t, hit_mask); miss: t == BIG. t_max may be
+    a per-ray tensor. Differentiable in leaf_params, node_params, o and d
+    through the IFT adjoint (`ift_adjoint`); with no input that requires
+    grad it is the plain march."""
+    tensors = (leaf_params, node_params) + tuple(o) + tuple(d)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        return _SphereTrace.apply(oir, t_min, t_max, max_steps, hit_eps,
+                                  eps_scale, *tensors)
+    with torch.no_grad():
+        return _sphere_trace_march(oir, leaf_params, node_params, o, d,
+                                   t_min, t_max, max_steps, hit_eps,
+                                   eps_scale)
+
+
+def normal_fd(oir: ObjectIR, leaf_params, node_params, p, eps: float,
+              live=None):
+    """4-tap tetrahedron finite-difference normal.
+
+    live: the lanes whose normal the caller keeps (bool mask), or None for
+    all. Far from the object the four float32 taps can be equal, which
+    makes the normal 0/0; the caller's `where` hides that value but not
+    its gradient (0 * inf). On the other lanes the difference vector is
+    therefore replaced by a unit vector before it is normalised: values on
+    the live lanes are untouched, and no gradient is non-finite."""
     e = f32(eps)
     s0 = eval_sdf(oir, leaf_params, node_params,
                   (p[0] + e, p[1] - e, p[2] - e))
@@ -356,6 +484,10 @@ def normal_fd(oir: ObjectIR, leaf_params, node_params, p, eps: float):
     nx = ((s0 - s1) - s2) + s3
     ny = ((-s0 - s1) + s2) + s3
     nz = ((-s0 + s1) - s2) + s3
+    if live is not None:
+        nx = torch.where(live, nx, 0.0)
+        ny = torch.where(live, ny, 0.0)
+        nz = torch.where(live, nz, 1.0)
     return vnormalize((nx, ny, nz))
 
 

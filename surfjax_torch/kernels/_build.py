@@ -2,7 +2,10 @@
 
 The sources in `csrc/` are compiled by `nvcc` into one shared library with
 a plain C interface (no PyTorch headers) and loaded with ctypes: one nvcc
-per source, all started together, then one link. The library is built at
+per source, all started together, then one link. Every source is built
+with -fmad=false (each multiply and add rounds on its own, as in the plain
+versions) but the roofline probe's contracted twin, which exists to price
+exactly that flag. The library is built at
 first use into `build/surfjax_torch/` at the root of the checkout, keyed
 by a hash of the sources and the flags, and written to a per-process temp
 file that is renamed into place, so concurrent builders never load a
@@ -24,10 +27,13 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "surfjax_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-                     "-Xcompiler", "-fPIC")
-SOURCES = ("frame_fused.cu", "split_path.cu", "mesh_tile.cu",
-           "prime_tile.cu")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler",
+                     "-fPIC")
+NO_FMA = ("-fmad=false",)
+# source -> the flags it gets beside NVCC_FLAGS
+SOURCES = {"frame_fused.cu": NO_FMA, "split_path.cu": NO_FMA,
+           "mesh_tile.cu": NO_FMA, "prime_tile.cu": NO_FMA,
+           "fp32_peak.cu": NO_FMA, "fp32_peak_fma.cu": ("-fmad=true",)}
 
 
 def _source_files():
@@ -36,7 +42,7 @@ def _source_files():
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(repr((NVCC_FLAGS, sorted(SOURCES.items()))).encode())
     for path in _source_files():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
@@ -75,9 +81,9 @@ def build() -> dict:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     objs, procs = [], []
-    for src in SOURCES:
+    for src, extra in SOURCES.items():
         obj = f"{tmp}.{src[:-3]}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", CSRC, "-o", obj,
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-I", CSRC, "-o", obj,
                os.path.join(CSRC, src)]
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(
@@ -126,8 +132,17 @@ def load() -> ctypes.CDLL:
                                   ctypes.c_int, ctypes.c_void_p]
     lib.mt_mesh_tile.argtypes = [MeshTileArgs, ctypes.c_int,
                                  ctypes.c_void_p]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    mixes = ("fp_bulb_mix", "fp_cheb_mix", "fp_bulb_mix_fma",
+             "fp_cheb_mix_fma")
+    for name in mixes:
+        # px, py, pz, out, n, iters, unroll, device, stream
+        getattr(lib, name).argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    # a, out, n, iters, chains per thread, device, stream
+    lib.fp_fma_dep.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
     for name in ("kf_frame_fused", "sp_render_tile", "sp_trace_rays",
-                 "sp_ao_fix", "pt_prime_tile", "mt_mesh_tile"):
+                 "sp_ao_fix", "pt_prime_tile", "mt_mesh_tile", "fp_fma_dep",
+                 *mixes):
         getattr(lib, name).restype = ctypes.c_int
     lib.kf_error_string.argtypes = [ctypes.c_int]
     lib.kf_error_string.restype = ctypes.c_char_p

@@ -148,8 +148,57 @@ __device__ __forceinline__ float portable_log(float x) {
   return ef * F(0.6931457519531250) + (l1p + ef * F(1.4286067653301955e-06));
 }
 
+// One power-8 update of the DE orbit (w, dz, m) around the seed p, in the
+// expanded ("std") or the restructured ("cheb") form; the caller has checked
+// m <= bailout2. rsqrt is an exact 1/sqrtf. bulb_de below and the FP32
+// roofline probe (fp32_peak.cu) both run exactly this.
+__device__ __forceinline__ void bulb_substep(int cheb, float px, float py,
+                                             float pz, float& wx, float& wy,
+                                             float& wz, float& dz, float& m) {
+  const float tiny = F(1e-4);
+  float m2 = m * m;
+  float m4 = m2 * m2;
+  float dz_new = 8.0f * ((m4 * (1.0f / sqrtf(fmaxf(m, F(1e-30))))) * dz)
+      + 1.0f;
+  float x = wx, y = wy, z = wz;
+  float x2 = x * x, y2 = y * y, z2 = z * z;
+  float y4 = y2 * y2;
+  float k3 = x2 + z2;
+  float k3s = fmaxf(k3, tiny);
+  float k37 = ((k3s * k3s) * (k3s * k3s)) * ((k3s * k3s) * k3s);
+  float k2 = 1.0f / sqrtf(k37);
+  float k4 = (x2 - y2) + z2;
+  float nx, ny, nz;
+  if (cheb) {
+    float t13 = k3 - 3.0f * y2;
+    float k1 = t13 * t13 - 8.0f * y4;
+    float a1 = x2 - z2;
+    float b1 = 2.0f * (x * z);
+    float a2 = a1 * a1 - b1 * b1;
+    float b2 = 2.0f * (a1 * b1);
+    float re8 = a2 * a2 - b2 * b2;
+    float im8 = 2.0f * (a2 * b2);
+    float s8 = ((8.0f * y) * k4) * (k1 * k2);
+    nx = px + s8 * im8;
+    ny = py + (-16.0f * (y2 * k3) * (k4 * k4) + k1 * k1);
+    nz = pz - s8 * re8;
+  } else {
+    float x4 = x2 * x2, z4 = z2 * z2;
+    float k1 = ((x4 + y4) + z4) - 6.0f * (y2 * z2)
+        - 6.0f * (x2 * y2) + 2.0f * (z2 * x2);
+    nx = px + 64.0f * ((((x * y) * z) * (x2 - z2)) * k4)
+        * ((x4 - 6.0f * (x2 * z2)) + z4) * k1 * k2;
+    ny = py + (-16.0f * (y2 * k3) * (k4 * k4) + k1 * k1);
+    nz = pz + -8.0f * (y * k4)
+        * ((((x4 * x4) - 28.0f * ((x4 * x2) * z2)) + 70.0f * (x4 * z4))
+           - 28.0f * ((x2 * z2) * z4) + (z4 * z4)) * k1 * k2;
+  }
+  wx = nx; wy = ny; wz = nz; dz = dz_new;
+  m = (wx * wx + wy * wy) + wz * wz;
+}
+
 // Power-8 Mandelbulb DE, early-exit form: at most `iterations` updates,
-// stopping once the orbit escapes. rsqrt is an exact 1/sqrtf.
+// stopping once the orbit escapes.
 static __device__ __noinline__ float bulb_de(const float* prm, V3 p, int iterations,
                                       int cheb, int portable) {
   float scale = prm[3];
@@ -159,49 +208,10 @@ static __device__ __noinline__ float bulb_de(const float* prm, V3 p, int iterati
   float py = (p.y - prm[1]) * inv_s;
   float pz = (p.z - prm[2]) * inv_s;
   float m0 = (px * px + py * py) + pz * pz;
-  const float tiny = F(1e-4);
   float wx = px, wy = py, wz = pz, dz = 1.0f, m = m0;
   for (int it = 0; it < iterations; ++it) {
     if (!(m <= bailout2)) break;
-    float m2 = m * m;
-    float m4 = m2 * m2;
-    float dz_new = 8.0f * ((m4 * (1.0f / sqrtf(fmaxf(m, F(1e-30))))) * dz)
-        + 1.0f;
-    float x = wx, y = wy, z = wz;
-    float x2 = x * x, y2 = y * y, z2 = z * z;
-    float y4 = y2 * y2;
-    float k3 = x2 + z2;
-    float k3s = fmaxf(k3, tiny);
-    float k37 = ((k3s * k3s) * (k3s * k3s)) * ((k3s * k3s) * k3s);
-    float k2 = 1.0f / sqrtf(k37);
-    float k4 = (x2 - y2) + z2;
-    float nx, ny, nz;
-    if (cheb) {
-      float t13 = k3 - 3.0f * y2;
-      float k1 = t13 * t13 - 8.0f * y4;
-      float a1 = x2 - z2;
-      float b1 = 2.0f * (x * z);
-      float a2 = a1 * a1 - b1 * b1;
-      float b2 = 2.0f * (a1 * b1);
-      float re8 = a2 * a2 - b2 * b2;
-      float im8 = 2.0f * (a2 * b2);
-      float s8 = ((8.0f * y) * k4) * (k1 * k2);
-      nx = px + s8 * im8;
-      ny = py + (-16.0f * (y2 * k3) * (k4 * k4) + k1 * k1);
-      nz = pz - s8 * re8;
-    } else {
-      float x4 = x2 * x2, z4 = z2 * z2;
-      float k1 = ((x4 + y4) + z4) - 6.0f * (y2 * z2)
-          - 6.0f * (x2 * y2) + 2.0f * (z2 * x2);
-      nx = px + 64.0f * ((((x * y) * z) * (x2 - z2)) * k4)
-          * ((x4 - 6.0f * (x2 * z2)) + z4) * k1 * k2;
-      ny = py + (-16.0f * (y2 * k3) * (k4 * k4) + k1 * k1);
-      nz = pz + -8.0f * (y * k4)
-          * ((((x4 * x4) - 28.0f * ((x4 * x2) * z2)) + 70.0f * (x4 * z4))
-             - 28.0f * ((x2 * z2) * z4) + (z4 * z4)) * k1 * k2;
-    }
-    wx = nx; wy = ny; wz = nz; dz = dz_new;
-    m = (wx * wx + wy * wy) + wz * wz;
+    bulb_substep(cheb, px, py, pz, wx, wy, wz, dz, m);
   }
   float r = sqrtf(m);
   float mg = fmaxf(m, F(1e-30));

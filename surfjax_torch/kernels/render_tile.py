@@ -18,7 +18,9 @@ The split path (surfjax `_pallas_primary`, `_pallas_vis`,
 `render_tile` (K1: trace + normals + AO of the non-mesh objects),
 `trace_rays` (K2: one light's visibility) and `ao_fix` (AO again at the
 receivers a mesh won), plus the mesh packet kernel of kernels/mesh_tile.py.
-Shading and the merges are tensor code, as XLA code is in surfjax.
+Shading and the merges are tensor code, as XLA code is in surfjax; the
+differentiable render of diff/hybrid.py drives the same stages (its light
+loop and shade tail are `_light_terms` and `_shade_padded` here).
 
 Two more pieces ride on those paths. With settings.vector_objects the
 single sphere/box objects and two-leaf SDF pairs of a scene form a "crowd"
@@ -92,23 +94,32 @@ LANES = 128            # lanes of a padded split-path ray row, as in surfjax
 _LEAF_OPS = {LEAF_SPHERE: 10, LEAF_PLANE: 6, LEAF_BOX: 22,
              LEAF_MANDELBULB: 25}
 _ANALYTIC_LEAF_OPS = {LEAF_SPHERE: 20, LEAF_PLANE: 12, LEAF_BOX: 36}
-BULB_ITER_OPS = 60     # one power-8 update of the DE orbit
+# one power-8 update of the DE orbit with its escape test, by form
+# (settings.bulb_iter): the hand count of the CUDA substep that stands in
+# surfjax_torch/tools/fp32_peak.py, whose probe measures the card's rate on
+# exactly these operations
+BULB_ITER_OPS = {"std": 81, "cheb": 62}
 # n: the running total (None while not counting); bulb: per-lane
-# Mandelbulb iterations of the DE evaluations not yet tallied
-_OPS = {"n": None, "bulb": None}
+# Mandelbulb iterations of the DE evaluations not yet tallied, and
+# bulb_ops the operations of one of them; bulb_iters: the running total of
+# Mandelbulb iteration-lanes
+_OPS = {"n": None, "bulb": None, "bulb_ops": None, "bulb_iters": None}
 
 
 @contextlib.contextmanager
 def count_ops():
     """Count the operations of the plain versions run inside the block ->
-    a dict whose "ops" holds the total once the block has ended."""
+    a dict that holds, once the block has ended, the total under "ops" and
+    under "bulb_iters" the Mandelbulb iteration-lanes inside it (each
+    counted BULB_ITER_OPS operations)."""
     res = {}
-    _OPS.update(n=0, bulb=None)
+    _OPS.update(n=0, bulb=None, bulb_ops=None, bulb_iters=0)
     try:
         yield res
     finally:
         res["ops"] = _OPS["n"]
-        _OPS.update(n=None, bulb=None)
+        res["bulb_iters"] = _OPS["bulb_iters"]
+        _OPS.update(n=None, bulb=None, bulb_ops=None, bulb_iters=None)
 
 
 def _tally(lanes, per_lane: int) -> None:
@@ -138,7 +149,9 @@ def _tally_de(fn, lanes, evals: int = 1) -> None:
     _tally(lanes, evals * (sum(_tape_ops(o) for o in fn.objs)
                            + getattr(fn, "flat_ops", 0)))
     if iters is not None:
-        _OPS["n"] += BULB_ITER_OPS * int((iters * lanes).sum())
+        n_iters = int((iters * lanes).sum())
+        _OPS["bulb_iters"] += n_iters
+        _OPS["n"] += _OPS["bulb_ops"] * n_iters
 
 
 def _split(static):
@@ -190,6 +203,7 @@ def _fast_leaf_fn(settings: RenderSettings, cap: int = 0):
                                 settings.bulb_iter)
             prev = _OPS["bulb"]
             _OPS["bulb"] = iters if prev is None else prev + iters
+            _OPS["bulb_ops"] = BULB_ITER_OPS[settings.bulb_iter]
         return leaf_fn(kind, prm, p, p0, p1)
     return counting
 
@@ -2233,16 +2247,12 @@ def _pallas_vis(static, settings: RenderSettings, params, p_off, l,
     return vis
 
 
-def _render_padded(static, settings: RenderSettings, params, o2, d2,
-                   t0=None) -> FrameBuffers:
-    """The split pipeline on (rows_total, 128)-tiled rays -> FrameBuffers
-    of the same layout: rgb/normal (rows, 128, 3), depth/hit (rows, 128),
-    obj_id int32. t0: the primed march starts, same layout, or None."""
-    t, obj, n, n_geom, ao, hit_f = _pallas_primary(static, settings, params,
-                                                   o2, d2, t0=t0)
-    t_sane = torch.where(hit_f > 0.5, t, 0.0)
-    p_off = _offset(o2, d2, t_sane, n_geom, settings)
-
+def _light_terms(static, settings: RenderSettings, params, p_off, hit_f,
+                 vis_fn):
+    """Per light (direction, colour, visibility) at the receivers p_off;
+    vis_fn(l, dist_eff, soft_k) -> one light's visibility (`_pallas_vis`
+    in the split pipeline; the differentiable hybrid passes one that cuts
+    the gradient)."""
     light_terms = []
     for li, kind in enumerate(static.ir.lights):
         lrow = params["lights"][li]
@@ -2252,8 +2262,8 @@ def _render_padded(static, settings: RenderSettings, params, o2, d2,
             inv = 1.0 / dist
             l = tuple(c * inv for c in lv)
         else:
-            l = tuple(torch.ones_like(t) * -lrow[k] for k in range(3))
-            dist = torch.full_like(t, f32(settings.t_max))
+            l = tuple(torch.ones_like(hit_f) * -lrow[k] for k in range(3))
+            dist = torch.full_like(hit_f, f32(settings.t_max))
         lcol = (lrow[3], lrow[4], lrow[5])
         if settings.shadows:
             # area lights: penumbra sharpness k = dist / radius
@@ -2264,12 +2274,17 @@ def _render_padded(static, settings: RenderSettings, params, o2, d2,
                 soft_k = torch.full_like(dist, f32(settings.soft_shadow_k))
             # miss lanes need no shadow ray: an empty segment
             dist_eff = torch.where(hit_f > 0.5, dist, 0.0)
-            vis = _pallas_vis(static, settings, params, p_off, l, dist_eff,
-                              soft_k)
+            vis = vis_fn(l, dist_eff, soft_k)
         else:
-            vis = torch.ones_like(t)
+            vis = torch.ones_like(hit_f)
         light_terms.append((l, lcol, vis))
+    return light_terms
 
+
+def _shade_padded(static, settings: RenderSettings, params, d2, t_sane, obj,
+                  hit_f, n, ao, light_terms) -> FrameBuffers:
+    """The shade tail of the split pipeline -> FrameBuffers in the rays'
+    layout."""
     v = (-d2[0], -d2[1], -d2[2])
     amb = params["ambient"]
     ambient = (amb[0], amb[1], amb[2])
@@ -2277,7 +2292,8 @@ def _render_padded(static, settings: RenderSettings, params, o2, d2,
     hit = hit_f > 0.5
     rgb = _shade_hits(static, settings, params, obj, hit, ambient, ao, n, v,
                       light_terms,
-                      tuple(torch.full_like(t, f32(bg[k])) for k in range(3)))
+                      tuple(torch.full_like(hit_f, f32(bg[k]))
+                            for k in range(3)))
     return FrameBuffers(
         rgb=torch.stack(rgb, dim=-1),
         depth=t_sane,
@@ -2285,3 +2301,20 @@ def _render_padded(static, settings: RenderSettings, params, o2, d2,
         hit=hit_f,
         obj_id=torch.where(hit, obj.to(torch.int32), -1).to(torch.int32),
     )
+
+
+def _render_padded(static, settings: RenderSettings, params, o2, d2,
+                   t0=None) -> FrameBuffers:
+    """The split pipeline on (rows_total, 128)-tiled rays -> FrameBuffers
+    of the same layout: rgb/normal (rows, 128, 3), depth/hit (rows, 128),
+    obj_id int32. t0: the primed march starts, same layout, or None."""
+    t, obj, n, n_geom, ao, hit_f = _pallas_primary(static, settings, params,
+                                                   o2, d2, t0=t0)
+    t_sane = torch.where(hit_f > 0.5, t, 0.0)
+    p_off = _offset(o2, d2, t_sane, n_geom, settings)
+    light_terms = _light_terms(
+        static, settings, params, p_off, hit_f,
+        lambda l, dist_eff, soft_k: _pallas_vis(
+            static, settings, params, p_off, l, dist_eff, soft_k))
+    return _shade_padded(static, settings, params, d2, t_sane, obj, hit_f, n,
+                         ao, light_terms)

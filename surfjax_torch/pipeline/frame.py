@@ -10,6 +10,11 @@ and the cone-priming pass (settings.prime) where the settings ask for
 them; both raise NotImplementedError for the march caps, which the port
 does not carry.
 
+`render_rays` with backend="jnp" is differentiable in the scene parameters
+and the rays (the march through engines/sdf.sphere_trace's IFT adjoint,
+normals, AO and shading by autograd); the fit (diff/fit.py) calls it
+directly, since `render_frame` and `render_sequence` run under no_grad.
+
 The entry points run on the CUDA device unless the caller passes
 device="cpu"; without a card a CUDA request raises.
 """
@@ -93,16 +98,17 @@ def compute_normals(static: SceneWithMeshes, settings: RenderSettings,
     ny = torch.zeros_like(p[0])
     nz = torch.ones_like(p[0])
     for i, oir in enumerate(static.ir.objects):
+        sel = hit.obj_id == i
         if oir.engine == ENGINE_ANALYTIC and settings.normals == "auto":
             n_i = object_normal_analytic(oir, params["leaf_params"], p,
                                          hit.leaf_id)
         elif oir.engine in (ENGINE_ANALYTIC, ENGINE_SDF):
             n_i = normal_fd(oir, params["leaf_params"],
-                            params["node_params"], p, settings.normal_eps)
+                            params["node_params"], p, settings.normal_eps,
+                            live=sel)
         else:
             n_i = mesh_normal(static.mesh_static[oir.mesh], oir.mesh, params,
                               p, hit.leaf_id)
-        sel = hit.obj_id == i
         nx = torch.where(sel, n_i[0], nx)
         ny = torch.where(sel, n_i[1], ny)
         nz = torch.where(sel, n_i[2], nz)
@@ -115,8 +121,15 @@ def light_visibility(static: SceneWithMeshes, settings: RenderSettings,
                      params, p_off, scene_sdf):
     """Per-light (direction, color, visibility) terms. Hard shadows trace
     every object; soft shadows march the non-mesh scene SDF's penumbra,
-    and meshes still occlude hard."""
+    and meshes still occlude hard.
+
+    Visibility carries no gradient, as in surfjax: the penumbra march is
+    cut at its inputs and at the scene parameters (the usual visibility
+    bias of inverse rendering), and hard visibility is piecewise constant."""
     ir = static.ir
+    if settings.soft_shadows:
+        nograd_params = {k: v.detach() for k, v in params.items()}
+        scene_sdf_nograd = _nonmesh_scene_sdf(static, nograd_params)
     terms = []
     for li, kind in enumerate(ir.lights):
         lrow = params["lights"][li]
@@ -142,8 +155,9 @@ def light_visibility(static: SceneWithMeshes, settings: RenderSettings,
                                torch.full_like(dist,
                                                f32(settings.soft_shadow_k)))
                 vis = vis * soft_shadow_march(
-                    scene_sdf, p_off, l, settings.soft_shadow_tmin, dist,
-                    soft_k, settings.shadow_steps)
+                    scene_sdf_nograd, tuple(c.detach() for c in p_off),
+                    tuple(c.detach() for c in l), settings.soft_shadow_tmin,
+                    dist.detach(), soft_k.detach(), settings.shadow_steps)
                 for oir in ir.objects:
                     if oir.engine == ENGINE_MESH:
                         t_i, _ = intersect_mesh(
@@ -151,9 +165,10 @@ def light_visibility(static: SceneWithMeshes, settings: RenderSettings,
                             p_off, l, settings.shadow_eps, dist)
                         vis = vis * torch.where(t_i < dist, 0.0, 1.0)
             else:
-                sh = trace_scene(static, settings, params, p_off, l,
-                                 settings.shadow_eps, dist)
-                vis = vis * torch.where(sh.mask & (sh.t < dist), 0.0, 1.0)
+                with torch.no_grad():
+                    sh = trace_scene(static, settings, params, p_off, l,
+                                     settings.shadow_eps, dist)
+                    vis = vis * torch.where(sh.mask & (sh.t < dist), 0.0, 1.0)
         terms.append((l, lcol, vis))
     return terms
 

@@ -15,7 +15,13 @@ the crowd main path (configs/crowd_demo.yaml) it times the kernel with the
 same features switched off, and with every feature on but the crowd off
 (one table-driven object per member), then the whole call, and traces one.
 For primed c3 it times `render` of one 1080p frame with and without
-priming and traces one primed call.
+priming and traces one primed call. For the fit step (the pose fit on
+configs/c5_anim.yaml, see `fit_bench`) at 256x256 and at 1920x1080 it
+times runs of 10 steps on both backends and traces one run of 5 steps on
+`pallas`: wall and device time per step, the device's idle share, and the
+device time of K1 (`render_tile`) and K2 (`trace_rays`) inside a step; what
+is left of the device time is the tensor kernels of the glue and of the
+backward pass.
 
 Prints the card's name, power limit, SM clock, power draw and temperature
 before and after, one JSON line per mode, and a last JSON line with all of
@@ -43,9 +49,11 @@ REPS = 5
 TOP = 10
 
 
-def profile_call(call) -> dict:
+def profile_call(call, pick=()) -> dict:
     """One traced call -> wall ms, device ms (every kernel, copy and set
-    the card ran), idle share, and the six dearest device operations."""
+    the card ran), idle share, the dearest device operations and, for each
+    substring in `pick`, the device ms of the operations whose name holds
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -63,8 +71,11 @@ def profile_call(call) -> dict:
     device = sum(per_op.values())
     top = sorted(((ms, name[:60]) for name, ms in per_op.items()),
                  reverse=True)[:TOP]
-    return {"wall_ms": wall, "device_ms": device,
-            "idle_share": 1.0 - device / wall, "top": top}
+    out = {"wall_ms": wall, "device_ms": device,
+           "idle_share": 1.0 - device / wall, "top": top}
+    for sub in pick:
+        out[sub] = sum(ms for name, ms in per_op.items() if sub in name)
+    return out
 
 
 def fused_path(label: str, workload, dev, variants, res) -> None:
@@ -99,6 +110,33 @@ def features_off(base):
     return (("full", base), ("no_ao", base.with_(ao=False)),
             ("no_shadows", base.with_(shadows=False)),
             ("no_ao_no_shadows", base.with_(ao=False, shadows=False)))
+
+
+def fit_steps(dev, res) -> None:
+    """The pose-fit step on c5 at two sizes: ms per step on both backends
+    (fastest of REPS runs of 10 steps, one synchronisation each) and one
+    traced run of 5 pallas steps; results into res[f"fit step {size}"]."""
+    from surfjax_torch.tools.fit_bench import bench_backend, pose_step_fn
+    kernels = ("sp_render_tile_kernel", "sp_trace_rays_kernel")
+    for size in ((256, 256), (1920, 1080)):
+        out = {be: bench_backend(be, 10, REPS if be == "pallas" else 1,
+                                 size=size, device=dev)["step_ms"]
+               for be in ("pallas", "jnp")}
+        n = 5
+        step, x0, state0, _ = pose_step_fn("pallas", n, size, dev)
+
+        def run():
+            x, state = x0, state0
+            for _ in range(n):
+                x, state, _ = step(x, state)
+        run()
+        prof = profile_call(run, pick=kernels)
+        out["profile_per_step"] = {
+            k: (v / n if isinstance(v, float) and k != "idle_share" else v)
+            for k, v in prof.items() if k != "top"}
+        out["top_of_5_steps"] = prof["top"]
+        res[f"fit step {size[0]}x{size[1]}"] = out
+        print(f"fit step {size[0]}x{size[1]}", json.dumps(out), flush=True)
 
 
 def main() -> int:
@@ -139,6 +177,7 @@ def main() -> int:
                "profile": profile_call(call)}
         res[f"c4 {mode}"] = out
         print(f"c4 {mode}", json.dumps(out), flush=True)
+    fit_steps(dev, res)
     print(gpu_line(_CARD), flush=True)
     print(json.dumps(res), flush=True)
     return 0

@@ -8,8 +8,11 @@ call in the `value` (config settings) and `value_exact` (LoDs 0,
 over_relax 1.0) modes. The split path's is configs/c4_mesh.yaml at its own
 1920x1080 and tile_rows, 16 positions jittered the same way, in the
 `config` mode (the yaml's settings: hard shadows, no AO) and the `ao` mode
-(AO and soft shadows on). `chip_smoke.py`, the CUDA tests and
-`surfjax_torch.tools.breakdown` share them.
+(AO and soft shadows on). The fit's is configs/c5_anim.yaml as it is
+(256x256, its own `fit:` block), started from the perturbed pose and the
+perturbed leaf parameters the command line's `fit` starts from.
+`chip_smoke.py`, the CUDA tests, `surfjax_torch.tools.breakdown` and
+`surfjax_torch.tools.fit_bench` share them.
 """
 
 from __future__ import annotations
@@ -288,6 +291,43 @@ def crowd_main_path(config_path: str, n_frames: int = 48):
     modes = {"config": settings.with_(backend="pallas"),
              "soft": settings.with_(backend="pallas", soft_shadows=True)}
     return scene, camera, Rs, ps, modes
+
+
+# the perturbed pose the pose fit starts from: (axis-angle w, position dt)
+FIT_POSE_INIT = ((0.05, -0.04, 0.03), (0.05, -0.05, 0.0))
+
+
+def sdf_fit_start(scene, seed: int = 0, sigma: float = 0.05):
+    """The SDF fit's perturbed start -> (true leaf_params, init, mask):
+    centre and size (columns 0-3) of every leaf of the SDF-engine objects
+    moved by N(0, sigma) drawn from `seed`; analytic planes and hard-shadow
+    edges carry no useful gradient and stay fixed."""
+    from surfjax_torch.core.scene_compile import ENGINE_SDF
+    static, true_params = scene.freeze()
+    true_lp = np.array(true_params["leaf_params"], np.float32)
+    mask = np.zeros_like(true_lp)
+    for oir in static.ir.objects:
+        if oir.engine == ENGINE_SDF:
+            for lf in oir.leaves:
+                mask[lf.slot, :4] = 1.0
+    rng = np.random.default_rng(seed)
+    init = true_lp + (rng.normal(0, sigma, true_lp.shape)
+                      * mask).astype(np.float32)
+    return true_lp, init, mask
+
+
+def fit_main_path(config_path: str):
+    """The fit's main path -> (scene, camera, settings with backend
+    pallas, the config's fit block {"type", "steps", "lr"}, the pose fit's
+    start (w, dt)): a fit config as it is, at its own size, started as the
+    command line's `fit` starts it."""
+    scene, camera, settings, extras = load_config(config_path)
+    cfg = dict(extras.get("fit", {}))
+    cfg = {"type": cfg.get("type", "pose"),
+           "steps": int(cfg.get("steps", 100)),
+           "lr": float(cfg.get("lr", 2e-2))}
+    init = tuple(np.asarray(v, np.float32) for v in FIT_POSE_INIT)
+    return scene, camera, settings.with_(backend="pallas"), cfg, init
 
 
 def cuda_ms(fn, reps: int):

@@ -245,3 +245,119 @@ def test_prime_kernel_matches_plain_and_feeds_kf(cuda_device, name):
         assert torch.equal(a, b)
     unprimed = render(scene, cam, st.with_(prime=False), device=cuda_device)
     assert float((primed.hit != unprimed.hit).float().mean()) <= 1e-3
+
+
+# --- the FP32 roofline probe and the kernel-forward differentiable render ---
+
+@pytest.mark.parametrize("kind", ["bulb_mix", "cheb_mix", "fma_dep"])
+def test_probe_kernels_match_plain(cuda_device, kind):
+    """Every probe entry at K = 16 and every unroll against its plain
+    version: the entries built without contraction bitwise (the explicit
+    FMA chains within 1 ULP of their float64 plain versions), the contracted
+    ones within 1e-5; each launch is counted."""
+    from surfjax_torch.tools import fp32_peak as fp
+    seeds = fp.seeds(64, 2, cuda_device)
+    ref = fp.fp32_peak_reference(kind, *seeds, 16)
+    for fma in ((False,) if kind in fp.CHAINS else (False, True)):
+        entry = fp.entry_name(kind, fma)
+        for unroll in fp.UNROLLS:
+            before = fp.fp32_peak.launches.get(entry, 0)
+            got = fp.fp32_peak(kind, *seeds, 16, unroll, fma)
+            torch.cuda.synchronize()
+            assert fp.fp32_peak.launches[entry] == before + 1
+            if fma:
+                assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
+            elif kind in fp.CHAINS:
+                ulp = (got.view(torch.int32) - ref.view(torch.int32)).abs()
+                assert int(ulp.max()) <= 1
+            else:
+                assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="unroll"):
+        fp.fp32_peak(kind, *seeds, 16, 3)
+
+
+def test_probe_sweep_runs_and_is_sane(cuda_device):
+    """A shorter sweep over the tool's 2,097,152 lanes (fewer lanes or
+    iterations would put the K-to-2K difference of the FMA chains near the
+    resolution of CUDA events, and the tool would rightly refuse the
+    reading): every row positive or nan, the FMA chains at most 105% of the
+    data-sheet peak, no mix above them (run raises otherwise)."""
+    from surfjax_torch.tools import fp32_peak as fp
+    rows = fp.run(iters=128, repeats=3)
+    assert len(rows) == 15
+    for name, r in rows.items():
+        assert r["tflops"] != r["tflops"] or r["tflops"] > 0.0, (name, r)
+
+
+def test_hybrid_on_cuda_uses_the_kernels_and_matches_cpu(cuda_device):
+    """c5 at 64x64: the hybrid's forward launches K1 once and K2 once per
+    light and equals render_rays_pallas to the bit; its pose gradient
+    equals the CPU's plain-version run within 1e-3 relative L2."""
+    from surfjax_torch.core.camera import flat_camera_rays
+    from surfjax_torch.diff.fit import pose_loss_and_grad
+    from surfjax_torch.diff.hybrid import render_rays_hybrid
+    from surfjax_torch.kernels.render_tile import (
+        render_rays_pallas, render_tile, trace_rays,
+    )
+    from surfjax_torch.tools.workload import reframe
+    scene, cam, st, _ = load_config(os.path.join(ROOT, "configs",
+                                                 "c5_anim.yaml"))
+    cam = reframe(cam, 64, 64)
+    st = st.with_(backend="pallas", tile_rows=8)
+    static, params = scene.freeze()
+    params = params_to_device(params, cuda_device)
+    R = torch.as_tensor(np.asarray(cam.rotation, np.float32).reshape(9),
+                        device=cuda_device)
+    pos = torch.as_tensor(np.asarray(cam.position, np.float32),
+                          device=cuda_device)
+    o, d, _ = flat_camera_rays(cam.intrinsics, R, pos)
+    with torch.no_grad():
+        fb_p = render_rays_pallas(static, st, params, o, d)
+    before = (render_tile.launches, trace_rays.launches, frame_fused.launches)
+    lp = params["leaf_params"].clone().requires_grad_(True)
+    fb_h = render_rays_hybrid(static, st, dict(params, leaf_params=lp), o, d)
+    torch.cuda.synchronize()
+    assert (render_tile.launches, trace_rays.launches,
+            frame_fused.launches) == (before[0] + 1,
+                                      before[1] + len(scene.lights),
+                                      before[2])
+    for a, b in zip(fb_h, fb_p):
+        assert torch.equal(a.detach(), b)
+    g, = torch.autograd.grad((fb_h.rgb * fb_h.rgb).mean(), lp)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 1e-6
+    l_c, g_c = pose_loss_and_grad(scene, cam, st, device=cuda_device)
+    l_h, g_h = pose_loss_and_grad(scene, cam, st, device="cpu")
+    a = np.concatenate([g_c["w"], g_c["dt"]]).astype(np.float64)
+    b = np.concatenate([g_h["w"], g_h["dt"]]).astype(np.float64)
+    assert abs(l_c - l_h) / abs(l_h) < 1e-3
+    assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-3
+
+
+@pytest.mark.parametrize("mode", ["pose", "sdf"])
+def test_fit_on_cuda_goes_through_k1_and_k2(cuda_device, mode):
+    """Ten fit steps on c5 at 64x64 with backend pallas: the loss falls,
+    K1 launches once and K2 once per light and step, KF never."""
+    from surfjax_torch.api import render
+    from surfjax_torch.diff import fit_pose, fit_sdf
+    from surfjax_torch.kernels.render_tile import render_tile, trace_rays
+    from surfjax_torch.tools.workload import (
+        fit_main_path, reframe, sdf_fit_start,
+    )
+    scene, cam, st, cfg, init = fit_main_path(
+        os.path.join(ROOT, "configs", "c5_anim.yaml"))
+    cam = reframe(cam, 64, 64)
+    st = st.with_(tile_rows=8)
+    target = render(scene, cam, st, device=cuda_device).rgb
+    before = (render_tile.launches, trace_rays.launches, frame_fused.launches)
+    if mode == "pose":
+        _, _, losses = fit_pose(scene, cam, target, steps=10, lr=cfg["lr"],
+                                settings=st, init=init, device=cuda_device)
+    else:
+        _, init_lp, mask = sdf_fit_start(scene)
+        _, losses = fit_sdf(scene, cam, target, steps=10, lr=cfg["lr"],
+                            settings=st, init_leaf_params=init_lp,
+                            param_mask=mask, device=cuda_device)
+    assert (render_tile.launches - before[0], trace_rays.launches - before[1],
+            frame_fused.launches - before[2]) == (10, 10 * len(scene.lights),
+                                                  0)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -47,8 +47,22 @@ with kernel_check.capture_calls() as calls:
     render(scene, cam, st.with_(backend="pallas", prime=True, prime_min=16,
                                 max_steps=32), device="cpu")
 assert [c[0] for c in calls] == ["prime_tile"], calls
+# the fit path (one hybrid gradient, two fit steps) and the tools beside it
+from surfjax_torch.diff import fit_sdf, pose_loss_and_grad
+from surfjax_torch.tools import fit_bench, fp32_peak
+from surfjax_torch.utils import checkpoint
+scene, cam, st, _ = load_config("configs/c5_anim.yaml")
+cam = Camera(Intrinsics.from_fov(16, 16, 45.0), cam.rotation, cam.position)
+st = st.with_(backend="pallas", tile_rows=8)
+loss, g = pose_loss_and_grad(scene, cam, st, device="cpu")
+assert loss > 0.0 and abs(g["w"]).max() > 0.0 and abs(g["dt"]).max() > 0.0
+target = render(scene, cam, st, device="cpu").rgb
+lp, losses = fit_sdf(scene, cam, target, steps=2, settings=st, device="cpu")
+assert lp.shape[1] == 8 and len(losses) == 2
+assert float(fp32_peak.fp32_peak_reference(
+    "cheb_mix", *fp32_peak.seeds(1, 1, "cpu"), 4).mean()) > 1.0
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "surfjax"))
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "surfjax"))
 print("LOADED", loaded)
 sys.exit(1 if loaded else 0)
 """
@@ -65,7 +79,9 @@ def test_package_renders_without_importing_jax():
 
 
 @pytest.mark.parametrize("command", [
-    ["chip_smoke.py"], ["-m", "surfjax_torch.tools.breakdown"]])
+    ["chip_smoke.py"], ["-m", "surfjax_torch.tools.breakdown"],
+    ["-m", "surfjax_torch.tools.fp32_peak"],
+    ["-m", "surfjax_torch.tools.fit_bench"]])
 def test_gpu_scripts_refuse_to_run_without_a_card(command):
     """The chip scripts measure the card: without one they exit non-zero
     and print no result line, instead of measuring the CPU."""

@@ -308,7 +308,7 @@ def test_count_ops_counts_bulb_iterations_as_run(cap, iters):
         counted = pt_rt._OPS["bulb"]
     assert torch.equal(de, plain)
     assert counted.tolist() == iters
-    assert pt_rt._OPS == {"n": None, "bulb": None}
+    assert set(pt_rt._OPS.values()) == {None}
 
 
 def test_huge_meshes_route_to_the_grid_dda(monkeypatch):
