@@ -8,7 +8,10 @@ Phases (each prints its own line with its seconds; any failure raises, so
 the script exits non-zero and never prints its last line):
   0. versions, the card's name and power limit; refuses to run without CUDA;
   1. builds the CUDA kernels from surfjax_torch/kernels/csrc (one nvcc per
-     source, in parallel) and prints ptxas' registers and spills;
+     source, in parallel), prints ptxas' registers and spills of every
+     entry and holds those of kf_frame_kernel<false> and of K1, K2 and
+     ao_fix (`<true>`) to what they were before the crowd's warp culling;
+     with cuobjdump, says whether kf_frame_kernel<false>'s SASS is too;
   2. kernel against its plain PyTorch twin on the card, bitwise, at
      256x256 x 2 frames: c1, c2, c5 and c3 (LoD and exact modes), and c3
      with the portable log in exact mode;
@@ -36,19 +39,25 @@ the script exits non-zero and never prints its last line):
      against their plain versions, bitwise, at 256x256 x 2 frames: nine
      and four small objects with hard shadows + AO and with soft shadows,
      a crowd with no floor, pairs of all six CSG ops, analytic members,
-     configs/crowd_demo.yaml in both modes, and a crowd beside a mesh
-     through the split path; each also with the crowd off: geometry
-     bitwise equal, rgb within 2 ULP;
+     configs/crowd_demo.yaml in both modes (also at 250x131, which the
+     kernel's blocks do not tile), the culling's edge scene in both modes
+     (250x131) and a crowd beside a mesh through the split path; KF also
+     against the culled twin (each warp visiting only the members in its
+     masks); each also with the crowd off: geometry bitwise equal, rgb
+     within 2 ULP;
   9. the crowd main path: configs/crowd_demo.yaml (49 objects) at
      1920x1080, 48 camera positions in one render_sequence call, modes
      `config` (hard shadows + AO) and `soft` (soft shadows on): launch
      counts, outputs checked, frames 0, 24 and 47 of `config` against the
-     twin, bitwise; once per mode with the crowd off, for the record;
+     twin, bitwise; once per mode with the crowd off, for the record; the
+     masked members per warp of frame 0; the kernel alone with AO off,
+     shadows off, both off and the crowd off;
  10. the priming kernel against its plain version, bitwise, at 256x256 and
      at 1920x1080; the primed main path: render(prime=True) on c3 at
      1920x1080 launches prime_tile then KF with its t0; hit mask against
      the unprimed frame's, times with and without priming;
- 11. member-count scaling: crowds of 16, 64 and 256 spheres at 1920x1080;
+ 11. member-count scaling: crowds of 16, 64 and 256 spheres at 1920x1080,
+     frame 0 of each against the twin, bitwise;
  12. the FP32 roofline probe (tools/fp32_peak.py): every entry built with
      -fmad=false against its plain version, bitwise (the explicit-FMA chains
      within 1 ULP of their float64 plain versions), the contracted entries
@@ -97,6 +106,7 @@ LAUNCH_REPS = 10   # back-to-back launches per timed sample (phase 7)
 # 2.45e-4 from frame 0 to frame 15 in both modes; each bound is about
 # twice that
 MESH_STEP_MAX = 5e-5
+RAGGED = (250, 131)   # a frame that the kernel's 16x8-pixel blocks do not tile
 MESH_DRIFT_MAX = 5e-4
 # the crowd main path (phase 9): on the H100 the hit fraction did not move
 # at all over 48 frames (the floor fills the frame below the horizon and
@@ -107,6 +117,35 @@ CROWD_DRIFT_MAX = 1e-4
 # the fused kernel on c3 before the crowd and t0 existed (value_exact,
 # 48 frames per launch, NVIDIA H100 80GB HBM3 at 700 W), for comparison
 KF_BEFORE = "3.338 ms/frame, 72 registers, 264/416 bytes of spills"
+# ptxas' report of the kernels the crowd's warp culling (kf_frame_kernel
+# <true> only) must leave as they were: entry -> (stack and spills,
+# registers), as the parent of that change (4db71fb) built them with CUDA
+# 12.8 for sm_90a; and the first 16 hex digits of the sha256 of
+# kf_frame_kernel<false>'s SASS (_build.sass_hashes), the same then
+PTXAS_KEPT = {
+    "_Z15kf_frame_kernelILb0EEv8KFTables10KFSettings": (
+        "656 bytes stack frame, 280 bytes spill stores, 524 bytes spill loads",
+        "Used 72 registers, used 0 barriers, 656 bytes cumulative stack size"),
+    "_Z21sp_render_tile_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
+        "640 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 96 registers, used 0 barriers, 640 bytes cumulative stack size"),
+    "_Z20sp_trace_rays_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
+        "560 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "Used 72 registers, used 0 barriers, 560 bytes cumulative stack size"),
+    "_Z16sp_ao_fix_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
+        "592 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 96 registers, used 0 barriers, 592 bytes cumulative stack size"),
+    "_Z21sp_render_tile_kernelILb0EEv8KFTables10KFSettings9SplitRays": (
+        "480 bytes stack frame, 72 bytes spill stores, 72 bytes spill loads",
+        "Used 80 registers, used 0 barriers, 480 bytes cumulative stack size"),
+    "_Z20sp_trace_rays_kernelILb0EEv8KFTables10KFSettings9SplitRays": (
+        "448 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "Used 72 registers, used 0 barriers, 448 bytes cumulative stack size"),
+    "_Z16sp_ao_fix_kernelILb0EEv8KFTables10KFSettings9SplitRays": (
+        "464 bytes stack frame, 12 bytes spill stores, 0 bytes spill loads",
+        "Used 80 registers, used 0 barriers, 464 bytes cumulative stack size"),
+}
+KF_FALSE_SASS = "c54932194c8d070c"
 PRIME_HIT_MAX = 1e-4   # share of pixels whose hit flag priming may change
 PROBE_K = 16           # substeps of the probe's comparison with plain
 PROBE_UNROLL = 4       # the sweep row whose launch time the kernels line gives
@@ -237,8 +276,10 @@ def main() -> int:
         reframe, sphere_crowd, two_mesh_scene,
     )
     from surfjax_torch.kernels.render_tile import (
-        prime_frame, prime_tile, split_crowd,
+        crowd_warp_masks, prime_frame, prime_tile, split_crowd,
     )
+    from surfjax_torch.tools.breakdown import crowd_variants, fused_path
+    from surfjax_torch.tools.workload import cull_edge_scene
     smi = gpu_line()
     log(f"phase 0: gpu {smi} ({time.perf_counter() - t0:.2f} s)")
     dev = torch.device("cuda", 0)
@@ -255,6 +296,19 @@ def main() -> int:
         log(f"  ptxas: {ln}")
     log(f"  the fused kernel on c3 before the crowd loops and t0: "
         f"{KF_BEFORE}; now: see kf_frame_kernel<false> above and phase 4")
+    built = _build.entries(info["log"])
+    for name, lines in PTXAS_KEPT.items():
+        if built.get(name) != lines:
+            raise AssertionError(f"ptxas' report of {name} changed: "
+                                 f"{built.get(name)}, was {lines}")
+    log(f"  ptxas' report of {len(PTXAS_KEPT)} entries (kf_frame_kernel"
+        "<false>, K1, K2 and ao_fix) unchanged from 4db71fb")
+    sass = _build.sass_hashes(info["path"], [next(iter(PTXAS_KEPT))]).get(
+        next(iter(PTXAS_KEPT)))
+    log("  kf_frame_kernel<false> SASS: " + (
+        "cuobjdump not found" if sass is None else
+        f"sha256 {sass}, " + ("identical to" if sass == KF_FALSE_SASS
+                              else "DIFFERENT from") + " 4db71fb's"))
     log(f"phase 1: built {os.path.relpath(info['path'], ROOT)} "
         f"(nvcc {info['seconds']:.1f} s, built={info['built']}) "
         f"({time.perf_counter() - t1:.1f} s)")
@@ -504,9 +558,13 @@ def main() -> int:
     cases = {name: (sc, reframe(cam, 256, 256), st)
              for name, (sc, cam, st) in crowd_cases(api).items()}
     for mode, over in (("config", {}), ("soft", dict(soft_shadows=True))):
-        cases[f"crowd_demo {mode}"] = (
-            demo_scene, reframe(demo_cam, 256, 256),
-            demo_st.with_(backend="pallas", vector_objects=False, **over))
+        for size in ((256, 256), RAGGED):
+            cases[f"crowd_demo {mode} {size[0]}x{size[1]}"] = (
+                demo_scene, reframe(demo_cam, *size),
+                demo_st.with_(backend="pallas", vector_objects=False,
+                              **over))
+        cases[f"cull edges {mode}"] = cull_edge_scene(
+            api, RAGGED, soft=mode == "soft")
     crowd_err, crowd_ulp = 0.0, 0
     for name, (scene8, cam8, st8) in cases.items():
         on = st8.with_(vector_objects=True)
@@ -531,10 +589,17 @@ def main() -> int:
             fb_on = render_sequence(scene8, cam8, (Rs, ps), on, device=dev)
             if frame_fused.launches != before + 1:
                 raise AssertionError(f"{name}: expected one kernel launch")
-            ref = frame_fused_reference(scene_t, on, cam8.intrinsics,
-                                        cam_rows_of(Rs, ps, dev))
+            rows8 = cam_rows_of(Rs, ps, dev)
+            ref = frame_fused_reference(scene_t, on, cam8.intrinsics, rows8)
             crowd_err = max(crowd_err, bitwise(
                 fb_on, frame_buffers(ref), FrameBuffers._fields, name))
+            # the culled twin: each warp visits only its masked members
+            masks8 = crowd_warp_masks(scene_t, on, cam8.intrinsics, rows8)
+            ref = frame_fused_reference(scene_t, on, cam8.intrinsics, rows8,
+                                        masks=masks8)
+            crowd_err = max(crowd_err, bitwise(
+                fb_on, frame_buffers(ref), FrameBuffers._fields,
+                f"{name}, masked twin"))
         fb_off = render_sequence(scene8, cam8, (Rs, ps), st8, device=dev)
         ulp = on_equals_off(name, fb_on, fb_off)
         crowd_ulp = max(crowd_ulp, ulp)
@@ -547,7 +612,8 @@ def main() -> int:
     # -- phase 9 ------------------------------------------------------------
     # the crowd main path: crowd_demo at 1920x1080 x 48 frames
     t9 = time.perf_counter()
-    scene, camera, Rs, ps, modes = crowd_main_path(demo_path)
+    workload9 = crowd_main_path(demo_path)
+    scene, camera, Rs, ps, modes = workload9
     n_frames = len(ps)
     H, W = camera.intrinsics.height, camera.intrinsics.width
     static, params = scene.freeze()
@@ -590,24 +656,40 @@ def main() -> int:
             mrays_per_s=rays / s_frame / 1e6, hit_fraction=n_hits / (W * H),
             hit_fraction_drift=drift, hit_fraction_max_step=step)
         log(f"  {mode}: " + json.dumps(crowd_results[mode]))
-    # the kernel alone at the main path's shape, frames 0, 24 and 47 of the
-    # config mode against the twin
-    st = modes["config"]
-    frame_fused(scene_t, st, camera.intrinsics, rows)
-    k_ms, k_out = cuda_ms(
-        lambda: frame_fused(scene_t, st, camera.intrinsics, rows), 3)
+    # the kernel alone at the main path's shape against the twin, which
+    # visits every member: frames 0, 24 and 47 of `config`, 0 and 47 of
+    # `soft` (the penumbra capsules, the widest culling regions)
     p_ms = []
-    for f in (0, n_frames // 2, n_frames - 1):
-        ms, ref = cuda_ms(lambda: frame_fused_reference(
-            scene_t, st, camera.intrinsics, rows[f:f + 1]), 1)
-        p_ms += ms
-        crowd_err = max(crowd_err, bitwise(
-            tuple(a[f:f + 1] for a in k_out), ref, NINE,
-            f"crowd_demo config 1080p frame {f}"))
-    crowd_frame = (min(k_ms) / n_frames, sum(p_ms) / len(p_ms))
-    with count_ops() as crowd_ops:
-        frame_fused_reference(scene_t, st, camera.intrinsics, rows[:1])
+    for mode, frames in (("config", (0, n_frames // 2, n_frames - 1)),
+                         ("soft", (0, n_frames - 1))):
+        st = modes[mode]
+        k_out = frame_fused(scene_t, st, camera.intrinsics, rows)
+        for f in frames:
+            ms, ref = cuda_ms(lambda: frame_fused_reference(
+                scene_t, st, camera.intrinsics, rows[f:f + 1]), 1)
+            if mode == "config":
+                p_ms += ms
+            crowd_err = max(crowd_err, bitwise(
+                tuple(a[f:f + 1] for a in k_out), ref, NINE,
+                f"crowd_demo {mode} 1080p frame {f}"))
+    # the warps' member masks at frame 0, and the bound: the operations of
+    # the culled algorithm (the twin visiting the masked members only)
+    for mode, st9 in modes.items():
+        masks9 = crowd_warp_masks(scene_t, st9, camera.intrinsics, rows[:1])
+        log(f"  {mode}: masked members per warp (mean, largest) of "
+            f"{len(split_crowd(static, st9)[0].members)}, frame 0: "
+            + json.dumps(masks9.counts()))
+        if mode == "config":
+            with count_ops() as crowd_ops:
+                frame_fused_reference(scene_t, st9, camera.intrinsics,
+                                      rows[:1], masks=masks9)
     crowd_bound = bound(crowd_ops["ops"], 9 * 4 * W * H)
+    # the kernel alone by feature, the whole call and a traced call
+    # (tools/breakdown.py): PERF.md's breakdown and the kernels line's time
+    by_feature = {}
+    fused_path("crowd_demo", workload9, dev, crowd_variants, by_feature)
+    crowd_frame = (min(by_feature["crowd_demo config"]["kernel_full"]),
+                   sum(p_ms) / len(p_ms))
     log(f"  config: kernel {crowd_frame[0]:.4f} ms/frame ({n_frames} frames "
         f"per launch), plain twin {crowd_frame[1]:.1f} ms/frame; bound "
         f"{crowd_ops['ops']:.4g} ops, {crowd_bound[0]:.4f} ms "
@@ -708,6 +790,15 @@ def main() -> int:
             row[label] = min(ms) / 8
             row["hit_fraction"] = float(fb.hit.mean())
             row["objects_in_view"] = len(torch.unique(fb.obj_id[0])) - 1
+            if vo:      # frame 0 against the twin, which visits every member
+                static, params = sc.freeze()
+                ref = frame_fused_reference(
+                    SceneTensors(static, params_to_device(params, dev)),
+                    st11.with_(vector_objects=True), cam11.intrinsics,
+                    cam_rows_of(Rs11[:1], ps11[:1], dev))
+                crowd_err = max(crowd_err, bitwise(
+                    tuple(a[:1] for a in fb), frame_buffers(ref),
+                    FrameBuffers._fields, f"{n_members} members frame 0"))
         if row["objects_in_view"] < min(n_members, 40) // 2:
             raise AssertionError(f"{n_members} members: {row}")
         log(f"  {n_members} members: " + json.dumps(row))

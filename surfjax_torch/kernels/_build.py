@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -113,6 +114,34 @@ def build() -> dict:
         fh.write(log)
     os.replace(f"{tmp}.so", out)
     return {"path": out, "built": True, "seconds": seconds, "log": log}
+
+
+def entries(log: str) -> dict:
+    """build()'s log -> {kernel entry: (its stack and spill line, its
+    registers line)} from ptxas' report."""
+    lines = [ln.split("info    :", 1)[-1].strip() for ln in log.splitlines()]
+    out = {}
+    for k, ln in enumerate(lines):
+        m = re.match(r"Compiling entry function '(\w+)'", ln)
+        if m and lines[k + 1] == f"Function properties for {m.group(1)}":
+            out[m.group(1)] = (lines[k + 2], lines[k + 3])
+    return out
+
+
+def sass_hashes(lib_path: str, names) -> dict:
+    """-> {entry: the first 16 hex digits of the sha256 of its SASS, as
+    cuobjdump prints it} (empty where the toolkit has no cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return {}
+    out = {}
+    for name in names:
+        res = subprocess.run([tool, "-sass", "-fun", name, lib_path],
+                             capture_output=True, text=True, timeout=300)
+        body = [ln for ln in res.stdout.splitlines() if "/*" in ln]
+        out[name] = hashlib.sha256("\n".join(body).encode()).hexdigest()[:16] \
+            if body else None
+    return out
 
 
 @functools.lru_cache(maxsize=1)

@@ -750,6 +750,227 @@ __device__ __forceinline__ float seg_bound_dist(Bound bd, V3 o, V3 l,
 }
 
 // ---------------------------------------------------------------------------
+// Warp-level member culling: how kf_frame_kernel<true> runs the crowd's
+// member loops (render_tile.crowd_warp_masks is the plain version)
+//
+// KF's warp is 16x2 pixels of one frame. Before each member loop every lane
+// of a warp tests one member of a 32-member chunk against a region that
+// holds all the loop's per-lane work on every lane of the warp;
+// __ballot_sync gives the chunk's mask, and the lanes then visit the masked
+// members in member order with their exact per-lane gates. A member outside
+// the mask is one whose per-lane gate makes it an exact no-op on every lane
+// of the warp, so the result is bitwise that of the plain member loops,
+// which visit every member. The cores below take it as their CULL
+// instantiation (a WarpCull argument); the other kernels instantiate them
+// with CULL false and visit every member.
+//
+// Every collective runs with all 32 lanes present (KF_FULL): pixels outside
+// the frame and lanes without a hit take part as non-contributors
+// (`active` false), and every ballot and shuffle sits in a loop whose trip
+// count is the same on all lanes.
+//
+// A region is a tapered capsule: the points a + t*u, t in [0, len], each
+// widened by r(t) = rA + sig*t (len 0: a ball). Lane i's work touches only
+// points within r(t) of the axis:
+//   primary    rays o + t*d_i, all from the camera o: a = o, u = the lanes'
+//              normalised mean direction, len = t_max, rA = 0, sig = max_i
+//              |d_i - u|, since |(o + t d_i) - (o + t u)| = t |d_i - u|;
+//   secondary  receivers p_i (the hit lanes' p_off) inside the ball (c_w,
+//              r_w), c_w the centre of their bounding box:
+//     AO       the ball itself;
+//     hard     the segments from p_i to a point light L lie in the cone
+//              from the ball to L (rB = 0); the segments p_i + t*l, t in
+//              [0, t_max], of a directional light in the cylinder of radius
+//              r_w along l;
+//     soft     the same axis, each point widened by the penumbra radius
+//              t/kf_i of its lane: at t = s*dist_i that is s*dist_i/kf_i,
+//              so rB grows by rho = max_i dist_i/kf_i. kf < 1.2 (a whole-
+//              segment influence window) changes nothing: crowd_bound lower-
+//              bounds every member's SDF, so kf*h/t >= 1 holds wherever the
+//              penumbra ball misses the bound sphere.
+// A member (c, R) may matter only if cull_gap, the least of |c - x(t)| -
+// r(t) over the capsule, is at most R plus the loop's reach and a slack.
+//
+// Slack. Each gate rounds, and the warp test must stay outside its error.
+// scale = |c|_1 + |v1| + perp + reach + R + |r(t*)| bounds every length in
+// the test (eps = 2^-24):
+//   * AO's gate (sqrtf(|q0 - c|^2) - R) and the hard shadows' segment skip
+//     (seg_bound_dist: |w - proj*l| - R) subtract vectors before squaring:
+//     each is within 12 eps of scale, cull_gap within 12 eps of its own:
+//     slack CULL_LIN = 2^-18 (64 eps) of scale;
+//   * the primary entry (bound_entry: pb^2 - (w2 - Re^2)), a sphere leaf's
+//     exact hit (leaf_interval: b^2 - c, with far members b^2 ~ c) and
+//     penumbra_sphere (s^2 = (t - b) t + (A - b t), and the roots of qa,
+//     qb, qc, clamped to the segment) subtract squares: an error up to 32
+//     eps of scale^2 is up to sqrt(32 eps) scale = 2^-9.5 scale in
+//     distance: slack CULL_SQRT = 2^-8 of scale; the penumbra, evaluated up
+//     to t = len, also widens its slope sig by 2^-8. The soft boxes and
+//     pairs (marches; p = o + t*l rounds with |p|, which |c|_1 bounds) take
+//     the same.
+// A generous slack only keeps a member a lane then skips by its own gate.
+// ---------------------------------------------------------------------------
+
+#define KF_FULL 0xffffffffu
+#define CULL_LIN F(3.814697265625e-06)  // 2^-18
+#define CULL_SQRT F(0.00390625)         // 2^-8
+
+struct WarpSeg {
+  V3 a, u;      // axis a + t*u, t in [0, len]; u = 0 for a ball
+  float len;
+  float rA;     // radius at t = 0
+  float sig;    // radius slope: r(t) = rA + sig*t
+  float k;      // sig / sqrt(1 - sig^2): the gap's minimum lies at
+                // t = v1 + k*perp (|sig| < 1)
+  bool any;     // some lane of the warp is active
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = v + __shfl_xor_sync(KF_FULL, v, off);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(KF_FULL, v, off));
+  return v;
+}
+__device__ __forceinline__ float warp_min(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(KF_FULL, v, off));
+  return v;
+}
+
+__device__ __forceinline__ WarpSeg make_seg(V3 a, V3 u, float len, float rA,
+                                            float sig, bool any) {
+  const float k = (sig > -1.0f && sig < 1.0f)
+      ? sig / sqrtf(1.0f - sig * sig) : 0.0f;
+  return WarpSeg{a, u, len, rA, sig, k, any};
+}
+
+// The primary rays' capsule: from the camera o along the active lanes'
+// mean direction.
+__device__ __forceinline__ WarpSeg warp_cone(const KFSettings& S, V3 o, V3 d,
+                                             bool active) {
+  const bool any = __any_sync(KF_FULL, active);
+  const V3 u = vnormalize(V3{warp_sum(active ? d.x : 0.0f),
+                             warp_sum(active ? d.y : 0.0f),
+                             warp_sum(active ? d.z : 0.0f)});
+  const V3 e{d.x - u.x, d.y - u.y, d.z - u.z};
+  const float sig = warp_max(active ? sqrtf(vdot(e, e)) : 0.0f);
+  return make_seg(o, u, S.t_max, 0.0f, sig, any);
+}
+
+// The active receivers' ball: centre of their bounding box, radius the
+// largest distance to it.
+__device__ __forceinline__ WarpSeg warp_ball(V3 p, bool active) {
+  const bool any = __any_sync(KF_FULL, active);
+  const float lo_x = warp_min(active ? p.x : KF_BIG);
+  const float lo_y = warp_min(active ? p.y : KF_BIG);
+  const float lo_z = warp_min(active ? p.z : KF_BIG);
+  const float hi_x = warp_max(active ? p.x : -KF_BIG);
+  const float hi_y = warp_max(active ? p.y : -KF_BIG);
+  const float hi_z = warp_max(active ? p.z : -KF_BIG);
+  const V3 c{(lo_x + hi_x) * 0.5f, (lo_y + hi_y) * 0.5f,
+             (lo_z + hi_z) * 0.5f};
+  const V3 e{p.x - c.x, p.y - c.y, p.z - c.z};
+  const float r = warp_max(active ? sqrtf(vdot(e, e)) : 0.0f);
+  return make_seg(c, V3{0.0f, 0.0f, 0.0f}, 0.0f, r, 0.0f, any);
+}
+
+// One light's shadow capsules from the receivers' ball: hard (the
+// segments themselves) and soft (widened by the penumbra radii).
+__device__ __forceinline__ void warp_light(const KFSettings& S,
+                                           const float* lrow, bool point,
+                                           const WarpSeg& ball, float dist,
+                                           float kf, bool active,
+                                           WarpSeg& hard, WarpSeg& soft) {
+  const float rho = warp_max(active ? dist / kf : 0.0f);
+  V3 u;
+  float len, rB;
+  if (point) {
+    const V3 e{lrow[0] - ball.a.x, lrow[1] - ball.a.y, lrow[2] - ball.a.z};
+    len = sqrtf(vdot(e, e));
+    const float inv = len > 0.0f ? 1.0f / len : 0.0f;
+    u = V3{e.x * inv, e.y * inv, e.z * inv};
+    // a lane's l = (L - p_i)/dist_i rounds: its far end misses L by a few
+    // eps of len
+    rB = CULL_LIN * len;
+  } else {
+    u = V3{0.0f - lrow[0], 0.0f - lrow[1], 0.0f - lrow[2]};
+    len = S.t_max;
+    rB = ball.rA;
+  }
+  const float inv_len = len > 0.0f ? 1.0f / len : 0.0f;
+  hard = make_seg(ball.a, u, len, ball.rA, (rB - ball.rA) * inv_len,
+                  ball.any);
+  const float rB_soft = rB + rho * (1.0f + CULL_LIN) + CULL_SQRT * len;
+  soft = make_seg(ball.a, u, len, ball.rA, (rB_soft - ball.rA) * inv_len,
+                  ball.any);
+}
+
+// May a member with bound centre c and reach R_eff matter to some point of
+// the capsule? The gap's exact minimum, then the slack `rel` of scale.
+__device__ __forceinline__ bool cull_keep(Bound b, float reach,
+                                          const WarpSeg& s, float rel) {
+  const V3 w{b.cx - s.a.x, b.cy - s.a.y, b.cz - s.a.z};
+  const float v1 = vdot(w, s.u);
+  const V3 q{w.x - v1 * s.u.x, w.y - v1 * s.u.y, w.z - v1 * s.u.z};
+  const float perp = sqrtf(vdot(q, q));
+  const float t = s.sig >= 1.0f ? s.len
+      : s.sig <= -1.0f ? 0.0f : clampf(v1 + s.k * perp, 0.0f, s.len);
+  const float dt = t - v1;
+  const float r_t = s.rA + s.sig * t;
+  const float gap = sqrtf(dt * dt + perp * perp) - r_t;
+  const float r_eff = b.R + reach;
+  const float scale = (((fabsf(b.cx) + fabsf(b.cy)) + fabsf(b.cz))
+                       + (fabsf(v1) + perp)) + (r_eff + fabsf(r_t));
+  return gap <= r_eff + rel * scale;
+}
+
+// Visit the members [lo, hi) that may matter to some lane of the warp, in
+// member order: body(j, b), b member j's bound (crowd_bound's bits, from
+// the lane that tested it). live(): the lane still gains from a member;
+// the chunks stop once no lane does. All 32 lanes call this; body may
+// diverge.
+template <class Live, class Body>
+__device__ __forceinline__ void cull_members(const KFTables& T, int lo,
+                                             int hi, const WarpSeg& s,
+                                             float reach, float rel,
+                                             Live live, Body body) {
+  const int lane = threadIdx.x & 31;
+  for (int base = lo; base < hi; base += 32) {
+    if (!__any_sync(KF_FULL, live())) break;
+    const int jl = base + lane;
+    Bound bl{0.0f, 0.0f, 0.0f, 0.0f};
+    bool need = false;
+    if (s.any && jl < hi) {
+      bl = crowd_bound(crowd_member(T, jl));
+      need = cull_keep(bl, reach, s, rel);
+    }
+    unsigned mask = __ballot_sync(KF_FULL, need);
+    while (mask) {
+      const int k = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const Bound b{__shfl_sync(KF_FULL, bl.cx, k),
+                    __shfl_sync(KF_FULL, bl.cy, k),
+                    __shfl_sync(KF_FULL, bl.cz, k),
+                    __shfl_sync(KF_FULL, bl.R, k)};
+      body(base + k, b);
+    }
+  }
+}
+
+// What kf_frame_kernel<true> hands a core with CULL: the warp's capsule of
+// its member loops (seg: the rays' cone, the receivers' ball, a light's
+// hard capsule; soft: a light's soft one) and whether this lane takes part
+// (in the frame, with a hit). The cores' other instantiations get NoCull.
+struct WarpCull {
+  WarpSeg seg, soft;
+  bool active;
+};
+struct NoCull {};
+
+// ---------------------------------------------------------------------------
 // Scene-level cores shared by KF and the split path
 // ---------------------------------------------------------------------------
 
@@ -785,12 +1006,15 @@ __device__ __forceinline__ const float* first_leaf_params(const KFTables& T,
 // The cores below are templates on CROWD: the kernels are instantiated
 // once without the member loops, for scenes with no crowd (n_crowd == 0),
 // whose code and register use are then what they were before the crowd
-// existed, and once with them.
-template <bool CROWD>
+// existed, and once with them. CULL (kf_frame_kernel<true> only) culls the
+// member loops per warp against w.seg, the warp's ray cone; every lane
+// calls it, w.active false for a pixel outside the frame.
+template <bool CROWD, bool CULL = false, class Warp = NoCull>
 __device__ __forceinline__ void trace_primary(const KFTables& T,
                                               const KFSettings& S, V3 o,
                                               V3 d, float t0, float& t,
-                                              float& obj, int& leaf) {
+                                              float& obj, int& leaf,
+                                              Warp w = {}) {
   t = KF_BIG;
   obj = -1.0f;
   leaf = 0;
@@ -801,7 +1025,15 @@ __device__ __forceinline__ void trace_primary(const KFTables& T,
                                   S.t_max, li);
     if (ti < t) { t = ti; obj = (float)oi; leaf = li; }
   }
-  if constexpr (CROWD) {
+  if constexpr (CULL) {
+    cull_members(T, S.crowd_sdf_end, S.crowd_single_end, w.seg, 0.0f,
+                 CULL_SQRT, [&] { return w.active; }, [&](int j, Bound) {
+      if (!w.active) return;
+      const CrowdMember m = crowd_member(T, j);
+      float tj = crowd_exact_t(m, o, d, S.t_min, S.t_max);
+      if (tj < t) { t = tj; obj = m.obj; leaf = 0; }
+    });
+  } else if constexpr (CROWD) {
     for (int j = S.crowd_sdf_end; j < S.crowd_single_end; ++j) {
       const CrowdMember m = crowd_member(T, j);
       float tj = crowd_exact_t(m, o, d, S.t_min, S.t_max);
@@ -810,7 +1042,27 @@ __device__ __forceinline__ void trace_primary(const KFTables& T,
   }
   const float t_start = fmaxf(t0, S.t_min);
   float t_clip = fminf(t, S.t_max);
-  if constexpr (CROWD) {
+  if constexpr (CULL) {
+    // SDF members: singles, then pairs; a skipped member would have left
+    // t and t_clip as they are (t_clip <= t throughout)
+    auto march_member = [&](int j, Bound b) {
+      if (!w.active) return;
+      float t1, clip2;
+      bound_entry(b, o, d, t_start, t_clip, S.default_shell, t1, clip2);
+      if (t1 < clip2) {
+        const CrowdMember m = crowd_member(T, j);
+        if (crowd_march(S, m, o, d, t1, clip2) && t1 < t) {
+          t = t1; obj = m.obj; leaf = 0;
+        }
+      }
+      t_clip = fminf(t_clip, t);
+    };
+    auto live = [&] { return w.active; };
+    cull_members(T, 0, S.crowd_sdf_end, w.seg, S.default_shell, CULL_SQRT,
+                 live, march_member);
+    cull_members(T, S.crowd_single_end, S.n_crowd, w.seg, S.default_shell,
+                 CULL_SQRT, live, march_member);
+  } else if constexpr (CROWD) {
     for (int j = 0; j < S.n_crowd; ++j) {
       if (j == S.crowd_sdf_end) j = S.crowd_single_end;  // SDF members only
       if (j >= S.n_crowd) break;
@@ -900,10 +1152,16 @@ __device__ __forceinline__ V3 hit_normal(const KFTables& T,
 // zero and is skipped. The objects outside the crowd are at most
 // KF_MAX_OBJECTS (one bit each); crowd members are not counted: with a
 // crowd the tap terms are kept per thread and each near member is folded
-// into them in turn (max is exact in any order).
-template <bool CROWD>
-static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettings& S,
-                                        V3 q0, V3 n) {
+// into them in turn (max is exact in any order). CULL: the member loop is
+// culled against w.seg, the warp's ball of receivers; every lane of the
+// warp calls it, w.active false for a lane without a hit.
+template <bool CROWD, bool CULL, class Warp>
+__device__ __forceinline__ float ao_core(const KFTables& T,
+                                         const KFSettings& S, V3 q0, V3 n,
+                                         Warp w) {
+  if constexpr (CULL) {
+    if (!__any_sync(KF_FULL, w.active)) return 1.0f;   // the whole warp
+  }
   unsigned long long near = 0ull;
   bool any_unbounded = false;
   const float gate = 2.0f * S.ao_radius;
@@ -962,7 +1220,29 @@ static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettin
       }
     }
   }
-  if constexpr (CROWD) {
+  if constexpr (CULL) {
+    cull_members(T, 0, S.n_crowd, w.seg, gate, CULL_LIN,
+                 [&] { return w.active; }, [&](int j, Bound b) {
+      if (!w.active) return;
+      float dx = q0.x - b.cx, dy = q0.y - b.cy, dz = q0.z - b.cz;
+      if (!(sqrtf((dx * dx + dy * dy) + dz * dz) - b.R <= gate)) return;
+      const CrowdMember m = crowd_member(T, j);
+      for (int s = 0; s < S.ao_samples; ++s) {
+        const float ax = AO_DIRS[s][0], ay = AO_DIRS[s][1];
+        const float az = AO_DIRS[s][2];
+        V3 dd{(ax * t1.x + ay * t2.x) + az * n.x,
+              (ax * t1.y + ay * t2.y) + az * n.y,
+              (ax * t1.z + ay * t2.z) + az * n.z};
+        for (int tap = 1; tap <= 4; ++tap) {
+          const float r = (S.ao_radius * (float)tap) * 0.25f;
+          V3 q{q0.x + dd.x * r, q0.y + dd.y * r, q0.z + dd.z * r};
+          float h = crowd_sdf(m, q);
+          float& term = terms[s * 4 + tap - 1];
+          term = fmaxf(term, fmaxf(az * r - h, 0.0f) / r);
+        }
+      }
+    });
+  } else if constexpr (CROWD) {
     for (int j = 0; j < S.n_crowd; ++j) {
       const CrowdMember m = crowd_member(T, j);
       const Bound b = crowd_bound(m);
@@ -983,11 +1263,32 @@ static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettin
         }
       }
     }
+  }
+  if constexpr (CROWD) {
     for (int i = 0; i < S.ao_samples * 4; ++i)
       occ = i == 0 ? terms[0] : occ + terms[i];
   }
   occ = occ / (float)(S.ao_samples * 4);
   return sat(1.0f - S.ao_strength * occ);
+}
+
+// The AO core is called out of line. Without CULL it keeps the name and
+// signature every kernel called before the culling existed (chip_smoke.py
+// phase 1 holds those kernels' code). With CULL the ball goes by value: by
+// reference it lives in each thread's stack frame, and the crowd kernel
+// ran 5% slower.
+template <bool CROWD>
+static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettings& S,
+                                        V3 q0, V3 n) {
+  return ao_core<CROWD, false>(T, S, q0, n, NoCull{});
+}
+
+static __device__ __noinline__ float ao_factor_culled(const KFTables& T,
+                                                      const KFSettings& S,
+                                                      V3 q0, V3 n,
+                                                      WarpSeg ball,
+                                                      bool active) {
+  return ao_core<true, true>(T, S, q0, n, WarpCull{ball, ball, active});
 }
 
 // Visibility of one light from the offset receiver o along l over
@@ -1068,6 +1369,120 @@ static __device__ __noinline__ float visibility(const KFTables& T,
       vis = vis * ((hit && t1 < dist_j) ? 0.0f : 1.0f);
     }
   }
+  for (int k = 0; k < S.n_sdf; ++k) {
+    const int* ob = object_row(T, T.order[S.n_ana + k]);
+    float dist_i = vis <= 0.0f ? 0.0f : dist;
+    float t1, clip2;
+    if (ob[O_BOUNDABLE]) {
+      Bound b = object_bound(T, ob, 0, S.exit_margin);
+      // a segment clear of the cover sphere by more than the worst hit
+      // epsilon cannot register an occlusion
+      if (seg_bound_dist(b, o, l, S.shadow_eps, dist) > S.exit_margin)
+        dist_i = 0.0f;
+      bound_entry(b, o, l, S.shadow_eps, dist_i, S.default_shell, t1, clip2);
+    } else {
+      t1 = S.shadow_eps;
+      clip2 = dist_i;
+    }
+    bool hit = march(T, S, ob, o, l, t1, clip2);
+    vis = vis * ((hit && t1 < dist_i) ? 0.0f : 1.0f);
+  }
+  return vis;
+}
+
+// visibility<true> as kf_frame_kernel<true> runs it: the member loops
+// culled against the warp's hard and soft capsules of this light; every
+// lane of the warp calls it, `active` false for a lane without a hit. The
+// objects outside the crowd repeat visibility<CROWD>'s code: calling
+// visibility<false> here instead changed kf_frame_kernel<false>'s SASS
+// (ptxas compiles a device function once for all its callers) and made the
+// sphere crowds 10% slower, and a wrapper around one shared core changed
+// K2's. The capsules go by value: by reference they live in each thread's
+// stack frame, and the crowd kernel ran 5% slower.
+static __device__ __noinline__ float visibility_culled(
+    const KFTables& T, const KFSettings& S, V3 o, V3 l, float dist, float kf,
+    WarpSeg hard, WarpSeg soft, bool active) {
+  if (!__any_sync(KF_FULL, active)) return 1.0f;   // the whole warp
+  if (S.soft_shadows) {
+    const float t0 = S.soft_shadow_tmin;
+    const int* ord = T.order + S.n_ana + S.n_sdf;
+    float soft_vis = 1.0f;
+    // the crowd: spheres in closed form, boxes and pairs by windowed
+    // marches; a lane already dark gains nothing from a further member
+    cull_members(T, 0, S.n_crowd, soft, 0.0f, CULL_SQRT,
+                 [&] { return active && soft_vis > 0.0f; },
+                 [&](int j, Bound b) {
+      if (!(active && soft_vis > 0.0f)) return;
+      const CrowdMember m = crowd_member(T, j);
+      float v;
+      if (m.op == OP_LEAF && m.s0) {
+        v = penumbra_sphere(m.prm0, o, l, t0, dist, kf);
+      } else {
+        float t_lo, t_hi;
+        influence_window(b, o, l, t0, dist, kf, t_lo, t_hi);
+        v = crowd_soft_march(S, m, o, l, fmaxf(t_lo, t0), fminf(dist, t_hi),
+                             kf);
+      }
+      soft_vis = fminf(soft_vis, v);
+    });
+    if (!active) return 1.0f;
+    for (int k = 0; k < S.n_ana + S.n_sdf; ++k) {
+      const int* ob = object_row(T, ord[k]);
+      const int cf = ob[O_CLOSED_FORM];
+      if (cf >= 0) {
+        const float* prm = first_leaf_params(T, ob);
+        float v = cf == LEAF_PLANE ? penumbra_plane(prm, o, l, t0, dist, kf)
+                                   : penumbra_sphere(prm, o, l, t0, dist, kf);
+        soft_vis = fminf(soft_vis, v);
+        continue;
+      }
+      const float dist_i = soft_vis <= 0.0f ? 0.0f : dist;
+      float v;
+      if (ob[O_BOUNDABLE]) {
+        Bound b = object_bound(T, ob, 1, 0.0f);
+        float t_lo, t_hi;
+        influence_window(b, o, l, t0, dist_i, kf, t_lo, t_hi);
+        v = soft_march(T, S, ob, o, l, fmaxf(t_lo, t0), fminf(dist_i, t_hi),
+                       kf);
+      } else {
+        v = soft_march(T, S, ob, o, l, t0, dist_i, kf);
+      }
+      soft_vis = fminf(soft_vis, v);
+    }
+    return soft_vis;
+  }
+  float vis = 1.0f;
+  for (int k = 0; k < S.n_ana; ++k) {
+    int leaf;
+    float ti = intersect_analytic(T, object_row(T, T.order[k]), o, l,
+                                  S.shadow_eps, dist, leaf);
+    vis = vis * (ti < dist ? 0.0f : 1.0f);
+  }
+  // the crowd: SDF members (singles, then pairs) by any-hit marches, then
+  // the analytic members exactly; an occluded lane stays occluded
+  auto lit = [&] { return active && vis > 0.0f; };
+  auto march_member = [&](int j, Bound b) {
+    if (!(active && vis > 0.0f)) return;
+    // past the exit margin the segment is clipped to nothing: no march
+    if (seg_bound_dist(b, o, l, S.shadow_eps, dist) > S.exit_margin) return;
+    float t1, clip2;
+    bound_entry(b, o, l, S.shadow_eps, dist, S.default_shell, t1, clip2);
+    const CrowdMember m = crowd_member(T, j);
+    bool hit = t1 < clip2 && crowd_march(S, m, o, l, t1, clip2);
+    vis = vis * ((hit && t1 < dist) ? 0.0f : 1.0f);
+  };
+  cull_members(T, 0, S.crowd_sdf_end, hard, S.exit_margin, CULL_LIN, lit,
+               march_member);
+  cull_members(T, S.crowd_single_end, S.n_crowd, hard, S.exit_margin,
+               CULL_LIN, lit, march_member);
+  cull_members(T, S.crowd_sdf_end, S.crowd_single_end, hard, 0.0f, CULL_SQRT,
+               lit, [&](int j, Bound) {
+    if (!(active && vis > 0.0f)) return;
+    const CrowdMember m = crowd_member(T, j);
+    float tj = crowd_exact_t(m, o, l, S.shadow_eps, dist);
+    vis = vis * (tj < dist ? 0.0f : 1.0f);
+  });
+  if (!active) return 1.0f;
   for (int k = 0; k < S.n_sdf; ++k) {
     const int* ob = object_row(T, T.order[S.n_ana + k]);
     float dist_i = vis <= 0.0f ? 0.0f : dist;

@@ -55,7 +55,7 @@ from surfjax_torch.core.math import (
 )
 from surfjax_torch.core.scene_compile import (
     ENGINE_ANALYTIC, ENGINE_MESH, ENGINE_SDF, LEAF_BOX, LEAF_MANDELBULB,
-    LEAF_PLANE, LEAF_SPHERE, LIGHT_POINT,
+    LEAF_PLANE, LEAF_SPHERE, LIGHT_DIRECTIONAL, LIGHT_POINT,
 )
 from surfjax_torch.core.types import FrameBuffers, RenderSettings
 from surfjax_torch.engines.analytic import (
@@ -718,18 +718,25 @@ def _leaf_exact_t(prm, is_sphere: bool, o, d, t_min, t_max):
     return torch.where(e0, t0, torch.where(e1, t1, BIG))
 
 
-def _crowd_analytic_trace(crowd, crowd_refs, o, d, t_min, t_max, state):
+def _crowd_analytic_trace(crowd, crowd_refs, o, d, t_min, t_max, state,
+                          keep=None):
     """Exact nearest hits of the analytic members, merged like analytic
-    objects. state -> (t_a, obj, leaf)."""
+    objects. state -> (t_a, obj, leaf). keep(j, live=None): the lanes that
+    visit member j, live the lanes the loop still changes (CrowdMasks.lanes,
+    called once per member and in member order); None: every lane visits
+    every member."""
     cm, lp, _ = crowd_refs
 
     def member(j, is_sphere, carry):
         t_a, obj, leaf = carry
         t_j = _leaf_exact_t(lp[int(cm[j, 0])], is_sphere, o, d, f32(t_min),
                             f32(t_max))
-        _tally(t_j.numel(), _ANALYTIC_LEAF_OPS[LEAF_SPHERE if is_sphere
-                                               else LEAF_BOX])
+        lanes = t_j.numel() if keep is None else keep(j)
+        _tally(lanes, _ANALYTIC_LEAF_OPS[LEAF_SPHERE if is_sphere
+                                         else LEAF_BOX])
         better = t_j < t_a
+        if keep is not None:
+            better = better & lanes
         return (torch.where(better, t_j, t_a),
                 torch.where(better, float(cm[j, 1]), obj),
                 torch.where(better, 0.0, leaf))
@@ -738,17 +745,20 @@ def _crowd_analytic_trace(crowd, crowd_refs, o, d, t_min, t_max, state):
 
 
 def _crowd_trace(crowd, crowd_refs, o, d, t_start, settings, exit_margin,
-                 state):
+                 state, keep=None):
     """Bound entry and march of every SDF member (singles, then pairs),
     each clipped by the nearest hit so far. state -> (t, obj, leaf,
-    t_clip)."""
+    t_clip); keep as in _crowd_analytic_trace."""
     cm = crowd_refs[0]
 
     def member(j, tag, carry):
         t, obj, leaf, t_clip = carry
         b, sdf_j = _crowd_shape(crowd, crowd_refs, j, tag)
-        _tally(t.numel(), 30)
+        lanes = t.numel() if keep is None else keep(j)
+        _tally(lanes, 30)
         t1, clip2 = _bound_entry(b, o, d, t_start, t_clip, exit_margin)
+        if keep is not None:      # a skipped lane's march is done at once
+            clip2 = torch.where(lanes, clip2, t1)
         t_j, hit_j = _march(sdf_j, o, d, t1, clip2, settings.max_steps,
                             settings.hit_eps, relax=settings.over_relax,
                             eps_scale=settings.hit_eps_scale)
@@ -793,10 +803,12 @@ def _crowd_normals(crowd, crowd_refs, p, obj, settings, n):
     return _crowd_sections(crowd.pair_ranges, member_fd, n)
 
 
-def _crowd_ao_terms(crowd, crowd_refs, p_off, taps, settings, terms, need):
+def _crowd_ao_terms(crowd, crowd_refs, p_off, taps, settings, terms, need,
+                    keep=None):
     """Every member's AO tap terms, max-combined into `terms`, with the
     far gate of _ao_compute: a receiver more than 2*ao_radius outside the
-    member's bound gets exactly zero from it."""
+    member's bound gets exactly zero from it. keep as in
+    _crowd_analytic_trace."""
     gate = f32(2.0 * f32(settings.ao_radius))
 
     def member(j, tag, terms):
@@ -805,11 +817,17 @@ def _crowd_ao_terms(crowd, crowd_refs, p_off, taps, settings, terms, need):
         dy = p_off[1] - cy
         dz = p_off[2] - cz
         near = sqrt((dx * dx + dy * dy) + dz * dz) - R <= gate
-        _tally(need, 10)
+        if keep is not None:
+            kept = keep(j, need)
+            need_j = need & kept
+            near = near & kept
+        else:
+            need_j = need
+        _tally(need_j, 10)
         if not bool(near.any()):
             return terms
-        _tally_de(sdf_j, near & need, evals=len(taps))
-        _tally(near & need, 4 * len(taps))
+        _tally_de(sdf_j, near & need_j, evals=len(taps))
+        _tally(near & need_j, 4 * len(taps))
         return [torch.maximum(acc, torch.where(
             near, ao_tap_term(az, r, sdf_j(q)), 0.0))
             for acc, (az, r, q) in zip(terms, taps)]
@@ -819,16 +837,20 @@ def _crowd_ao_terms(crowd, crowd_refs, p_off, taps, settings, terms, need):
 
 
 def _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings, eps_margin,
-                    vis):
+                    vis, keep=None):
     """Hard shadows of the crowd: SDF members (singles, then pairs) by
     any-hit marches with the segment skip and the bound entry/exit clip,
-    analytic members exactly. -> vis."""
+    analytic members exactly. -> vis. keep(key, j), key "hard_sdf" or
+    "hard_ana": as in _crowd_analytic_trace."""
     cm, lp, _ = crowd_refs
     eps = f32(settings.shadow_eps)
 
     def member(j, tag, vis):
         b, sdf_j = _crowd_shape(crowd, crowd_refs, j, tag)
         dist_j = torch.where(vis <= 0.0, 0.0, dist)
+        if keep is not None:
+            dist_j = torch.where(keep("hard_sdf", j, dist_j > 0.0), dist_j,
+                                 0.0)
         _tally(dist_j > 0.0, 30)
         dseg = _seg_bound_dist(b, o, l, eps, dist_j)
         dist_j = torch.where(dseg > f32(eps_margin), 0.0, dist_j)
@@ -841,27 +863,44 @@ def _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings, eps_margin,
 
     def member_analytic(j, is_sphere, vis):
         t_j = _leaf_exact_t(lp[int(cm[j, 0])], is_sphere, o, l, eps, dist)
-        _tally(dist > 0.0, _ANALYTIC_LEAF_OPS[LEAF_SPHERE if is_sphere
-                                             else LEAF_BOX])
-        return vis * torch.where(t_j < dist, 0.0, 1.0)
+        lanes = (dist > 0.0) & (vis > 0.0)   # a dark lane skips the rest
+        occ = t_j < dist
+        if keep is not None:
+            kept = keep("hard_ana", j, lanes)
+            lanes = lanes & kept
+            occ = occ & kept
+        _tally(lanes, _ANALYTIC_LEAF_OPS[LEAF_SPHERE if is_sphere
+                                         else LEAF_BOX])
+        return vis * torch.where(occ, 0.0, 1.0)
 
     vis = _crowd_sections(crowd.sdf_ranges + crowd.pair_ranges, member, vis)
     return _crowd_sections(crowd.ana_ranges, member_analytic, vis)
 
 
-def _crowd_soft_vis(crowd, crowd_refs, o, l, dist, settings, kf, soft_vis):
+def _crowd_soft_vis(crowd, crowd_refs, o, l, dist, settings, kf, soft_vis,
+                    keep=None):
     """Penumbrae of the crowd: sphere members in closed form (no march),
-    boxes and pairs by influence-window marches. -> soft_vis."""
+    boxes and pairs by influence-window marches. -> soft_vis. keep(key, j),
+    key "soft": as in _crowd_analytic_trace."""
     cm, lp, _ = crowd_refs
     t0 = f32(settings.soft_shadow_tmin)
 
     def member(j, tag, soft_vis):
+        live = (dist > 0.0) & (soft_vis > 0.0)   # a dark lane skips the rest
+        kept = None if keep is None else keep("soft", j, live)
         if tag is True:
-            _tally(dist > 0.0, 70)
-            return torch.minimum(soft_vis, _penumbra_sphere(
+            lanes = live
+            v_j = torch.minimum(soft_vis, _penumbra_sphere(
                 lp[int(cm[j, 0])], o, l, t0, dist, kf))
+            if keep is not None:
+                lanes = lanes & kept
+                v_j = torch.where(kept, v_j, soft_vis)
+            _tally(lanes, 70)
+            return v_j
         b, sdf_j = _crowd_shape(crowd, crowd_refs, j, tag)
         dist_j = torch.where(soft_vis <= 0.0, 0.0, dist)
+        if keep is not None:
+            dist_j = torch.where(kept, dist_j, 0.0)
         _tally(dist_j > 0.0, 30)
         t_lo, t_hi = _influence_window(b, o, l, t0, dist_j, kf)
         v_j = _soft_march(sdf_j, o, l, maximum(t_lo, t0),
@@ -903,7 +942,7 @@ def _crowd_shade(crowd, crowd_refs, n_objects: int, mat_table, obj, hit,
 
 
 def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
-               t0=None):
+               t0=None, cull=None):
     """Primary trace over (settings.t_min, settings.t_max) of the non-mesh
     objects -> (t, obj f32, leaf f32, hit_f f32).
 
@@ -912,7 +951,9 @@ def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
     each remaining SDF object, cheapest tape first, every march from its
     bound-sphere entry and clipped by the nearest hit so far. t0 (per
     lane, from the priming pass) is a start before which no SDF surface
-    lies: SDF marches begin at max(t_min, t0), analytic hits ignore it."""
+    lies: SDF marches begin at max(t_min, t0), analytic hits ignore it.
+    cull(key, j, live) -> the lanes that visit member j in the loop `key`
+    (CrowdMasks.lanes), None: every lane visits every member."""
     crowd, analytic, sdf_objs = split_crowd(static, settings)
     t_a = torch.full_like(o[0], BIG)
     obj = torch.full_like(o[0], -1.0)
@@ -928,7 +969,8 @@ def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
     crowd_refs = _crowd_refs(static, settings, lp, nparams)
     if crowd is not None and crowd.has_ana:
         t_a, obj, leaf = _crowd_analytic_trace(
-            crowd, crowd_refs, o, d, t_min, t_max, (t_a, obj, leaf))
+            crowd, crowd_refs, o, d, t_min, t_max, (t_a, obj, leaf),
+            _bind(cull, "primary_ana"))
     t = t_a
     if t0 is None:
         t_start = torch.full_like(o[0], f32(t_min))
@@ -938,7 +980,8 @@ def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
     if crowd is not None and crowd.has_sdf:
         t, obj, leaf, _ = _crowd_trace(
             crowd, crowd_refs, o, d, t_start, settings, exit_margin,
-            (t, obj, leaf, minimum(t, f32(t_max))))
+            (t, obj, leaf, minimum(t, f32(t_max))),
+            _bind(cull, "primary_sdf"))
     if sdf_objs:
         fast_fn = _fast_leaf_fn(settings)
         order = sorted(sdf_objs, key=lambda io: len(io[1].nodes))
@@ -1149,7 +1192,7 @@ def _soft_march(sdf_fn, o, d, t_init, t_max, k, steps: int,
 
 
 def visibility_core(static, settings: RenderSettings, lp, nparams,
-                    o, l, dist, soft_k=None):
+                    o, l, dist, soft_k=None, cull=None):
     """Shadow visibility of secondary rays through the non-mesh objects
     -> vis.
 
@@ -1157,7 +1200,8 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
     forms for single plane/sphere leaves, influence-window marches for
     bounded objects; lanes already dark skip later objects). Hard shadows:
     analytic objects occlude exactly, SDF objects by any-hit marches that
-    skip segments clear of the object's cover sphere."""
+    skip segments clear of the object's cover sphere. cull(key, j, live): as in
+    trace_core, keys "hard_sdf", "hard_ana" and "soft" of this light."""
     crowd, analytic, sdf_objs = split_crowd(static, settings)
     crowd_refs = _crowd_refs(static, settings, lp, nparams)
     vis = torch.ones_like(o[0])
@@ -1173,7 +1217,7 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
         soft_vis = torch.ones_like(o[0])
         if crowd is not None:
             soft_vis = _crowd_soft_vis(crowd, crowd_refs, o, l, dist,
-                                       settings, kf, soft_vis)
+                                       settings, kf, soft_vis, cull)
         for i, oir in nonmesh:
             cf = _single_leaf_closed_form(oir)
             if cf is not None:
@@ -1208,7 +1252,7 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
     eps_margin = _exit_margin(settings)
     if crowd is not None:
         vis = _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings,
-                              eps_margin, vis)
+                              eps_margin, vis, cull)
     if sdf_objs:
         fast_fn = _fast_leaf_fn(settings)
         for i, oir in sorted(sdf_objs, key=lambda io: len(io[1].nodes)):
@@ -1234,6 +1278,12 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
     return vis
 
 
+def _bind(cull, key: str):
+    """cull(key, j, live) as a function of (j, live), or None."""
+    return None if cull is None else (
+        lambda j, live=None: cull(key, j, live))
+
+
 def _scene_sdf(objs, lp, nparams, leaf_fn):
     def f(p):
         v = eval_sdf(objs[0][1], lp, nparams, p, leaf_fn=leaf_fn)
@@ -1246,7 +1296,7 @@ def _scene_sdf(objs, lp, nparams, leaf_fn):
 
 
 def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n,
-                already_offset: bool = False, need=None):
+                already_offset: bool = False, need=None, cull=None):
     """AO probes over every non-mesh object. Per tap, the occlusion terms
     of object groups combine exactly by max: unbounded objects (plane
     leaves) as one scene-min group, each crowd member and each other
@@ -1257,7 +1307,8 @@ def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n,
     already_offset: p is a receiver already offset by the caller (mesh
     hits, offset along the geometric normal); otherwise it is offset here
     along n by shadow_eps. need: the lanes whose AO the caller uses (all
-    by default); it only limits what count_ops counts."""
+    by default); it only limits what count_ops counts. cull(key, j, live): as in
+    trace_core, key "ao"."""
     crowd, analytic, sdf_only = split_crowd(static, settings)
     objs = analytic + sdf_only
     if not objs and crowd is None:
@@ -1297,7 +1348,7 @@ def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n,
     if crowd is not None:
         terms = _crowd_ao_terms(
             crowd, _crowd_refs(static, settings, lp, nparams), p_off, taps,
-            settings, terms, need)
+            settings, terms, need, _bind(cull, "ao"))
     for (i, oir), near in gated:
         if not bool(near.any()):
             continue
@@ -1361,10 +1412,40 @@ def frame_rays(intr, cam_rows):
     return o, d
 
 
+def _light_ray(settings: RenderSettings, kind: int, lrow, p_off):
+    """KF's shadow ray of one light from the offset receivers -> (l, dist,
+    soft_k): the direction, the segment length (t_max for a directional
+    light) and the penumbra sharpness (dist / radius for a point light
+    with a radius, else soft_shadow_k)."""
+    zeros = torch.zeros_like(p_off[0])
+    if kind == LIGHT_POINT:
+        lvx = lrow[0] - p_off[0]
+        lvy = lrow[1] - p_off[1]
+        lvz = lrow[2] - p_off[2]
+        dist = sqrt((lvx * lvx + lvy * lvy) + lvz * lvz)
+        inv = 1.0 / dist
+        l = (lvx * inv, lvy * inv, lvz * inv)
+    else:
+        l = (zeros - lrow[0], zeros - lrow[1], zeros - lrow[2])
+        dist = zeros + f32(settings.t_max)
+    radius = lrow[6]
+    if bool(radius > 0.0):
+        soft_k = dist / radius
+    else:
+        soft_k = torch.full_like(dist, f32(settings.soft_shadow_k))
+    return l, dist, soft_k
+
+
 def frame_fused_reference(scene_t, settings: RenderSettings, intr, cam_rows,
-                          t0=None):
+                          t0=None, masks=None):
     """Plain PyTorch twin of KF over F frames; t0 (F, H, W) or None: the
     primed march starts of trace_core.
+
+    masks: a `crowd_warp_masks` result for the same frames, or None. With
+    masks, each lane visits only the crowd members in its warp's mask of
+    each member loop, as the CUDA kernel does, and count_ops counts that
+    culled algorithm; the buffers are the same to the bit (the masks are
+    conservative). Without, every lane visits every member.
 
     -> (r, g, b, depth, obj, nx, ny, nz, hit), each float32 (F, H, W):
     depth is 0 on a miss, obj carries the object index as a float (-1 on a
@@ -1376,16 +1457,20 @@ def frame_fused_reference(scene_t, settings: RenderSettings, intr, cam_rows,
     o3, d3 = frame_rays(intr, cam_rows)
     o = tuple(c.reshape(-1) for c in o3)
     d = tuple(c.reshape(-1) for c in d3)
+    cull = None if masks is None else masks.lanes
+    if masks is not None:
+        masks.tally()
 
     t, obj, leaf, hit_f = trace_core(
         static, settings, lp, nparams, o, d,
-        t0=None if t0 is None else t0.reshape(-1))
+        t0=None if t0 is None else t0.reshape(-1), cull=cull)
     hit = hit_f > 0.5
     t_sane = torch.where(hit, t, 0.0)
     p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
     n = normals_core(static, settings, lp, nparams, p, obj, leaf, d)
     if settings.ao and static.ir.objects:
-        ao = _ao_compute(static, settings, lp, nparams, p, n, need=hit)
+        ao = _ao_compute(static, settings, lp, nparams, p, n, need=hit,
+                         cull=cull)
     else:
         ao = torch.ones_like(p[0])
     _tally(t.numel(), 20)                                  # ray generation
@@ -1398,26 +1483,14 @@ def frame_fused_reference(scene_t, settings: RenderSettings, intr, cam_rows,
     lights = params["lights"]
     for li, kind in enumerate(static.ir.lights):
         lrow = lights[li]
-        if kind == LIGHT_POINT:
-            lvx = lrow[0] - p_off[0]
-            lvy = lrow[1] - p_off[1]
-            lvz = lrow[2] - p_off[2]
-            dist = sqrt((lvx * lvx + lvy * lvy) + lvz * lvz)
-            inv = 1.0 / dist
-            l = (lvx * inv, lvy * inv, lvz * inv)
-        else:
-            l = (zeros - lrow[0], zeros - lrow[1], zeros - lrow[2])
-            dist = zeros + f32(settings.t_max)
+        l, dist, soft_k = _light_ray(settings, kind, lrow, p_off)
         lcol = (lrow[3], lrow[4], lrow[5])
         if settings.shadows:
-            radius = lrow[6]
-            if bool(radius > 0.0):
-                soft_k = dist / radius
-            else:
-                soft_k = torch.full_like(dist, f32(settings.soft_shadow_k))
             dist_eff = torch.where(hit, dist, 0.0)
-            vis = visibility_core(static, settings, lp, nparams, p_off, l,
-                                  dist_eff, soft_k=soft_k)
+            vis = visibility_core(
+                static, settings, lp, nparams, p_off, l, dist_eff,
+                soft_k=soft_k, cull=None if cull is None else
+                (lambda key, j, live=None, li=li: cull((key, li), j, live)))
         else:
             vis = torch.ones_like(t)
         light_terms.append((l, lcol, vis))
@@ -1460,6 +1533,320 @@ def _shade_hits(static, settings: RenderSettings, params, obj, hit, ambient,
             len(static.ir.objects), mats, obj, hit, ambient, ao, n, v,
             light_terms, rgb)
     return rgb
+
+
+# ---------------------------------------------------------------------------
+# Warp-level member culling: the plain version of what kf_frame_kernel<true>
+# votes (csrc/frame_fused.cuh, "Warp-level member culling", which derives
+# the regions and the slack)
+# ---------------------------------------------------------------------------
+
+CULL_LIN = f32(2.0 ** -18)    # slack of the gates that take no square root
+CULL_SQRT = f32(2.0 ** -8)    # slack of those that subtract squares
+# count_ops of the vote, hand counts of the kernel's FP32 operations per lane
+# (frame_fused.cuh; fabsf and selects are free, a shuffle is no operation,
+# the reductions' add/min/max after each of their 5 shuffles count):
+#   cull_keep: w 3, v1 5, q 6, perp 6, t 6 (2 compares, k*perp + v1, the
+#     clamp's 2), dt 1, r_t 2, gap 5, r_eff 1, scale 6, the test 3 -> 44;
+#   crowd_bound: a sphere leaf's 0, a box leaf's |half size| 6; a pair's
+#     two leaves' + centre 6 + two reaches 10 each + max 1, smooth + 2;
+#   warp_cone: 3 sums 15, vnormalize 10, d - u 3, |d - u| 6, max 5,
+#     make_seg 6 (2 compares, 1 - sig^2, sqrt, divide) -> 45;
+#   warp_ball: 6 min/max 30, centre 6, p - c 3, |p - c| 6, max 5,
+#     make_seg 6 -> 56;
+#   warp_light: rho 6 (divide, max), then a point light's axis 15 (L - c
+#     3, len 6, inverse 2, u 3, rB 1) or a directional one's 3, inv_len 2,
+#     the hard capsule 8 (slope 2, make_seg 6), the soft one 12 (rB_soft 4,
+#     slope 2, make_seg 6) -> 43 / 31.
+_CULL_KEEP_OPS = 44
+_CULL_CONE_OPS = 45
+_CULL_BALL_OPS = 56
+_CULL_LIGHT_OPS = {LIGHT_POINT: 43, LIGHT_DIRECTIONAL: 31}
+
+
+def _cull_bound_ops(tag) -> int:
+    """crowd_bound's operations for a member of a section with this tag
+    (is_sphere, or a pair's (is_sphere0, is_sphere1, op))."""
+    if not isinstance(tag, tuple):
+        return 0 if tag else 6
+    s0, s1, op = tag
+    return (0 if s0 else 6) + (0 if s1 else 6) + 27 + (
+        2 if op in SMOOTH_OPS else 0)
+
+
+class WarpSeg(NamedTuple):
+    """Tapered capsules, one per warp: points a + t*u, t in [0, len], each
+    widened by rA + sig*t; every field a (n_warps, 1) tensor."""
+    a: tuple
+    u: tuple
+    len: torch.Tensor
+    rA: torch.Tensor
+    sig: torch.Tensor
+    k: torch.Tensor
+    any: torch.Tensor
+
+
+def _warp_layout(F: int, H: int, W: int, dev):
+    """KF's warps (16x2 pixels of one frame; those with a pixel in the
+    frame) -> (lane index into the flat (F*H*W,) pixels for each of the
+    (n_warps, 32) lanes, -1 outside the frame; warp of every pixel)."""
+    R2, C = -(-H // 2), -(-W // 16)
+    f = torch.arange(F, device=dev).view(F, 1, 1, 1, 1)
+    i = (2 * torch.arange(R2, device=dev)).view(1, R2, 1, 1, 1) \
+        + torch.arange(2, device=dev).view(1, 1, 1, 2, 1)
+    j = (16 * torch.arange(C, device=dev)).view(1, 1, C, 1, 1) \
+        + torch.arange(16, device=dev).view(1, 1, 1, 1, 16)
+    flat = (f * H + i) * W + j
+    inside = (i < H) & (j < W)
+    lanes = torch.where(inside, flat, -1).reshape(F * R2 * C, 32)
+    warp_of = torch.empty(F * H * W, dtype=torch.long, device=dev)
+    n_warps = lanes.shape[0]
+    w_ids = torch.arange(n_warps, device=dev).view(-1, 1).expand(-1, 32)
+    ok = lanes >= 0
+    warp_of[lanes[ok]] = w_ids[ok]
+    return lanes, warp_of
+
+
+def _gather(x, lanes, fill: float):
+    """Flat per-pixel values -> (n_warps, 32), `fill` outside the frame."""
+    return torch.where(lanes >= 0, x[lanes.clamp(min=0)], fill)
+
+
+def _warp_sum(x):
+    """The butterfly of __shfl_xor_sync over offsets 16 .. 1: every lane
+    ends with the same sum, in the kernel's order -> (n_warps, 1)."""
+    idx = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        x = x + x[:, idx ^ off]
+    return x[:, :1]
+
+
+def _make_seg(a, u, length, rA, sig, any_):
+    inside = (sig > -1.0) & (sig < 1.0)
+    k = torch.where(inside, sig / sqrt(maximum(1.0 - sig * sig, 0.0)), 0.0)
+    return WarpSeg(a, u, length, rA, sig, k, any_)
+
+
+def _warp_cone(settings: RenderSettings, o, d, active):
+    """The primary rays' capsule (kernel: warp_cone)."""
+    dm = [torch.where(active, c, 0.0) for c in d]
+    u = vnormalize(tuple(_warp_sum(c) for c in dm))
+    e = (d[0] - u[0], d[1] - u[1], d[2] - u[2])
+    chord = sqrt((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2])
+    sig = torch.where(active, chord, 0.0).amax(dim=1, keepdim=True)
+    length = torch.full_like(sig, f32(settings.t_max))
+    return _make_seg(tuple(c[:, :1] for c in o), u, length,
+                     torch.zeros_like(sig), sig, active.any(dim=1,
+                                                            keepdim=True))
+
+
+def _warp_ball(p, active):
+    """The active receivers' ball (kernel: warp_ball)."""
+    lo = [torch.where(active, c, BIG).amin(dim=1, keepdim=True) for c in p]
+    hi = [torch.where(active, c, -BIG).amax(dim=1, keepdim=True) for c in p]
+    c = tuple((a + b) * 0.5 for a, b in zip(lo, hi))
+    e = (p[0] - c[0], p[1] - c[1], p[2] - c[2])
+    r = torch.where(active, sqrt((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]),
+                    0.0).amax(dim=1, keepdim=True)
+    zero = torch.zeros_like(r)
+    return _make_seg(c, (zero, zero, zero), zero, r, zero,
+                     active.any(dim=1, keepdim=True))
+
+
+def _warp_light(settings: RenderSettings, kind: int, lrow, ball, dist, kf,
+                active):
+    """One light's hard and soft capsules (kernel: warp_light)."""
+    rho = torch.where(active, dist / kf, 0.0).amax(dim=1, keepdim=True)
+    if kind == LIGHT_POINT:
+        e = tuple(lrow[k] - ball.a[k] for k in range(3))
+        length = sqrt((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2])
+        inv = torch.where(length > 0.0, 1.0 / length, 0.0)
+        u = tuple(c * inv for c in e)
+        rB = CULL_LIN * length
+    else:
+        zero = torch.zeros_like(ball.rA)
+        u = tuple(zero - lrow[k] for k in range(3))
+        length = zero + f32(settings.t_max)
+        rB = ball.rA
+    inv_len = torch.where(length > 0.0, 1.0 / length, 0.0)
+    hard = _make_seg(ball.a, u, length, ball.rA, (rB - ball.rA) * inv_len,
+                     ball.any)
+    rB_soft = (rB + rho * f32(1.0 + 2.0 ** -18)) + CULL_SQRT * length
+    soft = _make_seg(ball.a, u, length, ball.rA,
+                     (rB_soft - ball.rA) * inv_len, ball.any)
+    return hard, soft
+
+
+def cull_margin(b, reach, seg: WarpSeg, rel: float):
+    """(n_warps, n_members): how far each member (bound b, (n_members,)
+    tensors) lies outside each warp's capsule, beyond its reach and the
+    slack `rel` of its scale; the member may matter where this is <= 0
+    (kernel: cull_keep)."""
+    cx, cy, cz, R = (c.view(1, -1) for c in b)
+    ax, ay, az = seg.a
+    ux, uy, uz = seg.u
+    wx, wy, wz = cx - ax, cy - ay, cz - az
+    v1 = (wx * ux + wy * uy) + wz * uz
+    qx, qy, qz = wx - v1 * ux, wy - v1 * uy, wz - v1 * uz
+    perp = sqrt((qx * qx + qy * qy) + qz * qz)
+    t_in = torch.minimum(maximum(v1 + seg.k * perp, 0.0), seg.len)
+    t = torch.where(seg.sig >= 1.0, seg.len,
+                    torch.where(seg.sig <= -1.0, 0.0, t_in))
+    dt = t - v1
+    r_t = seg.rA + seg.sig * t
+    gap = sqrt(dt * dt + perp * perp) - r_t
+    r_eff = R + reach
+    scale = (((torch.abs(cx) + torch.abs(cy)) + torch.abs(cz))
+             + (torch.abs(v1) + perp)) + (r_eff + torch.abs(r_t))
+    return gap - (r_eff + rel * scale)
+
+
+class CrowdMasks(NamedTuple):
+    """crowd_warp_masks' result: per member loop, the (n_warps, n_crowd)
+    mask of the members each warp visits (False outside the loop's
+    range). Keys "primary_ana", "primary_sdf", "ao", and per light index
+    li ("hard_sdf", li), ("hard_ana", li), ("soft", li), for the loops the
+    settings run."""
+    masks: dict
+    warp_of: torch.Tensor    # (F*H*W,) warp of each pixel
+    ranges: dict             # key -> the member ranges ((lo, hi), ...)
+    tests: dict              # key -> (WarpSeg, reach, rel) of its votes
+    bounds: tuple            # the members' bounds (cx, cy, cz, R)
+    hit_warps: torch.Tensor  # (n_warps,) warps with a hit lane
+    test_ops: tuple          # per member: one lane's test of it
+    hit_ops: int             # per lane of a warp with a hit: its regions
+
+    def lanes(self, key, j: int, live=None):
+        """-> (F*H*W,) bool: the pixels that visit member j in `key`.
+
+        live: the pixels the loop still changes (None: every pixel); the
+        twin calls this once per member, in member order. Where j begins
+        one of the loop's 32-member chunks, count_ops counts the chunk's
+        tests, one member per lane, on each warp with a live pixel: the
+        kernel's cull_members leaves the loop once no lane is live (a
+        warp without a hit never enters the secondary loops, one whose
+        lanes are all in shadow stops there)."""
+        for lo, hi in self.ranges[key]:
+            if lo <= j < hi and (j - lo) % 32 == 0:
+                if live is None:
+                    n = self.hit_warps.numel()
+                else:
+                    warps = torch.zeros_like(self.hit_warps)
+                    warps[self.warp_of[live]] = True
+                    n = int(warps.sum())
+                _tally(n, sum(self.test_ops[j:min(j + 32, hi)]))
+        return self.masks[key][self.warp_of, j]
+
+    def tally(self) -> None:
+        """count_ops: the warps' regions on all 32 lanes: the rays' cone
+        on every warp, the receivers' ball and the lights' capsules on the
+        warps with a hit (the member tests: `lanes`)."""
+        _tally(32 * self.hit_warps.numel(), _CULL_CONE_OPS)
+        _tally(32 * int(self.hit_warps.sum()), self.hit_ops)
+
+    def counts(self) -> dict:
+        """-> key -> (mean, largest) masked members per warp, over the
+        warps with an active lane: every warp for the primary loops, the
+        warps with a hit for the others."""
+        out = {}
+        for key, m in self.masks.items():
+            name = key if isinstance(key, str) else f"{key[0]} {key[1]}"
+            if not name.startswith("primary"):
+                m = m[self.hit_warps]
+            n = m.sum(dim=1).double()
+            out[name] = (float(n.mean()), int(n.max()))
+        return out
+
+
+def crowd_warp_masks(scene_t, settings: RenderSettings, intr, cam_rows,
+                     t0=None) -> CrowdMasks:
+    """The member masks each warp of kf_frame_kernel<true> votes, with the
+    kernel's regions, tests and slack, for F frames of a crowd scene. The
+    regions come from the lanes as the kernel has them: the primary rays
+    of the pixels in the frame; the hit pixels' offset receivers and their
+    shadow rays (from the plain trace, which the masks do not change)."""
+    static, params = scene_t
+    crowd = split_crowd(static, settings)[0]
+    if crowd is None:
+        raise ValueError("crowd_warp_masks: the scene forms no crowd")
+    F, H, W = cam_rows.shape[0], intr.height, intr.width
+    dev = cam_rows.device
+    lp, nparams = params["leaf_params"], params["node_params"]
+    o3, d3 = frame_rays(intr, cam_rows)
+    o = tuple(c.reshape(-1) for c in o3)
+    d = tuple(c.reshape(-1) for c in d3)
+    lanes, warp_of = _warp_layout(F, H, W, dev)
+    in_frame = lanes >= 0
+
+    refs = _crowd_refs(static, settings, lp, nparams)
+    tags = {}
+    for lo, hi, tag in crowd.all_ranges + crowd.pair_ranges:
+        for j in range(lo, hi):
+            tags[j] = tag
+    n = len(crowd.members)
+    bounds = [_crowd_shape(crowd, refs, j, tags[j])[0] for j in range(n)]
+    test_ops = tuple(_CULL_KEEP_OPS + _cull_bound_ops(tags[j])
+                     for j in range(n))
+    b = tuple(torch.stack([torch.as_tensor(bj[k], dtype=torch.float32,
+                                           device=dev).reshape(())
+                           for bj in bounds]) for k in range(4))
+    sdf_end = crowd.n_sph_sdf + crowd.n_box_sdf
+    single_end = crowd.n_singles
+    em = _exit_margin(settings)
+    shell, margin = f32(max(_PROXY_SWITCH, em)), f32(em)
+
+    masks, ranges, tests = {}, {}, {}
+
+    def vote(key, rs, seg, reach, rel):
+        tests[key] = (seg, reach, rel)
+        keep = (cull_margin(b, reach, seg, rel) <= 0.0) & seg.any
+        in_range = torch.zeros(n, dtype=torch.bool, device=dev)
+        for lo, hi in rs:
+            in_range[lo:hi] = True
+        masks[key] = keep & in_range.view(1, -1)
+        ranges[key] = rs
+
+    cone = _warp_cone(settings, tuple(_gather(c, lanes, 0.0) for c in o),
+                      tuple(_gather(c, lanes, 0.0) for c in d), in_frame)
+    vote("primary_ana", ((sdf_end, single_end),), cone, 0.0, CULL_SQRT)
+    vote("primary_sdf", ((0, sdf_end), (single_end, n)), cone, shell,
+         CULL_SQRT)
+
+    t, obj, leaf, hit_f = trace_core(
+        static, settings, lp, nparams, o, d,
+        t0=None if t0 is None else t0.reshape(-1))
+    hit = hit_f > 0.5
+    t_sane = torch.where(hit, t, 0.0)
+    p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
+    nrm = normals_core(static, settings, lp, nparams, p, obj, leaf, d)
+    eps = f32(settings.shadow_eps)
+    p_off = tuple(p[k] + nrm[k] * eps for k in range(3))
+    active = _gather(hit, lanes, False).bool()
+    ball = _warp_ball(tuple(_gather(c, lanes, 0.0) for c in p_off), active)
+    hit_ops = 0
+    if settings.ao and static.ir.objects:
+        vote("ao", ((0, n),), ball, f32(2.0 * f32(settings.ao_radius)),
+             CULL_LIN)
+    if settings.shadows:
+        hit_ops = sum(_CULL_LIGHT_OPS[kind] for kind in static.ir.lights)
+    if settings.shadows or "ao" in masks:
+        hit_ops += _CULL_BALL_OPS
+    if settings.shadows:
+        for li, kind in enumerate(static.ir.lights):
+            lrow = params["lights"][li]
+            _, dist, kf = _light_ray(settings, kind, lrow, p_off)
+            hard, soft = _warp_light(
+                settings, kind, lrow, ball, _gather(dist, lanes, 0.0),
+                _gather(kf, lanes, 1.0), active)
+            if settings.soft_shadows:
+                vote(("soft", li), ((0, n),), soft, 0.0, CULL_SQRT)
+            else:
+                vote(("hard_sdf", li), ((0, sdf_end), (single_end, n)),
+                     hard, margin, CULL_LIN)
+                vote(("hard_ana", li), ((sdf_end, single_end),), hard, 0.0,
+                     CULL_SQRT)
+    return CrowdMasks(masks, warp_of, ranges, tests, b, active.any(dim=1),
+                      test_ops, hit_ops)
 
 
 def check_scene(static, settings: RenderSettings, meshes: bool = False

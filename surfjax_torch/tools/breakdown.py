@@ -1,6 +1,9 @@
 """Where the main paths' time goes on a CUDA GPU.
 
-    python -m surfjax_torch.tools.breakdown
+    python -m surfjax_torch.tools.breakdown [SECTION ...]
+
+SECTION is any of c3, crowd_demo, spheres, c3_primed, c4, fit (default:
+all of them, in that order).
 
 For each fidelity mode of the fused path's main path (see `workload`) it
 times, with CUDA events and five calls each:
@@ -14,6 +17,9 @@ each mode of the mesh main path (c4, split path) it times the whole
 the crowd main path (configs/crowd_demo.yaml) it times the kernel with the
 same features switched off, and with every feature on but the crowd off
 (one table-driven object per member), then the whole call, and traces one.
+For the sphere crowds of 16, 64 and 256 members (`workload.sphere_crowd`,
+1920x1080 x 8 frames, hard shadows, one point light, no AO) it times the
+kernel alone, which visits the members through the crowd's loops.
 For primed c3 it times `render` of one 1080p frame with and without
 priming and traces one primed call. For the fit step (the pose fit on
 configs/c5_anim.yaml, see `fit_bench`) at 256x256 and at 1920x1080 it
@@ -26,7 +32,11 @@ backward pass.
 Prints the card's name, power limit, SM clock, power draw and temperature
 before and after, one JSON line per mode, and a last JSON line with all of
 it (times in ms per frame). Run it from the repo's root; it needs one
-CUDA card.
+CUDA card. It imports whichever `surfjax_torch` comes first on the path,
+so the same sections time another checkout when run as a file with that
+checkout on PYTHONPATH:
+
+    PYTHONPATH=build/parent python surfjax_torch/tools/breakdown.py crowd_demo
 """
 
 from __future__ import annotations
@@ -112,6 +122,34 @@ def features_off(base):
             ("no_ao_no_shadows", base.with_(ao=False, shadows=False)))
 
 
+def crowd_variants(base):
+    """features_off, and every feature on with the crowd off."""
+    return features_off(base) + (
+        ("full_crowd_off", base.with_(vector_objects=False)),)
+
+
+def sphere_crowds(dev, res) -> None:
+    """The kernel alone on the sphere crowds at 1920x1080 x 8 frames, ms
+    per frame of REPS launches; results into res[f"spheres {n}"]."""
+    import numpy as np
+    import surfjax_torch.api as api
+    from surfjax_torch.tools.workload import poses, sphere_crowd
+    rng = np.random.default_rng(0)
+    for n in (16, 64, 256):
+        scene, camera, st = sphere_crowd(api, n, size=(1920, 1080))
+        Rs, ps = poses(camera, 8, rng.normal(0.0, 1e-3, (8, 3)))
+        static, params = scene.freeze()
+        scene_t = SceneTensors(static, params_to_device(params, dev))
+        rows = cam_rows_of(Rs, ps, dev)
+        st = st.with_(vector_objects=True)
+        call = lambda: frame_fused(scene_t, st, camera.intrinsics, rows)  # noqa
+        call()
+        torch.cuda.synchronize()
+        res[f"spheres {n}"] = {"kernel_full": [t / 8 for t in
+                                               cuda_ms(call, REPS)[0]]}
+        print(f"spheres {n}", json.dumps(res[f"spheres {n}"]), flush=True)
+
+
 def fit_steps(dev, res) -> None:
     """The pose-fit step on c5 at two sizes: ms per step on both backends
     (fastest of REPS runs of 10 steps, one synchronisation each) and one
@@ -139,19 +177,9 @@ def fit_steps(dev, res) -> None:
         print(f"fit step {size[0]}x{size[1]}", json.dumps(out), flush=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("breakdown: torch.cuda.is_available() is false")
-    print(gpu_line(_CARD), flush=True)
-    dev = torch.device("cuda", 0)
-    res = {}
-    fused_path("c3", main_path("configs/c3_sdf.yaml"), dev, features_off,
-               res)
-    fused_path("crowd_demo", crowd_main_path("configs/crowd_demo.yaml"), dev,
-               lambda base: features_off(base) + (
-                   ("full_crowd_off", base.with_(vector_objects=False)),),
-               res)
-    # primed c3: one 1080p frame per call
+def c3_primed(dev, res) -> None:
+    """primed c3: render() of one 1080p frame with and without priming,
+    and one traced primed call."""
     scene, camera, st, _ = load_config("configs/c3_sdf.yaml")
     camera = reframe(camera, 1920, 1080)
     st = st.with_(backend="pallas")
@@ -165,6 +193,10 @@ def main() -> int:
         scene, camera, st.with_(prime=True), device=dev))
     res["c3 primed"] = out
     print("c3 primed", json.dumps(out), flush=True)
+
+
+def c4(dev, res) -> None:
+    """The mesh main path: the whole call per mode, and a traced one."""
     scene, camera, Rs, ps, modes = mesh_main_path("configs/c4_mesh.yaml")
     F = len(ps)
     for mode, st in modes.items():
@@ -177,7 +209,34 @@ def main() -> int:
                "profile": profile_call(call)}
         res[f"c4 {mode}"] = out
         print(f"c4 {mode}", json.dumps(out), flush=True)
-    fit_steps(dev, res)
+
+
+SECTIONS = {
+    "c3": lambda dev, res: fused_path(
+        "c3", main_path("configs/c3_sdf.yaml"), dev, features_off, res),
+    "crowd_demo": lambda dev, res: fused_path(
+        "crowd_demo", crowd_main_path("configs/crowd_demo.yaml"), dev,
+        crowd_variants, res),
+    "spheres": sphere_crowds,
+    "c3_primed": c3_primed,
+    "c4": c4,
+    "fit": fit_steps,
+}
+
+
+def main(argv=None) -> int:
+    names = (sys.argv[1:] if argv is None else argv) or list(SECTIONS)
+    unknown = [n for n in names if n not in SECTIONS]
+    if unknown:
+        raise SystemExit(f"breakdown: unknown sections {unknown}; "
+                         f"choose from {list(SECTIONS)}")
+    if not torch.cuda.is_available():
+        raise SystemExit("breakdown: torch.cuda.is_available() is false")
+    print(gpu_line(_CARD), flush=True)
+    dev = torch.device("cuda", 0)
+    res = {}
+    for name in names:
+        SECTIONS[name](dev, res)
     print(gpu_line(_CARD), flush=True)
     print(json.dumps(res), flush=True)
     return 0

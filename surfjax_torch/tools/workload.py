@@ -258,6 +258,61 @@ def sphere_crowd(api, n_members: int, size=(64, 48), seed=11, **settings):
     return scene, cam, st
 
 
+def cull_edge_scene(api, size=(61, 37), soft=False, seed=5):
+    """The warp culling's edge cases -> (scene, camera, settings): sphere
+    members (SDF and analytic) whose surface grazes the primary ray of a
+    pixel at a warp's edge, from 1e-3 inside it to 3e-2 outside; boxes and
+    pairs in front of a floor and a back wall, so that warps straddle
+    depth edges; a point light with a radius as large as its distance
+    (kf = dist/radius < 1.2 on the near receivers) and a directional
+    light; AO and hard or soft shadows. size is best not a multiple of
+    16x2, so that warps are ragged."""
+    rng = np.random.default_rng(seed)
+    scene = api.Scene()
+    mats = _crowd_mats(api, 3)
+    W, H = size
+    cam = api.Camera.pinhole(W, H, fov_y_deg=50.0, position=(0.0, 0.6, -0.5),
+                             target=(0.0, 0.0, 3.0))
+    intr = cam.intrinsics
+    R = np.asarray(cam.rotation, np.float64).reshape(3, 3)
+    pos = np.asarray(cam.position, np.float64)
+    edges = ((1, 15), (2, 16), (9, 31), (10, 32), (H - 1, W - 1), (17, 47),
+             (0, 0), (H // 2, 16))
+    offsets = (-1e-3, -1e-5, 0.0, 1e-6, 1e-5, 1e-4, 1e-3, 3e-2)
+    for k, ((i, j), off) in enumerate(zip(edges, offsets)):
+        d = R @ np.asarray([(j + 0.5 - intr.cx) / intr.fx,
+                            (i + 0.5 - intr.cy) / intr.fy, 1.0])
+        d /= np.linalg.norm(d)
+        side = np.cross(d, (0.0, 1.0, 0.0))
+        side /= np.linalg.norm(side)
+        r = 0.12 + 0.03 * k
+        c = pos + (2.4 + 0.35 * k) * d + (r + off) * side
+        scene.add(api.Sphere(center=tuple(float(x) for x in c), radius=r),
+                  mats[k % 3], engine="sdf" if k % 2 else None)
+    for k in range(4):
+        c = _spot(rng, y=(-0.8, 0.4), z=(2.6, 4.0))
+        h = tuple(float(x) for x in rng.uniform(0.1, 0.25, 3))
+        scene.add(api.Box(center=c, half_extents=h), mats[k % 3],
+                  engine="sdf")
+    for k in range(3):
+        c = _spot(rng, y=(-0.5, 0.8), z=(2.8, 4.2))
+        a = api.Sphere(center=c, radius=0.22)
+        b = api.Sphere(center=(c[0] + 0.2, c[1] + 0.05, c[2]), radius=0.16)
+        node = (api.smooth_union(a, b, 0.12), api.subtract(a, api.Sphere(
+            center=(c[0] + 0.1, c[1], c[2] - 0.1), radius=0.14)),
+            api.union(a, b))[k]
+        scene.add(node, mats[k % 3], engine="sdf")
+    lam = api.Material.lambert(albedo=(0.5, 0.5, 0.5))
+    scene.add(api.Plane(normal=(0.0, 1.0, 0.0), offset=-1.0), lam)
+    scene.add(api.Plane(normal=(0.0, 0.0, -1.0), offset=-5.0), lam)
+    scene.add_light(api.PointLight(position=(1.5, 2.5, 1.5), radius=3.0))
+    scene.add_light(api.DirectionalLight(direction=(-0.3, -1.0, 0.4),
+                                         color=(0.3, 0.3, 0.35)))
+    st = api.RenderSettings(backend="pallas", tile_rows=8, max_steps=96,
+                            shadows=True, soft_shadows=soft, ao=True)
+    return scene, cam, st
+
+
 def crowd_cases(api, size=(128, 96)):
     """-> {name: (scene, camera, settings)}: the crowd shapes the kernels
     are held to (vector_objects still off in the settings)."""

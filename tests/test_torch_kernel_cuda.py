@@ -179,6 +179,36 @@ def test_crowd_kernel_matches_twin_and_crowd_off(cuda_device, name):
     assert float(fb_on.hit.mean()) > 0.1
 
 
+@pytest.mark.parametrize("name", ["edge hard", "edge soft", "spheres 256"])
+def test_culled_crowd_kernel_matches_both_twins(cuda_device, name):
+    """KF's warp culling on a frame its blocks do not tile (75x37): the
+    kernel equals the twin that visits every member and the twin that
+    visits each warp's masked members only, bitwise."""
+    from surfjax_torch import api
+    from surfjax_torch.kernels.render_tile import crowd_warp_masks
+    from surfjax_torch.tools.workload import cull_edge_scene, sphere_crowd
+    if name.startswith("edge"):
+        scene, cam, st = cull_edge_scene(api, (75, 37),
+                                         soft=name.endswith("soft"))
+    else:
+        scene, cam, st = sphere_crowd(api, 256, size=(75, 37))
+    st = st.with_(vector_objects=True)
+    static, params = scene.freeze()
+    scene_t = SceneTensors(static, params_to_device(params, cuda_device))
+    rows = torch.as_tensor(np.concatenate(
+        [np.asarray(cam.rotation, np.float32).reshape(1, 9),
+         np.asarray(cam.position, np.float32).reshape(1, 3)], axis=1),
+        device=cuda_device)
+    got = frame_fused(scene_t, st, cam.intrinsics, rows)
+    masks = crowd_warp_masks(scene_t, st, cam.intrinsics, rows)
+    for ref in (frame_fused_reference(scene_t, st, cam.intrinsics, rows),
+                frame_fused_reference(scene_t, st, cam.intrinsics, rows,
+                                      masks=masks)):
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert float(got[8].mean()) > 0.1
+
+
 def test_crowd_split_kernels_match_plain(cuda_device):
     """A crowd beside a mesh: K1, ao_fix and K2 run with the crowd active
     (and the mesh kernel beside them); every call bitwise equal to its
