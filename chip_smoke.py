@@ -9,12 +9,15 @@ the script exits non-zero and never prints its last line):
   0. versions, the card's name and power limit; refuses to run without CUDA;
   1. builds the CUDA kernels from surfjax_torch/kernels/csrc (one nvcc per
      source, in parallel), prints ptxas' registers and spills of every
-     entry and holds those of kf_frame_kernel<false> and of K1, K2 and
-     ao_fix (`<true>`) to what they were before the crowd's warp culling;
-     with cuobjdump, says whether kf_frame_kernel<false>'s SASS is too;
-  2. kernel against its plain PyTorch twin on the card, bitwise, at
-     256x256 x 2 frames: c1, c2, c5 and c3 (LoD and exact modes), and c3
-     with the portable log in exact mode;
+     entry and holds those of the crowd instantiation kf_frame_kernel<true>
+     and of K1, K2 and ao_fix to what they were before the staged kernel;
+     prints the staged kernel's shared memory per block and resident blocks
+     per SM on c3;
+  2. the fused kernel (for scenes without a crowd: the staged kernel,
+     kf_staged.cu) against its plain PyTorch twin on the card, bitwise, at
+     256x256 x 2 frames: c1, c2, c5 and c3 (LoD and exact modes), c3 with
+     the portable log in exact mode, and c3 at 250x131, which its blocks do
+     not tile;
   3. the main path: configs/c3_sdf.yaml reframed to 1920x1080, 48 camera
      positions in one render_sequence call, backend="pallas", in the
      `value` (config settings) and `value_exact` (LoDs 0, over_relax 1.0)
@@ -73,7 +76,12 @@ the script exits non-zero and never prints its last line):
      block, backend pallas): fit_pose from the command line's start, then
      fit_sdf from its perturbed leaf parameters, launch counts (K1 once and
      K2 once per light and step, the fused kernel never), both timed per
-     step; then the pose-fit step at 1920x1080 on both backends.
+     step; then the pose-fit step at 1920x1080 on both backends;
+ 15. where the fused kernel's time goes (tools/breakdown.py, `kf_phases`):
+     the profiling instantiations of the staged kernel and of its per-pixel
+     schedule (kf_frame_kernel<false>'s) on frame 0 of c3 at 1920x1080 in
+     both modes: per phase group the share of the warps' cycles, the SIMT
+     efficiency of its loops and the SDF evaluations per hit pixel.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
@@ -117,15 +125,14 @@ CROWD_DRIFT_MAX = 1e-4
 # the fused kernel on c3 before the crowd and t0 existed (value_exact,
 # 48 frames per launch, NVIDIA H100 80GB HBM3 at 700 W), for comparison
 KF_BEFORE = "3.338 ms/frame, 72 registers, 264/416 bytes of spills"
-# ptxas' report of the kernels the crowd's warp culling (kf_frame_kernel
-# <true> only) must leave as they were: entry -> (stack and spills,
-# registers), as the parent of that change (4db71fb) built them with CUDA
-# 12.8 for sm_90a; and the first 16 hex digits of the sha256 of
-# kf_frame_kernel<false>'s SASS (_build.sass_hashes), the same then
+# ptxas' report of the kernels the staged fused kernel (kf_staged.cu, for
+# scenes without a crowd) must leave as they were: entry -> (stack and
+# spills, registers), as the parent of that change (d7d452f) built them
+# with CUDA 12.8 for sm_90a
 PTXAS_KEPT = {
-    "_Z15kf_frame_kernelILb0EEv8KFTables10KFSettings": (
-        "656 bytes stack frame, 280 bytes spill stores, 524 bytes spill loads",
-        "Used 72 registers, used 0 barriers, 656 bytes cumulative stack size"),
+    "_Z15kf_frame_kernelILb1EEv8KFTables10KFSettings": (
+        "768 bytes stack frame, 176 bytes spill stores, 292 bytes spill loads",
+        "Used 96 registers, used 0 barriers, 768 bytes cumulative stack size"),
     "_Z21sp_render_tile_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
         "640 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "Used 96 registers, used 0 barriers, 640 bytes cumulative stack size"),
@@ -145,7 +152,6 @@ PTXAS_KEPT = {
         "464 bytes stack frame, 12 bytes spill stores, 0 bytes spill loads",
         "Used 80 registers, used 0 barriers, 464 bytes cumulative stack size"),
 }
-KF_FALSE_SASS = "c54932194c8d070c"
 PRIME_HIT_MAX = 1e-4   # share of pixels whose hit flag priming may change
 PROBE_K = 16           # substeps of the probe's comparison with plain
 PROBE_UNROLL = 4       # the sweep row whose launch time the kernels line gives
@@ -278,7 +284,10 @@ def main() -> int:
     from surfjax_torch.kernels.render_tile import (
         crowd_warp_masks, prime_frame, prime_tile, split_crowd,
     )
-    from surfjax_torch.tools.breakdown import crowd_variants, fused_path
+    from surfjax_torch.tools.breakdown import (
+        crowd_variants, fused_path, kf_phases,
+    )
+    from surfjax_torch.kernels.render_tile import staged_occupancy
     from surfjax_torch.tools.workload import cull_edge_scene
     smi = gpu_line()
     log(f"phase 0: gpu {smi} ({time.perf_counter() - t0:.2f} s)")
@@ -295,20 +304,23 @@ def main() -> int:
     for ln in ptxas:
         log(f"  ptxas: {ln}")
     log(f"  the fused kernel on c3 before the crowd loops and t0: "
-        f"{KF_BEFORE}; now: see kf_frame_kernel<false> above and phase 4")
+        f"{KF_BEFORE}; now: see kf_staged_kernel<65, false> (staging, "
+        "persistent blocks) above and phase 4")
     built = _build.entries(info["log"])
     for name, lines in PTXAS_KEPT.items():
         if built.get(name) != lines:
             raise AssertionError(f"ptxas' report of {name} changed: "
                                  f"{built.get(name)}, was {lines}")
     log(f"  ptxas' report of {len(PTXAS_KEPT)} entries (kf_frame_kernel"
-        "<false>, K1, K2 and ao_fix) unchanged from 4db71fb")
-    sass = _build.sass_hashes(info["path"], [next(iter(PTXAS_KEPT))]).get(
-        next(iter(PTXAS_KEPT)))
-    log("  kf_frame_kernel<false> SASS: " + (
-        "cuobjdump not found" if sass is None else
-        f"sha256 {sass}, " + ("identical to" if sass == KF_FALSE_SASS
-                              else "DIFFERENT from") + " 4db71fb's"))
+        "<true>, K1, K2 and ao_fix) unchanged from d7d452f")
+    c3_scene, _, c3_set, _ = load_config(os.path.join(ROOT,
+                                                      "configs/c3_sdf.yaml"))
+    static, params = c3_scene.freeze()
+    occ = staged_occupancy(SceneTensors(static, params_to_device(params, dev)),
+                           c3_set, dev)
+    log(f"  staged kernel on c3: {occ['bytes']} bytes of shared memory per "
+        f"block, {occ['blocks_per_sm']} blocks of 128 threads resident per "
+        "SM")
     log(f"phase 1: built {os.path.relpath(info['path'], ROOT)} "
         f"(nvcc {info['seconds']:.1f} s, built={info['built']}) "
         f"({time.perf_counter() - t1:.1f} s)")
@@ -321,11 +333,13 @@ def main() -> int:
              ("c5", "configs/c5_anim.yaml", {}),
              ("c3 value", "configs/c3_sdf.yaml", {}),
              ("c3 value_exact", "configs/c3_sdf.yaml", EXACT),
-             ("c3_portlog value_exact", "configs/c3_sdf_portlog.yaml", EXACT)]
+             ("c3_portlog value_exact", "configs/c3_sdf_portlog.yaml", EXACT),
+             ("c3 value ragged", "configs/c3_sdf.yaml", {})]
     max_err = 0.0
     for name, cfg, over in cases:
         scene, camera, settings, _ = load_config(os.path.join(ROOT, cfg))
-        camera = reframe(camera, 256, 256)
+        camera = reframe(camera, *(RAGGED if "ragged" in name
+                                   else (256, 256)))
         settings = settings.with_(backend="pallas", **over)
         Rs, ps = poses(camera, 2, rng.normal(0.0, 1e-3, (2, 3)))
         before = frame_fused.launches
@@ -341,7 +355,8 @@ def main() -> int:
         max_err = max(max_err, bitwise(fb, frame_buffers(ref),
                                        FrameBuffers._fields, name))
         log(f"  {name}: kernel {k_ms[0]:.3f} ms, plain twin {p_ms[0]:.1f} ms "
-            f"(256x256 x 2 frames)")
+            f"({camera.intrinsics.width}x{camera.intrinsics.height} x 2 "
+            "frames)")
     log(f"phase 2: kernel vs plain on the card passed for {len(cases)} "
         f"cases ({time.perf_counter() - t2:.1f} s)")
 
@@ -1073,6 +1088,24 @@ def main() -> int:
     log(f"phase 14: fit main path, launches {fit_launches} "
         f"({time.perf_counter() - t14:.1f} s) on {smi}")
 
+    # -- phase 15 -----------------------------------------------------------
+    # where the fused kernel's time goes: the profiling instantiations of
+    # the staged kernel and of its per-pixel schedule on frame 0 of c3
+    t15 = time.perf_counter()
+    phases = {}
+    kf_phases(dev, phases)
+    for key, entry in phases.items():
+        groups = {g: [round(v["cycles_share"], 4),
+                      None if v["simt"] is None else round(v["simt"], 3),
+                      round(v["evals_per_hit"], 2)]
+                  for g, v in entry["phases"]["groups"].items()}
+        log(f"  {key}: {min(entry['ms']):.4f} ms (profiled "
+            f"{min(entry['ms_profiled']):.4f}); per phase group [cycle "
+            f"share, SIMT efficiency, SDF evaluations per hit pixel]: "
+            + json.dumps(groups))
+    log(f"phase 15: the fused kernel's phase profile on c3 frame 0 "
+        f"({time.perf_counter() - t15:.1f} s) on {smi}")
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     # the fused kernel: times per 1080p frame in value_exact mode, the
@@ -1087,7 +1120,7 @@ def main() -> int:
     # one launch at the tool's defaults (unroll 4), launches of its sweep
     kernels = [{
         "name": "frame_fused", "route": "cuda",
-        "source": "surfjax_torch/kernels/csrc/frame_fused.cu",
+        "source": "surfjax_torch/kernels/csrc/kf_staged.cu",
         "replaces": "surfjax/kernels/render_tile.py:2196",
         "launches": main_launches, "max_abs_err": max_err,
         "ms": per_frame["value_exact"][0],

@@ -57,19 +57,31 @@ def vnormalize(a):
     return (a[0] * inv, a[1] * inv, a[2] * inv)
 
 
+def _scalar(b, like):
+    """A Python number as a 0-dim float tensor of like's dtype, kept on the
+    CPU (a CPU scalar joins a tensor op on any device without a copy)."""
+    return torch.tensor(b, dtype=like.dtype)
+
+
 def maximum(a, b):
+    """Elementwise max; a Python number on either side is taken as a
+    tensor, so that at a tie each side gets half the gradient, as with
+    jnp.maximum (torch.clamp would give it all to the tensor). The tensor
+    goes first: at a tie of signed zeros torch returns the first operand,
+    and the values stay those of torch.clamp."""
     if not isinstance(b, torch.Tensor):
-        return torch.clamp(a, min=b)
+        return torch.maximum(a, _scalar(b, a))
     if not isinstance(a, torch.Tensor):
-        return torch.clamp(b, min=a)
+        return torch.maximum(b, _scalar(a, b))
     return torch.maximum(a, b)
 
 
 def minimum(a, b):
+    """Elementwise min, ties as in maximum."""
     if not isinstance(b, torch.Tensor):
-        return torch.clamp(a, max=b)
+        return torch.minimum(a, _scalar(b, a))
     if not isinstance(a, torch.Tensor):
-        return torch.clamp(b, max=a)
+        return torch.minimum(b, _scalar(a, b))
     return torch.minimum(a, b)
 
 

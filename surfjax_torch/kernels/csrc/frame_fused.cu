@@ -1,12 +1,14 @@
-// Fused-frame kernel for Hopper (sm_90a).
+// Fused-frame kernel for Hopper (sm_90a), the instantiation for scenes with
+// a crowd; scenes without one take the staged kernel of kf_staged.cu.
 //
 // Replaces surfjax/kernels/render_tile.py::frame_fused_kernel (KF, the
 // Pallas TPU kernel whose body is _kframe_body): for F frames it generates
 // each pixel's camera ray, traces the scene (exact analytic hits, then one
 // bounded over-relaxed sphere march per SDF object, entered at its bounding
-// sphere and, on a primed frame, not before the pixel's t0), takes the normal, the AO probes, the soft or hard visibility of
-// every light, and Blinn-Phong shading, and writes r, g, b, depth, object
-// id (as a float, -1 on a miss), normal and hit for every pixel.
+// sphere and, on a primed frame, not before the pixel's t0), takes the
+// normal, the AO probes, the soft or hard visibility of every light, and
+// Blinn-Phong shading, and writes r, g, b, depth, object id (as a float, -1
+// on a miss), normal and hit for every pixel.
 //
 // What bounds it on this card: FP32 ALU work and divergence, not memory.
 // It reads a few KB of scene scalars (cached on chip after the first
@@ -15,8 +17,7 @@
 //
 // What the design does about it:
 //   * One thread per pixel, 128-thread blocks covering 8x16-pixel
-//     rectangles, grid (ceil(W/16), ceil(H/8), F). A thread whose march is
-//     done simply stops, so early exit is per warp; coherent rectangles
+//     rectangles, grid (ceil(W/16), ceil(H/8), F); coherent rectangles
 //     keep the lanes of a warp on similar paths. KF's tile layout, its park
 //     points and its tile-level while-loop gates exist only for the TPU and
 //     are not carried over: each per-lane gate is value-exact.
@@ -38,150 +39,24 @@
 //     objects and two-leaf pairs are taken by loops over member rows in
 //     those cores, which read a member's leaves directly instead of walking
 //     its tape. A crowd member is shaded like any object, from its row of
-//     the object table (material row, shininess). In this kernel the
-//     member loops are culled per warp (kf_frame_kernel<true> below): a
-//     member no lane of a warp could need costs each lane 1/32 of a test.
+//     the object table (material row, shininess). The member loops are
+//     culled per warp: a member no lane of a warp could need costs each
+//     lane 1/32 of a test.
 //
 // C interface (bound with ctypes, no PyTorch headers):
 //   int kf_frame_fused(KFTables tables, KFSettings settings, int device,
 //                      void* stream)   -> cudaError_t of the launch
+//                      (cudaErrorInvalidValue for a scene without a crowd)
 //   const char* kf_error_string(int err)
 
 #include "frame_fused.cuh"
 
-__device__ __forceinline__ float pow_int(float x, int n) {
-  if (n == 0) return 1.0f;
-  float result = 0.0f, base = x;
-  bool first = true;
-  while (n) {
-    if (n & 1) {
-      result = first ? base : result * base;
-      first = false;
-    }
-    n >>= 1;
-    if (n) base = base * base;
-  }
-  return result;
-}
-
-// The camera ray of pixel (i, j) of frame f: pixel centres at +0.5.
-__device__ __forceinline__ void camera_ray(const KFTables& T,
-                                           const KFSettings& S, int f, int i,
-                                           int j, V3& o, V3& d) {
-  const float* cam = T.cam_rows + f * 12;
-  const float xc = ((float)j + 0.5f - S.cx) / S.fx;
-  const float yc = ((float)i + 0.5f - S.cy) / S.fy;
-  d = vnormalize(V3{(cam[0] * xc + cam[1] * yc) + cam[2],
-                    (cam[3] * xc + cam[4] * yc) + cam[5],
-                    (cam[6] * xc + cam[7] * yc) + cam[8]});
-  o = V3{0.0f + cam[9], 0.0f + cam[10], 0.0f + cam[11]};
-}
-
-// A light's direction l and segment length dist from the offset receiver.
-__device__ __forceinline__ void light_ray(const KFSettings& S,
-                                          const float* lrow, bool point,
-                                          V3 p_off, V3& l, float& dist) {
-  if (point) {
-    float lvx = lrow[0] - p_off.x, lvy = lrow[1] - p_off.y;
-    float lvz = lrow[2] - p_off.z;
-    dist = sqrtf((lvx * lvx + lvy * lvy) + lvz * lvz);
-    float inv = 1.0f / dist;
-    l = V3{lvx * inv, lvy * inv, lvz * inv};
-  } else {
-    l = V3{0.0f - lrow[0], 0.0f - lrow[1], 0.0f - lrow[2]};
-    dist = 0.0f + S.t_max;
-  }
-}
-
-// Blinn-Phong term of one light (shade.py::shade_object), added to r, g, b.
-__device__ __forceinline__ void add_light(const float* mat, int shin,
-                                          const float* lrow, V3 n, V3 l,
-                                          V3 v, float vis, float& r,
-                                          float& g, float& b) {
-  float ndotl = fmaxf(vdot(n, l), 0.0f);
-  float diff = mat[4] * ndotl;
-  V3 hv{l.x + v.x, l.y + v.y, l.z + v.z};
-  float inv_h = 1.0f / sqrtf(fmaxf(vdot(hv, hv), F(1e-20)));
-  V3 hn{hv.x * inv_h, hv.y * inv_h, hv.z * inv_h};
-  float ndoth = fmaxf(vdot(n, hn), 0.0f);
-  float spec = mat[5] * pow_int(ndoth, shin);
-  r = r + vis * lrow[3] * (diff * mat[0] + spec * mat[6]);
-  g = g + vis * lrow[4] * (diff * mat[1] + spec * mat[7]);
-  b = b + vis * lrow[5] * (diff * mat[2] + spec * mat[8]);
-}
-
-// The nine planes of one pixel, out pointing at its first.
-__device__ __forceinline__ void write_pixel(float* out, size_t plane,
-                                            float r, float g, float b,
-                                            float t_sane, float obj, V3 n,
-                                            float hitf) {
-  out[0 * plane] = r;
-  out[1 * plane] = g;
-  out[2 * plane] = b;
-  out[3 * plane] = t_sane;
-  out[4 * plane] = obj;
-  out[5 * plane] = n.x * hitf;
-  out[6 * plane] = n.y * hitf;
-  out[7 * plane] = n.z * hitf;
-  out[8 * plane] = hitf;
-}
-
+// Declared for the crowd's explicit specialization below, the one defined.
 template <bool CROWD>
 __global__ void __launch_bounds__(128)
-kf_frame_kernel(const KFTables T, const KFSettings S) {
-  const int j = blockIdx.x * 16 + (threadIdx.x & 15);
-  const int i = blockIdx.y * 8 + (threadIdx.x >> 4);
-  const int f = blockIdx.z;
-  if (i >= S.H || j >= S.W) return;
+kf_frame_kernel(const KFTables T, const KFSettings S);
 
-  V3 o, d;
-  camera_ray(T, S, f, i, j, o, d);
-
-  // primary trace, then the normal of the winning object
-  float t, obj;
-  int leaf;
-  const float t0 = T.t0 ? T.t0[((size_t)f * S.H + i) * S.W + j] : 0.0f;
-  trace_primary<CROWD>(T, S, o, d, t0, t, obj, leaf);
-  const bool hit = t < KF_BIG * 0.5f;
-  const float hitf = hit ? 1.0f : 0.0f;
-  const float t_sane = hit ? t : 0.0f;
-  const V3 p = along(o, d, t_sane);
-  const V3 n = hit_normal<CROWD>(T, S, obj, leaf, p, d);
-
-  const size_t plane = (size_t)S.F * S.H * S.W;
-  float* out = T.out + ((size_t)f * S.H + i) * S.W + j;
-  float r = 0.0f + S.bg_r, g = 0.0f + S.bg_g, b = 0.0f + S.bg_b;
-
-  if (hit) {
-    const float eps = S.shadow_eps;
-    const V3 p_off{p.x + n.x * eps, p.y + n.y * eps, p.z + n.z * eps};
-    const float ao =
-        (S.ao && S.n_objects > 0) ? ao_factor<CROWD>(T, S, p_off, n) : 1.0f;
-    const int* ob = object_row(T, (int)obj);
-    const float* mat = T.materials + ob[O_MAT] * KF_MAT_W;
-    const int shin = ob[O_SHIN];
-    const V3 v{-d.x, -d.y, -d.z};
-    r = mat[3] * mat[0] * T.ambient[0] * ao;
-    g = mat[3] * mat[1] * T.ambient[1] * ao;
-    b = mat[3] * mat[2] * T.ambient[2] * ao;
-    for (int li = 0; li < S.n_lights; ++li) {
-      const float* lrow = T.lights + li * KF_LIGHT_W;
-      V3 l;
-      float dist;
-      light_ray(S, lrow, T.light_kinds[li] == LIGHT_POINT, p_off, l, dist);
-      float vis = 1.0f;
-      if (S.shadows) {
-        const float radius = lrow[6];
-        const float kf = radius > 0.0f ? dist / radius : S.soft_shadow_k;
-        vis = visibility<CROWD>(T, S, p_off, l, dist, kf);
-      }
-      add_light(mat, shin, lrow, n, l, v, vis, r, g, b);
-    }
-  }
-  write_pixel(out, plane, r, g, b, t_sane, obj, n, hitf);
-}
-
-// The crowd instantiation: the same per-pixel program with the member loops
+// The crowd instantiation: the per-pixel program with the member loops
 // culled per warp (the cores' CULL instantiation, frame_fused.cuh,
 // "Warp-level member culling"). Every lane stays to the end so that the
 // warp votes whole: a pixel outside the frame traces a ray that nobody
@@ -255,14 +130,10 @@ extern "C" int kf_frame_fused(KFTables tables, KFSettings settings,
   if (settings.F <= 0 || settings.H <= 0 || settings.W <= 0) return 0;
   dim3 block(128);
   dim3 grid((settings.W + 15) / 16, (settings.H + 7) / 8, settings.F);
-  // scenes without a crowd take the instantiation without member loops
-  if (settings.n_crowd > 0) {
-    kf_frame_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        tables, settings);
-  } else {
-    kf_frame_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        tables, settings);
-  }
+  // scenes without a crowd take the staged kernel (ks_frame_fused)
+  if (settings.n_crowd <= 0) return (int)cudaErrorInvalidValue;
+  kf_frame_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+      tables, settings);
   return (int)cudaGetLastError();
 }
 

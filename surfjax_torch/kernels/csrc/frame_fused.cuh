@@ -1503,3 +1503,84 @@ static __device__ __noinline__ float visibility_culled(
   }
   return vis;
 }
+
+// ---------------------------------------------------------------------------
+// Per-pixel pieces of the fused-frame kernels (frame_fused.cu, kf_staged.cu)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float pow_int(float x, int n) {
+  if (n == 0) return 1.0f;
+  float result = 0.0f, base = x;
+  bool first = true;
+  while (n) {
+    if (n & 1) {
+      result = first ? base : result * base;
+      first = false;
+    }
+    n >>= 1;
+    if (n) base = base * base;
+  }
+  return result;
+}
+
+// The camera ray of pixel (i, j) of frame f: pixel centres at +0.5.
+__device__ __forceinline__ void camera_ray(const KFTables& T,
+                                           const KFSettings& S, int f, int i,
+                                           int j, V3& o, V3& d) {
+  const float* cam = T.cam_rows + f * 12;
+  const float xc = ((float)j + 0.5f - S.cx) / S.fx;
+  const float yc = ((float)i + 0.5f - S.cy) / S.fy;
+  d = vnormalize(V3{(cam[0] * xc + cam[1] * yc) + cam[2],
+                    (cam[3] * xc + cam[4] * yc) + cam[5],
+                    (cam[6] * xc + cam[7] * yc) + cam[8]});
+  o = V3{0.0f + cam[9], 0.0f + cam[10], 0.0f + cam[11]};
+}
+
+// A light's direction l and segment length dist from the offset receiver.
+__device__ __forceinline__ void light_ray(const KFSettings& S,
+                                          const float* lrow, bool point,
+                                          V3 p_off, V3& l, float& dist) {
+  if (point) {
+    float lvx = lrow[0] - p_off.x, lvy = lrow[1] - p_off.y;
+    float lvz = lrow[2] - p_off.z;
+    dist = sqrtf((lvx * lvx + lvy * lvy) + lvz * lvz);
+    float inv = 1.0f / dist;
+    l = V3{lvx * inv, lvy * inv, lvz * inv};
+  } else {
+    l = V3{0.0f - lrow[0], 0.0f - lrow[1], 0.0f - lrow[2]};
+    dist = 0.0f + S.t_max;
+  }
+}
+
+// Blinn-Phong term of one light (shade.py::shade_object), added to r, g, b.
+__device__ __forceinline__ void add_light(const float* mat, int shin,
+                                          const float* lrow, V3 n, V3 l,
+                                          V3 v, float vis, float& r,
+                                          float& g, float& b) {
+  float ndotl = fmaxf(vdot(n, l), 0.0f);
+  float diff = mat[4] * ndotl;
+  V3 hv{l.x + v.x, l.y + v.y, l.z + v.z};
+  float inv_h = 1.0f / sqrtf(fmaxf(vdot(hv, hv), F(1e-20)));
+  V3 hn{hv.x * inv_h, hv.y * inv_h, hv.z * inv_h};
+  float ndoth = fmaxf(vdot(n, hn), 0.0f);
+  float spec = mat[5] * pow_int(ndoth, shin);
+  r = r + vis * lrow[3] * (diff * mat[0] + spec * mat[6]);
+  g = g + vis * lrow[4] * (diff * mat[1] + spec * mat[7]);
+  b = b + vis * lrow[5] * (diff * mat[2] + spec * mat[8]);
+}
+
+// The nine planes of one pixel, out pointing at its first.
+__device__ __forceinline__ void write_pixel(float* out, size_t plane,
+                                            float r, float g, float b,
+                                            float t_sane, float obj, V3 n,
+                                            float hitf) {
+  out[0 * plane] = r;
+  out[1 * plane] = g;
+  out[2 * plane] = b;
+  out[3 * plane] = t_sane;
+  out[4 * plane] = obj;
+  out[5 * plane] = n.x * hitf;
+  out[6 * plane] = n.y * hitf;
+  out[7 * plane] = n.z * hitf;
+  out[8 * plane] = hitf;
+}

@@ -2072,27 +2072,179 @@ def _raise_on(err: int, entry: str) -> None:
                            f"({_build.error_string(err)})")
 
 
-def _launch_kernel(scene_t, settings: RenderSettings, intr, cam_rows, t0):
-    from surfjax_torch.kernels import _build
+# The staged kernel for scenes without a crowd (csrc/kf_staged.cuh): its
+# elements, its block, the records it keeps in shared memory and the phases
+# of its profile, as the header defines them.
+KS_STAGE, KS_COMPACT, KS_AO_OBJ, KS_REFILL, KS_LEAF, KS_SYNC, KS_PERSIST = \
+    1, 2, 4, 8, 16, 32, 64
+KS_ALL = 127    # every element
+KS_PROD = KS_STAGE | KS_PERSIST    # the production kernel's elements
+KS_THREADS = 128
+KS_REC, KS_LIGHT, KS_PASS, KS_CTR = 16, 6, 3, 6
+KP_OBJ, KP_LIGHTS = 8, 4
+KP_PHASE_NAMES = (
+    ["stage", "ray"] + [f"primary o{k}" for k in range(KP_OBJ)]
+    + ["normal", "compact", "ao setup", "ao unbounded"]
+    + [f"ao o{k}" for k in range(KP_OBJ)] + ["ao sum"]
+    + [f"vis l{li} o{k}" for li in range(KP_LIGHTS) for k in range(KP_OBJ)]
+    + ["shade", "write"])
+
+
+class KSLayout(ctypes.Structure):
+    """The staged kernel's dynamic shared memory: byte offsets of its
+    sections and the sizes of the tables it stages (kf_staged.cuh)."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "bytes", "n_nodes", "n_leaves", "n_order", "n_leaf_rows", "n_kp",
+        "ctr", "objects", "nodes", "leaves", "order", "leaf_params",
+        "node_params", "bounds", "rec", "list", "plist", "near_lo",
+        "near_hi", "frame", "terms", "light", "pass")]
+
+
+def staged_layout(n_objects: int, n_nodes: int, n_leaves: int, n_order: int,
+                  n_leaf_rows: int, n_kp: int, ao_samples: int,
+                  flags: int = KS_PROD) -> KSLayout:
+    """The block's shared memory for a scene of these table sizes: each
+    section 16-byte aligned, in the order of KSLayout; a section the
+    variant `flags` does not use is empty. `bytes` is the total the launch
+    asks for."""
+    stage = bool(flags & KS_STAGE)
+    ao_obj = bool(flags & KS_AO_OBJ)
+    refill = bool(flags & KS_REFILL)
+    words = {
+        "ctr": KS_CTR,
+        "objects": stage * n_objects * OBJ_W,
+        "nodes": stage * n_nodes * NODE_W,
+        "leaves": stage * n_leaves * LEAF_W,
+        "order": stage * n_order,
+        "leaf_params": stage * n_leaf_rows * 8,
+        "node_params": stage * n_kp,
+        "bounds": stage * n_objects * 8,
+        "rec": KS_REC * KS_THREADS,
+        "list": KS_THREADS,
+        "plist": (ao_obj or refill) * KS_THREADS,
+        "near_lo": ao_obj * KS_THREADS,
+        "near_hi": ao_obj * KS_THREADS,
+        "frame": ao_obj * 6 * KS_THREADS,
+        "terms": ao_obj * 4 * ao_samples * KS_THREADS,
+        "light": refill * KS_LIGHT * KS_THREADS,
+        "pass": refill * KS_PASS * KS_THREADS,
+    }
+    lay = KSLayout(n_nodes=n_nodes, n_leaves=n_leaves, n_order=n_order,
+                   n_leaf_rows=n_leaf_rows, n_kp=n_kp)
+    at = 0
+    for name, n in words.items():
+        setattr(lay, name, at)
+        at += -(-4 * n // 16) * 16
+    lay.bytes = at
+    return lay
+
+
+def _scene_layout(tables, settings: RenderSettings,
+                  flags: int = KS_PROD) -> KSLayout:
+    """staged_layout of the tables _scene_tables returns."""
+    objects, nodes, leaves, order = tables[:4]
+    leaf_params, node_params = tables[6], tables[7]
+    return staged_layout(objects.shape[0], nodes.shape[0], leaves.shape[0],
+                         order.numel(), leaf_params.shape[0],
+                         node_params.numel(),
+                         min(settings.ao_samples, len(_AO_DIRS)), flags)
+
+
+def _kernel_args(scene_t, settings: RenderSettings, intr, cam_rows, t0):
+    """The launch's arguments -> (KFTables, KFSettings, the scene's tables,
+    its counts, the output tensor (9, F, H, W))."""
     static, _ = scene_t
     dev = cam_rows.device
-    F, H, W = cam_rows.shape[0], intr.height, intr.width
+    F = cam_rows.shape[0]
     tables, counts = _scene_tables(scene_t, settings, dev)
     if not cam_rows.is_contiguous():
         raise ValueError("cam_rows: need a contiguous float32 tensor")
     if t0 is not None:
         _check_f32_on("t0", t0, dev)
-    out = torch.empty((9, F, H, W), dtype=torch.float32, device=dev)
+    out = torch.empty((9, F, intr.height, intr.width), dtype=torch.float32,
+                      device=dev)
     tab = KFTables(*[t.data_ptr() for t in tables + [cam_rows]],
                    None if t0 is None else t0.data_ptr(), out.data_ptr())
     ks = kernel_settings(static, settings, intr, F, counts)
+    return tab, ks, tables, counts, out
+
+
+def _launch_kernel(scene_t, settings: RenderSettings, intr, cam_rows, t0):
+    from surfjax_torch.kernels import _build
+    dev = cam_rows.device
+    tab, ks, tables, counts, out = _kernel_args(scene_t, settings, intr,
+                                                cam_rows, t0)
     lib = _build.load()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.kf_frame_fused(tab, ks, dev.index, ctypes.c_void_p(stream))
-    _raise_on(err, "kf_frame_fused")
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if counts[2] > 0:   # a crowd: kf_frame_kernel<true>
+            err = lib.kf_frame_fused(tab, ks, dev.index, stream)
+            entry = "kf_frame_fused"
+        else:
+            # a persistent kernel's tile counter, zeroed
+            work = torch.zeros(1, dtype=torch.int32, device=dev) \
+                if KS_PROD & KS_PERSIST else None
+            err = lib.ks_frame_fused(tab, ks, _scene_layout(tables, settings),
+                                     None if work is None else
+                                     work.data_ptr(), dev.index, stream)
+            entry = "ks_frame_fused"
+    _raise_on(err, entry)
     frame_fused.launches += 1
     return tuple(out[k] for k in range(9))
+
+
+def staged_launcher(scene_t, settings: RenderSettings, intr, cam_rows,
+                    t0=None, flags: int = KS_PROD, profile: bool = False):
+    """The staged kernel on a scene without a crowd, prepared once ->
+    (launch, out, prof): launch() runs it once on the current stream
+    (not counted in `frame_fused.launches`: this is for timing and
+    profiling, not a render path) into out (9, F, H, W); flags picks the
+    production kernel (KS_PROD) or a variant (ks_variant_fused); profile:
+    its profiling instantiation (KS_PROD or 0), whose counters go to prof,
+    int64 (blocks * 4 warps, len(KP_PHASE_NAMES), 3): cycles, loop trips,
+    lane-evaluations; zeroed at every launch, as is the tile counter of
+    a persistent variant. Raises on a crowd."""
+    from surfjax_torch.kernels import _build
+    dev = cam_rows.device
+    tab, ks, tables, counts, out = _kernel_args(scene_t, settings, intr,
+                                                cam_rows.contiguous(), t0)
+    if counts[2] > 0:
+        raise ValueError("the staged kernel takes scenes without a crowd")
+    layout = _scene_layout(tables, settings, flags)
+    n_warps = (-(-intr.width // 16) * -(-intr.height // 8)
+               * cam_rows.shape[0] * (KS_THREADS // 32))
+    prof = torch.zeros((n_warps, len(KP_PHASE_NAMES), 3), dtype=torch.int64,
+                       device=dev) if profile else None
+    work = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = _build.load()
+
+    def launch():
+        if prof is not None:
+            prof.zero_()
+        work.zero_()
+        ptr = None if prof is None else prof.data_ptr()
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if flags == KS_PROD and ptr is None:
+            err = lib.ks_frame_fused(tab, ks, layout, work.data_ptr(),
+                                     dev.index, stream)
+        else:
+            err = lib.ks_variant_fused(tab, ks, layout, flags, ptr,
+                                       work.data_ptr(), dev.index, stream)
+        _raise_on(err, f"staged kernel (flags {flags})")
+
+    return launch, tuple(out[k] for k in range(9)), prof
+
+
+def staged_occupancy(scene_t, settings: RenderSettings, dev) -> dict:
+    """The production staged kernel's shared memory per block and resident
+    blocks per SM on the card, for this scene."""
+    from surfjax_torch.kernels import _build
+    tables, _ = _scene_tables(scene_t, settings, dev)
+    layout = _scene_layout(tables, settings)
+    blocks = ctypes.c_int(0)
+    _raise_on(_build.load().ks_occupancy(layout, ctypes.byref(blocks)),
+              "ks_occupancy")
+    return {"bytes": layout.bytes, "blocks_per_sm": blocks.value}
 
 
 def frame_fused(scene_t, settings: RenderSettings, intr, cam_rows, t0=None):

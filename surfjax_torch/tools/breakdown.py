@@ -2,8 +2,8 @@
 
     python -m surfjax_torch.tools.breakdown [SECTION ...]
 
-SECTION is any of c3, crowd_demo, spheres, c3_primed, c4, fit (default:
-all of them, in that order).
+SECTION is any of c3, crowd_demo, spheres, c3_primed, c4, fit, kf,
+kf_phases, split (default: all of them, in that order).
 
 For each fidelity mode of the fused path's main path (see `workload`) it
 times, with CUDA events and five calls each:
@@ -21,7 +21,17 @@ For the sphere crowds of 16, 64 and 256 members (`workload.sphere_crowd`,
 1920x1080 x 8 frames, hard shadows, one point light, no AO) it times the
 kernel alone, which visits the members through the crowd's loops.
 For primed c3 it times `render` of one 1080p frame with and without
-priming and traces one primed call. For the fit step (the pose fit on
+priming and traces one primed call. `kf` times the fused kernel through its
+wrapper on c3 (48 frames, both modes) and on primed c3 (frame 0 with its
+t0), and where the package has the staged kernel also its variants by
+their elements: none (the per-pixel schedule), the barriers alone, the
+staging alone and with each other element, and all of them. `kf_phases`
+profiles the staged kernel and its per-pixel schedule on frame 0 of c3 in
+both modes (their profiling instantiations): per phase the share of the
+warps' cycles, the SIMT efficiency of its loops (lanes that evaluate an
+SDF per trip, over 32) and the SDF evaluations per hit pixel, beside the
+kernels' ptxas lines. `split` times each split kernel of one 1080p c4 frame
+in `ao` mode, launched back to back (as chip_smoke.py's phase 7). For the fit step (the pose fit on
 configs/c5_anim.yaml, see `fit_bench`) at 256x256 and at 1920x1080 it
 times runs of 10 steps on both backends and traces one run of 5 steps on
 `pallas`: wall and device time per step, the device's idle share, and the
@@ -41,6 +51,7 @@ checkout on PYTHONPATH:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -56,6 +67,7 @@ from surfjax_torch.tools.workload import cam_rows_of, crowd_main_path, \
 
 _CARD = "name,power.limit,clocks.sm,power.draw,temperature.gpu"
 REPS = 5
+LAUNCHES = 10   # back-to-back launches per timed sample of a split kernel
 TOP = 10
 
 
@@ -211,6 +223,147 @@ def c4(dev, res) -> None:
         print(f"c4 {mode}", json.dumps(out), flush=True)
 
 
+C3 = "configs/c3_sdf.yaml"
+
+
+def _c3_frame0(dev):
+    """c3 at 1920x1080 as the main path has it -> (scene_t, camera, modes,
+    the 48 frames' rows, frame 0's row)."""
+    scene, camera, Rs, ps, modes = main_path(C3)
+    static, params = scene.freeze()
+    scene_t = SceneTensors(static, params_to_device(params, dev))
+    rows = cam_rows_of(Rs, ps, dev)
+    return scene_t, camera, modes, rows, rows[:1].contiguous()
+
+
+def _primed_t0(scene_t, camera, st, row):
+    from surfjax_torch.kernels.render_tile import prime_frame
+    return prime_frame(scene_t.static, camera.intrinsics,
+                       st.with_(prime=True), scene_t.params, row[0, :9],
+                       row[0, 9:])[None]
+
+
+def kf(dev, res) -> None:
+    """The fused kernel by wrapper (whichever package is imported), then
+    the staged kernel's variants where the package has them; ms per frame
+    of REPS launches."""
+    from surfjax_torch.kernels import render_tile as rt
+    variants = {}
+    if hasattr(rt, "staged_launcher"):   # not in a checkout before it
+        staged_launcher = rt.staged_launcher
+        st_ = rt.KS_STAGE
+        variants = {"per_pixel": 0, "per_pixel+sync": rt.KS_SYNC,
+                    "staging": st_, "staging+sync": st_ | rt.KS_SYNC,
+                    "staging+leaf": st_ | rt.KS_LEAF,
+                    "staging+compaction": st_ | rt.KS_COMPACT,
+                    "staging+ao_passes": st_ | rt.KS_AO_OBJ,
+                    "staging+refill": st_ | rt.KS_REFILL,
+                    "staging+persist": st_ | rt.KS_PERSIST,
+                    "all": rt.KS_ALL}
+        print("kf production elements", rt.KS_PROD, flush=True)
+    scene_t, camera, modes, rows, row0 = _c3_frame0(dev)
+    intr = camera.intrinsics
+    cases = [(mode, st, rows, None) for mode, st in modes.items()]
+    st_p = modes["value"]
+    cases.append(("primed", st_p, row0, _primed_t0(scene_t, camera, st_p,
+                                                   row0)))
+    for mode, st, r, t0 in cases:
+        n = r.shape[0]
+        call = lambda: frame_fused(scene_t, st, intr, r, t0)  # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        out = {"wrapper": [t / n for t in cuda_ms(call, REPS)[0]]}
+        for name, flags in variants.items():
+            launch, _, _ = staged_launcher(scene_t, st, intr, r, t0, flags)
+            launch()
+            torch.cuda.synchronize()
+            out[name] = [t / n for t in cuda_ms(launch, REPS)[0]]
+        res[f"kf {mode}"] = out
+        print(f"kf {mode}", json.dumps(out), flush=True)
+
+
+def phase_table(prof, hits: float, static) -> dict:
+    """A profile (warps, phases, 3) -> {phase: {cycles_share, trips,
+    simt, evals_per_hit}} for the phases that took cycles or ran a loop,
+    objects named by index, engine and tape, and the groups' totals."""
+    from surfjax_torch.kernels.render_tile import KP_OBJ, KP_PHASE_NAMES
+    tot = prof.sum(dim=0).double().cpu()
+    cycles = float(tot[:, 0].sum())
+    objs = static.ir.objects
+    label = {f"o{k}": f"o{k} ({'sdf' if o.engine else 'analytic'}, "
+             f"{len(o.nodes)} nodes)" for k, o in enumerate(objs[:KP_OBJ])}
+    rows, groups = {}, {}
+    for k, name in enumerate(KP_PHASE_NAMES):
+        cyc, trips, lanes = (float(x) for x in tot[k])
+        if cyc == 0.0 and trips == 0.0:
+            continue
+        words = name.split()
+        nice = " ".join(label.get(w, w) for w in words)
+        rows[nice] = {"cycles_share": cyc / cycles, "trips": trips,
+                      "simt": lanes / (32.0 * trips) if trips else None,
+                      "evals_per_hit": lanes / hits if hits else None}
+        g = groups.setdefault(words[0], [0.0, 0.0, 0.0])
+        for i, x in enumerate((cyc, trips, lanes)):
+            g[i] += x
+    rows["groups"] = {
+        g: {"cycles_share": c / cycles,
+            "simt": ln / (32.0 * t) if t else None,
+            "evals_per_hit": ln / hits if hits else None}
+        for g, (c, t, ln) in groups.items()}
+    return rows
+
+
+def kf_phases(dev, res) -> None:
+    """Frame 0 of c3 at 1080p, both modes: the profiling instantiations of
+    the staged kernel and of its per-pixel schedule -> the phase tables,
+    the instrumented and plain kernels' ms, and their ptxas lines. The
+    production kernel's blocks are persistent: their staging, once per
+    block for many tiles, is outside its table."""
+    from surfjax_torch.kernels import _build
+    from surfjax_torch.kernels.render_tile import KS_PROD, staged_launcher
+    info = _build.build()
+    ptxas = {k: v for k, v in _build.entries(info["log"]).items()
+             if "kf_staged_kernel" in k}
+    print("kf phases ptxas", json.dumps(ptxas), flush=True)
+    scene_t, camera, modes, _, row0 = _c3_frame0(dev)
+    intr = camera.intrinsics
+    for mode, st in modes.items():
+        for sched, flags in (("per_pixel", 0), ("staged", KS_PROD)):
+            launch, out, prof = staged_launcher(scene_t, st, intr, row0,
+                                                flags=flags, profile=True)
+            plain, _, _ = staged_launcher(scene_t, st, intr, row0,
+                                          flags=flags)
+            launch()
+            plain()
+            torch.cuda.synchronize()
+            hits = float(out[8].sum())
+            table = phase_table(prof, hits, scene_t.static)
+            entry = {"ms_profiled": cuda_ms(launch, REPS)[0],
+                     "ms": cuda_ms(plain, REPS)[0], "hit_pixels": hits,
+                     "phases": table}
+            res[f"kf phases {mode} {sched}"] = entry
+            print(f"kf phases {mode} {sched}", json.dumps(entry), flush=True)
+
+
+def split(dev, res) -> None:
+    """Each split kernel of one 1080p c4 frame in `ao` mode: ms per frame,
+    every call of the frame launched back to back (LAUNCHES)."""
+    from surfjax_torch.tools.kernel_check import KERNELS, capture_calls
+    scene, camera, Rs, ps, modes = mesh_main_path("configs/c4_mesh.yaml")
+    cam0 = dataclasses.replace(camera,
+                               position=tuple(float(x) for x in ps[0]))
+    with capture_calls() as calls:
+        render(scene, cam0, modes["ao"], device=dev)
+    out = {}
+    for kname, args in calls:
+        launch, _ = KERNELS[kname][3](*args)
+        launch()
+        ms, _ = cuda_ms(lambda: [launch() for _ in range(LAUNCHES)], REPS)
+        out[kname] = out.get(kname, 0.0) + min(ms) / LAUNCHES
+    res["split c4 ao"] = out
+    print("split c4 ao", json.dumps(out), flush=True)
+
+
 SECTIONS = {
     "c3": lambda dev, res: fused_path(
         "c3", main_path("configs/c3_sdf.yaml"), dev, features_off, res),
@@ -221,6 +374,9 @@ SECTIONS = {
     "c3_primed": c3_primed,
     "c4": c4,
     "fit": fit_steps,
+    "kf": kf,
+    "kf_phases": kf_phases,
+    "split": split,
 }
 
 

@@ -219,3 +219,36 @@ def test_soft_shadow_visibility_carries_no_gradient():
             jparams["leaf_params"])
     gap = np.abs(g - np.asarray(g_j)).max() / np.abs(g_j).max()
     assert gap < 2e-4, gap       # measured 9.6e-5 of the largest entry
+
+
+@pytest.mark.parametrize("name", ["maximum", "minimum"])
+@pytest.mark.parametrize("scalar_first", [False, True])
+def test_tie_gradients_match_jnp(name, scalar_first):
+    """core.math.maximum / minimum against a Python number, at exact ties
+    and off them: values bitwise and gradients equal to jax.grad of
+    jnp.maximum / jnp.minimum (half the gradient at a tie)."""
+    from surfjax_torch.core import math as pt_math
+    x = np.array([0.5, 1.0, 2.0, 1.0, -0.0, 0.0], F32)
+    bound = 1.0 if name == "maximum" else 0.0
+    jfn = getattr(jnp, name)
+    pfn = getattr(pt_math, name)
+
+    def jloss(v):
+        out = jfn(F32(bound), v) if scalar_first else jfn(v, F32(bound))
+        return jnp.sum(out * jnp.arange(1, 7, dtype=jnp.float32))
+
+    xt = torch.tensor(x, requires_grad=True)
+    out = pfn(bound, xt) if scalar_first else pfn(xt, bound)
+    (out * torch.arange(1, 7, dtype=torch.float32)).sum().backward()
+    want_val = np.asarray(jfn(F32(bound), x) if scalar_first
+                          else jfn(x, F32(bound)))
+    clamp = (torch.clamp(xt, min=bound) if name == "maximum"
+             else torch.clamp(xt, max=bound)).detach().numpy()
+    assert np.array_equal(out.detach().numpy().view(np.int32),
+                          clamp.view(np.int32))    # the values as before
+    np.testing.assert_array_equal(out.detach().numpy(), want_val)
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+    np.testing.assert_array_equal(xt.grad.numpy(), want)
+    ties = x == F32(bound)
+    assert ties.any() and np.all(np.abs(want[ties]) ==
+                                 0.5 * np.arange(1, 7)[ties])

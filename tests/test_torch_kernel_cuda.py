@@ -391,3 +391,46 @@ def test_fit_on_cuda_goes_through_k1_and_k2(cuda_device, mode):
             frame_fused.launches - before[2]) == (10, 10 * len(scene.lights),
                                                   0)
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("mode", ["value", "value_exact"])
+def test_staged_kernel_and_its_profile_match_twin(cuda_device, mode):
+    """The staged kernel (production and profiling instantiations), its
+    per-pixel schedule and its variant with every element (the block
+    wavefronts) against the twin at 64x64 on c3, bitwise; the
+    profile's totals: every (hit receiver, tap) pair evaluates AO's
+    unbounded group (the plane) exactly once, no trip counts more than 32
+    lanes, and every phase of stage P took cycles."""
+    from surfjax_torch.kernels import render_tile as rt
+    scene, cam, st, _ = load_config(os.path.join(ROOT, "configs",
+                                                 "c3_sdf.yaml"))
+    intr = cam.intrinsics
+    fov = 2.0 * float(np.degrees(np.arctan(0.5 * intr.height / intr.fy)))
+    intr = Intrinsics.from_fov(64, 64, fov)
+    st = st.with_(backend="pallas", **(EXACT if mode == "value_exact"
+                                       else {}))
+    static, params = scene.freeze()
+    scene_t = SceneTensors(static, params_to_device(params, cuda_device))
+    rows = torch.as_tensor(np.concatenate(
+        [np.asarray(cam.rotation, np.float32).reshape(1, 9),
+         np.asarray(cam.position, np.float32).reshape(1, 3)], axis=1),
+        device=cuda_device)
+    ref = frame_fused_reference(scene_t, st, intr, rows)
+    names = rt.KP_PHASE_NAMES
+    for flags, profile in ((rt.KS_PROD, False), (rt.KS_PROD, True),
+                           (0, True), (rt.KS_ALL, False)):
+        launch, out, prof = rt.staged_launcher(scene_t, st, intr, rows,
+                                               flags=flags, profile=profile)
+        launch()
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        if not profile:
+            continue
+        tot = prof.sum(dim=0).cpu()
+        hits = int(ref[8].sum())
+        assert int(tot[names.index("ao unbounded"), 2]) == \
+            hits * 4 * st.ao_samples
+        assert bool((tot[:, 2] <= 32 * tot[:, 1]).all())
+        for name in ("ray", "normal", "primary o0", "primary o1"):
+            assert int(tot[names.index(name), 0]) > 0, name

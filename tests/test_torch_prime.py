@@ -228,3 +228,33 @@ def test_prime_wrapper_and_operation_count():
     p = tuple(torch.as_tensor(np.random.default_rng(1).uniform(
         -3.0, 5.0, 512).astype(np.float32)) for _ in range(3))
     assert bool((proxy(p) <= sdf(p) + 1e-6).all())
+
+
+def test_c3_yaml_primed_hit_change_is_the_references_too():
+    """configs/c3_sdf.yaml at 96x96, prime_min 64 (ROADMAP queue 3 item 4):
+    priming changes the hit flag of one pixel, (11, 23), in the port, and
+    surfjax's primed frame changes the same pixel (jit or op by op): the
+    port's primed and unprimed hit masks each equal surfjax's. The change
+    is the algorithm's (a grazing ray inside the hit-epsilon band marched
+    from another start), not the port's."""
+    import os
+
+    import surfjax.config as sj_config
+    from surfjax_torch.config import load_config
+    cfg = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "c3_sdf.yaml")
+    masks = {}
+    for name, api, load, kw in (("port", pt_api, load_config,
+                                 {"device": "cpu"}),
+                                ("surfjax", sj_api, sj_config.load_config,
+                                 {})):
+        scene, cam, st, _ = load(cfg)
+        cam = workload.reframe(cam, SIZE, SIZE)
+        st = st.with_(backend="pallas", prime=True, prime_min=64)
+        masks[name] = [np.asarray(api.render(scene, cam, s, **kw).hit)
+                       for s in (st, st.with_(prime=False))]
+    for k in range(2):
+        assert np.array_equal(masks["port"][k], masks["surfjax"][k])
+    for name in masks:
+        primed, unprimed = masks[name]
+        assert np.argwhere(primed != unprimed).tolist() == [[11, 23]]
