@@ -78,10 +78,13 @@ the script exits non-zero and never prints its last line):
      K2 once per light and step, the fused kernel never), both timed per
      step; then the pose-fit step at 1920x1080 on both backends;
  15. where the fused kernel's time goes (tools/breakdown.py, `kf_phases`):
-     the profiling instantiations of the staged kernel and of its per-pixel
-     schedule (kf_frame_kernel<false>'s) on frame 0 of c3 at 1920x1080 in
-     both modes: per phase group the share of the warps' cycles, the SIMT
-     efficiency of its loops and the SDF evaluations per hit pixel.
+     the profiling instantiation of the staged kernel and the profile of
+     kf_frame_kernel<false>, the per-pixel kernel it replaced (its body
+     with a probe after each call, kf_frame_prof.cu), on frame 0 of c3 at
+     1920x1080 in both modes, both writing the staged kernel's buffers:
+     per phase group the share of the warps' cycles and, for the staged
+     kernel, the SIMT efficiency of its loops and the SDF evaluations per
+     hit pixel.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
@@ -304,7 +307,7 @@ def main() -> int:
     for ln in ptxas:
         log(f"  ptxas: {ln}")
     log(f"  the fused kernel on c3 before the crowd loops and t0: "
-        f"{KF_BEFORE}; now: see kf_staged_kernel<65, false> (staging, "
+        f"{KF_BEFORE}; now: see kf_staged_kernel<false> (staging, "
         "persistent blocks) above and phase 4")
     built = _build.entries(info["log"])
     for name, lines in PTXAS_KEPT.items():
@@ -1089,18 +1092,19 @@ def main() -> int:
         f"({time.perf_counter() - t14:.1f} s) on {smi}")
 
     # -- phase 15 -----------------------------------------------------------
-    # where the fused kernel's time goes: the profiling instantiations of
-    # the staged kernel and of its per-pixel schedule on frame 0 of c3
+    # where the fused kernel's time goes: the profiles of the staged kernel
+    # and of the per-pixel kernel it replaced on frame 0 of c3
     t15 = time.perf_counter()
     phases = {}
     kf_phases(dev, phases)
     for key, entry in phases.items():
         groups = {g: [round(v["cycles_share"], 4),
                       None if v["simt"] is None else round(v["simt"], 3),
-                      round(v["evals_per_hit"], 2)]
+                      None if v["evals_per_hit"] is None
+                      else round(v["evals_per_hit"], 2)]
                   for g, v in entry["phases"]["groups"].items()}
-        log(f"  {key}: {min(entry['ms']):.4f} ms (profiled "
-            f"{min(entry['ms_profiled']):.4f}); per phase group [cycle "
+        log(f"  {key}: profiled {min(entry['ms_profiled']):.4f} ms (staged "
+            f"kernel {min(entry['ms_staged']):.4f}); per phase group [cycle "
             f"share, SIMT efficiency, SDF evaluations per hit pixel]: "
             + json.dumps(groups))
     log(f"phase 15: the fused kernel's phase profile on c3 frame 0 "

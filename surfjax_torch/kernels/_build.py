@@ -33,7 +33,7 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler",
 NO_FMA = ("-fmad=false",)
 # source -> the flags it gets beside NVCC_FLAGS
 SOURCES = {"frame_fused.cu": NO_FMA, "kf_staged.cu": NO_FMA,
-           "split_path.cu": NO_FMA,
+           "kf_frame_prof.cu": NO_FMA, "split_path.cu": NO_FMA,
            "mesh_tile.cu": NO_FMA, "prime_tile.cu": NO_FMA,
            "fp32_peak.cu": NO_FMA, "fp32_peak_fma.cu": ("-fmad=true",)}
 
@@ -155,16 +155,14 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     lib.kf_frame_fused.argtypes = [KFTables, KFSettings, ctypes.c_int,
                                    ctypes.c_void_p]
-    # tables, settings, layout, tile counter, device, stream
+    # tables, settings, layout, profile counters or null, tile counter,
+    # device, stream
     lib.ks_frame_fused.argtypes = [KFTables, KFSettings, KSLayout,
-                                   ctypes.c_void_p, ctypes.c_int,
-                                   ctypes.c_void_p]
-    # tables, settings, layout, the elements kept (flags), profile
-    # counters or null, tile counter, device, stream
-    lib.ks_variant_fused.argtypes = [KFTables, KFSettings, KSLayout,
-                                     ctypes.c_int, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_void_p]
+                                   ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_void_p]
+    # tables, settings, profile counters, device, stream
+    lib.kf_frame_profile.argtypes = [KFTables, KFSettings, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p]
     lib.ks_occupancy.argtypes = [KSLayout, ctypes.POINTER(ctypes.c_int)]
     for name in ("sp_render_tile", "sp_trace_rays", "sp_ao_fix"):
         getattr(lib, name).argtypes = [KFTables, KFSettings, SplitRays,
@@ -181,7 +179,7 @@ def load() -> ctypes.CDLL:
         getattr(lib, name).argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     # a, out, n, iters, chains per thread, device, stream
     lib.fp_fma_dep.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
-    for name in ("kf_frame_fused", "ks_frame_fused", "ks_variant_fused",
+    for name in ("kf_frame_fused", "ks_frame_fused", "kf_frame_profile",
                  "ks_occupancy", "sp_render_tile", "sp_trace_rays",
                  "sp_ao_fix", "pt_prime_tile", "mt_mesh_tile", "fp_fma_dep",
                  *mixes):

@@ -1,100 +1,39 @@
 // The staged fused-frame kernel for scenes without a crowd (kf_staged.cuh
-// holds it and its design note), in all its instantiations: the production
-// kernel (KS_PROD, the elements that paid on c3: staging in persistent
-// blocks); its variants with the staging alone and with one element more,
-// with every element, and with none: kf_frame_kernel<false>'s per-pixel
-// schedule, with and without the barriers between the stages; and the
-// profiling instantiations of the production kernel and of the per-pixel
-// schedule. The variants price each element against the production kernel
-// (tools/breakdown.py, sections `kf` and `kf_phases`); no render path
-// launches them.
+// holds it and its design note): the production kernel and its profiling
+// instantiation (tools/breakdown.py, section `kf_phases`).
 //
 // C interface (bound with ctypes, no PyTorch headers):
 //   int ks_frame_fused(KFTables tables, KFSettings settings, KSLayout layout,
-//                      int* work, int device, void* stream)
+//                      unsigned long long* prof, int* work, int device,
+//                      void* stream)
 //       -> cudaError_t of the launch; work: one int the caller zeroed, the
-//          tile counter of a persistent kernel (KS_PERSIST), else unused
-//   int ks_variant_fused(KFTables tables, KFSettings settings,
-//                        KSLayout layout, int flags,
-//                        unsigned long long* prof, int* work, int device,
-//                        void* stream)
-//       flags: the KS_* elements kept: 0, KS_SYNC, KS_STAGE alone or with
-//       one more element, or KS_ALL (not KS_PROD, ks_frame_fused's);
-//       work: as ks_frame_fused's;
-//       prof: null, or the counters of a profiling instantiation (flags 0
-//       or KS_PROD), zeroed by the caller: blocks x KS_WARPS x KP_PHASES x 3
-//       (cycles, loop trips, lane-evaluations). -> cudaError_t
-//       (cudaErrorInvalidValue for another combination)
+//          tile counter; prof: null (the production kernel), or the
+//          counters of the profiling instantiation, zeroed by the caller:
+//          tiles x KS_WARPS x KP_PHASES x 3 (cycles, loop trips,
+//          lane-evaluations)
 //   int ks_occupancy(KSLayout layout, int* blocks_per_sm)
 //       -> cudaError_t; the production kernel's resident blocks per SM
 
 #include "kf_staged.cuh"
 
 extern "C" int ks_frame_fused(KFTables tables, KFSettings settings,
-                              KSLayout layout, int* work, int device,
-                              void* stream) {
+                              KSLayout layout, unsigned long long* prof,
+                              int* work, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (settings.F <= 0 || settings.H <= 0 || settings.W <= 0) return 0;
-  return ks_launch<KS_PROD, false>(tables, settings, layout, nullptr, work,
-                                   (cudaStream_t)stream);
-}
-
-// One variant; the production set is launched by ks_frame_fused only.
-template <int FL>
-static int variant(const KFTables& T, const KFSettings& S, const KSLayout& L,
-                   int* work, cudaStream_t st) {
-  if constexpr (FL == KS_PROD) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    return ks_launch<FL, false>(T, S, L, nullptr, work, st);
-  }
-}
-
-extern "C" int ks_variant_fused(KFTables tables, KFSettings settings,
-                                KSLayout layout, int flags,
-                                unsigned long long* prof, int* work,
-                                int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (settings.F <= 0 || settings.H <= 0 || settings.W <= 0) return 0;
-  const KFTables& T = tables;
-  const KFSettings& S = settings;
-  const KSLayout& L = layout;
   cudaStream_t st = (cudaStream_t)stream;
-  if (prof) {
-    if (flags == 0) return ks_launch<0, true>(T, S, L, prof, work, st);
-    if (flags == KS_PROD)
-      return ks_launch<KS_PROD, true>(T, S, L, prof, work, st);
-    return (int)cudaErrorInvalidValue;
-  }
-  switch (flags) {
-    case 0: return variant<0>(T, S, L, work, st);
-    case KS_SYNC: return variant<KS_SYNC>(T, S, L, work, st);
-    case KS_STAGE: return variant<KS_STAGE>(T, S, L, work, st);
-    case KS_STAGE | KS_SYNC:
-      return variant<KS_STAGE | KS_SYNC>(T, S, L, work, st);
-    case KS_STAGE | KS_LEAF:
-      return variant<KS_STAGE | KS_LEAF>(T, S, L, work, st);
-    case KS_STAGE | KS_COMPACT:
-      return variant<KS_STAGE | KS_COMPACT>(T, S, L, work, st);
-    case KS_STAGE | KS_AO_OBJ:
-      return variant<KS_STAGE | KS_AO_OBJ>(T, S, L, work, st);
-    case KS_STAGE | KS_REFILL:
-      return variant<KS_STAGE | KS_REFILL>(T, S, L, work, st);
-    case KS_ALL: return variant<KS_ALL>(T, S, L, work, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return prof ? ks_launch<true>(tables, settings, layout, prof, work, st)
+              : ks_launch<false>(tables, settings, layout, nullptr, work, st);
 }
 
 extern "C" int ks_occupancy(KSLayout layout, int* blocks_per_sm) {
   if (layout.bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        kf_staged_kernel<KS_PROD, false>,
+        kf_staged_kernel<false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, layout.bytes);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kf_staged_kernel<KS_PROD, false>, KS_THREADS,
-      layout.bytes);
+      blocks_per_sm, kf_staged_kernel<false>, KS_THREADS, layout.bytes);
 }

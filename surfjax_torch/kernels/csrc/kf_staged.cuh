@@ -1,60 +1,35 @@
-// The fused-frame kernel for scenes without a crowd, and its variants
-// (kf_staged.cu builds them).
+// The fused-frame kernel for scenes without a crowd (kf_staged.cu builds it
+// and its profiling instantiation).
 //
 // Replaces, for scenes with no crowd, surfjax/kernels/render_tile.py::
 // frame_fused_kernel (KF, body _kframe_body), as frame_fused.cu's
 // kf_frame_kernel<false> did before it: the same per-pixel arithmetic (the
 // cores of frame_fused.cuh, and render_tile.frame_fused_reference as the
-// plain twin, bit for bit). Only which lane does a piece of work, and
-// when, changes between the variants.
+// plain twin, bit for bit).
 //
 // What bounds it: FP32 work per SDF evaluation, then divergence. On c3 a
 // hit pixel takes 49 AO evaluations at 98% SIMT efficiency and 15-17
-// shadow-march steps at 61-69% (PR 6's profile, PERF.md). The block of 128
-// threads covers 16x8 pixels (four warps of 16x2), one thread per pixel,
-// its state in shared memory (KSLayout, sized on the host from the scene:
-// render_tile.staged_layout). Template elements (FL):
-//   staging  (KS_STAGE) the object rows, tapes, leaf rows and parameters
-//            and both bounding spheres of every boundable object (lower:
-//            AO and soft shadows; cover: the marches) are copied or
-//            computed once per block, by object_bound itself, so no pixel
-//            recomputes a bound and the tape walker reads shared memory;
-//   then per pixel: ray, primary trace (t0 on primed frames), normal,
-//            offset receiver -> the pixel's record; AO; per light the
-//            visibility, object by object in visibility<false>'s order,
-//            and add_light; the nine planes. The marches are
-//            march_loop's / soft_march_loop's bodies one step at a time,
-//            inlined.
-// The production kernel (KS_PROD) is staging on that schedule in persistent
-// blocks (KS_PERSIST below), which stage the scene once for many tiles.
-// The other elements cost time on c3 or were neutral, and stay as variants
-// for measurement; the first three are block-wide wavefronts that share the
-// block's work among its lanes:
-//   compact  (KS_COMPACT) the hit pixels, in pixel order, by ballot and a
-//            popc prefix, become the receivers; receiver slot r is thread
-//            r's;
-//   AO       (KS_AO_OBJ) object-major: one pass fills the unbounded group's
-//            term of every (receiver, tap), then one pass per bounded
-//            object covers the (receiver, tap) pairs whose near bit is
-//            set, packed onto lanes; max is exact in any order, and the
-//            terms are summed per receiver in tap order as before;
-//   refill   (KS_REFILL) each marched object of a light is one pass over
-//            the receivers whose march would take a step, a lane whose
-//            march ends taking the next receiver of the list; a receiver
-//            left out is one whose march ends before its first step
-//            (visibility 1, or no occlusion), which leaves its min or
-//            product as it was. With at most 128 receivers for 128
-//            threads no lane takes a second one;
-//   leaf     (KS_LEAF) an object whose tape is one leaf is evaluated as that
-//            leaf, without the tape walker's call and value array: the same
-//            operations (eval_obj returns the one leaf's value);
-//   sync     (KS_SYNC) the block's barriers after stage P and before the
-//            writes, which the wavefront elements need, kept without them;
-//   persist  (KS_PERSIST) as many blocks as fit on the card at once, each
-//            staging the scene once and then taking tiles (frame, tile
-//            row, tile column) from a counter the caller zeroes, until
-//            none is left.
-// All of them left out is kf_frame_kernel<false>'s per-pixel schedule.
+// shadow-march steps at 61-69% (PERF.md). The design:
+//   * persistent blocks: as many 128-thread blocks as the card holds at
+//     once, each taking 16x8-pixel tiles (frame, tile row, tile column)
+//     from a counter the caller zeroes, until none is left; one thread per
+//     pixel, four warps of 16x2 pixels;
+//   * staging: at block start the object rows, tapes, leaf rows and
+//     parameters, and both bounding spheres of every boundable object
+//     (lower: AO and soft shadows; cover: the marches), computed by
+//     object_bound itself, go to shared memory once for all the block's
+//     tiles, so no pixel recomputes a bound and the tape walker reads
+//     shared memory (KSLayout, sized on the host from the scene:
+//     render_tile.staged_layout);
+//   * per pixel: ray, primary trace (t0 on primed frames), normal, offset
+//     receiver -> the pixel's record in shared memory (so nothing of it
+//     stays live in registers across the marches); AO; per light the
+//     visibility, object by object in visibility<false>'s order, and
+//     add_light; the nine planes. The marches are march_loop's and
+//     soft_march_loop's bodies, inlined.
+// Block-wide wavefronts (hit compaction, object-major AO, visibility passes
+// with refill), single-leaf evaluation and barriers between the stages
+// were measured against this schedule and cost time or none (PERF.md).
 //
 // PROF (a template parameter: the production code has no probes) makes
 // each warp add, per phase, lane 0's clock64 deltas, the loop trips it
@@ -67,39 +42,25 @@
 #define KS_THREADS 128
 #define KS_WARPS (KS_THREADS / 32)
 
-enum { KS_STAGE = 1, KS_COMPACT = 2, KS_AO_OBJ = 4, KS_REFILL = 8,
-       KS_LEAF = 16, KS_SYNC = 32, KS_PERSIST = 64, KS_ALL = 127,
-       // the elements that share work between the block's threads, and so
-       // need the barriers between the stages that KS_SYNC keeps alone
-       KS_WAVE = KS_COMPACT | KS_AO_OBJ | KS_REFILL,
-       // the production kernel: the elements that paid on c3
-       KS_PROD = KS_STAGE | KS_PERSIST };
-
 // Byte offsets into the block's dynamic shared memory and the table sizes
-// staged (render_tile.KSLayout); a section a variant does not use is empty.
+// staged (render_tile.KSLayout).
 struct KSLayout {
   int bytes, n_nodes, n_leaves, n_order, n_leaf_rows, n_kp;
   int ctr, objects, nodes, leaves, order, leaf_params, node_params, bounds;
-  int rec, list, plist, near_lo, near_hi, frame, terms, light, pass;
+  int rec;
 };
 
 // Fields of a pixel's record (each a KS_THREADS-float array).
 enum { R_PX = 0, R_PY, R_PZ, R_NX, R_NY, R_NZ, R_DX, R_DY, R_DZ, R_OBJ, R_T,
        R_HIT, R_R, R_G, R_B, R_AO, KS_REC };
-// Per-receiver arrays of the light being shaded, and of the current pass.
-enum { L_LX = 0, L_LY, L_LZ, L_DIST, L_KF, L_VIS, KS_LIGHT };
-enum { Q_T0 = 0, Q_T1, Q_DIST, KS_PASS };
-// Block counters.
-enum { C_NEXT = 0, C_WARP = 1, C_ITEM = C_WARP + KS_WARPS, KS_CTR };
 
 // Profile phases: objects past KP_OBJ - 1 share the last slot, lights past
 // KP_LIGHTS - 1 the last light's (render_tile.KP_PHASE_NAMES).
 #define KP_OBJ 8
 #define KP_LIGHTS 4
-enum { PH_STAGE = 0, PH_RAY, PH_PRIMARY, PH_NORMAL = PH_PRIMARY + KP_OBJ,
-       PH_COMPACT, PH_AO_SETUP, PH_AO_UNB, PH_AO_OBJ,
-       PH_AO_SUM = PH_AO_OBJ + KP_OBJ, PH_VIS,
-       PH_SHADE = PH_VIS + KP_LIGHTS * KP_OBJ, PH_WRITE, KP_PHASES };
+enum { PH_RAY = 0, PH_PRIMARY, PH_NORMAL = PH_PRIMARY + KP_OBJ,
+       PH_AO_SETUP, PH_AO_UNB, PH_AO_OBJ, PH_AO_SUM = PH_AO_OBJ + KP_OBJ,
+       PH_VIS, PH_SHADE = PH_VIS + KP_LIGHTS * KP_OBJ, PH_WRITE, KP_PHASES };
 
 extern __shared__ __align__(16) unsigned char ks_smem[];
 
@@ -149,155 +110,76 @@ struct Prof<true> {
 };
 
 // ---------------------------------------------------------------------------
-// The marches one step at a time: march_loop's and soft_march_loop's bodies
-// unchanged (frame_fused.cuh), their loop-carried state in a struct.
+// The marches, inlined: march_loop's and soft_march_loop's bodies unchanged
+// (frame_fused.cuh), each trip counted
 // ---------------------------------------------------------------------------
 
-// march_loop: t, h_prev, st_prev, the step count i, done, hit; t_clip.
-struct MarchLane {
-  float t, t_clip, h_prev, st_prev;
-  int i;
-  bool done, hit;
-};
-
-__device__ __forceinline__ void march_begin(MarchLane& m, float t,
-                                            float t_clip) {
-  m.t = t;
-  m.t_clip = t_clip;
-  m.h_prev = 0.0f;
-  m.st_prev = 0.0f;
-  m.i = 0;
-  m.done = t >= t_clip;
-  m.hit = false;
-}
-
-__device__ __forceinline__ bool march_running(const KFSettings& S,
-                                              const MarchLane& m) {
-  return m.i < S.max_steps && !m.done;
-}
-
-template <class Sdf>
-__device__ __forceinline__ void march_step(const KFSettings& S, Sdf sdf,
-                                           V3 o, V3 d, MarchLane& m) {
-  float h = sdf(along(o, d, m.t));
-  bool ovr = S.relaxed && (m.st_prev > m.h_prev + fabsf(h));
-  float okf = ovr ? 0.0f : 1.0f;
-  bool hit_now = !ovr && (h < S.hit_eps + S.hit_eps_scale * m.t);
-  bool over = !ovr && (m.t > m.t_clip);
-  m.hit = m.hit || hit_now;
-  m.done = hit_now || over;
-  float step = S.over_relax * h;
-  float t_next = ovr ? (m.t - m.st_prev) + m.h_prev : m.t + step;
-  if (!m.done) {
-    m.t = t_next;
-    m.h_prev = okf * h;
-    m.st_prev = okf * step;
-  }
-  m.i += 1;
-}
-
-// soft_march_loop: t, res, h_prev, st_prev, the step count i, done; t_max
-// and kf.
-struct SoftLane {
-  float t, t_max, kf, res, h_prev, st_prev;
-  int i;
-  bool done;
-};
-
-__device__ __forceinline__ void soft_begin(SoftLane& s, float t, float t_max,
-                                           float kf) {
-  s.t = t;
-  s.t_max = t_max;
-  s.kf = kf;
-  s.res = 1.0f;
-  s.h_prev = 0.0f;
-  s.st_prev = 0.0f;
-  s.i = 0;
-  s.done = t > t_max;
-}
-
-__device__ __forceinline__ bool soft_running(const KFSettings& S,
-                                             const SoftLane& s) {
-  return s.i < S.shadow_steps && !s.done;
-}
-
-template <class Sdf>
-__device__ __forceinline__ void soft_step(const KFSettings& S, Sdf sdf, V3 o,
-                                          V3 l, SoftLane& s) {
-  const float kf = s.kf;
-  float h = sdf(along(o, l, s.t));
-  bool ovr = S.relaxed && (s.st_prev > s.h_prev + fabsf(h));
-  float okf = ovr ? 0.0f : 1.0f;
-  float res_new = fminf(s.res, kf * h / s.t);
-  float s_allowed = (kf * h - res_new * s.t) / (kf + res_new);
-  float cap = fmaxf(s_allowed, 0.5f);
-  float step = fminf(fmaxf(S.over_relax * h, F(1e-3)), cap);
-  float t_new = ovr ? (s.t - s.st_prev) + s.h_prev : s.t + step;
-  s.done = (res_new < F(0.004)) || (t_new > s.t_max);
-  s.res = res_new;
-  s.t = t_new;
-  if (!s.done) {
-    s.h_prev = okf * h;
-    s.st_prev = okf * step;
-  }
-  s.i += 1;
-}
-
-// A whole march on one lane, each trip counted.
+// march_loop from t over (.., t_clip): true on a hit, t its distance.
 template <class Sdf, bool PROF>
 __device__ __forceinline__ bool march_lane(const KFSettings& S, Sdf sdf, V3 o,
                                            V3 d, float& t, float t_clip,
                                            Prof<PROF>& P, int ph) {
-  MarchLane m;
-  march_begin(m, t, t_clip);
-  while (march_running(S, m)) {
-    march_step(S, sdf, o, d, m);
+  float h_prev = 0.0f, st_prev = 0.0f;
+  bool done = t >= t_clip, hit = false;
+  for (int i = 0; i < S.max_steps && !done; ++i) {
+    float h = sdf(along(o, d, t));
+    bool ovr = S.relaxed && (st_prev > h_prev + fabsf(h));
+    float okf = ovr ? 0.0f : 1.0f;
+    bool hit_now = !ovr && (h < S.hit_eps + S.hit_eps_scale * t);
+    bool over = !ovr && (t > t_clip);
+    hit = hit || hit_now;
+    done = hit_now || over;
+    float step = S.over_relax * h;
+    float t_next = ovr ? (t - st_prev) + h_prev : t + step;
+    if (!done) {
+      t = t_next;
+      h_prev = okf * h;
+      st_prev = okf * step;
+    }
     P.trip(ph);
   }
-  t = m.t;
-  return m.hit;
+  return hit;
 }
 
+// soft_march_loop from t over (.., t_max) with sharpness kf -> visibility.
 template <class Sdf, bool PROF>
 __device__ __forceinline__ float soft_lane(const KFSettings& S, Sdf sdf,
                                            V3 o, V3 l, float t, float t_max,
                                            float kf, Prof<PROF>& P, int ph) {
-  SoftLane s;
-  soft_begin(s, t, t_max, kf);
-  while (soft_running(S, s)) {
-    soft_step(S, sdf, o, l, s);
+  float res = 1.0f, h_prev = 0.0f, st_prev = 0.0f;
+  bool done = t > t_max;
+  for (int i = 0; i < S.shadow_steps && !done; ++i) {
+    float h = sdf(along(o, l, t));
+    bool ovr = S.relaxed && (st_prev > h_prev + fabsf(h));
+    float okf = ovr ? 0.0f : 1.0f;
+    float res_new = fminf(res, kf * h / t);
+    float s_allowed = (kf * h - res_new * t) / (kf + res_new);
+    float cap = fmaxf(s_allowed, 0.5f);
+    float step = fminf(fmaxf(S.over_relax * h, F(1e-3)), cap);
+    float t_new = ovr ? (t - st_prev) + h_prev : t + step;
+    done = (res_new < F(0.004)) || (t_new > t_max);
+    res = res_new;
+    t = t_new;
+    if (!done) {
+      h_prev = okf * h;
+      st_prev = okf * step;
+    }
     P.trip(ph);
   }
-  return clampf(s.res, 0.0f, 1.0f);
+  return clampf(res, 0.0f, 1.0f);
 }
 
 // ---------------------------------------------------------------------------
 // The block's state
 // ---------------------------------------------------------------------------
 
-template <int FL>
 struct Block {
-  KFTables T;           // staged copies (KS_STAGE) or the global tables
+  KFTables T;           // the staged copies of the scene's tables
   const float* bounds;  // per object: lower (AO, soft), cover (marches)
-  int* ctr;
   float* rec;           // KS_REC x KS_THREADS, by pixel (thread) index
-  int* list;            // receiver slot -> pixel
-  int* plist;           // the current pass: task -> receiver slot
-  unsigned* near_lo;    // AO near bits per receiver slot
-  unsigned* near_hi;
-  float* frame;         // AO tangent frame per receiver slot: t1, t2
-  float* terms;         // AO terms, tap-major: terms[tp * KS_THREADS + r]
-  float* light;         // KS_LIGHT x KS_THREADS per receiver slot
-  float* pass;          // KS_PASS x KS_THREADS per receiver slot
 
   __device__ __forceinline__ float& R(int field, int px) const {
     return rec[field * KS_THREADS + px];
-  }
-  __device__ __forceinline__ float& Lt(int field, int r) const {
-    return light[field * KS_THREADS + r];
-  }
-  __device__ __forceinline__ float& Q(int field, int r) const {
-    return pass[field * KS_THREADS + r];
   }
   __device__ __forceinline__ V3 rec3(int field, int px) const {
     return V3{R(field, px), R(field + 1, px), R(field + 2, px)};
@@ -319,60 +201,19 @@ struct Block {
     const float radius = lrow[6];
     kf = radius > 0.0f ? dist / radius : S.soft_shadow_k;
   }
-  // the object's SDF at p (eval_obj's value)
-  __device__ __forceinline__ float sdf(const KFSettings& S, const int* ob,
-                                       V3 p, int cap) const {
-    if constexpr (FL & KS_LEAF) {
-      if (ob[O_NNODES] == 1) {
-        const int* lf = T.leaves +
-            (ob[O_LEAF0] + T.nodes[ob[O_NODE0] * KF_NODE_W + 3]) * KF_LEAF_W;
-        return eval_leaf(S, lf[0], T.leaf_params + lf[1] * KF_LEAF_PARAM_W,
-                         p, lf[4], cap);
-      }
-    }
-    return eval_obj(T, S, ob, p, cap);
+  __device__ __forceinline__ Bound lower(int oi) const {
+    const float* b = bounds + oi * 8;
+    return Bound{b[0], b[1], b[2], b[3]};
   }
-  __device__ __forceinline__ Bound lower(const int* ob, int oi) const {
-    if constexpr (FL & KS_STAGE) {
-      const float* b = bounds + oi * 8;
-      return Bound{b[0], b[1], b[2], b[3]};
-    } else {
-      return object_bound(T, ob, 1, 0.0f);
-    }
-  }
-  __device__ __forceinline__ Bound cover(const KFSettings& S, const int* ob,
-                                         int oi) const {
-    if constexpr (FL & KS_STAGE) {
-      const float* b = bounds + oi * 8 + 4;
-      return Bound{b[0], b[1], b[2], b[3]};
-    } else {
-      return object_bound(T, ob, 0, S.exit_margin);
-    }
+  __device__ __forceinline__ Bound cover(int oi) const {
+    const float* b = bounds + oi * 8 + 4;
+    return Bound{b[0], b[1], b[2], b[3]};
   }
 };
 
 template <class X>
 __device__ __forceinline__ void stage_copy(X* dst, const X* src, int n) {
   for (int k = threadIdx.x; k < n; k += KS_THREADS) dst[k] = src[k];
-}
-
-// Thread k holds `keep` for item k: the kept items in order into out[]
-// -> their number, on every thread.
-__device__ __forceinline__ int block_compact(bool keep, int item, int* out,
-                                             int* warp_ctr) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const unsigned bal = __ballot_sync(KF_FULL, keep);
-  if (lane == 0) warp_ctr[w] = __popc(bal);
-  __syncthreads();
-  int base = 0, total = 0;
-  for (int v = 0; v < KS_WARPS; ++v) {
-    const int c = warp_ctr[v];
-    base += v < w ? c : 0;
-    total += c;
-  }
-  if (keep) out[base + __popc(bal & ((1u << lane) - 1u))] = item;
-  __syncthreads();
-  return total;
 }
 
 // The tangent frame of AO at normal n (ao_core's).
@@ -398,8 +239,8 @@ __device__ __forceinline__ V3 ao_tap(const KFSettings& S, V3 q0, V3 n, V3 t1,
 }
 
 // The unbounded group's term at one tap (0 when the scene has none).
-template <int FL, bool PROF>
-__device__ __forceinline__ float ao_unbounded(const Block<FL>& B,
+template <bool PROF>
+__device__ __forceinline__ float ao_unbounded(const Block& B,
                                               const KFSettings& S, V3 q,
                                               float r, float azr,
                                               Prof<PROF>& P) {
@@ -410,7 +251,7 @@ __device__ __forceinline__ float ao_unbounded(const Block<FL>& B,
   for (int k = 0; k < n_rest; ++k) {
     const int* ob = object_row(B.T, rest[k]);
     if (ob[O_BOUNDABLE]) continue;
-    float h = B.sdf(S, ob, q, S.ao_lod);
+    float h = eval_obj(B.T, S, ob, q, S.ao_lod);
     P.trip(PH_AO_UNB);
     hmin = first ? h : fminf(hmin, h);
     first = false;
@@ -419,12 +260,13 @@ __device__ __forceinline__ float ao_unbounded(const Block<FL>& B,
 }
 
 // ---------------------------------------------------------------------------
-// Stage P: one pixel's primary trace (trace_primary<false>'s body, bounds
-// from the block) and normal
+// The stages of one pixel; every lane of the warp calls each, `act` false
+// for a pixel that takes no part
 // ---------------------------------------------------------------------------
 
-template <int FL, bool PROF>
-__device__ __forceinline__ void trace_pixel(const Block<FL>& B,
+// Primary trace: trace_primary<false>'s body, the bounds from the block.
+template <bool PROF>
+__device__ __forceinline__ void trace_pixel(const Block& B,
                                             const KFSettings& S, bool act,
                                             V3 o, V3 d, float t0, float& t,
                                             float& obj, int& leaf,
@@ -451,15 +293,15 @@ __device__ __forceinline__ void trace_pixel(const Block<FL>& B,
     if (act) {
       float t1, clip2;
       if (ob[O_BOUNDABLE]) {
-        bound_entry(B.cover(S, ob, oi), o, d, t_start, t_clip,
+        bound_entry(B.cover(oi), o, d, t_start, t_clip,
                     entry_shell(T, S, ob), t1, clip2);
       } else {
         t1 = t_start;
         clip2 = t_clip;
       }
       bool hit_i = march_lane(
-          S, [&](V3 p) { return B.sdf(S, ob, p, 0); }, o, d, t1, clip2,
-          P, PH_PRIMARY + kp_obj(oi));
+          S, [&](V3 p) { return eval_obj(B.T, S, ob, p, 0); }, o, d, t1,
+          clip2, P, PH_PRIMARY + kp_obj(oi));
       if (hit_i && t1 < t) { t = t1; obj = (float)oi; leaf = 0; }
       t_clip = fminf(t_clip, t);
     }
@@ -467,14 +309,10 @@ __device__ __forceinline__ void trace_pixel(const Block<FL>& B,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Stage A
-// ---------------------------------------------------------------------------
-
 // AO of one receiver, all taps and objects on its lane (ao_core<false>'s
-// order); every lane of the warp calls it, `act` false for none.
-template <int FL, bool PROF>
-__device__ __forceinline__ float ao_receiver(const Block<FL>& B,
+// order).
+template <bool PROF>
+__device__ __forceinline__ float ao_receiver(const Block& B,
                                              const KFSettings& S, bool act,
                                              V3 q0, V3 n, Prof<PROF>& P) {
   const KFTables& T = B.T;
@@ -485,7 +323,7 @@ __device__ __forceinline__ float ao_receiver(const Block<FL>& B,
   for (int k = 0; k < n_rest && act; ++k) {
     const int* ob = object_row(T, rest[k]);
     if (!ob[O_BOUNDABLE]) continue;
-    Bound b = B.lower(ob, rest[k]);
+    Bound b = B.lower(rest[k]);
     float dx = q0.x - b.cx, dy = q0.y - b.cy, dz = q0.z - b.cz;
     float hb = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
     if (hb <= gate) near |= 1ull << k;
@@ -501,7 +339,7 @@ __device__ __forceinline__ float ao_receiver(const Block<FL>& B,
     P.mark(PH_AO_UNB);
     for (int k = 0; k < n_rest; ++k) {
       if ((near >> k) & 1ull) {
-        float h = B.sdf(S, object_row(T, rest[k]), q, S.ao_lod);
+        float h = eval_obj(B.T, S, object_row(T, rest[k]), q, S.ao_lod);
         P.trip(PH_AO_OBJ + kp_obj(rest[k]));
         term = fmaxf(term, fmaxf(azr - h, 0.0f) / r);
       }
@@ -514,103 +352,10 @@ __device__ __forceinline__ float ao_receiver(const Block<FL>& B,
   return sat(1.0f - S.ao_strength * occ);
 }
 
-// AO of every receiver of the block, object-major; the receivers' factors
-// into the records' R_AO.
-template <int FL, bool PROF>
-__device__ __forceinline__ void ao_block(const Block<FL>& B,
-                                         const KFSettings& S, int n_list,
-                                         Prof<PROF>& P) {
-  const KFTables& T = B.T;
-  const int tid = threadIdx.x;
-  const int n_rest = S.n_ana + S.n_sdf;
-  const int* rest = T.order + n_rest;
-  const int NT = S.ao_samples * 4;
-  const float gate = 2.0f * S.ao_radius;
-  const int px = tid < n_list ? B.list[tid] : 0;
-  const bool act = tid < n_list && B.R(R_HIT, px) > 0.5f;
-  if (act) {
-    const V3 q0 = B.rec3(R_PX, px), n = B.rec3(R_NX, px);
-    unsigned lo = 0u, hi = 0u;
-    for (int k = 0; k < n_rest; ++k) {
-      const int* ob = object_row(T, rest[k]);
-      if (!ob[O_BOUNDABLE]) continue;
-      Bound b = B.lower(ob, rest[k]);
-      float dx = q0.x - b.cx, dy = q0.y - b.cy, dz = q0.z - b.cz;
-      float hb = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
-      if (hb <= gate) {
-        if (k < 32) lo |= 1u << k; else hi |= 1u << (k - 32);
-      }
-    }
-    B.near_lo[tid] = lo;
-    B.near_hi[tid] = hi;
-    V3 t1, t2;
-    ao_frame(n, t1, t2);
-    float* fr = B.frame;
-    fr[0 * KS_THREADS + tid] = t1.x;
-    fr[1 * KS_THREADS + tid] = t1.y;
-    fr[2 * KS_THREADS + tid] = t1.z;
-    fr[3 * KS_THREADS + tid] = t2.x;
-    fr[4 * KS_THREADS + tid] = t2.y;
-    fr[5 * KS_THREADS + tid] = t2.z;
-  }
-  __syncthreads();
-  P.mark(PH_AO_SETUP);
-  // a pair (receiver slot r, tap tp) -> its tap point
-  auto pair = [&](int r, int tp, float& rad, float& azr) {
-    const int p = B.list[r];
-    const float* fr = B.frame;
-    const V3 t1{fr[r], fr[KS_THREADS + r], fr[2 * KS_THREADS + r]};
-    const V3 t2{fr[3 * KS_THREADS + r], fr[4 * KS_THREADS + r],
-                fr[5 * KS_THREADS + r]};
-    return ao_tap(S, B.rec3(R_PX, p), B.rec3(R_NX, p), t1, t2, tp, rad, azr);
-  };
-  for (int idx = tid; idx < n_list * NT; idx += KS_THREADS) {
-    const int r = idx / NT, tp = idx - r * NT;
-    if (!(B.R(R_HIT, B.list[r]) > 0.5f)) continue;
-    float rad, azr;
-    const V3 q = pair(r, tp, rad, azr);
-    B.terms[tp * KS_THREADS + r] = ao_unbounded(B, S, q, rad, azr, P);
-  }
-  __syncthreads();
-  P.mark(PH_AO_UNB);
-  for (int k = 0; k < n_rest; ++k) {
-    const int* ob = object_row(T, rest[k]);
-    if (!ob[O_BOUNDABLE]) continue;
-    const bool keep = act && (((k < 32 ? B.near_lo[tid] : B.near_hi[tid]) >>
-                               (k & 31)) & 1u);
-    const int kn = block_compact(keep, tid, B.plist, B.ctr + C_WARP);
-    for (int idx = tid; idx < kn * NT; idx += KS_THREADS) {
-      const int task = idx / NT, tp = idx - task * NT;
-      const int r = B.plist[task];
-      float rad, azr;
-      const V3 q = pair(r, tp, rad, azr);
-      float h = B.sdf(S, ob, q, S.ao_lod);
-      P.trip(PH_AO_OBJ + kp_obj(rest[k]));
-      float& term = B.terms[tp * KS_THREADS + r];
-      term = fmaxf(term, fmaxf(azr - h, 0.0f) / rad);
-    }
-    __syncthreads();
-    P.mark(PH_AO_OBJ + kp_obj(rest[k]));
-  }
-  if (act) {
-    float occ = 0.0f;
-    for (int tp = 0; tp < NT; ++tp) {
-      const float term = B.terms[tp * KS_THREADS + tid];
-      occ = tp == 0 ? term : occ + term;
-    }
-    occ = occ / (float)(S.ao_samples * 4);
-    B.R(R_AO, px) = sat(1.0f - S.ao_strength * occ);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Stage V
-// ---------------------------------------------------------------------------
-
 // Visibility of one light for one receiver, every object on its lane
-// (visibility<false>'s order); every lane calls it, `act` false for none.
-template <int FL, bool PROF>
-__device__ __forceinline__ float vis_receiver(const Block<FL>& B,
+// (visibility<false>'s order).
+template <bool PROF>
+__device__ __forceinline__ float vis_receiver(const Block& B,
                                               const KFSettings& S, bool act,
                                               int li, V3 o, V3 l, float dist,
                                               float kf, Prof<PROF>& P) {
@@ -633,13 +378,14 @@ __device__ __forceinline__ float vis_receiver(const Block<FL>& B,
           const float dist_i = soft_vis <= 0.0f ? 0.0f : dist;
           float t_lo = t0, t_hi = dist_i;
           if (ob[O_BOUNDABLE]) {
-            influence_window(B.lower(ob, ord[k]), o, l, t0, dist_i, kf, t_lo,
+            influence_window(B.lower(ord[k]), o, l, t0, dist_i, kf, t_lo,
                              t_hi);
             t_lo = fmaxf(t_lo, t0);
             t_hi = fminf(dist_i, t_hi);
           }
           v = soft_lane(
-              S, [&](V3 p) { return B.sdf(S, ob, p, S.secondary_lod); },
+              S,
+              [&](V3 p) { return eval_obj(B.T, S, ob, p, S.secondary_lod); },
               o, l, t_lo, t_hi, kf, P, ph);
         }
         soft_vis = fminf(soft_vis, v);
@@ -665,7 +411,7 @@ __device__ __forceinline__ float vis_receiver(const Block<FL>& B,
       float dist_i = vis <= 0.0f ? 0.0f : dist;
       float t1, clip2;
       if (ob[O_BOUNDABLE]) {
-        Bound b = B.cover(S, ob, oi);
+        Bound b = B.cover(oi);
         if (seg_bound_dist(b, o, l, S.shadow_eps, dist) > S.exit_margin)
           dist_i = 0.0f;
         bound_entry(b, o, l, S.shadow_eps, dist_i, S.default_shell, t1,
@@ -675,8 +421,8 @@ __device__ __forceinline__ float vis_receiver(const Block<FL>& B,
         clip2 = dist_i;
       }
       bool hit = march_lane(
-          S, [&](V3 p) { return B.sdf(S, ob, p, 0); }, o, l, t1, clip2,
-          P, kp_vis(li, oi));
+          S, [&](V3 p) { return eval_obj(B.T, S, ob, p, 0); }, o, l, t1,
+          clip2, P, kp_vis(li, oi));
       vis = vis * ((hit && t1 < dist_i) ? 0.0f : 1.0f);
     }
     P.mark(kp_vis(li, oi));
@@ -684,161 +430,17 @@ __device__ __forceinline__ float vis_receiver(const Block<FL>& B,
   return vis;
 }
 
-// One pass of the marched object ob over the receivers in B.plist[0, pn),
-// per-lane refill; the march's window is B.Q(Q_T0, r) .. B.Q(Q_T1, r).
-// SOFT: the penumbra march, its result min'ed into L_VIS; else the any-hit
-// march, an occlusion before B.Q(Q_DIST, r) zeroing L_VIS.
-template <bool SOFT, int FL, bool PROF>
-__device__ __forceinline__ void march_pass(const Block<FL>& B,
-                                           const KFSettings& S,
-                                           const int* ob, int pn, int ph,
-                                           Prof<PROF>& P) {
-  const KFTables& T = B.T;
-  const int cap = SOFT ? S.secondary_lod : 0;
-  auto sdf = [&](V3 p) { return B.sdf(S, ob, p, cap); };
-  int* next = B.ctr + C_NEXT;
-  int task = atomicAdd(next, 1);
-  int r = 0;
-  V3 o{0.0f, 0.0f, 0.0f}, l{0.0f, 0.0f, 0.0f};
-  SoftLane s;
-  MarchLane m;
-  auto take = [&] {
-    r = B.plist[task];
-    o = B.rec3(R_PX, B.list[r]);
-    l = V3{B.Lt(L_LX, r), B.Lt(L_LY, r), B.Lt(L_LZ, r)};
-    if constexpr (SOFT) {
-      soft_begin(s, B.Q(Q_T0, r), B.Q(Q_T1, r), B.Lt(L_KF, r));
-    } else {
-      march_begin(m, B.Q(Q_T0, r), B.Q(Q_T1, r));
-    }
-  };
-  if (task < pn) take();
-  while (task < pn) {
-    bool running;
-    if constexpr (SOFT) {
-      soft_step(S, sdf, o, l, s);
-      running = soft_running(S, s);
-    } else {
-      march_step(S, sdf, o, l, m);
-      running = march_running(S, m);
-    }
-    P.trip(ph);
-    if (!running) {
-      float& vis = B.Lt(L_VIS, r);
-      if constexpr (SOFT) {
-        vis = fminf(vis, clampf(s.res, 0.0f, 1.0f));
-      } else {
-        vis = vis * ((m.hit && m.t < B.Q(Q_DIST, r)) ? 0.0f : 1.0f);
-      }
-      task = atomicAdd(next, 1);
-      if (task < pn) take();
-    }
-  }
-}
-
-// Visibility of light li for every receiver of the block, object by object
-// in visibility<false>'s order, the marches as passes with refill; into
-// L_VIS (which the caller set to 1).
-template <int FL, bool PROF>
-__device__ __forceinline__ void vis_block(const Block<FL>& B,
-                                          const KFSettings& S, int li,
-                                          bool act, Prof<PROF>& P) {
-  const KFTables& T = B.T;
-  const int tid = threadIdx.x;
-  const V3 o = act ? B.rec3(R_PX, B.list[tid]) : V3{0.0f, 0.0f, 0.0f};
-  const V3 l{B.Lt(L_LX, tid), B.Lt(L_LY, tid), B.Lt(L_LZ, tid)};
-  const float dist = B.Lt(L_DIST, tid), kf = B.Lt(L_KF, tid);
-  if (S.soft_shadows) {
-    const float t0 = S.soft_shadow_tmin;
-    const int* ord = T.order + S.n_ana + S.n_sdf;
-    for (int k = 0; k < S.n_ana + S.n_sdf; ++k) {
-      const int* ob = object_row(T, ord[k]);
-      const int ph = kp_vis(li, ord[k]);
-      const int cf = ob[O_CLOSED_FORM];
-      if (cf >= 0) {
-        if (act) {
-          const float* prm = first_leaf_params(T, ob);
-          float v = cf == LEAF_PLANE ? penumbra_plane(prm, o, l, t0, dist, kf)
-                                     : penumbra_sphere(prm, o, l, t0, dist,
-                                                       kf);
-          B.Lt(L_VIS, tid) = fminf(B.Lt(L_VIS, tid), v);
-        }
-        P.mark(ph);
-        continue;
-      }
-      bool keep = false;
-      if (act) {
-        const float dist_i = B.Lt(L_VIS, tid) <= 0.0f ? 0.0f : dist;
-        float t_lo = t0, t_hi = dist_i;
-        if (ob[O_BOUNDABLE]) {
-          influence_window(B.lower(ob, ord[k]), o, l, t0, dist_i, kf, t_lo,
-                           t_hi);
-          t_lo = fmaxf(t_lo, t0);
-          t_hi = fminf(dist_i, t_hi);
-        }
-        B.Q(Q_T0, tid) = t_lo;
-        B.Q(Q_T1, tid) = t_hi;
-        keep = !(t_lo > t_hi) && S.shadow_steps > 0;
-      }
-      if (tid == 0) B.ctr[C_NEXT] = 0;
-      const int pn = block_compact(keep, tid, B.plist, B.ctr + C_WARP);
-      march_pass<true>(B, S, ob, pn, ph, P);
-      __syncthreads();
-      P.mark(ph);
-    }
-    return;
-  }
-  for (int k = 0; k < S.n_ana; ++k) {
-    if (act) {
-      int leaf;
-      float ti = intersect_analytic(T, object_row(T, T.order[k]), o, l,
-                                    S.shadow_eps, dist, leaf);
-      B.Lt(L_VIS, tid) = B.Lt(L_VIS, tid) * (ti < dist ? 0.0f : 1.0f);
-    }
-    P.mark(kp_vis(li, T.order[k]));
-  }
-  for (int k = 0; k < S.n_sdf; ++k) {
-    const int oi = T.order[S.n_ana + k];
-    const int* ob = object_row(T, oi);
-    bool keep = false;
-    if (act) {
-      float dist_i = B.Lt(L_VIS, tid) <= 0.0f ? 0.0f : dist;
-      float t1, clip2;
-      if (ob[O_BOUNDABLE]) {
-        Bound b = B.cover(S, ob, oi);
-        if (seg_bound_dist(b, o, l, S.shadow_eps, dist) > S.exit_margin)
-          dist_i = 0.0f;
-        bound_entry(b, o, l, S.shadow_eps, dist_i, S.default_shell, t1,
-                    clip2);
-      } else {
-        t1 = S.shadow_eps;
-        clip2 = dist_i;
-      }
-      B.Q(Q_T0, tid) = t1;
-      B.Q(Q_T1, tid) = clip2;
-      B.Q(Q_DIST, tid) = dist_i;
-      keep = !(t1 >= clip2) && S.max_steps > 0;
-    }
-    if (tid == 0) B.ctr[C_NEXT] = 0;
-    const int pn = block_compact(keep, tid, B.plist, B.ctr + C_WARP);
-    march_pass<false>(B, S, ob, pn, kp_vis(li, oi), P);
-    __syncthreads();
-    P.mark(kp_vis(li, oi));
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
-// One 16x8-pixel tile (column tx, row ty) of frame f: stages P to S.
-template <int FL, bool PROF>
-__device__ __forceinline__ void kf_tile(const Block<FL>& B,
-                                        const KFTables& G,
+// One 16x8-pixel tile (column tx, row ty) of frame f, thread tid's pixel.
+template <bool PROF>
+__device__ __forceinline__ void kf_tile(const Block& B, const KFTables& G,
                                         const KFSettings& S, int tx, int ty,
                                         int f, Prof<PROF>& P) {
   const int tid = threadIdx.x;
-  // -- stage P: the pixel's ray, primary trace, normal -> its record
+  // the pixel's ray, primary trace, normal -> its record
   const int j = tx * 16 + (tid & 15);
   const int i = ty * 8 + (tid >> 4);
   const bool in_frame = i < S.H && j < S.W;
@@ -871,80 +473,47 @@ __device__ __forceinline__ void kf_tile(const Block<FL>& B,
   B.R(R_AO, tid) = 1.0f;
   P.mark(PH_NORMAL);
 
-  // -- receivers: the hit pixels in pixel order, or every pixel
-  int n_list;
-  if constexpr (FL & KS_COMPACT) {
-    n_list = block_compact(hit, tid, B.list, B.ctr + C_WARP);
-  } else {
-    B.list[tid] = tid;
-    n_list = KS_THREADS;
-    // without a wavefront element each thread reads its own record only
-    if constexpr ((FL & (KS_WAVE | KS_SYNC)) != 0) __syncthreads();
-  }
-  const int px = tid < n_list ? B.list[tid] : 0;
-  const bool act = tid < n_list && B.R(R_HIT, px) > 0.5f;
-  P.mark(PH_COMPACT);
-
-  // -- stage A
+  // AO, then the ambient term
   if (S.ao && S.n_objects > 0) {
-    if constexpr (FL & KS_AO_OBJ) {
-      ao_block(B, S, n_list, P);
-    } else {
-      const float ao = ao_receiver(B, S, act, B.rec3(R_PX, px),
-                                   B.rec3(R_NX, px), P);
-      if (act) B.R(R_AO, px) = ao;
-    }
+    const float ao = ao_receiver(B, S, hit, B.rec3(R_PX, tid),
+                                 B.rec3(R_NX, tid), P);
+    if (hit) B.R(R_AO, tid) = ao;
   }
-  if (act) {
-    const float ao = B.R(R_AO, px);
-    const float* mat = B.material(G, px);
-    B.R(R_R, px) = mat[3] * mat[0] * G.ambient[0] * ao;
-    B.R(R_G, px) = mat[3] * mat[1] * G.ambient[1] * ao;
-    B.R(R_B, px) = mat[3] * mat[2] * G.ambient[2] * ao;
+  if (hit) {
+    const float ao = B.R(R_AO, tid);
+    const float* mat = B.material(G, tid);
+    B.R(R_R, tid) = mat[3] * mat[0] * G.ambient[0] * ao;
+    B.R(R_G, tid) = mat[3] * mat[1] * G.ambient[1] * ao;
+    B.R(R_B, tid) = mat[3] * mat[2] * G.ambient[2] * ao;
   }
   P.mark(PH_AO_SUM);
 
-  // -- stages V and S, light by light
+  // visibility and shading, light by light
   for (int li = 0; li < S.n_lights; ++li) {
     const float* lrow = G.lights + li * KF_LIGHT_W;
     V3 l{0.0f, 0.0f, 0.0f};
     float dist = 0.0f, kf = 0.0f;
-    if (act) B.light_of(G, S, px, li, l, dist, kf);
+    if (hit) B.light_of(G, S, tid, li, l, dist, kf);
     float vis = 1.0f;
-    if (S.shadows) {
-      if constexpr (FL & KS_REFILL) {
-        B.Lt(L_LX, tid) = l.x;
-        B.Lt(L_LY, tid) = l.y;
-        B.Lt(L_LZ, tid) = l.z;
-        B.Lt(L_DIST, tid) = dist;
-        B.Lt(L_KF, tid) = kf;
-        B.Lt(L_VIS, tid) = 1.0f;
-        __syncthreads();
-        vis_block(B, S, li, act, P);
-        vis = B.Lt(L_VIS, tid);
-        __syncthreads();
-      } else {
-        vis = vis_receiver(B, S, act, li, B.rec3(R_PX, px), l, dist, kf, P);
-      }
-    }
-    if (act) {
+    if (S.shadows)
+      vis = vis_receiver(B, S, hit, li, B.rec3(R_PX, tid), l, dist, kf, P);
+    if (hit) {
       // the light again from the record: nothing of it stays live across
-      // the passes
-      B.light_of(G, S, px, li, l, dist, kf);
-      const float* mat = B.material(G, px);
-      const int shin = object_row(B.T, (int)B.R(R_OBJ, px))[O_SHIN];
-      const V3 v{-B.R(R_DX, px), -B.R(R_DY, px), -B.R(R_DZ, px)};
-      float r = B.R(R_R, px), g = B.R(R_G, px), b = B.R(R_B, px);
-      add_light(mat, shin, lrow, B.rec3(R_NX, px), l, v, vis, r, g, b);
-      B.R(R_R, px) = r;
-      B.R(R_G, px) = g;
-      B.R(R_B, px) = b;
+      // the marches
+      B.light_of(G, S, tid, li, l, dist, kf);
+      const float* mat = B.material(G, tid);
+      const int shin = object_row(B.T, (int)B.R(R_OBJ, tid))[O_SHIN];
+      const V3 v{-B.R(R_DX, tid), -B.R(R_DY, tid), -B.R(R_DZ, tid)};
+      float r = B.R(R_R, tid), g = B.R(R_G, tid), b = B.R(R_B, tid);
+      add_light(mat, shin, lrow, B.rec3(R_NX, tid), l, v, vis, r, g, b);
+      B.R(R_R, tid) = r;
+      B.R(R_G, tid) = g;
+      B.R(R_B, tid) = b;
     }
     P.mark(PH_SHADE);
   }
-  if constexpr ((FL & (KS_WAVE | KS_SYNC)) != 0) __syncthreads();
 
-  // -- each pixel writes its nine planes from its record
+  // the nine planes from the record
   if (in_frame) {
     const bool h = B.R(R_HIT, tid) > 0.5f;
     write_pixel(G.out + ((size_t)f * S.H + i) * S.W + j,
@@ -957,9 +526,9 @@ __device__ __forceinline__ void kf_tile(const Block<FL>& B,
   P.mark(PH_WRITE);
 }
 
-// The kernel: the block's state and staging, then its tile or, with
-// KS_PERSIST, tiles from `work` until none is left.
-template <int FL, bool PROF>
+// The kernel: the block stages the scene, then takes tiles from `work`
+// until none is left.
+template <bool PROF>
 __global__ void __launch_bounds__(KS_THREADS)
 kf_staged_kernel(const KFTables G, const KFSettings S, const KSLayout L,
                  unsigned long long* prof, int* work) {
@@ -967,107 +536,85 @@ kf_staged_kernel(const KFTables G, const KFSettings S, const KSLayout L,
   const int tid = threadIdx.x;
   const int gx = (S.W + 15) / 16, gy = (S.H + 7) / 8;
   Prof<PROF> P;
-  if constexpr (!(FL & KS_PERSIST))
-    P.begin(prof, (blockIdx.z * gy + blockIdx.y) * gx + blockIdx.x);
 
-  Block<FL> B;
-  B.T = G;
-  B.bounds = nullptr;
-  B.ctr = (int*)(sm + L.ctr);
-  B.rec = (float*)(sm + L.rec);
-  B.list = (int*)(sm + L.list);
-  B.plist = (int*)(sm + L.plist);
-  B.near_lo = (unsigned*)(sm + L.near_lo);
-  B.near_hi = (unsigned*)(sm + L.near_hi);
-  B.frame = (float*)(sm + L.frame);
-  B.terms = (float*)(sm + L.terms);
-  B.light = (float*)(sm + L.light);
-  B.pass = (float*)(sm + L.pass);
-  if constexpr (FL & KS_STAGE) {
-    int* objects = (int*)(sm + L.objects);
-    int* nodes = (int*)(sm + L.nodes);
-    int* leaves = (int*)(sm + L.leaves);
-    int* order = (int*)(sm + L.order);
-    float* leaf_params = (float*)(sm + L.leaf_params);
-    float* node_params = (float*)(sm + L.node_params);
-    float* bounds = (float*)(sm + L.bounds);
-    stage_copy(objects, G.objects, S.n_objects * KF_OBJ_W);
-    stage_copy(nodes, G.nodes, L.n_nodes * KF_NODE_W);
-    stage_copy(leaves, G.leaves, L.n_leaves * KF_LEAF_W);
-    stage_copy(order, G.order, L.n_order);
-    stage_copy(leaf_params, G.leaf_params, L.n_leaf_rows * KF_LEAF_PARAM_W);
-    stage_copy(node_params, G.node_params, L.n_kp);
-    // both bounds of every boundable object, by object_bound itself
-    for (int oi = tid; oi < S.n_objects; oi += KS_THREADS) {
-      const int* ob = object_row(G, oi);
-      if (ob[O_ENGINE] == ENGINE_MESH || !ob[O_BOUNDABLE]) continue;
-      const Bound lo = object_bound(G, ob, 1, 0.0f);
-      const Bound cv = object_bound(G, ob, 0, S.exit_margin);
-      float* b = bounds + oi * 8;
-      b[0] = lo.cx; b[1] = lo.cy; b[2] = lo.cz; b[3] = lo.R;
-      b[4] = cv.cx; b[5] = cv.cy; b[6] = cv.cz; b[7] = cv.R;
-    }
-    B.T.objects = objects;
-    B.T.nodes = nodes;
-    B.T.leaves = leaves;
-    B.T.order = order;
-    B.T.leaf_params = leaf_params;
-    B.T.node_params = node_params;
-    B.bounds = bounds;
-    __syncthreads();
+  int* item_slot = (int*)(sm + L.ctr);
+  int* objects = (int*)(sm + L.objects);
+  int* nodes = (int*)(sm + L.nodes);
+  int* leaves = (int*)(sm + L.leaves);
+  int* order = (int*)(sm + L.order);
+  float* leaf_params = (float*)(sm + L.leaf_params);
+  float* node_params = (float*)(sm + L.node_params);
+  float* bounds = (float*)(sm + L.bounds);
+  stage_copy(objects, G.objects, S.n_objects * KF_OBJ_W);
+  stage_copy(nodes, G.nodes, L.n_nodes * KF_NODE_W);
+  stage_copy(leaves, G.leaves, L.n_leaves * KF_LEAF_W);
+  stage_copy(order, G.order, L.n_order);
+  stage_copy(leaf_params, G.leaf_params, L.n_leaf_rows * KF_LEAF_PARAM_W);
+  stage_copy(node_params, G.node_params, L.n_kp);
+  // both bounds of every boundable object, by object_bound itself
+  for (int oi = tid; oi < S.n_objects; oi += KS_THREADS) {
+    const int* ob = object_row(G, oi);
+    if (ob[O_ENGINE] == ENGINE_MESH || !ob[O_BOUNDABLE]) continue;
+    const Bound lo = object_bound(G, ob, 1, 0.0f);
+    const Bound cv = object_bound(G, ob, 0, S.exit_margin);
+    float* b = bounds + oi * 8;
+    b[0] = lo.cx; b[1] = lo.cy; b[2] = lo.cz; b[3] = lo.R;
+    b[4] = cv.cx; b[5] = cv.cy; b[6] = cv.cz; b[7] = cv.R;
   }
-  if constexpr (FL & KS_PERSIST) {
-    // tiles from the counter until none is left; the scene stays staged
-    const int n_items = gx * gy * S.F;
-    for (;;) {
-      if (tid == 0) B.ctr[C_ITEM] = atomicAdd(work, 1);
-      __syncthreads();
-      const int item = B.ctr[C_ITEM];
-      __syncthreads();
-      if (item >= n_items) break;
-      P.begin(prof, item);
-      kf_tile(B, G, S, item % gx, (item / gx) % gy, item / (gx * gy), P);
-    }
-  } else {
-    P.mark(PH_STAGE);
-    kf_tile(B, G, S, blockIdx.x, blockIdx.y, blockIdx.z, P);
+  Block B;
+  B.T = G;
+  B.T.objects = objects;
+  B.T.nodes = nodes;
+  B.T.leaves = leaves;
+  B.T.order = order;
+  B.T.leaf_params = leaf_params;
+  B.T.node_params = node_params;
+  B.bounds = bounds;
+  B.rec = (float*)(sm + L.rec);
+  __syncthreads();
+
+  const int n_items = gx * gy * S.F;
+  for (;;) {
+    if (tid == 0) *item_slot = atomicAdd(work, 1);
+    __syncthreads();
+    const int item = *item_slot;
+    __syncthreads();
+    if (item >= n_items) break;
+    P.begin(prof, item);
+    kf_tile(B, G, S, item % gx, (item / gx) % gy, item / (gx * gy), P);
   }
 }
 
 #ifdef __CUDACC__
-// Launch one instantiation on the frame's grid (16x8-pixel blocks).
-// Launch one instantiation: a block per 16x8-pixel tile, or with
-// KS_PERSIST as many blocks as the card holds at once, taking tiles from
-// work (one int, zeroed by the caller).
-template <int FL, bool PROF>
+// Launch as many blocks as the card holds at once (at most one per tile),
+// taking tiles from work (one int, zeroed by the caller).
+template <bool PROF>
 static int ks_launch(const KFTables& T, const KFSettings& S,
                      const KSLayout& L, unsigned long long* prof, int* work,
                      cudaStream_t stream) {
+  if (!work) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   if (L.bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(kf_staged_kernel<FL, PROF>,
+    err = cudaFuncSetAttribute(kf_staged_kernel<PROF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L.bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((S.W + 15) / 16, (S.H + 7) / 8, S.F);
-  if constexpr ((FL & KS_PERSIST) != 0) {
-    if (!work) return (int)cudaErrorInvalidValue;
-    int device = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kf_staged_kernel<FL, PROF>, KS_THREADS, L.bytes);
-    if (err != cudaSuccess) return (int)err;
-    const long long items = (long long)grid.x * grid.y * grid.z;
-    const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    grid = dim3((unsigned)(items < resident ? items : resident), 1, 1);
-  }
-  kf_staged_kernel<FL, PROF><<<grid, KS_THREADS, L.bytes, stream>>>(
-      T, S, L, prof, work);
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kf_staged_kernel<PROF>, KS_THREADS, L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long items = (long long)((S.W + 15) / 16) * ((S.H + 7) / 8) *
+                          S.F;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = (unsigned)(items < resident ? items : resident);
+  kf_staged_kernel<PROF><<<grid, KS_THREADS, L.bytes, stream>>>(T, S, L,
+                                                                prof, work);
   return (int)cudaGetLastError();
 }
 #endif

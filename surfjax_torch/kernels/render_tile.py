@@ -1451,19 +1451,29 @@ def frame_fused_reference(scene_t, settings: RenderSettings, intr, cam_rows,
     depth is 0 on a miss, obj carries the object index as a float (-1 on a
     miss) and the normal is zeroed on a miss, exactly as the kernel writes
     them."""
-    static, params = scene_t
     F, H, W = cam_rows.shape[0], intr.height, intr.width
-    lp, nparams = params["leaf_params"], params["node_params"]
     o3, d3 = frame_rays(intr, cam_rows)
     o = tuple(c.reshape(-1) for c in o3)
     d = tuple(c.reshape(-1) for c in d3)
+    out = fused_pixels(scene_t, settings, o, d,
+                       None if t0 is None else t0.reshape(-1), masks)
+    return tuple(a.reshape(F, H, W) for a in out)
+
+
+def fused_pixels(scene_t, settings: RenderSettings, o, d, t0=None,
+                 masks=None):
+    """The twin's work on flat rays o, d (component tuples) with primed
+    starts t0 (flat) or None: each lane is one pixel, independent of the
+    others (but for the crowd's masks, which index the whole frames) ->
+    the nine flat buffers of frame_fused_reference."""
+    static, params = scene_t
+    lp, nparams = params["leaf_params"], params["node_params"]
     cull = None if masks is None else masks.lanes
     if masks is not None:
         masks.tally()
 
     t, obj, leaf, hit_f = trace_core(
-        static, settings, lp, nparams, o, d,
-        t0=None if t0 is None else t0.reshape(-1), cull=cull)
+        static, settings, lp, nparams, o, d, t0=t0, cull=cull)
     hit = hit_f > 0.5
     t_sane = torch.where(hit, t, 0.0)
     p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
@@ -1505,9 +1515,8 @@ def frame_fused_reference(scene_t, settings: RenderSettings, intr, cam_rows,
     r, g, b = _shade_hits(static, settings, params, obj, hit, ambient, ao, n,
                           v, light_terms, (r, g, b))
 
-    out = (r, g, b, t_sane, obj, n[0] * hit_f, n[1] * hit_f, n[2] * hit_f,
-           hit_f)
-    return tuple(a.reshape(F, H, W) for a in out)
+    return (r, g, b, t_sane, obj, n[0] * hit_f, n[1] * hit_f, n[2] * hit_f,
+            hit_f)
 
 
 def _shade_hits(static, settings: RenderSettings, params, obj, hit, ambient,
@@ -2073,21 +2082,21 @@ def _raise_on(err: int, entry: str) -> None:
 
 
 # The staged kernel for scenes without a crowd (csrc/kf_staged.cuh): its
-# elements, its block, the records it keeps in shared memory and the phases
-# of its profile, as the header defines them.
-KS_STAGE, KS_COMPACT, KS_AO_OBJ, KS_REFILL, KS_LEAF, KS_SYNC, KS_PERSIST = \
-    1, 2, 4, 8, 16, 32, 64
-KS_ALL = 127    # every element
-KS_PROD = KS_STAGE | KS_PERSIST    # the production kernel's elements
+# block, the records it keeps in shared memory and the phases of its
+# profile, as the header defines them; then the phases of the profile of
+# the per-pixel kernel it replaced (csrc/kf_frame_prof.cu).
 KS_THREADS = 128
-KS_REC, KS_LIGHT, KS_PASS, KS_CTR = 16, 6, 3, 6
+KS_REC, KS_CTR = 16, 1
 KP_OBJ, KP_LIGHTS = 8, 4
 KP_PHASE_NAMES = (
-    ["stage", "ray"] + [f"primary o{k}" for k in range(KP_OBJ)]
-    + ["normal", "compact", "ao setup", "ao unbounded"]
+    ["ray"] + [f"primary o{k}" for k in range(KP_OBJ)]
+    + ["normal", "ao setup", "ao unbounded"]
     + [f"ao o{k}" for k in range(KP_OBJ)] + ["ao sum"]
     + [f"vis l{li} o{k}" for li in range(KP_LIGHTS) for k in range(KP_OBJ)]
     + ["shade", "write"])
+KF_PROF_NAMES = (["ray", "primary", "normal", "ao"]
+                 + [f"vis l{li}" for li in range(KP_LIGHTS)]
+                 + ["shade", "write"])
 
 
 class KSLayout(ctypes.Structure):
@@ -2096,38 +2105,25 @@ class KSLayout(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "bytes", "n_nodes", "n_leaves", "n_order", "n_leaf_rows", "n_kp",
         "ctr", "objects", "nodes", "leaves", "order", "leaf_params",
-        "node_params", "bounds", "rec", "list", "plist", "near_lo",
-        "near_hi", "frame", "terms", "light", "pass")]
+        "node_params", "bounds", "rec")]
 
 
 def staged_layout(n_objects: int, n_nodes: int, n_leaves: int, n_order: int,
-                  n_leaf_rows: int, n_kp: int, ao_samples: int,
-                  flags: int = KS_PROD) -> KSLayout:
-    """The block's shared memory for a scene of these table sizes: each
-    section 16-byte aligned, in the order of KSLayout; a section the
-    variant `flags` does not use is empty. `bytes` is the total the launch
-    asks for."""
-    stage = bool(flags & KS_STAGE)
-    ao_obj = bool(flags & KS_AO_OBJ)
-    refill = bool(flags & KS_REFILL)
+                  n_leaf_rows: int, n_kp: int) -> KSLayout:
+    """The block's shared memory for a scene of these table sizes: the tile
+    slot, the staged scene (its tables and two bounding spheres per
+    object) and the pixels' records, each section 16-byte aligned, in the
+    order of KSLayout. `bytes` is the total the launch asks for."""
     words = {
         "ctr": KS_CTR,
-        "objects": stage * n_objects * OBJ_W,
-        "nodes": stage * n_nodes * NODE_W,
-        "leaves": stage * n_leaves * LEAF_W,
-        "order": stage * n_order,
-        "leaf_params": stage * n_leaf_rows * 8,
-        "node_params": stage * n_kp,
-        "bounds": stage * n_objects * 8,
+        "objects": n_objects * OBJ_W,
+        "nodes": n_nodes * NODE_W,
+        "leaves": n_leaves * LEAF_W,
+        "order": n_order,
+        "leaf_params": n_leaf_rows * 8,
+        "node_params": n_kp,
+        "bounds": n_objects * 8,
         "rec": KS_REC * KS_THREADS,
-        "list": KS_THREADS,
-        "plist": (ao_obj or refill) * KS_THREADS,
-        "near_lo": ao_obj * KS_THREADS,
-        "near_hi": ao_obj * KS_THREADS,
-        "frame": ao_obj * 6 * KS_THREADS,
-        "terms": ao_obj * 4 * ao_samples * KS_THREADS,
-        "light": refill * KS_LIGHT * KS_THREADS,
-        "pass": refill * KS_PASS * KS_THREADS,
     }
     lay = KSLayout(n_nodes=n_nodes, n_leaves=n_leaves, n_order=n_order,
                    n_leaf_rows=n_leaf_rows, n_kp=n_kp)
@@ -2139,15 +2135,13 @@ def staged_layout(n_objects: int, n_nodes: int, n_leaves: int, n_order: int,
     return lay
 
 
-def _scene_layout(tables, settings: RenderSettings,
-                  flags: int = KS_PROD) -> KSLayout:
+def _scene_layout(tables) -> KSLayout:
     """staged_layout of the tables _scene_tables returns."""
     objects, nodes, leaves, order = tables[:4]
     leaf_params, node_params = tables[6], tables[7]
     return staged_layout(objects.shape[0], nodes.shape[0], leaves.shape[0],
                          order.numel(), leaf_params.shape[0],
-                         node_params.numel(),
-                         min(settings.ao_samples, len(_AO_DIRS)), flags)
+                         node_params.numel())
 
 
 def _kernel_args(scene_t, settings: RenderSettings, intr, cam_rows, t0):
@@ -2181,11 +2175,9 @@ def _launch_kernel(scene_t, settings: RenderSettings, intr, cam_rows, t0):
             err = lib.kf_frame_fused(tab, ks, dev.index, stream)
             entry = "kf_frame_fused"
         else:
-            # a persistent kernel's tile counter, zeroed
-            work = torch.zeros(1, dtype=torch.int32, device=dev) \
-                if KS_PROD & KS_PERSIST else None
-            err = lib.ks_frame_fused(tab, ks, _scene_layout(tables, settings),
-                                     None if work is None else
+            # the staged kernel's tile counter, zeroed
+            work = torch.zeros(1, dtype=torch.int32, device=dev)
+            err = lib.ks_frame_fused(tab, ks, _scene_layout(tables), None,
                                      work.data_ptr(), dev.index, stream)
             entry = "ks_frame_fused"
     _raise_on(err, entry)
@@ -2193,46 +2185,66 @@ def _launch_kernel(scene_t, settings: RenderSettings, intr, cam_rows, t0):
     return tuple(out[k] for k in range(9))
 
 
-def staged_launcher(scene_t, settings: RenderSettings, intr, cam_rows,
-                    t0=None, flags: int = KS_PROD, profile: bool = False):
-    """The staged kernel on a scene without a crowd, prepared once ->
-    (launch, out, prof): launch() runs it once on the current stream
+def _fused_launcher(scene_t, settings: RenderSettings, intr, cam_rows, t0,
+                    profile: bool, call):
+    """A fused-kernel launch on a scene without a crowd, prepared once ->
+    (launch, out, prof): launch() runs call(lib, tab, ks, layout, prof
+    pointer or None, stream) -> error code, once, on the current stream
     (not counted in `frame_fused.launches`: this is for timing and
-    profiling, not a render path) into out (9, F, H, W); flags picks the
-    production kernel (KS_PROD) or a variant (ks_variant_fused); profile:
-    its profiling instantiation (KS_PROD or 0), whose counters go to prof,
-    int64 (blocks * 4 warps, len(KP_PHASE_NAMES), 3): cycles, loop trips,
-    lane-evaluations; zeroed at every launch, as is the tile counter of
-    a persistent variant. Raises on a crowd."""
+    profiling, not a render path), into out (9, F, H, W); with profile,
+    prof is int64 (tiles * 4 warps, len(KP_PHASE_NAMES), 3), zeroed at
+    every launch, else None. Raises on a crowd."""
     from surfjax_torch.kernels import _build
     dev = cam_rows.device
     tab, ks, tables, counts, out = _kernel_args(scene_t, settings, intr,
                                                 cam_rows.contiguous(), t0)
     if counts[2] > 0:
-        raise ValueError("the staged kernel takes scenes without a crowd")
-    layout = _scene_layout(tables, settings, flags)
-    n_warps = (-(-intr.width // 16) * -(-intr.height // 8)
-               * cam_rows.shape[0] * (KS_THREADS // 32))
-    prof = torch.zeros((n_warps, len(KP_PHASE_NAMES), 3), dtype=torch.int64,
-                       device=dev) if profile else None
-    work = torch.zeros(1, dtype=torch.int32, device=dev)
+        raise ValueError("these launchers take scenes without a crowd")
+    layout = _scene_layout(tables)
+    tiles = (-(-intr.width // 16) * -(-intr.height // 8) * cam_rows.shape[0])
+    prof = torch.zeros((tiles * (KS_THREADS // 32), len(KP_PHASE_NAMES), 3),
+                       dtype=torch.int64, device=dev) if profile else None
     lib = _build.load()
 
     def launch():
         if prof is not None:
             prof.zero_()
-        work.zero_()
-        ptr = None if prof is None else prof.data_ptr()
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if flags == KS_PROD and ptr is None:
-            err = lib.ks_frame_fused(tab, ks, layout, work.data_ptr(),
-                                     dev.index, stream)
-        else:
-            err = lib.ks_variant_fused(tab, ks, layout, flags, ptr,
-                                       work.data_ptr(), dev.index, stream)
-        _raise_on(err, f"staged kernel (flags {flags})")
+        _raise_on(call(lib, tab, ks, layout,
+                       None if prof is None else prof.data_ptr(), stream),
+                  "fused kernel launcher")
 
     return launch, tuple(out[k] for k in range(9)), prof
+
+
+def staged_launcher(scene_t, settings: RenderSettings, intr, cam_rows,
+                    t0=None, profile: bool = False):
+    """The staged kernel (see _fused_launcher), its tile counter zeroed at
+    every launch; profile: its profiling instantiation, whose counters
+    (phases KP_PHASE_NAMES; per phase cycles, loop trips and
+    lane-evaluations) go to prof."""
+    dev = cam_rows.device
+    work = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def call(lib, tab, ks, layout, prof, stream):
+        work.zero_()
+        return lib.ks_frame_fused(tab, ks, layout, prof, work.data_ptr(),
+                                  dev.index, stream)
+
+    return _fused_launcher(scene_t, settings, intr, cam_rows, t0, profile,
+                           call)
+
+
+def frame_profile_launcher(scene_t, settings: RenderSettings, intr,
+                           cam_rows, t0=None):
+    """The profile of kf_frame_kernel<false>, the per-pixel kernel the
+    staged kernel replaced (csrc/kf_frame_prof.cu; see _fused_launcher):
+    its phases are KF_PROF_NAMES, the first of prof's, cycles only."""
+    def call(lib, tab, ks, layout, prof, stream):
+        return lib.kf_frame_profile(tab, ks, prof, cam_rows.device.index,
+                                    stream)
+
+    return _fused_launcher(scene_t, settings, intr, cam_rows, t0, True, call)
 
 
 def staged_occupancy(scene_t, settings: RenderSettings, dev) -> dict:
@@ -2240,7 +2252,7 @@ def staged_occupancy(scene_t, settings: RenderSettings, dev) -> dict:
     blocks per SM on the card, for this scene."""
     from surfjax_torch.kernels import _build
     tables, _ = _scene_tables(scene_t, settings, dev)
-    layout = _scene_layout(tables, settings)
+    layout = _scene_layout(tables)
     blocks = ctypes.c_int(0)
     _raise_on(_build.load().ks_occupancy(layout, ctypes.byref(blocks)),
               "ks_occupancy")

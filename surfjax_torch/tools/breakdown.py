@@ -23,21 +23,19 @@ kernel alone, which visits the members through the crowd's loops.
 For primed c3 it times `render` of one 1080p frame with and without
 priming and traces one primed call. `kf` times the fused kernel through its
 wrapper on c3 (48 frames, both modes) and on primed c3 (frame 0 with its
-t0), and where the package has the staged kernel also its variants by
-their elements: none (the per-pixel schedule), the barriers alone, the
-staging alone and with each other element, and all of them. `kf_phases`
-profiles the staged kernel and its per-pixel schedule on frame 0 of c3 in
-both modes (their profiling instantiations): per phase the share of the
-warps' cycles, the SIMT efficiency of its loops (lanes that evaluate an
-SDF per trip, over 32) and the SDF evaluations per hit pixel, beside the
-kernels' ptxas lines. `split` times each split kernel of one 1080p c4 frame
-in `ao` mode, launched back to back (as chip_smoke.py's phase 7). For the fit step (the pose fit on
-configs/c5_anim.yaml, see `fit_bench`) at 256x256 and at 1920x1080 it
-times runs of 10 steps on both backends and traces one run of 5 steps on
-`pallas`: wall and device time per step, the device's idle share, and the
-device time of K1 (`render_tile`) and K2 (`trace_rays`) inside a step; what
-is left of the device time is the tensor kernels of the glue and of the
-backward pass.
+t0). `kf_phases` profiles the staged kernel on frame 0 of c3 in both
+modes (its profiling instantiation): per phase the share of the warps'
+cycles, the SIMT efficiency of its loops (lanes that evaluate an SDF per
+trip, over 32) and the SDF evaluations per hit pixel, beside the share of
+each call of kf_frame_kernel<false>, the per-pixel kernel it replaced, and
+the kernels' ptxas lines. `split` times each split kernel of one 1080p c4
+frame in `ao` mode, launched back to back (as chip_smoke.py's phase 7).
+For the fit step (the pose fit on configs/c5_anim.yaml, see `fit_bench`)
+at 256x256 and at 1920x1080 it times runs of 10 steps on both backends and
+traces one run of 5 steps on `pallas`: wall and device time per step, the
+device's idle share, and the device time of K1 (`render_tile`) and K2
+(`trace_rays`) inside a step; what is left of the device time is the
+tensor kernels of the glue and of the backward pass.
 
 Prints the card's name, power limit, SM clock, power draw and temperature
 before and after, one JSON line per mode, and a last JSON line with all of
@@ -244,23 +242,9 @@ def _primed_t0(scene_t, camera, st, row):
 
 
 def kf(dev, res) -> None:
-    """The fused kernel by wrapper (whichever package is imported), then
-    the staged kernel's variants where the package has them; ms per frame
-    of REPS launches."""
-    from surfjax_torch.kernels import render_tile as rt
-    variants = {}
-    if hasattr(rt, "staged_launcher"):   # not in a checkout before it
-        staged_launcher = rt.staged_launcher
-        st_ = rt.KS_STAGE
-        variants = {"per_pixel": 0, "per_pixel+sync": rt.KS_SYNC,
-                    "staging": st_, "staging+sync": st_ | rt.KS_SYNC,
-                    "staging+leaf": st_ | rt.KS_LEAF,
-                    "staging+compaction": st_ | rt.KS_COMPACT,
-                    "staging+ao_passes": st_ | rt.KS_AO_OBJ,
-                    "staging+refill": st_ | rt.KS_REFILL,
-                    "staging+persist": st_ | rt.KS_PERSIST,
-                    "all": rt.KS_ALL}
-        print("kf production elements", rt.KS_PROD, flush=True)
+    """The fused kernel through its wrapper (whichever package is
+    imported) on c3 (48 frames, both modes) and primed c3 (frame 0 with its
+    t0); ms per frame of REPS launches."""
     scene_t, camera, modes, rows, row0 = _c3_frame0(dev)
     intr = camera.intrinsics
     cases = [(mode, st, rows, None) for mode, st in modes.items()]
@@ -273,27 +257,24 @@ def kf(dev, res) -> None:
         call()
         torch.cuda.synchronize()
         out = {"wrapper": [t / n for t in cuda_ms(call, REPS)[0]]}
-        for name, flags in variants.items():
-            launch, _, _ = staged_launcher(scene_t, st, intr, r, t0, flags)
-            launch()
-            torch.cuda.synchronize()
-            out[name] = [t / n for t in cuda_ms(launch, REPS)[0]]
         res[f"kf {mode}"] = out
         print(f"kf {mode}", json.dumps(out), flush=True)
 
 
-def phase_table(prof, hits: float, static) -> dict:
-    """A profile (warps, phases, 3) -> {phase: {cycles_share, trips,
-    simt, evals_per_hit}} for the phases that took cycles or ran a loop,
-    objects named by index, engine and tape, and the groups' totals."""
-    from surfjax_torch.kernels.render_tile import KP_OBJ, KP_PHASE_NAMES
-    tot = prof.sum(dim=0).double().cpu()
+def phase_table(prof, hits: float, static, names) -> dict:
+    """A profile (warps, phases, 3) whose first phases are `names` ->
+    {phase: {cycles_share, trips, simt, evals_per_hit}} for the phases that
+    took cycles or ran a loop, objects named by index, engine and tape, and
+    the groups' totals (a group: the phases whose names share the first
+    word)."""
+    from surfjax_torch.kernels.render_tile import KP_OBJ
+    tot = prof[:, :len(names)].sum(dim=0).double().cpu()
     cycles = float(tot[:, 0].sum())
     objs = static.ir.objects
     label = {f"o{k}": f"o{k} ({'sdf' if o.engine else 'analytic'}, "
              f"{len(o.nodes)} nodes)" for k, o in enumerate(objs[:KP_OBJ])}
     rows, groups = {}, {}
-    for k, name in enumerate(KP_PHASE_NAMES):
+    for k, name in enumerate(names):
         cyc, trips, lanes = (float(x) for x in tot[k])
         if cyc == 0.0 and trips == 0.0:
             continue
@@ -314,35 +295,47 @@ def phase_table(prof, hits: float, static) -> dict:
 
 
 def kf_phases(dev, res) -> None:
-    """Frame 0 of c3 at 1080p, both modes: the profiling instantiations of
-    the staged kernel and of its per-pixel schedule -> the phase tables,
-    the instrumented and plain kernels' ms, and their ptxas lines. The
-    production kernel's blocks are persistent: their staging, once per
-    block for many tiles, is outside its table."""
+    """Frame 0 of c3 at 1080p, both modes: the profiles of the staged
+    kernel (its profiling instantiation; per phase cycles, loop trips and
+    lanes) and of kf_frame_kernel<false>, the per-pixel kernel it replaced
+    (its body with a probe after each call; cycles per call) -> the phase
+    tables, the profiled kernels' ms beside the staged kernel's plain ms,
+    and the ptxas lines. Both profiled kernels must write the production
+    kernel's buffers. The staged kernel's blocks are persistent: their
+    staging, once per block for many tiles, is outside its table."""
     from surfjax_torch.kernels import _build
-    from surfjax_torch.kernels.render_tile import KS_PROD, staged_launcher
+    from surfjax_torch.kernels.render_tile import (
+        KF_PROF_NAMES, KP_PHASE_NAMES, frame_profile_launcher,
+        staged_launcher,
+    )
     info = _build.build()
     ptxas = {k: v for k, v in _build.entries(info["log"]).items()
-             if "kf_staged_kernel" in k}
+             if "kf_staged_kernel" in k or "kf_frame_prof" in k}
     print("kf phases ptxas", json.dumps(ptxas), flush=True)
     scene_t, camera, modes, _, row0 = _c3_frame0(dev)
     intr = camera.intrinsics
     for mode, st in modes.items():
-        for sched, flags in (("per_pixel", 0), ("staged", KS_PROD)):
-            launch, out, prof = staged_launcher(scene_t, st, intr, row0,
-                                                flags=flags, profile=True)
-            plain, _, _ = staged_launcher(scene_t, st, intr, row0,
-                                          flags=flags)
+        plain, ref, _ = staged_launcher(scene_t, st, intr, row0)
+        plain()
+        ms = cuda_ms(plain, REPS)[0]
+        hits = float(ref[8].sum())
+        for kernel, (launch, out, prof), names in (
+                ("staged", staged_launcher(scene_t, st, intr, row0,
+                                           profile=True), KP_PHASE_NAMES),
+                ("per_pixel", frame_profile_launcher(scene_t, st, intr,
+                                                     row0), KF_PROF_NAMES)):
             launch()
-            plain()
             torch.cuda.synchronize()
-            hits = float(out[8].sum())
-            table = phase_table(prof, hits, scene_t.static)
+            if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                raise AssertionError(f"the {kernel} profile's buffers differ "
+                                     "from the staged kernel's")
             entry = {"ms_profiled": cuda_ms(launch, REPS)[0],
-                     "ms": cuda_ms(plain, REPS)[0], "hit_pixels": hits,
-                     "phases": table}
-            res[f"kf phases {mode} {sched}"] = entry
-            print(f"kf phases {mode} {sched}", json.dumps(entry), flush=True)
+                     "ms_staged": ms, "hit_pixels": hits,
+                     "phases": phase_table(prof, hits, scene_t.static,
+                                           names)}
+            res[f"kf phases {mode} {kernel}"] = entry
+            print(f"kf phases {mode} {kernel}", json.dumps(entry),
+                  flush=True)
 
 
 def split(dev, res) -> None:

@@ -395,12 +395,13 @@ def test_fit_on_cuda_goes_through_k1_and_k2(cuda_device, mode):
 
 @pytest.mark.parametrize("mode", ["value", "value_exact"])
 def test_staged_kernel_and_its_profile_match_twin(cuda_device, mode):
-    """The staged kernel (production and profiling instantiations), its
-    per-pixel schedule and its variant with every element (the block
-    wavefronts) against the twin at 64x64 on c3, bitwise; the
-    profile's totals: every (hit receiver, tap) pair evaluates AO's
-    unbounded group (the plane) exactly once, no trip counts more than 32
-    lanes, and every phase of stage P took cycles."""
+    """The staged kernel, its profiling instantiation and the profile of
+    the per-pixel kernel it replaced against the twin at 64x64 on c3,
+    bitwise; the staged profile's totals: every (hit receiver, tap) pair
+    evaluates AO's unbounded group (the plane) exactly once, no trip counts
+    more than 32 lanes, and every phase of the primary trace took cycles;
+    the per-pixel profile's: cycles in every phase it has, no loop
+    trips."""
     from surfjax_torch.kernels import render_tile as rt
     scene, cam, st, _ = load_config(os.path.join(ROOT, "configs",
                                                  "c3_sdf.yaml"))
@@ -416,19 +417,29 @@ def test_staged_kernel_and_its_profile_match_twin(cuda_device, mode):
          np.asarray(cam.position, np.float32).reshape(1, 3)], axis=1),
         device=cuda_device)
     ref = frame_fused_reference(scene_t, st, intr, rows)
-    names = rt.KP_PHASE_NAMES
-    for flags, profile in ((rt.KS_PROD, False), (rt.KS_PROD, True),
-                           (0, True), (rt.KS_ALL, False)):
-        launch, out, prof = rt.staged_launcher(scene_t, st, intr, rows,
-                                               flags=flags, profile=profile)
+    hits = int(ref[8].sum())
+    for kind, (launch, out, prof) in (
+            ("staged", rt.staged_launcher(scene_t, st, intr, rows)),
+            ("staged", rt.staged_launcher(scene_t, st, intr, rows,
+                                          profile=True)),
+            ("per_pixel", rt.frame_profile_launcher(scene_t, st, intr,
+                                                    rows))):
         launch()
         torch.cuda.synchronize()
         for a, b in zip(out, ref):
             assert torch.equal(a, b)
-        if not profile:
+        if prof is None:
             continue
         tot = prof.sum(dim=0).cpu()
-        hits = int(ref[8].sum())
+        if kind == "per_pixel":
+            names = rt.KF_PROF_NAMES
+            for name in ("ray", "primary", "normal", "ao", "vis l0",
+                         "shade", "write"):
+                assert int(tot[names.index(name), 0]) > 0, name
+            assert int(tot[:, 1:].sum()) == 0
+            assert int(tot[len(names):].sum()) == 0
+            continue
+        names = rt.KP_PHASE_NAMES
         assert int(tot[names.index("ao unbounded"), 2]) == \
             hits * 4 * st.ao_samples
         assert bool((tot[:, 2] <= 32 * tot[:, 1]).all())

@@ -1,17 +1,16 @@
 """The staged fused-frame kernel's schedule (csrc/kf_staged.cuh) on the
 CPU, where no CUDA kernel runs.
 
-The kernel keeps KF's per-pixel arithmetic and changes only the order: per
-16x8-pixel block it compacts the hit pixels, computes AO object-major (the
-unbounded group's term of every receiver and tap, then per bounded object
-only the (receiver, tap) pairs whose near bit is set, max-combined, the
-terms summed in tap order), and runs each light's visibility object by
-object as passes over the receivers whose march would take a step.
-`staged_frame` below is that schedule in plain PyTorch, built from the
-twin's own functions on gathered subsets of the pixels; it must equal
+The kernel keeps KF's per-pixel arithmetic and changes only where it
+runs: persistent blocks take 16x8-pixel tiles (frame, tile row, tile
+column) from a counter, one thread per pixel, with the scene staged in
+shared memory. `staged_frame` below is that schedule in plain PyTorch:
+tile by tile in the counter's order, each tile's pixels through the twin's
+own per-pixel work (`fused_pixels`) on those pixels alone; it must equal
 `frame_fused_reference` to the bit on every scene the kernel renders. The
 layout tests hold the shared-memory budget the launch asks for against the
-scene's size, and the constants of the Python side against the header.
+scene's size, and the constants of the Python side against the kernels'
+sources.
 """
 
 import os
@@ -25,7 +24,6 @@ torch.set_num_threads(1)
 
 import surfjax_torch.api as pt_api  # noqa: E402
 from surfjax_torch.config import load_config  # noqa: E402
-from surfjax_torch.core.math import f32, maximum  # noqa: E402
 from surfjax_torch.kernels import render_tile as rt  # noqa: E402
 from surfjax_torch.tools import workload  # noqa: E402
 
@@ -99,183 +97,45 @@ def _frame(case):
 
 
 # ---------------------------------------------------------------------------
-# The block schedule in plain PyTorch
+# The tile schedule in plain PyTorch
 # ---------------------------------------------------------------------------
 
-def block_lists(hit, H: int, W: int):
-    """The kernel's receiver lists: per 16x8-pixel block (blocks in grid
-    order), its hit pixels in thread order (row-major inside the block)
-    -> flat pixel indices of every receiver, block by block, and the
-    block of each."""
-    i = torch.arange(H).view(H, 1).expand(H, W)
-    j = torch.arange(W).view(1, W).expand(H, W)
-    block = (i // 8) * (-(-W // 16)) + j // 16
-    thread = (i % 8) * 16 + j % 16
-    key = (block * 128 + thread).reshape(-1)
-    order = torch.argsort(key)
-    keep = hit.reshape(-1)[order]
-    return order[keep], block.reshape(-1)[order][keep]
+def tile_items(F: int, H: int, W: int):
+    """The tiles in the counter's order, as kf_staged_kernel decodes an
+    item -> (frame, tile row, tile column) each."""
+    gx, gy = -(-W // 16), -(-H // 8)
+    return [(item // (gx * gy), (item // gx) % gy, item % gx)
+            for item in range(gx * gy * F)]
 
 
-def _take(xs, idx):
-    return tuple(x[idx] for x in xs)
+def tile_pixels(ty: int, tx: int, H: int, W: int):
+    """Thread tid's pixel (i, j) of tile (ty, tx), tid 0..127, and which
+    of them lie in the frame."""
+    tid = torch.arange(rt.KS_THREADS)
+    i, j = ty * 8 + tid // 16, tx * 16 + tid % 16
+    return i, j, (i < H) & (j < W)
 
 
 def staged_frame(scene_t, settings, intr, cam_rows, t0=None):
-    """One frame (cam_rows (1, 12)) in the staged kernel's order -> the nine
-    (1, H, W) buffers of frame_fused_reference. Stage P is the twin's
-    (trace_core, normals_core); AO and visibility run on the receivers of
-    the block lists, object-major, each pass only on the receivers whose
-    march takes a step."""
-    static, params = scene_t
-    H, W = intr.height, intr.width
-    lp, nparams = params["leaf_params"], params["node_params"]
+    """F frames in the staged kernel's order: tile by tile, each tile's
+    pixels in the frame through fused_pixels alone, written into the nine
+    (F, H, W) buffers; every pixel is written exactly once."""
+    F, H, W = cam_rows.shape[0], intr.height, intr.width
     o3, d3 = rt.frame_rays(intr, cam_rows)
-    o = tuple(c.reshape(-1) for c in o3)
-    d = tuple(c.reshape(-1) for c in d3)
-    t, obj, leaf, hit_f = rt.trace_core(
-        static, settings, lp, nparams, o, d,
-        t0=None if t0 is None else t0.reshape(-1))
-    hit = hit_f > 0.5
-    t_sane = torch.where(hit, t, 0.0)
-    p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
-    n = rt.normals_core(static, settings, lp, nparams, p, obj, leaf, d)
-    eps = f32(settings.shadow_eps)
-    p_off = (p[0] + n[0] * eps, p[1] + n[1] * eps, p[2] + n[2] * eps)
-
-    recv, _ = block_lists(hit, H, W)
-    q0, nr = _take(p_off, recv), _take(n, recv)
-    ao = torch.ones_like(t)
-    if settings.ao and static.ir.objects:
-        ao[recv] = _staged_ao(static, settings, lp, nparams, q0, nr)
-
-    light_terms = []
-    for li, kind in enumerate(static.ir.lights):
-        lrow = params["lights"][li]
-        l, dist, soft_k = rt._light_ray(settings, kind, lrow, p_off)
-        vis = torch.ones_like(t)
-        if settings.shadows:
-            vis[recv] = _staged_vis(static, settings, lp, nparams, q0,
-                                    _take(l, recv), dist[recv],
-                                    soft_k[recv])
-        light_terms.append((l, (lrow[3], lrow[4], lrow[5]), vis))
-
-    zeros = torch.zeros_like(t)
-    bg = settings.background
-    amb = params["ambient"]
-    rgb = rt._shade_hits(static, settings, params, obj, hit,
-                         (amb[0], amb[1], amb[2]), ao, n,
-                         (-d[0], -d[1], -d[2]), light_terms,
-                         (zeros + f32(bg[0]), zeros + f32(bg[1]),
-                          zeros + f32(bg[2])))
-    out = (*rgb, t_sane, obj, n[0] * hit_f, n[1] * hit_f, n[2] * hit_f,
-           hit_f)
-    return tuple(a.reshape(1, H, W) for a in out)
-
-
-def _staged_ao(static, settings, lp, nparams, q0, n):
-    """Object-major AO of the receivers (receiver, tap) by (receiver, tap):
-    the unbounded group's terms, then per bounded object, in the kernel's
-    order, its terms on the near pairs only, max-combined; the sum in tap
-    order."""
-    crowd, analytic, sdf_objs = rt.split_crowd(static, settings)
-    assert crowd is None
-    rest = sorted(analytic + sdf_objs, key=lambda io: len(io[1].nodes))
-    cap = settings.ao_lod_iters or settings.secondary_lod_iters
-    lod_fn = rt._fast_leaf_fn(settings, cap)
-    radius = settings.ao_radius
-    taps = list(rt.ao_tap_points(q0, n, settings.ao_samples, radius))
-    unbounded = [io for io in rest
-                 if rt._object_bound(io[1], lp, nparams, lower=True) is None]
-    if unbounded:
-        fn = rt._scene_sdf(unbounded, lp, nparams, lod_fn)
-        terms = [rt.ao_tap_term(az, r, fn(q)) for az, r, q in taps]
-    else:
-        terms = [torch.zeros_like(q0[0]) for _ in taps]
-    for i, oir in rest:
-        b = rt._object_bound(oir, lp, nparams, lower=True)
-        if b is None:
-            continue
-        dx, dy, dz = (q0[k] - b[k] for k in range(3))
-        from surfjax_torch.core.math import sqrt
-        near = sqrt((dx * dx + dy * dy) + dz * dz) - b[3] <= \
-            f32(2.0 * f32(radius))
-        idx = near.nonzero().reshape(-1)
-        if idx.numel() == 0:
-            continue
-        fn = rt._object_sdf(oir, lp, nparams, lod_fn)
-        for k, (az, r, q) in enumerate(taps):
-            term = rt.ao_tap_term(az, r, fn(_take(q, idx)))
-            terms[k] = terms[k].clone()
-            terms[k][idx] = torch.maximum(terms[k][idx], term)
-    return rt.ao_terms_to_factor(terms, settings.ao_samples,
-                                 settings.ao_strength)
-
-
-def _staged_vis(static, settings, lp, nparams, o, l, dist, kf):
-    """One light's visibility of the receivers, object by object in
-    visibility_core's order; each marched object is a pass over the
-    receivers whose march takes a step, the others keep their value."""
-    _, analytic, sdf_objs = rt.split_crowd(static, settings)
-    eps = settings.shadow_eps
-    vis = torch.ones_like(dist)
-    if settings.soft_shadows:
-        t0 = f32(settings.soft_shadow_tmin)
-        lod_fn = rt._fast_leaf_fn(settings, settings.secondary_lod_iters)
-        for _, oir in sorted(analytic + sdf_objs,
-                             key=lambda io: len(io[1].nodes)):
-            cf = rt._single_leaf_closed_form(oir)
-            if cf is not None:
-                pen = rt._penumbra_plane if cf == rt.LEAF_PLANE else \
-                    rt._penumbra_sphere
-                vis = torch.minimum(vis, pen(lp[oir.leaves[0].slot], o, l,
-                                             t0, dist, kf))
-                continue
-            dist_i = torch.where(vis <= 0.0, 0.0, dist)
-            b = rt._object_bound(oir, lp, nparams, lower=True)
-            if b is not None:
-                t_lo, t_hi = rt._influence_window(b, o, l, t0, dist_i, kf)
-                t_lo, t_hi = maximum(t_lo, t0), torch.minimum(dist_i, t_hi)
-            else:
-                t_lo, t_hi = torch.full_like(dist_i, t0), dist_i
-            idx = (~(t_lo > t_hi)).nonzero().reshape(-1)
-            if idx.numel() == 0 or settings.shadow_steps == 0:
-                continue
-            sdf_i = rt._object_sdf(oir, lp, nparams, lod_fn)
-            v = rt._soft_march(sdf_i, _take(o, idx), _take(l, idx),
-                               t_lo[idx], t_hi[idx], kf[idx],
-                               settings.shadow_steps,
-                               relax=settings.over_relax)
-            vis = vis.clone()
-            vis[idx] = torch.minimum(vis[idx], v)
-        return vis
-    for _, oir in analytic:
-        t_i, _ = rt.intersect_analytic(oir, lp, o, l, eps, dist)
-        vis = vis * torch.where(t_i < dist, 0.0, 1.0)
-    em = rt._exit_margin(settings)
-    fast_fn = rt._fast_leaf_fn(settings)
-    for _, oir in sorted(sdf_objs, key=lambda io: len(io[1].nodes)):
-        dist_i = torch.where(vis <= 0.0, 0.0, dist)
-        b = rt._object_bound(oir, lp, nparams, cover_margin=em)
-        start = torch.full_like(dist_i, f32(eps))
-        if b is not None:
-            dseg = rt._seg_bound_dist(b, o, l, f32(eps), dist)
-            dist_i = torch.where(dseg > f32(em), 0.0, dist_i)
-            t1, clip2 = rt._bound_entry(b, o, l, start, dist_i, em)
-        else:
-            t1, clip2 = start, dist_i
-        idx = (~(t1 >= clip2)).nonzero().reshape(-1)
-        if idx.numel() == 0 or settings.max_steps == 0:
-            continue
-        sdf_i = rt._object_sdf(oir, lp, nparams, fast_fn)
-        t_s, hit_s = rt._march(sdf_i, _take(o, idx), _take(l, idx), t1[idx],
-                               clip2[idx], settings.max_steps,
-                               settings.hit_eps, relax=settings.over_relax,
-                               eps_scale=settings.hit_eps_scale)
-        occ = hit_s & (t_s < dist_i[idx])
-        vis = vis.clone()
-        vis[idx] = vis[idx] * torch.where(occ, 0.0, 1.0)
-    return vis
+    out = [torch.full((F * H * W,), float("nan")) for _ in range(9)]
+    written = torch.zeros(F * H * W, dtype=torch.int64)
+    for f, ty, tx in tile_items(F, H, W):
+        i, j, keep = tile_pixels(ty, tx, H, W)
+        idx = (f * H + i[keep]) * W + j[keep]
+        o = tuple(c.reshape(-1)[idx] for c in o3)
+        d = tuple(c.reshape(-1)[idx] for c in d3)
+        got = rt.fused_pixels(scene_t, settings, o, d,
+                              None if t0 is None else t0.reshape(-1)[idx])
+        for buf, x in zip(out, got):
+            buf[idx] = x
+        written[idx] += 1
+    assert bool((written == 1).all())
+    return tuple(buf.reshape(F, H, W) for buf in out)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +144,7 @@ def _staged_vis(static, settings, lp, nparams, o, l, dist, kf):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_staged_schedule_equals_twin(case):
-    """The block schedule equals the twin bitwise on every buffer."""
+    """The tile schedule equals the twin bitwise on every buffer."""
     scene_t, st, intr, rows = _frame(case)
     ref = rt.frame_fused_reference(scene_t, st, intr, rows)
     got = staged_frame(scene_t, st, intr, rows)
@@ -295,101 +155,102 @@ def test_staged_schedule_equals_twin(case):
 
 
 def test_staged_schedule_equals_twin_primed():
-    """c3 primed (t0 from the port's prime_frame) at 48x48."""
+    """c3 primed (t0 from the port's prime_frame) at 48x48, two frames:
+    the tiles of the second frame follow all of the first's."""
     scene, cam, st = _config("c3_sdf", (48, 48), prime=True, prime_min=32)
     static, params = scene.freeze()
     params = {k: torch.as_tensor(v) for k, v in params.items()}
     R = torch.as_tensor(np.asarray(cam.rotation, np.float32).reshape(9))
     pos = torch.as_tensor(np.asarray(cam.position, np.float32))
-    t0 = rt.prime_frame(static, cam.intrinsics, st, params, R, pos)[None]
-    rows = torch.cat([R, pos]).reshape(1, 12)
+    pos2 = pos + torch.tensor([0.02, 0.0, -0.01])
+    t0 = torch.stack([rt.prime_frame(static, cam.intrinsics, st, params, R,
+                                     p) for p in (pos, pos2)])
+    rows = torch.stack([torch.cat([R, p]) for p in (pos, pos2)])
     scene_t = rt.SceneTensors(static, params)
     ref = rt.frame_fused_reference(scene_t, st, cam.intrinsics, rows, t0)
     got = staged_frame(scene_t, st, cam.intrinsics, rows, t0)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert bool((t0 < st.t_max).any())
+    assert not torch.equal(ref[3][0], ref[3][1])
 
 
-def test_block_lists_are_hit_pixels_in_thread_order():
-    """37x23: three blocks across, three down, the last ones ragged; the
-    list keeps each block's hit pixels row-major inside the block."""
-    H, W = 23, 37
-    hit = torch.rand(H, W, generator=torch.Generator().manual_seed(0)) < 0.6
-    recv, blk = block_lists(hit, H, W)
-    assert recv.numel() == int(hit.sum())
-    assert bool((blk[1:] >= blk[:-1]).all())
-    i, j = recv // W, recv % W
-    first = recv[blk == 1]
-    assert bool(((first // W) < 8).all()) and bool(((first % W) >= 16).all())
-    thread = (i % 8) * 16 + j % 16
-    same = blk[1:] == blk[:-1]
-    assert bool((thread[1:][same] > thread[:-1][same]).all())
+@pytest.mark.parametrize("F, H, W", [(1, 1080, 1920), (3, 23, 37),
+                                     (2, 8, 16), (1, 1, 1)])
+def test_tiles_cover_each_pixel_once(F, H, W):
+    """The counter's items cover every pixel of every frame exactly once,
+    ragged edges included; items run frame by frame, then row-major over
+    the tiles, and a thread's pixel is row-major inside its tile."""
+    items = tile_items(F, H, W)
+    assert len(items) == F * -(-H // 8) * -(-W // 16)
+    assert items == sorted(items)
+    seen = torch.zeros(F * H * W, dtype=torch.int64)
+    for f, ty, tx in items:
+        i, j, keep = tile_pixels(ty, tx, H, W)
+        assert bool(keep[0]) and int(i[16]) == ty * 8 + 1
+        seen[(f * H + i[keep]) * W + j[keep]] += 1
+    assert bool((seen == 1).all())
 
 
 @pytest.mark.parametrize("case", ["c3 value", "64 objects"])
 def test_shared_memory_budget(case):
-    """The launch's shared memory grows with the scene's tables (staging)
-    and the AO taps (the object-major terms): with every element, c3 stays
-    under the 48 KB a block gets without opting in and the 64-object scene
-    within the H100's 227 KB; the production kernel asks for the records
-    and the staged scene, the per-pixel schedule for the records only."""
+    """The launch's shared memory is the tile slot, the staged scene (its
+    tables and two bounding spheres per object) and the pixels' records:
+    c3 stays under the 48 KB a block gets without opting in, the
+    64-object scene within the H100's 227 KB; the AO taps take none."""
     scene_t, st, _, _ = _frame(case)
     tables, counts = rt._scene_tables(scene_t, st, torch.device("cpu"))
-    prod = rt._scene_layout(tables, st)
-    every = rt._scene_layout(tables, st, rt.KS_ALL)
-    none = rt._scene_layout(tables, st, 0)
-    assert every.bytes <= SMEM_MAX
+    lay = rt._scene_layout(tables)
+    assert lay.bytes <= SMEM_MAX
     if case == "c3 value":
-        assert every.bytes <= 48 * 1024
+        assert lay.bytes <= 48 * 1024
     objects, nodes, leaves, order = tables[:4]
     scene_words = (objects.numel() + nodes.numel() + leaves.numel()
                    + order.numel() + tables[6].numel() + tables[7].numel()
                    + 8 * objects.shape[0])
-    assert 0 <= prod.bytes - none.bytes - 4 * scene_words < 16 * 7
-    assert none.bytes == -(-4 * rt.KS_CTR // 16) * 16 + \
-        4 * (rt.KS_REC + 1) * rt.KS_THREADS
-    more_taps = st.with_(ao_samples=9)
-    assert rt._scene_layout(tables, more_taps, rt.KS_ALL).bytes - \
-        every.bytes == 4 * 4 * (9 - min(st.ao_samples, 9)) * rt.KS_THREADS
-    assert rt._scene_layout(tables, more_taps).bytes == prod.bytes
+    fixed = 16 + 4 * rt.KS_REC * rt.KS_THREADS
+    assert 0 <= lay.bytes - fixed - 4 * scene_words < 16 * 7
+    assert rt._scene_layout(rt._scene_tables(
+        scene_t, st.with_(ao_samples=9), torch.device("cpu"))[0]).bytes == \
+        lay.bytes
 
 
 def test_layout_sections_are_aligned_and_disjoint():
-    lay = rt.staged_layout(3, 7, 5, 6, 5, 2, 5, rt.KS_ALL)
+    lay = rt.staged_layout(3, 7, 5, 6, 5, 2)
     names = [f for f, _ in rt.KSLayout._fields_[6:]]
     offs = [getattr(lay, f) for f in names] + [lay.bytes]
     assert all(x % 16 == 0 for x in offs)
     assert all(a <= b for a, b in zip(offs, offs[1:]))
-    assert lay.rec - lay.ctr >= 4 * rt.KS_CTR
-    assert lay.list - lay.rec == 4 * rt.KS_REC * rt.KS_THREADS
-    assert lay.bytes - getattr(lay, "pass") == \
-        4 * rt.KS_PASS * rt.KS_THREADS
+    assert lay.objects - lay.ctr >= 4 * rt.KS_CTR
+    assert lay.rec - lay.bounds >= 4 * 8 * 3
+    assert lay.bytes - lay.rec == 4 * rt.KS_REC * rt.KS_THREADS
 
 
 def test_header_constants_match():
-    """The Python side's record widths, flags and profile phases are the
-    header's."""
+    """The Python side's record width, block, layout and profile phases
+    are the kernels' sources'."""
     with open(os.path.join(CSRC, "kf_staged.cuh")) as fh:
         src = fh.read()
+    with open(os.path.join(CSRC, "kf_frame_prof.cu")) as fh:
+        prof_src = fh.read()
 
-    def enum_len(last):
-        body = re.search(r"enum \{([^}]*\b%s\b[^}]*)\}" % last, src).group(1)
+    def enum_len(text, last):
+        body = re.search(r"enum \{([^}]*\b%s\b[^}]*)\}" % last,
+                         text).group(1)
         names = [x.split("=")[0].strip() for x in body.split(",")]
         return names.index(last)
 
-    assert enum_len("KS_REC") == rt.KS_REC
-    assert enum_len("KS_LIGHT") == rt.KS_LIGHT
-    assert enum_len("KS_PASS") == rt.KS_PASS
+    assert enum_len(src, "KS_REC") == rt.KS_REC
     assert int(re.search(r"#define KP_OBJ (\d+)", src).group(1)) == rt.KP_OBJ
     assert int(re.search(r"#define KP_LIGHTS (\d+)", src).group(1)) == \
         rt.KP_LIGHTS
     assert int(re.search(r"#define KS_THREADS (\d+)", src).group(1)) == \
         rt.KS_THREADS
-    # KS_CTR = C_ITEM + 1 = C_WARP + KS_WARPS + 1; KP_PHASES as its enum
-    # counts it
-    assert rt.KS_CTR == 2 + rt.KS_THREADS // 32
+    # KP_PHASES and KF_PROF_PHASES as their enums count them
     assert len(rt.KP_PHASE_NAMES) == \
-        2 + rt.KP_OBJ + 4 + rt.KP_OBJ + 1 + rt.KP_LIGHTS * rt.KP_OBJ + 2
+        1 + rt.KP_OBJ + 3 + rt.KP_OBJ + 1 + rt.KP_LIGHTS * rt.KP_OBJ + 2
+    assert len(rt.KF_PROF_NAMES) == 4 + rt.KP_LIGHTS + 2
+    assert "PF_SHADE = PF_VIS + KP_LIGHTS, PF_WRITE, KF_PROF_PHASES" in \
+        prof_src
     struct = re.search(r"struct KSLayout \{([^}]*)\}", src).group(1)
     fields = re.findall(r"\w+", struct.replace("int", ""))
     assert fields == [f for f, _ in rt.KSLayout._fields_]
