@@ -145,10 +145,45 @@ def sass_hashes(lib_path: str, names) -> dict:
     return out
 
 
+def sass_loops(lib_path: str, name: str) -> list:
+    """-> the loops of one entry's SASS, as cuobjdump prints it: for each
+    backward branch, {"start", "end" (its addresses), "instructions" (in
+    [start, end]), and per class the count: "fp32" (FADD, FMUL, FFMA,
+    FSETP, FMNMX, FSEL, MUFU), "shared" (LDS), "global" (LDG, LD),
+    "shuffle" (SHFL, VOTE)}, innermost first (fewest instructions)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", "-fun", name, lib_path],
+                         capture_output=True, text=True, timeout=300)
+    code = []
+    for ln in res.stdout.splitlines():
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+        if m:
+            code.append((int(m.group(1), 16), m.group(2)))
+    classes = {"fp32": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL",
+                        "MUFU"),
+               "shared": ("LDS",), "global": ("LDG", "LD."),
+               "shuffle": ("SHFL", "VOTE")}
+    loops = []
+    for addr, text in code:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) > addr:
+            continue
+        start = int(m.group(1), 16)
+        body = [t for a, t in code if start <= a <= addr]
+        ops = [t.split()[1] if t.startswith("@") else t.split()[0]
+               for t in body]
+        loop = {"start": hex(start), "end": hex(addr),
+                "instructions": len(body)}
+        for cls, names in classes.items():
+            loop[cls] = sum(op.startswith(names) for op in ops)
+        loops.append(loop)
+    return sorted(loops, key=lambda lp: lp["instructions"])
+
+
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures."""
-    from surfjax_torch.kernels.mesh_tile import MeshTileArgs
+    from surfjax_torch.kernels.mesh_tile import MeshTileArgs, MeshTileProf
     from surfjax_torch.kernels.render_tile import (
         KFSettings, KFTables, KSLayout, PrimeArgs, SplitRays,
     )
@@ -171,6 +206,8 @@ def load() -> ctypes.CDLL:
                                   ctypes.c_int, ctypes.c_void_p]
     lib.mt_mesh_tile.argtypes = [MeshTileArgs, ctypes.c_int,
                                  ctypes.c_void_p]
+    lib.mt_mesh_tile_profile.argtypes = [MeshTileArgs, MeshTileProf,
+                                         ctypes.c_int, ctypes.c_void_p]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     mixes = ("fp_bulb_mix", "fp_cheb_mix", "fp_bulb_mix_fma",
              "fp_cheb_mix_fma")
@@ -181,7 +218,8 @@ def load() -> ctypes.CDLL:
     lib.fp_fma_dep.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
     for name in ("kf_frame_fused", "ks_frame_fused", "kf_frame_profile",
                  "ks_occupancy", "sp_render_tile", "sp_trace_rays",
-                 "sp_ao_fix", "pt_prime_tile", "mt_mesh_tile", "fp_fma_dep",
+                 "sp_ao_fix", "pt_prime_tile", "mt_mesh_tile",
+                 "mt_mesh_tile_profile", "fp_fma_dep",
                  *mixes):
         getattr(lib, name).restype = ctypes.c_int
     lib.kf_error_string.argtypes = [ctypes.c_int]

@@ -50,9 +50,78 @@ struct MeshTileArgs {
   float t_min;
 };
 
+// mesh_tile.MeshTileProf, passed by value: the profiling instantiation's
+// outputs (null in production).
+struct MeshTileProf {
+  unsigned long long* rec;   // (warps, MP_PHASES, 3): cycles, trips, lanes
+  int* tests;                // (n_rays,) triangle tests of each lane
+};
+
+// Profile phases (mesh_tile.MT_PHASE_NAMES). Cycles are lane 0's clock64
+// deltas between the warp's probes; the test loop's trips (the most tests
+// of any lane of the warp) and lane-tests sit in MP_TEST's slots. A hit's
+// record is timed by the lowest lane that records it and taken out of the
+// test loop's cycles.
+enum { MP_STAGE = 0, MP_TEST, MP_RECORD, MP_WRITE, MP_PHASES };
+
+template <bool ON>
+struct MtProf {
+  __device__ __forceinline__ void begin() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void test() {}
+  __device__ __forceinline__ void rec_begin() {}
+  __device__ __forceinline__ void rec_end() {}
+  __device__ __forceinline__ void finish(const MeshTileProf&, int, bool) {}
+};
+
+template <>
+struct MtProf<true> {
+  long long cyc[MP_PHASES] = {0, 0, 0, 0};
+  long long t, r0 = 0, rec = 0;
+  int tests = 0;
+  bool leader = false;
+  __device__ __forceinline__ void begin() { t = clock64(); }
+  __device__ __forceinline__ void mark(int ph) {
+    __syncwarp();
+    const long long now = clock64();
+    cyc[ph] += now - t;
+    t = now;
+  }
+  __device__ __forceinline__ void test() { ++tests; }
+  __device__ __forceinline__ void rec_begin() {
+    leader = (int)(threadIdx.x & 31) == __ffs(__activemask()) - 1;
+    if (leader) r0 = clock64();
+  }
+  __device__ __forceinline__ void rec_end() {
+    if (leader) rec += clock64() - r0;
+  }
+  // The warp's record (lane 0 writes it) and each lane's test count.
+  __device__ __forceinline__ void finish(const MeshTileProf& Q, int ray,
+                                         bool in) {
+    __syncwarp();
+    long long rec_sum = rec;
+    for (int off = 16; off > 0; off >>= 1)
+      rec_sum += __shfl_xor_sync(0xffffffffu, rec_sum, off);
+    const int lanes = __reduce_add_sync(0xffffffffu, (unsigned)tests);
+    const int trips = __reduce_max_sync(0xffffffffu, (unsigned)tests);
+    if (in) Q.tests[ray] = tests;
+    if ((threadIdx.x & 31) == 0) {
+      unsigned long long* r = Q.rec + (size_t)(ray >> 5) * MP_PHASES * 3;
+      cyc[MP_TEST] -= rec_sum;
+      cyc[MP_RECORD] = rec_sum;
+      for (int ph = 0; ph < MP_PHASES; ++ph) r[ph * 3] = cyc[ph];
+      r[MP_TEST * 3 + 1] = trips;
+      r[MP_TEST * 3 + 2] = lanes;
+    }
+  }
+};
+
+template <bool PROF>
 __global__ void __launch_bounds__(MT_BLOCK)
-mt_mesh_tile_kernel(const MeshTileArgs A) {
+mt_mesh_tile_kernel(const MeshTileArgs A, const MeshTileProf Q) {
   __shared__ float rows[MT_CHUNK * MT_ROW];
+  MtProf<PROF> P;
+  P.begin();
   const int ray = blockIdx.x * MT_BLOCK + threadIdx.x;
   const int tile = (blockIdx.x * MT_BLOCK) / A.tile_rays;
   const int count = A.counts[tile];
@@ -85,8 +154,10 @@ mt_mesh_tile_kernel(const MeshTileArgs A) {
       rows[e] = A.tri[(size_t)id * MT_ROW + (e - r * MT_ROW)];
     }
     __syncthreads();
-    if (!active) continue;
+    P.mark(MP_STAGE);
+    if (active) {
     for (int j = 0; j < m; ++j) {
+      P.test();
       const float* row = rows + j * MT_ROW;
       const float e1x = row[3], e1y = row[4], e1z = row[5];
       const float e2x = row[6], e2y = row[7], e2z = row[8];
@@ -106,9 +177,11 @@ mt_mesh_tile_kernel(const MeshTileArgs A) {
       const bool hit = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
                        t > A.t_min && t < t_max && t < t_best;
       if (!hit) continue;
+      P.rec_begin();
       t_best = t;
       if (A.any_hit) {
         active = false;
+        P.rec_end();
         break;
       }
       ngx = row[9]; ngy = row[10]; ngz = row[11];
@@ -122,21 +195,41 @@ mt_mesh_tile_kernel(const MeshTileArgs A) {
       } else {
         nsx = ngx; nsy = ngy; nsz = ngz;
       }
+      P.rec_end();
     }
+    }
+    P.mark(MP_TEST);
   }
+  P.mark(MP_STAGE);   // the any-hit loop's last barrier
   if (in) {
     A.t[ray] = t_best;
     A.nsx[ray] = nsx; A.nsy[ray] = nsy; A.nsz[ray] = nsz;
     A.ngx[ray] = ngx; A.ngy[ray] = ngy; A.ngz[ray] = ngz;
   }
+  P.mark(MP_WRITE);
+  P.finish(Q, ray, in);
 }
 
-extern "C" int mt_mesh_tile(MeshTileArgs args, int device, void* stream) {
+template <bool PROF>
+static int mt_launch(const MeshTileArgs& args, const MeshTileProf& prof,
+                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (args.n_rays <= 0) return 0;
   if (args.tile_rays % MT_BLOCK != 0) return (int)cudaErrorInvalidValue;
   dim3 grid((args.n_rays + MT_BLOCK - 1) / MT_BLOCK);
-  mt_mesh_tile_kernel<<<grid, MT_BLOCK, 0, (cudaStream_t)stream>>>(args);
+  mt_mesh_tile_kernel<PROF><<<grid, MT_BLOCK, 0, (cudaStream_t)stream>>>(
+      args, prof);
   return (int)cudaGetLastError();
+}
+
+extern "C" int mt_mesh_tile(MeshTileArgs args, int device, void* stream) {
+  return mt_launch<false>(args, MeshTileProf{nullptr, nullptr}, device,
+                          stream);
+}
+
+// The profiling instantiation (tools/breakdown.py, section `mesh_phases`).
+extern "C" int mt_mesh_tile_profile(MeshTileArgs args, MeshTileProf prof,
+                                    int device, void* stream) {
+  return mt_launch<true>(args, prof, device, stream);
 }

@@ -272,13 +272,20 @@ class MeshTileArgs(ctypes.Structure):
         [("t_min", ctypes.c_float)]
 
 
-def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
-                       t_min: float, smooth: bool, any_hit: bool):
-    """Prepare one launch of the mesh kernel on CUDA tensors -> (launch,
-    outputs as mesh_tile returns them): launch() enqueues the kernel on the
-    current stream and raises if the launch was refused. The wrapper
-    launches once; chip_smoke.py times repeated launches."""
-    from surfjax_torch.kernels import _build
+# the phases of the profiling instantiation, in csrc/mesh_tile.cu's order
+MT_PHASE_NAMES = ("stage", "test", "record", "write")
+
+
+class MeshTileProf(ctypes.Structure):
+    """The profiling instantiation's outputs (csrc/mesh_tile.cu)."""
+    _fields_ = [("rec", ctypes.c_void_p), ("tests", ctypes.c_void_p)]
+
+
+def mesh_tile_args(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
+                   smooth: bool, any_hit: bool, profile: bool = False):
+    """The kernel's arguments over tensors on one device -> (MeshTileArgs,
+    MeshTileProf or None, outputs as mesh_tile returns them, profile
+    outputs (rec, tests) or None, the tensors the pointers point into)."""
     _check_inputs(tri_packed, cand, counts, o2, d2, t_maxv)
     rays = [r.contiguous() for r in list(o2) + list(d2) + [t_maxv]]
     shape, dev = rays[0].shape, rays[0].device
@@ -291,20 +298,57 @@ def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
                         tile_rays=(shape[0] // tiles) * shape[1], K=K,
                         n_tris=tri_packed.shape[0], any_hit=int(any_hit),
                         smooth=int(smooth), t_min=f32(t_min))
-    fn = _build.load().mt_mesh_tile
+    outs = (out[0], (out[1], out[2], out[3]), (out[4], out[5], out[6]))
+    prof = prof_out = None
+    if profile:
+        rec = torch.zeros((out[0].numel() // 32, len(MT_PHASE_NAMES), 3),
+                          dtype=torch.int64, device=dev)
+        tests = torch.zeros(shape, dtype=torch.int32, device=dev)
+        prof = MeshTileProf(rec.data_ptr(), tests.data_ptr())
+        prof_out = (rec, tests)
+    return args, prof, outs, prof_out, (tables, rays, out)
+
+
+def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
+                       t_min: float, smooth: bool, any_hit: bool,
+                       profile: bool = False):
+    """Prepare one launch of the mesh kernel on CUDA tensors -> (launch,
+    outputs as mesh_tile returns them): launch() enqueues the kernel on the
+    current stream and raises if the launch was refused. The wrapper
+    launches once; chip_smoke.py times repeated launches. With profile,
+    -> (launch, outputs, (rec, tests)) of the profiling instantiation:
+    rec int64 (warps, len(MT_PHASE_NAMES), 3), per phase lane 0's cycles
+    and, in the test phase's slots, the loop's trips and lane-tests;
+    tests int32 like the rays, each lane's triangle tests, zeroed by the
+    kernel at each launch."""
+    from surfjax_torch.kernels import _build
+    args, prof, outs, prof_out, keep = mesh_tile_args(
+        tri_packed, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit,
+        profile)
+    dev = outs[0].device
+    lib = _build.load()
+    if profile:
+        name = "mt_mesh_tile_profile"
+        call = lambda stream: lib.mt_mesh_tile_profile(  # noqa: E731
+            args, prof, dev.index, stream)
+    else:
+        name = "mt_mesh_tile"
+        call = lambda stream: lib.mt_mesh_tile(  # noqa: E731
+            args, dev.index, stream)
 
     def launch():
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(args, dev.index, ctypes.c_void_p(stream))
+            err = call(ctypes.c_void_p(
+                torch.cuda.current_stream(dev).cuda_stream))
         if err != 0:
-            raise RuntimeError(f"mt_mesh_tile launch failed: cudaError "
+            raise RuntimeError(f"{name} launch failed: cudaError "
                                f"{err} ({_build.error_string(err)})")
         # the arrays the kernel reads stay alive as long as launch does
-        return tables, rays
+        return keep
 
-    return launch, (out[0], (out[1], out[2], out[3]),
-                    (out[4], out[5], out[6]))
+    if profile:
+        return launch, outs, prof_out
+    return launch, outs
 
 
 def mesh_tile(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,

@@ -69,10 +69,12 @@ LAUNCHES = 10   # back-to-back launches per timed sample of a split kernel
 TOP = 10
 
 
-def profile_call(call, pick=()) -> dict:
+def profile_call(call, pick=(), cpu_pick=()) -> dict:
     """One traced call -> wall ms, device ms (every kernel, copy and set
-    the card ran), idle share, the dearest device operations and, for each
-    substring in `pick`, the device ms of the operations whose name holds
+    the card ran), idle share, the dearest device operations, for each
+    substring in `pick` the device ms of the operations whose name holds
+    it and, under "cpu " + substring for each in `cpu_pick`, the host ms
+    of the host events (operators and runtime calls) whose name holds
     it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -83,11 +85,10 @@ def profile_call(call, pick=()) -> dict:
         call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    per_op = {}
+    per_op, per_cpu = {}, {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_op[e.name] = per_op.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+        acc = per_op if e.device_type == DeviceType.CUDA else per_cpu
+        acc[e.name] = acc.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     device = sum(per_op.values())
     top = sorted(((ms, name[:60]) for name, ms in per_op.items()),
                  reverse=True)[:TOP]
@@ -95,6 +96,9 @@ def profile_call(call, pick=()) -> dict:
            "idle_share": 1.0 - device / wall, "top": top}
     for sub in pick:
         out[sub] = sum(ms for name, ms in per_op.items() if sub in name)
+    for sub in cpu_pick:
+        out[f"cpu {sub}"] = sum(ms for name, ms in per_cpu.items()
+                                if sub in name)
     return out
 
 
@@ -338,6 +342,153 @@ def kf_phases(dev, res) -> None:
                   flush=True)
 
 
+C4 = "configs/c4_mesh.yaml"
+
+
+def _c4_mesh_calls(dev):
+    """The mesh kernel's calls of frame 0 of c4 at 1080p -> {mode: [(label,
+    args), ...]} (label "primary" or "shadow") and the scene's mesh and
+    settings per mode."""
+    from surfjax_torch.tools.kernel_check import capture_calls
+    scene, camera, Rs, ps, modes = mesh_main_path(C4)
+    cam0 = dataclasses.replace(camera,
+                               position=tuple(float(x) for x in ps[0]))
+    out = {}
+    for mode, st in modes.items():
+        with capture_calls() as calls:
+            render(scene, cam0, st, device=dev)
+        out[mode] = [("shadow" if args[8] else "primary", args)
+                     for kname, args in calls if kname == "mesh_tile"]
+    static, _ = scene.freeze()
+    return out, static.mesh_static[0], modes
+
+
+def tile_stats(counts, K: int) -> dict:
+    """Candidates per tile: mean, p50, p90, max, tiles without any, and
+    the overflow tiles (count > K, which scan the whole table)."""
+    c = counts.double()
+    return {"tiles": int(c.numel()), "mean": float(c.mean()),
+            "p50": float(c.quantile(0.5)), "p90": float(c.quantile(0.9)),
+            "max": int(c.max()), "empty": int((c == 0).sum()),
+            "overflow": int((counts > K).sum())}
+
+
+def mesh_profile_table(rec, tests, counts, K: int, tile_rays: int) -> dict:
+    """The profiling instantiation's outputs of one call -> per phase the
+    share of the warps' cycles, the test loop's SIMT efficiency
+    (lane-tests over 32 x trips), the lane-tests, and the share of the
+    cycles spent by warps of overflow tiles."""
+    from surfjax_torch.kernels.mesh_tile import MT_PHASE_NAMES
+    cyc = rec[:, :, 0].double()
+    total = float(cyc.sum())
+    ph = len(MT_PHASE_NAMES)
+    test = MT_PHASE_NAMES.index("test")
+    trips, lanes = (float(rec[:, test, k].sum()) for k in (1, 2))
+    warp_tile = torch.arange(rec.shape[0], device=rec.device) * 32 \
+        // tile_rays
+    over = (counts > K)[warp_tile]
+    return {"cycles_share": {MT_PHASE_NAMES[k]: float(cyc[:, k].sum()) / total
+                             for k in range(ph)},
+            "cycles_overflow_share": float(cyc[over].sum()) / total,
+            "trips": trips, "lane_tests": lanes,
+            "simt": lanes / (32.0 * trips) if trips else None,
+            "tests_sum": int(tests.sum())}
+
+
+def mesh_phases(dev, res) -> None:
+    """Frame 0 of c4 at 1080p, both modes: for each mesh kernel call
+    (primary, shadow) the production kernel's time (LAUNCHES back to
+    back), the profiling instantiation's phase table and time, its
+    outputs against the production kernel's (bitwise) and its test count
+    per lane against mesh_tile_reference(count_tests=True) (exactly), the
+    candidates per tile; then the instructions of the production kernel's
+    loops in its SASS."""
+    from surfjax_torch.kernels import _build
+    from surfjax_torch.kernels.mesh_tile import (
+        mesh_tile_launcher, mesh_tile_reference,
+    )
+    from surfjax_torch.tools.kernel_check import flat
+    calls, _, _ = _c4_mesh_calls(dev)
+    for mode, mcalls in calls.items():
+        for label, args in mcalls:
+            cand, counts, o2 = args[1], args[2], args[3]
+            K = cand.shape[1]
+            tile_rays = o2[0].numel() // cand.shape[0]
+            launch, out = mesh_tile_launcher(*args)
+            launch()
+            ms = cuda_ms(lambda: [launch() for _ in range(LAUNCHES)],
+                         REPS)[0]
+            plaunch, pout, (rec, tests) = mesh_tile_launcher(*args,
+                                                             profile=True)
+            plaunch()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(flat(pout),
+                                                         flat(out))):
+                raise AssertionError(f"{mode} {label}: the profile's outputs "
+                                     "differ from the kernel's")
+            ref_tests = mesh_tile_reference(*args, count_tests=True)[-1]
+            if not torch.equal(tests, ref_tests.to(torch.int32)):
+                raise AssertionError(f"{mode} {label}: the profile counts "
+                                     "other tests than count_tests")
+            pms = cuda_ms(plaunch, REPS)[0]
+            entry = {"ms": min(ms) / LAUNCHES, "ms_profiled": min(pms),
+                     "candidates": tile_stats(counts, K),
+                     **mesh_profile_table(rec, tests, counts, K, tile_rays)}
+            res[f"mesh phases {mode} {label}"] = entry
+            print(f"mesh phases {mode} {label}", json.dumps(entry),
+                  flush=True)
+    info = _build.build()
+    for name in _build.entries(info["log"]):
+        if "mesh_tile_kernel" in name:
+            loops = _build.sass_loops(info["path"], name)
+            res[f"mesh sass {name}"] = loops
+            print(f"mesh sass {name}", json.dumps(loops), flush=True)
+
+
+def mesh_glue(dev, res) -> None:
+    """The host glue around the mesh kernel on frame 0 of c4 at 1080p, per
+    mesh call: mesh_candidates' device time (its tensor ops, from a traced
+    call), its host time (wall time of the call, the queue empty before
+    it), and the host's time inside its `nonzero` (which waits for the
+    device: the sync), alone and in a traced render() of the frame."""
+    from surfjax_torch.kernels.mesh_tile import mesh_candidates
+    calls, ms_, modes = _c4_mesh_calls(dev)
+    scene, camera, Rs, ps, _ = mesh_main_path(C4)
+    cam0 = dataclasses.replace(camera,
+                               position=tuple(float(x) for x in ps[0]))
+    sync = ("nonzero", "Synchronize", "Memcpy")
+    for mode, mcalls in calls.items():
+        tile_rows = modes[mode].tile_rows
+        for label, args in mcalls:
+            tri, cand, counts, o2, d2, t_maxv, t_min = args[:7]
+            fn = lambda: mesh_candidates(ms_, tri, o2, d2, t_min,  # noqa
+                                         t_maxv, tile_rows)
+            got = fn()
+            if not (torch.equal(got[0], cand) and torch.equal(got[1],
+                                                              counts)):
+                raise AssertionError(f"{mode} {label}: mesh_candidates "
+                                     "does not repeat the call's table")
+            host = []
+            for _ in range(REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                host.append((time.perf_counter() - t0) * 1e3)
+            prof = profile_call(fn, cpu_pick=sync)
+            entry = {"host_ms": host, "device_ms": prof["device_ms"],
+                     "wall_ms_traced": prof["wall_ms"],
+                     **{f"cpu_ms_{k}": prof[f"cpu {k}"] for k in sync}}
+            res[f"mesh glue {mode} {label}"] = entry
+            print(f"mesh glue {mode} {label}", json.dumps(entry), flush=True)
+        call = lambda st=modes[mode]: render(scene, cam0, st,  # noqa: E731
+                                             device=dev)
+        call()
+        prof = profile_call(call, pick=("mt_mesh_tile",), cpu_pick=sync)
+        entry = {k: v for k, v in prof.items() if k != "top"}
+        res[f"mesh glue {mode} render"] = entry
+        print(f"mesh glue {mode} render", json.dumps(entry), flush=True)
+
+
 def split(dev, res) -> None:
     """Each split kernel of one 1080p c4 frame in `ao` mode: ms per frame,
     every call of the frame launched back to back (LAUNCHES)."""
@@ -370,6 +521,8 @@ SECTIONS = {
     "kf": kf,
     "kf_phases": kf_phases,
     "split": split,
+    "mesh_phases": mesh_phases,
+    "mesh_glue": mesh_glue,
 }
 
 
