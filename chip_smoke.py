@@ -30,14 +30,19 @@ the script exits non-zero and never prints its last line):
      mesh_tile) against their plain versions on the card, bitwise, on
      every kernel call of a 256x256 frame of: c4 in the `config` and `ao`
      modes, a mesh + SDF sphere + plane scene (AO, soft shadows) and a
-     two-mesh scene;
+     two-mesh scene; and the mesh kernel on rays aimed at a mesh's
+     vertices and edges, through three nested shells (several occluders
+     per shadow ray) and with K = 8 (every tile overflows);
   6. the mesh main path: configs/c4_mesh.yaml at 1920x1080, 16 camera
      positions in one render_sequence call per mode (`config`: the yaml's
      settings; `ao`: AO and soft shadows on), one warm-up call and three
      timed with CUDA events; launch counts (every split kernel > 0, the
      fused kernel 0), output checks, frame 0 against render();
   7. every split kernel call of one 1080p c4 frame against its plain
-     version, bitwise, both timed, in both modes;
+     version, bitwise, both timed, in both modes; the mesh kernel's bound
+     counts the culled algorithm it runs (its warps' votes, then each
+     lane's voted candidates up to its first occluder), the unculled
+     count beside it;
   8. the crowd loops (settings.vector_objects) in KF, K1, K2 and ao_fix
      against their plain versions, bitwise, at 256x256 x 2 frames: nine
      and four small objects with hard shadows + AO and with soft shadows,
@@ -84,7 +89,15 @@ the script exits non-zero and never prints its last line):
      1920x1080 in both modes, both writing the staged kernel's buffers:
      per phase group the share of the warps' cycles and, for the staged
      kernel, the SIMT efficiency of its loops and the SDF evaluations per
-     hit pixel.
+     hit pixel;
+ 16. where the mesh kernel's time goes (tools/breakdown.py, `mesh_phases`):
+     its profiling instantiation on every mesh call of frame 0 of c4 at
+     1920x1080 in both modes, writing the production kernel's outputs;
+     its warps' votes equal to mesh_warp_masks and its test count per lane
+     equal to the culled count_tests; per call the share of the warps'
+     cycles per phase, the test loop's SIMT efficiency, candidates per
+     tile, overflow tiles, lane-tests culled and unculled, and the
+     instructions of the production kernel's loops in its SASS.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
@@ -110,7 +123,6 @@ NINE = ("r", "g", "b", "depth", "obj", "nx", "ny", "nz", "hit")
 # NVIDIA H100 SXM data-sheet peaks at the full 700 W limit
 FP32_OPS_PER_S = 67e12
 BYTES_PER_S = 3.35e12
-MT_TEST_OPS = 50   # FP32 operations of one Moller-Trumbore test
 LAUNCH_REPS = 10   # back-to-back launches per timed sample (phase 7)
 # hit-fraction bounds of the mesh main path (phase 6): on the H100 the
 # hit fraction moved by at most 2.07e-5 from one frame to the next and by
@@ -288,8 +300,10 @@ def main() -> int:
         crowd_warp_masks, prime_frame, prime_tile, split_crowd,
     )
     from surfjax_torch.tools.breakdown import (
-        crowd_variants, fused_path, kf_phases,
+        crowd_variants, fused_path, kf_phases, mesh_cull_count, mesh_phases,
     )
+    from surfjax_torch.kernels.mesh_tile import MT_TEST_OPS, mesh_warp_masks
+    from surfjax_torch.tools.workload import mesh_probe_calls
     from surfjax_torch.kernels.render_tile import staged_occupancy
     from surfjax_torch.tools.workload import cull_edge_scene
     smi = gpu_line()
@@ -473,8 +487,14 @@ def main() -> int:
             split_err[kname] = max(split_err[kname], err)
         log(f"  {name}: {len(calls)} kernel calls bitwise equal "
             f"({', '.join(sorted({c[0] for c in calls}))})")
+    probes = mesh_probe_calls(api, dev)
+    for name, args in probes:
+        err, _, _ = compare("mesh_tile", args, name)
+        split_err["mesh_tile"] = max(split_err["mesh_tile"], err)
+    log(f"  mesh_tile bitwise equal on {', '.join(n for n, _ in probes)}")
     log(f"phase 5: split kernels vs plain on the card passed for "
-        f"{len(cases)} scenes at 256x256 ({time.perf_counter() - t5:.1f} s)")
+        f"{len(cases)} scenes at 256x256 and {len(probes)} mesh probes "
+        f"({time.perf_counter() - t5:.1f} s)")
 
     # -- phase 6 ------------------------------------------------------------
     t6 = time.perf_counter()
@@ -547,8 +567,14 @@ def main() -> int:
             err, got, _ = compare(kname, args, f"c4 {mode} 1080p call {k}")
             split_err[kname] = max(split_err[kname], err)
             if kname == "mesh_tile":
-                tests = mesh_tile_reference(*args, count_tests=True)[-1]
-                ops = MT_TEST_OPS * int(tests.sum())
+                culled = mesh_cull_count(args, mesh_warp_masks(
+                    *args[:7], box=args[9]))
+                ops = culled["ops"]
+                unculled = int(mesh_tile_reference(
+                    *args, count_tests=True)[-1].sum())
+                log(f"  {mode} call {k} mesh_tile: culled "
+                    f"{json.dumps(culled)}; unculled lane-tests {unculled}"
+                    f" ({MT_TEST_OPS * unculled:.4g} ops)")
             else:
                 with count_ops() as c:
                     KERNELS[kname][1](*args)
@@ -1109,6 +1135,29 @@ def main() -> int:
             + json.dumps(groups))
     log(f"phase 15: the fused kernel's phase profile on c3 frame 0 "
         f"({time.perf_counter() - t15:.1f} s) on {smi}")
+
+    # -- phase 16 -----------------------------------------------------------
+    # where the mesh kernel's time goes: its profile on c4 frame 0 at 1080p
+    t16 = time.perf_counter()
+    mesh_prof = {}
+    mesh_phases(dev, mesh_prof)
+    for key, entry in mesh_prof.items():
+        if key.startswith("mesh sass"):
+            log(f"  {key}: loops (instructions, fp32, shared, global, "
+                "shuffle): " + json.dumps(
+                    [[lp[k] for k in ("instructions", "fp32", "shared",
+                                      "global", "shuffle")]
+                     for lp in entry]))
+            continue
+        shares = {k: round(v, 4) for k, v in entry["cycles_share"].items()}
+        log(f"  {key}: {entry['ms']:.4f} ms (profiled "
+            f"{entry['ms_profiled']:.4f}); cycle shares {json.dumps(shares)}; "
+            f"SIMT {entry['simt']:.3f}; lane-tests {entry['lane_tests']:.0f} "
+            f"(unculled {entry['unculled_lane_tests']}); overflow tiles' "
+            f"cycles {entry['cycles_overflow_share']:.4f}; candidates "
+            + json.dumps(entry["candidates"]))
+    log(f"phase 16: the mesh kernel's phase profile on c4 frame 0 "
+        f"({time.perf_counter() - t16:.1f} s) on {smi}")
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -13,27 +13,56 @@
 // same association.
 //
 // What bounds it on this card: FP32 work, about 50 operations per
-// triangle test times (rays x candidates of their tile); the triangle rows
-// are read once per block from L2 (the packed table of an 8192-triangle
-// mesh is 786 KB) and each ray reads 28 and writes 28 bytes.
+// triangle test, times the tests the rays need. The tile's list is
+// conservative for the union of its 6,144 rays' segments, so most of a
+// lane's tests are of triangles its own ray cannot reach, and a tile that
+// overflows K makes every lane test the whole table.
 //
-// What the design does about it: one thread per ray, 256-thread blocks
-// inside one tile; the block stages the tile's candidate rows (96 bytes
-// each) through shared memory 64 at a time, so every row is read from L2
-// once per block and then broadcast to the warps. An any-hit block leaves
-// its loop as soon as every thread has found an occluder or had an empty
-// segment. Making it faster (smaller tiles, better occupancy, per-ray
-// grid traversal) is later work.
+// What the design does about it: one thread per ray; each warp culls the
+// candidates for its own 32 rays. A lane clips its ray to the mesh's grid
+// box with mesh_candidates' slab arithmetic (the same operations in the
+// same order), the warp takes the box of its segments' endpoints padded by
+// the same eps, and then, 32 candidates at a time, each lane tests one
+// candidate's box against it and the warp votes (__ballot_sync); the lanes
+// then test the voted candidates in ascending order. A triangle that a lane
+// hits overlaps that lane's segment, so the warp's vote keeps it: the
+// nearest hit, its ties and the first occluder are those of the unculled
+// scan (the argument of mesh_candidates, per warp). The vote's plain
+// version is mesh_tile.mesh_warp_masks. The warps share nothing: no
+// barrier, each reads the rows it votes on and tests through L1 (three
+// 16-byte loads of v0, e1, e2; the normals only on an improving hit), and
+// a warp leaves as soon as none of its lanes is searching (an any-hit
+// lane stops at its first occluder).
+//
+// MT_* flags select the elements of the design (PERF.md measures each
+// against the production kernel with it left out); PROF (a template
+// parameter: the production code has no probes) adds per warp lane 0's
+// clock64 deltas per phase, the loop's trips and lane-tests, each lane's
+// test count and every chunk's vote (MeshTileProf).
 //
 // C interface (bound with ctypes, no PyTorch headers):
 //   int mt_mesh_tile(MeshTileArgs args, int device, void* stream)
+//   int mt_mesh_tile_profile(MeshTileArgs args, MeshTileProf prof,
+//                            int device, void* stream)
+//   int mt_mesh_tile_variant(MeshTileArgs args, int variant, int device,
+//                            void* stream)
 //       -> cudaError_t of the launch
 
 #include <cuda_runtime.h>
 
-#define MT_BLOCK 256
-#define MT_CHUNK 64
 #define MT_ROW 24
+#define MT_FULL 0xffffffffu
+
+// Elements of the design.
+#define MT_CULL 1   // the warp's box and vote (else every candidate)
+#define MT_EXIT 2   // a warp leaves once none of its lanes searches
+#define MT_AXES 4   // the vote also tests the warp's three oriented axes
+#define MT_REDUX 8  // the warp's min and max by one integer reduction
+                    // (__reduce_min_sync on order-preserving bits), not
+                    // five shuffles
+#define MT_NEXT 16  // a lane loads its next chunk's row before it votes
+#define MT_PROD (MT_CULL | MT_AXES | MT_REDUX)
+#define MT_WX 16    // 16x2-ray warps
 
 // render_tile/mesh_tile.MeshTileArgs, passed by value.
 struct MeshTileArgs {
@@ -48,37 +77,45 @@ struct MeshTileArgs {
   float* ngx; float* ngy; float* ngz;   // geometric normal
   int n_rays, tile_rays, K, n_tris, any_hit, smooth;
   float t_min;
+  float box_lo[3], box_hi[3];   // the mesh's grid box (only the cull)
 };
 
 // mesh_tile.MeshTileProf, passed by value: the profiling instantiation's
-// outputs (null in production).
+// outputs.
 struct MeshTileProf {
   unsigned long long* rec;   // (warps, MP_PHASES, 3): cycles, trips, lanes
   int* tests;                // (n_rays,) triangle tests of each lane
+  unsigned* masks;           // (warps, mask_words) each chunk's vote
+  int mask_words;
 };
 
 // Profile phases (mesh_tile.MT_PHASE_NAMES). Cycles are lane 0's clock64
-// deltas between the warp's probes; the test loop's trips (the most tests
-// of any lane of the warp) and lane-tests sit in MP_TEST's slots. A hit's
-// record is timed by the lowest lane that records it and taken out of the
-// test loop's cycles.
-enum { MP_STAGE = 0, MP_TEST, MP_RECORD, MP_WRITE, MP_PHASES };
+// deltas between the warp's probes; the chunks the warp votes on sit in
+// MP_VOTE's second slot, the test loop's trips (candidates the warp visits)
+// and lane-tests in MP_TEST's. A hit's record is
+// timed by the lowest lane that records it and taken out of the test
+// loop's cycles.
+enum { MP_BOX = 0, MP_STAGE, MP_VOTE, MP_TEST, MP_RECORD, MP_WRITE,
+       MP_PHASES };
 
 template <bool ON>
 struct MtProf {
   __device__ __forceinline__ void begin() {}
   __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void chunk() {}
+  __device__ __forceinline__ void trip() {}
   __device__ __forceinline__ void test() {}
   __device__ __forceinline__ void rec_begin() {}
   __device__ __forceinline__ void rec_end() {}
-  __device__ __forceinline__ void finish(const MeshTileProf&, int, bool) {}
+  __device__ __forceinline__ void finish(const MeshTileProf&, int, int,
+                                         bool) {}
 };
 
 template <>
 struct MtProf<true> {
-  long long cyc[MP_PHASES] = {0, 0, 0, 0};
+  long long cyc[MP_PHASES] = {0, 0, 0, 0, 0, 0};
   long long t, r0 = 0, rec = 0;
-  int tests = 0;
+  int chunks = 0, trips = 0, tests = 0;
   bool leader = false;
   __device__ __forceinline__ void begin() { t = clock64(); }
   __device__ __forceinline__ void mark(int ph) {
@@ -87,6 +124,8 @@ struct MtProf<true> {
     cyc[ph] += now - t;
     t = now;
   }
+  __device__ __forceinline__ void chunk() { ++chunks; }
+  __device__ __forceinline__ void trip() { ++trips; }
   __device__ __forceinline__ void test() { ++tests; }
   __device__ __forceinline__ void rec_begin() {
     leader = (int)(threadIdx.x & 31) == __ffs(__activemask()) - 1;
@@ -96,44 +135,209 @@ struct MtProf<true> {
     if (leader) rec += clock64() - r0;
   }
   // The warp's record (lane 0 writes it) and each lane's test count.
-  __device__ __forceinline__ void finish(const MeshTileProf& Q, int ray,
-                                         bool in) {
+  __device__ __forceinline__ void finish(const MeshTileProf& Q, int warp,
+                                         int ray, bool in) {
     __syncwarp();
     long long rec_sum = rec;
     for (int off = 16; off > 0; off >>= 1)
-      rec_sum += __shfl_xor_sync(0xffffffffu, rec_sum, off);
-    const int lanes = __reduce_add_sync(0xffffffffu, (unsigned)tests);
-    const int trips = __reduce_max_sync(0xffffffffu, (unsigned)tests);
+      rec_sum += __shfl_xor_sync(MT_FULL, rec_sum, off);
+    const unsigned lanes = __reduce_add_sync(MT_FULL, (unsigned)tests);
     if (in) Q.tests[ray] = tests;
     if ((threadIdx.x & 31) == 0) {
-      unsigned long long* r = Q.rec + (size_t)(ray >> 5) * MP_PHASES * 3;
+      unsigned long long* r = Q.rec + (size_t)warp * MP_PHASES * 3;
       cyc[MP_TEST] -= rec_sum;
       cyc[MP_RECORD] = rec_sum;
       for (int ph = 0; ph < MP_PHASES; ++ph) r[ph * 3] = cyc[ph];
+      r[MP_VOTE * 3 + 1] = chunks;
       r[MP_TEST * 3 + 1] = trips;
       r[MP_TEST * 3 + 2] = lanes;
     }
   }
 };
 
-template <bool PROF>
-__global__ void __launch_bounds__(MT_BLOCK)
+// torch.minimum / torch.maximum: a NaN operand gives NaN (the slab's
+// 0 * inf), as in mesh_candidates.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// The warp's region: each lane's ray clipped to the grid box as in
+// mesh_candidates (slabs, then the segment's endpoints; a lane whose
+// segment misses the box adds nothing), the warp's min and max of the
+// endpoints, padded by mesh_candidates' eps; lo > hi where no lane's
+// segment meets the box. With AXES also mesh_candidates' three oriented
+// axes for the warp (the normalised sum of its valid lanes' directions, in
+// the butterfly's order, and two orthogonals) and the padded range of the
+// endpoints' projections on each. Any axis is sound: a segment's
+// projection lies between its endpoints'.
+struct WarpBox {
+  float lo[3], hi[3];
+  float axis[3][3], plo[3], phi[3];
+};
+
+__device__ __forceinline__ void cross3(const float a[3], const float b[3],
+                                       float c[3]) {
+  c[0] = a[1] * b[2] - a[2] * b[1];
+  c[1] = a[2] * b[0] - a[0] * b[2];
+  c[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ float dot3(const float a[3], const float p[3]) {
+  return (p[0] * a[0] + p[1] * a[1]) + p[2] * a[2];
+}
+
+// A float's bits as an int that orders as the float does (-0 below +0),
+// and back.
+__device__ __forceinline__ int ordered(float x) {
+  const int i = __float_as_int(x);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// the warp's min and max of lo and hi (exact, in any order), padded by eps
+template <bool REDUX>
+__device__ __forceinline__ void warp_range(float lo, float hi, float& plo,
+                                           float& phi) {
+  if (REDUX) {
+    lo = unordered(__reduce_min_sync(MT_FULL, ordered(lo)));
+    hi = unordered(__reduce_max_sync(MT_FULL, ordered(hi)));
+  } else {
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = fminf(lo, __shfl_xor_sync(MT_FULL, lo, off));
+      hi = fmaxf(hi, __shfl_xor_sync(MT_FULL, hi, off));
+    }
+  }
+  const float eps = (float)1e-4;
+  plo = lo - eps;
+  phi = hi + eps;
+}
+
+template <bool AXES, bool REDUX>
+__device__ __forceinline__ WarpBox warp_box(const MeshTileArgs& A,
+                                            const float o[3],
+                                            const float d[3], float t_max) {
+  const float big = (float)1e30;
+  float t_lo = A.t_min, t_hi = t_max;
+  for (int ax = 0; ax < 3; ++ax) {
+    const bool dz = d[ax] == 0.0f;
+    const float inv = 1.0f / (dz ? 1.0f : d[ax]);
+    const float ta = (A.box_lo[ax] - o[ax]) * inv;
+    const float tb = (A.box_hi[ax] - o[ax]) * inv;
+    float tn = nan_min(ta, tb), tf = nan_max(ta, tb);
+    const bool in_slab = o[ax] > A.box_lo[ax] && o[ax] < A.box_hi[ax];
+    if (dz) {
+      tn = in_slab ? -big : big;
+      tf = in_slab ? big : -big;
+    }
+    t_lo = nan_max(t_lo, tn);
+    t_hi = nan_min(t_hi, tf);
+  }
+  const bool valid = t_lo <= t_hi;
+  WarpBox b;
+  float pa[3], pb[3];
+  for (int ax = 0; ax < 3; ++ax) {
+    pa[ax] = o[ax] + t_lo * d[ax];
+    pb[ax] = o[ax] + t_hi * d[ax];
+    warp_range<REDUX>(valid ? nan_min(pa[ax], pb[ax]) : big,
+                      valid ? nan_max(pa[ax], pb[ax]) : -big, b.lo[ax],
+                      b.hi[ax]);
+  }
+  if (AXES) {
+    float* w = b.axis[0];
+    float* u = b.axis[1];
+    for (int k = 0; k < 3; ++k) {
+      float s = valid ? d[k] : 0.0f;
+      for (int off = 16; off > 0; off >>= 1)
+        s = s + __shfl_xor_sync(MT_FULL, s, off);
+      w[k] = s;
+    }
+    const float nrm = sqrtf((w[0] * w[0] + w[1] * w[1]) + w[2] * w[2]);
+    const bool ok = nrm > (float)1e-6;
+    for (int k = 0; k < 3; ++k)
+      w[k] = ok ? w[k] / nrm : (k == 0 ? 1.0f : 0.0f);
+    const bool big_y = fabsf(w[1]) >= (float)0.9;
+    const float ref[3] = {big_y ? 1.0f : 0.0f, big_y ? 0.0f : 1.0f, 0.0f};
+    cross3(w, ref, u);
+    const float un = sqrtf((u[0] * u[0] + u[1] * u[1]) + u[2] * u[2]);
+    for (int k = 0; k < 3; ++k) u[k] = u[k] / un;
+    cross3(w, u, b.axis[2]);
+    for (int a = 0; a < 3; ++a) {
+      const float sa = dot3(b.axis[a], pa), sb = dot3(b.axis[a], pb);
+      warp_range<REDUX>(valid ? nan_min(sa, sb) : big,
+                        valid ? nan_max(sa, sb) : -big, b.plo[a], b.phi[a]);
+    }
+  }
+  return b;
+}
+
+// Does the triangle (v0, v0 + e1, v0 + e2) meet the warp's region: its
+// box the warp's box and, with AXES, its projection on each axis the
+// warp's range? r0 = (v0, e1.x), r1 = (e1.y, e1.z, e2.x, e2.y), e2z.
+template <bool AXES>
+__device__ __forceinline__ bool tri_overlaps(const WarpBox& b, float4 r0,
+                                             float4 r1, float e2z) {
+  const float v0[3] = {r0.x, r0.y, r0.z};
+  const float e1[3] = {r0.w, r1.x, r1.y};
+  const float e2[3] = {r1.z, r1.w, e2z};
+  float p1[3], p2[3];
+  bool keep = true;
+  for (int ax = 0; ax < 3; ++ax) {
+    p1[ax] = v0[ax] + e1[ax];
+    p2[ax] = v0[ax] + e2[ax];
+    const float lo = fminf(fminf(v0[ax], p1[ax]), p2[ax]);
+    const float hi = fmaxf(fmaxf(v0[ax], p1[ax]), p2[ax]);
+    keep = keep && lo <= b.hi[ax] && hi >= b.lo[ax];
+  }
+  if (AXES && keep) {
+    for (int a = 0; a < 3; ++a) {
+      const float t0 = dot3(b.axis[a], v0), t1 = dot3(b.axis[a], p1);
+      const float t2 = dot3(b.axis[a], p2);
+      const float lo = fminf(fminf(t0, t1), t2);
+      const float hi = fmaxf(fmaxf(t0, t1), t2);
+      keep = keep && lo <= b.phi[a] && hi >= b.plo[a];
+    }
+  }
+  return keep;
+}
+
+// The rays' tiling: WX x (32 / WX) pixels per warp; a block is RB rows of
+// the (rows, 128) ray array, inside one tile.
+template <int WX>
+struct MtShape {
+  static constexpr int WY = 32 / WX;
+  static constexpr int RB = WY > 2 ? WY : 2;
+  static constexpr int THREADS = RB * 128;
+};
+
+template <int WX, int FL, bool PROF>
+__global__ void __launch_bounds__(MtShape<WX>::THREADS)
 mt_mesh_tile_kernel(const MeshTileArgs A, const MeshTileProf Q) {
-  __shared__ float rows[MT_CHUNK * MT_ROW];
+  constexpr int THREADS = MtShape<WX>::THREADS;
+  constexpr bool AXES = (FL & MT_AXES) != 0;
+  constexpr bool NEXT = (FL & MT_NEXT) != 0;
   MtProf<PROF> P;
   P.begin();
-  const int ray = blockIdx.x * MT_BLOCK + threadIdx.x;
-  const int tile = (blockIdx.x * MT_BLOCK) / A.tile_rays;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = (w / (128 / WX)) * MtShape<WX>::WY + lane / WX;
+  const int col = (w % (128 / WX)) * WX + lane % WX;
+  const int ray = blockIdx.x * THREADS + row * 128 + col;
+  const int warp = (blockIdx.x * THREADS + threadIdx.x) >> 5;
+  const int tile = (blockIdx.x * THREADS) / A.tile_rays;
   const int count = A.counts[tile];
   const bool over = count > A.K;
   const int n = over ? A.n_tris : count;
   const int* cand = A.cand + (size_t)tile * A.K;
   const bool in = ray < A.n_rays;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
   float t_max = 0.0f;
   if (in) {
-    ox = A.ox[ray]; oy = A.oy[ray]; oz = A.oz[ray];
-    dx = A.dx[ray]; dy = A.dy[ray]; dz = A.dz[ray];
+    o[0] = A.ox[ray]; o[1] = A.oy[ray]; o[2] = A.oz[ray];
+    d[0] = A.dx[ray]; d[1] = A.dy[ray]; d[2] = A.dz[ray];
     t_max = A.tmax[ray];
   }
   float t_best = (float)1e30;   // BIG, rounded as the host rounds it
@@ -141,38 +345,79 @@ mt_mesh_tile_kernel(const MeshTileArgs A, const MeshTileProf Q) {
   float ngx = 0.0f, ngy = 0.0f, ngz = 1.0f;
   // a lane whose segment is empty can hit nothing
   bool active = in && !(t_max <= A.t_min);
-  for (int base = 0; base < n; base += MT_CHUNK) {
-    if (A.any_hit) {
-      if (!__syncthreads_or(active)) break;
+  int n_loop = n;
+  WarpBox box;
+  if (FL & MT_CULL) {
+    box = warp_box<AXES, (FL & MT_REDUX) != 0>(A, o, d, t_max);
+    if (!(box.lo[0] <= box.hi[0] && box.lo[1] <= box.hi[1] &&
+          box.lo[2] <= box.hi[2]))
+      n_loop = 0;   // no lane's segment meets the grid box
+  }
+  P.mark(MP_BOX);
+  // a lane's candidate of a chunk: its id and, for the cull, its row
+  struct Row {
+    int id;
+    float4 r0, r1;
+    float e2z;
+  };
+  const auto load = [&](int slot) {
+    Row c{0, {}, {}, 0.0f};
+    if (slot < n) {
+      c.id = over ? slot : __ldg(cand + slot);
+      if (FL & MT_CULL) {
+        const float4* src =
+            reinterpret_cast<const float4*>(A.tri + (size_t)c.id * MT_ROW);
+        c.r0 = __ldg(src);
+        c.r1 = __ldg(src + 1);
+        c.e2z = __ldg(src + 2).x;
+      }
+    }
+    return c;
+  };
+  Row next;
+  if (NEXT && n_loop > 0) next = load(lane);
+  for (int base = 0; base < n_loop; base += 32) {
+    if ((FL & MT_EXIT) && !__any_sync(MT_FULL, active)) break;
+    P.chunk();
+    // the vote: each lane tests one candidate's row against the region
+    const int slot = base + lane;
+    Row c;
+    if (NEXT) {
+      c = next;
+      if (base + 32 < n_loop) next = load(slot + 32);
     } else {
-      __syncthreads();
+      c = load(slot);
     }
-    const int m = min(MT_CHUNK, n - base);
-    for (int e = threadIdx.x; e < m * MT_ROW; e += MT_BLOCK) {
-      const int r = e / MT_ROW;
-      const int id = over ? base + r : cand[base + r];
-      rows[e] = A.tri[(size_t)id * MT_ROW + (e - r * MT_ROW)];
-    }
-    __syncthreads();
-    P.mark(MP_STAGE);
-    if (active) {
-    for (int j = 0; j < m; ++j) {
+    const int id = c.id;
+    bool keep = slot < n;
+    if (keep && (FL & MT_CULL))
+      keep = tri_overlaps<AXES>(box, c.r0, c.r1, c.e2z);
+    unsigned m = __ballot_sync(MT_FULL, keep);
+    P.mark(MP_VOTE);
+    while (m) {
+      const int s = __ffs(m) - 1;
+      m &= m - 1;
+      P.trip();
+      const int ids = __shfl_sync(MT_FULL, id, s);
+      const float4* src =
+          reinterpret_cast<const float4*>(A.tri + (size_t)ids * MT_ROW);
+      const float4 r0 = __ldg(src), r1 = __ldg(src + 1), r2 = __ldg(src + 2);
+      if (!active) continue;
       P.test();
-      const float* row = rows + j * MT_ROW;
-      const float e1x = row[3], e1y = row[4], e1z = row[5];
-      const float e2x = row[6], e2y = row[7], e2z = row[8];
-      const float pvx = dy * e2z - dz * e2y;
-      const float pvy = dz * e2x - dx * e2z;
-      const float pvz = dx * e2y - dy * e2x;
+      const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
+      const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
+      const float pvx = d[1] * e2z - d[2] * e2y;
+      const float pvy = d[2] * e2x - d[0] * e2z;
+      const float pvz = d[0] * e2y - d[1] * e2x;
       const float det = (e1x * pvx + e1y * pvy) + e1z * pvz;
       const bool ok = fabsf(det) > (float)1e-7;
       const float inv_det = 1.0f / (ok ? det : 1.0f);
-      const float tvx = ox - row[0], tvy = oy - row[1], tvz = oz - row[2];
+      const float tvx = o[0] - r0.x, tvy = o[1] - r0.y, tvz = o[2] - r0.z;
       const float u = ((tvx * pvx + tvy * pvy) + tvz * pvz) * inv_det;
       const float qvx = tvy * e1z - tvz * e1y;
       const float qvy = tvz * e1x - tvx * e1z;
       const float qvz = tvx * e1y - tvy * e1x;
-      const float v = ((dx * qvx + dy * qvy) + dz * qvz) * inv_det;
+      const float v = ((d[0] * qvx + d[1] * qvy) + d[2] * qvz) * inv_det;
       const float t = ((e2x * qvx + e2y * qvy) + e2z * qvz) * inv_det;
       const bool hit = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
                        t > A.t_min && t < t_max && t < t_best;
@@ -182,14 +427,16 @@ mt_mesh_tile_kernel(const MeshTileArgs A, const MeshTileProf Q) {
       if (A.any_hit) {
         active = false;
         P.rec_end();
-        break;
+        continue;
       }
-      ngx = row[9]; ngy = row[10]; ngz = row[11];
+      ngx = r2.y; ngy = r2.z; ngz = r2.w;
       if (A.smooth) {
-        const float w = (1.0f - u) - v;
-        const float sx = (w * row[12] + u * row[15]) + v * row[18];
-        const float sy = (w * row[13] + u * row[16]) + v * row[19];
-        const float sz = (w * row[14] + u * row[17]) + v * row[20];
+        const float4 r3 = __ldg(src + 3), r4 = __ldg(src + 4);
+        const float n2z = __ldg(src + 5).x;
+        const float w_ = (1.0f - u) - v;
+        const float sx = (w_ * r3.x + u * r3.w) + v * r4.z;
+        const float sy = (w_ * r3.y + u * r4.x) + v * r4.w;
+        const float sz = (w_ * r3.z + u * r4.y) + v * n2z;
         const float inv = 1.0f / sqrtf((sx * sx + sy * sy) + sz * sz);
         nsx = sx * inv; nsy = sy * inv; nsz = sz * inv;
       } else {
@@ -197,39 +444,78 @@ mt_mesh_tile_kernel(const MeshTileArgs A, const MeshTileProf Q) {
       }
       P.rec_end();
     }
-    }
     P.mark(MP_TEST);
   }
-  P.mark(MP_STAGE);   // the any-hit loop's last barrier
   if (in) {
     A.t[ray] = t_best;
     A.nsx[ray] = nsx; A.nsy[ray] = nsy; A.nsz[ray] = nsz;
     A.ngx[ray] = ngx; A.ngy[ray] = ngy; A.ngz[ray] = ngz;
   }
   P.mark(MP_WRITE);
-  P.finish(Q, ray, in);
+  P.finish(Q, warp, ray, in);
+  if (PROF && (FL & MT_CULL)) {
+    // every chunk's vote, also those a warp left out (outside the timed
+    // phases): what mesh_warp_masks must equal
+    for (int base = 0; base < n; base += 32) {
+      const int slot = base + lane;
+      bool keep = false;
+      if (slot < n && n_loop > 0) {
+        const int id = over ? slot : cand[slot];
+        const float4* src =
+            reinterpret_cast<const float4*>(A.tri + (size_t)id * MT_ROW);
+        keep = tri_overlaps<AXES>(box, src[0], src[1], src[2].x);
+      }
+      const unsigned m = __ballot_sync(MT_FULL, keep);
+      if (lane == 0) Q.masks[(size_t)warp * Q.mask_words + base / 32] = m;
+    }
+  }
 }
 
-template <bool PROF>
+template <int WX, int FL, bool PROF>
 static int mt_launch(const MeshTileArgs& args, const MeshTileProf& prof,
                      int device, void* stream) {
+  constexpr int THREADS = MtShape<WX>::THREADS;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (args.n_rays <= 0) return 0;
-  if (args.tile_rays % MT_BLOCK != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((args.n_rays + MT_BLOCK - 1) / MT_BLOCK);
-  mt_mesh_tile_kernel<PROF><<<grid, MT_BLOCK, 0, (cudaStream_t)stream>>>(
-      args, prof);
+  if (args.tile_rays % THREADS != 0) return (int)cudaErrorInvalidValue;
+  dim3 grid(args.n_rays / THREADS);
+  mt_mesh_tile_kernel<WX, FL, PROF>
+      <<<grid, THREADS, 0, (cudaStream_t)stream>>>(args, prof);
   return (int)cudaGetLastError();
 }
 
 extern "C" int mt_mesh_tile(MeshTileArgs args, int device, void* stream) {
-  return mt_launch<false>(args, MeshTileProf{nullptr, nullptr}, device,
-                          stream);
+  return mt_launch<MT_WX, MT_PROD, false>(
+      args, MeshTileProf{nullptr, nullptr, nullptr, 0}, device, stream);
 }
 
 // The profiling instantiation (tools/breakdown.py, section `mesh_phases`).
 extern "C" int mt_mesh_tile_profile(MeshTileArgs args, MeshTileProf prof,
                                     int device, void* stream) {
-  return mt_launch<true>(args, prof, device, stream);
+  return mt_launch<MT_WX, MT_PROD, true>(args, prof, device, stream);
+}
+
+// The production kernel with one element left out or changed
+// (mesh_tile.MT_VARIANTS), for PERF.md's comparison.
+extern "C" int mt_mesh_tile_variant(MeshTileArgs args, int variant,
+                                    int device, void* stream) {
+  const MeshTileProf none{nullptr, nullptr, nullptr, 0};
+  constexpr int P = MT_PROD;
+  switch (variant) {
+    case 0: return mt_launch<MT_WX, P, false>(args, none, device, stream);
+    case 1: return mt_launch<MT_WX, P & ~MT_CULL & ~MT_AXES, false>(
+        args, none, device, stream);
+    case 2: return mt_launch<MT_WX, P & ~MT_AXES, false>(args, none, device,
+                                                         stream);
+    case 3: return mt_launch<MT_WX, P & ~MT_REDUX, false>(args, none, device,
+                                                          stream);
+    case 4: return mt_launch<MT_WX, P | MT_EXIT, false>(args, none, device,
+                                                        stream);
+    case 5: return mt_launch<MT_WX, P | MT_NEXT, false>(args, none, device,
+                                                        stream);
+    case 6: return mt_launch<8, P, false>(args, none, device, stream);
+    case 7: return mt_launch<32, P, false>(args, none, device, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -38,6 +38,10 @@ PACKET_K = 1024  # candidate budget per tile; overflow -> full-table scan
 # warning; the port keeps that routing.
 MAX_PACKET_TRIS = 40_000
 ROW_W = 24       # packed triangle row: v0, e1, e2, gn, n0, n1, n2, pad
+LANES = 128
+MT_AXES = True   # the production kernel's vote tests the oriented axes
+MT_WX = 16       # its warps: 16 x 2 rays (csrc/mesh_tile.cu, MT_WX)
+MT_PROD_FLAGS = 13   # its elements (csrc/mesh_tile.cu, MT_PROD)
 
 
 def mesh_candidates(ms, tri_packed, o2, d2, t_min, t_max, tile_rows: int,
@@ -177,8 +181,9 @@ def _check_inputs(tri_packed, cand, counts, o2, d2, t_maxv):
 
 
 def mesh_tile_reference(tri_packed, cand, counts, o2, d2, t_maxv,
-                        t_min: float, smooth: bool, any_hit: bool,
-                        count_tests: bool = False):
+                        t_min: float, smooth: bool, any_hit: bool, box=None,
+                        count_tests: bool = False, masks=None,
+                        wx: int = MT_WX):
     """Plain PyTorch version of the mesh kernel over (rows, 128) rays.
 
     -> (t, ns (3), ng (3)): nearest hit (ties to the lowest candidate
@@ -190,9 +195,64 @@ def mesh_tile_reference(tri_packed, cand, counts, o2, d2, t_maxv,
     nearest-hit lane, up to the first occluder for an any-hit lane, none
     for a lane whose segment is empty (t_max <= t_min).
 
+    `box` (the grid box the kernel's cull clips rays to) is accepted and
+    not read. With masks (mesh_warp_masks' votes for warps of wx x
+    (32 / wx) rays; by default the production kernel's, MT_WX),
+    each lane visits only its warp's voted candidates, and count_tests
+    counts those: the culled algorithm, whose results the cull must leave
+    as they are.
+
     Candidates are taken in chunks: each (ray, triangle) test is the
     kernel's arithmetic, and a chunk's first minimum (or first hit) is
     merged with strict <, which is what a scan in order keeps."""
+    shape = o2[0].shape
+    out, first, n_valid, active = _mesh_scan(
+        tri_packed, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit,
+        masks, wx)
+    if not count_tests:
+        return out
+    if masks is None:
+        nv = n_valid[:, None] * torch.ones_like(first)
+        tests = torch.where(first >= 0, first + 1, nv) if any_hit else nv
+        return out + (torch.where(active, tests, 0).reshape(shape),)
+    last = _last_slots(first, n_valid, any_hit).reshape(-1)
+    warp = warp_of_rays(shape[0], wx, first.device).reshape(-1)
+    tests = _voted_up_to(masks, warp, last).reshape(shape)
+    return out + (torch.where(active.reshape(shape), tests, 0),)
+
+
+def _last_slots(first, n_valid, any_hit: bool):
+    """-> (tiles, lanes) the last candidate slot each lane tests: its
+    first occluder (any-hit, where found), else its tile's last slot."""
+    last = (n_valid[:, None] - 1) * torch.ones_like(first)
+    return torch.where(first >= 0, first, last) if any_hit else last
+
+
+def _popcount(x):
+    """Set bits of int64 values in [0, 2**32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _voted_up_to(masks, warp, last):
+    """-> per lane the voted slots of its warp in [0, last] (0 where last
+    < 0); masks int32 (warps, words), warp and last per lane."""
+    words = masks.long() & 0xFFFFFFFF
+    pop = _popcount(words)
+    before = torch.cumsum(pop, dim=1) - pop          # words below each word
+    lc = torch.clamp(last, min=0)
+    wi = lc >> 5
+    part = words[warp, wi] & ((2 << (lc & 31)) - 1)
+    return torch.where(last >= 0, before[warp, wi] + _popcount(part), 0)
+
+
+def _mesh_scan(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
+               smooth: bool, any_hit: bool, masks, wx: int):
+    """mesh_tile_reference's scan -> (outputs, first occluder slot per
+    lane (tiles, lanes), -1 where none, slots per tile, lanes whose
+    segment is not empty)."""
     tiles, K = cand.shape
     F_n = tri_packed.shape[0]
     shape = o2[0].shape
@@ -211,6 +271,8 @@ def mesh_tile_reference(tri_packed, cand, counts, o2, d2, t_maxv,
     ng = [zero, zero, one]
     first = torch.full((tiles, lanes), -1, dtype=torch.int64, device=dev)
     eps = f32(1e-7)
+    if masks is not None:
+        warp = warp_of_rays(shape[0], wx, dev).reshape(tiles, lanes)
     chunk = max(1, min(64, (1 << 24) // max(1, tiles * lanes)))
     n_steps = int(n_valid.max()) if tiles else 0
     for base in range(0, n_steps, chunk):
@@ -224,6 +286,9 @@ def mesh_tile_reference(tri_packed, cand, counts, o2, d2, t_maxv,
         t, ok, u, v = moller_trumbore(o, d, v0, e1, e2, eps)
         hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > tmin)
                & (t < t_max) & (ks[None, :] < n_valid[:, None])[:, :, None])
+        if masks is not None:
+            voted = (masks[:, ks >> 5] >> (ks & 31)) & 1       # (warps, C)
+            hit &= voted[warp].permute(0, 2, 1) == 1
         if any_hit:
             # the first occluder of each lane in this chunk
             j = hit.to(torch.int32).argmax(dim=1, keepdim=True)
@@ -254,12 +319,187 @@ def mesh_tile_reference(tri_packed, cand, counts, o2, d2, t_maxv,
             ng[ax] = torch.where(better, gn[ax], ng[ax])
     out = (t_best.reshape(shape), tuple(a.reshape(shape) for a in ns),
            tuple(a.reshape(shape) for a in ng))
-    if not count_tests:
-        return out
-    active = ~(t_max[:, 0] <= tmin)
-    nv = n_valid[:, None] * torch.ones_like(first)
-    tests = torch.where(first >= 0, first + 1, nv) if any_hit else nv
-    return out + (torch.where(active, tests, 0).reshape(shape),)
+    return out, first, n_valid, ~(t_max[:, 0] <= tmin)
+
+
+def grid_box(ms):
+    """The mesh's grid box, which mesh_candidates clips rays to and the
+    kernel's cull too -> ((x, y, z) low, (x, y, z) high), float32 values
+    as Python floats."""
+    bmin = [np.float32(v) for v in ms.bbox_min]
+    bext = [np.float32(ms.cell_size[0] * ms.nx),
+            np.float32(ms.cell_size[1] * ms.ny),
+            np.float32(ms.cell_size[2] * ms.nz)]
+    return (tuple(float(v) for v in bmin),
+            tuple(float(bmin[ax] + bext[ax]) for ax in range(3)))
+
+
+def warp_of_rays(rows: int, wx: int, device):
+    """-> int64 (rows, 128): the kernel's warp of each ray. Threads go in
+    blocks of max(2, 32 / wx) rows of the ray array; in a block, warp k
+    holds the wx x (32 / wx) rays of column block k % (128 / wx), row
+    group k // (128 / wx); warps are numbered in thread order."""
+    wy = 32 // wx
+    rb = max(2, wy)
+    r = torch.arange(rows, device=device)[:, None]
+    c = torch.arange(LANES, device=device)[None, :]
+    return (r // rb) * (rb * LANES // 32) + ((r % rb) // wy) \
+        * (LANES // wx) + c // wx
+
+
+def _lane_clip(o2, d2, t_maxv, t_min: float, box=None):
+    """Each ray clipped to the grid box (None: unbounded) with
+    mesh_candidates' slab arithmetic -> (entry point (3), exit point (3),
+    whether the segment meets the box)."""
+    bmin, bmax = box if box is not None else ((-np.inf,) * 3,
+                                              (np.inf,) * 3)
+    t_lo = torch.full_like(o2[0], f32(t_min))
+    t_hi = t_maxv
+    for ax in range(3):
+        dz = d2[ax] == 0.0
+        inv = 1.0 / torch.where(dz, 1.0, d2[ax])
+        ta = (bmin[ax] - o2[ax]) * inv
+        tb = (bmax[ax] - o2[ax]) * inv
+        tn = torch.minimum(ta, tb)
+        tf = torch.maximum(ta, tb)
+        in_slab = (o2[ax] > bmin[ax]) & (o2[ax] < bmax[ax])
+        tn = torch.where(dz, torch.where(in_slab, -BIG, BIG), tn)
+        tf = torch.where(dz, torch.where(in_slab, BIG, -BIG), tf)
+        t_lo = torch.maximum(t_lo, tn)
+        t_hi = torch.minimum(t_hi, tf)
+    return ([o2[ax] + t_lo * d2[ax] for ax in range(3)],
+            [o2[ax] + t_hi * d2[ax] for ax in range(3)], t_lo <= t_hi)
+
+
+def _ranges(pa, pb, valid):
+    """Per lane the range of two values, BIG / -BIG where not valid."""
+    return (torch.where(valid, torch.minimum(pa, pb), BIG),
+            torch.where(valid, torch.maximum(pa, pb), -BIG))
+
+
+def lane_segments(o2, d2, t_maxv, t_min: float, box=None):
+    """Each ray clipped to the grid box (None: unbounded) with
+    mesh_candidates' slab arithmetic -> (lo (3), hi (3)): the corners of
+    its segment's box, BIG / -BIG where the segment misses the box."""
+    pa, pb, valid = _lane_clip(o2, d2, t_maxv, t_min, box)
+    lo, hi = zip(*(_ranges(a, b, valid) for a, b in zip(pa, pb)))
+    return list(lo), list(hi)
+
+
+def _butterfly_sum(x):
+    """(warps, 32) -> (warps,): the sum of each row as the kernel's
+    __shfl_xor_sync butterfly forms it (offsets 16, 8, 4, 2, 1; every
+    lane ends with the same value)."""
+    idx = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        x = x + x[:, idx ^ off]
+    return x[:, 0]
+
+
+def _cross(a, b):
+    return [a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0]]
+
+
+def _warp_axes(d_w, valid_w):
+    """The warp's three oriented axes (csrc warp_box): its valid lanes'
+    directions summed in the butterfly's order and normalised, and two
+    orthogonals, as mesh_candidates forms them per tile -> [w, u, v],
+    each three (warps,) tensors."""
+    w = [_butterfly_sum(torch.where(valid_w, c, 0.0)) for c in d_w]
+    nrm = sqrt((w[0] * w[0] + w[1] * w[1]) + w[2] * w[2])
+    ok = nrm > f32(1e-6)
+    w = [torch.where(ok, c / nrm, 1.0 if k == 0 else 0.0)
+         for k, c in enumerate(w)]
+    big_y = torch.abs(w[1]) >= f32(0.9)
+    ref = [torch.where(big_y, 1.0, 0.0), torch.where(big_y, 0.0, 1.0),
+           torch.zeros_like(w[0])]
+    u = _cross(w, ref)
+    un = sqrt((u[0] * u[0] + u[1] * u[1]) + u[2] * u[2])
+    u = [c / un for c in u]
+    return [w, u, _cross(w, u)]
+
+
+def _dot(a, p):
+    return (p[0] * a[0] + p[1] * a[1]) + p[2] * a[2]
+
+
+def _ray_of_thread(rows: int, wx: int, device):
+    """-> int64 (warps, 32): the ray each lane of each warp holds."""
+    warp = warp_of_rays(rows, wx, device).reshape(-1)
+    order = torch.argsort(warp, stable=True)
+    return order.reshape(-1, 32)
+
+
+def mesh_warp_masks(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
+                    box=None, wx: int = None, axes: bool = None,
+                    block: int = 256):
+    """The kernel's vote in plain PyTorch -> int32 (warps, words): bit b
+    of word j is set where candidate slot 32 j + b of the warp's tile
+    (its table index in an overflow tile) meets the warp's region: its
+    box meets the warp's box (the min and max over the warp's lanes of
+    lane_segments, padded by mesh_candidates' eps of 1e-4) and, with axes,
+    its projection on each of the warp's oriented axes meets the range of
+    the lanes' endpoints' projections, padded the same way. The kernel's
+    arithmetic in its order (min and max are exact, so their reductions'
+    order does not matter; the direction sum is the kernel's butterfly).
+    wx and axes default to the production kernel's (MT_WX, MT_AXES). words = ceil(max(F, K) / 32); a warp whose box is empty
+    votes for nothing. `block` slots are compared at a time."""
+    tiles, K = cand.shape
+    F_n = tri_packed.shape[0]
+    rows = o2[0].shape[0]
+    dev = o2[0].device
+    tile_rays = o2[0].numel() // tiles
+    wx = MT_WX if wx is None else wx
+    axes = MT_AXES if axes is None else axes
+    lanes_of = _ray_of_thread(rows, wx, dev)
+    pa, pb, valid = _lane_clip(o2, d2, t_maxv, t_min, box)
+    by_warp = [[c.reshape(-1)[lanes_of] for c in p] for p in (pa, pb)]
+    valid_w = valid.reshape(-1)[lanes_of]
+    eps = f32(1e-4)
+
+    def warp_range(a, b):
+        lo, hi = _ranges(a, b, valid_w)
+        return lo.amin(dim=1) - eps, hi.amax(dim=1) + eps
+
+    bounds = [warp_range(a, b) for a, b in zip(*by_warp)]
+    if axes:
+        axis = _warp_axes([c.reshape(-1)[lanes_of] for c in d2], valid_w)
+        proj = [warp_range(_dot([c[:, None] for c in a], by_warp[0]),
+                           _dot([c[:, None] for c in a], by_warp[1]))
+                for a in axis]
+    n_warps = lanes_of.shape[0]
+    tile = torch.arange(n_warps, device=dev) * 32 // tile_rays
+    over = counts > K
+    n_slots = torch.where(over, F_n, torch.clamp(counts, max=K)).long()
+    v0 = tri_packed[:, 0:3]
+    p1 = v0 + tri_packed[:, 3:6]
+    p2 = v0 + tri_packed[:, 6:9]
+    tri_lo = torch.minimum(torch.minimum(v0, p1), p2)
+    tri_hi = torch.maximum(torch.maximum(v0, p1), p2)
+    n_words = -(-max(F_n, K) // 32)
+    words = torch.zeros((n_warps, n_words), dtype=torch.int64, device=dev)
+    bit = torch.arange(32, device=dev, dtype=torch.int64)
+    for base in range(0, n_words * 32, block):
+        ks = torch.arange(base, min(base + block, n_words * 32), device=dev)
+        ids = torch.where(over[:, None], torch.clamp(ks, max=F_n - 1),
+                          cand[:, torch.clamp(ks, max=K - 1)].long())[tile]
+        keep = ks[None, :] < n_slots[tile][:, None]          # (warps, C)
+        for ax, (lo, hi) in enumerate(bounds):
+            keep &= tri_lo[ids, ax] <= hi[:, None]
+            keep &= tri_hi[ids, ax] >= lo[:, None]
+        if axes:
+            verts = [[vt[ids, k] for k in range(3)] for vt in (v0, p1, p2)]
+            for a, (lo, hi) in zip(axis, proj):
+                t0, t1, t2 = (_dot([c[:, None] for c in a], vt)
+                              for vt in verts)
+                keep &= torch.minimum(torch.minimum(t0, t1), t2) \
+                    <= hi[:, None]
+                keep &= torch.maximum(torch.maximum(t0, t1), t2) \
+                    >= lo[:, None]
+        packed = (keep.reshape(n_warps, -1, 32).long() << bit).sum(dim=2)
+        words[:, base // 32:base // 32 + packed.shape[1]] = packed
+    return (words - (words >= 2 ** 31).long() * 2 ** 32).to(torch.int32)
 
 
 class MeshTileArgs(ctypes.Structure):
@@ -269,23 +509,45 @@ class MeshTileArgs(ctypes.Structure):
         "t", "nsx", "nsy", "nsz", "ngx", "ngy", "ngz")] + \
         [(name, ctypes.c_int) for name in (
             "n_rays", "tile_rays", "K", "n_tris", "any_hit", "smooth")] + \
-        [("t_min", ctypes.c_float)]
+        [("t_min", ctypes.c_float), ("box_lo", ctypes.c_float * 3),
+         ("box_hi", ctypes.c_float * 3)]
 
 
 # the phases of the profiling instantiation, in csrc/mesh_tile.cu's order
-MT_PHASE_NAMES = ("stage", "test", "record", "write")
+MT_PHASE_NAMES = ("box", "stage", "vote", "test", "record", "write")
+# mt_mesh_tile_variant's kernels: the production kernel, it with one
+# element left out or added, or with other warps -> (index, warp width;
+# None: the production's)
+MT_VARIANTS = {"production": (0, None), "no_cull": (1, None),
+               "no_axes": (2, None), "no_redux": (3, None), "exit": (4, None),
+               "next": (5, None), "warp_8x4": (6, 8), "warp_32x1": (7, 32)}
+# FP32 operations by hand count (csrc/mesh_tile.cu), per lane: the warp's
+# box (warp_box: the slabs 36, `valid` 1, the endpoints 18, the warp's min
+# and max 30, eps 6, the empty test 3), once per warp; its oriented axes
+# (the direction sum 15, the normalisation 10, the reference axis 1, two
+# cross products 18, u's normalisation 9, the endpoints' projections 30,
+# their min and max 6, the warp's 30, eps 6), once per warp; one
+# candidate's box against the warp's (tri_overlaps: per axis 2 adds, 2
+# mins, 2 maxes, 2 compares), once per voted chunk of 32 candidates; its
+# projections on the three axes (per axis 3 dots of 5, 2 mins, 2 maxes, 2
+# compares), where its box passed; a Moller-Trumbore test.
+MT_BOX_OPS, MT_AXES_BOX_OPS, MT_VOTE_OPS, MT_AXES_VOTE_OPS, MT_TEST_OPS = \
+    94, 125, 24, 63, 50
 
 
 class MeshTileProf(ctypes.Structure):
     """The profiling instantiation's outputs (csrc/mesh_tile.cu)."""
-    _fields_ = [("rec", ctypes.c_void_p), ("tests", ctypes.c_void_p)]
+    _fields_ = [("rec", ctypes.c_void_p), ("tests", ctypes.c_void_p),
+                ("masks", ctypes.c_void_p), ("mask_words", ctypes.c_int)]
 
 
 def mesh_tile_args(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
-                   smooth: bool, any_hit: bool, profile: bool = False):
+                   smooth: bool, any_hit: bool, box=None,
+                   profile: bool = False):
     """The kernel's arguments over tensors on one device -> (MeshTileArgs,
     MeshTileProf or None, outputs as mesh_tile returns them, profile
-    outputs (rec, tests) or None, the tensors the pointers point into)."""
+    outputs (rec, tests, masks) or None, the tensors the pointers point
+    into)."""
     _check_inputs(tri_packed, cand, counts, o2, d2, t_maxv)
     rays = [r.contiguous() for r in list(o2) + list(d2) + [t_maxv]]
     shape, dev = rays[0].shape, rays[0].device
@@ -298,36 +560,51 @@ def mesh_tile_args(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
                         tile_rays=(shape[0] // tiles) * shape[1], K=K,
                         n_tris=tri_packed.shape[0], any_hit=int(any_hit),
                         smooth=int(smooth), t_min=f32(t_min))
+    lo, hi = box if box is not None else ((-np.inf,) * 3, (np.inf,) * 3)
+    args.box_lo[:] = lo
+    args.box_hi[:] = hi
     outs = (out[0], (out[1], out[2], out[3]), (out[4], out[5], out[6]))
     prof = prof_out = None
     if profile:
-        rec = torch.zeros((out[0].numel() // 32, len(MT_PHASE_NAMES), 3),
+        n_warps = out[0].numel() // 32
+        words = -(-max(tri_packed.shape[0], K) // 32)
+        rec = torch.zeros((n_warps, len(MT_PHASE_NAMES), 3),
                           dtype=torch.int64, device=dev)
         tests = torch.zeros(shape, dtype=torch.int32, device=dev)
-        prof = MeshTileProf(rec.data_ptr(), tests.data_ptr())
-        prof_out = (rec, tests)
+        masks = torch.zeros((n_warps, words), dtype=torch.int32, device=dev)
+        prof = MeshTileProf(rec.data_ptr(), tests.data_ptr(),
+                            masks.data_ptr(), words)
+        prof_out = (rec, tests, masks)
     return args, prof, outs, prof_out, (tables, rays, out)
 
 
 def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
-                       t_min: float, smooth: bool, any_hit: bool,
-                       profile: bool = False):
+                       t_min: float, smooth: bool, any_hit: bool, box=None,
+                       profile: bool = False, variant: str = None):
     """Prepare one launch of the mesh kernel on CUDA tensors -> (launch,
     outputs as mesh_tile returns them): launch() enqueues the kernel on the
     current stream and raises if the launch was refused. The wrapper
     launches once; chip_smoke.py times repeated launches. With profile,
-    -> (launch, outputs, (rec, tests)) of the profiling instantiation:
-    rec int64 (warps, len(MT_PHASE_NAMES), 3), per phase lane 0's cycles
-    and, in the test phase's slots, the loop's trips and lane-tests;
-    tests int32 like the rays, each lane's triangle tests, zeroed by the
-    kernel at each launch."""
+    -> (launch, outputs, (rec, tests, masks)) of the profiling
+    instantiation, which writes them at every launch: rec int64 (warps,
+    len(MT_PHASE_NAMES), 3), per phase lane 0's cycles, the chunks voted
+    on in the vote phase's second slot, the loop's trips and lane-tests in
+    the test phase's; tests int32 like the rays, each lane's triangle
+    tests; masks int32 (warps, words), every chunk's vote, as
+    mesh_warp_masks gives it. With variant (a key of MT_VARIANTS), that
+    kernel."""
     from surfjax_torch.kernels import _build
     args, prof, outs, prof_out, keep = mesh_tile_args(
         tri_packed, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit,
-        profile)
+        box, profile)
     dev = outs[0].device
     lib = _build.load()
-    if profile:
+    if variant is not None:
+        name = f"mt_mesh_tile_variant {variant}"
+        index = MT_VARIANTS[variant][0]
+        call = lambda stream: lib.mt_mesh_tile_variant(  # noqa: E731
+            args, index, dev.index, stream)
+    elif profile:
         name = "mt_mesh_tile_profile"
         call = lambda stream: lib.mt_mesh_tile_profile(  # noqa: E731
             args, prof, dev.index, stream)
@@ -352,26 +629,26 @@ def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
 
 
 def mesh_tile(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
-              smooth: bool, any_hit: bool):
+              smooth: bool, any_hit: bool, box=None):
     """The mesh kernel over (rows, 128) rays and a tile's candidates ->
-    the outputs of mesh_tile_reference.
+    the outputs of mesh_tile_reference. `box` is the mesh's grid box
+    (grid_box), which the kernel's cull clips rays to; None: unbounded.
 
     CUDA tensors launch the hand-written kernel (counted in
     `mesh_tile.launches`); CPU tensors run the plain version. Anything
     else raises."""
     _check_inputs(tri_packed, cand, counts, o2, d2, t_maxv)
     dev = o2[0].device
-    record_call("mesh_tile", (tri_packed, cand, counts, o2, d2, t_maxv,
-                              t_min, smooth, any_hit))
+    args = (tri_packed, cand, counts, o2, d2, t_maxv, t_min, smooth,
+            any_hit, box)
+    record_call("mesh_tile", args)
     if dev.type == "cuda":
-        launch, out = mesh_tile_launcher(tri_packed, cand, counts, o2, d2,
-                                         t_maxv, t_min, smooth, any_hit)
+        launch, out = mesh_tile_launcher(*args)
         launch()
         mesh_tile.launches += 1
         return out
     if dev.type == "cpu":
-        return mesh_tile_reference(tri_packed, cand, counts, o2, d2, t_maxv,
-                                   t_min, smooth, any_hit)
+        return mesh_tile_reference(*args)
     raise ValueError(f"unsupported device {dev}")
 
 
@@ -389,4 +666,5 @@ def mesh_tile_kernel(ms, settings, tri_packed, o2, d2, t_max,
     cand, counts = mesh_candidates(ms, tri_packed, o2, d2, t_seg_min, t_max,
                                    settings.tile_rows)
     return mesh_tile(tri_packed, cand, counts, o2, d2,
-                     per_lane(o2[0], t_max), t_seg_min, ms.smooth, any_hit)
+                     per_lane(o2[0], t_max), t_seg_min, ms.smooth, any_hit,
+                     grid_box(ms))

@@ -376,36 +376,93 @@ def tile_stats(counts, K: int) -> dict:
 def mesh_profile_table(rec, tests, counts, K: int, tile_rays: int) -> dict:
     """The profiling instantiation's outputs of one call -> per phase the
     share of the warps' cycles, the test loop's SIMT efficiency
-    (lane-tests over 32 x trips), the lane-tests, and the share of the
-    cycles spent by warps of overflow tiles."""
+    (lane-tests over 32 x the candidates the warps visit), the lane-tests,
+    and the share of the cycles spent by warps of overflow tiles."""
     from surfjax_torch.kernels.mesh_tile import MT_PHASE_NAMES
     cyc = rec[:, :, 0].double()
     total = float(cyc.sum())
-    ph = len(MT_PHASE_NAMES)
     test = MT_PHASE_NAMES.index("test")
     trips, lanes = (float(rec[:, test, k].sum()) for k in (1, 2))
+    chunks = int(rec[:, MT_PHASE_NAMES.index("vote"), 1].sum())
     warp_tile = torch.arange(rec.shape[0], device=rec.device) * 32 \
         // tile_rays
     over = (counts > K)[warp_tile]
-    return {"cycles_share": {MT_PHASE_NAMES[k]: float(cyc[:, k].sum()) / total
-                             for k in range(ph)},
+    return {"cycles_share": {name: float(cyc[:, k].sum()) / total
+                             for k, name in enumerate(MT_PHASE_NAMES)},
             "cycles_overflow_share": float(cyc[over].sum()) / total,
-            "trips": trips, "lane_tests": lanes,
+            "vote_chunks": chunks, "trips": trips, "lane_tests": lanes,
             "simt": lanes / (32.0 * trips) if trips else None,
             "tests_sum": int(tests.sum())}
+
+
+def mesh_cull_count(args, masks) -> dict:
+    """One mesh call and its warps' votes (mesh_warp_masks, production
+    warps) -> the work of the culled algorithm as the kernel runs it:
+    lane-tests (each lane's voted candidates, up to its first occluder),
+    the chunks of 32 candidates the warps vote on, warps, and the FP32
+    operations by hand count
+    (mesh_tile's MT_*_OPS; with the oriented axes, their test on each
+    lane's candidate whose box passed)."""
+    from surfjax_torch.kernels.mesh_tile import (
+        MT_AXES, MT_AXES_BOX_OPS, MT_AXES_VOTE_OPS, MT_BOX_OPS, MT_TEST_OPS,
+        MT_VOTE_OPS, MT_WX, _last_slots, _mesh_scan, _voted_up_to,
+        mesh_warp_masks, warp_of_rays,
+    )
+    tri, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit = args[:9]
+    shape = o2[0].shape
+    wx = MT_WX
+    out, first, n_valid, active = _mesh_scan(
+        tri, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit, masks, wx)
+    last = _last_slots(first, n_valid, any_hit).reshape(-1)
+    warp = warp_of_rays(shape[0], wx, last.device).reshape(-1)
+    act = active.reshape(-1)
+    tests = torch.where(act, _voted_up_to(masks, warp, last), 0)
+    n_warps = masks.shape[0]
+    # a warp votes on every chunk of its tile's list, none where its box
+    # is empty
+    tile_rays = o2[0].numel() // cand.shape[0]
+    tile = torch.arange(n_warps, device=last.device) * 32 // tile_rays
+    n_slots = n_valid[tile]
+    chunks = torch.where(mesh_box_empty(args, wx), 0, (n_slots + 31) // 32)
+    lane_tests, vote_chunks = int(tests.sum()), int(chunks.sum())
+    ops = MT_TEST_OPS * lane_tests + 32 * (MT_VOTE_OPS * vote_chunks
+                                           + MT_BOX_OPS * n_warps)
+    if MT_AXES:
+        boxed = mesh_warp_masks(*args[:7], box=args[9], axes=False)
+        passed = int(_voted_up_to(boxed, torch.arange(n_warps,
+                                                      device=last.device),
+                                  chunks * 32 - 1).sum())
+        ops += MT_AXES_VOTE_OPS * passed + 32 * MT_AXES_BOX_OPS * n_warps
+    return {"lane_tests": lane_tests, "vote_chunks": vote_chunks,
+            "warps": n_warps, "ops": ops}
+
+
+def mesh_box_empty(args, wx: int):
+    """-> bool (warps,): the warps of wx x (32 / wx) rays whose box meets
+    no lane's segment (the kernel's warps that vote on nothing)."""
+    from surfjax_torch.kernels.mesh_tile import _ray_of_thread, lane_segments
+    o2, d2, t_maxv, t_min = args[3], args[4], args[5], args[6]
+    lo, hi = lane_segments(o2, d2, t_maxv, t_min, args[9])
+    lanes = _ray_of_thread(o2[0].shape[0], wx, o2[0].device)
+    wlo = torch.stack([a.reshape(-1)[lanes].amin(dim=1) for a in lo])
+    whi = torch.stack([a.reshape(-1)[lanes].amax(dim=1) for a in hi])
+    return (wlo > whi).any(dim=0)
 
 
 def mesh_phases(dev, res) -> None:
     """Frame 0 of c4 at 1080p, both modes: for each mesh kernel call
     (primary, shadow) the production kernel's time (LAUNCHES back to
     back), the profiling instantiation's phase table and time, its
-    outputs against the production kernel's (bitwise) and its test count
-    per lane against mesh_tile_reference(count_tests=True) (exactly), the
-    candidates per tile; then the instructions of the production kernel's
-    loops in its SASS."""
+    outputs against the production kernel's (bitwise), its votes against
+    mesh_warp_masks and its test count per lane against the culled
+    mesh_tile_reference(count_tests=True, masks=) (both exactly), the
+    candidates per tile, the culled algorithm's work (mesh_cull_count)
+    beside the unculled lane-tests; then the instructions of the
+    production kernel's loops in its SASS."""
     from surfjax_torch.kernels import _build
     from surfjax_torch.kernels.mesh_tile import (
-        mesh_tile_launcher, mesh_tile_reference,
+        MT_PROD_FLAGS, MT_WX, mesh_tile_launcher, mesh_tile_reference,
+        mesh_warp_masks,
     )
     from surfjax_torch.tools.kernel_check import flat
     calls, _, _ = _c4_mesh_calls(dev)
@@ -418,31 +475,74 @@ def mesh_phases(dev, res) -> None:
             launch()
             ms = cuda_ms(lambda: [launch() for _ in range(LAUNCHES)],
                          REPS)[0]
-            plaunch, pout, (rec, tests) = mesh_tile_launcher(*args,
-                                                             profile=True)
+            plaunch, pout, (rec, tests, masks) = mesh_tile_launcher(
+                *args, profile=True)
             plaunch()
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(flat(pout),
                                                          flat(out))):
                 raise AssertionError(f"{mode} {label}: the profile's outputs "
                                      "differ from the kernel's")
-            ref_tests = mesh_tile_reference(*args, count_tests=True)[-1]
+            ref_masks = mesh_warp_masks(*args[:7], box=args[9])
+            if not torch.equal(masks, ref_masks):
+                raise AssertionError(f"{mode} {label}: the kernel's votes "
+                                     "differ from mesh_warp_masks")
+            ref_tests = mesh_tile_reference(*args, count_tests=True,
+                                            masks=ref_masks)[-1]
             if not torch.equal(tests, ref_tests.to(torch.int32)):
                 raise AssertionError(f"{mode} {label}: the profile counts "
                                      "other tests than count_tests")
+            unculled = mesh_tile_reference(*args, count_tests=True)[-1]
             pms = cuda_ms(plaunch, REPS)[0]
             entry = {"ms": min(ms) / LAUNCHES, "ms_profiled": min(pms),
                      "candidates": tile_stats(counts, K),
+                     "unculled_lane_tests": int(unculled.sum()),
+                     "culled": mesh_cull_count(args, ref_masks),
                      **mesh_profile_table(rec, tests, counts, K, tile_rays)}
+            if entry["vote_chunks"] != entry["culled"]["vote_chunks"]:
+                raise AssertionError(f"{mode} {label}: the kernel votes on "
+                                     f"{entry['vote_chunks']} chunks, the "
+                                     "count on "
+                                     f"{entry['culled']['vote_chunks']}")
             res[f"mesh phases {mode} {label}"] = entry
             print(f"mesh phases {mode} {label}", json.dumps(entry),
                   flush=True)
     info = _build.build()
+    prod = f"mt_mesh_tile_kernelILi{MT_WX}ELi{MT_PROD_FLAGS}ELb0E"
     for name in _build.entries(info["log"]):
-        if "mesh_tile_kernel" in name:
+        if prod in name:
             loops = _build.sass_loops(info["path"], name)
             res[f"mesh sass {name}"] = loops
             print(f"mesh sass {name}", json.dumps(loops), flush=True)
+
+
+def mesh_variants(dev, res) -> None:
+    """Each mesh kernel call of frame 0 of c4 at 1080p (`ao`): the
+    production kernel and each variant with one element left out or
+    changed (mesh_tile.MT_VARIANTS), LAUNCHES back to back, each held
+    bitwise against the plain version; ms per call and per frame."""
+    from surfjax_torch.kernels.mesh_tile import (
+        MT_VARIANTS, mesh_tile_launcher, mesh_tile_reference,
+    )
+    from surfjax_torch.tools.kernel_check import flat
+    calls, _, _ = _c4_mesh_calls(dev)
+    out = {}
+    for label, args in calls["ao"]:
+        ref = flat(mesh_tile_reference(*args))
+        for variant in MT_VARIANTS:
+            launch, got = mesh_tile_launcher(*args, variant=variant)
+            launch()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(flat(got), ref)):
+                raise AssertionError(f"variant {variant} differs from the "
+                                     f"plain version ({label})")
+            ms = cuda_ms(lambda: [launch() for _ in range(LAUNCHES)],
+                         REPS)[0]
+            out.setdefault(variant, {})[label] = min(ms) / LAUNCHES
+    for variant, per in out.items():
+        per["frame"] = sum(per.values())
+    res["mesh variants c4 ao"] = out
+    print("mesh variants c4 ao", json.dumps(out), flush=True)
 
 
 def mesh_glue(dev, res) -> None:
@@ -522,6 +622,7 @@ SECTIONS = {
     "kf_phases": kf_phases,
     "split": split,
     "mesh_phases": mesh_phases,
+    "mesh_variants": mesh_variants,
     "mesh_glue": mesh_glue,
 }
 

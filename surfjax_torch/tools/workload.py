@@ -131,6 +131,78 @@ def two_mesh_scene(api, size: int):
             api.RenderSettings(shadows=True, backend="pallas"))
 
 
+def _packed_mesh(api, v, f):
+    """-> (the mesh's MeshStatic, its packed (F, 24) table)."""
+    static, params = api.Scene().add(
+        api.TriangleMesh(vertices=v, faces=f)).freeze()
+    return static.mesh_static[0], params["mesh0_tri_packed"]
+
+
+def mesh_probe_calls(api, device, rows: int = 16, tile_rows: int = 8):
+    """Mesh kernel calls that the scenes' frames do not make -> [(label,
+    mesh_tile's arguments)], each (rows, 128) rays from one origin:
+      * `edges`: a 128-triangle octasphere, rays aimed exactly at its
+        vertices (each shared by 4-6 triangles) and its edges' midpoints
+        (each shared by 2), nearest hit; `edges any-hit`: the same rays
+        as shadow rays that end past the sphere (two occluders each);
+        `edges to target any-hit`: ending exactly at their target;
+      * `layers any-hit`: three concentric octaspheres in one mesh, rays
+        through all three, so that a ray has up to six occluders;
+      * `overflow` and `overflow any-hit`: the edge rays with K = 8, so
+        that every tile scans the whole table.
+    Candidates come from mesh_candidates, the box from grid_box."""
+    from surfjax_torch.kernels.mesh_tile import grid_box, mesh_candidates
+    centre = np.asarray([0.1, -0.05, 3.0], np.float32)
+    origin = np.asarray([0.02, 0.03, 0.0], np.float32)
+    v, f = octasphere(2)
+    sphere = (v * np.float32(0.6) + centre).astype(np.float32)
+    mids = ((sphere[f] + sphere[np.roll(f, -1, axis=1)]) * np.float32(0.5))
+    targets = np.concatenate([sphere, mids.reshape(-1, 3)]).astype(np.float32)
+    layers_v = np.concatenate([(v * np.float32(r) + centre).astype(np.float32)
+                               for r in (0.3, 0.6, 0.9)])
+    layers_f = np.concatenate([f + k * len(v) for k in range(3)]
+                              ).astype(np.int32)
+    rng = np.random.default_rng(3)
+    layer_targets = (centre + rng.uniform(-0.25, 0.25, (rows * 128, 3))
+                     ).astype(np.float32)
+
+    def rays(tg):
+        tg = np.resize(tg, (rows * 128, 3))
+        d = (tg - origin).astype(np.float32)
+        dist = np.sqrt((d * d).sum(axis=1)).astype(np.float32)
+        d = (d / dist[:, None]).astype(np.float32)
+        o2 = tuple(torch.as_tensor(np.full((rows, 128), origin[k],
+                                           np.float32), device=device)
+                   for k in range(3))
+        d2 = tuple(torch.as_tensor(np.ascontiguousarray(
+            d[:, k].reshape(rows, 128)), device=device) for k in range(3))
+        return o2, d2, torch.as_tensor(dist.reshape(rows, 128),
+                                       device=device)
+
+    calls = []
+    for label, (mv, mf), tg in (("edges", (sphere, f), targets),
+                                ("layers", (layers_v, layers_f),
+                                 layer_targets)):
+        ms, tri = _packed_mesh(api, mv, mf)
+        tri = torch.as_tensor(tri, device=device)
+        o2, d2, dist = rays(tg)
+        far = torch.full_like(dist, 1e4)
+        for hit_kind, t_max in (("", far), (" any-hit", dist * 3.0),
+                                (" to target any-hit", dist)):
+            if label == "layers" and hit_kind != " any-hit":
+                continue
+            any_hit = bool(hit_kind)
+            cand, counts = mesh_candidates(ms, tri, o2, d2, 1e-3, t_max,
+                                           tile_rows)
+            args = (tri, cand, counts, o2, d2, t_max, 1e-3, ms.smooth,
+                    any_hit, grid_box(ms))
+            calls.append((label + hit_kind, args))
+            if label == "edges" and hit_kind != " to target any-hit":
+                calls.append(("overflow" + hit_kind,
+                              (tri, cand[:, :8].contiguous()) + args[2:]))
+    return calls
+
+
 # --- crowd scenes (settings.vector_objects) ---------------------------------
 # Built with the package's `api` module, so that the same scene can be
 # built for surfjax; every random number comes from a seeded numpy

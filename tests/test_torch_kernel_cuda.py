@@ -118,6 +118,49 @@ def test_split_kernels_match_plain(cuda_device, name):
     assert float(fb.hit.mean()) > 0.1
 
 
+PROBES = ["edges", "overflow", "edges any-hit", "overflow any-hit",
+          "edges to target any-hit", "layers any-hit"]
+
+
+@pytest.mark.parametrize("label", PROBES)
+def test_mesh_kernel_matches_plain_on_probes(cuda_device, label):
+    """Rays at a mesh's vertices and edges, several occluders, tiles that
+    overflow K (workload.mesh_probe_calls): the kernel equals the plain
+    version bitwise."""
+    from surfjax_torch import api
+    from surfjax_torch.tools.kernel_check import compare
+    from surfjax_torch.tools.workload import mesh_probe_calls
+    args = dict(mesh_probe_calls(api, cuda_device))[label]
+    compare("mesh_tile", args, label)
+
+
+@pytest.mark.parametrize("name", ["c4 config", "mesh_soft_ao"])
+def test_mesh_profile_votes_and_counts(cuda_device, name):
+    """The profiling instantiation writes the kernel's outputs, votes as
+    mesh_warp_masks does and counts per lane the culled count_tests."""
+    from surfjax_torch.api import render
+    from surfjax_torch.kernels.mesh_tile import (
+        mesh_tile_launcher, mesh_tile_reference, mesh_warp_masks,
+    )
+    from surfjax_torch.tools.kernel_check import capture_calls, flat
+    scene, cam, st = _split_scene(name)
+    with capture_calls() as calls:
+        render(scene, cam, st, device=cuda_device)
+    mesh = [args for kname, args in calls if kname == "mesh_tile"]
+    assert mesh
+    for args in mesh:
+        launch, out, (rec, tests, masks) = mesh_tile_launcher(
+            *args, profile=True)
+        launch()
+        ref = mesh_tile_reference(*args)
+        assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(ref)))
+        ref_masks = mesh_warp_masks(*args[:7], box=args[9])
+        assert torch.equal(masks, ref_masks)
+        culled = mesh_tile_reference(*args, count_tests=True,
+                                     masks=ref_masks)
+        assert torch.equal(tests, culled[3].to(torch.int32))
+
+
 def test_render_on_cuda_uses_the_split_kernels(cuda_device):
     from surfjax_torch.api import render
     from surfjax_torch.kernels.mesh_tile import mesh_tile

@@ -107,6 +107,25 @@ def test_eager_pipeline_bitwise_op_by_op(name):
     assert g["bitwise"], g
 
 
+@pytest.mark.parametrize("name", ["c1_sphere", "c2_csg", "c5_anim"])
+def test_eager_pipeline_bitwise_op_by_op_at_jit_size(name):
+    """The same at the size the jit gaps below were measured at (32x32, 2
+    frames): the port is bitwise equal to surfjax with jit disabled on
+    every frame, so those gaps are XLA:CPU's fusion of surfjax's own
+    path, not the port's."""
+    (sj_scene, sj_cam, sj_st), (pt_scene, pt_cam, pt_st), (Rs, ps) = \
+        load_pair(name, 32, n_frames=2)
+    static, params = sj_scene.freeze()
+    params = {k: jnp.asarray(v) for k, v in params.items()}
+    got = pt_rs(pt_scene, pt_cam, (Rs, ps), pt_st, device="cpu")
+    for f in range(len(ps)):
+        with jax.disable_jit():
+            ref = frame_step(static, sj_cam.intrinsics, sj_st, params,
+                             jnp.asarray(Rs[f]), jnp.asarray(ps[f]))
+        g = gaps(ref, [a[f] for a in got])
+        assert g["bitwise"], (f, g)
+
+
 # Measured against surfjax's jit-compiled jnp path at 32x32 x 2 frames
 # (gap = XLA:CPU multiply-add contraction and approximate rsqrt): c1 rgb
 # 4.0e-5, depth 3.4e-5 relative at grazing silhouette rays, normals 7.9e-5;
