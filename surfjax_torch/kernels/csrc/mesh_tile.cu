@@ -61,7 +61,7 @@
                     // (__reduce_min_sync on order-preserving bits), not
                     // five shuffles
 #define MT_NEXT 16  // a lane loads its next chunk's row before it votes
-#define MT_PROD (MT_CULL | MT_AXES | MT_REDUX)
+#define MT_PROD (MT_CULL | MT_EXIT | MT_AXES | MT_REDUX)
 #define MT_WX 16    // 16x2-ray warps
 
 // render_tile/mesh_tile.MeshTileArgs, passed by value.
@@ -510,8 +510,8 @@ extern "C" int mt_mesh_tile_variant(MeshTileArgs args, int variant,
                                                          stream);
     case 3: return mt_launch<MT_WX, P & ~MT_REDUX, false>(args, none, device,
                                                           stream);
-    case 4: return mt_launch<MT_WX, P | MT_EXIT, false>(args, none, device,
-                                                        stream);
+    case 4: return mt_launch<MT_WX, P & ~MT_EXIT, false>(args, none, device,
+                                                         stream);
     case 5: return mt_launch<MT_WX, P | MT_NEXT, false>(args, none, device,
                                                         stream);
     case 6: return mt_launch<8, P, false>(args, none, device, stream);

@@ -41,7 +41,7 @@ ROW_W = 24       # packed triangle row: v0, e1, e2, gn, n0, n1, n2, pad
 LANES = 128
 MT_AXES = True   # the production kernel's vote tests the oriented axes
 MT_WX = 16       # its warps: 16 x 2 rays (csrc/mesh_tile.cu, MT_WX)
-MT_PROD_FLAGS = 13   # its elements (csrc/mesh_tile.cu, MT_PROD)
+MT_PROD_FLAGS = 15   # its elements (csrc/mesh_tile.cu, MT_PROD)
 
 
 def mesh_candidates(ms, tri_packed, o2, d2, t_min, t_max, tile_rows: int,
@@ -519,8 +519,9 @@ MT_PHASE_NAMES = ("box", "stage", "vote", "test", "record", "write")
 # element left out or added, or with other warps -> (index, warp width;
 # None: the production's)
 MT_VARIANTS = {"production": (0, None), "no_cull": (1, None),
-               "no_axes": (2, None), "no_redux": (3, None), "exit": (4, None),
-               "next": (5, None), "warp_8x4": (6, 8), "warp_32x1": (7, 32)}
+               "no_axes": (2, None), "no_redux": (3, None),
+               "no_exit": (4, None), "next": (5, None), "warp_8x4": (6, 8),
+               "warp_32x1": (7, 32)}
 # FP32 operations by hand count (csrc/mesh_tile.cu), per lane: the warp's
 # box (warp_box: the slabs 36, `valid` 1, the endpoints 18, the warp's min
 # and max 30, eps 6, the empty test 3), once per warp; its oriented axes

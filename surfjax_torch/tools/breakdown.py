@@ -399,8 +399,8 @@ def mesh_cull_count(args, masks) -> dict:
     """One mesh call and its warps' votes (mesh_warp_masks, production
     warps) -> the work of the culled algorithm as the kernel runs it:
     lane-tests (each lane's voted candidates, up to its first occluder),
-    the chunks of 32 candidates the warps vote on, warps, and the FP32
-    operations by hand count
+    the chunks of 32 candidates the warps vote on (until none of a warp's
+    lanes searches), warps, and the FP32 operations by hand count
     (mesh_tile's MT_*_OPS; with the oriented axes, their test on each
     lane's candidate whose box passed)."""
     from surfjax_torch.kernels.mesh_tile import (
@@ -418,12 +418,13 @@ def mesh_cull_count(args, masks) -> dict:
     act = active.reshape(-1)
     tests = torch.where(act, _voted_up_to(masks, warp, last), 0)
     n_warps = masks.shape[0]
-    # a warp votes on every chunk of its tile's list, none where its box
-    # is empty
-    tile_rays = o2[0].numel() // cand.shape[0]
-    tile = torch.arange(n_warps, device=last.device) * 32 // tile_rays
-    n_slots = n_valid[tile]
-    chunks = torch.where(mesh_box_empty(args, wx), 0, (n_slots + 31) // 32)
+    # a warp votes on the chunks up to the last slot any of its searching
+    # lanes reaches (it leaves once none searches), none where its box is
+    # empty
+    reach = torch.full((n_warps,), -1, dtype=torch.int64, device=last.device)
+    reach = reach.scatter_reduce(0, warp, torch.where(act, last, -1), "amax")
+    chunks = torch.where((reach >= 0) & ~mesh_box_empty(args, wx),
+                         reach // 32 + 1, 0)
     lane_tests, vote_chunks = int(tests.sum()), int(chunks.sum())
     ops = MT_TEST_OPS * lane_tests + 32 * (MT_VOTE_OPS * vote_chunks
                                            + MT_BOX_OPS * n_warps)
