@@ -195,7 +195,7 @@ def bytes_read(kname: str, args) -> int:
     soft_k only where the shadow segment is not empty (not dist <= 0),
     ao_fix reads p_off and n only where need > 0.5; the other ray arrays
     on every lane. The mesh kernel counts its whole triangle and candidate
-    tables (it is bound by operations)."""
+    tables and every ray."""
     if kname == "mesh_tile":
         return nbytes(args[:6])   # table, candidates, counts, rays
     if kname == "trace_rays":

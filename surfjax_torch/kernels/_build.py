@@ -208,8 +208,6 @@ def load() -> ctypes.CDLL:
                                  ctypes.c_void_p]
     lib.mt_mesh_tile_profile.argtypes = [MeshTileArgs, MeshTileProf,
                                          ctypes.c_int, ctypes.c_void_p]
-    lib.mt_mesh_tile_variant.argtypes = [MeshTileArgs, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_void_p]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     mixes = ("fp_bulb_mix", "fp_cheb_mix", "fp_bulb_mix_fma",
              "fp_cheb_mix_fma")
@@ -221,7 +219,7 @@ def load() -> ctypes.CDLL:
     for name in ("kf_frame_fused", "ks_frame_fused", "kf_frame_profile",
                  "ks_occupancy", "sp_render_tile", "sp_trace_rays",
                  "sp_ao_fix", "pt_prime_tile", "mt_mesh_tile",
-                 "mt_mesh_tile_profile", "mt_mesh_tile_variant", "fp_fma_dep",
+                 "mt_mesh_tile_profile", "fp_fma_dep",
                  *mixes):
         getattr(lib, name).restype = ctypes.c_int
     lib.kf_error_string.argtypes = [ctypes.c_int]

@@ -13,56 +13,53 @@
 // same association.
 //
 // What bounds it on this card: FP32 work, about 50 operations per
-// triangle test, times the tests the rays need. The tile's list is
-// conservative for the union of its 6,144 rays' segments, so most of a
-// lane's tests are of triangles its own ray cannot reach, and a tile that
-// overflows K makes every lane test the whole table.
+// triangle test, times the tests the rays need. A tile's list is
+// conservative for the union of its thousands of rays' segments, so most
+// of a ray's candidates are triangles it cannot reach, and a tile that
+// overflows K has every triangle as a candidate.
 //
-// What the design does about it: one thread per ray; each warp culls the
-// candidates for its own 32 rays. A lane clips its ray to the mesh's grid
-// box with mesh_candidates' slab arithmetic (the same operations in the
-// same order), the warp takes the box of its segments' endpoints padded by
-// the same eps, and then, 32 candidates at a time, each lane tests one
-// candidate's box against it and the warp votes (__ballot_sync); the lanes
-// then test the voted candidates in ascending order. A triangle that a lane
-// hits overlaps that lane's segment, so the warp's vote keeps it: the
-// nearest hit, its ties and the first occluder are those of the unculled
-// scan (the argument of mesh_candidates, per warp). The vote's plain
-// version is mesh_tile.mesh_warp_masks. The warps share nothing: no
-// barrier, each reads the rows it votes on and tests through L1 (three
-// 16-byte loads of v0, e1, e2; the normals only on an improving hit), and
-// a warp leaves as soon as none of its lanes is searching (an any-hit
-// lane stops at its first occluder).
+// What the design does about it: one thread per ray, in warps of 16x2 rays
+// that share nothing (no shared memory, no barrier). Each warp culls its
+// tile's candidates for its own rays. A lane clips its ray to the mesh's
+// grid box with mesh_candidates' slab arithmetic (the same operations in
+// the same order); the warp takes the box of its segments' endpoints and
+// mesh_candidates' three oriented axes formed for the warp (its valid
+// lanes' directions summed and normalised, and two orthogonals) with the
+// range of the endpoints' projections on each, all padded by the same eps
+// (warp_box; its min and max are one integer reduction each on bits that
+// order as the floats do). Then, 32 candidates at a time, each lane loads
+// one candidate's v0/e1/e2 through L1 and tests its box and, where that
+// passed, its projections against the warp's region, and the warp votes
+// (__ballot_sync); the lanes test the voted candidates in ascending order,
+// the rows read through L1 again (three 16-byte loads; the normals only on
+// an improving hit). A warp leaves once none of its lanes searches (an
+// any-hit lane stops at its first occluder). A triangle that a lane hits
+// meets that lane's segment, whose box and projections lie inside the
+// warp's, so the vote keeps it: the nearest hit, its ties and the first
+// occluder are those of the unculled scan (mesh_candidates' own argument,
+// per warp). The vote's plain version is mesh_tile.mesh_warp_masks.
+// PERF.md has each element's time against this kernel with it left out,
+// and those of the elements measured and left out: staging the tile's
+// list in shared memory, 8x4 and 32x1 warps, a prefetch of the next
+// chunk's rows.
 //
-// MT_* flags select the elements of the design (PERF.md measures each
-// against the production kernel with it left out); PROF (a template
-// parameter: the production code has no probes) adds per warp lane 0's
-// clock64 deltas per phase, the loop's trips and lane-tests, each lane's
-// test count and every chunk's vote (MeshTileProf).
+// PROF (a template parameter: the production code has no probes) adds per
+// warp lane 0's clock64 deltas per phase, the chunks voted on, the test
+// loop's trips and lane-tests, each lane's test count and every chunk's
+// vote (MeshTileProf).
 //
 // C interface (bound with ctypes, no PyTorch headers):
 //   int mt_mesh_tile(MeshTileArgs args, int device, void* stream)
 //   int mt_mesh_tile_profile(MeshTileArgs args, MeshTileProf prof,
 //                            int device, void* stream)
-//   int mt_mesh_tile_variant(MeshTileArgs args, int variant, int device,
-//                            void* stream)
 //       -> cudaError_t of the launch
 
 #include <cuda_runtime.h>
 
 #define MT_ROW 24
 #define MT_FULL 0xffffffffu
-
-// Elements of the design.
-#define MT_CULL 1   // the warp's box and vote (else every candidate)
-#define MT_EXIT 2   // a warp leaves once none of its lanes searches
-#define MT_AXES 4   // the vote also tests the warp's three oriented axes
-#define MT_REDUX 8  // the warp's min and max by one integer reduction
-                    // (__reduce_min_sync on order-preserving bits), not
-                    // five shuffles
-#define MT_NEXT 16  // a lane loads its next chunk's row before it votes
-#define MT_PROD (MT_CULL | MT_EXIT | MT_AXES | MT_REDUX)
-#define MT_WX 16    // 16x2-ray warps
+#define MT_WX 16          // warps of 16x2 rays (mesh_tile.MT_WX)
+#define MT_THREADS 256    // blocks of two rows of the (rows, 128) rays
 
 // render_tile/mesh_tile.MeshTileArgs, passed by value.
 struct MeshTileArgs {
@@ -92,11 +89,9 @@ struct MeshTileProf {
 // Profile phases (mesh_tile.MT_PHASE_NAMES). Cycles are lane 0's clock64
 // deltas between the warp's probes; the chunks the warp votes on sit in
 // MP_VOTE's second slot, the test loop's trips (candidates the warp visits)
-// and lane-tests in MP_TEST's. A hit's record is
-// timed by the lowest lane that records it and taken out of the test
-// loop's cycles.
-enum { MP_BOX = 0, MP_STAGE, MP_VOTE, MP_TEST, MP_RECORD, MP_WRITE,
-       MP_PHASES };
+// and lane-tests in MP_TEST's. A hit's record is timed by the lowest lane
+// that records it and taken out of the test loop's cycles.
+enum { MP_BOX = 0, MP_VOTE, MP_TEST, MP_RECORD, MP_WRITE, MP_PHASES };
 
 template <bool ON>
 struct MtProf {
@@ -113,7 +108,7 @@ struct MtProf {
 
 template <>
 struct MtProf<true> {
-  long long cyc[MP_PHASES] = {0, 0, 0, 0, 0, 0};
+  long long cyc[MP_PHASES] = {0, 0, 0, 0, 0};
   long long t, r0 = 0, rec = 0;
   int chunks = 0, trips = 0, tests = 0;
   bool leader = false;
@@ -164,15 +159,29 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-// The warp's region: each lane's ray clipped to the grid box as in
-// mesh_candidates (slabs, then the segment's endpoints; a lane whose
-// segment misses the box adds nothing), the warp's min and max of the
-// endpoints, padded by mesh_candidates' eps; lo > hi where no lane's
-// segment meets the box. With AXES also mesh_candidates' three oriented
-// axes for the warp (the normalised sum of its valid lanes' directions, in
-// the butterfly's order, and two orthogonals) and the padded range of the
-// endpoints' projections on each. Any axis is sound: a segment's
-// projection lies between its endpoints'.
+// A float's bits as an int that orders as the float does (-0 below +0),
+// and back.
+__device__ __forceinline__ int ordered(float x) {
+  const int i = __float_as_int(x);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// The warp's min of lo and max of hi (exact, in any order), padded by
+// mesh_candidates' eps.
+__device__ __forceinline__ void warp_range(float lo, float hi, float& plo,
+                                           float& phi) {
+  const float eps = (float)1e-4;
+  plo = unordered(__reduce_min_sync(MT_FULL, ordered(lo))) - eps;
+  phi = unordered(__reduce_max_sync(MT_FULL, ordered(hi))) + eps;
+}
+
+// The warp's region: the padded box of its lanes' clipped segments (lo >
+// hi where no lane's segment meets the grid box) and, on each oriented
+// axis, the padded range of the segments' endpoints' projections. Any axis
+// is sound: a segment's projection lies between its endpoints'.
 struct WarpBox {
   float lo[3], hi[3];
   float axis[3][3], plo[3], phi[3];
@@ -189,35 +198,6 @@ __device__ __forceinline__ float dot3(const float a[3], const float p[3]) {
   return (p[0] * a[0] + p[1] * a[1]) + p[2] * a[2];
 }
 
-// A float's bits as an int that orders as the float does (-0 below +0),
-// and back.
-__device__ __forceinline__ int ordered(float x) {
-  const int i = __float_as_int(x);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-__device__ __forceinline__ float unordered(int i) {
-  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
-}
-
-// the warp's min and max of lo and hi (exact, in any order), padded by eps
-template <bool REDUX>
-__device__ __forceinline__ void warp_range(float lo, float hi, float& plo,
-                                           float& phi) {
-  if (REDUX) {
-    lo = unordered(__reduce_min_sync(MT_FULL, ordered(lo)));
-    hi = unordered(__reduce_max_sync(MT_FULL, ordered(hi)));
-  } else {
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = fminf(lo, __shfl_xor_sync(MT_FULL, lo, off));
-      hi = fmaxf(hi, __shfl_xor_sync(MT_FULL, hi, off));
-    }
-  }
-  const float eps = (float)1e-4;
-  plo = lo - eps;
-  phi = hi + eps;
-}
-
-template <bool AXES, bool REDUX>
 __device__ __forceinline__ WarpBox warp_box(const MeshTileArgs& A,
                                             const float o[3],
                                             const float d[3], float t_max) {
@@ -243,42 +223,39 @@ __device__ __forceinline__ WarpBox warp_box(const MeshTileArgs& A,
   for (int ax = 0; ax < 3; ++ax) {
     pa[ax] = o[ax] + t_lo * d[ax];
     pb[ax] = o[ax] + t_hi * d[ax];
-    warp_range<REDUX>(valid ? nan_min(pa[ax], pb[ax]) : big,
-                      valid ? nan_max(pa[ax], pb[ax]) : -big, b.lo[ax],
-                      b.hi[ax]);
+    warp_range(valid ? nan_min(pa[ax], pb[ax]) : big,
+               valid ? nan_max(pa[ax], pb[ax]) : -big, b.lo[ax], b.hi[ax]);
   }
-  if (AXES) {
-    float* w = b.axis[0];
-    float* u = b.axis[1];
-    for (int k = 0; k < 3; ++k) {
-      float s = valid ? d[k] : 0.0f;
-      for (int off = 16; off > 0; off >>= 1)
-        s = s + __shfl_xor_sync(MT_FULL, s, off);
-      w[k] = s;
-    }
-    const float nrm = sqrtf((w[0] * w[0] + w[1] * w[1]) + w[2] * w[2]);
-    const bool ok = nrm > (float)1e-6;
-    for (int k = 0; k < 3; ++k)
-      w[k] = ok ? w[k] / nrm : (k == 0 ? 1.0f : 0.0f);
-    const bool big_y = fabsf(w[1]) >= (float)0.9;
-    const float ref[3] = {big_y ? 1.0f : 0.0f, big_y ? 0.0f : 1.0f, 0.0f};
-    cross3(w, ref, u);
-    const float un = sqrtf((u[0] * u[0] + u[1] * u[1]) + u[2] * u[2]);
-    for (int k = 0; k < 3; ++k) u[k] = u[k] / un;
-    cross3(w, u, b.axis[2]);
-    for (int a = 0; a < 3; ++a) {
-      const float sa = dot3(b.axis[a], pa), sb = dot3(b.axis[a], pb);
-      warp_range<REDUX>(valid ? nan_min(sa, sb) : big,
-                        valid ? nan_max(sa, sb) : -big, b.plo[a], b.phi[a]);
-    }
+  // the axes: the valid lanes' directions summed in the butterfly's order
+  // (every lane ends with the same sum), normalised, and two orthogonals
+  float* w = b.axis[0];
+  float* u = b.axis[1];
+  for (int k = 0; k < 3; ++k) {
+    float s = valid ? d[k] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1)
+      s = s + __shfl_xor_sync(MT_FULL, s, off);
+    w[k] = s;
+  }
+  const float nrm = sqrtf((w[0] * w[0] + w[1] * w[1]) + w[2] * w[2]);
+  const bool ok = nrm > (float)1e-6;
+  for (int k = 0; k < 3; ++k) w[k] = ok ? w[k] / nrm : (k == 0 ? 1.0f : 0.0f);
+  const bool big_y = fabsf(w[1]) >= (float)0.9;
+  const float ref[3] = {big_y ? 1.0f : 0.0f, big_y ? 0.0f : 1.0f, 0.0f};
+  cross3(w, ref, u);
+  const float un = sqrtf((u[0] * u[0] + u[1] * u[1]) + u[2] * u[2]);
+  for (int k = 0; k < 3; ++k) u[k] = u[k] / un;
+  cross3(w, u, b.axis[2]);
+  for (int a = 0; a < 3; ++a) {
+    const float sa = dot3(b.axis[a], pa), sb = dot3(b.axis[a], pb);
+    warp_range(valid ? nan_min(sa, sb) : big, valid ? nan_max(sa, sb) : -big,
+               b.plo[a], b.phi[a]);
   }
   return b;
 }
 
 // Does the triangle (v0, v0 + e1, v0 + e2) meet the warp's region: its
-// box the warp's box and, with AXES, its projection on each axis the
-// warp's range? r0 = (v0, e1.x), r1 = (e1.y, e1.z, e2.x, e2.y), e2z.
-template <bool AXES>
+// box the warp's box and then its projection on each axis the warp's
+// range? r0 = (v0, e1.x), r1 = (e1.y, e1.z, e2.x, e2.y), e2z.
 __device__ __forceinline__ bool tri_overlaps(const WarpBox& b, float4 r0,
                                              float4 r1, float e2z) {
   const float v0[3] = {r0.x, r0.y, r0.z};
@@ -293,41 +270,28 @@ __device__ __forceinline__ bool tri_overlaps(const WarpBox& b, float4 r0,
     const float hi = fmaxf(fmaxf(v0[ax], p1[ax]), p2[ax]);
     keep = keep && lo <= b.hi[ax] && hi >= b.lo[ax];
   }
-  if (AXES && keep) {
-    for (int a = 0; a < 3; ++a) {
-      const float t0 = dot3(b.axis[a], v0), t1 = dot3(b.axis[a], p1);
-      const float t2 = dot3(b.axis[a], p2);
-      const float lo = fminf(fminf(t0, t1), t2);
-      const float hi = fmaxf(fmaxf(t0, t1), t2);
-      keep = keep && lo <= b.phi[a] && hi >= b.plo[a];
-    }
+  if (!keep) return false;
+  for (int a = 0; a < 3; ++a) {
+    const float t0 = dot3(b.axis[a], v0), t1 = dot3(b.axis[a], p1);
+    const float t2 = dot3(b.axis[a], p2);
+    const float lo = fminf(fminf(t0, t1), t2);
+    const float hi = fmaxf(fmaxf(t0, t1), t2);
+    keep = keep && lo <= b.phi[a] && hi >= b.plo[a];
   }
   return keep;
 }
 
-// The rays' tiling: WX x (32 / WX) pixels per warp; a block is RB rows of
-// the (rows, 128) ray array, inside one tile.
-template <int WX>
-struct MtShape {
-  static constexpr int WY = 32 / WX;
-  static constexpr int RB = WY > 2 ? WY : 2;
-  static constexpr int THREADS = RB * 128;
-};
-
-template <int WX, int FL, bool PROF>
-__global__ void __launch_bounds__(MtShape<WX>::THREADS)
+template <bool PROF>
+__global__ void __launch_bounds__(MT_THREADS)
 mt_mesh_tile_kernel(const MeshTileArgs A, const MeshTileProf Q) {
-  constexpr int THREADS = MtShape<WX>::THREADS;
-  constexpr bool AXES = (FL & MT_AXES) != 0;
-  constexpr bool NEXT = (FL & MT_NEXT) != 0;
   MtProf<PROF> P;
   P.begin();
+  // warp w of the block: columns 16 w .. 16 w + 15 of the block's two rows
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = (w / (128 / WX)) * MtShape<WX>::WY + lane / WX;
-  const int col = (w % (128 / WX)) * WX + lane % WX;
-  const int ray = blockIdx.x * THREADS + row * 128 + col;
-  const int warp = (blockIdx.x * THREADS + threadIdx.x) >> 5;
-  const int tile = (blockIdx.x * THREADS) / A.tile_rays;
+  const int ray = blockIdx.x * MT_THREADS + (lane / MT_WX) * 128 +
+                  w * MT_WX + lane % MT_WX;
+  const int warp = (blockIdx.x * MT_THREADS + threadIdx.x) >> 5;
+  const int tile = (blockIdx.x * MT_THREADS) / A.tile_rays;
   const int count = A.counts[tile];
   const bool over = count > A.K;
   const int n = over ? A.n_tris : count;
@@ -345,53 +309,26 @@ mt_mesh_tile_kernel(const MeshTileArgs A, const MeshTileProf Q) {
   float ngx = 0.0f, ngy = 0.0f, ngz = 1.0f;
   // a lane whose segment is empty can hit nothing
   bool active = in && !(t_max <= A.t_min);
-  int n_loop = n;
-  WarpBox box;
-  if (FL & MT_CULL) {
-    box = warp_box<AXES, (FL & MT_REDUX) != 0>(A, o, d, t_max);
-    if (!(box.lo[0] <= box.hi[0] && box.lo[1] <= box.hi[1] &&
-          box.lo[2] <= box.hi[2]))
-      n_loop = 0;   // no lane's segment meets the grid box
-  }
+  const WarpBox box = warp_box(A, o, d, t_max);
+  // a warp whose box is empty (no lane's segment meets the grid box)
+  // votes for nothing
+  const bool meets = box.lo[0] <= box.hi[0] && box.lo[1] <= box.hi[1] &&
+                     box.lo[2] <= box.hi[2];
+  const int n_loop = meets ? n : 0;
   P.mark(MP_BOX);
-  // a lane's candidate of a chunk: its id and, for the cull, its row
-  struct Row {
-    int id;
-    float4 r0, r1;
-    float e2z;
-  };
-  const auto load = [&](int slot) {
-    Row c{0, {}, {}, 0.0f};
-    if (slot < n) {
-      c.id = over ? slot : __ldg(cand + slot);
-      if (FL & MT_CULL) {
-        const float4* src =
-            reinterpret_cast<const float4*>(A.tri + (size_t)c.id * MT_ROW);
-        c.r0 = __ldg(src);
-        c.r1 = __ldg(src + 1);
-        c.e2z = __ldg(src + 2).x;
-      }
-    }
-    return c;
-  };
-  Row next;
-  if (NEXT && n_loop > 0) next = load(lane);
   for (int base = 0; base < n_loop; base += 32) {
-    if ((FL & MT_EXIT) && !__any_sync(MT_FULL, active)) break;
+    if (!__any_sync(MT_FULL, active)) break;
     P.chunk();
     // the vote: each lane tests one candidate's row against the region
     const int slot = base + lane;
-    Row c;
-    if (NEXT) {
-      c = next;
-      if (base + 32 < n_loop) next = load(slot + 32);
-    } else {
-      c = load(slot);
+    int id = 0;
+    bool keep = false;
+    if (slot < n) {
+      id = over ? slot : __ldg(cand + slot);
+      const float4* src =
+          reinterpret_cast<const float4*>(A.tri + (size_t)id * MT_ROW);
+      keep = tri_overlaps(box, __ldg(src), __ldg(src + 1), __ldg(src + 2).x);
     }
-    const int id = c.id;
-    bool keep = slot < n;
-    if (keep && (FL & MT_CULL))
-      keep = tri_overlaps<AXES>(box, c.r0, c.r1, c.e2z);
     unsigned m = __ballot_sync(MT_FULL, keep);
     P.mark(MP_VOTE);
     while (m) {
@@ -453,17 +390,17 @@ mt_mesh_tile_kernel(const MeshTileArgs A, const MeshTileProf Q) {
   }
   P.mark(MP_WRITE);
   P.finish(Q, warp, ray, in);
-  if (PROF && (FL & MT_CULL)) {
-    // every chunk's vote, also those a warp left out (outside the timed
-    // phases): what mesh_warp_masks must equal
+  if (PROF) {
+    // every chunk's vote (outside the timed phases): what mesh_warp_masks
+    // must equal
     for (int base = 0; base < n; base += 32) {
       const int slot = base + lane;
       bool keep = false;
-      if (slot < n && n_loop > 0) {
+      if (slot < n && meets) {
         const int id = over ? slot : cand[slot];
         const float4* src =
             reinterpret_cast<const float4*>(A.tri + (size_t)id * MT_ROW);
-        keep = tri_overlaps<AXES>(box, src[0], src[1], src[2].x);
+        keep = tri_overlaps(box, src[0], src[1], src[2].x);
       }
       const unsigned m = __ballot_sync(MT_FULL, keep);
       if (lane == 0) Q.masks[(size_t)warp * Q.mask_words + base / 32] = m;
@@ -471,51 +408,26 @@ mt_mesh_tile_kernel(const MeshTileArgs A, const MeshTileProf Q) {
   }
 }
 
-template <int WX, int FL, bool PROF>
+template <bool PROF>
 static int mt_launch(const MeshTileArgs& args, const MeshTileProf& prof,
                      int device, void* stream) {
-  constexpr int THREADS = MtShape<WX>::THREADS;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (args.n_rays <= 0) return 0;
-  if (args.tile_rays % THREADS != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid(args.n_rays / THREADS);
-  mt_mesh_tile_kernel<WX, FL, PROF>
-      <<<grid, THREADS, 0, (cudaStream_t)stream>>>(args, prof);
+  if (args.tile_rays % MT_THREADS != 0) return (int)cudaErrorInvalidValue;
+  dim3 grid(args.n_rays / MT_THREADS);
+  mt_mesh_tile_kernel<PROF>
+      <<<grid, MT_THREADS, 0, (cudaStream_t)stream>>>(args, prof);
   return (int)cudaGetLastError();
 }
 
 extern "C" int mt_mesh_tile(MeshTileArgs args, int device, void* stream) {
-  return mt_launch<MT_WX, MT_PROD, false>(
-      args, MeshTileProf{nullptr, nullptr, nullptr, 0}, device, stream);
+  return mt_launch<false>(args, MeshTileProf{nullptr, nullptr, nullptr, 0},
+                          device, stream);
 }
 
 // The profiling instantiation (tools/breakdown.py, section `mesh_phases`).
 extern "C" int mt_mesh_tile_profile(MeshTileArgs args, MeshTileProf prof,
                                     int device, void* stream) {
-  return mt_launch<MT_WX, MT_PROD, true>(args, prof, device, stream);
-}
-
-// The production kernel with one element left out or changed
-// (mesh_tile.MT_VARIANTS), for PERF.md's comparison.
-extern "C" int mt_mesh_tile_variant(MeshTileArgs args, int variant,
-                                    int device, void* stream) {
-  const MeshTileProf none{nullptr, nullptr, nullptr, 0};
-  constexpr int P = MT_PROD;
-  switch (variant) {
-    case 0: return mt_launch<MT_WX, P, false>(args, none, device, stream);
-    case 1: return mt_launch<MT_WX, P & ~MT_CULL & ~MT_AXES, false>(
-        args, none, device, stream);
-    case 2: return mt_launch<MT_WX, P & ~MT_AXES, false>(args, none, device,
-                                                         stream);
-    case 3: return mt_launch<MT_WX, P & ~MT_REDUX, false>(args, none, device,
-                                                          stream);
-    case 4: return mt_launch<MT_WX, P & ~MT_EXIT, false>(args, none, device,
-                                                         stream);
-    case 5: return mt_launch<MT_WX, P | MT_NEXT, false>(args, none, device,
-                                                        stream);
-    case 6: return mt_launch<8, P, false>(args, none, device, stream);
-    case 7: return mt_launch<32, P, false>(args, none, device, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return mt_launch<true>(args, prof, device, stream);
 }

@@ -39,9 +39,7 @@ PACKET_K = 1024  # candidate budget per tile; overflow -> full-table scan
 MAX_PACKET_TRIS = 40_000
 ROW_W = 24       # packed triangle row: v0, e1, e2, gn, n0, n1, n2, pad
 LANES = 128
-MT_AXES = True   # the production kernel's vote tests the oriented axes
-MT_WX = 16       # its warps: 16 x 2 rays (csrc/mesh_tile.cu, MT_WX)
-MT_PROD_FLAGS = 15   # its elements (csrc/mesh_tile.cu, MT_PROD)
+MT_WX = 16       # the kernel's warps: 16 x 2 rays (csrc/mesh_tile.cu)
 
 
 def mesh_candidates(ms, tri_packed, o2, d2, t_min, t_max, tile_rows: int,
@@ -182,8 +180,7 @@ def _check_inputs(tri_packed, cand, counts, o2, d2, t_maxv):
 
 def mesh_tile_reference(tri_packed, cand, counts, o2, d2, t_maxv,
                         t_min: float, smooth: bool, any_hit: bool, box=None,
-                        count_tests: bool = False, masks=None,
-                        wx: int = MT_WX):
+                        count_tests: bool = False, masks=None):
     """Plain PyTorch version of the mesh kernel over (rows, 128) rays.
 
     -> (t, ns (3), ng (3)): nearest hit (ties to the lowest candidate
@@ -196,8 +193,7 @@ def mesh_tile_reference(tri_packed, cand, counts, o2, d2, t_maxv,
     for a lane whose segment is empty (t_max <= t_min).
 
     `box` (the grid box the kernel's cull clips rays to) is accepted and
-    not read. With masks (mesh_warp_masks' votes for warps of wx x
-    (32 / wx) rays; by default the production kernel's, MT_WX),
+    not read. With masks (mesh_warp_masks' votes of the kernel's warps),
     each lane visits only its warp's voted candidates, and count_tests
     counts those: the culled algorithm, whose results the cull must leave
     as they are.
@@ -208,7 +204,7 @@ def mesh_tile_reference(tri_packed, cand, counts, o2, d2, t_maxv,
     shape = o2[0].shape
     out, first, n_valid, active = _mesh_scan(
         tri_packed, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit,
-        masks, wx)
+        masks)
     if not count_tests:
         return out
     if masks is None:
@@ -216,7 +212,7 @@ def mesh_tile_reference(tri_packed, cand, counts, o2, d2, t_maxv,
         tests = torch.where(first >= 0, first + 1, nv) if any_hit else nv
         return out + (torch.where(active, tests, 0).reshape(shape),)
     last = _last_slots(first, n_valid, any_hit).reshape(-1)
-    warp = warp_of_rays(shape[0], wx, first.device).reshape(-1)
+    warp = warp_of_rays(shape[0], first.device).reshape(-1)
     tests = _voted_up_to(masks, warp, last).reshape(shape)
     return out + (torch.where(active.reshape(shape), tests, 0),)
 
@@ -249,7 +245,7 @@ def _voted_up_to(masks, warp, last):
 
 
 def _mesh_scan(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
-               smooth: bool, any_hit: bool, masks, wx: int):
+               smooth: bool, any_hit: bool, masks):
     """mesh_tile_reference's scan -> (outputs, first occluder slot per
     lane (tiles, lanes), -1 where none, slots per tile, lanes whose
     segment is not empty)."""
@@ -272,7 +268,7 @@ def _mesh_scan(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
     first = torch.full((tiles, lanes), -1, dtype=torch.int64, device=dev)
     eps = f32(1e-7)
     if masks is not None:
-        warp = warp_of_rays(shape[0], wx, dev).reshape(tiles, lanes)
+        warp = warp_of_rays(shape[0], dev).reshape(tiles, lanes)
     chunk = max(1, min(64, (1 << 24) // max(1, tiles * lanes)))
     n_steps = int(n_valid.max()) if tiles else 0
     for base in range(0, n_steps, chunk):
@@ -334,17 +330,14 @@ def grid_box(ms):
             tuple(float(bmin[ax] + bext[ax]) for ax in range(3)))
 
 
-def warp_of_rays(rows: int, wx: int, device):
-    """-> int64 (rows, 128): the kernel's warp of each ray. Threads go in
-    blocks of max(2, 32 / wx) rows of the ray array; in a block, warp k
-    holds the wx x (32 / wx) rays of column block k % (128 / wx), row
-    group k // (128 / wx); warps are numbered in thread order."""
-    wy = 32 // wx
-    rb = max(2, wy)
+def warp_of_rays(rows: int, device):
+    """-> int64 (rows, 128): the kernel's warp of each ray. Blocks of 256
+    threads take two rows of the ray array each; in a block, warp k holds
+    the 16 x 2 rays of columns 16 k .. 16 k + 15; warps are numbered in
+    thread order."""
     r = torch.arange(rows, device=device)[:, None]
     c = torch.arange(LANES, device=device)[None, :]
-    return (r // rb) * (rb * LANES // 32) + ((r % rb) // wy) \
-        * (LANES // wx) + c // wx
+    return (r // 2) * (LANES // MT_WX) + c // MT_WX
 
 
 def _lane_clip(o2, d2, t_maxv, t_min: float, box=None):
@@ -424,35 +417,33 @@ def _dot(a, p):
     return (p[0] * a[0] + p[1] * a[1]) + p[2] * a[2]
 
 
-def _ray_of_thread(rows: int, wx: int, device):
+def _ray_of_thread(rows: int, device):
     """-> int64 (warps, 32): the ray each lane of each warp holds."""
-    warp = warp_of_rays(rows, wx, device).reshape(-1)
+    warp = warp_of_rays(rows, device).reshape(-1)
     order = torch.argsort(warp, stable=True)
     return order.reshape(-1, 32)
 
 
 def mesh_warp_masks(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
-                    box=None, wx: int = None, axes: bool = None,
-                    block: int = 256):
+                    box=None, axes: bool = True, block: int = 256):
     """The kernel's vote in plain PyTorch -> int32 (warps, words): bit b
     of word j is set where candidate slot 32 j + b of the warp's tile
     (its table index in an overflow tile) meets the warp's region: its
     box meets the warp's box (the min and max over the warp's lanes of
-    lane_segments, padded by mesh_candidates' eps of 1e-4) and, with axes,
-    its projection on each of the warp's oriented axes meets the range of
-    the lanes' endpoints' projections, padded the same way. The kernel's
-    arithmetic in its order (min and max are exact, so their reductions'
-    order does not matter; the direction sum is the kernel's butterfly).
-    wx and axes default to the production kernel's (MT_WX, MT_AXES). words = ceil(max(F, K) / 32); a warp whose box is empty
-    votes for nothing. `block` slots are compared at a time."""
+    lane_segments, padded by mesh_candidates' eps of 1e-4) and, with axes
+    (as the kernel votes; without, the box alone), its projection on each
+    of the warp's oriented axes meets the range of the lanes' endpoints'
+    projections, padded the same way. The kernel's arithmetic in its
+    order (min and max are exact, so their reductions' order does not
+    matter; the direction sum is the kernel's butterfly). words =
+    ceil(max(F, K) / 32); a warp whose box is empty votes for nothing.
+    `block` slots are compared at a time."""
     tiles, K = cand.shape
     F_n = tri_packed.shape[0]
     rows = o2[0].shape[0]
     dev = o2[0].device
     tile_rays = o2[0].numel() // tiles
-    wx = MT_WX if wx is None else wx
-    axes = MT_AXES if axes is None else axes
-    lanes_of = _ray_of_thread(rows, wx, dev)
+    lanes_of = _ray_of_thread(rows, dev)
     pa, pb, valid = _lane_clip(o2, d2, t_maxv, t_min, box)
     by_warp = [[c.reshape(-1)[lanes_of] for c in p] for p in (pa, pb)]
     valid_w = valid.reshape(-1)[lanes_of]
@@ -514,14 +505,7 @@ class MeshTileArgs(ctypes.Structure):
 
 
 # the phases of the profiling instantiation, in csrc/mesh_tile.cu's order
-MT_PHASE_NAMES = ("box", "stage", "vote", "test", "record", "write")
-# mt_mesh_tile_variant's kernels: the production kernel, it with one
-# element left out or added, or with other warps -> (index, warp width;
-# None: the production's)
-MT_VARIANTS = {"production": (0, None), "no_cull": (1, None),
-               "no_axes": (2, None), "no_redux": (3, None),
-               "no_exit": (4, None), "next": (5, None), "warp_8x4": (6, 8),
-               "warp_32x1": (7, 32)}
+MT_PHASE_NAMES = ("box", "vote", "test", "record", "write")
 # FP32 operations by hand count (csrc/mesh_tile.cu), per lane: the warp's
 # box (warp_box: the slabs 36, `valid` 1, the endpoints 18, the warp's min
 # and max 30, eps 6, the empty test 3), once per warp; its oriented axes
@@ -542,13 +526,21 @@ class MeshTileProf(ctypes.Structure):
                 ("masks", ctypes.c_void_p), ("mask_words", ctypes.c_int)]
 
 
-def mesh_tile_args(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
-                   smooth: bool, any_hit: bool, box=None,
-                   profile: bool = False):
-    """The kernel's arguments over tensors on one device -> (MeshTileArgs,
-    MeshTileProf or None, outputs as mesh_tile returns them, profile
-    outputs (rec, tests, masks) or None, the tensors the pointers point
-    into)."""
+def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
+                       t_min: float, smooth: bool, any_hit: bool, box=None,
+                       profile: bool = False):
+    """Prepare one launch of the mesh kernel on CUDA tensors -> (launch,
+    outputs as mesh_tile returns them): launch() enqueues the kernel on the
+    current stream and raises if the launch was refused. The wrapper
+    launches once; chip_smoke.py times repeated launches. With profile,
+    -> (launch, outputs, (rec, tests, masks)) of the profiling
+    instantiation, which writes them at every launch: rec int64 (warps,
+    len(MT_PHASE_NAMES), 3), per phase lane 0's cycles, the chunks voted
+    on in the vote phase's second slot, the loop's trips and lane-tests in
+    the test phase's; tests int32 like the rays, each lane's triangle
+    tests; masks int32 (warps, words), every chunk's vote, as
+    mesh_warp_masks gives it."""
+    from surfjax_torch.kernels import _build
     _check_inputs(tri_packed, cand, counts, o2, d2, t_maxv)
     rays = [r.contiguous() for r in list(o2) + list(d2) + [t_maxv]]
     shape, dev = rays[0].shape, rays[0].device
@@ -565,7 +557,7 @@ def mesh_tile_args(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
     args.box_lo[:] = lo
     args.box_hi[:] = hi
     outs = (out[0], (out[1], out[2], out[3]), (out[4], out[5], out[6]))
-    prof = prof_out = None
+    lib = _build.load()
     if profile:
         n_warps = out[0].numel() // 32
         words = -(-max(tri_packed.shape[0], K) // 32)
@@ -575,37 +567,6 @@ def mesh_tile_args(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
         masks = torch.zeros((n_warps, words), dtype=torch.int32, device=dev)
         prof = MeshTileProf(rec.data_ptr(), tests.data_ptr(),
                             masks.data_ptr(), words)
-        prof_out = (rec, tests, masks)
-    return args, prof, outs, prof_out, (tables, rays, out)
-
-
-def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
-                       t_min: float, smooth: bool, any_hit: bool, box=None,
-                       profile: bool = False, variant: str = None):
-    """Prepare one launch of the mesh kernel on CUDA tensors -> (launch,
-    outputs as mesh_tile returns them): launch() enqueues the kernel on the
-    current stream and raises if the launch was refused. The wrapper
-    launches once; chip_smoke.py times repeated launches. With profile,
-    -> (launch, outputs, (rec, tests, masks)) of the profiling
-    instantiation, which writes them at every launch: rec int64 (warps,
-    len(MT_PHASE_NAMES), 3), per phase lane 0's cycles, the chunks voted
-    on in the vote phase's second slot, the loop's trips and lane-tests in
-    the test phase's; tests int32 like the rays, each lane's triangle
-    tests; masks int32 (warps, words), every chunk's vote, as
-    mesh_warp_masks gives it. With variant (a key of MT_VARIANTS), that
-    kernel."""
-    from surfjax_torch.kernels import _build
-    args, prof, outs, prof_out, keep = mesh_tile_args(
-        tri_packed, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit,
-        box, profile)
-    dev = outs[0].device
-    lib = _build.load()
-    if variant is not None:
-        name = f"mt_mesh_tile_variant {variant}"
-        index = MT_VARIANTS[variant][0]
-        call = lambda stream: lib.mt_mesh_tile_variant(  # noqa: E731
-            args, index, dev.index, stream)
-    elif profile:
         name = "mt_mesh_tile_profile"
         call = lambda stream: lib.mt_mesh_tile_profile(  # noqa: E731
             args, prof, dev.index, stream)
@@ -622,10 +583,10 @@ def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
             raise RuntimeError(f"{name} launch failed: cudaError "
                                f"{err} ({_build.error_string(err)})")
         # the arrays the kernel reads stay alive as long as launch does
-        return keep
+        return tables, rays, out
 
     if profile:
-        return launch, outs, prof_out
+        return launch, outs, (rec, tests, masks)
     return launch, outs
 
 

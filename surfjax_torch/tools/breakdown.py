@@ -401,20 +401,19 @@ def mesh_cull_count(args, masks) -> dict:
     lane-tests (each lane's voted candidates, up to its first occluder),
     the chunks of 32 candidates the warps vote on (until none of a warp's
     lanes searches), warps, and the FP32 operations by hand count
-    (mesh_tile's MT_*_OPS; with the oriented axes, their test on each
-    lane's candidate whose box passed)."""
+    (mesh_tile's MT_*_OPS; the oriented axes' test on each lane's
+    candidate whose box passed)."""
     from surfjax_torch.kernels.mesh_tile import (
-        MT_AXES, MT_AXES_BOX_OPS, MT_AXES_VOTE_OPS, MT_BOX_OPS, MT_TEST_OPS,
-        MT_VOTE_OPS, MT_WX, _last_slots, _mesh_scan, _voted_up_to,
-        mesh_warp_masks, warp_of_rays,
+        MT_AXES_BOX_OPS, MT_AXES_VOTE_OPS, MT_BOX_OPS, MT_TEST_OPS,
+        MT_VOTE_OPS, _last_slots, _mesh_scan, _voted_up_to, mesh_warp_masks,
+        warp_of_rays,
     )
     tri, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit = args[:9]
     shape = o2[0].shape
-    wx = MT_WX
     out, first, n_valid, active = _mesh_scan(
-        tri, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit, masks, wx)
+        tri, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit, masks)
     last = _last_slots(first, n_valid, any_hit).reshape(-1)
-    warp = warp_of_rays(shape[0], wx, last.device).reshape(-1)
+    warp = warp_of_rays(shape[0], last.device).reshape(-1)
     act = active.reshape(-1)
     tests = torch.where(act, _voted_up_to(masks, warp, last), 0)
     n_warps = masks.shape[0]
@@ -423,28 +422,27 @@ def mesh_cull_count(args, masks) -> dict:
     # empty
     reach = torch.full((n_warps,), -1, dtype=torch.int64, device=last.device)
     reach = reach.scatter_reduce(0, warp, torch.where(act, last, -1), "amax")
-    chunks = torch.where((reach >= 0) & ~mesh_box_empty(args, wx),
+    chunks = torch.where((reach >= 0) & ~mesh_box_empty(args),
                          reach // 32 + 1, 0)
     lane_tests, vote_chunks = int(tests.sum()), int(chunks.sum())
-    ops = MT_TEST_OPS * lane_tests + 32 * (MT_VOTE_OPS * vote_chunks
-                                           + MT_BOX_OPS * n_warps)
-    if MT_AXES:
-        boxed = mesh_warp_masks(*args[:7], box=args[9], axes=False)
-        passed = int(_voted_up_to(boxed, torch.arange(n_warps,
-                                                      device=last.device),
-                                  chunks * 32 - 1).sum())
-        ops += MT_AXES_VOTE_OPS * passed + 32 * MT_AXES_BOX_OPS * n_warps
+    # the axes are tested on the candidates whose box passed
+    boxed = mesh_warp_masks(*args[:7], box=args[9], axes=False)
+    passed = int(_voted_up_to(boxed, torch.arange(n_warps,
+                                                  device=last.device),
+                              chunks * 32 - 1).sum())
+    ops = MT_TEST_OPS * lane_tests + MT_AXES_VOTE_OPS * passed + 32 * (
+        MT_VOTE_OPS * vote_chunks + (MT_BOX_OPS + MT_AXES_BOX_OPS) * n_warps)
     return {"lane_tests": lane_tests, "vote_chunks": vote_chunks,
             "warps": n_warps, "ops": ops}
 
 
-def mesh_box_empty(args, wx: int):
-    """-> bool (warps,): the warps of wx x (32 / wx) rays whose box meets
-    no lane's segment (the kernel's warps that vote on nothing)."""
+def mesh_box_empty(args):
+    """-> bool (warps,): the kernel's warps whose box meets no lane's
+    segment (they vote on nothing)."""
     from surfjax_torch.kernels.mesh_tile import _ray_of_thread, lane_segments
     o2, d2, t_maxv, t_min = args[3], args[4], args[5], args[6]
     lo, hi = lane_segments(o2, d2, t_maxv, t_min, args[9])
-    lanes = _ray_of_thread(o2[0].shape[0], wx, o2[0].device)
+    lanes = _ray_of_thread(o2[0].shape[0], o2[0].device)
     wlo = torch.stack([a.reshape(-1)[lanes].amin(dim=1) for a in lo])
     whi = torch.stack([a.reshape(-1)[lanes].amax(dim=1) for a in hi])
     return (wlo > whi).any(dim=0)
@@ -462,8 +460,7 @@ def mesh_phases(dev, res) -> None:
     production kernel's loops in its SASS."""
     from surfjax_torch.kernels import _build
     from surfjax_torch.kernels.mesh_tile import (
-        MT_PROD_FLAGS, MT_WX, mesh_tile_launcher, mesh_tile_reference,
-        mesh_warp_masks,
+        mesh_tile_launcher, mesh_tile_reference, mesh_warp_masks,
     )
     from surfjax_torch.tools.kernel_check import flat
     calls, _, _ = _c4_mesh_calls(dev)
@@ -509,41 +506,11 @@ def mesh_phases(dev, res) -> None:
             print(f"mesh phases {mode} {label}", json.dumps(entry),
                   flush=True)
     info = _build.build()
-    prod = f"mt_mesh_tile_kernelILi{MT_WX}ELi{MT_PROD_FLAGS}ELb0E"
     for name in _build.entries(info["log"]):
-        if prod in name:
+        if "mt_mesh_tile_kernelILb0E" in name:
             loops = _build.sass_loops(info["path"], name)
             res[f"mesh sass {name}"] = loops
             print(f"mesh sass {name}", json.dumps(loops), flush=True)
-
-
-def mesh_variants(dev, res) -> None:
-    """Each mesh kernel call of frame 0 of c4 at 1080p (`ao`): the
-    production kernel and each variant with one element left out or
-    changed (mesh_tile.MT_VARIANTS), LAUNCHES back to back, each held
-    bitwise against the plain version; ms per call and per frame."""
-    from surfjax_torch.kernels.mesh_tile import (
-        MT_VARIANTS, mesh_tile_launcher, mesh_tile_reference,
-    )
-    from surfjax_torch.tools.kernel_check import flat
-    calls, _, _ = _c4_mesh_calls(dev)
-    out = {}
-    for label, args in calls["ao"]:
-        ref = flat(mesh_tile_reference(*args))
-        for variant in MT_VARIANTS:
-            launch, got = mesh_tile_launcher(*args, variant=variant)
-            launch()
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(flat(got), ref)):
-                raise AssertionError(f"variant {variant} differs from the "
-                                     f"plain version ({label})")
-            ms = cuda_ms(lambda: [launch() for _ in range(LAUNCHES)],
-                         REPS)[0]
-            out.setdefault(variant, {})[label] = min(ms) / LAUNCHES
-    for variant, per in out.items():
-        per["frame"] = sum(per.values())
-    res["mesh variants c4 ao"] = out
-    print("mesh variants c4 ao", json.dumps(out), flush=True)
 
 
 def mesh_glue(dev, res) -> None:
@@ -623,7 +590,6 @@ SECTIONS = {
     "kf_phases": kf_phases,
     "split": split,
     "mesh_phases": mesh_phases,
-    "mesh_variants": mesh_variants,
     "mesh_glue": mesh_glue,
 }
 

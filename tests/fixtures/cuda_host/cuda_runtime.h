@@ -1,7 +1,7 @@
 // A host stand-in for the CUDA runtime, so that a kernel source of
 // surfjax_torch/kernels/csrc compiles with g++ and runs on the CPU
-// (tests/cuda_host.py builds it; tests/test_torch_mesh_cull.py runs the mesh
-// kernel through it against its plain version).
+// (tests/cuda_host.py builds it; tests/test_torch_mesh_kernel_host.py runs
+// the mesh kernel through it against its plain version).
 //
 // Each CUDA thread of a block is a std::thread; blocks run one after
 // another. __syncthreads is a barrier over the block; the warp collectives
@@ -11,9 +11,9 @@
 // masks). __activemask returns the calling lane's own bit. Float arithmetic
 // is the host's IEEE single precision; built with -ffp-contract=off, every
 // multiply and add rounds on its own, as on the card under -fmad=false.
-// The launch syntax kernel<<<grid, block, smem, stream>>>(args) is
-// rewritten by the builder into cuda_host::launch(kernel, grid, block,
-// smem, stream, args); `extern __shared__` arrays become static ones.
+// tests/cuda_host.py rewrites the launch syntax kernel<<<grid, block,
+// smem, stream>>>(args) into cuda_host::launch(kernel, grid, block, smem,
+// stream, args), and `extern __shared__` arrays into static ones.
 #pragma once
 
 #include <algorithm>

@@ -38,8 +38,8 @@ from surfjax_torch.core.math import f32  # noqa: E402
 from surfjax_torch.core.scene_compile import from_reference  # noqa: E402
 from surfjax_torch.engines.mesh import moller_trumbore  # noqa: E402
 from surfjax_torch.kernels.mesh_tile import (  # noqa: E402
-    MT_WX, _lane_clip, lane_segments, mesh_candidates,
-    mesh_tile_reference, mesh_warp_masks, warp_of_rays,
+    _lane_clip, lane_segments, mesh_candidates, mesh_tile_reference,
+    mesh_warp_masks, warp_of_rays,
 )
 from surfjax_torch.tools.kernel_check import capture_calls, flat  # noqa
 from surfjax_torch.tools.workload import (  # noqa: E402
@@ -155,20 +155,18 @@ def _voted_ids(args, masks):
 
 @pytest.mark.parametrize("label", CASES)
 def test_every_hit_triangle_is_voted(calls, label):
-    """By the box and by the box and the oriented axes, for the
-    production's warps and for 32x1-ray warps."""
+    """By the box with the oriented axes, as the kernel votes, and by the
+    box alone."""
     args = calls[label]
     hits = _hit_ids(args)
     # the one-triangle mesh shadows no receiver at this size
     assert bool(hits.any()) or label == "two_meshes 3"
-    for wx in (MT_WX, 32):
-        warp = warp_of_rays(args[3][0].shape[0], wx, "cpu").reshape(-1)
-        for axes in (False, True):
-            masks = mesh_warp_masks(*args[:7], box=args[9], wx=wx,
-                                    axes=axes)
-            missed = hits & ~_voted_ids(args, masks)[warp]
-            assert not bool(missed.any()), \
-                f"{int(missed.sum())} hits not voted (wx {wx}, axes {axes})"
+    warp = warp_of_rays(args[3][0].shape[0], "cpu").reshape(-1)
+    for axes in (True, False):
+        masks = mesh_warp_masks(*args[:7], box=args[9], axes=axes)
+        missed = hits & ~_voted_ids(args, masks)[warp]
+        assert not bool(missed.any()), \
+            f"{int(missed.sum())} hits not voted (axes {axes})"
 
 
 def _np_axes(d, valid):
@@ -196,7 +194,7 @@ def _np_dot(a, p):
     return (p[0] * a[0] + p[1] * a[1]) + p[2] * a[2]
 
 
-def _numpy_votes(args, wx, axes):
+def _numpy_votes(args, axes):
     """The vote written out as a loop over warps in numpy (float32), from
     the lanes' clipped segments."""
     tri, cand, counts, o2, d2, t_maxv, t_min = args[:7]
@@ -206,7 +204,7 @@ def _numpy_votes(args, wx, axes):
     valid = valid.numpy().reshape(-1)
     big = np.float32(1e30)
     rows = o2[0].shape[0]
-    warp = warp_of_rays(rows, wx, "cpu").numpy().reshape(-1)
+    warp = warp_of_rays(rows, "cpu").numpy().reshape(-1)
     tiles, K = cand.shape
     tile_rays = o2[0].numel() // tiles
     t = tri.numpy()
@@ -242,35 +240,32 @@ def _numpy_votes(args, wx, axes):
     return out.view(np.int32)
 
 
-@pytest.mark.parametrize("axes", [False, True])
-@pytest.mark.parametrize("wx", [32, 16, 8])
+@pytest.mark.parametrize("axes", [True, False])
 @pytest.mark.parametrize("label", ["edges", "overflow any-hit",
-                                   "two_meshes 0"])
-def test_warp_masks_equal_a_loop_over_warps(calls, label, wx, axes):
-    """For every warp shape the kernel can run, with and without the
-    oriented axes; the culled plain version with those votes stays
-    bitwise equal to the unculled one."""
+                                   "two_meshes 0", "c4 config shadow"])
+def test_warp_masks_equal_a_loop_over_warps(calls, label, axes):
+    """With the oriented axes (as the kernel votes) and without; the
+    culled plain version with those votes stays bitwise equal to the
+    unculled one."""
     args = calls[label]
-    masks = mesh_warp_masks(*args[:7], box=args[9], wx=wx, axes=axes)
-    np.testing.assert_array_equal(masks.numpy(),
-                                  _numpy_votes(args, wx, axes))
-    culled = mesh_tile_reference(*args, masks=masks, wx=wx)
+    masks = mesh_warp_masks(*args[:7], box=args[9], axes=axes)
+    np.testing.assert_array_equal(masks.numpy(), _numpy_votes(args, axes))
+    culled = mesh_tile_reference(*args, masks=masks)
     for a, b in zip(flat(culled), flat(mesh_tile_reference(*args))):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("wx", [32, 16, 8])
-def test_warp_of_rays_is_the_kernels_thread_order(wx):
-    """Each warp holds 32 rays, a block of max(2, 32 / wx) rows holds
-    whole warps, and a warp's rays form a wx x (32 / wx) rectangle."""
+def test_warp_of_rays_is_the_kernels_thread_order():
+    """Each warp holds 32 rays, 16 columns of two rows, and a block of two
+    rows holds whole warps, numbered along the row."""
     rows = 8
-    warp = warp_of_rays(rows, wx, "cpu")
+    warp = warp_of_rays(rows, "cpu")
     counts = torch.bincount(warp.reshape(-1))
     assert counts.shape[0] == rows * 4 and bool((counts == 32).all())
     for w in range(rows * 4):
         r, c = torch.nonzero(warp == w, as_tuple=True)
-        assert int(c.max() - c.min()) + 1 == wx
-        assert int(r.max() - r.min()) + 1 == 32 // wx
+        assert int(c.max() - c.min()) == 15 and int(r.max() - r.min()) == 1
+        assert int(r.min()) == 2 * (w // 8) and int(c.min()) == 16 * (w % 8)
 
 
 @pytest.mark.parametrize("label", ["c4 config primary", "c4 config shadow",

@@ -9,9 +9,7 @@ tests/test_torch_mesh_cull.py (c4 in the `config` mode):
   * its profiling instantiation writes the same outputs, votes as
     mesh_warp_masks does, counts per lane the tests of the culled
     mesh_tile_reference(count_tests=True, masks=) and votes on the chunks
-    that breakdown.mesh_cull_count charges to the bound;
-  * each variant of the design (mesh_tile.MT_VARIANTS) equals the plain
-    version too.
+    that breakdown.mesh_cull_count charges to the bound.
 """
 
 import contextlib
@@ -27,8 +25,8 @@ torch.set_num_threads(1)
 
 from surfjax_torch.kernels import _build  # noqa: E402
 from surfjax_torch.kernels.mesh_tile import (  # noqa: E402
-    MT_AXES, MT_PROD_FLAGS, MT_VARIANTS, MT_WX, MeshTileArgs, MeshTileProf,
-    mesh_tile_launcher, mesh_tile_reference, mesh_warp_masks,
+    MT_WX, MeshTileArgs, MeshTileProf, mesh_tile_launcher,
+    mesh_tile_reference, mesh_warp_masks,
 )
 from surfjax_torch.tools.breakdown import (  # noqa: E402
     mesh_cull_count, mesh_profile_table,
@@ -56,14 +54,11 @@ def host_lib(tmp_path_factory):
     lib.mt_mesh_tile.argtypes = [MeshTileArgs, i32, ptr]
     lib.mt_mesh_tile_profile.argtypes = [MeshTileArgs, MeshTileProf, i32,
                                          ptr]
-    lib.mt_mesh_tile_variant.argtypes = [MeshTileArgs, i32, i32, ptr]
     # the launcher passes its tensors' device index: None on the CPU
     return types.SimpleNamespace(
         mt_mesh_tile=lambda a, dev, s: lib.mt_mesh_tile(a, 0, s),
         mt_mesh_tile_profile=lambda a, p, dev, s: lib.mt_mesh_tile_profile(
-            a, p, 0, s),
-        mt_mesh_tile_variant=lambda a, v, dev, s: lib.mt_mesh_tile_variant(
-            a, v, 0, s))
+            a, p, 0, s))
 
 
 @pytest.fixture
@@ -77,16 +72,13 @@ def on_host(host_lib, monkeypatch):
                         lambda dev: types.SimpleNamespace(cuda_stream=0))
 
 
-def test_python_constants_match_the_source():
-    """The plain model's warp shape and elements are the kernel's."""
+def test_python_warp_matches_the_source():
+    """The plain model's warps are the kernel's."""
     with open(os.path.join(cuda_host.CSRC, "mesh_tile.cu")) as fh:
         src = fh.read()
     macros = dict(re.findall(r"#define (MT_[A-Z]+) (\d+)", src))
-    prod = re.search(r"#define MT_PROD \(([^)]*)\)", src).group(1)
-    assert sum(int(macros[f.strip()]) for f in prod.split("|")) == \
-        MT_PROD_FLAGS
     assert int(macros["MT_WX"]) == MT_WX
-    assert bool(MT_PROD_FLAGS & int(macros["MT_AXES"])) == MT_AXES
+    assert int(macros["MT_THREADS"]) == 2 * 128
 
 
 def _equal(got, ref):
@@ -114,13 +106,3 @@ def test_host_kernel_and_profile_equal_plain(calls, on_host, label):
     count = mesh_cull_count(args, ref_masks)
     assert table["vote_chunks"] == count["vote_chunks"]
     assert table["lane_tests"] == count["lane_tests"] == int(tests.sum())
-
-
-@pytest.mark.parametrize("variant", list(MT_VARIANTS))
-def test_host_variants_equal_plain(calls, on_host, variant):
-    for label in ("edges", "overflow any-hit", "layers any-hit",
-                  "two_meshes 0"):
-        args = calls[label]
-        launch, out = mesh_tile_launcher(*args, variant=variant)
-        launch()
-        assert _equal(out, mesh_tile_reference(*args)), label
