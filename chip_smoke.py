@@ -300,9 +300,11 @@ def main() -> int:
         crowd_warp_masks, prime_frame, prime_tile, split_crowd,
     )
     from surfjax_torch.tools.breakdown import (
-        crowd_variants, fused_path, kf_phases, mesh_cull_count, mesh_phases,
+        crowd_variants, fused_path, kf_phases, mesh_phases,
     )
-    from surfjax_torch.kernels.mesh_tile import MT_TEST_OPS, mesh_warp_masks
+    from surfjax_torch.kernels.mesh_tile import (
+        MT_TEST_OPS, mesh_cull_count, mesh_warp_masks,
+    )
     from surfjax_torch.tools.workload import mesh_probe_calls
     from surfjax_torch.kernels.render_tile import staged_occupancy
     from surfjax_torch.tools.workload import cull_edge_scene
@@ -568,7 +570,7 @@ def main() -> int:
             split_err[kname] = max(split_err[kname], err)
             if kname == "mesh_tile":
                 culled = mesh_cull_count(args, mesh_warp_masks(
-                    *args[:7], box=args[9]))
+                    *args[:7], args[9]))
                 ops = culled["ops"]
                 unculled = int(mesh_tile_reference(
                     *args, count_tests=True)[-1].sum())

@@ -17,13 +17,17 @@
      exceeds K scans the full packed table instead.
 
 The candidate scheme exists because element gathers were slow on the TPU.
-The port keeps it: it is what the reference computes, and on the GPU a
-tile's candidates are staged through shared memory.
+The port keeps it: it is what the reference computes. On the GPU each warp
+of 32 rays then votes on its tile's candidates, 32 at a time, by the box
+and oriented axes of its own rays' segments (`mesh_warp_masks` is that vote
+in plain PyTorch), reads the rows through L1 and tests only the voted
+candidates.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +44,7 @@ MAX_PACKET_TRIS = 40_000
 ROW_W = 24       # packed triangle row: v0, e1, e2, gn, n0, n1, n2, pad
 LANES = 128
 MT_WX = 16       # the kernel's warps: 16 x 2 rays (csrc/mesh_tile.cu)
+VOTE_SLOTS = 256  # candidate slots mesh_warp_masks compares at a time
 
 
 def mesh_candidates(ms, tri_packed, o2, d2, t_min, t_max, tile_rows: int,
@@ -193,35 +198,24 @@ def mesh_tile_reference(tri_packed, cand, counts, o2, d2, t_maxv,
     for a lane whose segment is empty (t_max <= t_min).
 
     `box` (the grid box the kernel's cull clips rays to) is accepted and
-    not read. With masks (mesh_warp_masks' votes of the kernel's warps),
-    each lane visits only its warp's voted candidates, and count_tests
+    not read. With masks (the `masks` of mesh_warp_masks' votes), each
+    lane visits only its warp's voted candidates, and count_tests
     counts those: the culled algorithm, whose results the cull must leave
     as they are.
 
     Candidates are taken in chunks: each (ray, triangle) test is the
     kernel's arithmetic, and a chunk's first minimum (or first hit) is
     merged with strict <, which is what a scan in order keeps."""
-    shape = o2[0].shape
-    out, first, n_valid, active = _mesh_scan(
-        tri_packed, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit,
-        masks)
+    out, last, active = _mesh_scan(tri_packed, cand, counts, o2, d2, t_maxv,
+                                   t_min, smooth, any_hit, masks)
     if not count_tests:
         return out
     if masks is None:
-        nv = n_valid[:, None] * torch.ones_like(first)
-        tests = torch.where(first >= 0, first + 1, nv) if any_hit else nv
-        return out + (torch.where(active, tests, 0).reshape(shape),)
-    last = _last_slots(first, n_valid, any_hit).reshape(-1)
-    warp = warp_of_rays(shape[0], first.device).reshape(-1)
-    tests = _voted_up_to(masks, warp, last).reshape(shape)
-    return out + (torch.where(active.reshape(shape), tests, 0),)
-
-
-def _last_slots(first, n_valid, any_hit: bool):
-    """-> (tiles, lanes) the last candidate slot each lane tests: its
-    first occluder (any-hit, where found), else its tile's last slot."""
-    last = (n_valid[:, None] - 1) * torch.ones_like(first)
-    return torch.where(first >= 0, first, last) if any_hit else last
+        tests = last + 1
+    else:
+        tests = _voted_up_to(masks, warp_of_rays(last.shape[0], last.device),
+                             last)
+    return out + (torch.where(active, tests, 0),)
 
 
 def _popcount(x):
@@ -246,9 +240,10 @@ def _voted_up_to(masks, warp, last):
 
 def _mesh_scan(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
                smooth: bool, any_hit: bool, masks):
-    """mesh_tile_reference's scan -> (outputs, first occluder slot per
-    lane (tiles, lanes), -1 where none, slots per tile, lanes whose
-    segment is not empty)."""
+    """mesh_tile_reference's scan -> (outputs, per ray (rows, 128) the
+    last candidate slot the kernel's scan takes to: its first occluder for
+    an any-hit lane that has one, else its tile's last slot (-1 where the
+    tile has none), and whether its segment is not empty)."""
     tiles, K = cand.shape
     F_n = tri_packed.shape[0]
     shape = o2[0].shape
@@ -315,7 +310,10 @@ def _mesh_scan(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
             ng[ax] = torch.where(better, gn[ax], ng[ax])
     out = (t_best.reshape(shape), tuple(a.reshape(shape) for a in ns),
            tuple(a.reshape(shape) for a in ng))
-    return out, first, n_valid, ~(t_max[:, 0] <= tmin)
+    last = (n_valid[:, None] - 1) * torch.ones_like(first)
+    if any_hit:
+        last = torch.where(first >= 0, first, last)
+    return out, last.reshape(shape), ~(t_max[:, 0] <= tmin).reshape(shape)
 
 
 def grid_box(ms):
@@ -340,12 +338,11 @@ def warp_of_rays(rows: int, device):
     return (r // 2) * (LANES // MT_WX) + c // MT_WX
 
 
-def _lane_clip(o2, d2, t_maxv, t_min: float, box=None):
-    """Each ray clipped to the grid box (None: unbounded) with
-    mesh_candidates' slab arithmetic -> (entry point (3), exit point (3),
-    whether the segment meets the box)."""
-    bmin, bmax = box if box is not None else ((-np.inf,) * 3,
-                                              (np.inf,) * 3)
+def _lane_clip(o2, d2, t_maxv, t_min: float, box):
+    """Each ray clipped to the grid box (grid_box) with mesh_candidates'
+    slab arithmetic -> (entry point (3), exit point (3), whether the
+    segment meets the box)."""
+    bmin, bmax = box
     t_lo = torch.full_like(o2[0], f32(t_min))
     t_hi = t_maxv
     for ax in range(3):
@@ -370,9 +367,9 @@ def _ranges(pa, pb, valid):
             torch.where(valid, torch.maximum(pa, pb), -BIG))
 
 
-def lane_segments(o2, d2, t_maxv, t_min: float, box=None):
-    """Each ray clipped to the grid box (None: unbounded) with
-    mesh_candidates' slab arithmetic -> (lo (3), hi (3)): the corners of
+def lane_segments(o2, d2, t_maxv, t_min: float, box):
+    """Each ray clipped to the grid box (grid_box) with mesh_candidates'
+    slab arithmetic -> (lo (3), hi (3)): the corners of
     its segment's box, BIG / -BIG where the segment misses the box."""
     pa, pb, valid = _lane_clip(o2, d2, t_maxv, t_min, box)
     lo, hi = zip(*(_ranges(a, b, valid) for a, b in zip(pa, pb)))
@@ -424,20 +421,27 @@ def _ray_of_thread(rows: int, device):
     return order.reshape(-1, 32)
 
 
+class WarpVotes(NamedTuple):
+    """mesh_warp_masks' result. In each mask, bit b of word j stands for
+    candidate slot 32 j + b of the warp's tile (its table index in an
+    overflow tile); words = ceil(max(F, K) / 32)."""
+    masks: torch.Tensor   # int32 (warps, words): the vote, as the kernel's
+    boxed: torch.Tensor   # int32 (warps, words): the slots whose box passed
+    empty: torch.Tensor   # bool (warps,): the warp's box is empty
+
+
 def mesh_warp_masks(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
-                    box=None, axes: bool = True, block: int = 256):
-    """The kernel's vote in plain PyTorch -> int32 (warps, words): bit b
-    of word j is set where candidate slot 32 j + b of the warp's tile
-    (its table index in an overflow tile) meets the warp's region: its
-    box meets the warp's box (the min and max over the warp's lanes of
-    lane_segments, padded by mesh_candidates' eps of 1e-4) and, with axes
-    (as the kernel votes; without, the box alone), its projection on each
-    of the warp's oriented axes meets the range of the lanes' endpoints'
-    projections, padded the same way. The kernel's arithmetic in its
-    order (min and max are exact, so their reductions' order does not
-    matter; the direction sum is the kernel's butterfly). words =
-    ceil(max(F, K) / 32); a warp whose box is empty votes for nothing.
-    `block` slots are compared at a time."""
+                    box) -> WarpVotes:
+    """The kernel's vote in plain PyTorch. A slot is voted where its
+    triangle meets the warp's region: its box meets the warp's box (the
+    min and max over the warp's lanes of lane_segments, padded by
+    mesh_candidates' eps of 1e-4; `boxed` holds the slots that pass this
+    far) and its projection on each of the warp's oriented axes meets the
+    range of the lanes' endpoints' projections, padded the same way. The
+    kernel's arithmetic in its order (min and max are exact, so their
+    reductions' order does not matter; the direction sum is the kernel's
+    butterfly). A warp whose box is empty (no lane's segment meets the
+    grid box) votes for nothing and, in the kernel, on no chunk."""
     tiles, K = cand.shape
     F_n = tri_packed.shape[0]
     rows = o2[0].shape[0]
@@ -454,11 +458,11 @@ def mesh_warp_masks(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
         return lo.amin(dim=1) - eps, hi.amax(dim=1) + eps
 
     bounds = [warp_range(a, b) for a, b in zip(*by_warp)]
-    if axes:
-        axis = _warp_axes([c.reshape(-1)[lanes_of] for c in d2], valid_w)
-        proj = [warp_range(_dot([c[:, None] for c in a], by_warp[0]),
-                           _dot([c[:, None] for c in a], by_warp[1]))
-                for a in axis]
+    empty = ~torch.stack([lo <= hi for lo, hi in bounds]).all(dim=0)
+    axis = _warp_axes([c.reshape(-1)[lanes_of] for c in d2], valid_w)
+    proj = [warp_range(_dot([c[:, None] for c in a], by_warp[0]),
+                       _dot([c[:, None] for c in a], by_warp[1]))
+            for a in axis]
     n_warps = lanes_of.shape[0]
     tile = torch.arange(n_warps, device=dev) * 32 // tile_rays
     over = counts > K
@@ -469,28 +473,71 @@ def mesh_warp_masks(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
     tri_lo = torch.minimum(torch.minimum(v0, p1), p2)
     tri_hi = torch.maximum(torch.maximum(v0, p1), p2)
     n_words = -(-max(F_n, K) // 32)
-    words = torch.zeros((n_warps, n_words), dtype=torch.int64, device=dev)
+    words = torch.zeros((2, n_warps, n_words), dtype=torch.int64, device=dev)
     bit = torch.arange(32, device=dev, dtype=torch.int64)
-    for base in range(0, n_words * 32, block):
-        ks = torch.arange(base, min(base + block, n_words * 32), device=dev)
+    for base in range(0, n_words * 32, VOTE_SLOTS):
+        ks = torch.arange(base, min(base + VOTE_SLOTS, n_words * 32),
+                          device=dev)
         ids = torch.where(over[:, None], torch.clamp(ks, max=F_n - 1),
                           cand[:, torch.clamp(ks, max=K - 1)].long())[tile]
-        keep = ks[None, :] < n_slots[tile][:, None]          # (warps, C)
+        boxed = ks[None, :] < n_slots[tile][:, None]         # (warps, C)
         for ax, (lo, hi) in enumerate(bounds):
-            keep &= tri_lo[ids, ax] <= hi[:, None]
-            keep &= tri_hi[ids, ax] >= lo[:, None]
-        if axes:
-            verts = [[vt[ids, k] for k in range(3)] for vt in (v0, p1, p2)]
-            for a, (lo, hi) in zip(axis, proj):
-                t0, t1, t2 = (_dot([c[:, None] for c in a], vt)
-                              for vt in verts)
-                keep &= torch.minimum(torch.minimum(t0, t1), t2) \
-                    <= hi[:, None]
-                keep &= torch.maximum(torch.maximum(t0, t1), t2) \
-                    >= lo[:, None]
-        packed = (keep.reshape(n_warps, -1, 32).long() << bit).sum(dim=2)
-        words[:, base // 32:base // 32 + packed.shape[1]] = packed
-    return (words - (words >= 2 ** 31).long() * 2 ** 32).to(torch.int32)
+            boxed &= tri_lo[ids, ax] <= hi[:, None]
+            boxed &= tri_hi[ids, ax] >= lo[:, None]
+        keep = boxed.clone()
+        verts = [[vt[ids, k] for k in range(3)] for vt in (v0, p1, p2)]
+        for a, (lo, hi) in zip(axis, proj):
+            t0, t1, t2 = (_dot([c[:, None] for c in a], vt) for vt in verts)
+            keep &= torch.minimum(torch.minimum(t0, t1), t2) <= hi[:, None]
+            keep &= torch.maximum(torch.maximum(t0, t1), t2) >= lo[:, None]
+        for k, m in enumerate((keep, boxed)):
+            packed = (m.reshape(n_warps, -1, 32).long() << bit).sum(dim=2)
+            words[k, :, base // 32:base // 32 + packed.shape[1]] = packed
+    words = (words - (words >= 2 ** 31).long() * 2 ** 32).to(torch.int32)
+    return WarpVotes(words[0], words[1], empty)
+
+
+# FP32 operations by hand count (csrc/mesh_tile.cu), per lane: the warp's
+# box (warp_box: the slabs 36, `valid` 1, the endpoints 18, the warp's min
+# and max 30, eps 6, the empty test 3), once per warp; its oriented axes
+# (the direction sum 15, the normalisation 10, the reference axis 1, two
+# cross products 18, u's normalisation 9, the endpoints' projections 30,
+# their min and max 6, the warp's 30, eps 6), once per warp; one
+# candidate's box against the warp's (tri_overlaps: per axis 2 adds, 2
+# mins, 2 maxes, 2 compares), once per voted chunk of 32 candidates; its
+# projections on the three axes (per axis 3 dots of 5, 2 mins, 2 maxes, 2
+# compares), where its box passed; a Moller-Trumbore test.
+MT_BOX_OPS, MT_AXES_BOX_OPS, MT_VOTE_OPS, MT_AXES_VOTE_OPS, MT_TEST_OPS = \
+    94, 125, 24, 63, 50
+
+
+def mesh_cull_count(args, votes: WarpVotes) -> dict:
+    """One mesh call (mesh_tile's arguments) and its warps' votes
+    (mesh_warp_masks) -> the work of the culled algorithm as the kernel
+    runs it: lane-tests (each lane's voted candidates up to the last slot
+    its scan takes to, as count_tests counts them), the chunks of 32
+    candidates each warp votes on (up to the last slot any of its lanes
+    takes to; none where its box is empty), warps, and the FP32
+    operations by hand count (MT_*_OPS; the axes are tested on each voted
+    chunk's candidates whose box passed)."""
+    masks = votes.masks
+    _, last, active = _mesh_scan(*args[:9], masks)
+    warp = warp_of_rays(last.shape[0], last.device)
+    tests = torch.where(active, _voted_up_to(masks, warp, last), 0)
+    n_warps = masks.shape[0]
+    reach = torch.full((n_warps,), -1, dtype=torch.int64, device=last.device)
+    reach = reach.scatter_reduce(0, warp.reshape(-1),
+                                 torch.where(active, last, -1).reshape(-1),
+                                 "amax")
+    chunks = torch.where((reach >= 0) & ~votes.empty, reach // 32 + 1, 0)
+    lane_tests, vote_chunks = int(tests.sum()), int(chunks.sum())
+    passed = int(_voted_up_to(votes.boxed,
+                              torch.arange(n_warps, device=last.device),
+                              chunks * 32 - 1).sum())
+    ops = MT_TEST_OPS * lane_tests + MT_AXES_VOTE_OPS * passed + 32 * (
+        MT_VOTE_OPS * vote_chunks + (MT_BOX_OPS + MT_AXES_BOX_OPS) * n_warps)
+    return {"lane_tests": lane_tests, "vote_chunks": vote_chunks,
+            "warps": n_warps, "ops": ops}
 
 
 class MeshTileArgs(ctypes.Structure):
@@ -506,18 +553,6 @@ class MeshTileArgs(ctypes.Structure):
 
 # the phases of the profiling instantiation, in csrc/mesh_tile.cu's order
 MT_PHASE_NAMES = ("box", "vote", "test", "record", "write")
-# FP32 operations by hand count (csrc/mesh_tile.cu), per lane: the warp's
-# box (warp_box: the slabs 36, `valid` 1, the endpoints 18, the warp's min
-# and max 30, eps 6, the empty test 3), once per warp; its oriented axes
-# (the direction sum 15, the normalisation 10, the reference axis 1, two
-# cross products 18, u's normalisation 9, the endpoints' projections 30,
-# their min and max 6, the warp's 30, eps 6), once per warp; one
-# candidate's box against the warp's (tri_overlaps: per axis 2 adds, 2
-# mins, 2 maxes, 2 compares), once per voted chunk of 32 candidates; its
-# projections on the three axes (per axis 3 dots of 5, 2 mins, 2 maxes, 2
-# compares), where its box passed; a Moller-Trumbore test.
-MT_BOX_OPS, MT_AXES_BOX_OPS, MT_VOTE_OPS, MT_AXES_VOTE_OPS, MT_TEST_OPS = \
-    94, 125, 24, 63, 50
 
 
 class MeshTileProf(ctypes.Structure):
@@ -527,7 +562,7 @@ class MeshTileProf(ctypes.Structure):
 
 
 def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
-                       t_min: float, smooth: bool, any_hit: bool, box=None,
+                       t_min: float, smooth: bool, any_hit: bool, box,
                        profile: bool = False):
     """Prepare one launch of the mesh kernel on CUDA tensors -> (launch,
     outputs as mesh_tile returns them): launch() enqueues the kernel on the
@@ -539,7 +574,7 @@ def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
     on in the vote phase's second slot, the loop's trips and lane-tests in
     the test phase's; tests int32 like the rays, each lane's triangle
     tests; masks int32 (warps, words), every chunk's vote, as
-    mesh_warp_masks gives it."""
+    mesh_warp_masks gives it. `box` is the mesh's grid box (grid_box)."""
     from surfjax_torch.kernels import _build
     _check_inputs(tri_packed, cand, counts, o2, d2, t_maxv)
     rays = [r.contiguous() for r in list(o2) + list(d2) + [t_maxv]]
@@ -553,9 +588,7 @@ def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
                         tile_rays=(shape[0] // tiles) * shape[1], K=K,
                         n_tris=tri_packed.shape[0], any_hit=int(any_hit),
                         smooth=int(smooth), t_min=f32(t_min))
-    lo, hi = box if box is not None else ((-np.inf,) * 3, (np.inf,) * 3)
-    args.box_lo[:] = lo
-    args.box_hi[:] = hi
+    args.box_lo[:], args.box_hi[:] = box
     outs = (out[0], (out[1], out[2], out[3]), (out[4], out[5], out[6]))
     lib = _build.load()
     if profile:
@@ -594,7 +627,8 @@ def mesh_tile(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
               smooth: bool, any_hit: bool, box=None):
     """The mesh kernel over (rows, 128) rays and a tile's candidates ->
     the outputs of mesh_tile_reference. `box` is the mesh's grid box
-    (grid_box), which the kernel's cull clips rays to; None: unbounded.
+    (grid_box), which the kernel's cull clips rays to: the kernel needs
+    it, the plain version does not read it.
 
     CUDA tensors launch the hand-written kernel (counted in
     `mesh_tile.launches`); CPU tensors run the plain version. Anything
@@ -605,6 +639,9 @@ def mesh_tile(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
             any_hit, box)
     record_call("mesh_tile", args)
     if dev.type == "cuda":
+        if box is None:
+            raise ValueError("the mesh kernel needs the mesh's grid box "
+                             "(grid_box)")
         launch, out = mesh_tile_launcher(*args)
         launch()
         mesh_tile.launches += 1

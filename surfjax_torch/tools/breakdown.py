@@ -395,59 +395,6 @@ def mesh_profile_table(rec, tests, counts, K: int, tile_rays: int) -> dict:
             "tests_sum": int(tests.sum())}
 
 
-def mesh_cull_count(args, masks) -> dict:
-    """One mesh call and its warps' votes (mesh_warp_masks, production
-    warps) -> the work of the culled algorithm as the kernel runs it:
-    lane-tests (each lane's voted candidates, up to its first occluder),
-    the chunks of 32 candidates the warps vote on (until none of a warp's
-    lanes searches), warps, and the FP32 operations by hand count
-    (mesh_tile's MT_*_OPS; the oriented axes' test on each lane's
-    candidate whose box passed)."""
-    from surfjax_torch.kernels.mesh_tile import (
-        MT_AXES_BOX_OPS, MT_AXES_VOTE_OPS, MT_BOX_OPS, MT_TEST_OPS,
-        MT_VOTE_OPS, _last_slots, _mesh_scan, _voted_up_to, mesh_warp_masks,
-        warp_of_rays,
-    )
-    tri, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit = args[:9]
-    shape = o2[0].shape
-    out, first, n_valid, active = _mesh_scan(
-        tri, cand, counts, o2, d2, t_maxv, t_min, smooth, any_hit, masks)
-    last = _last_slots(first, n_valid, any_hit).reshape(-1)
-    warp = warp_of_rays(shape[0], last.device).reshape(-1)
-    act = active.reshape(-1)
-    tests = torch.where(act, _voted_up_to(masks, warp, last), 0)
-    n_warps = masks.shape[0]
-    # a warp votes on the chunks up to the last slot any of its searching
-    # lanes reaches (it leaves once none searches), none where its box is
-    # empty
-    reach = torch.full((n_warps,), -1, dtype=torch.int64, device=last.device)
-    reach = reach.scatter_reduce(0, warp, torch.where(act, last, -1), "amax")
-    chunks = torch.where((reach >= 0) & ~mesh_box_empty(args),
-                         reach // 32 + 1, 0)
-    lane_tests, vote_chunks = int(tests.sum()), int(chunks.sum())
-    # the axes are tested on the candidates whose box passed
-    boxed = mesh_warp_masks(*args[:7], box=args[9], axes=False)
-    passed = int(_voted_up_to(boxed, torch.arange(n_warps,
-                                                  device=last.device),
-                              chunks * 32 - 1).sum())
-    ops = MT_TEST_OPS * lane_tests + MT_AXES_VOTE_OPS * passed + 32 * (
-        MT_VOTE_OPS * vote_chunks + (MT_BOX_OPS + MT_AXES_BOX_OPS) * n_warps)
-    return {"lane_tests": lane_tests, "vote_chunks": vote_chunks,
-            "warps": n_warps, "ops": ops}
-
-
-def mesh_box_empty(args):
-    """-> bool (warps,): the kernel's warps whose box meets no lane's
-    segment (they vote on nothing)."""
-    from surfjax_torch.kernels.mesh_tile import _ray_of_thread, lane_segments
-    o2, d2, t_maxv, t_min = args[3], args[4], args[5], args[6]
-    lo, hi = lane_segments(o2, d2, t_maxv, t_min, args[9])
-    lanes = _ray_of_thread(o2[0].shape[0], o2[0].device)
-    wlo = torch.stack([a.reshape(-1)[lanes].amin(dim=1) for a in lo])
-    whi = torch.stack([a.reshape(-1)[lanes].amax(dim=1) for a in hi])
-    return (wlo > whi).any(dim=0)
-
-
 def mesh_phases(dev, res) -> None:
     """Frame 0 of c4 at 1080p, both modes: for each mesh kernel call
     (primary, shadow) the production kernel's time (LAUNCHES back to
@@ -460,7 +407,8 @@ def mesh_phases(dev, res) -> None:
     production kernel's loops in its SASS."""
     from surfjax_torch.kernels import _build
     from surfjax_torch.kernels.mesh_tile import (
-        mesh_tile_launcher, mesh_tile_reference, mesh_warp_masks,
+        mesh_cull_count, mesh_tile_launcher, mesh_tile_reference,
+        mesh_warp_masks,
     )
     from surfjax_torch.tools.kernel_check import flat
     calls, _, _ = _c4_mesh_calls(dev)
@@ -481,12 +429,12 @@ def mesh_phases(dev, res) -> None:
                                                          flat(out))):
                 raise AssertionError(f"{mode} {label}: the profile's outputs "
                                      "differ from the kernel's")
-            ref_masks = mesh_warp_masks(*args[:7], box=args[9])
-            if not torch.equal(masks, ref_masks):
+            votes = mesh_warp_masks(*args[:7], args[9])
+            if not torch.equal(masks, votes.masks):
                 raise AssertionError(f"{mode} {label}: the kernel's votes "
                                      "differ from mesh_warp_masks")
             ref_tests = mesh_tile_reference(*args, count_tests=True,
-                                            masks=ref_masks)[-1]
+                                            masks=votes.masks)[-1]
             if not torch.equal(tests, ref_tests.to(torch.int32)):
                 raise AssertionError(f"{mode} {label}: the profile counts "
                                      "other tests than count_tests")
@@ -495,7 +443,7 @@ def mesh_phases(dev, res) -> None:
             entry = {"ms": min(ms) / LAUNCHES, "ms_profiled": min(pms),
                      "candidates": tile_stats(counts, K),
                      "unculled_lane_tests": int(unculled.sum()),
-                     "culled": mesh_cull_count(args, ref_masks),
+                     "culled": mesh_cull_count(args, votes),
                      **mesh_profile_table(rec, tests, counts, K, tile_rays)}
             if entry["vote_chunks"] != entry["culled"]["vote_chunks"]:
                 raise AssertionError(f"{mode} {label}: the kernel votes on "

@@ -154,10 +154,10 @@ def test_mesh_profile_votes_and_counts(cuda_device, name):
         launch()
         ref = mesh_tile_reference(*args)
         assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(ref)))
-        ref_masks = mesh_warp_masks(*args[:7], box=args[9])
-        assert torch.equal(masks, ref_masks)
+        votes = mesh_warp_masks(*args[:7], args[9])
+        assert torch.equal(masks, votes.masks)
         culled = mesh_tile_reference(*args, count_tests=True,
-                                     masks=ref_masks)
+                                     masks=votes.masks)
         assert torch.equal(tests, culled[3].to(torch.int32))
 
 

@@ -14,6 +14,8 @@ voted candidates.
     warp shape the kernel can run;
   * the per-lane segments repeat mesh_candidates' arithmetic: each of a
     tile's candidates meets the tile's box of those segments;
+  * on the probes, the culled plain version equals a numpy scan of the
+    whole table in triangle order bitwise;
   * against surfjax's mesh_tile_kernel (interpret mode) on the nested
     shells: the culled any-hit masks equal surfjax's.
 """
@@ -47,6 +49,7 @@ from surfjax_torch.tools.workload import (  # noqa: E402
     two_mesh_scene,
 )
 
+from tests.test_torch_mesh_tile import _brute  # noqa: E402
 from tests.test_torch_pipeline import CONFIG_DIR  # noqa: E402
 
 
@@ -106,7 +109,7 @@ def test_culled_plain_version_equals_unculled(calls, label):
     and the culled count is the voted candidates up to each lane's first
     occluder, never more than the unculled one."""
     args = calls[label]
-    masks = mesh_warp_masks(*args[:7], box=args[9])
+    masks = mesh_warp_masks(*args[:7], args[9]).masks
     full = mesh_tile_reference(*args, count_tests=True)
     culled = mesh_tile_reference(*args, count_tests=True, masks=masks)
     for a, b in zip(flat(culled[:3]), flat(full[:3])):
@@ -162,8 +165,8 @@ def test_every_hit_triangle_is_voted(calls, label):
     # the one-triangle mesh shadows no receiver at this size
     assert bool(hits.any()) or label == "two_meshes 3"
     warp = warp_of_rays(args[3][0].shape[0], "cpu").reshape(-1)
-    for axes in (True, False):
-        masks = mesh_warp_masks(*args[:7], box=args[9], axes=axes)
+    votes = mesh_warp_masks(*args[:7], args[9])
+    for axes, masks in ((True, votes.masks), (False, votes.boxed)):
         missed = hits & ~_voted_ids(args, masks)[warp]
         assert not bool(missed.any()), \
             f"{int(missed.sum())} hits not voted (axes {axes})"
@@ -196,7 +199,8 @@ def _np_dot(a, p):
 
 def _numpy_votes(args, axes):
     """The vote written out as a loop over warps in numpy (float32), from
-    the lanes' clipped segments."""
+    the lanes' clipped segments -> (the votes, whether each warp's box is
+    empty)."""
     tri, cand, counts, o2, d2, t_maxv, t_min = args[:7]
     pa, pb, valid = _lane_clip(o2, d2, t_maxv, t_min, args[9])
     pa, pb, d = (np.stack([a.numpy().reshape(-1) for a in v])
@@ -213,6 +217,7 @@ def _numpy_votes(args, axes):
     eps = np.float32(1e-4)
     n_words = -(-max(t.shape[0], K) // 32)
     out = np.zeros((rows * 128 // 32, n_words), np.uint32)
+    empty = np.zeros(out.shape[0], bool)
     for w in range(out.shape[0]):
         lanes = np.nonzero(warp == w)[0]
         assert len(lanes) == 32
@@ -220,6 +225,7 @@ def _numpy_votes(args, axes):
         a_, b_ = pa[:, lanes], pb[:, lanes]
         w_lo = np.where(ok, np.minimum(a_, b_), big).min(axis=1) - eps
         w_hi = np.where(ok, np.maximum(a_, b_), -big).max(axis=1) + eps
+        empty[w] = not (w_lo <= w_hi).all()
         tile = w * 32 // tile_rays
         n = int(counts[tile])
         ids = np.arange(t.shape[0]) if n > K else cand[tile, :n].numpy()
@@ -237,19 +243,23 @@ def _numpy_votes(args, axes):
                     (np.maximum(np.maximum(*tp[:2]), tp[2]) >= lo)
         for slot in np.nonzero(keep)[0]:
             out[w, slot // 32] |= np.uint32(1) << np.uint32(slot % 32)
-    return out.view(np.int32)
+    return out.view(np.int32), empty
 
 
 @pytest.mark.parametrize("axes", [True, False])
 @pytest.mark.parametrize("label", ["edges", "overflow any-hit",
                                    "two_meshes 0", "c4 config shadow"])
 def test_warp_masks_equal_a_loop_over_warps(calls, label, axes):
-    """With the oriented axes (as the kernel votes) and without; the
-    culled plain version with those votes stays bitwise equal to the
-    unculled one."""
+    """With the oriented axes (as the kernel votes) and without (the
+    candidates whose box passed); the warps whose box is empty; the culled
+    plain version with those votes stays bitwise equal to the unculled
+    one."""
     args = calls[label]
-    masks = mesh_warp_masks(*args[:7], box=args[9], axes=axes)
-    np.testing.assert_array_equal(masks.numpy(), _numpy_votes(args, axes))
+    votes = mesh_warp_masks(*args[:7], args[9])
+    masks = votes.masks if axes else votes.boxed
+    want, empty = _numpy_votes(args, axes)
+    np.testing.assert_array_equal(masks.numpy(), want)
+    np.testing.assert_array_equal(votes.empty.numpy(), empty)
     culled = mesh_tile_reference(*args, masks=masks)
     for a, b in zip(flat(culled), flat(mesh_tile_reference(*args))):
         assert torch.equal(a, b)
@@ -298,6 +308,37 @@ def test_lane_segments_repeat_mesh_candidates(calls, label):
     assert checked > 0
 
 
+PROBES = ["edges", "overflow", "edges any-hit", "overflow any-hit",
+          "edges to target any-hit", "layers any-hit"]
+
+
+@pytest.mark.parametrize("label", PROBES)
+def test_culled_probes_equal_a_scan_of_the_whole_table(calls, label):
+    """Rays at shared vertices and edge midpoints and through several
+    occluders, where the rule decides the result: the nearest hit with
+    strict < (ties to the lowest triangle), or the first occluder in
+    triangle order. The culled plain version against a numpy scan of every
+    triangle in that order (test_torch_mesh_tile._brute, none of the
+    port's code): t, ns and ng bitwise. surfjax's kernel in interpret mode
+    cannot be held to the bit here: XLA:CPU contracts its multiply-adds
+    (with jit disabled too), which moves t by an ulp and, at a vertex,
+    turns hits into misses."""
+    args = calls[label]
+    tri, o2, d2, t_maxv, t_min, smooth, any_hit = (args[0],) + args[3:9]
+    votes = mesh_warp_masks(*args[:7], args[9])
+    got = mesh_tile_reference(*args, masks=votes.masks)
+    t_b, ns_b, ng_b = _brute(tri.numpy(), [c.numpy() for c in o2],
+                             [c.numpy() for c in d2], t_min,
+                             t_maxv.numpy(), any_hit)
+    if not smooth:
+        ns_b = ng_b
+    hit = t_b < t_maxv.numpy().reshape(-1)
+    assert 0.5 < hit.mean() <= 1.0
+    assert got[0].numpy().reshape(-1).tobytes() == t_b.tobytes()
+    for a, b in zip(got[1] + got[2], ns_b + ng_b):
+        assert a.numpy().reshape(-1).tobytes() == b.tobytes()
+
+
 def test_culled_shells_against_surfjax():
     """Shadow rays through three nested shells (up to six occluders each)
     through surfjax's mesh_tile_kernel in interpret mode and through the
@@ -338,7 +379,7 @@ def test_culled_shells_against_surfjax():
     args = (tri, cand, counts, ot, dt, tm, t_min, ms.smooth, True,
             grid_box(ms))
     got = mesh_tile_reference(*args, masks=mesh_warp_masks(
-        *args[:7], box=args[9]))
+        *args[:7], args[9]).masks)
     t_g, t_r = got[0].numpy(), np.asarray(ref[0])
     occ_g, occ_r = t_g < t_max, t_r < t_max
     np.testing.assert_array_equal(occ_g, occ_r)

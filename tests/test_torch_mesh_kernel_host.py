@@ -9,7 +9,7 @@ tests/test_torch_mesh_cull.py (c4 in the `config` mode):
   * its profiling instantiation writes the same outputs, votes as
     mesh_warp_masks does, counts per lane the tests of the culled
     mesh_tile_reference(count_tests=True, masks=) and votes on the chunks
-    that breakdown.mesh_cull_count charges to the bound.
+    that mesh_tile.mesh_cull_count charges to the bound.
 """
 
 import contextlib
@@ -25,12 +25,10 @@ torch.set_num_threads(1)
 
 from surfjax_torch.kernels import _build  # noqa: E402
 from surfjax_torch.kernels.mesh_tile import (  # noqa: E402
-    MT_WX, MeshTileArgs, MeshTileProf, mesh_tile_launcher,
+    MT_WX, MeshTileArgs, MeshTileProf, mesh_cull_count, mesh_tile_launcher,
     mesh_tile_reference, mesh_warp_masks,
 )
-from surfjax_torch.tools.breakdown import (  # noqa: E402
-    mesh_cull_count, mesh_profile_table,
-)
+from surfjax_torch.tools.breakdown import mesh_profile_table  # noqa: E402
 from surfjax_torch.tools.kernel_check import flat  # noqa: E402
 
 from tests import cuda_host  # noqa: E402
@@ -96,13 +94,13 @@ def test_host_kernel_and_profile_equal_plain(calls, on_host, label):
                                                           profile=True)
     launch()
     assert _equal(out, ref)
-    ref_masks = mesh_warp_masks(*args[:7], box=args[9])
-    assert torch.equal(masks, ref_masks)
-    culled = mesh_tile_reference(*args, count_tests=True, masks=ref_masks)
+    votes = mesh_warp_masks(*args[:7], args[9])
+    assert torch.equal(masks, votes.masks)
+    culled = mesh_tile_reference(*args, count_tests=True, masks=votes.masks)
     assert torch.equal(tests, culled[3].to(torch.int32))
     cand = args[1]
     table = mesh_profile_table(rec, tests, args[2], cand.shape[1],
                                args[3][0].numel() // cand.shape[0])
-    count = mesh_cull_count(args, ref_masks)
+    count = mesh_cull_count(args, votes)
     assert table["vote_chunks"] == count["vote_chunks"]
     assert table["lane_tests"] == count["lane_tests"] == int(tests.sum())
