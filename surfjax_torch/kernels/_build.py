@@ -208,9 +208,6 @@ def load() -> ctypes.CDLL:
                                  ctypes.c_void_p]
     lib.mt_mesh_tile_profile.argtypes = [MeshTileArgs, MeshTileProf,
                                          ctypes.c_int, ctypes.c_void_p]
-    lib.mt_mesh_tile_variant.argtypes = [MeshTileArgs, ctypes.c_int,
-                                         ctypes.c_void_p, ctypes.c_int,
-                                         ctypes.c_void_p]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     mixes = ("fp_bulb_mix", "fp_cheb_mix", "fp_bulb_mix_fma",
              "fp_cheb_mix_fma")

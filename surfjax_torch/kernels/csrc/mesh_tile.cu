@@ -408,180 +408,6 @@ mt_mesh_tile_kernel(const MeshTileArgs A, const MeshTileProf Q) {
   }
 }
 
-// Element 4 of the redesign (stage only): the production's work for one
-// unit of 256 rays (two rows), launched in blocks of 512 or 1024 threads, or
-// by persistent blocks or warps that take units from a counter.
-__device__ __forceinline__ void mv_unit(const MeshTileArgs& A, int base,
-                                        int tid) {
-  const int w = tid >> 5, lane = tid & 31;
-  const int ray = base + (lane / MT_WX) * 128 + w * MT_WX + lane % MT_WX;
-  const int tile = base / A.tile_rays;
-  const int count = A.counts[tile];
-  const bool over = count > A.K;
-  const int n = over ? A.n_tris : count;
-  const int* cand = A.cand + (size_t)tile * A.K;
-  const bool in = ray < A.n_rays;
-  float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
-  float t_max = 0.0f;
-  if (in) {
-    o[0] = A.ox[ray]; o[1] = A.oy[ray]; o[2] = A.oz[ray];
-    d[0] = A.dx[ray]; d[1] = A.dy[ray]; d[2] = A.dz[ray];
-    t_max = A.tmax[ray];
-  }
-  float t_best = (float)1e30;
-  float nsx = 0.0f, nsy = 0.0f, nsz = 1.0f;
-  float ngx = 0.0f, ngy = 0.0f, ngz = 1.0f;
-  bool active = in && !(t_max <= A.t_min);
-  const WarpBox box = warp_box(A, o, d, t_max);
-  const bool meets = box.lo[0] <= box.hi[0] && box.lo[1] <= box.hi[1] &&
-                     box.lo[2] <= box.hi[2];
-  const int n_loop = meets ? n : 0;
-  for (int base_ = 0; base_ < n_loop; base_ += 32) {
-    if (!__any_sync(MT_FULL, active)) break;
-    const int slot = base_ + lane;
-    int id = 0;
-    bool keep = false;
-    if (slot < n) {
-      id = over ? slot : __ldg(cand + slot);
-      const float4* src =
-          reinterpret_cast<const float4*>(A.tri + (size_t)id * MT_ROW);
-      keep = tri_overlaps(box, __ldg(src), __ldg(src + 1), __ldg(src + 2).x);
-    }
-    unsigned m = __ballot_sync(MT_FULL, keep);
-    while (m) {
-      const int s = __ffs(m) - 1;
-      m &= m - 1;
-      const int ids = __shfl_sync(MT_FULL, id, s);
-      const float4* src =
-          reinterpret_cast<const float4*>(A.tri + (size_t)ids * MT_ROW);
-      const float4 r0 = __ldg(src), r1 = __ldg(src + 1), r2 = __ldg(src + 2);
-      if (!active) continue;
-      const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
-      const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
-      const float pvx = d[1] * e2z - d[2] * e2y;
-      const float pvy = d[2] * e2x - d[0] * e2z;
-      const float pvz = d[0] * e2y - d[1] * e2x;
-      const float det = (e1x * pvx + e1y * pvy) + e1z * pvz;
-      const bool ok = fabsf(det) > (float)1e-7;
-      const float inv_det = 1.0f / (ok ? det : 1.0f);
-      const float tvx = o[0] - r0.x, tvy = o[1] - r0.y, tvz = o[2] - r0.z;
-      const float u = ((tvx * pvx + tvy * pvy) + tvz * pvz) * inv_det;
-      const float qvx = tvy * e1z - tvz * e1y;
-      const float qvy = tvz * e1x - tvx * e1z;
-      const float qvz = tvx * e1y - tvy * e1x;
-      const float v = ((d[0] * qvx + d[1] * qvy) + d[2] * qvz) * inv_det;
-      const float t = ((e2x * qvx + e2y * qvy) + e2z * qvz) * inv_det;
-      const bool hit = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                       t > A.t_min && t < t_max && t < t_best;
-      if (!hit) continue;
-      t_best = t;
-      if (A.any_hit) {
-        active = false;
-        continue;
-      }
-      ngx = r2.y; ngy = r2.z; ngz = r2.w;
-      if (A.smooth) {
-        const float4 r3 = __ldg(src + 3), r4 = __ldg(src + 4);
-        const float n2z = __ldg(src + 5).x;
-        const float w_ = (1.0f - u) - v;
-        const float sx = (w_ * r3.x + u * r3.w) + v * r4.z;
-        const float sy = (w_ * r3.y + u * r4.x) + v * r4.w;
-        const float sz = (w_ * r3.z + u * r4.y) + v * n2z;
-        const float inv = 1.0f / sqrtf((sx * sx + sy * sy) + sz * sz);
-        nsx = sx * inv; nsy = sy * inv; nsz = sz * inv;
-      } else {
-        nsx = ngx; nsy = ngy; nsz = ngz;
-      }
-    }
-  }
-  if (in) {
-    A.t[ray] = t_best;
-    A.nsx[ray] = nsx; A.nsy[ray] = nsy; A.nsz[ray] = nsz;
-    A.ngx[ray] = ngx; A.ngy[ray] = ngy; A.ngz[ray] = ngz;
-  }
-}
-
-template <int THREADS>
-__global__ void __launch_bounds__(THREADS)
-mv_blocks_kernel(const MeshTileArgs A) {
-  mv_unit(A, blockIdx.x * THREADS + (threadIdx.x / MT_THREADS) * MT_THREADS,
-          threadIdx.x % MT_THREADS);
-}
-
-__global__ void __launch_bounds__(MT_THREADS)
-mv_persist_block_kernel(const MeshTileArgs A, int* next, int n_units) {
-  __shared__ int unit;
-  for (;;) {
-    if (threadIdx.x == 0) unit = atomicAdd(next, 1);
-    __syncthreads();
-    const int u = unit;
-    __syncthreads();
-    if (u >= n_units) return;
-    mv_unit(A, u * MT_THREADS, threadIdx.x);
-  }
-}
-
-__global__ void __launch_bounds__(MT_THREADS)
-mv_persist_warp_kernel(const MeshTileArgs A, int* next, int n_warps) {
-  const int lane = threadIdx.x & 31;
-  for (;;) {
-    int u = 0;
-    if (lane == 0) u = atomicAdd(next, 1);
-    u = __shfl_sync(MT_FULL, u, 0);
-    if (u >= n_warps) return;
-    mv_unit(A, (u / 8) * MT_THREADS, (u % 8) * 32 + lane);
-  }
-}
-
-// variant: 0 the production's unit in blocks of 256 (the refactor alone),
-// 1 blocks of 512, 2 blocks of 1024, 3 persistent blocks, 4 persistent
-// warps; `next` is one int of device memory, zeroed here before each launch.
-extern "C" int mt_mesh_tile_variant(MeshTileArgs args, int variant,
-                                    int* next, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (args.n_rays <= 0) return 0;
-  if (args.tile_rays % MT_THREADS != 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int units = args.n_rays / MT_THREADS;
-  int sms = 0, per = 0;
-  switch (variant) {
-    case 0:
-      mv_blocks_kernel<256><<<units, 256, 0, s>>>(args);
-      break;
-    case 1:
-      if (units % 2) return (int)cudaErrorInvalidValue;
-      mv_blocks_kernel<512><<<units / 2, 512, 0, s>>>(args);
-      break;
-    case 2:
-      if (units % 4) return (int)cudaErrorInvalidValue;
-      mv_blocks_kernel<1024><<<units / 4, 1024, 0, s>>>(args);
-      break;
-    case 3:
-    case 4:
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   device);
-      if (err != cudaSuccess) return (int)err;
-      err = variant == 3 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                               &per, mv_persist_block_kernel, MT_THREADS, 0)
-                         : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                               &per, mv_persist_warp_kernel, MT_THREADS, 0);
-      if (err != cudaSuccess) return (int)err;
-      err = cudaMemsetAsync(next, 0, sizeof(int), s);
-      if (err != cudaSuccess) return (int)err;
-      if (variant == 3)
-        mv_persist_block_kernel<<<sms * per, MT_THREADS, 0, s>>>(args, next,
-                                                                 units);
-      else
-        mv_persist_warp_kernel<<<sms * per, MT_THREADS, 0, s>>>(
-            args, next, units * (MT_THREADS / 32));
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
 template <bool PROF>
 static int mt_launch(const MeshTileArgs& args, const MeshTileProf& prof,
                      int device, void* stream) {

@@ -563,7 +563,7 @@ class MeshTileProf(ctypes.Structure):
 
 def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
                        t_min: float, smooth: bool, any_hit: bool, box,
-                       profile: bool = False, variant: int = None):
+                       profile: bool = False):
     """Prepare one launch of the mesh kernel on CUDA tensors -> (launch,
     outputs as mesh_tile returns them): launch() enqueues the kernel on the
     current stream and raises if the launch was refused. The wrapper
@@ -591,14 +591,7 @@ def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
     args.box_lo[:], args.box_hi[:] = box
     outs = (out[0], (out[1], out[2], out[3]), (out[4], out[5], out[6]))
     lib = _build.load()
-    if variant is not None:
-        # element 4 (stage only): mt_mesh_tile_variant's kernels
-        nxt = torch.zeros(1, dtype=torch.int32, device=dev)
-        name = f"mt_mesh_tile_variant {variant}"
-        call = lambda stream: lib.mt_mesh_tile_variant(  # noqa: E731
-            args, variant, ctypes.c_void_p(nxt.data_ptr()), dev.index,
-            stream)
-    elif profile:
+    if profile:
         n_warps = out[0].numel() // 32
         words = -(-max(tri_packed.shape[0], K) // 32)
         rec = torch.zeros((n_warps, len(MT_PHASE_NAMES), 3),

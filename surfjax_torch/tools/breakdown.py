@@ -461,40 +461,6 @@ def mesh_phases(dev, res) -> None:
             print(f"mesh sass {name}", json.dumps(loops), flush=True)
 
 
-MV_NAMES = ("unit in blocks of 256", "blocks of 512", "blocks of 1024",
-            "persistent blocks", "persistent warps")
-
-
-def mesh_variants(dev, res) -> None:
-    """Element 4 (stage only): each mesh kernel call of frame 0 of c4 at
-    1080p (`ao`), the production kernel and mt_mesh_tile_variant's
-    kernels (MV_NAMES), LAUNCHES back to back, each held bitwise against
-    the plain version; ms per call and per frame."""
-    from surfjax_torch.kernels.mesh_tile import (
-        mesh_tile_launcher, mesh_tile_reference,
-    )
-    from surfjax_torch.tools.kernel_check import flat
-    calls, _, _ = _c4_mesh_calls(dev)
-    out = {}
-    for label, args in calls["ao"]:
-        ref = flat(mesh_tile_reference(*args))
-        for variant in (None,) + tuple(range(len(MV_NAMES))):
-            name = "production" if variant is None else MV_NAMES[variant]
-            launch, got = mesh_tile_launcher(*args, variant=variant)
-            launch()
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(flat(got), ref)):
-                raise AssertionError(f"{name} differs from the plain "
-                                     f"version ({label})")
-            ms = cuda_ms(lambda: [launch() for _ in range(LAUNCHES)],
-                         REPS)[0]
-            out.setdefault(name, {})[label] = min(ms) / LAUNCHES
-    for per in out.values():
-        per["frame"] = sum(per.values())
-    res["mesh variants c4 ao"] = out
-    print("mesh variants c4 ao", json.dumps(out), flush=True)
-
-
 def mesh_glue(dev, res) -> None:
     """The host glue around the mesh kernel on frame 0 of c4 at 1080p, per
     mesh call: mesh_candidates' device time (its tensor ops, from a traced
@@ -573,7 +539,6 @@ SECTIONS = {
     "split": split,
     "mesh_phases": mesh_phases,
     "mesh_glue": mesh_glue,
-    "mesh_variants": mesh_variants,
 }
 
 
