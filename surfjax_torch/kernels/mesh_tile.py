@@ -367,15 +367,6 @@ def _ranges(pa, pb, valid):
             torch.where(valid, torch.maximum(pa, pb), -BIG))
 
 
-def lane_segments(o2, d2, t_maxv, t_min: float, box):
-    """Each ray clipped to the grid box (grid_box) with mesh_candidates'
-    slab arithmetic -> (lo (3), hi (3)): the corners of
-    its segment's box, BIG / -BIG where the segment misses the box."""
-    pa, pb, valid = _lane_clip(o2, d2, t_maxv, t_min, box)
-    lo, hi = zip(*(_ranges(a, b, valid) for a, b in zip(pa, pb)))
-    return list(lo), list(hi)
-
-
 def _butterfly_sum(x):
     """(warps, 32) -> (warps,): the sum of each row as the kernel's
     __shfl_xor_sync butterfly forms it (offsets 16, 8, 4, 2, 1; every
@@ -434,9 +425,9 @@ def mesh_warp_masks(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
                     box) -> WarpVotes:
     """The kernel's vote in plain PyTorch. A slot is voted where its
     triangle meets the warp's region: its box meets the warp's box (the
-    min and max over the warp's lanes of lane_segments, padded by
-    mesh_candidates' eps of 1e-4; `boxed` holds the slots that pass this
-    far) and its projection on each of the warp's oriented axes meets the
+    min and max over the warp's lanes of their clipped segments' ends,
+    _lane_clip, padded by mesh_candidates' eps of 1e-4; `boxed` holds the
+    slots that pass this far) and its projection on each of the warp's oriented axes meets the
     range of the lanes' endpoints' projections, padded the same way. The
     kernel's arithmetic in its order (min and max are exact, so their
     reductions' order does not matter; the direction sum is the kernel's

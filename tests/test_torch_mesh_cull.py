@@ -40,7 +40,7 @@ from surfjax_torch.core.math import f32  # noqa: E402
 from surfjax_torch.core.scene_compile import from_reference  # noqa: E402
 from surfjax_torch.engines.mesh import moller_trumbore  # noqa: E402
 from surfjax_torch.kernels.mesh_tile import (  # noqa: E402
-    _lane_clip, lane_segments, mesh_candidates, mesh_tile_reference,
+    _lane_clip, _ranges, mesh_candidates, mesh_tile_reference,
     mesh_warp_masks, warp_of_rays,
 )
 from surfjax_torch.tools.kernel_check import capture_calls, flat  # noqa
@@ -282,11 +282,12 @@ def test_warp_of_rays_is_the_kernels_thread_order():
                                    "mesh_soft_ao 1"])
 def test_lane_segments_repeat_mesh_candidates(calls, label):
     """Every candidate of a tile meets the tile's box of the lanes'
-    segments (lane_segments, padded by eps), as it met mesh_candidates'
-    own box: the same arithmetic."""
+    segments (the vote's clip, _lane_clip, padded by eps), as it met
+    mesh_candidates' own box: the same arithmetic."""
     tri, cand, counts, o2, d2, t_maxv, t_min = calls[label][:7]
     tiles, K = cand.shape
-    lo, hi = lane_segments(o2, d2, t_maxv, t_min, calls[label][9])
+    pa, pb, valid = _lane_clip(o2, d2, t_maxv, t_min, calls[label][9])
+    lo, hi = zip(*(_ranges(a, b, valid) for a, b in zip(pa, pb)))
     eps = f32(1e-4)
     box_lo = torch.stack([a.reshape(tiles, -1).amin(dim=1) for a in lo],
                          1) - eps
