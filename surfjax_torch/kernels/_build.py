@@ -34,6 +34,7 @@ NO_FMA = ("-fmad=false",)
 # source -> the flags it gets beside NVCC_FLAGS
 SOURCES = {"frame_fused.cu": NO_FMA, "kf_staged.cu": NO_FMA,
            "kf_frame_prof.cu": NO_FMA, "split_path.cu": NO_FMA,
+           "split_staged.cu": NO_FMA,
            "mesh_tile.cu": NO_FMA, "prime_tile.cu": NO_FMA,
            "fp32_peak.cu": NO_FMA, "fp32_peak_fma.cu": ("-fmad=true",)}
 
@@ -180,6 +181,22 @@ def sass_loops(lib_path: str, name: str) -> list:
     return sorted(loops, key=lambda lp: lp["instructions"])
 
 
+def sass_counts(lib_path: str, name: str, ops=("LDL", "STL")) -> dict:
+    """-> for each opcode in `ops`, how many instructions of one entry's
+    SASS (cuobjdump) it begins (by default the local loads and stores:
+    the thread's stack frame and spills)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", "-fun", name, lib_path],
+                         capture_output=True, text=True, timeout=300)
+    out = dict.fromkeys(ops, 0)
+    for ln in res.stdout.splitlines():
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                      ln)
+        if m and m.group(1) in out:
+            out[m.group(1)] += 1
+    return out
+
+
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures."""
@@ -202,6 +219,12 @@ def load() -> ctypes.CDLL:
     for name in ("sp_render_tile", "sp_trace_rays", "sp_ao_fix"):
         getattr(lib, name).argtypes = [KFTables, KFSettings, SplitRays,
                                        ctypes.c_int, ctypes.c_void_p]
+    # K2?, variant, tables, settings, layout, rays, profile counters or
+    # null, the two work counters, device, stream
+    lib.sp_split_variant.argtypes = [ctypes.c_int, ctypes.c_int, KFTables,
+                                     KFSettings, KSLayout, SplitRays,
+                                     ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p]
     lib.pt_prime_tile.argtypes = [KFTables, KFSettings, PrimeArgs,
                                   ctypes.c_int, ctypes.c_void_p]
     lib.mt_mesh_tile.argtypes = [MeshTileArgs, ctypes.c_int,
@@ -218,7 +241,8 @@ def load() -> ctypes.CDLL:
     lib.fp_fma_dep.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
     for name in ("kf_frame_fused", "ks_frame_fused", "kf_frame_profile",
                  "ks_occupancy", "sp_render_tile", "sp_trace_rays",
-                 "sp_ao_fix", "pt_prime_tile", "mt_mesh_tile",
+                 "sp_ao_fix", "sp_split_variant", "pt_prime_tile",
+                 "mt_mesh_tile",
                  "mt_mesh_tile_profile", "fp_fma_dep",
                  *mixes):
         getattr(lib, name).restype = ctypes.c_int

@@ -81,6 +81,13 @@ struct KFSettings {
   float ao_strength, exit_margin, default_shell, bg_r, bg_g, bg_b;
 };
 
+// Flat ray arrays of one split-path launch (render_tile.SplitRays).
+struct SplitRays {
+  const float* in[8];
+  float* out[8];
+  int n;
+};
+
 struct V3 { float x, y, z; };
 struct Bound { float cx, cy, cz, R; };
 

@@ -209,11 +209,67 @@ struct Block {
     const float* b = bounds + oi * 8 + 4;
     return Bound{b[0], b[1], b[2], b[3]};
   }
+  // an object's SDF at p and an analytic object's nearest hit, through the
+  // tape walker and the event CSG (the stages below call these, so that
+  // another block type can evaluate differently)
+  __device__ __forceinline__ float eval(const KFSettings& S, const int* ob,
+                                        V3 p, int cap) const {
+    return eval_obj(T, S, ob, p, cap);
+  }
+  __device__ __forceinline__ float intersect(const int* ob, V3 o, V3 d,
+                                             float t_lo, float t_hi,
+                                             int& leaf) const {
+    return intersect_analytic(T, ob, o, d, t_lo, t_hi, leaf);
+  }
 };
 
 template <class X>
 __device__ __forceinline__ void stage_copy(X* dst, const X* src, int n) {
   for (int k = threadIdx.x; k < n; k += KS_THREADS) dst[k] = src[k];
+}
+
+// Stage the scene into the block's shared memory (L's sections): the
+// object rows, tapes, leaf rows and parameters, and both bounding spheres
+// of every boundable object (lower: AO and soft shadows; cover: the
+// marches), by object_bound itself; mesh objects keep their rows but no
+// bounds. -> G with its table pointers into shared memory; the caller
+// synchronises the block before any thread reads them.
+__device__ __forceinline__ KFTables stage_scene(const KFTables& G,
+                                                const KFSettings& S,
+                                                const KSLayout& L,
+                                                unsigned char* sm) {
+  const int tid = threadIdx.x;
+  int* objects = (int*)(sm + L.objects);
+  int* nodes = (int*)(sm + L.nodes);
+  int* leaves = (int*)(sm + L.leaves);
+  int* order = (int*)(sm + L.order);
+  float* leaf_params = (float*)(sm + L.leaf_params);
+  float* node_params = (float*)(sm + L.node_params);
+  float* bounds = (float*)(sm + L.bounds);
+  stage_copy(objects, G.objects, S.n_objects * KF_OBJ_W);
+  stage_copy(nodes, G.nodes, L.n_nodes * KF_NODE_W);
+  stage_copy(leaves, G.leaves, L.n_leaves * KF_LEAF_W);
+  stage_copy(order, G.order, L.n_order);
+  stage_copy(leaf_params, G.leaf_params, L.n_leaf_rows * KF_LEAF_PARAM_W);
+  stage_copy(node_params, G.node_params, L.n_kp);
+  // both bounds of every boundable object, by object_bound itself
+  for (int oi = tid; oi < S.n_objects; oi += KS_THREADS) {
+    const int* ob = object_row(G, oi);
+    if (ob[O_ENGINE] == ENGINE_MESH || !ob[O_BOUNDABLE]) continue;
+    const Bound lo = object_bound(G, ob, 1, 0.0f);
+    const Bound cv = object_bound(G, ob, 0, S.exit_margin);
+    float* b = bounds + oi * 8;
+    b[0] = lo.cx; b[1] = lo.cy; b[2] = lo.cz; b[3] = lo.R;
+    b[4] = cv.cx; b[5] = cv.cy; b[6] = cv.cz; b[7] = cv.R;
+  }
+  KFTables T = G;
+  T.objects = objects;
+  T.nodes = nodes;
+  T.leaves = leaves;
+  T.order = order;
+  T.leaf_params = leaf_params;
+  T.node_params = node_params;
+  return T;
 }
 
 // The tangent frame of AO at normal n (ao_core's).
@@ -239,8 +295,8 @@ __device__ __forceinline__ V3 ao_tap(const KFSettings& S, V3 q0, V3 n, V3 t1,
 }
 
 // The unbounded group's term at one tap (0 when the scene has none).
-template <bool PROF>
-__device__ __forceinline__ float ao_unbounded(const Block& B,
+template <bool PROF, class Blk>
+__device__ __forceinline__ float ao_unbounded(const Blk& B,
                                               const KFSettings& S, V3 q,
                                               float r, float azr,
                                               Prof<PROF>& P) {
@@ -251,7 +307,7 @@ __device__ __forceinline__ float ao_unbounded(const Block& B,
   for (int k = 0; k < n_rest; ++k) {
     const int* ob = object_row(B.T, rest[k]);
     if (ob[O_BOUNDABLE]) continue;
-    float h = eval_obj(B.T, S, ob, q, S.ao_lod);
+    float h = B.eval(S, ob, q, S.ao_lod);
     P.trip(PH_AO_UNB);
     hmin = first ? h : fminf(hmin, h);
     first = false;
@@ -265,8 +321,8 @@ __device__ __forceinline__ float ao_unbounded(const Block& B,
 // ---------------------------------------------------------------------------
 
 // Primary trace: trace_primary<false>'s body, the bounds from the block.
-template <bool PROF>
-__device__ __forceinline__ void trace_pixel(const Block& B,
+template <bool PROF, class Blk>
+__device__ __forceinline__ void trace_pixel(const Blk& B,
                                             const KFSettings& S, bool act,
                                             V3 o, V3 d, float t0, float& t,
                                             float& obj, int& leaf,
@@ -279,8 +335,8 @@ __device__ __forceinline__ void trace_pixel(const Block& B,
     const int oi = T.order[k];
     if (act) {
       int li;
-      float ti = intersect_analytic(T, object_row(T, oi), o, d, S.t_min,
-                                    S.t_max, li);
+      float ti = B.intersect(object_row(T, oi), o, d, S.t_min,
+                             S.t_max, li);
       if (ti < t) { t = ti; obj = (float)oi; leaf = li; }
     }
     P.mark(PH_PRIMARY + kp_obj(oi));
@@ -300,7 +356,7 @@ __device__ __forceinline__ void trace_pixel(const Block& B,
         clip2 = t_clip;
       }
       bool hit_i = march_lane(
-          S, [&](V3 p) { return eval_obj(B.T, S, ob, p, 0); }, o, d, t1,
+          S, [&](V3 p) { return B.eval(S, ob, p, 0); }, o, d, t1,
           clip2, P, PH_PRIMARY + kp_obj(oi));
       if (hit_i && t1 < t) { t = t1; obj = (float)oi; leaf = 0; }
       t_clip = fminf(t_clip, t);
@@ -311,8 +367,8 @@ __device__ __forceinline__ void trace_pixel(const Block& B,
 
 // AO of one receiver, all taps and objects on its lane (ao_core<false>'s
 // order).
-template <bool PROF>
-__device__ __forceinline__ float ao_receiver(const Block& B,
+template <bool PROF, class Blk>
+__device__ __forceinline__ float ao_receiver(const Blk& B,
                                              const KFSettings& S, bool act,
                                              V3 q0, V3 n, Prof<PROF>& P) {
   const KFTables& T = B.T;
@@ -339,7 +395,7 @@ __device__ __forceinline__ float ao_receiver(const Block& B,
     P.mark(PH_AO_UNB);
     for (int k = 0; k < n_rest; ++k) {
       if ((near >> k) & 1ull) {
-        float h = eval_obj(B.T, S, object_row(T, rest[k]), q, S.ao_lod);
+        float h = B.eval(S, object_row(T, rest[k]), q, S.ao_lod);
         P.trip(PH_AO_OBJ + kp_obj(rest[k]));
         term = fmaxf(term, fmaxf(azr - h, 0.0f) / r);
       }
@@ -354,8 +410,8 @@ __device__ __forceinline__ float ao_receiver(const Block& B,
 
 // Visibility of one light for one receiver, every object on its lane
 // (visibility<false>'s order).
-template <bool PROF>
-__device__ __forceinline__ float vis_receiver(const Block& B,
+template <bool PROF, class Blk>
+__device__ __forceinline__ float vis_receiver(const Blk& B,
                                               const KFSettings& S, bool act,
                                               int li, V3 o, V3 l, float dist,
                                               float kf, Prof<PROF>& P) {
@@ -385,7 +441,7 @@ __device__ __forceinline__ float vis_receiver(const Block& B,
           }
           v = soft_lane(
               S,
-              [&](V3 p) { return eval_obj(B.T, S, ob, p, S.secondary_lod); },
+              [&](V3 p) { return B.eval(S, ob, p, S.secondary_lod); },
               o, l, t_lo, t_hi, kf, P, ph);
         }
         soft_vis = fminf(soft_vis, v);
@@ -398,8 +454,8 @@ __device__ __forceinline__ float vis_receiver(const Block& B,
   for (int k = 0; k < S.n_ana; ++k) {
     if (act) {
       int leaf;
-      float ti = intersect_analytic(T, object_row(T, T.order[k]), o, l,
-                                    S.shadow_eps, dist, leaf);
+      float ti = B.intersect(object_row(T, T.order[k]), o, l, S.shadow_eps,
+                             dist, leaf);
       vis = vis * (ti < dist ? 0.0f : 1.0f);
     }
     P.mark(kp_vis(li, T.order[k]));
@@ -421,7 +477,7 @@ __device__ __forceinline__ float vis_receiver(const Block& B,
         clip2 = dist_i;
       }
       bool hit = march_lane(
-          S, [&](V3 p) { return eval_obj(B.T, S, ob, p, 0); }, o, l, t1,
+          S, [&](V3 p) { return B.eval(S, ob, p, 0); }, o, l, t1,
           clip2, P, kp_vis(li, oi));
       vis = vis * ((hit && t1 < dist_i) ? 0.0f : 1.0f);
     }
@@ -538,38 +594,9 @@ kf_staged_kernel(const KFTables G, const KFSettings S, const KSLayout L,
   Prof<PROF> P;
 
   int* item_slot = (int*)(sm + L.ctr);
-  int* objects = (int*)(sm + L.objects);
-  int* nodes = (int*)(sm + L.nodes);
-  int* leaves = (int*)(sm + L.leaves);
-  int* order = (int*)(sm + L.order);
-  float* leaf_params = (float*)(sm + L.leaf_params);
-  float* node_params = (float*)(sm + L.node_params);
-  float* bounds = (float*)(sm + L.bounds);
-  stage_copy(objects, G.objects, S.n_objects * KF_OBJ_W);
-  stage_copy(nodes, G.nodes, L.n_nodes * KF_NODE_W);
-  stage_copy(leaves, G.leaves, L.n_leaves * KF_LEAF_W);
-  stage_copy(order, G.order, L.n_order);
-  stage_copy(leaf_params, G.leaf_params, L.n_leaf_rows * KF_LEAF_PARAM_W);
-  stage_copy(node_params, G.node_params, L.n_kp);
-  // both bounds of every boundable object, by object_bound itself
-  for (int oi = tid; oi < S.n_objects; oi += KS_THREADS) {
-    const int* ob = object_row(G, oi);
-    if (ob[O_ENGINE] == ENGINE_MESH || !ob[O_BOUNDABLE]) continue;
-    const Bound lo = object_bound(G, ob, 1, 0.0f);
-    const Bound cv = object_bound(G, ob, 0, S.exit_margin);
-    float* b = bounds + oi * 8;
-    b[0] = lo.cx; b[1] = lo.cy; b[2] = lo.cz; b[3] = lo.R;
-    b[4] = cv.cx; b[5] = cv.cy; b[6] = cv.cz; b[7] = cv.R;
-  }
   Block B;
-  B.T = G;
-  B.T.objects = objects;
-  B.T.nodes = nodes;
-  B.T.leaves = leaves;
-  B.T.order = order;
-  B.T.leaf_params = leaf_params;
-  B.T.node_params = node_params;
-  B.bounds = bounds;
+  B.T = stage_scene(G, S, L, sm);
+  B.bounds = (const float*)(sm + L.bounds);
   B.rec = (float*)(sm + L.rec);
   __syncthreads();
 

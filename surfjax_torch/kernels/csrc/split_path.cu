@@ -39,13 +39,6 @@
 
 #include "frame_fused.cuh"
 
-// Flat ray arrays of one launch (render_tile.SplitRays).
-struct SplitRays {
-  const float* in[8];
-  float* out[8];
-  int n;
-};
-
 #define SP_BLOCK 128
 
 template <bool CROWD>

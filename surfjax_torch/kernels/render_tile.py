@@ -102,24 +102,28 @@ BULB_ITER_OPS = {"std": 81, "cheb": 62}
 # n: the running total (None while not counting); bulb: per-lane
 # Mandelbulb iterations of the DE evaluations not yet tallied, and
 # bulb_ops the operations of one of them; bulb_iters: the running total of
-# Mandelbulb iteration-lanes
-_OPS = {"n": None, "bulb": None, "bulb_ops": None, "bulb_iters": None}
+# Mandelbulb iteration-lanes; evals: of object SDF evaluation-lanes
+_OPS = {"n": None, "bulb": None, "bulb_ops": None, "bulb_iters": None,
+        "evals": None}
 
 
 @contextlib.contextmanager
 def count_ops():
     """Count the operations of the plain versions run inside the block ->
-    a dict that holds, once the block has ended, the total under "ops" and
+    a dict that holds, once the block has ended, the total under "ops",
     under "bulb_iters" the Mandelbulb iteration-lanes inside it (each
-    counted BULB_ITER_OPS operations)."""
+    counted BULB_ITER_OPS operations) and under "evals" the evaluations of
+    an object's SDF, one per object and lane."""
     res = {}
-    _OPS.update(n=0, bulb=None, bulb_ops=None, bulb_iters=0)
+    _OPS.update(n=0, bulb=None, bulb_ops=None, bulb_iters=0, evals=0)
     try:
         yield res
     finally:
         res["ops"] = _OPS["n"]
         res["bulb_iters"] = _OPS["bulb_iters"]
-        _OPS.update(n=None, bulb=None, bulb_ops=None, bulb_iters=None)
+        res["evals"] = _OPS["evals"]
+        _OPS.update(n=None, bulb=None, bulb_ops=None, bulb_iters=None,
+                    evals=None)
 
 
 def _tally(lanes, per_lane: int) -> None:
@@ -148,6 +152,8 @@ def _tally_de(fn, lanes, evals: int = 1) -> None:
     _OPS["bulb"] = None
     _tally(lanes, evals * (sum(_tape_ops(o) for o in fn.objs)
                            + getattr(fn, "flat_ops", 0)))
+    n = int(lanes.sum()) if isinstance(lanes, torch.Tensor) else lanes
+    _OPS["evals"] += evals * len(fn.objs) * int(n)
     if iters is not None:
         n_iters = int((iters * lanes).sum())
         _OPS["bulb_iters"] += n_iters
@@ -2109,11 +2115,14 @@ class KSLayout(ctypes.Structure):
 
 
 def staged_layout(n_objects: int, n_nodes: int, n_leaves: int, n_order: int,
-                  n_leaf_rows: int, n_kp: int) -> KSLayout:
-    """The block's shared memory for a scene of these table sizes: the tile
+                  n_leaf_rows: int, n_kp: int,
+                  records: bool = True) -> KSLayout:
+    """The block's shared memory for a scene of these table sizes: the work
     slot, the staged scene (its tables and two bounding spheres per
-    object) and the pixels' records, each section 16-byte aligned, in the
-    order of KSLayout. `bytes` is the total the launch asks for."""
+    object, mesh objects included: their rows are staged, their bounds
+    left unset) and, for the fused kernel (`records`), the pixels'
+    records, each section 16-byte aligned, in the order of KSLayout.
+    `bytes` is the total the launch asks for."""
     words = {
         "ctr": KS_CTR,
         "objects": n_objects * OBJ_W,
@@ -2123,7 +2132,7 @@ def staged_layout(n_objects: int, n_nodes: int, n_leaves: int, n_order: int,
         "leaf_params": n_leaf_rows * 8,
         "node_params": n_kp,
         "bounds": n_objects * 8,
-        "rec": KS_REC * KS_THREADS,
+        "rec": KS_REC * KS_THREADS if records else 0,
     }
     lay = KSLayout(n_nodes=n_nodes, n_leaves=n_leaves, n_order=n_order,
                    n_leaf_rows=n_leaf_rows, n_kp=n_kp)
@@ -2135,13 +2144,13 @@ def staged_layout(n_objects: int, n_nodes: int, n_leaves: int, n_order: int,
     return lay
 
 
-def _scene_layout(tables) -> KSLayout:
+def _scene_layout(tables, records: bool = True) -> KSLayout:
     """staged_layout of the tables _scene_tables returns."""
     objects, nodes, leaves, order = tables[:4]
     leaf_params, node_params = tables[6], tables[7]
     return staged_layout(objects.shape[0], nodes.shape[0], leaves.shape[0],
                          order.numel(), leaf_params.shape[0],
-                         node_params.numel())
+                         node_params.numel(), records)
 
 
 def _kernel_args(scene_t, settings: RenderSettings, intr, cam_rows, t0):
@@ -2506,13 +2515,10 @@ def _ray_arrays(args):
     return ins
 
 
-def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
-                   n_out: int):
-    """Prepare one launch of the split kernel `entry` on CUDA tensors ->
-    (launch, outputs): launch() enqueues the kernel on the current stream,
-    writing `outputs`, and raises if the launch was refused. The wrappers
-    launch once; chip_smoke.py times repeated launches."""
-    from surfjax_torch.kernels import _build
+def _split_args(scene_t, settings: RenderSettings, args, n_out: int):
+    """A split kernel's launch arguments -> (KFTables, KFSettings,
+    SplitRays, the tensors they point to, the scene's counts, the output
+    tensor (n_out, *shape))."""
     static, _ = scene_t
     ins = [a.contiguous() for a in _ray_arrays(args)]
     shape, dev = ins[0].shape, ins[0].device
@@ -2527,17 +2533,87 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
     for k in range(n_out):
         rays.out[k] = out[k].data_ptr()
     rays.n = out[0].numel()
-    fn = getattr(_build.load(), entry)
+    return tab, ks, rays, (ins, tables), counts, out
 
+
+def _split_enqueue(dev, call, entry: str, keep):
+    """-> launch(): call(stream) on the current stream of dev, raising if
+    the launch was refused; it returns `keep`, the tensors the kernel
+    reads, so that they stay alive as long as launch does."""
     def launch():
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            _raise_on(fn(tab, ks, rays, dev.index, ctypes.c_void_p(stream)),
-                      entry)
-        # the arrays the kernel reads stay alive as long as launch does
-        return ins, tables
+            _raise_on(call(ctypes.c_void_p(stream)), entry)
+        return keep
+    return launch
 
+
+def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
+                   n_out: int):
+    """Prepare one launch of the split kernel `entry` on CUDA tensors ->
+    (launch, outputs): launch() enqueues the kernel on the current stream,
+    writing `outputs`, and raises if the launch was refused. The wrappers
+    launch once; chip_smoke.py times repeated launches."""
+    from surfjax_torch.kernels import _build
+    tab, ks, rays, keep, _, out = _split_args(scene_t, settings, args, n_out)
+    dev = out.device
+    fn = getattr(_build.load(), entry)
+    launch = _split_enqueue(
+        dev, lambda stream: fn(tab, ks, rays, dev.index, stream), entry,
+        keep)
     return launch, tuple(out[k] for k in range(n_out))
+
+
+# The variants of K1 and K2 that csrc/split_staged.cu measures (its SV_*):
+# the production (the scene staged in shared memory, single-leaf
+# evaluation, persistent blocks of 128 threads, __grid_constant__
+# parameters), each with one element left out or changed, the schedule of
+# split_path.cu's kernels on the stages (its profile is PERF.md's step 1),
+# and split_path.cu's kernels themselves, by value and __grid_constant__.
+SPLIT_VARIANTS = ("production", "no staging", "by value", "no single-leaf",
+                  "not persistent", "256 threads", "today's schedule",
+                  "today", "today gc")
+# the variants with a profiling instantiation
+SPLIT_PROFILED = ("production", "today's schedule")
+
+
+def split_variant_launcher(entry: str, variant: str, scene_t,
+                           settings: RenderSettings, args,
+                           profile: bool = False):
+    """Prepare a launch of one variant of K1 (entry "render_tile") or K2
+    ("trace_rays") on CUDA tensors of a scene without a crowd -> (launch,
+    outputs, prof): as split_launcher; with profile, prof is int64 (rows *
+    4 warps, len(KP_PHASE_NAMES), 3), zeroed at every launch (per phase
+    cycles, loop trips and lane-evaluations), else None. The persistent
+    variants' two counters are zeroed once here; the last block of each
+    launch resets them."""
+    from surfjax_torch.kernels import _build
+    n_out = {"render_tile": 7, "trace_rays": 1}[entry]
+    k = SPLIT_VARIANTS.index(variant)
+    if profile and variant not in SPLIT_PROFILED:
+        raise ValueError(f"{variant}: no profiling instantiation")
+    tab, ks, rays, keep, counts, out = _split_args(scene_t, settings, args,
+                                                   n_out)
+    if counts[2] > 0:
+        raise ValueError("the staged split kernels take scenes without a "
+                         "crowd")
+    dev = out.device
+    layout = _scene_layout(keep[1], records=False)
+    work = torch.zeros(2, dtype=torch.int32, device=dev)
+    rows = -(-rays.n // KS_THREADS)
+    prof = torch.zeros((rows * (KS_THREADS // 32), len(KP_PHASE_NAMES), 3),
+                       dtype=torch.int64, device=dev) if profile else None
+    fn = _build.load().sp_split_variant
+
+    def call(stream):
+        if prof is not None:
+            prof.zero_()
+        return fn(int(entry == "trace_rays"), k, tab, ks, layout, rays,
+                  None if prof is None else prof.data_ptr(),
+                  work.data_ptr(), dev.index, stream)
+
+    launch = _split_enqueue(dev, call, "sp_split_variant", keep)
+    return launch, tuple(out[k] for k in range(n_out)), prof
 
 
 def _split_call(wrapper, entry: str, reference, scene_t,

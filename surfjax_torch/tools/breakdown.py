@@ -524,6 +524,175 @@ def split(dev, res) -> None:
     print("split c4 ao", json.dumps(out), flush=True)
 
 
+def _c4_frame0_calls(dev, names=("render_tile", "trace_rays")):
+    """The calls of the wrappers `names` in frame 0 of c4 at 1080p ->
+    {"c4 config": [(name, args), ...], "c4 ao": ...}."""
+    from surfjax_torch.tools.kernel_check import capture_calls
+    scene, camera, Rs, ps, modes = mesh_main_path(C4)
+    cam0 = dataclasses.replace(camera,
+                               position=tuple(float(x) for x in ps[0]))
+    out = {}
+    for mode, st in modes.items():
+        with capture_calls() as calls:
+            render(scene, cam0, st, device=dev)
+        out[f"c4 {mode}"] = [(k, a) for k, a in calls if k in names]
+    return out
+
+
+def _fit_calls(dev, size=(1920, 1080)):
+    """The K1 and K2 calls of one pose-fit step on c5 at `size`."""
+    from surfjax_torch.tools.fit_bench import pose_step_fn
+    from surfjax_torch.tools.kernel_check import capture_calls
+    step, x0, state0, _ = pose_step_fn("pallas", 60, size, dev)
+    with capture_calls() as calls:
+        step(x0, state0)
+    return [(k, tuple(a.detach() if isinstance(a, torch.Tensor) else
+                      tuple(c.detach() for c in a) if isinstance(a, tuple)
+                      else a for a in args)) for k, args in calls]
+
+
+def _split_cases(dev) -> dict:
+    """The K1 and K2 calls PERF.md measures: frame 0 of c4 at 1080p in
+    both modes and one 1080p pose-fit step on c5."""
+    cases = _c4_frame0_calls(dev)
+    cases["fit 1080p"] = _fit_calls(dev)
+    return cases
+
+
+def _launch_ms(launch) -> float:
+    """ms of one launch of a prepared kernel, LAUNCHES back to back, the
+    fastest of REPS samples."""
+    launch()
+    ms, _ = cuda_ms(lambda: [launch() for _ in range(LAUNCHES)], REPS)
+    return min(ms) / LAUNCHES
+
+
+def _empty_segments(args):
+    """K2's arguments with every shadow segment empty (dist 0): the kernel
+    then only loads dist and writes 1 on every lane."""
+    return args[:4] + (torch.zeros_like(args[4]),) + args[5:]
+
+
+def split_fit(dev, res) -> None:
+    """Each K1 and K2 call of one 1080p pose-fit step on c5, ms per call
+    launched back to back (as `split` for c4)."""
+    from surfjax_torch.tools.kernel_check import KERNELS
+    out = {}
+    for k, (kname, args) in enumerate(_fit_calls(dev)):
+        out[f"{kname} {k}"] = _launch_ms(KERNELS[kname][3](*args)[0])
+    res["split fit 1080p"] = out
+    print("split fit 1080p", json.dumps(out), flush=True)
+
+
+def prime(dev, res) -> None:
+    """The priming kernel on c3's coarse rays at 1920x1080, launched back
+    to back."""
+    from surfjax_torch.tools.kernel_check import KERNELS, capture_calls
+    scene, camera, st, _ = load_config(C3)
+    camera = reframe(camera, 1920, 1080)
+    st = st.with_(backend="pallas", prime=True)
+    with capture_calls() as calls:
+        render(scene, camera, st, device=dev)
+    args = calls[0][1]
+    out = {"prime_tile": _launch_ms(KERNELS["prime_tile"][3](*args)[0])}
+    res["prime c3 1080p"] = out
+    print("prime c3 1080p", json.dumps(out), flush=True)
+
+
+# the variants split_phases profiles (render_tile.SPLIT_PROFILED): step 1
+# profiles the schedule of split_path.cu's kernels only
+SPLIT_PROFILED = ("today's schedule",)
+
+
+def sass(dev, res) -> None:
+    """The hash of every entry's SASS (_build.sass_hashes), to compare the
+    code of two builds."""
+    from surfjax_torch.kernels import _build
+    info = _build.build()
+    out = _build.sass_hashes(info["path"], list(_build.entries(info["log"])))
+    res["sass"] = out
+    print("sass", json.dumps(out), flush=True)
+
+
+def split_phases(dev, res) -> None:
+    """Inside K1 and K2 on frame 0 of c4 at 1080p (both modes) and in one
+    1080p pose-fit step on c5: per call the kernel's time (launched back to
+    back), K1's with AO off and K2's on the same rays with every shadow
+    segment empty (what a lane costs without its work); then each
+    profiled variant of render_tile.SPLIT_PROFILED: its time, its outputs
+    against the plain version's (bitwise), its SDF evaluations against
+    the plain version's (count_ops, less the FD normals', which carry no
+    probe), on c4 AO's evaluations against lanes x taps, and its phase
+    table (per phase the share of the warps' cycles, the SIMT efficiency
+    of its loops and the SDF evaluations per lane); last, ptxas' line and
+    the local loads and stores (LDL, STL) of every K1 and K2 entry."""
+    from surfjax_torch.kernels import _build
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools.kernel_check import KERNELS, flat
+    aos = rt.KP_PHASE_NAMES.index("ao unbounded")
+    for case, calls in _split_cases(dev).items():
+        for k, (kname, args) in enumerate(calls):
+            scene_t, st = args[:2]
+            rays = args[2:]
+            n = flat(rays)[0].numel()
+            entry = {"lanes": n,
+                     "ms": _launch_ms(KERNELS[kname][3](*args)[0])}
+            if kname == "render_tile":
+                entry["ms_ao_off"] = _launch_ms(KERNELS[kname][3](
+                    scene_t, st.with_(ao=False), *rays)[0])
+            else:
+                entry["ms_empty_segments"] = _launch_ms(
+                    KERNELS[kname][3](*_empty_segments(args))[0])
+            with rt.count_ops() as c:
+                ref = KERNELS[kname][1](*args)
+            fd = 0
+            if kname == "render_tile":
+                objs = scene_t.static.ir.objects
+                is_fd = torch.tensor([o.engine == 1 or st.normals != "auto"
+                                      for o in objs], device=dev)
+                obj = ref[1].reshape(-1).long()
+                fd = 4 * int(is_fd[obj.clamp(min=0)][obj >= 0].sum())
+            entry["plain_evals"] = c["evals"]
+            for variant in SPLIT_PROFILED:
+                launch, out, prof = rt.split_variant_launcher(
+                    kname, variant, scene_t, st, rays, profile=True)
+                launch()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(flat(out),
+                                                             flat(ref))):
+                    raise AssertionError(f"{case} call {k} {variant}: the "
+                                         "profile's outputs differ from "
+                                         "the plain version's")
+                evals = int(prof[:, :, 2].sum())
+                if evals + fd != c["evals"]:
+                    raise AssertionError(
+                        f"{case} call {k} {variant}: {evals} SDF "
+                        f"evaluations profiled + {fd} FD, the plain version "
+                        f"{c['evals']}")
+                if case.startswith("c4") and kname == "render_tile" and \
+                        st.ao and int(prof[:, aos, 2].sum()) != \
+                        n * 4 * st.ao_samples:
+                    raise AssertionError(f"{case} call {k}: AO evaluated "
+                                         f"{int(prof[:, aos, 2].sum())} "
+                                         f"times, not lanes x taps")
+                entry[variant] = {
+                    "ms_profiled": _launch_ms(launch),
+                    "evals": evals,
+                    "phases": phase_table(prof, n, scene_t.static,
+                                          rt.KP_PHASE_NAMES)}
+            res[f"split phases {case} {k} {kname}"] = entry
+            print(f"split phases {case} {k} {kname}", json.dumps(entry),
+                  flush=True)
+    info = _build.build()
+    for name, lines in _build.entries(info["log"]).items():
+        if "render_tile" in name or "trace_rays" in name or \
+                "sp_split" in name or "sp_today" in name:
+            entry = {"ptxas": lines,
+                     "sass": _build.sass_counts(info["path"], name)}
+            res[f"split entry {name}"] = entry
+            print(f"split entry {name}", json.dumps(entry), flush=True)
+
+
 SECTIONS = {
     "c3": lambda dev, res: fused_path(
         "c3", main_path("configs/c3_sdf.yaml"), dev, features_off, res),
@@ -539,6 +708,10 @@ SECTIONS = {
     "split": split,
     "mesh_phases": mesh_phases,
     "mesh_glue": mesh_glue,
+    "split_fit": split_fit,
+    "prime": prime,
+    "split_phases": split_phases,
+    "sass": sass,
 }
 
 

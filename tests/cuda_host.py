@@ -33,7 +33,15 @@ def gxx():
 
 
 def build(source: str, out_dir: str) -> ctypes.CDLL:
-    """Compile csrc/`source` for the host into out_dir -> the library."""
+    """Compile csrc/`source` for the host into out_dir -> the library. The
+    headers of csrc are rewritten beside it, so that the source includes
+    the rewritten ones."""
+    for name in os.listdir(CSRC):
+        if name.endswith(".cuh"):
+            with open(os.path.join(CSRC, name)) as fh:
+                text = host_source(fh.read())
+            with open(os.path.join(out_dir, name), "w") as fh:
+                fh.write(text)
     with open(os.path.join(CSRC, source)) as fh:
         text = host_source(fh.read())
     src = os.path.join(out_dir, source.replace(".cu", "_host.cpp"))
@@ -41,7 +49,7 @@ def build(source: str, out_dir: str) -> ctypes.CDLL:
         fh.write(text)
     lib = src[:-4] + ".so"
     cmd = [gxx(), "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC",
-           "-shared", "-pthread", "-I", STUB, "-I", CSRC, src, "-o", lib]
+           "-shared", "-pthread", "-I", STUB, "-I", out_dir, src, "-o", lib]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(cmd)}:\n{proc.stderr}")

@@ -13,7 +13,9 @@
 // multiply and add rounds on its own, as on the card under -fmad=false.
 // tests/cuda_host.py rewrites the launch syntax kernel<<<grid, block,
 // smem, stream>>>(args) into cuda_host::launch(kernel, grid, block, smem,
-// stream, args), and `extern __shared__` arrays into static ones.
+// stream, args), and `extern __shared__` arrays into static ones, in the
+// source and in the headers of csrc it includes. The stand-in card has two
+// SMs that hold one block each (persistent launches start two blocks).
 #pragma once
 
 #include <algorithm>
@@ -36,6 +38,8 @@
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
 #define __restrict__
+#define __grid_constant__
+#define __constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -59,6 +63,22 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline const char* cudaGetErrorString(cudaError_t) { return "host stub"; }
+// a card of two SMs, each holding one block at a time
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 2;
+  return cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* blocks, F, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
 
 inline thread_local uint3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
@@ -215,6 +235,9 @@ template <class T>
 inline T __ldg(const T* p) { return *p; }
 inline long long clock64() {
   return std::chrono::steady_clock::now().time_since_epoch().count();
+}
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
 }
 template <class T>
 inline T atomicAdd(T* p, T v) {
