@@ -166,7 +166,9 @@ __device__ __forceinline__ void k2_ray(const Blk& B, const KFSettings& S,
 enum { V_STAGE = 1, V_SINGLE = 2, V_PERSIST = 4, V_WIDE = 8 };
 
 template <int V>
-constexpr int sv_threads() { return (V & V_WIDE) ? 2 * KS_THREADS : KS_THREADS; }
+__host__ __device__ constexpr int sv_threads() {
+  return (V & V_WIDE) ? 2 * KS_THREADS : KS_THREADS;
+}
 
 // The kernel's body: K2 ? K2 : K1 on every ray of R, elements V.
 template <bool K2, bool PROF, int V>
