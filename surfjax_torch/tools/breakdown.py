@@ -546,9 +546,7 @@ def _fit_calls(dev, size=(1920, 1080)):
     step, x0, state0, _ = pose_step_fn("pallas", 60, size, dev)
     with capture_calls() as calls:
         step(x0, state0)
-    return [(k, tuple(a.detach() if isinstance(a, torch.Tensor) else
-                      tuple(c.detach() for c in a) if isinstance(a, tuple)
-                      else a for a in args)) for k, args in calls]
+    return calls
 
 
 def _split_cases(dev) -> dict:
