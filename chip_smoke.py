@@ -9,8 +9,9 @@ the script exits non-zero and never prints its last line):
   0. versions, the card's name and power limit; refuses to run without CUDA;
   1. builds the CUDA kernels from surfjax_torch/kernels/csrc (one nvcc per
      source, in parallel), prints ptxas' registers and spills of every
-     entry and holds those of the crowd instantiation kf_frame_kernel<true>
-     and of K1, K2 and ao_fix to what they were before the staged kernel;
+     entry and holds those of the crowd instantiation kf_frame_kernel<true>,
+     of K1, K2 and ao_fix with a crowd and ao_fix without, and of the
+     staged fused kernel to what they were before the staged K1 and K2;
      prints the staged kernel's shared memory per block and resident blocks
      per SM on c3;
   2. the fused kernel (for scenes without a crowd: the staged kernel,
@@ -81,7 +82,9 @@ the script exits non-zero and never prints its last line):
      block, backend pallas): fit_pose from the command line's start, then
      fit_sdf from its perturbed leaf parameters, launch counts (K1 once and
      K2 once per light and step, the fused kernel never), both timed per
-     step; then the pose-fit step at 1920x1080 on both backends;
+     step; then the pose-fit step at 1920x1080 on both backends; every K1
+     and K2 call of one fit step at 256x256 and at 1920x1080 against its
+     plain version, bitwise, and at 1920x1080 timed with its bound;
  15. where the fused kernel's time goes (tools/breakdown.py, `kf_phases`):
      the profiling instantiation of the staged kernel and the profile of
      kf_frame_kernel<false>, the per-pixel kernel it replaced (its body
@@ -97,14 +100,24 @@ the script exits non-zero and never prints its last line):
      equal to the culled count_tests; per call the share of the warps'
      cycles per phase, the test loop's SIMT efficiency, candidates per
      tile, overflow tiles, lane-tests culled and unculled, and the
-     instructions of the production kernel's loops in its SASS.
+     instructions of the production kernel's loops in its SASS;
+ 17. where K1's and K2's time goes (tools/breakdown.py, `split_phases`):
+     on every K1 and K2 call of frame 0 of c4 at 1920x1080 in both modes
+     and of one 1080p pose-fit step, the kernel's time, K1's with AO off
+     and K2's on empty shadow segments, and the profiling instantiation of
+     the staged kernels: its outputs equal to the plain version's, its SDF
+     evaluations equal to the plain version's count (and on c4 AO's to
+     lanes x taps), per phase group the share of the warps' cycles, the
+     SIMT efficiency and the SDF evaluations per lane; each K1 and K2
+     entry's local loads and stores (SASS).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
 per 1080p frame (value_exact mode for the fused kernel, `ao` mode for the
 split kernels, crowd_demo `config` for the fused kernel's crowd
 instantiation; the probe's entries per launch at its defaults, unroll 4)
-and bounds.
+and bounds; K1 and K2 also with their time and bound in a 1080p fit step
+(fit_ms, fit_bound_ms, fit_bound_by).
 """
 
 from __future__ import annotations
@@ -140,10 +153,11 @@ CROWD_DRIFT_MAX = 1e-4
 # the fused kernel on c3 before the crowd and t0 existed (value_exact,
 # 48 frames per launch, NVIDIA H100 80GB HBM3 at 700 W), for comparison
 KF_BEFORE = "3.338 ms/frame, 72 registers, 264/416 bytes of spills"
-# ptxas' report of the kernels the staged fused kernel (kf_staged.cu, for
-# scenes without a crowd) must leave as they were: entry -> (stack and
-# spills, registers), as the parent of that change (d7d452f) built them
-# with CUDA 12.8 for sm_90a
+# ptxas' report of the kernels that the staged kernels must leave as they
+# were: entry -> (stack and spills, registers), built with CUDA 12.8 for
+# sm_90a; the crowd instantiations and ao_fix as the parent of the staged
+# fused kernel (d7d452f) built them, the staged fused kernel as c31b803,
+# the parent of the staged K1 and K2 (split_staged.cu), built it
 PTXAS_KEPT = {
     "_Z15kf_frame_kernelILb1EEv8KFTables10KFSettings": (
         "768 bytes stack frame, 176 bytes spill stores, 292 bytes spill loads",
@@ -157,15 +171,12 @@ PTXAS_KEPT = {
     "_Z16sp_ao_fix_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
         "592 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "Used 96 registers, used 0 barriers, 592 bytes cumulative stack size"),
-    "_Z21sp_render_tile_kernelILb0EEv8KFTables10KFSettings9SplitRays": (
-        "480 bytes stack frame, 72 bytes spill stores, 72 bytes spill loads",
-        "Used 80 registers, used 0 barriers, 480 bytes cumulative stack size"),
-    "_Z20sp_trace_rays_kernelILb0EEv8KFTables10KFSettings9SplitRays": (
-        "448 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
-        "Used 72 registers, used 0 barriers, 448 bytes cumulative stack size"),
     "_Z16sp_ao_fix_kernelILb0EEv8KFTables10KFSettings9SplitRays": (
         "464 bytes stack frame, 12 bytes spill stores, 0 bytes spill loads",
         "Used 80 registers, used 0 barriers, 464 bytes cumulative stack size"),
+    "_Z16kf_staged_kernelILb0EEv8KFTables10KFSettings8KSLayoutPyPi": (
+        "528 bytes stack frame, 280 bytes spill stores, 532 bytes spill loads",
+        "Used 64 registers, used 1 barriers, 528 bytes cumulative stack size"),
 }
 PRIME_HIT_MAX = 1e-4   # share of pixels whose hit flag priming may change
 PROBE_K = 16           # substeps of the probe's comparison with plain
@@ -300,7 +311,8 @@ def main() -> int:
         crowd_warp_masks, prime_frame, prime_tile, split_crowd,
     )
     from surfjax_torch.tools.breakdown import (
-        crowd_variants, fused_path, kf_phases, mesh_phases,
+        SPLIT_PROFILED, crowd_variants, fused_path, kf_phases, mesh_phases,
+        split_phases,
     )
     from surfjax_torch.kernels.mesh_tile import (
         MT_TEST_OPS, mesh_cull_count, mesh_warp_masks,
@@ -331,7 +343,8 @@ def main() -> int:
             raise AssertionError(f"ptxas' report of {name} changed: "
                                  f"{built.get(name)}, was {lines}")
     log(f"  ptxas' report of {len(PTXAS_KEPT)} entries (kf_frame_kernel"
-        "<true>, K1, K2 and ao_fix) unchanged from d7d452f")
+        "<true>, K1, K2 and ao_fix with a crowd, ao_fix without, the staged "
+        "fused kernel) unchanged")
     c3_scene, _, c3_set, _ = load_config(os.path.join(ROOT,
                                                       "configs/c3_sdf.yaml"))
     static, params = c3_scene.freeze()
@@ -1101,6 +1114,7 @@ def main() -> int:
     # every K1 and K2 call of one fit step, kernel against plain, at the
     # shapes the fit gives them (a scene without a mesh, at both sizes)
     from surfjax_torch.tools.fit_bench import pose_step_fn
+    fit_stats = {}
     for size in (None, (1920, 1080)):
         step_fn, x0, state0, intr = pose_step_fn("pallas", steps, size, dev)
         with capture_calls() as calls:
@@ -1111,11 +1125,28 @@ def main() -> int:
                                  f"kernel calls {names}")
         with torch.no_grad():
             for k, (kname, args) in enumerate(calls):
-                err, _, _ = compare(kname, args, f"c5 fit step "
-                                    f"{intr.width}x{intr.height} call {k}")
+                err, got, _ = compare(kname, args, f"c5 fit step "
+                                      f"{intr.width}x{intr.height} call {k}")
                 split_err[kname] = max(split_err[kname], err)
+                if size is None:
+                    continue
+                # K1 and K2 of the 1080p step: time (launched back to
+                # back) and bound, by the plain version's operations and
+                # the bytes each call must move
+                launch, _ = KERNELS[kname][3](*args)
+                launch()
+                k_ms, _ = cuda_ms(
+                    lambda: [launch() for _ in range(LAUNCH_REPS)], 3)
+                with count_ops() as c:
+                    KERNELS[kname][1](*args)
+                f_ = fit_stats.setdefault(kname, dict(ms=0.0, ops=0,
+                                                      bytes=0))
+                f_["ms"] += min(k_ms) / LAUNCH_REPS
+                f_["ops"] += c["ops"]
+                f_["bytes"] += bytes_read(kname, args) + nbytes(got)
         log(f"  fit step at {intr.width}x{intr.height}: {len(calls)} kernel "
             f"calls bitwise equal ({', '.join(names)})")
+    log("  K1, K2 in one 1080p fit step: " + json.dumps(fit_stats))
     log(f"phase 14: fit main path, launches {fit_launches} "
         f"({time.perf_counter() - t14:.1f} s) on {smi}")
 
@@ -1161,6 +1192,34 @@ def main() -> int:
     log(f"phase 16: the mesh kernel's phase profile on c4 frame 0 "
         f"({time.perf_counter() - t16:.1f} s) on {smi}")
 
+    # -- phase 17 -----------------------------------------------------------
+    # where K1's and K2's time goes: c4 frame 0 at 1080p and a 1080p fit step
+    t17 = time.perf_counter()
+    split_prof = {}
+    split_phases(dev, split_prof)
+    for key, entry in split_prof.items():
+        if key.startswith("split entry"):
+            log(f"  {key}: {entry['ptxas'][1]}; SASS local loads and "
+                f"stores {json.dumps(entry['sass'])}")
+            continue
+        alone = {k: round(v, 4) for k, v in entry.items()
+                 if k.startswith("ms")}
+        for variant in SPLIT_PROFILED:
+            groups = {g: [round(v["cycles_share"], 4),
+                          None if v["simt"] is None else round(v["simt"], 3),
+                          None if v["evals_per_hit"] is None
+                          else round(v["evals_per_hit"], 2)]
+                      for g, v in entry[variant]["phases"]["groups"].items()}
+            log(f"  {key} ({entry['lanes']} lanes): {json.dumps(alone)}; "
+                f"{variant} profiled "
+                f"{entry[variant]['ms_profiled']:.4f} ms, "
+                f"{entry[variant]['evals']} SDF evaluations (plain "
+                f"{entry['plain_evals']} with the FD normals'); per phase "
+                "group [cycle share, SIMT efficiency, SDF evaluations per "
+                "lane]: " + json.dumps(groups))
+    log(f"phase 17: K1's and K2's phase profile on c4 frame 0 and a 1080p "
+        f"fit step ({time.perf_counter() - t17:.1f} s) on {smi}")
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     # the fused kernel: times per 1080p frame in value_exact mode, the
@@ -1168,7 +1227,8 @@ def main() -> int:
     # kernels: times per 1080p frame of c4 in `ao` mode (all calls of the
     # frame, each kernel launched back to back), launches over both modes
     # of phase 6, errors over phases 5, 7 and 8 and (K1, K2) the fit steps
-    # held in phase 14; the crowd instantiation:
+    # held in phase 14, K1 and K2 also their time and bound in one 1080p
+    # fit step (phase 14); the crowd instantiation:
     # crowd_demo `config` per 1080p frame, launches of phase 9, errors over
     # phases 8 and 9; the priming kernel: the 1080p frame of phase 10; K1
     # and K2 also count the fit's launches (phase 14); the probe's entries:
@@ -1198,8 +1258,8 @@ def main() -> int:
         "plain_ms": prime_stats["plain_ms"],
         "bound_ms": prime_bound[0], "bound_by": prime_bound[1],
         "library_ms": None}]
-    sources = {"render_tile": ("split_path.cu", "render_tile.py:2005"),
-               "trace_rays": ("split_path.cu", "render_tile.py:2037"),
+    sources = {"render_tile": ("split_staged.cu", "render_tile.py:2005"),
+               "trace_rays": ("split_staged.cu", "render_tile.py:2037"),
                "ao_fix": ("split_path.cu", "render_tile.py:1954"),
                "mesh_tile": ("mesh_tile.cu", "mesh_tile.py:348")}
     for name in split:
@@ -1214,6 +1274,11 @@ def main() -> int:
             "max_abs_err": split_err[name], "ms": st7["ms"],
             "plain_ms": st7["plain_ms"], "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None})
+        if name in fit_stats:
+            f_ = fit_stats[name]
+            fb_ = bound(f_["ops"], f_["bytes"])
+            kernels[-1].update(fit_ms=f_["ms"], fit_bound_ms=fb_[0],
+                               fit_bound_by=fb_[1])
     for entry, info in probe.items():
         kernels.append({
             "name": entry, "route": "cuda",

@@ -1,4 +1,6 @@
-// Split-path kernels for Hopper (sm_90a): K1, K2 and ao_fix.
+// Split-path kernels for Hopper (sm_90a): ao_fix, and K1 and K2 for scenes
+// with a crowd (without one, K1 and K2 are the staged kernels of
+// split_staged.cu).
 //
 // Replace the three Pallas TPU kernels that surfjax's split pipeline runs
 // for scenes the fused kernel does not take (mesh scenes):
@@ -16,7 +18,8 @@
 // surfjax_torch/kernels/render_tile.py (render_tile_reference,
 // trace_rays_reference, ao_fix_reference), through the device functions
 // of frame_fused.cuh that the fused kernel runs too; the crowd's member
-// loops (settings.vector_objects) live there, so all three take a crowd.
+// loops (settings.vector_objects) live there, so all three take a crowd,
+// and ao_fix exists also without them (<false>).
 //
 // What bounds them on this card: the scene's DE evaluations (FP32 ALU and
 // divergence) where the scene has SDF objects; on a mesh scene whose only
@@ -32,7 +35,8 @@
 // value-exact per lane.
 //
 // C interface (bound with ctypes, no PyTorch headers), each returning the
-// cudaError_t of its launch:
+// cudaError_t of its launch (sp_render_tile and sp_trace_rays refuse a
+// scene without a crowd):
 //   int sp_render_tile(KFTables, KFSettings, SplitRays, int device, void*)
 //   int sp_trace_rays(KFTables, KFSettings, SplitRays, int device, void*)
 //   int sp_ao_fix(KFTables, KFSettings, SplitRays, int device, void*)
@@ -100,31 +104,33 @@ sp_ao_fix_kernel(const KFTables T, const KFSettings S, const SplitRays R) {
   R.out[0][i] = ao;
 }
 
+typedef void (*RaysKernel)(KFTables, KFSettings, SplitRays);
+
 // Launch `with` for a scene with a crowd, else `without`, the
-// instantiation that carries no member loops.
-template <typename Kernel>
-static int launch_rays(Kernel with, Kernel without, const KFTables& T,
+// instantiation that carries no member loops (null: refused).
+static int launch_rays(RaysKernel with, RaysKernel without, const KFTables& T,
                        const KFSettings& S, const SplitRays& R, int device,
                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  RaysKernel kernel = S.n_crowd > 0 ? with : without;
+  if (!kernel) return (int)cudaErrorInvalidValue;
   if (R.n <= 0) return 0;
   dim3 grid((R.n + SP_BLOCK - 1) / SP_BLOCK);
-  Kernel kernel = S.n_crowd > 0 ? with : without;
   kernel<<<grid, SP_BLOCK, 0, (cudaStream_t)stream>>>(T, S, R);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sp_render_tile(KFTables T, KFSettings S, SplitRays R,
                               int device, void* stream) {
-  return launch_rays(sp_render_tile_kernel<true>,
-                     sp_render_tile_kernel<false>, T, S, R, device, stream);
+  return launch_rays(sp_render_tile_kernel<true>, nullptr, T, S, R, device,
+                     stream);
 }
 
 extern "C" int sp_trace_rays(KFTables T, KFSettings S, SplitRays R,
                              int device, void* stream) {
-  return launch_rays(sp_trace_rays_kernel<true>, sp_trace_rays_kernel<false>,
-                     T, S, R, device, stream);
+  return launch_rays(sp_trace_rays_kernel<true>, nullptr, T, S, R, device,
+                     stream);
 }
 
 extern "C" int sp_ao_fix(KFTables T, KFSettings S, SplitRays R, int device,

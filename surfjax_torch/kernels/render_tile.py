@@ -2555,7 +2555,13 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
     writing `outputs`, and raises if the launch was refused. The wrappers
     launch once; chip_smoke.py times repeated launches."""
     from surfjax_torch.kernels import _build
-    tab, ks, rays, keep, _, out = _split_args(scene_t, settings, args, n_out)
+    tab, ks, rays, keep, counts, out = _split_args(scene_t, settings, args,
+                                                   n_out)
+    if entry in STAGED and counts[2] == 0:
+        # K1 and K2 without a crowd: the staged kernels
+        launch, outs, _ = staged_split_launcher(STAGED[entry], scene_t,
+                                                settings, args)
+        return launch, outs
     dev = out.device
     fn = getattr(_build.load(), entry)
     launch = _split_enqueue(
@@ -2564,6 +2570,9 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
     return launch, tuple(out[k] for k in range(n_out))
 
 
+# The entries of split_path.cu whose calls on a scene without a crowd go to
+# the staged kernels of csrc/split_staged.cu
+STAGED = {"sp_render_tile": "render_tile", "sp_trace_rays": "trace_rays"}
 # The variants of K1 and K2 that csrc/split_staged.cu measures (its SV_*):
 # the production (the scene staged in shared memory, single-leaf
 # evaluation, persistent blocks of 128 threads, __grid_constant__
@@ -2614,6 +2623,13 @@ def split_variant_launcher(entry: str, variant: str, scene_t,
 
     launch = _split_enqueue(dev, call, "sp_split_variant", keep)
     return launch, tuple(out[k] for k in range(n_out)), prof
+
+
+def staged_split_launcher(entry: str, scene_t, settings: RenderSettings,
+                          args, profile: bool = False):
+    """The production variant of split_variant_launcher."""
+    return split_variant_launcher(entry, "production", scene_t, settings,
+                                  args, profile)
 
 
 def _split_call(wrapper, entry: str, reference, scene_t,

@@ -597,9 +597,34 @@ def prime(dev, res) -> None:
     print("prime c3 1080p", json.dumps(out), flush=True)
 
 
-# the variants split_phases profiles (render_tile.SPLIT_PROFILED): step 1
-# profiles the schedule of split_path.cu's kernels only
-SPLIT_PROFILED = ("today's schedule",)
+# the variants split_phases profiles
+SPLIT_PROFILED = ("production", "today's schedule")
+
+
+def split_variants(dev, res) -> None:
+    """Every variant of K1 and K2 (render_tile.SPLIT_VARIANTS) on every
+    call of frame 0 of c4 at 1080p (both modes) and of one 1080p pose-fit
+    step: outputs bitwise equal to the plain version's, ms per frame or
+    step (each call launched back to back, summed per kernel)."""
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools.kernel_check import KERNELS, flat
+    for case, calls in _split_cases(dev).items():
+        out = {}
+        for kname, args in calls:
+            ref = KERNELS[kname][1](*args)
+            for variant in rt.SPLIT_VARIANTS:
+                launch, got, _ = rt.split_variant_launcher(
+                    kname, variant, args[0], args[1], args[2:])
+                ms = _launch_ms(launch)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(flat(got),
+                                                             flat(ref))):
+                    raise AssertionError(f"{case} {kname} {variant}: differs "
+                                         "from the plain version")
+                key = f"{kname} {variant}"
+                out[key] = out.get(key, 0.0) + ms
+        res[f"split variants {case}"] = out
+        print(f"split variants {case}", json.dumps(out), flush=True)
 
 
 def sass(dev, res) -> None:
@@ -710,6 +735,7 @@ SECTIONS = {
     "prime": prime,
     "split_phases": split_phases,
     "sass": sass,
+    "split_variants": split_variants,
 }
 
 

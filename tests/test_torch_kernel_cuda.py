@@ -118,6 +118,81 @@ def test_split_kernels_match_plain(cuda_device, name):
     assert float(fb.hit.mean()) > 0.1
 
 
+def _c5_split_calls(device):
+    """The K1 and K2 calls of the split path's forward on c5 at 64x64 (the
+    fit's), with its hard shadows and with a soft area light and AO."""
+    from surfjax_torch import api
+    from surfjax_torch.core.camera import flat_camera_rays
+    from surfjax_torch.kernels.render_tile import render_rays_pallas
+    from surfjax_torch.tools.kernel_check import capture_calls
+    from surfjax_torch.tools.workload import reframe
+    out = []
+    for soft in (False, True):
+        scene, cam, st, _ = load_config(os.path.join(ROOT, "configs",
+                                                     "c5_anim.yaml"))
+        cam = reframe(cam, 64, 64)
+        st = st.with_(backend="pallas", tile_rows=8)
+        if soft:
+            scene.lights[0] = api.PointLight(position=(3.0, 4.0, -1.0),
+                                             radius=0.4)
+            st = st.with_(soft_shadows=True, ao=True)
+        static, params = scene.freeze()
+        o, d, _ = flat_camera_rays(
+            cam.intrinsics,
+            torch.as_tensor(np.asarray(cam.rotation, np.float32).reshape(9),
+                            device=device),
+            torch.as_tensor(np.asarray(cam.position, np.float32),
+                            device=device))
+        with capture_calls() as calls:
+            render_rays_pallas(static, st, params_to_device(params, device),
+                               o, d)
+        out += calls
+    return out
+
+
+@pytest.mark.parametrize("entry", ["render_tile", "trace_rays"])
+@pytest.mark.parametrize("name", ["c4 config", "c4 ao", "c5"])
+def test_staged_split_kernel_and_profile_match_plain(cuda_device, entry,
+                                                      name):
+    """K1 and K2 without a crowd (split_staged.cu) on every call of a
+    frame: the wrapper launches the staged kernel, the production kernel
+    and its profiling instantiation equal the plain version bitwise, and
+    the profile's SDF evaluations equal the plain version's less the FD
+    normals'."""
+    from surfjax_torch.api import render
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools.kernel_check import KERNELS, capture_calls, flat
+    if name == "c5":
+        calls = _c5_split_calls(cuda_device)
+    else:
+        scene, cam, st = _split_scene(name)
+        with capture_calls() as calls:
+            render(scene, cam, st, device=cuda_device)
+    calls = [(k, a) for k, a in calls if k == entry]
+    assert calls
+    wrapper, reference = KERNELS[entry][:2]
+    for kname, args in calls:
+        with rt.count_ops() as c:
+            ref = flat(reference(*args))
+        before = wrapper.launches
+        got = flat(wrapper(*args))
+        assert wrapper.launches == before + 1
+        launch, out, prof = rt.staged_split_launcher(
+            entry, args[0], args[1], args[2:], profile=True)
+        launch()
+        torch.cuda.synchronize()
+        for a, b, p in zip(got, ref, out):
+            assert torch.equal(a, b) and torch.equal(p, b)
+        fd = 0
+        if entry == "render_tile":
+            objs = args[0].static.ir.objects
+            is_fd = torch.tensor([o.engine == 1 or args[1].normals != "auto"
+                                  for o in objs], device=cuda_device)
+            obj = ref[1].reshape(-1).long()
+            fd = 4 * int(is_fd[obj.clamp(min=0)][obj >= 0].sum())
+        assert int(prof[:, :, 2].sum()) + fd == c["evals"]
+
+
 PROBES = ["edges", "overflow", "edges any-hit", "overflow any-hit",
           "edges to target any-hit", "layers any-hit"]
 
