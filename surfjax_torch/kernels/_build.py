@@ -151,7 +151,8 @@ def sass_loops(lib_path: str, name: str) -> list:
     backward branch, {"start", "end" (its addresses), "instructions" (in
     [start, end]), and per class the count: "fp32" (FADD, FMUL, FFMA,
     FSETP, FMNMX, FSEL, MUFU), "shared" (LDS), "global" (LDG, LD),
-    "shuffle" (SHFL, VOTE)}, innermost first (fewest instructions)."""
+    "shuffle" (SHFL, VOTE), "local" (LDL, STL)}, innermost first (fewest
+    instructions)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-sass", "-fun", name, lib_path],
                          capture_output=True, text=True, timeout=300)
@@ -163,7 +164,7 @@ def sass_loops(lib_path: str, name: str) -> list:
     classes = {"fp32": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL",
                         "MUFU"),
                "shared": ("LDS",), "global": ("LDG", "LD."),
-               "shuffle": ("SHFL", "VOTE")}
+               "shuffle": ("SHFL", "VOTE"), "local": ("LDL", "STL")}
     loops = []
     for addr, text in code:
         m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)

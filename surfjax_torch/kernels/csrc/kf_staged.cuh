@@ -169,6 +169,27 @@ __device__ __forceinline__ float soft_lane(const KFSettings& S, Sdf sdf,
   return clampf(res, 0.0f, 1.0f);
 }
 
+// The least SDF at q of the objects without a bound (AO's unbounded group),
+// each through B.eval, in order -> false when the scene has none.
+template <bool PROF, class Blk>
+__device__ __forceinline__ bool unbounded_loop(const Blk& B,
+                                               const KFSettings& S, V3 q,
+                                               float& hmin, Prof<PROF>& P) {
+  const int n_rest = S.n_ana + S.n_sdf;
+  const int* rest = B.T.order + n_rest;
+  hmin = 0.0f;
+  bool first = true;
+  for (int k = 0; k < n_rest; ++k) {
+    const int* ob = object_row(B.T, rest[k]);
+    if (ob[O_BOUNDABLE]) continue;
+    float h = B.eval(S, ob, q, S.ao_lod);
+    P.trip(PH_AO_UNB);
+    hmin = first ? h : fminf(hmin, h);
+    first = false;
+  }
+  return !first;
+}
+
 // ---------------------------------------------------------------------------
 // The block's state
 // ---------------------------------------------------------------------------
@@ -220,6 +241,12 @@ struct Block {
                                              float t_lo, float t_hi,
                                              int& leaf) const {
     return intersect_analytic(T, ob, o, d, t_lo, t_hi, leaf);
+  }
+  template <bool PROF>
+  __device__ __forceinline__ bool unbounded_min(const KFSettings& S, V3 q,
+                                                float& hmin,
+                                                Prof<PROF>& P) const {
+    return unbounded_loop(*this, S, q, hmin, P);
   }
 };
 
@@ -300,19 +327,9 @@ __device__ __forceinline__ float ao_unbounded(const Blk& B,
                                               const KFSettings& S, V3 q,
                                               float r, float azr,
                                               Prof<PROF>& P) {
-  const int n_rest = S.n_ana + S.n_sdf;
-  const int* rest = B.T.order + n_rest;
-  float hmin = 0.0f;
-  bool first = true;
-  for (int k = 0; k < n_rest; ++k) {
-    const int* ob = object_row(B.T, rest[k]);
-    if (ob[O_BOUNDABLE]) continue;
-    float h = B.eval(S, ob, q, S.ao_lod);
-    P.trip(PH_AO_UNB);
-    hmin = first ? h : fminf(hmin, h);
-    first = false;
-  }
-  return first ? 0.0f : fmaxf(azr - hmin, 0.0f) / r;
+  float hmin;
+  return B.unbounded_min(S, q, hmin, P) ? fmaxf(azr - hmin, 0.0f) / r
+                                        : 0.0f;
 }
 
 // ---------------------------------------------------------------------------

@@ -46,21 +46,55 @@
 //          the last block resets both); prof: null, or the profile's
 //          counters, zeroed by the caller: rows x 4 x KP_PHASES x 3
 
+#include <type_traits>
+
 #include "kf_staged.cuh"
 
-// The block the stages run on (see the note above).
-template <bool STAGE, bool SINGLE>
+// The block the stages run on (see the note above). T: the tables' base
+// pointers, into shared memory when STAGE, held by value (REG: in
+// registers) or by reference to the struct in memory; Tm: that struct in
+// memory (grid constant or shared), for the out-of-line cores.
+template <bool STAGE, bool SINGLE, bool HOIST, bool REG>
 struct SplitScene {
-  const KFTables& T;
+  std::conditional_t<REG, const KFTables, const KFTables&> T;
+  const KFTables& Tm;
   const float* bounds;   // STAGE: lower, cover per object
   float margin;          // !STAGE: the cover's exit margin
+  // HOIST: AO's unbounded group when it is one object whose tape is one
+  // leaf (one_leaf), that leaf's kind, parameters and p1, decoded once
+  int one_leaf, kind, p1;
+  const float* prm;
+
+  __device__ __forceinline__ void hoist(const KFSettings& S) {
+    one_leaf = 0;
+    if constexpr (HOIST) {
+      const int n_rest = S.n_ana + S.n_sdf;
+      const int* rest = T.order + n_rest;
+      int n_unb = 0, oi = 0;
+      for (int k = 0; k < n_rest; ++k) {
+        if (!object_row(T, rest[k])[O_BOUNDABLE]) {
+          n_unb += 1;
+          oi = rest[k];
+        }
+      }
+      if (n_unb == 1 && object_row(T, oi)[O_NNODES] == 1) {
+        const int* ob = object_row(T, oi);
+        const int* lf = T.leaves +
+            (ob[O_LEAF0] + T.nodes[ob[O_NODE0] * KF_NODE_W + 3]) * KF_LEAF_W;
+        one_leaf = 1;
+        kind = lf[0];
+        p1 = lf[4];
+        prm = T.leaf_params + lf[1] * KF_LEAF_PARAM_W;
+      }
+    }
+  }
 
   __device__ __forceinline__ Bound lower(int oi) const {
     if constexpr (STAGE) {
       const float* b = bounds + oi * 8;
       return Bound{b[0], b[1], b[2], b[3]};
     } else {
-      return object_bound(T, object_row(T, oi), 1, 0.0f);
+      return object_bound(Tm, object_row(T, oi), 1, 0.0f);
     }
   }
   __device__ __forceinline__ Bound cover(int oi) const {
@@ -68,7 +102,7 @@ struct SplitScene {
       const float* b = bounds + oi * 8 + 4;
       return Bound{b[0], b[1], b[2], b[3]};
     } else {
-      return object_bound(T, object_row(T, oi), 0, margin);
+      return object_bound(Tm, object_row(T, oi), 0, margin);
     }
   }
   // eval_obj of a one-node tape: its leaf (vals[0] is that leaf's value)
@@ -80,7 +114,7 @@ struct SplitScene {
       return eval_leaf(S, lf[0], T.leaf_params + lf[1] * KF_LEAF_PARAM_W, p,
                        lf[4], cap);
     }
-    return eval_obj(T, S, ob, p, cap);
+    return eval_obj(Tm, S, ob, p, cap);
   }
   // intersect_analytic of one leaf under a one-node tape
   __device__ __forceinline__ float intersect(const int* ob, V3 o, V3 d,
@@ -96,7 +130,20 @@ struct SplitScene {
       bool e1 = (i1 > t_lo) && (i1 < t_hi);
       return e0 ? i0 : (e1 ? i1 : KF_BIG);
     }
-    return intersect_analytic(T, ob, o, d, t_lo, t_hi, leaf);
+    return intersect_analytic(Tm, ob, o, d, t_lo, t_hi, leaf);
+  }
+  // AO's unbounded group: the one leaf decoded by hoist, or every object
+  // without a bound in order (unbounded_loop); the same value either way
+  template <bool PROF>
+  __device__ __forceinline__ bool unbounded_min(const KFSettings& S, V3 q,
+                                                float& hmin,
+                                                Prof<PROF>& P) const {
+    if (HOIST && one_leaf) {
+      hmin = eval_leaf(S, kind, prm, q, p1, S.ao_lod);
+      P.trip(PH_AO_UNB);
+      return true;
+    }
+    return unbounded_loop(*this, S, q, hmin, P);
   }
 };
 
@@ -120,7 +167,7 @@ __device__ __forceinline__ void k1_ray(const Blk& B, const KFSettings& S,
   const float hitf = t < KF_BIG * 0.5f ? 1.0f : 0.0f;
   const float t_sane = hitf > 0.5f ? t : 0.0f;
   const V3 p = along(o, d, t_sane);
-  const V3 n = act ? hit_normal<false>(B.T, S, obj, leaf, p, d)
+  const V3 n = act ? hit_normal<false>(B.Tm, S, obj, leaf, p, d)
                    : V3{0.0f, 0.0f, 1.0f};
   P.mark(PH_NORMAL);
   float ao = 1.0f;
@@ -163,7 +210,8 @@ __device__ __forceinline__ void k2_ray(const Blk& B, const KFSettings& S,
   P.mark(PH_WRITE);
 }
 
-enum { V_STAGE = 1, V_SINGLE = 2, V_PERSIST = 4, V_WIDE = 8 };
+enum { V_STAGE = 1, V_SINGLE = 2, V_PERSIST = 4, V_WIDE = 8, V_HOIST = 16,
+       V_REG = 32 };
 
 template <int V>
 __host__ __device__ constexpr int sv_threads() {
@@ -179,21 +227,25 @@ __device__ __forceinline__ void split_rays(const KFTables& G,
                                            unsigned long long* prof,
                                            int* work) {
   constexpr bool STAGE = V & V_STAGE, SINGLE = V & V_SINGLE;
-  constexpr bool PERSIST = V & V_PERSIST;
+  constexpr bool PERSIST = V & V_PERSIST, HOIST = V & V_HOIST;
+  constexpr bool REG = V & V_REG;
   constexpr int THREADS = sv_threads<V>();
   static_assert(!PROF || THREADS == KS_THREADS, "the profile's warps");
   unsigned char* sm = ks_smem;
   const int tid = threadIdx.x;
   __shared__ KFTables staged;
   const float* bounds = nullptr;
+  KFTables T = G;
   if constexpr (STAGE) {
-    const KFTables T = stage_scene(G, S, L, sm);
+    T = stage_scene(G, S, L, sm);
     if (tid == 0) staged = T;
     bounds = (const float*)(sm + L.bounds);
     __syncthreads();
   }
-  const SplitScene<STAGE, SINGLE> B{STAGE ? staged : G, bounds,
-                                    S.exit_margin};
+  const KFTables& Tm = STAGE ? staged : G;
+  SplitScene<STAGE, SINGLE, HOIST, REG> B{REG ? T : Tm, Tm, bounds,
+                                          S.exit_margin};
+  B.hoist(S);
   Prof<PROF> P;
   const int n_items = (R.n + THREADS - 1) / THREADS;
   auto row = [&](int item) {
@@ -307,7 +359,8 @@ sp_today_gc_kernel(const __grid_constant__ KFTables T,
 // The variants sp_split_variant launches (render_tile.SPLIT_VARIANTS).
 enum { SV_PRODUCTION = 0, SV_NO_STAGE, SV_BY_VALUE, SV_NO_SINGLE,
        SV_NOT_PERSISTENT, SV_WIDE, SV_TODAY_SCHEDULE, SV_TODAY,
-       SV_TODAY_GC, SV_COUNT };
+       SV_TODAY_GC, SV_NO_HOIST, SV_TABLES_IN_MEMORY, SV_FIRST,
+       SV_COUNT };
 
 typedef void (*SplitKernel)(KFTables, KFSettings, KSLayout, SplitRays,
                             unsigned long long*, int*);
@@ -353,29 +406,41 @@ static int sv_dispatch(int variant, const KFTables& T, const KFSettings& S,
                        const KSLayout& L, const SplitRays& R,
                        unsigned long long* prof, int* work,
                        cudaStream_t st) {
-  constexpr int ALL = V_STAGE | V_SINGLE | V_PERSIST;
+  constexpr int P_ = V_PERSIST;
+  constexpr int ALL = V_STAGE | V_SINGLE | V_HOIST | V_REG;
   const int n = KS_THREADS;
   switch (variant) {
     case SV_PRODUCTION:
-      return prof ? sv_launch(sp_split_gc_kernel<K2, true, ALL>, n, true, T,
-                              S, L, R, prof, work, st)
-                  : sv_launch(sp_split_gc_kernel<K2, false, ALL>, n, true, T,
-                              S, L, R, prof, work, st);
+      return prof ? sv_launch(sp_split_gc_kernel<K2, true, ALL | P_>, n, true,
+                              T, S, L, R, prof, work, st)
+                  : sv_launch(sp_split_gc_kernel<K2, false, ALL | P_>, n,
+                              true, T, S, L, R, prof, work, st);
     case SV_NO_STAGE:
-      return sv_launch(sp_split_gc_kernel<K2, false, V_SINGLE | V_PERSIST>,
+      return sv_launch(sp_split_gc_kernel<K2, false, (ALL & ~V_STAGE) | P_>,
                        n, true, T, S, L, R, prof, work, st);
     case SV_BY_VALUE:
-      return sv_launch(sp_split_byvalue_kernel<K2, false, ALL>, n, true, T, S,
-                       L, R, prof, work, st);
+      return sv_launch(sp_split_byvalue_kernel<K2, false, ALL | P_>, n, true,
+                       T, S, L, R, prof, work, st);
     case SV_NO_SINGLE:
-      return sv_launch(sp_split_gc_kernel<K2, false, V_STAGE | V_PERSIST>, n,
-                       true, T, S, L, R, prof, work, st);
+      return sv_launch(
+          sp_split_gc_kernel<K2, false, V_STAGE | V_REG | P_>, n, true, T, S,
+          L, R, prof, work, st);
     case SV_NOT_PERSISTENT:
-      return sv_launch(sp_split_gc_kernel<K2, false, V_STAGE | V_SINGLE>, n,
-                       false, T, S, L, R, prof, work, st);
+      return sv_launch(sp_split_gc_kernel<K2, false, ALL>, n, false, T, S, L,
+                       R, prof, work, st);
     case SV_WIDE:
-      return sv_launch(sp_split_gc_kernel<K2, false, ALL | V_WIDE>, 2 * n,
+      return sv_launch(sp_split_gc_kernel<K2, false, ALL | P_ | V_WIDE>,
+                       2 * n, true, T, S, L, R, prof, work, st);
+    case SV_NO_HOIST:
+      return sv_launch(sp_split_gc_kernel<K2, false, (ALL & ~V_HOIST) | P_>,
+                       n, true, T, S, L, R, prof, work, st);
+    case SV_TABLES_IN_MEMORY:
+      return sv_launch(sp_split_gc_kernel<K2, false, (ALL & ~V_REG) | P_>, n,
                        true, T, S, L, R, prof, work, st);
+    case SV_FIRST:
+      return sv_launch(
+          sp_split_gc_kernel<K2, false, V_STAGE | V_SINGLE | P_>, n, true, T,
+          S, L, R, prof, work, st);
     case SV_TODAY_SCHEDULE:
       return prof ? sv_launch(sp_split_byvalue_kernel<K2, true, 0>, n, false,
                               T, S, L, R, prof, work, st)

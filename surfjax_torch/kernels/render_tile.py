@@ -2581,7 +2581,8 @@ STAGED = {"sp_render_tile": "render_tile", "sp_trace_rays": "trace_rays"}
 # and split_path.cu's kernels themselves, by value and __grid_constant__.
 SPLIT_VARIANTS = ("production", "no staging", "by value", "no single-leaf",
                   "not persistent", "256 threads", "today's schedule",
-                  "today", "today gc")
+                  "today", "today gc", "no hoist", "tables in memory",
+                  "first production")
 # the variants with a profiling instantiation
 SPLIT_PROFILED = ("production", "today's schedule")
 

@@ -711,7 +711,8 @@ def split_phases(dev, res) -> None:
         if "render_tile" in name or "trace_rays" in name or \
                 "sp_split" in name or "sp_today" in name:
             entry = {"ptxas": lines,
-                     "sass": _build.sass_counts(info["path"], name)}
+                     "sass": _build.sass_counts(info["path"], name),
+                     "loops": _build.sass_loops(info["path"], name)[:4]}
             res[f"split entry {name}"] = entry
             print(f"split entry {name}", json.dumps(entry), flush=True)
 
