@@ -147,9 +147,65 @@ struct SplitScene {
   }
 };
 
-// K1 on ray i (act false: a lane past the last ray, which takes part in
-// the warp's probes only).
+// AO of one receiver in ao_core<false>'s loop nest: per direction its
+// vector once, then its four taps unrolled, independent of each other until
+// the sum, which adds them in ao_receiver's order (direction-major); each
+// tap's terms as ao_receiver computes them.
 template <bool PROF, class Blk>
+__device__ __forceinline__ float k1_ao(const Blk& B, const KFSettings& S,
+                                       bool act, V3 q0, V3 n,
+                                       Prof<PROF>& P) {
+  const int n_rest = S.n_ana + S.n_sdf;
+  const int* rest = B.T.order + n_rest;
+  const float gate = 2.0f * S.ao_radius;
+  unsigned long long near = 0ull;
+  for (int k = 0; k < n_rest && act; ++k) {
+    const int* ob = object_row(B.T, rest[k]);
+    if (!ob[O_BOUNDABLE]) continue;
+    Bound b = B.lower(rest[k]);
+    float dx = q0.x - b.cx, dy = q0.y - b.cy, dz = q0.z - b.cz;
+    float hb = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
+    if (hb <= gate) near |= 1ull << k;
+  }
+  V3 t1, t2;
+  ao_frame(n, t1, t2);
+  P.mark(PH_AO_SETUP);
+  float occ = 0.0f;
+  for (int s = 0; s < S.ao_samples; ++s) {
+    const float ax = AO_DIRS[s][0], ay = AO_DIRS[s][1], az = AO_DIRS[s][2];
+    const V3 dd{(ax * t1.x + ay * t2.x) + az * n.x,
+                (ax * t1.y + ay * t2.y) + az * n.y,
+                (ax * t1.z + ay * t2.z) + az * n.z};
+    float terms[4];
+#pragma unroll
+    for (int tap = 1; tap <= 4; ++tap) {
+      const float r = (S.ao_radius * (float)tap) * 0.25f;
+      const float azr = az * r;
+      const V3 q{q0.x + dd.x * r, q0.y + dd.y * r, q0.z + dd.z * r};
+      float term = act ? ao_unbounded(B, S, q, r, azr, P) : 0.0f;
+      P.mark(PH_AO_UNB);
+      for (int k = 0; k < n_rest; ++k) {
+        if ((near >> k) & 1ull) {
+          float h = B.eval(S, object_row(B.T, rest[k]), q, S.ao_lod);
+          P.trip(PH_AO_OBJ + kp_obj(rest[k]));
+          term = fmaxf(term, fmaxf(azr - h, 0.0f) / r);
+        }
+        if (!object_row(B.T, rest[k])[O_BOUNDABLE]) continue;
+        P.mark(PH_AO_OBJ + kp_obj(rest[k]));
+      }
+      terms[tap - 1] = term;
+    }
+#pragma unroll
+    for (int tap = 0; tap < 4; ++tap)
+      occ = (s == 0 && tap == 0) ? terms[0] : occ + terms[tap];
+  }
+  occ = occ / (float)(S.ao_samples * 4);
+  return sat(1.0f - S.ao_strength * occ);
+}
+
+// K1 on ray i (act false: a lane past the last ray, which takes part in
+// the warp's probes only); UNROLL: AO by k1_ao, else by ao_receiver.
+template <bool UNROLL, bool PROF, class Blk>
 __device__ __forceinline__ void k1_ray(const Blk& B, const KFSettings& S,
                                        const SplitRays& R, int i, bool act,
                                        Prof<PROF>& P) {
@@ -173,9 +229,9 @@ __device__ __forceinline__ void k1_ray(const Blk& B, const KFSettings& S,
   float ao = 1.0f;
   if (S.ao && S.n_ana + S.n_sdf > 0) {
     const float eps = S.shadow_eps;
-    ao = ao_receiver(B, S, act,
-                     V3{p.x + n.x * eps, p.y + n.y * eps, p.z + n.z * eps},
-                     n, P);
+    const V3 q0{p.x + n.x * eps, p.y + n.y * eps, p.z + n.z * eps};
+    ao = UNROLL ? k1_ao(B, S, act, q0, n, P)
+                : ao_receiver(B, S, act, q0, n, P);
   }
   P.mark(PH_AO_SUM);
   if (act) {
@@ -211,7 +267,7 @@ __device__ __forceinline__ void k2_ray(const Blk& B, const KFSettings& S,
 }
 
 enum { V_STAGE = 1, V_SINGLE = 2, V_PERSIST = 4, V_WIDE = 8, V_HOIST = 16,
-       V_REG = 32 };
+       V_REG = 32, V_UNROLL = 64 };
 
 template <int V>
 __host__ __device__ constexpr int sv_threads() {
@@ -228,7 +284,7 @@ __device__ __forceinline__ void split_rays(const KFTables& G,
                                            int* work) {
   constexpr bool STAGE = V & V_STAGE, SINGLE = V & V_SINGLE;
   constexpr bool PERSIST = V & V_PERSIST, HOIST = V & V_HOIST;
-  constexpr bool REG = V & V_REG;
+  constexpr bool REG = V & V_REG, UNROLL = V & V_UNROLL;
   constexpr int THREADS = sv_threads<V>();
   static_assert(!PROF || THREADS == KS_THREADS, "the profile's warps");
   unsigned char* sm = ks_smem;
@@ -245,7 +301,7 @@ __device__ __forceinline__ void split_rays(const KFTables& G,
   const KFTables& Tm = STAGE ? staged : G;
   SplitScene<STAGE, SINGLE, HOIST, REG> B{REG ? T : Tm, Tm, bounds,
                                           S.exit_margin};
-  B.hoist(S);
+  if constexpr (!K2) B.hoist(S);
   Prof<PROF> P;
   const int n_items = (R.n + THREADS - 1) / THREADS;
   auto row = [&](int item) {
@@ -254,7 +310,7 @@ __device__ __forceinline__ void split_rays(const KFTables& G,
     if constexpr (K2) {
       k2_ray(B, S, R, i, i < R.n, P);
     } else {
-      k1_ray(B, S, R, i, i < R.n, P);
+      k1_ray<UNROLL>(B, S, R, i, i < R.n, P);
     }
   };
   if constexpr (PERSIST) {
@@ -356,11 +412,17 @@ sp_today_gc_kernel(const __grid_constant__ KFTables T,
   today_ray<K2>(T, S, R);
 }
 
-// The variants sp_split_variant launches (render_tile.SPLIT_VARIANTS).
-enum { SV_PRODUCTION = 0, SV_NO_STAGE, SV_BY_VALUE, SV_NO_SINGLE,
-       SV_NOT_PERSISTENT, SV_WIDE, SV_TODAY_SCHEDULE, SV_TODAY,
-       SV_TODAY_GC, SV_NO_HOIST, SV_TABLES_IN_MEMORY, SV_FIRST,
-       SV_COUNT };
+// The variants sp_split_variant launches (render_tile.SPLIT_VARIANTS):
+// each kernel's production and that production with one element changed.
+enum { SV_PRODUCTION = 0, SV_NO_UNROLL, SV_NO_HOIST, SV_TABLES_IN_MEMORY,
+       SV_NO_STAGE, SV_NO_SINGLE, SV_PERSIST_FLIPPED, SV_BY_VALUE, SV_WIDE,
+       SV_FIRST, SV_TODAY_SCHEDULE, SV_TODAY, SV_TODAY_GC, SV_COUNT };
+
+template <bool K2>
+constexpr int sv_production() {
+  return K2 ? V_STAGE | V_SINGLE | V_REG | V_PERSIST
+            : V_STAGE | V_SINGLE | V_HOIST | V_REG | V_UNROLL;
+}
 
 typedef void (*SplitKernel)(KFTables, KFSettings, KSLayout, SplitRays,
                             unsigned long long*, int*);
@@ -401,46 +463,48 @@ static int sv_launch(SplitKernel kernel, int threads, bool persist,
   return (int)cudaGetLastError();
 }
 
+template <bool K2, int V>
+static int sv_gc(const KFTables& T, const KFSettings& S, const KSLayout& L,
+                 const SplitRays& R, unsigned long long* prof, int* work,
+                 cudaStream_t st) {
+  return sv_launch(sp_split_gc_kernel<K2, false, V>, sv_threads<V>(),
+                   V & V_PERSIST, T, S, L, R, prof, work, st);
+}
+
 template <bool K2>
 static int sv_dispatch(int variant, const KFTables& T, const KFSettings& S,
                        const KSLayout& L, const SplitRays& R,
                        unsigned long long* prof, int* work,
                        cudaStream_t st) {
-  constexpr int P_ = V_PERSIST;
-  constexpr int ALL = V_STAGE | V_SINGLE | V_HOIST | V_REG;
+  constexpr int PRODUCTION = sv_production<K2>();
+  constexpr bool PERSIST = PRODUCTION & V_PERSIST;
   const int n = KS_THREADS;
   switch (variant) {
     case SV_PRODUCTION:
-      return prof ? sv_launch(sp_split_gc_kernel<K2, true, ALL | P_>, n, true,
-                              T, S, L, R, prof, work, st)
-                  : sv_launch(sp_split_gc_kernel<K2, false, ALL | P_>, n,
-                              true, T, S, L, R, prof, work, st);
-    case SV_NO_STAGE:
-      return sv_launch(sp_split_gc_kernel<K2, false, (ALL & ~V_STAGE) | P_>,
-                       n, true, T, S, L, R, prof, work, st);
-    case SV_BY_VALUE:
-      return sv_launch(sp_split_byvalue_kernel<K2, false, ALL | P_>, n, true,
-                       T, S, L, R, prof, work, st);
-    case SV_NO_SINGLE:
-      return sv_launch(
-          sp_split_gc_kernel<K2, false, V_STAGE | V_REG | P_>, n, true, T, S,
-          L, R, prof, work, st);
-    case SV_NOT_PERSISTENT:
-      return sv_launch(sp_split_gc_kernel<K2, false, ALL>, n, false, T, S, L,
-                       R, prof, work, st);
-    case SV_WIDE:
-      return sv_launch(sp_split_gc_kernel<K2, false, ALL | P_ | V_WIDE>,
-                       2 * n, true, T, S, L, R, prof, work, st);
+      return prof ? sv_launch(sp_split_gc_kernel<K2, true, PRODUCTION>, n,
+                              PERSIST, T, S, L, R, prof, work, st)
+                  : sv_gc<K2, PRODUCTION>(T, S, L, R, prof, work, st);
+    case SV_NO_UNROLL:
+      return sv_gc<K2, PRODUCTION & ~V_UNROLL>(T, S, L, R, prof, work, st);
     case SV_NO_HOIST:
-      return sv_launch(sp_split_gc_kernel<K2, false, (ALL & ~V_HOIST) | P_>,
-                       n, true, T, S, L, R, prof, work, st);
+      return sv_gc<K2, PRODUCTION & ~V_HOIST>(T, S, L, R, prof, work, st);
     case SV_TABLES_IN_MEMORY:
-      return sv_launch(sp_split_gc_kernel<K2, false, (ALL & ~V_REG) | P_>, n,
-                       true, T, S, L, R, prof, work, st);
+      return sv_gc<K2, PRODUCTION & ~V_REG>(T, S, L, R, prof, work, st);
+    case SV_NO_STAGE:
+      return sv_gc<K2, PRODUCTION & ~V_STAGE>(T, S, L, R, prof, work, st);
+    case SV_NO_SINGLE:
+      return sv_gc<K2, PRODUCTION & ~(V_SINGLE | V_HOIST)>(T, S, L, R, prof,
+                                                           work, st);
+    case SV_PERSIST_FLIPPED:
+      return sv_gc<K2, PRODUCTION ^ V_PERSIST>(T, S, L, R, prof, work, st);
+    case SV_BY_VALUE:
+      return sv_launch(sp_split_byvalue_kernel<K2, false, PRODUCTION>, n,
+                       PERSIST, T, S, L, R, prof, work, st);
+    case SV_WIDE:
+      return sv_gc<K2, PRODUCTION | V_WIDE>(T, S, L, R, prof, work, st);
     case SV_FIRST:
-      return sv_launch(
-          sp_split_gc_kernel<K2, false, V_STAGE | V_SINGLE | P_>, n, true, T,
-          S, L, R, prof, work, st);
+      return sv_gc<K2, V_STAGE | V_SINGLE | V_PERSIST>(T, S, L, R, prof, work,
+                                                       st);
     case SV_TODAY_SCHEDULE:
       return prof ? sv_launch(sp_split_byvalue_kernel<K2, true, 0>, n, false,
                               T, S, L, R, prof, work, st)
