@@ -414,14 +414,15 @@ sp_today_gc_kernel(const __grid_constant__ KFTables T,
 
 // The variants sp_split_variant launches (render_tile.SPLIT_VARIANTS):
 // each kernel's production and that production with one element changed.
-enum { SV_PRODUCTION = 0, SV_NO_UNROLL, SV_NO_HOIST, SV_TABLES_IN_MEMORY,
-       SV_NO_STAGE, SV_NO_SINGLE, SV_PERSIST_FLIPPED, SV_BY_VALUE, SV_WIDE,
-       SV_FIRST, SV_TODAY_SCHEDULE, SV_TODAY, SV_TODAY_GC, SV_COUNT };
+enum { SV_PRODUCTION = 0, SV_UNROLL_FLIPPED, SV_HOIST_FLIPPED,
+       SV_REG_FLIPPED, SV_STAGE_FLIPPED, SV_NO_SINGLE, SV_PERSIST_FLIPPED,
+       SV_BY_VALUE, SV_WIDE, SV_FIRST, SV_TODAY_SCHEDULE, SV_TODAY,
+       SV_TODAY_GC, SV_COUNT };
 
 template <bool K2>
 constexpr int sv_production() {
   return K2 ? V_STAGE | V_SINGLE | V_REG | V_PERSIST
-            : V_STAGE | V_SINGLE | V_HOIST | V_REG | V_UNROLL;
+            : V_SINGLE | V_HOIST | V_REG;
 }
 
 typedef void (*SplitKernel)(KFTables, KFSettings, KSLayout, SplitRays,
@@ -484,14 +485,15 @@ static int sv_dispatch(int variant, const KFTables& T, const KFSettings& S,
       return prof ? sv_launch(sp_split_gc_kernel<K2, true, PRODUCTION>, n,
                               PERSIST, T, S, L, R, prof, work, st)
                   : sv_gc<K2, PRODUCTION>(T, S, L, R, prof, work, st);
-    case SV_NO_UNROLL:
-      return sv_gc<K2, PRODUCTION & ~V_UNROLL>(T, S, L, R, prof, work, st);
-    case SV_NO_HOIST:
-      return sv_gc<K2, PRODUCTION & ~V_HOIST>(T, S, L, R, prof, work, st);
-    case SV_TABLES_IN_MEMORY:
-      return sv_gc<K2, PRODUCTION & ~V_REG>(T, S, L, R, prof, work, st);
-    case SV_NO_STAGE:
-      return sv_gc<K2, PRODUCTION & ~V_STAGE>(T, S, L, R, prof, work, st);
+    case SV_UNROLL_FLIPPED:
+      return sv_gc<K2, PRODUCTION ^ V_UNROLL>(T, S, L, R, prof, work, st);
+    case SV_HOIST_FLIPPED:
+      return sv_gc<K2, PRODUCTION ^ V_HOIST>(T, S, L, R, prof, work, st);
+    case SV_REG_FLIPPED:
+      return sv_gc<K2, (PRODUCTION ^ V_REG) | V_STAGE>(T, S, L, R, prof,
+                                                       work, st);
+    case SV_STAGE_FLIPPED:
+      return sv_gc<K2, PRODUCTION ^ V_STAGE>(T, S, L, R, prof, work, st);
     case SV_NO_SINGLE:
       return sv_gc<K2, PRODUCTION & ~(V_SINGLE | V_HOIST)>(T, S, L, R, prof,
                                                            work, st);

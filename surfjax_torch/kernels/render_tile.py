@@ -2574,18 +2574,19 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
 # the staged kernels of csrc/split_staged.cu
 STAGED = {"sp_render_tile": "render_tile", "sp_trace_rays": "trace_rays"}
 # The variants of K1 and K2 that csrc/split_staged.cu measures (its SV_*):
-# each kernel's production (K1: the scene staged in shared memory, single-
-# leaf evaluation, AO's unbounded group decoded once, the tables' pointers
-# in registers, AO's taps unrolled per direction, one block per 128 rays;
-# K2: the same without the AO elements, in persistent blocks; both with
-# __grid_constant__ parameters), each with one element changed, the first
+# each kernel's production (K1: single-leaf evaluation, AO's unbounded
+# group decoded once, one block per 128 rays; K2: the scene staged in
+# shared memory with the tables' pointers in registers, single-leaf
+# evaluation, persistent blocks; both with __grid_constant__ parameters),
+# each with one element changed, the first
 # production of the redesign, the schedule of split_path.cu's kernels on
 # the stages (its profile is PERF.md's step 1), and split_path.cu's
 # kernels themselves, by value and __grid_constant__.
-SPLIT_VARIANTS = ("production", "no unroll", "no hoist", "tables in memory",
-                  "no staging", "no single-leaf", "persistence flipped",
-                  "by value", "256 threads", "first production",
-                  "today's schedule", "today", "today gc")
+SPLIT_VARIANTS = ("production", "unroll flipped", "hoist flipped",
+                  "staged, tables in registers flipped", "staging flipped",
+                  "no single-leaf", "persistence flipped", "by value",
+                  "256 threads", "first production", "today's schedule",
+                  "today", "today gc")
 # the variants with a profiling instantiation
 SPLIT_PROFILED = ("production", "today's schedule")
 
