@@ -311,8 +311,7 @@ def main() -> int:
         crowd_warp_masks, prime_frame, prime_tile, split_crowd,
     )
     from surfjax_torch.tools.breakdown import (
-        SPLIT_PROFILED, crowd_variants, fused_path, kf_phases, mesh_phases,
-        split_phases,
+        crowd_variants, fused_path, kf_phases, mesh_phases, split_phases,
     )
     from surfjax_torch.kernels.mesh_tile import (
         MT_TEST_OPS, mesh_cull_count, mesh_warp_masks,
@@ -1204,19 +1203,16 @@ def main() -> int:
             continue
         alone = {k: round(v, 4) for k, v in entry.items()
                  if k.startswith("ms")}
-        for variant in SPLIT_PROFILED:
-            groups = {g: [round(v["cycles_share"], 4),
-                          None if v["simt"] is None else round(v["simt"], 3),
-                          None if v["evals_per_hit"] is None
-                          else round(v["evals_per_hit"], 2)]
-                      for g, v in entry[variant]["phases"]["groups"].items()}
-            log(f"  {key} ({entry['lanes']} lanes): {json.dumps(alone)}; "
-                f"{variant} profiled "
-                f"{entry[variant]['ms_profiled']:.4f} ms, "
-                f"{entry[variant]['evals']} SDF evaluations (plain "
-                f"{entry['plain_evals']} with the FD normals'); per phase "
-                "group [cycle share, SIMT efficiency, SDF evaluations per "
-                "lane]: " + json.dumps(groups))
+        groups = {g: [round(v["cycles_share"], 4),
+                      None if v["simt"] is None else round(v["simt"], 3),
+                      None if v["evals_per_hit"] is None
+                      else round(v["evals_per_hit"], 2)]
+                  for g, v in entry["phases"]["groups"].items()}
+        log(f"  {key} ({entry['lanes']} lanes): {json.dumps(alone)}; "
+            f"{entry['evals']} SDF evaluations profiled (the plain version "
+            f"{entry['plain_evals']} with the FD normals'); per phase group "
+            "[cycle share, SIMT efficiency, SDF evaluations per lane]: "
+            + json.dumps(groups))
     log(f"phase 17: K1's and K2's phase profile on c4 frame 0 and a 1080p "
         f"fit step ({time.perf_counter() - t17:.1f} s) on {smi}")
 

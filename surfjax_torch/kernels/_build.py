@@ -220,12 +220,15 @@ def load() -> ctypes.CDLL:
     for name in ("sp_render_tile", "sp_trace_rays", "sp_ao_fix"):
         getattr(lib, name).argtypes = [KFTables, KFSettings, SplitRays,
                                        ctypes.c_int, ctypes.c_void_p]
-    # K2?, variant, tables, settings, layout, rays, profile counters or
-    # null, the two work counters, device, stream
-    lib.sp_split_variant.argtypes = [ctypes.c_int, ctypes.c_int, KFTables,
-                                     KFSettings, KSLayout, SplitRays,
-                                     ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_int, ctypes.c_void_p]
+    # tables, settings, (K2: layout,) rays, profile counters or null, (K2:
+    # the two work counters,) device, stream
+    lib.sp_staged_render_tile.argtypes = [KFTables, KFSettings, SplitRays,
+                                          ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_void_p]
+    lib.sp_staged_trace_rays.argtypes = [KFTables, KFSettings, KSLayout,
+                                         SplitRays, ctypes.c_void_p,
+                                         ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_void_p]
     lib.pt_prime_tile.argtypes = [KFTables, KFSettings, PrimeArgs,
                                   ctypes.c_int, ctypes.c_void_p]
     lib.mt_mesh_tile.argtypes = [MeshTileArgs, ctypes.c_int,
@@ -242,7 +245,8 @@ def load() -> ctypes.CDLL:
     lib.fp_fma_dep.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
     for name in ("kf_frame_fused", "ks_frame_fused", "kf_frame_profile",
                  "ks_occupancy", "sp_render_tile", "sp_trace_rays",
-                 "sp_ao_fix", "sp_split_variant", "pt_prime_tile",
+                 "sp_ao_fix", "sp_staged_render_tile",
+                 "sp_staged_trace_rays", "pt_prime_tile",
                  "mt_mesh_tile",
                  "mt_mesh_tile_profile", "fp_fma_dep",
                  *mixes):

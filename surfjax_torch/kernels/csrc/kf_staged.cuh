@@ -1,5 +1,6 @@
 // The fused-frame kernel for scenes without a crowd (kf_staged.cu builds it
-// and its profiling instantiation).
+// and its profiling instantiation), and the per-ray stages it shares with
+// K1 and K2 (split_staged.cu).
 //
 // Replaces, for scenes with no crowd, surfjax/kernels/render_tile.py::
 // frame_fused_kernel (KF, body _kframe_body), as frame_fused.cu's
@@ -35,6 +36,12 @@
 // each warp add, per phase, lane 0's clock64 deltas, the loop trips it
 // issued and __popc(__activemask()) per trip (the lanes that evaluate an
 // SDF) into its record of a scratch buffer (KP_PHASES x 3 counters).
+//
+// The stages (trace_pixel, ao_receiver, vis_receiver) are templates on the
+// block they run on: Block here, SplitScene in split_staged.cu. A block
+// has T (the tables), lower and cover (an object's two bounding spheres),
+// eval (an object's SDF), intersect (an analytic object's nearest hit) and
+// unbounded_min (AO's unbounded group at a point).
 #pragma once
 
 #include "frame_fused.cuh"

@@ -1,5 +1,6 @@
-// The split path's K1 and K2 for scenes without a crowd, as staged,
-// persistent kernels (the crowd's instantiations stay in split_path.cu).
+// The split path's K1 and K2 for scenes without a crowd (the crowd's
+// instantiations stay in split_path.cu), on the per-ray stages of
+// kf_staged.cuh.
 //
 // Replace, for scenes with no crowd, surfjax/kernels/render_tile.py::
 // render_tile_kernel (K1, body _k1_body) and ::trace_rays_kernel (K2, body
@@ -13,23 +14,34 @@
 //   * K2: the hard or soft visibility of one light through the non-mesh
 //     objects; 1 at once where the shadow segment is empty (dist <= 0).
 //
-// They run kf_staged.cuh's stages (trace_pixel, ao_receiver, vis_receiver:
-// trace_primary<false>'s, ao_core<false>'s and visibility<false>'s order)
-// on a block of their own, SplitScene. Its elements are measured one by
-// one against the kernel with that element left out (PERF.md):
-//   STAGE    the scene's tables and both bounding spheres of every object
-//            in shared memory, once per block (stage_scene), else read
-//            from global memory and each bound computed where it is used;
-//   SINGLE   an object whose tape is one leaf evaluates as that leaf, and
-//            an analytic object of one leaf intersects as that leaf,
-//            inline: the same operations on the same operands as the tape
-//            walker's and the event CSG's, without their local arrays;
-//   PERSIST  as many blocks as the card holds at once, each taking
-//            128-ray rows from a counter, else one block per row;
-//   WIDE     256 threads per block, else 128;
-// and __grid_constant__ kernel parameters (the _gc kernels), which the
-// cores read in place; by value, a parameter whose address the cores take
-// is copied into every thread's stack frame.
+// What bounds them: on a mesh scene whose only non-mesh object is a plane
+// (c4) the bytes of the ray arrays (K1 reads 24 and writes 28 bytes per
+// ray, K2 reads up to 32 and writes 4), and on c4 with AO the 20 floor
+// evaluations per lane; with SDF objects (the fit's c5) the marches' SDF
+// evaluations, divergent. What held the kernels they replace back was per
+// lane (PERF.md, PR 8): each thread copied the 280 bytes of by-value
+// parameters that the cores take by reference into its stack frame, and
+// AO decoded the floor's row, tape, leaf and parameters anew at every tap,
+// through the tape walker's out-of-line call and local array. The design:
+//   * __grid_constant__ parameters, which the cores read in place;
+//   * one thread per ray over the flat padded arrays, running the stages
+//     trace_pixel, ao_receiver and vis_receiver (trace_primary<false>'s,
+//     ao_core<false>'s and visibility<false>'s order) on SplitScene;
+//   * single-leaf evaluation: an object whose tape is one leaf evaluates
+//     as that leaf, and an analytic object of one leaf intersects as that
+//     leaf, inline: the same operations on the same operands as the tape
+//     walker's and the event CSG's, without their local arrays;
+//   * K1: AO's unbounded group, when it is one single-leaf object (a
+//     floor), decoded once per lane before the taps; the tables read
+//     through the parameters from global memory, each bound computed where
+//     it is used, one block per 128 rays (no shared memory, no barrier);
+//   * K2: persistent blocks that stage the scene's tables and both
+//     bounding spheres of every object in shared memory once
+//     (stage_scene), keep the tables' pointers as values, and take 128-ray
+//     rows from a counter that the last block resets.
+// Measured and left out (PERF.md): staging and persistent blocks for K1,
+// one block per row for K2, AO's taps unrolled per direction, 256-thread
+// blocks, the tables' pointers read from the staged struct.
 //
 // PROF (a template parameter: the production code has no probes) makes
 // each warp add, per phase, lane 0's clock64 deltas, the loop trips it
@@ -37,55 +49,56 @@
 // SDF) into its record of a scratch buffer (KP_PHASES x 3 counters, the
 // phase names of kf_staged.cuh).
 //
-// C interface (bound with ctypes, no PyTorch headers):
-//   int sp_split_variant(int k2, int variant, KFTables, KFSettings,
-//                        KSLayout, SplitRays, unsigned long long* prof,
-//                        int* work, int device, void* stream)
-//       -> cudaError_t of the launch; variant: one of SV_*; work: two ints
-//          the caller zeroed once (the row counter and the blocks done:
-//          the last block resets both); prof: null, or the profile's
-//          counters, zeroed by the caller: rows x 4 x KP_PHASES x 3
-
-#include <type_traits>
+// C interface (bound with ctypes, no PyTorch headers), each returning the
+// cudaError_t of its launch:
+//   int sp_staged_render_tile(KFTables, KFSettings, SplitRays,
+//                             unsigned long long* prof, int device,
+//                             void* stream)
+//   int sp_staged_trace_rays(KFTables, KFSettings, KSLayout, SplitRays,
+//                            unsigned long long* prof, int* work,
+//                            int device, void* stream)
+// prof: null, or the profile's counters, zeroed by the caller: rows x 4 x
+// KP_PHASES x 3; work: two ints the caller zeroed once (the row counter and
+// the blocks done), which the last block of each launch resets.
 
 #include "kf_staged.cuh"
 
-// The block the stages run on (see the note above). T: the tables' base
-// pointers, into shared memory when STAGE, held by value (REG: in
-// registers) or by reference to the struct in memory; Tm: that struct in
-// memory (grid constant or shared), for the out-of-line cores.
-template <bool STAGE, bool SINGLE, bool HOIST, bool REG>
+// The block the stages run on. T: the tables' pointers, by value; STAGE
+// (K2): into shared memory, where stage_scene put the tables and both
+// bounding spheres of every object; else (K1) the parameters' global
+// tables, each bound computed where it is used. Tm: the same tables as a
+// struct in memory (the parameters, or the staged copy in shared memory),
+// for the out-of-line cores.
+template <bool STAGE>
 struct SplitScene {
-  std::conditional_t<REG, const KFTables, const KFTables&> T;
+  KFTables T;
   const KFTables& Tm;
   const float* bounds;   // STAGE: lower, cover per object
   float margin;          // !STAGE: the cover's exit margin
-  // HOIST: AO's unbounded group when it is one object whose tape is one
-  // leaf (one_leaf), that leaf's kind, parameters and p1, decoded once
+  // AO's unbounded group when it is one object whose tape is one leaf
+  // (one_leaf): that leaf's kind, parameters and p1, decoded by hoist
   int one_leaf, kind, p1;
   const float* prm;
 
   __device__ __forceinline__ void hoist(const KFSettings& S) {
     one_leaf = 0;
-    if constexpr (HOIST) {
-      const int n_rest = S.n_ana + S.n_sdf;
-      const int* rest = T.order + n_rest;
-      int n_unb = 0, oi = 0;
-      for (int k = 0; k < n_rest; ++k) {
-        if (!object_row(T, rest[k])[O_BOUNDABLE]) {
-          n_unb += 1;
-          oi = rest[k];
-        }
+    const int n_rest = S.n_ana + S.n_sdf;
+    const int* rest = T.order + n_rest;
+    int n_unb = 0, oi = 0;
+    for (int k = 0; k < n_rest; ++k) {
+      if (!object_row(T, rest[k])[O_BOUNDABLE]) {
+        n_unb += 1;
+        oi = rest[k];
       }
-      if (n_unb == 1 && object_row(T, oi)[O_NNODES] == 1) {
-        const int* ob = object_row(T, oi);
-        const int* lf = T.leaves +
-            (ob[O_LEAF0] + T.nodes[ob[O_NODE0] * KF_NODE_W + 3]) * KF_LEAF_W;
-        one_leaf = 1;
-        kind = lf[0];
-        p1 = lf[4];
-        prm = T.leaf_params + lf[1] * KF_LEAF_PARAM_W;
-      }
+    }
+    if (n_unb == 1 && object_row(T, oi)[O_NNODES] == 1) {
+      const int* ob = object_row(T, oi);
+      const int* lf = T.leaves +
+          (ob[O_LEAF0] + T.nodes[ob[O_NODE0] * KF_NODE_W + 3]) * KF_LEAF_W;
+      one_leaf = 1;
+      kind = lf[0];
+      p1 = lf[4];
+      prm = T.leaf_params + lf[1] * KF_LEAF_PARAM_W;
     }
   }
 
@@ -108,7 +121,7 @@ struct SplitScene {
   // eval_obj of a one-node tape: its leaf (vals[0] is that leaf's value)
   __device__ __forceinline__ float eval(const KFSettings& S, const int* ob,
                                         V3 p, int cap) const {
-    if (SINGLE && ob[O_NNODES] == 1) {
+    if (ob[O_NNODES] == 1) {
       const int* lf = T.leaves +
           (ob[O_LEAF0] + T.nodes[ob[O_NODE0] * KF_NODE_W + 3]) * KF_LEAF_W;
       return eval_leaf(S, lf[0], T.leaf_params + lf[1] * KF_LEAF_PARAM_W, p,
@@ -120,7 +133,7 @@ struct SplitScene {
   __device__ __forceinline__ float intersect(const int* ob, V3 o, V3 d,
                                              float t_lo, float t_hi,
                                              int& leaf) const {
-    if (SINGLE && ob[O_NLEAVES] == 1 && ob[O_NNODES] == 1) {
+    if (ob[O_NLEAVES] == 1 && ob[O_NNODES] == 1) {
       const int* lf = T.leaves + ob[O_LEAF0] * KF_LEAF_W;
       float i0, i1;
       leaf_interval(lf[0], T.leaf_params + lf[1] * KF_LEAF_PARAM_W, o, d,
@@ -138,7 +151,7 @@ struct SplitScene {
   __device__ __forceinline__ bool unbounded_min(const KFSettings& S, V3 q,
                                                 float& hmin,
                                                 Prof<PROF>& P) const {
-    if (HOIST && one_leaf) {
+    if (one_leaf) {
       hmin = eval_leaf(S, kind, prm, q, p1, S.ao_lod);
       P.trip(PH_AO_UNB);
       return true;
@@ -147,65 +160,9 @@ struct SplitScene {
   }
 };
 
-// AO of one receiver in ao_core<false>'s loop nest: per direction its
-// vector once, then its four taps unrolled, independent of each other until
-// the sum, which adds them in ao_receiver's order (direction-major); each
-// tap's terms as ao_receiver computes them.
-template <bool PROF, class Blk>
-__device__ __forceinline__ float k1_ao(const Blk& B, const KFSettings& S,
-                                       bool act, V3 q0, V3 n,
-                                       Prof<PROF>& P) {
-  const int n_rest = S.n_ana + S.n_sdf;
-  const int* rest = B.T.order + n_rest;
-  const float gate = 2.0f * S.ao_radius;
-  unsigned long long near = 0ull;
-  for (int k = 0; k < n_rest && act; ++k) {
-    const int* ob = object_row(B.T, rest[k]);
-    if (!ob[O_BOUNDABLE]) continue;
-    Bound b = B.lower(rest[k]);
-    float dx = q0.x - b.cx, dy = q0.y - b.cy, dz = q0.z - b.cz;
-    float hb = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
-    if (hb <= gate) near |= 1ull << k;
-  }
-  V3 t1, t2;
-  ao_frame(n, t1, t2);
-  P.mark(PH_AO_SETUP);
-  float occ = 0.0f;
-  for (int s = 0; s < S.ao_samples; ++s) {
-    const float ax = AO_DIRS[s][0], ay = AO_DIRS[s][1], az = AO_DIRS[s][2];
-    const V3 dd{(ax * t1.x + ay * t2.x) + az * n.x,
-                (ax * t1.y + ay * t2.y) + az * n.y,
-                (ax * t1.z + ay * t2.z) + az * n.z};
-    float terms[4];
-#pragma unroll
-    for (int tap = 1; tap <= 4; ++tap) {
-      const float r = (S.ao_radius * (float)tap) * 0.25f;
-      const float azr = az * r;
-      const V3 q{q0.x + dd.x * r, q0.y + dd.y * r, q0.z + dd.z * r};
-      float term = act ? ao_unbounded(B, S, q, r, azr, P) : 0.0f;
-      P.mark(PH_AO_UNB);
-      for (int k = 0; k < n_rest; ++k) {
-        if ((near >> k) & 1ull) {
-          float h = B.eval(S, object_row(B.T, rest[k]), q, S.ao_lod);
-          P.trip(PH_AO_OBJ + kp_obj(rest[k]));
-          term = fmaxf(term, fmaxf(azr - h, 0.0f) / r);
-        }
-        if (!object_row(B.T, rest[k])[O_BOUNDABLE]) continue;
-        P.mark(PH_AO_OBJ + kp_obj(rest[k]));
-      }
-      terms[tap - 1] = term;
-    }
-#pragma unroll
-    for (int tap = 0; tap < 4; ++tap)
-      occ = (s == 0 && tap == 0) ? terms[0] : occ + terms[tap];
-  }
-  occ = occ / (float)(S.ao_samples * 4);
-  return sat(1.0f - S.ao_strength * occ);
-}
-
 // K1 on ray i (act false: a lane past the last ray, which takes part in
-// the warp's probes only); UNROLL: AO by k1_ao, else by ao_receiver.
-template <bool UNROLL, bool PROF, class Blk>
+// the warp's probes only).
+template <bool PROF, class Blk>
 __device__ __forceinline__ void k1_ray(const Blk& B, const KFSettings& S,
                                        const SplitRays& R, int i, bool act,
                                        Prof<PROF>& P) {
@@ -229,9 +186,9 @@ __device__ __forceinline__ void k1_ray(const Blk& B, const KFSettings& S,
   float ao = 1.0f;
   if (S.ao && S.n_ana + S.n_sdf > 0) {
     const float eps = S.shadow_eps;
-    const V3 q0{p.x + n.x * eps, p.y + n.y * eps, p.z + n.z * eps};
-    ao = UNROLL ? k1_ao(B, S, act, q0, n, P)
-                : ao_receiver(B, S, act, q0, n, P);
+    ao = ao_receiver(B, S, act,
+                     V3{p.x + n.x * eps, p.y + n.y * eps, p.z + n.z * eps},
+                     n, P);
   }
   P.mark(PH_AO_SUM);
   if (act) {
@@ -266,275 +223,119 @@ __device__ __forceinline__ void k2_ray(const Blk& B, const KFSettings& S,
   P.mark(PH_WRITE);
 }
 
-enum { V_STAGE = 1, V_SINGLE = 2, V_PERSIST = 4, V_WIDE = 8, V_HOIST = 16,
-       V_REG = 32, V_UNROLL = 64 };
-
-template <int V>
-__host__ __device__ constexpr int sv_threads() {
-  return (V & V_WIDE) ? 2 * KS_THREADS : KS_THREADS;
+// K1: one block per 128-ray row.
+template <bool PROF>
+__global__ void __launch_bounds__(KS_THREADS)
+sp_staged_render_tile_kernel(const __grid_constant__ KFTables G,
+                             const __grid_constant__ KFSettings S,
+                             const __grid_constant__ SplitRays R,
+                             unsigned long long* prof) {
+  SplitScene<false> B{G, G, nullptr, S.exit_margin};
+  B.hoist(S);
+  Prof<PROF> P;
+  P.begin(prof, blockIdx.x);
+  const int i = blockIdx.x * KS_THREADS + threadIdx.x;
+  k1_ray(B, S, R, i, i < R.n, P);
 }
 
-// The kernel's body: K2 ? K2 : K1 on every ray of R, elements V.
-template <bool K2, bool PROF, int V>
-__device__ __forceinline__ void split_rays(const KFTables& G,
-                                           const KFSettings& S,
-                                           const KSLayout& L,
-                                           const SplitRays& R,
-                                           unsigned long long* prof,
-                                           int* work) {
-  constexpr bool STAGE = V & V_STAGE, SINGLE = V & V_SINGLE;
-  constexpr bool PERSIST = V & V_PERSIST, HOIST = V & V_HOIST;
-  constexpr bool REG = V & V_REG, UNROLL = V & V_UNROLL;
-  constexpr int THREADS = sv_threads<V>();
-  static_assert(!PROF || THREADS == KS_THREADS, "the profile's warps");
+// K2: the block stages the scene, then takes rows from `work` until none
+// is left; the last block to finish resets the counters.
+template <bool PROF>
+__global__ void __launch_bounds__(KS_THREADS)
+sp_staged_trace_rays_kernel(const __grid_constant__ KFTables G,
+                            const __grid_constant__ KFSettings S,
+                            const __grid_constant__ KSLayout L,
+                            const __grid_constant__ SplitRays R,
+                            unsigned long long* prof, int* work) {
   unsigned char* sm = ks_smem;
   const int tid = threadIdx.x;
   __shared__ KFTables staged;
-  const float* bounds = nullptr;
-  KFTables T = G;
-  if constexpr (STAGE) {
-    T = stage_scene(G, S, L, sm);
-    if (tid == 0) staged = T;
-    bounds = (const float*)(sm + L.bounds);
-    __syncthreads();
-  }
-  const KFTables& Tm = STAGE ? staged : G;
-  SplitScene<STAGE, SINGLE, HOIST, REG> B{REG ? T : Tm, Tm, bounds,
-                                          S.exit_margin};
-  if constexpr (!K2) B.hoist(S);
+  const KFTables T = stage_scene(G, S, L, sm);
+  if (tid == 0) staged = T;
+  __syncthreads();
+  const SplitScene<true> B{T, staged, (const float*)(sm + L.bounds),
+                           S.exit_margin};
   Prof<PROF> P;
-  const int n_items = (R.n + THREADS - 1) / THREADS;
-  auto row = [&](int item) {
+  const int n_items = (R.n + KS_THREADS - 1) / KS_THREADS;
+  int* item_slot = (int*)(sm + L.ctr);
+  for (;;) {
+    if (tid == 0) *item_slot = atomicAdd(work, 1);
+    __syncthreads();
+    const int item = *item_slot;
+    __syncthreads();
+    if (item >= n_items) break;
     P.begin(prof, item);
-    const int i = item * THREADS + tid;
-    if constexpr (K2) {
-      k2_ray(B, S, R, i, i < R.n, P);
-    } else {
-      k1_ray<UNROLL>(B, S, R, i, i < R.n, P);
+    const int i = item * KS_THREADS + tid;
+    k2_ray(B, S, R, i, i < R.n, P);
+  }
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(work + 1, 1) == (int)gridDim.x - 1) {
+      work[0] = 0;
+      work[1] = 0;
     }
-  };
-  if constexpr (PERSIST) {
-    int* item_slot = (int*)(sm + L.ctr);
-    for (;;) {
-      if (tid == 0) *item_slot = atomicAdd(work, 1);
-      __syncthreads();
-      const int item = *item_slot;
-      __syncthreads();
-      if (item >= n_items) break;
-      row(item);
-    }
-    // the last block to finish resets the counters for the next launch
-    if (tid == 0) {
-      __threadfence();
-      if (atomicAdd(work + 1, 1) == (int)gridDim.x - 1) {
-        work[0] = 0;
-        work[1] = 0;
-      }
-    }
-  } else {
-    row(blockIdx.x);
   }
 }
 
-template <bool K2, bool PROF, int V>
-__global__ void __launch_bounds__(sv_threads<V>())
-sp_split_gc_kernel(const __grid_constant__ KFTables G,
-                   const __grid_constant__ KFSettings S,
-                   const __grid_constant__ KSLayout L,
-                   const __grid_constant__ SplitRays R,
-                   unsigned long long* prof, int* work) {
-  split_rays<K2, PROF, V>(G, S, L, R, prof, work);
+template <bool PROF>
+static int render_tile_launch(const KFTables& T, const KFSettings& S,
+                              const SplitRays& R, unsigned long long* prof,
+                              cudaStream_t stream) {
+  const unsigned grid = (R.n + KS_THREADS - 1) / KS_THREADS;
+  sp_staged_render_tile_kernel<PROF><<<grid, KS_THREADS, 0, stream>>>(
+      T, S, R, prof);
+  return (int)cudaGetLastError();
 }
 
-template <bool K2, bool PROF, int V>
-__global__ void __launch_bounds__(sv_threads<V>())
-sp_split_byvalue_kernel(const KFTables G, const KFSettings S,
-                        const KSLayout L, const SplitRays R,
-                        unsigned long long* prof, int* work) {
-  split_rays<K2, PROF, V>(G, S, L, R, prof, work);
-}
-
-// Today's K1 and K2 without a crowd (split_path.cu's <false> entries, line
-// for line), by value and with __grid_constant__ parameters.
-template <bool K2>
-__device__ __forceinline__ void today_ray(const KFTables& T,
-                                          const KFSettings& S,
-                                          const SplitRays& R) {
-  const int i = blockIdx.x * KS_THREADS + threadIdx.x;
-  if (i >= R.n) return;
-  if constexpr (K2) {
-    const float dist = R.in[6][i];
-    float vis = 1.0f;
-    if (!(dist <= 0.0f)) {
-      vis = visibility<false>(T, S, V3{R.in[0][i], R.in[1][i], R.in[2][i]},
-                              V3{R.in[3][i], R.in[4][i], R.in[5][i]}, dist,
-                              R.in[7][i]);
-    }
-    R.out[0][i] = vis;
-  } else {
-    const V3 o{R.in[0][i], R.in[1][i], R.in[2][i]};
-    const V3 d{R.in[3][i], R.in[4][i], R.in[5][i]};
-    float t, obj;
-    int leaf;
-    trace_primary<false>(T, S, o, d, R.in[6] ? R.in[6][i] : 0.0f, t, obj,
-                         leaf);
-    const float hitf = t < KF_BIG * 0.5f ? 1.0f : 0.0f;
-    const float t_sane = hitf > 0.5f ? t : 0.0f;
-    const V3 p = along(o, d, t_sane);
-    const V3 n = hit_normal<false>(T, S, obj, leaf, p, d);
-    float ao = 1.0f;
-    if (S.ao && S.n_ana + S.n_sdf + S.n_crowd > 0) {
-      const float eps = S.shadow_eps;
-      ao = ao_factor<false>(T, S, V3{p.x + n.x * eps, p.y + n.y * eps,
-                                     p.z + n.z * eps}, n);
-    }
-    R.out[0][i] = t;
-    R.out[1][i] = obj;
-    R.out[2][i] = n.x;
-    R.out[3][i] = n.y;
-    R.out[4][i] = n.z;
-    R.out[5][i] = ao;
-    R.out[6][i] = hitf;
-  }
-}
-
-template <bool K2>
-__global__ void __launch_bounds__(KS_THREADS)
-sp_today_kernel(const KFTables T, const KFSettings S, const SplitRays R) {
-  today_ray<K2>(T, S, R);
-}
-
-template <bool K2>
-__global__ void __launch_bounds__(KS_THREADS)
-sp_today_gc_kernel(const __grid_constant__ KFTables T,
-                   const __grid_constant__ KFSettings S,
-                   const __grid_constant__ SplitRays R) {
-  today_ray<K2>(T, S, R);
-}
-
-// The variants sp_split_variant launches (render_tile.SPLIT_VARIANTS):
-// each kernel's production and that production with one element changed.
-enum { SV_PRODUCTION = 0, SV_UNROLL_FLIPPED, SV_HOIST_FLIPPED,
-       SV_REG_FLIPPED, SV_STAGE_FLIPPED, SV_NO_SINGLE, SV_PERSIST_FLIPPED,
-       SV_BY_VALUE, SV_WIDE, SV_FIRST, SV_TODAY_SCHEDULE, SV_TODAY,
-       SV_TODAY_GC, SV_COUNT };
-
-template <bool K2>
-constexpr int sv_production() {
-  return K2 ? V_STAGE | V_SINGLE | V_REG | V_PERSIST
-            : V_SINGLE | V_HOIST | V_REG;
-}
-
-typedef void (*SplitKernel)(KFTables, KFSettings, KSLayout, SplitRays,
-                            unsigned long long*, int*);
-
-// Launch `kernel` over R's rows of `threads` rays: as many blocks as the
-// card holds at once (at most one per row) when persistent, else one per
-// row.
-static int sv_launch(SplitKernel kernel, int threads, bool persist,
-                     const KFTables& T, const KFSettings& S,
-                     const KSLayout& L, const SplitRays& R,
-                     unsigned long long* prof, int* work,
-                     cudaStream_t stream) {
+// As many blocks as the card holds at once (at most one per row).
+template <bool PROF>
+static int trace_rays_launch(const KFTables& T, const KFSettings& S,
+                             const KSLayout& L, const SplitRays& R,
+                             unsigned long long* prof, int* work,
+                             cudaStream_t stream) {
+  if (!work) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   if (L.bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
+    err = cudaFuncSetAttribute(sp_staged_trace_rays_kernel<PROF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L.bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const long long items = (R.n + threads - 1) / threads;
-  long long grid = items;
-  if (persist) {
-    if (!work) return (int)cudaErrorInvalidValue;
-    int device = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          threads, L.bytes);
-    if (err != cudaSuccess) return (int)err;
-    const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    grid = items < resident ? items : resident;
-  }
-  kernel<<<(unsigned)grid, threads, L.bytes, stream>>>(T, S, L, R, prof,
-                                                        work);
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sp_staged_trace_rays_kernel<PROF>, KS_THREADS, L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (R.n + KS_THREADS - 1) / KS_THREADS;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = (unsigned)(rows < resident ? rows : resident);
+  sp_staged_trace_rays_kernel<PROF><<<grid, KS_THREADS, L.bytes, stream>>>(
+      T, S, L, R, prof, work);
   return (int)cudaGetLastError();
 }
 
-template <bool K2, int V>
-static int sv_gc(const KFTables& T, const KFSettings& S, const KSLayout& L,
-                 const SplitRays& R, unsigned long long* prof, int* work,
-                 cudaStream_t st) {
-  return sv_launch(sp_split_gc_kernel<K2, false, V>, sv_threads<V>(),
-                   V & V_PERSIST, T, S, L, R, prof, work, st);
-}
-
-template <bool K2>
-static int sv_dispatch(int variant, const KFTables& T, const KFSettings& S,
-                       const KSLayout& L, const SplitRays& R,
-                       unsigned long long* prof, int* work,
-                       cudaStream_t st) {
-  constexpr int PRODUCTION = sv_production<K2>();
-  constexpr bool PERSIST = PRODUCTION & V_PERSIST;
-  const int n = KS_THREADS;
-  switch (variant) {
-    case SV_PRODUCTION:
-      return prof ? sv_launch(sp_split_gc_kernel<K2, true, PRODUCTION>, n,
-                              PERSIST, T, S, L, R, prof, work, st)
-                  : sv_gc<K2, PRODUCTION>(T, S, L, R, prof, work, st);
-    case SV_UNROLL_FLIPPED:
-      return sv_gc<K2, PRODUCTION ^ V_UNROLL>(T, S, L, R, prof, work, st);
-    case SV_HOIST_FLIPPED:
-      return sv_gc<K2, PRODUCTION ^ V_HOIST>(T, S, L, R, prof, work, st);
-    case SV_REG_FLIPPED:
-      return sv_gc<K2, (PRODUCTION ^ V_REG) | V_STAGE>(T, S, L, R, prof,
-                                                       work, st);
-    case SV_STAGE_FLIPPED:
-      return sv_gc<K2, PRODUCTION ^ V_STAGE>(T, S, L, R, prof, work, st);
-    case SV_NO_SINGLE:
-      return sv_gc<K2, PRODUCTION & ~(V_SINGLE | V_HOIST)>(T, S, L, R, prof,
-                                                           work, st);
-    case SV_PERSIST_FLIPPED:
-      return sv_gc<K2, PRODUCTION ^ V_PERSIST>(T, S, L, R, prof, work, st);
-    case SV_BY_VALUE:
-      return sv_launch(sp_split_byvalue_kernel<K2, false, PRODUCTION>, n,
-                       PERSIST, T, S, L, R, prof, work, st);
-    case SV_WIDE:
-      return sv_gc<K2, PRODUCTION | V_WIDE>(T, S, L, R, prof, work, st);
-    case SV_FIRST:
-      return sv_gc<K2, V_STAGE | V_SINGLE | V_PERSIST>(T, S, L, R, prof, work,
-                                                       st);
-    case SV_TODAY_SCHEDULE:
-      return prof ? sv_launch(sp_split_byvalue_kernel<K2, true, 0>, n, false,
-                              T, S, L, R, prof, work, st)
-                  : sv_launch(sp_split_byvalue_kernel<K2, false, 0>, n, false,
-                              T, S, L, R, prof, work, st);
-    case SV_TODAY:
-    case SV_TODAY_GC: {
-      if (R.n <= 0) return 0;
-      const unsigned grid = (R.n + n - 1) / n;
-      if (variant == SV_TODAY)
-        sp_today_kernel<K2><<<grid, n, 0, st>>>(T, S, R);
-      else
-        sp_today_gc_kernel<K2><<<grid, n, 0, st>>>(T, S, R);
-      return (int)cudaGetLastError();
-    }
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int sp_split_variant(int k2, int variant, KFTables T,
-                                KFSettings S, KSLayout L, SplitRays R,
-                                unsigned long long* prof, int* work,
-                                int device, void* stream) {
+extern "C" int sp_staged_render_tile(KFTables T, KFSettings S, SplitRays R,
+                                     unsigned long long* prof, int device,
+                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R.n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return k2 ? sv_dispatch<true>(variant, T, S, L, R, prof, work, st)
-            : sv_dispatch<false>(variant, T, S, L, R, prof, work, st);
+  return prof ? render_tile_launch<true>(T, S, R, prof, st)
+              : render_tile_launch<false>(T, S, R, nullptr, st);
+}
+
+extern "C" int sp_staged_trace_rays(KFTables T, KFSettings S, KSLayout L,
+                                    SplitRays R, unsigned long long* prof,
+                                    int* work, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (R.n <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  return prof ? trace_rays_launch<true>(T, S, L, R, prof, work, st)
+              : trace_rays_launch<false>(T, S, L, R, nullptr, work, st);
 }

@@ -126,6 +126,18 @@ def count_ops():
                     evals=None)
 
 
+def fd_normal_evals(static, settings: RenderSettings, obj) -> int:
+    """The SDF evaluations normals_core makes for K1's hit objects `obj`
+    (-1 on a miss) in a scene without a crowd: 4 per lane whose normal is
+    the FD tetrahedron of its object's tape (an SDF object, or any object
+    under normals "fd")."""
+    fd = torch.tensor([o.engine == ENGINE_SDF or settings.normals != "auto"
+                       for o in static.ir.objects] + [False],
+                      device=obj.device)
+    obj = obj.reshape(-1).long()
+    return 4 * int(fd[torch.where(obj >= 0, obj, -1)].sum())
+
+
 def _tally(lanes, per_lane: int) -> None:
     """Add per_lane operations for each lane of a bool mask (or count)."""
     if _OPS["n"] is not None:
@@ -2558,10 +2570,9 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
     tab, ks, rays, keep, counts, out = _split_args(scene_t, settings, args,
                                                    n_out)
     if entry in STAGED and counts[2] == 0:
-        # K1 and K2 without a crowd: the staged kernels
-        launch, outs, _ = staged_split_launcher(STAGED[entry], scene_t,
-                                                settings, args)
-        return launch, outs
+        # K1 and K2 without a crowd
+        return staged_split_launcher(STAGED[entry], scene_t, settings,
+                                     args)[:2]
     dev = out.device
     fn = getattr(_build.load(), entry)
     launch = _split_enqueue(
@@ -2571,70 +2582,55 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
 
 
 # The entries of split_path.cu whose calls on a scene without a crowd go to
-# the staged kernels of csrc/split_staged.cu
+# the kernels of csrc/split_staged.cu
 STAGED = {"sp_render_tile": "render_tile", "sp_trace_rays": "trace_rays"}
-# The variants of K1 and K2 that csrc/split_staged.cu measures (its SV_*):
-# each kernel's production (K1: single-leaf evaluation, AO's unbounded
-# group decoded once, one block per 128 rays; K2: the scene staged in
-# shared memory with the tables' pointers in registers, single-leaf
-# evaluation, persistent blocks; both with __grid_constant__ parameters),
-# each with one element changed, the first
-# production of the redesign, the schedule of split_path.cu's kernels on
-# the stages (its profile is PERF.md's step 1), and split_path.cu's
-# kernels themselves, by value and __grid_constant__.
-SPLIT_VARIANTS = ("production", "unroll flipped", "hoist flipped",
-                  "staged, tables in registers flipped", "staging flipped",
-                  "no single-leaf", "persistence flipped", "by value",
-                  "256 threads", "first production", "today's schedule",
-                  "today", "today gc")
-# the variants with a profiling instantiation
-SPLIT_PROFILED = ("production", "today's schedule")
 
 
-def split_variant_launcher(entry: str, variant: str, scene_t,
-                           settings: RenderSettings, args,
-                           profile: bool = False):
-    """Prepare a launch of one variant of K1 (entry "render_tile") or K2
-    ("trace_rays") on CUDA tensors of a scene without a crowd -> (launch,
-    outputs, prof): as split_launcher; with profile, prof is int64 (rows *
-    4 warps, len(KP_PHASE_NAMES), 3), zeroed at every launch (per phase
-    cycles, loop trips and lane-evaluations), else None. The persistent
-    variants' two counters are zeroed once here; the last block of each
-    launch resets them."""
+def staged_split_launcher(entry: str, scene_t, settings: RenderSettings,
+                          args, profile: bool = False):
+    """Prepare a launch of K1 (entry "render_tile") or K2 ("trace_rays")
+    for a scene without a crowd (csrc/split_staged.cu) on CUDA tensors ->
+    (launch, outputs, prof): as split_launcher; with profile, the profiling
+    instantiation, whose counters go to prof, int64 (rows * 4 warps,
+    len(KP_PHASE_NAMES), 3), zeroed at every launch (per phase cycles,
+    loop trips and lane-evaluations), else None. K2's two work counters
+    are zeroed once here; the last block of each launch resets them."""
     from surfjax_torch.kernels import _build
     n_out = {"render_tile": 7, "trace_rays": 1}[entry]
-    k = SPLIT_VARIANTS.index(variant)
-    if profile and variant not in SPLIT_PROFILED:
-        raise ValueError(f"{variant}: no profiling instantiation")
     tab, ks, rays, keep, counts, out = _split_args(scene_t, settings, args,
                                                    n_out)
     if counts[2] > 0:
         raise ValueError("the staged split kernels take scenes without a "
                          "crowd")
     dev = out.device
-    layout = _scene_layout(keep[1], records=False)
-    work = torch.zeros(2, dtype=torch.int32, device=dev)
     rows = -(-rays.n // KS_THREADS)
     prof = torch.zeros((rows * (KS_THREADS // 32), len(KP_PHASE_NAMES), 3),
                        dtype=torch.int64, device=dev) if profile else None
-    fn = _build.load().sp_split_variant
+    lib = _build.load()
+    if entry == "render_tile":
+        def call(stream):
+            return lib.sp_staged_render_tile(tab, ks, rays,
+                                             _ptr(prof), dev.index, stream)
+    else:
+        layout = _scene_layout(keep[1], records=False)
+        work = torch.zeros(2, dtype=torch.int32, device=dev)
 
-    def call(stream):
+        def call(stream):
+            return lib.sp_staged_trace_rays(tab, ks, layout, rays, _ptr(prof),
+                                            work.data_ptr(), dev.index,
+                                            stream)
+
+    def zeroed_call(stream):
         if prof is not None:
             prof.zero_()
-        return fn(int(entry == "trace_rays"), k, tab, ks, layout, rays,
-                  None if prof is None else prof.data_ptr(),
-                  work.data_ptr(), dev.index, stream)
+        return call(stream)
 
-    launch = _split_enqueue(dev, call, "sp_split_variant", keep)
+    launch = _split_enqueue(dev, zeroed_call, f"sp_staged_{entry}", keep)
     return launch, tuple(out[k] for k in range(n_out)), prof
 
 
-def staged_split_launcher(entry: str, scene_t, settings: RenderSettings,
-                          args, profile: bool = False):
-    """The production variant of split_variant_launcher."""
-    return split_variant_launcher(entry, "production", scene_t, settings,
-                                  args, profile)
+def _ptr(ten):
+    return None if ten is None else ten.data_ptr()
 
 
 def _split_call(wrapper, entry: str, reference, scene_t,

@@ -169,7 +169,7 @@ def fit_steps(dev, res) -> None:
     (fastest of REPS runs of 10 steps, one synchronisation each) and one
     traced run of 5 pallas steps; results into res[f"fit step {size}"]."""
     from surfjax_torch.tools.fit_bench import bench_backend, pose_step_fn
-    kernels = ("sp_render_tile_kernel", "sp_trace_rays_kernel")
+    kernels = ("sp_staged_render_tile_kernel", "sp_staged_trace_rays_kernel")
     for size in ((256, 256), (1920, 1080)):
         out = {be: bench_backend(be, 10, REPS if be == "pallas" else 1,
                                  size=size, device=dev)["step_ms"]
@@ -597,36 +597,6 @@ def prime(dev, res) -> None:
     print("prime c3 1080p", json.dumps(out), flush=True)
 
 
-# the variants split_phases profiles
-SPLIT_PROFILED = ("production", "today's schedule")
-
-
-def split_variants(dev, res) -> None:
-    """Every variant of K1 and K2 (render_tile.SPLIT_VARIANTS) on every
-    call of frame 0 of c4 at 1080p (both modes) and of one 1080p pose-fit
-    step: outputs bitwise equal to the plain version's, ms per frame or
-    step (each call launched back to back, summed per kernel)."""
-    from surfjax_torch.kernels import render_tile as rt
-    from surfjax_torch.tools.kernel_check import KERNELS, flat
-    for case, calls in _split_cases(dev).items():
-        out = {}
-        for kname, args in calls:
-            ref = KERNELS[kname][1](*args)
-            for variant in rt.SPLIT_VARIANTS:
-                launch, got, _ = rt.split_variant_launcher(
-                    kname, variant, args[0], args[1], args[2:])
-                ms = _launch_ms(launch)
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip(flat(got),
-                                                             flat(ref))):
-                    raise AssertionError(f"{case} {kname} {variant}: differs "
-                                         "from the plain version")
-                key = f"{kname} {variant}"
-                out[key] = out.get(key, 0.0) + ms
-        res[f"split variants {case}"] = out
-        print(f"split variants {case}", json.dumps(out), flush=True)
-
-
 def sass(dev, res) -> None:
     """The hash of every entry's SASS (_build.sass_hashes), to compare the
     code of two builds."""
@@ -641,14 +611,14 @@ def split_phases(dev, res) -> None:
     """Inside K1 and K2 on frame 0 of c4 at 1080p (both modes) and in one
     1080p pose-fit step on c5: per call the kernel's time (launched back to
     back), K1's with AO off and K2's on the same rays with every shadow
-    segment empty (what a lane costs without its work); then each
-    profiled variant of render_tile.SPLIT_PROFILED: its time, its outputs
-    against the plain version's (bitwise), its SDF evaluations against
-    the plain version's (count_ops, less the FD normals', which carry no
-    probe), on c4 AO's evaluations against lanes x taps, and its phase
-    table (per phase the share of the warps' cycles, the SIMT efficiency
-    of its loops and the SDF evaluations per lane); last, ptxas' line and
-    the local loads and stores (LDL, STL) of every K1 and K2 entry."""
+    segment empty (what a lane costs without its work); then the profiling
+    instantiation: its time, its outputs against the plain version's
+    (bitwise), its SDF evaluations against the plain version's
+    (count_ops, less the FD normals', which carry no probe), on c4 AO's
+    evaluations against lanes x taps, and its phase table (per phase the
+    share of the warps' cycles, the SIMT efficiency of its loops and the
+    SDF evaluations per lane); last, ptxas' line and the local loads and
+    stores (LDL, STL) of every K1 and K2 entry."""
     from surfjax_torch.kernels import _build
     from surfjax_torch.kernels import render_tile as rt
     from surfjax_torch.tools.kernel_check import KERNELS, flat
@@ -668,51 +638,40 @@ def split_phases(dev, res) -> None:
                     KERNELS[kname][3](*_empty_segments(args))[0])
             with rt.count_ops() as c:
                 ref = KERNELS[kname][1](*args)
-            fd = 0
-            if kname == "render_tile":
-                objs = scene_t.static.ir.objects
-                is_fd = torch.tensor([o.engine == 1 or st.normals != "auto"
-                                      for o in objs], device=dev)
-                obj = ref[1].reshape(-1).long()
-                fd = 4 * int(is_fd[obj.clamp(min=0)][obj >= 0].sum())
-            entry["plain_evals"] = c["evals"]
-            for variant in SPLIT_PROFILED:
-                launch, out, prof = rt.split_variant_launcher(
-                    kname, variant, scene_t, st, rays, profile=True)
-                launch()
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip(flat(out),
-                                                             flat(ref))):
-                    raise AssertionError(f"{case} call {k} {variant}: the "
-                                         "profile's outputs differ from "
-                                         "the plain version's")
-                evals = int(prof[:, :, 2].sum())
-                if evals + fd != c["evals"]:
-                    raise AssertionError(
-                        f"{case} call {k} {variant}: {evals} SDF "
-                        f"evaluations profiled + {fd} FD, the plain version "
-                        f"{c['evals']}")
-                if case.startswith("c4") and kname == "render_tile" and \
-                        st.ao and int(prof[:, aos, 2].sum()) != \
-                        n * 4 * st.ao_samples:
-                    raise AssertionError(f"{case} call {k}: AO evaluated "
-                                         f"{int(prof[:, aos, 2].sum())} "
-                                         f"times, not lanes x taps")
-                entry[variant] = {
-                    "ms_profiled": _launch_ms(launch),
-                    "evals": evals,
-                    "phases": phase_table(prof, n, scene_t.static,
-                                          rt.KP_PHASE_NAMES)}
+            fd = rt.fd_normal_evals(scene_t.static, st, ref[1]) \
+                if kname == "render_tile" else 0
+            launch, out, prof = rt.staged_split_launcher(kname, scene_t, st,
+                                                         rays, profile=True)
+            launch()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(flat(out),
+                                                         flat(ref))):
+                raise AssertionError(f"{case} call {k}: the profile's "
+                                     "outputs differ from the plain "
+                                     "version's")
+            evals = int(prof[:, :, 2].sum())
+            if evals + fd != c["evals"]:
+                raise AssertionError(
+                    f"{case} call {k}: {evals} SDF evaluations profiled + "
+                    f"{fd} FD, the plain version {c['evals']}")
+            if case.startswith("c4") and kname == "render_tile" and \
+                    st.ao and int(prof[:, aos, 2].sum()) != \
+                    n * 4 * st.ao_samples:
+                raise AssertionError(f"{case} call {k}: AO evaluated "
+                                     f"{int(prof[:, aos, 2].sum())} times, "
+                                     "not lanes x taps")
+            entry.update(plain_evals=c["evals"], evals=evals,
+                         ms_profiled=_launch_ms(launch),
+                         phases=phase_table(prof, n, scene_t.static,
+                                            rt.KP_PHASE_NAMES))
             res[f"split phases {case} {k} {kname}"] = entry
             print(f"split phases {case} {k} {kname}", json.dumps(entry),
                   flush=True)
     info = _build.build()
     for name, lines in _build.entries(info["log"]).items():
-        if "render_tile" in name or "trace_rays" in name or \
-                "sp_split" in name or "sp_today" in name:
+        if "render_tile" in name or "trace_rays" in name:
             entry = {"ptxas": lines,
-                     "sass": _build.sass_counts(info["path"], name),
-                     "loops": _build.sass_loops(info["path"], name)[:4]}
+                     "sass": _build.sass_counts(info["path"], name)}
             res[f"split entry {name}"] = entry
             print(f"split entry {name}", json.dumps(entry), flush=True)
 
@@ -736,7 +695,6 @@ SECTIONS = {
     "prime": prime,
     "split_phases": split_phases,
     "sass": sass,
-    "split_variants": split_variants,
 }
 
 

@@ -183,13 +183,8 @@ def test_staged_split_kernel_and_profile_match_plain(cuda_device, entry,
         torch.cuda.synchronize()
         for a, b, p in zip(got, ref, out):
             assert torch.equal(a, b) and torch.equal(p, b)
-        fd = 0
-        if entry == "render_tile":
-            objs = args[0].static.ir.objects
-            is_fd = torch.tensor([o.engine == 1 or args[1].normals != "auto"
-                                  for o in objs], device=cuda_device)
-            obj = ref[1].reshape(-1).long()
-            fd = 4 * int(is_fd[obj.clamp(min=0)][obj >= 0].sum())
+        fd = rt.fd_normal_evals(args[0].static, args[1], ref[1]) \
+            if entry == "render_tile" else 0
         assert int(prof[:, :, 2].sum()) + fd == c["evals"]
 
 

@@ -155,14 +155,18 @@ def host_lib(tmp_path_factory):
     lib = cuda_host.build("split_staged.cu",
                           str(tmp_path_factory.mktemp("split_host")))
     i32, ptr = ctypes.c_int, ctypes.c_void_p
-    lib.sp_split_variant.argtypes = [i32, i32, rt.KFTables, rt.KFSettings,
-                                     rt.KSLayout, rt.SplitRays, ptr, ptr,
-                                     i32, ptr]
-    fn = lib.sp_split_variant
+    lib.sp_staged_render_tile.argtypes = [rt.KFTables, rt.KFSettings,
+                                          rt.SplitRays, ptr, i32, ptr]
+    lib.sp_staged_trace_rays.argtypes = [rt.KFTables, rt.KFSettings,
+                                         rt.KSLayout, rt.SplitRays, ptr, ptr,
+                                         i32, ptr]
+    k1, k2 = lib.sp_staged_render_tile, lib.sp_staged_trace_rays
     # the launcher passes its tensors' device index: None on the CPU
     return types.SimpleNamespace(
-        sp_split_variant=lambda k2, v, T, S, L, R, prof, work, dev, st: fn(
-            k2, v, T, S, L, R, prof, work, 0, st))
+        sp_staged_render_tile=lambda T, S, R, prof, dev, st: k1(
+            T, S, R, prof, 0, st),
+        sp_staged_trace_rays=lambda T, S, L, R, prof, work, dev, st: k2(
+            T, S, L, R, prof, work, 0, st))
 
 
 @pytest.fixture
@@ -184,23 +188,32 @@ LABELS = list(CASES) + ["ragged"]
 
 
 @pytest.mark.parametrize("label", LABELS)
-@pytest.mark.parametrize("variant", rt.SPLIT_VARIANTS)
-def test_host_kernels_equal_plain(calls, on_host, label, variant):
-    assert calls[label], label
-    for k, (name, args) in enumerate(calls[label]):
-        ref = REFERENCE[name](*args)
-        launch, out, _ = rt.split_variant_launcher(name, variant, *args[:2],
-                                                   args[2:])
+@pytest.mark.parametrize("entry", list(REFERENCE))
+def test_host_kernel_equals_plain(calls, on_host, label, entry):
+    """Every call of the case through the kernel, twice (K2's counters
+    reset themselves between launches), and through the wrapper's
+    launcher: bitwise the plain version's."""
+    mine = [args for name, args in calls[label] if name == entry]
+    if entry == "render_tile" or label != "two_meshes":
+        assert mine, label
+    for k, args in enumerate(mine):
+        ref = REFERENCE[entry](*args)
+        launch, out, _ = rt.staged_split_launcher(entry, *args[:2],
+                                                  args[2:])
         launch()
-        launch()    # the counters reset themselves between launches
-        assert _equal(out, ref), f"{label} call {k} ({name})"
+        assert _equal(out, ref), f"{label} call {k}"
+        launch()
+        assert _equal(out, ref), f"{label} call {k}, second launch"
+        split_entry = {v: k for k, v in rt.STAGED.items()}[entry]
+        launch, out = rt.split_launcher(split_entry, *args[:2], args[2:],
+                                        len(flat(ref)))
+        launch()
+        assert _equal(out, ref), f"{label} call {k} through split_launcher"
 
 
 @pytest.mark.parametrize("label", ["c4 ao", "c5 hard", "c5 soft", "lights",
                                    "ragged"])
-@pytest.mark.parametrize("variant", rt.SPLIT_PROFILED)
-def test_host_profile_equals_plain_and_counts(calls, on_host, label,
-                                              variant):
+def test_host_profile_equals_plain_and_counts(calls, on_host, label):
     """The profiling instantiation's outputs and SDF evaluations against
     the plain version's; on c4, AO evaluates the floor at every lane and
     tap."""
@@ -208,21 +221,34 @@ def test_host_profile_equals_plain_and_counts(calls, on_host, label,
     for name, args in calls[label]:
         with rt.count_ops() as c:
             ref = REFERENCE[name](*args)
-        launch, out, prof = rt.split_variant_launcher(
-            name, variant, *args[:2], args[2:], profile=True)
+        launch, out, prof = rt.staged_split_launcher(name, *args[:2],
+                                                     args[2:], profile=True)
         launch()
         assert _equal(out, ref)
         evals = int(prof[:, :, 2].sum())
         scene_t, st = args[:2]
-        n = flat(args[2:])[0].numel()
         if name == "render_tile":
-            # the FD normals are not probed: 4 evaluations per lane whose
-            # hit object is an SDF one (or any, with normals "fd")
-            objs = scene_t.static.ir.objects
-            fd = torch.tensor([o.engine == 1 or st.normals != "auto"
-                               for o in objs])
-            obj = ref[1].reshape(-1).long()
-            evals += 4 * int(fd[obj.clamp(min=0)][obj >= 0].sum())
+            # the FD normals carry no probe
+            evals += rt.fd_normal_evals(scene_t.static, st, ref[1])
             if label == "c4 ao":
+                n = flat(args[2:])[0].numel()
                 assert int(prof[:, aos, 2].sum()) == n * 4 * st.ao_samples
         assert evals == c["evals"], f"{label} {name}"
+
+
+def test_layout_counts_mesh_objects():
+    """The staged scene reserves a row and a bound slot for every object,
+    meshes included, and K2's block asks for no pixel records."""
+    scene, cam, st = CASES["c4 config"][1:]
+    static, params = scene.freeze()
+    tables, _ = rt._scene_tables(
+        rt.SceneTensors(static, params_to_device(params, "cpu")), st,
+        torch.device("cpu"))
+    lay = rt._scene_layout(tables, records=False)
+    n_objects = len(static.ir.objects)
+    assert tables[0].shape[0] == n_objects == 2
+    assert lay.bounds - lay.objects >= 4 * n_objects * rt.OBJ_W
+    assert lay.rec - lay.bounds >= 4 * n_objects * 8
+    assert lay.bytes == lay.rec
+    assert rt._scene_layout(tables).bytes == \
+        lay.bytes + 4 * rt.KS_REC * rt.KS_THREADS
