@@ -151,8 +151,7 @@ def sass_loops(lib_path: str, name: str) -> list:
     backward branch, {"start", "end" (its addresses), "instructions" (in
     [start, end]), and per class the count: "fp32" (FADD, FMUL, FFMA,
     FSETP, FMNMX, FSEL, MUFU), "shared" (LDS), "global" (LDG, LD),
-    "shuffle" (SHFL, VOTE), "local" (LDL, STL)}, innermost first (fewest
-    instructions)."""
+    "shuffle" (SHFL, VOTE)}, innermost first (fewest instructions)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-sass", "-fun", name, lib_path],
                          capture_output=True, text=True, timeout=300)
@@ -164,7 +163,7 @@ def sass_loops(lib_path: str, name: str) -> list:
     classes = {"fp32": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL",
                         "MUFU"),
                "shared": ("LDS",), "global": ("LDG", "LD."),
-               "shuffle": ("SHFL", "VOTE"), "local": ("LDL", "STL")}
+               "shuffle": ("SHFL", "VOTE")}
     loops = []
     for addr, text in code:
         m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
@@ -182,14 +181,13 @@ def sass_loops(lib_path: str, name: str) -> list:
     return sorted(loops, key=lambda lp: lp["instructions"])
 
 
-def sass_counts(lib_path: str, name: str, ops=("LDL", "STL")) -> dict:
-    """-> for each opcode in `ops`, how many instructions of one entry's
-    SASS (cuobjdump) it begins (by default the local loads and stores:
-    the thread's stack frame and spills)."""
+def sass_counts(lib_path: str, name: str) -> dict:
+    """-> the local loads and stores (LDL, STL: the thread's stack frame
+    and spills) in one entry's SASS, as cuobjdump prints it."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-sass", "-fun", name, lib_path],
                          capture_output=True, text=True, timeout=300)
-    out = dict.fromkeys(ops, 0)
+    out = {"LDL": 0, "STL": 0}
     for ln in res.stdout.splitlines():
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                       ln)

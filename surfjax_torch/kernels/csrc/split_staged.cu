@@ -239,9 +239,11 @@ sp_staged_render_tile_kernel(const __grid_constant__ KFTables G,
 }
 
 // K2: the block stages the scene, then takes rows from `work` until none
-// is left; the last block to finish resets the counters.
+// is left; the last block to finish resets the counters. The bound of 8
+// resident blocks makes ptxas keep more values in registers around the
+// out-of-line cores (fewer spills; PERF.md).
 template <bool PROF>
-__global__ void __launch_bounds__(KS_THREADS)
+__global__ void __launch_bounds__(KS_THREADS, 8)
 sp_staged_trace_rays_kernel(const __grid_constant__ KFTables G,
                             const __grid_constant__ KFSettings S,
                             const __grid_constant__ KSLayout L,

@@ -345,10 +345,10 @@ def kf_phases(dev, res) -> None:
 C4 = "configs/c4_mesh.yaml"
 
 
-def _c4_mesh_calls(dev):
-    """The mesh kernel's calls of frame 0 of c4 at 1080p -> {mode: [(label,
-    args), ...]} (label "primary" or "shadow") and the scene's mesh and
-    settings per mode."""
+def _c4_frame0_calls(dev):
+    """Every split kernel call of frame 0 of c4 at 1080p -> ({mode: [(the
+    wrapper's name, args), ...]}, the scene's static part, the modes'
+    settings)."""
     from surfjax_torch.tools.kernel_check import capture_calls
     scene, camera, Rs, ps, modes = mesh_main_path(C4)
     cam0 = dataclasses.replace(camera,
@@ -357,9 +357,19 @@ def _c4_mesh_calls(dev):
     for mode, st in modes.items():
         with capture_calls() as calls:
             render(scene, cam0, st, device=dev)
-        out[mode] = [("shadow" if args[8] else "primary", args)
-                     for kname, args in calls if kname == "mesh_tile"]
+        out[mode] = list(calls)
     static, _ = scene.freeze()
+    return out, static, modes
+
+
+def _c4_mesh_calls(dev):
+    """The mesh kernel's calls of frame 0 of c4 at 1080p -> {mode: [(label,
+    args), ...]} (label "primary" or "shadow") and the scene's mesh and
+    settings per mode."""
+    calls, static, modes = _c4_frame0_calls(dev)
+    out = {mode: [("shadow" if args[8] else "primary", args)
+                  for kname, args in mcalls if kname == "mesh_tile"]
+           for mode, mcalls in calls.items()}
     return out, static.mesh_static[0], modes
 
 
@@ -524,21 +534,6 @@ def split(dev, res) -> None:
     print("split c4 ao", json.dumps(out), flush=True)
 
 
-def _c4_frame0_calls(dev, names=("render_tile", "trace_rays")):
-    """The calls of the wrappers `names` in frame 0 of c4 at 1080p ->
-    {"c4 config": [(name, args), ...], "c4 ao": ...}."""
-    from surfjax_torch.tools.kernel_check import capture_calls
-    scene, camera, Rs, ps, modes = mesh_main_path(C4)
-    cam0 = dataclasses.replace(camera,
-                               position=tuple(float(x) for x in ps[0]))
-    out = {}
-    for mode, st in modes.items():
-        with capture_calls() as calls:
-            render(scene, cam0, st, device=dev)
-        out[f"c4 {mode}"] = [(k, a) for k, a in calls if k in names]
-    return out
-
-
 def _fit_calls(dev, size=(1920, 1080)):
     """The K1 and K2 calls of one pose-fit step on c5 at `size`."""
     from surfjax_torch.tools.fit_bench import pose_step_fn
@@ -552,7 +547,10 @@ def _fit_calls(dev, size=(1920, 1080)):
 def _split_cases(dev) -> dict:
     """The K1 and K2 calls PERF.md measures: frame 0 of c4 at 1080p in
     both modes and one 1080p pose-fit step on c5."""
-    cases = _c4_frame0_calls(dev)
+    calls, _, _ = _c4_frame0_calls(dev)
+    cases = {f"c4 {mode}": [(k, a) for k, a in mcalls
+                            if k in ("render_tile", "trace_rays")]
+             for mode, mcalls in calls.items()}
     cases["fit 1080p"] = _fit_calls(dev)
     return cases
 
