@@ -2567,12 +2567,11 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
     writing `outputs`, and raises if the launch was refused. The wrappers
     launch once; chip_smoke.py times repeated launches."""
     from surfjax_torch.kernels import _build
-    tab, ks, rays, keep, counts, out = _split_args(scene_t, settings, args,
-                                                   n_out)
+    prepared = _split_args(scene_t, settings, args, n_out)
+    tab, ks, rays, keep, counts, out = prepared
     if entry in STAGED and counts[2] == 0:
         # K1 and K2 without a crowd
-        return staged_split_launcher(STAGED[entry], scene_t, settings,
-                                     args)[:2]
+        return _staged_launcher(STAGED[entry], prepared, False)[:2]
     dev = out.device
     fn = getattr(_build.load(), entry)
     launch = _split_enqueue(
@@ -2595,10 +2594,15 @@ def staged_split_launcher(entry: str, scene_t, settings: RenderSettings,
     len(KP_PHASE_NAMES), 3), zeroed at every launch (per phase cycles,
     loop trips and lane-evaluations), else None. K2's two work counters
     are zeroed once here; the last block of each launch resets them."""
-    from surfjax_torch.kernels import _build
     n_out = {"render_tile": 7, "trace_rays": 1}[entry]
-    tab, ks, rays, keep, counts, out = _split_args(scene_t, settings, args,
-                                                   n_out)
+    return _staged_launcher(entry, _split_args(scene_t, settings, args,
+                                               n_out), profile)
+
+
+def _staged_launcher(entry: str, prepared, profile: bool):
+    """staged_split_launcher on _split_args' result."""
+    from surfjax_torch.kernels import _build
+    tab, ks, rays, keep, counts, out = prepared
     if counts[2] > 0:
         raise ValueError("the staged split kernels take scenes without a "
                          "crowd")
@@ -2626,7 +2630,7 @@ def staged_split_launcher(entry: str, scene_t, settings: RenderSettings,
         return call(stream)
 
     launch = _split_enqueue(dev, zeroed_call, f"sp_staged_{entry}", keep)
-    return launch, tuple(out[k] for k in range(n_out)), prof
+    return launch, tuple(out[k] for k in range(out.shape[0])), prof
 
 
 def _ptr(ten):

@@ -2,8 +2,8 @@
 
     python -m surfjax_torch.tools.breakdown [SECTION ...]
 
-SECTION is any of c3, crowd_demo, spheres, c3_primed, c4, fit, kf,
-kf_phases, split (default: all of them, in that order).
+SECTION is any key of SECTIONS below (default: all of them, in that
+order).
 
 For each fidelity mode of the fused path's main path (see `workload`) it
 times, with CUDA events and five calls each:
@@ -29,7 +29,10 @@ cycles, the SIMT efficiency of its loops (lanes that evaluate an SDF per
 trip, over 32) and the SDF evaluations per hit pixel, beside the share of
 each call of kf_frame_kernel<false>, the per-pixel kernel it replaced, and
 the kernels' ptxas lines. `split` times each split kernel of one 1080p c4
-frame in `ao` mode, launched back to back (as chip_smoke.py's phase 7).
+frame in `ao` mode, launched back to back (as chip_smoke.py's phase 7),
+`split_fit` K1 and K2 in a 1080p fit step and `prime` the priming kernel
+on c3 the same way; `split_phases` profiles K1 and K2 (chip_smoke.py's
+phase 17); `sass` hashes every entry's SASS, to compare two builds.
 For the fit step (the pose fit on configs/c5_anim.yaml, see `fit_bench`)
 at 256x256 and at 1920x1080 it times runs of 10 steps on both backends and
 traces one run of 5 steps on `pallas`: wall and device time per step, the
@@ -518,18 +521,11 @@ def mesh_glue(dev, res) -> None:
 def split(dev, res) -> None:
     """Each split kernel of one 1080p c4 frame in `ao` mode: ms per frame,
     every call of the frame launched back to back (LAUNCHES)."""
-    from surfjax_torch.tools.kernel_check import KERNELS, capture_calls
-    scene, camera, Rs, ps, modes = mesh_main_path("configs/c4_mesh.yaml")
-    cam0 = dataclasses.replace(camera,
-                               position=tuple(float(x) for x in ps[0]))
-    with capture_calls() as calls:
-        render(scene, cam0, modes["ao"], device=dev)
+    from surfjax_torch.tools.kernel_check import KERNELS
     out = {}
-    for kname, args in calls:
-        launch, _ = KERNELS[kname][3](*args)
-        launch()
-        ms, _ = cuda_ms(lambda: [launch() for _ in range(LAUNCHES)], REPS)
-        out[kname] = out.get(kname, 0.0) + min(ms) / LAUNCHES
+    for kname, args in _c4_frame0_calls(dev)[0]["ao"]:
+        out[kname] = out.get(kname, 0.0) + _launch_ms(
+            KERNELS[kname][3](*args)[0])
     res["split c4 ao"] = out
     print("split c4 ao", json.dumps(out), flush=True)
 
