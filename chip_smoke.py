@@ -10,8 +10,8 @@ the script exits non-zero and never prints its last line):
   1. builds the CUDA kernels from surfjax_torch/kernels/csrc (one nvcc per
      source, in parallel), prints ptxas' registers and spills of every
      entry and holds those of the crowd instantiation kf_frame_kernel<true>,
-     of K1, K2 and ao_fix with a crowd and ao_fix without, and of the
-     staged fused kernel to what they were before the staged K1 and K2;
+     of K1, K2 and ao_fix with a crowd, of the staged fused kernel and of
+     the staged K1 and K2 to what they were before the staged ao_fix;
      prints the staged kernel's shared memory per block and resident blocks
      per SM on c3;
   2. the fused kernel (for scenes without a crowd: the staged kernel,
@@ -101,15 +101,25 @@ the script exits non-zero and never prints its last line):
      cycles per phase, the test loop's SIMT efficiency, candidates per
      tile, overflow tiles, lane-tests culled and unculled, and the
      instructions of the production kernel's loops in its SASS;
- 17. where K1's and K2's time goes (tools/breakdown.py, `split_phases`):
-     on every K1 and K2 call of frame 0 of c4 at 1920x1080 in both modes
-     and of one 1080p pose-fit step, the kernel's time, K1's with AO off
-     and K2's on empty shadow segments, and the profiling instantiation of
-     the staged kernels: its outputs equal to the plain version's, its SDF
-     evaluations equal to the plain version's count (and on c4 AO's to
-     lanes x taps), per phase group the share of the warps' cycles, the
-     SIMT efficiency and the SDF evaluations per lane; each K1 and K2
-     entry's local loads and stores (SASS).
+ 17. where K1's, K2's and ao_fix's time goes (tools/breakdown.py,
+     `split_phases`): on every K1, K2 and ao_fix call of frame 0 of c4 at
+     1920x1080 in both modes and on every K1 and K2 call of one 1080p
+     pose-fit step, the kernel's time, K1's with AO off, K2's on empty
+     shadow segments and ao_fix's with need 0 on every lane, and the
+     profiling instantiation of the staged kernels: its outputs equal to
+     the plain version's, its SDF evaluations equal to the plain version's
+     count (and on c4 AO's to lanes x taps: for ao_fix its needing lanes'),
+     per phase group the share of the warps' cycles, the SIMT efficiency
+     and the SDF evaluations per lane; each K1, K2 and ao_fix entry's local
+     loads and stores (SASS);
+ 18. where the priming kernel's time goes (tools/breakdown.py,
+     `prime_phases`) on the primed 1080p frame of c3: its time, its
+     profiling instantiation's t0 equal to the plain version's and its SDF
+     evaluations to the plain version's count, per phase the share of the
+     warps' cycles, steps per ray and SIMT efficiency, the SM clock
+     (clock64 against %globaltimer), the cycles per warp (median, p99,
+     max) and the slowest warp in ms beside the kernel's time; ptxas' line,
+     resident blocks per SM and waves.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
@@ -177,6 +187,15 @@ PTXAS_KEPT = {
     "_Z16kf_staged_kernelILb0EEv8KFTables10KFSettings8KSLayoutPyPi": (
         "528 bytes stack frame, 280 bytes spill stores, 532 bytes spill loads",
         "Used 64 registers, used 1 barriers, 528 bytes cumulative stack size"),
+    "_Z28sp_staged_render_tile_kernelILb0EEv8KFTables10KFSettings9SplitRays"
+    "Py": (
+        "144 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 72 registers, used 0 barriers, 144 bytes cumulative stack size"),
+    "_Z27sp_staged_trace_rays_kernelILb0EEv8KFTables10KFSettings8KSLayout9"
+    "SplitRaysPyPi": (
+        "176 bytes stack frame, 52 bytes spill stores, 52 bytes spill loads",
+        "Used 64 registers, used 1 barriers, 176 bytes cumulative stack size, "
+        "112 bytes smem"),
 }
 PRIME_HIT_MAX = 1e-4   # share of pixels whose hit flag priming may change
 PROBE_K = 16           # substeps of the probe's comparison with plain
@@ -311,7 +330,8 @@ def main() -> int:
         crowd_warp_masks, prime_frame, prime_tile, split_crowd,
     )
     from surfjax_torch.tools.breakdown import (
-        crowd_variants, fused_path, kf_phases, mesh_phases, split_phases,
+        crowd_variants, fused_path, kf_phases, mesh_phases, prime_phases,
+        split_phases,
     )
     from surfjax_torch.kernels.mesh_tile import (
         MT_TEST_OPS, mesh_cull_count, mesh_warp_masks,
@@ -1213,8 +1233,35 @@ def main() -> int:
             f"{entry['plain_evals']} with the FD normals'); per phase group "
             "[cycle share, SIMT efficiency, SDF evaluations per lane]: "
             + json.dumps(groups))
-    log(f"phase 17: K1's and K2's phase profile on c4 frame 0 and a 1080p "
-        f"fit step ({time.perf_counter() - t17:.1f} s) on {smi}")
+    log(f"phase 17: K1's, K2's and ao_fix's phase profile on c4 frame 0 "
+        f"and a 1080p fit step ({time.perf_counter() - t17:.1f} s) on {smi}")
+
+    # -- phase 18 -----------------------------------------------------------
+    # where the priming kernel's time goes: primed c3 at 1080p
+    t18 = time.perf_counter()
+    prime_prof = {}
+    prime_phases(dev, prime_prof)
+    pp = prime_prof["prime phases"]
+    for label, prof_ in pp["profiles"].items():
+        groups = {g: [round(v["cycles_share"], 4),
+                      None if v["simt"] is None else round(v["simt"], 3),
+                      None if v["evals_per_hit"] is None
+                      else round(v["evals_per_hit"], 2)]
+                  for g, v in prof_["phases"]["groups"].items()}
+        log(f"  prime_tile {label}: {prof_['evals']} SDF evaluations "
+            f"profiled (the plain version {pp['plain_evals']}), "
+            f"{round(prof_['ms_profiled'], 4)} ms profiled; SM clock "
+            f"{prof_['sm_clock_ghz']:.4f} GHz; cycles per warp "
+            f"{json.dumps(prof_['warp_cycles'])}; the slowest warp "
+            f"{prof_['slowest_warp_ms']:.4f} ms; per phase group [cycle "
+            "share, SIMT efficiency, steps or evaluations per ray]: "
+            + json.dumps(groups))
+    log(f"  prime_tile {pp['ms']:.4f} ms, {pp['coarse_rays']} coarse rays "
+        f"in {pp['blocks']} blocks, {json.dumps(pp['blocks_per_sm'])} "
+        f"resident per SM, waves {json.dumps(pp['waves'])}; ptxas "
+        + json.dumps(pp["ptxas"]))
+    log(f"phase 18: the priming kernel's phase profile on primed c3 at "
+        f"1920x1080 ({time.perf_counter() - t18:.1f} s) on {smi}")
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -1256,7 +1303,7 @@ def main() -> int:
         "library_ms": None}]
     sources = {"render_tile": ("split_staged.cu", "render_tile.py:2005"),
                "trace_rays": ("split_staged.cu", "render_tile.py:2037"),
-               "ao_fix": ("split_path.cu", "render_tile.py:1954"),
+               "ao_fix": ("ao_fix_staged.cu", "render_tile.py:1954"),
                "mesh_tile": ("mesh_tile.cu", "mesh_tile.py:348")}
     for name in split:
         st7 = per_kernel["ao"][name]

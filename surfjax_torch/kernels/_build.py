@@ -34,7 +34,7 @@ NO_FMA = ("-fmad=false",)
 # source -> the flags it gets beside NVCC_FLAGS
 SOURCES = {"frame_fused.cu": NO_FMA, "kf_staged.cu": NO_FMA,
            "kf_frame_prof.cu": NO_FMA, "split_path.cu": NO_FMA,
-           "split_staged.cu": NO_FMA,
+           "split_staged.cu": NO_FMA, "ao_fix_staged.cu": NO_FMA,
            "mesh_tile.cu": NO_FMA, "prime_tile.cu": NO_FMA,
            "fp32_peak.cu": NO_FMA, "fp32_peak_fma.cu": ("-fmad=true",)}
 
@@ -229,6 +229,18 @@ def load() -> ctypes.CDLL:
                                          ctypes.c_void_p]
     lib.pt_prime_tile.argtypes = [KFTables, KFSettings, PrimeArgs,
                                   ctypes.c_int, ctypes.c_void_p]
+    # tables, settings, layout, rays, profile counters or null, the two
+    # work counters, variant, device, stream
+    lib.sp_staged_ao_fix.argtypes = [KFTables, KFSettings, KSLayout,
+                                     SplitRays, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+    lib.pt_prime_variant.argtypes = [KFTables, KFSettings, KSLayout,
+                                     PrimeArgs, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+    lib.pt_occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                                 ctypes.POINTER(ctypes.c_int)]
     lib.mt_mesh_tile.argtypes = [MeshTileArgs, ctypes.c_int,
                                  ctypes.c_void_p]
     lib.mt_mesh_tile_profile.argtypes = [MeshTileArgs, MeshTileProf,
@@ -244,7 +256,8 @@ def load() -> ctypes.CDLL:
     for name in ("kf_frame_fused", "ks_frame_fused", "kf_frame_profile",
                  "ks_occupancy", "sp_render_tile", "sp_trace_rays",
                  "sp_ao_fix", "sp_staged_render_tile",
-                 "sp_staged_trace_rays", "pt_prime_tile",
+                 "sp_staged_trace_rays", "sp_staged_ao_fix",
+                 "pt_prime_tile", "pt_prime_variant", "pt_occupancy",
                  "mt_mesh_tile",
                  "mt_mesh_tile_profile", "fp_fma_dep",
                  *mixes):

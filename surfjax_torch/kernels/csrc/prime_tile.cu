@@ -28,7 +28,7 @@
 //   int pt_prime_tile(KFTables, KFSettings, PrimeArgs, int device, void*)
 //     -> cudaError_t of the launch
 
-#include "frame_fused.cuh"
+#include "split_scene.cuh"
 
 // Ray arrays and cone of one launch (render_tile.PrimeArgs).
 struct PrimeArgs {
@@ -38,6 +38,7 @@ struct PrimeArgs {
   int has_proxy;        // some SDF object has a proxy sphere
   float k_m;            // cone slope
   float inv1k;          // 1 / (1 + k_m), rounded on the host
+  int wc;               // coarse rays per row (n is a multiple of it)
 };
 
 #define PT_BLOCK 128
@@ -90,6 +91,610 @@ pt_prime_tile_kernel(const KFTables T, const KFSettings S,
   if (A.has_proxy) t = prime_phase(T, S, A, o, d, t, true);
   A.out[i] = prime_phase(T, S, A, o, d, t, false);
 }
+
+// ---------------------------------------------------------------------------
+// Stage build: the priming march on the stages (prime_lane, a template on
+// the block) and the variants it is measured against (PV_*), chosen by
+// `variant` at launch
+// ---------------------------------------------------------------------------
+
+enum { PV_PROD = 0,     // __grid_constant__, SplitScene<false>, the lower
+                        // spheres once per lane, single-leaf evaluation,
+                        // 32x1 warps, one block per 128 rays
+       PV_BYVALUE,      // parameters by value
+       PV_PERSTEP,      // each lower sphere by object_bound at every step
+       PV_STAGED,       // the scene staged per block (SplitScene<true>)
+       PV_TAPE,         // every SDF through the tape walker
+       PV_LB8,          // __launch_bounds__(128, 8)
+       PV_PERSIST,      // persistent blocks taking 128-ray items
+       PV_W84,          // warps of 8x4 coarse rays
+       PV_TODAY,        // by value, object_bound per step, tape walker
+       PV_INLINE,       // the production with the bulb's DE inline
+       PV_COMBO,        // staged, 8x4 warps, the DE inline
+       PV_ILP,          // the production, the DE and the tape walker inline
+       PV_COMBO_ILP,    // staged, 8x4 warps, DE and tape walker inline
+       PV_C_NOSTAGE,    // PV_COMBO_ILP not staged (lower spheres cached)
+       PV_C_ROWS,       // PV_COMBO_ILP in 32x1 warps
+       PV_C_W162,       // PV_COMBO_ILP in 16x2 warps
+       PV_C_W48,        // PV_COMBO_ILP in 4x8 warps
+       PV_C_BV,         // PV_COMBO_ILP by value
+       PV_C_DEC,        // PV_COMBO_ILP, the first objects decoded per lane
+       PV_C_DEC48,      // PV_C_DEC in 4x8 warps
+       PV_VARIANTS };
+
+// A variant's warp width in coarse rays (0: 32 consecutive rays)
+template <int V>
+__host__ __device__ constexpr int pv_warp_w() {
+  return (V == PV_W84 || V == PV_COMBO || V == PV_COMBO_ILP ||
+          V == PV_C_NOSTAGE || V == PV_C_BV || V == PV_C_DEC) ? 8
+       : V == PV_C_W162 ? 16 : (V == PV_C_W48 || V == PV_C_DEC48) ? 4 : 0;
+}
+template <int V>
+__host__ __device__ constexpr bool pv_staged() {
+  return V == PV_STAGED || V == PV_COMBO || V == PV_COMBO_ILP ||
+         V == PV_C_ROWS || V == PV_C_W162 || V == PV_C_W48 || V == PV_C_BV ||
+         V == PV_C_DEC || V == PV_C_DEC48;
+}
+
+// Profile slots (render_tile.PRIME_PHASE_NAMES), in Prof's record: cycles
+// per phase; trips: the steps (PT_PROXY, PT_SDF) and the SDF evaluations
+// (PT_*_EVAL); PT_CLOCK holds the warp's clock64 and %globaltimer deltas
+// from its first to its last probe.
+enum { PT_LOAD = 0, PT_PROXY, PT_PROXY_EVAL, PT_SDF, PT_SDF_EVAL, PT_WRITE,
+       PT_CLOCK };
+#define PT_LB 4   // lower spheres kept per lane, in registers
+
+__device__ __forceinline__ unsigned long long pt_globaltimer() {
+#ifdef __CUDA_ARCH__
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+#else
+  return 0ull;
+#endif
+}
+
+// The block of today's schedule (GlobalScene) and the production's block
+// with the tape walker (TapeScene).
+struct PrimeGlobal {
+  KFTables T;
+  const KFTables& Tm;
+  __device__ __forceinline__ Bound lower(int oi) const {
+    return object_bound(Tm, object_row(T, oi), 1, 0.0f);
+  }
+  __device__ __forceinline__ float eval(const KFSettings& S, const int* ob,
+                                        V3 p, int cap) const {
+    return eval_obj(Tm, S, ob, p, cap);
+  }
+};
+
+// bulb_de's body inline (frame_fused.cuh): the same operations
+__device__ __forceinline__ float bulb_de_inline(const float* prm, V3 p,
+                                                int iterations, int cheb,
+                                                int portable) {
+  float scale = prm[3];
+  float bailout2 = prm[4] * prm[4] * 16.0f;
+  float inv_s = 1.0f / scale;
+  float px = (p.x - prm[0]) * inv_s;
+  float py = (p.y - prm[1]) * inv_s;
+  float pz = (p.z - prm[2]) * inv_s;
+  float m0 = (px * px + py * py) + pz * pz;
+  float wx = px, wy = py, wz = pz, dz = 1.0f, m = m0;
+  for (int it = 0; it < iterations; ++it) {
+    if (!(m <= bailout2)) break;
+    bulb_substep(cheb, px, py, pz, wx, wy, wz, dz, m);
+  }
+  float r = sqrtf(m);
+  float mg = fmaxf(m, F(1e-30));
+  float lg = portable ? portable_log(mg) : logf(mg);
+  float de = 0.25f * lg * r / dz;
+  float far = sqrtf(m0) - F(1.35);
+  if (far > 0.0f) de = fminf(de, far + F(0.1));
+  return de * scale;
+}
+
+// eval_leaf with bulb_de inline
+__device__ __forceinline__ float eval_leaf_inline(const KFSettings& S,
+                                                  int kind, const float* prm,
+                                                  V3 p, int p1, int cap) {
+  switch (kind) {
+    case LEAF_SPHERE: return sdf_sphere(prm, p);
+    case LEAF_PLANE: return sdf_plane(prm, p);
+    case LEAF_BOX: return sdf_box(prm, p);
+    default: {
+      int iters = (cap > 0 && cap < p1) ? cap : p1;
+      return bulb_de_inline(prm, p, iters, S.bulb_cheb, S.bulb_portable);
+    }
+  }
+}
+
+// eval_obj's body inline (frame_fused.cuh): the same operations
+__device__ __forceinline__ float eval_obj_inline(const KFTables& T,
+                                                 const KFSettings& S,
+                                                 const int* ob, V3 p,
+                                                 int cap) {
+  float vals[KF_MAX_NODES];
+  const int n0 = ob[O_NODE0], nn = ob[O_NNODES], l0 = ob[O_LEAF0];
+  for (int k = 0; k < nn; ++k) {
+    const int* nd = T.nodes + (n0 + k) * KF_NODE_W;
+    const int op = nd[0];
+    float v;
+    if (op == OP_LEAF) {
+      const int* lf = T.leaves + (l0 + nd[3]) * KF_LEAF_W;
+      v = eval_leaf_inline(S, lf[0], T.leaf_params + lf[1] * KF_LEAF_PARAM_W,
+                           p, lf[4], cap);
+    } else {
+      const float a = vals[nd[1]], b = vals[nd[2]];
+      if (op == OP_UNION) {
+        v = fminf(a, b);
+      } else if (op == OP_INTERSECT) {
+        v = fmaxf(a, b);
+      } else if (op == OP_SUBTRACT) {
+        v = fmaxf(a, -b);
+      } else {
+        const float k = T.node_params[nd[4]];
+        if (op == OP_SMOOTH_UNION) {
+          float h = sat(0.5f + 0.5f * (b - a) / k);
+          v = (b + (a - b) * h) - k * h * (1.0f - h);
+        } else if (op == OP_SMOOTH_INTERSECT) {
+          float h = sat(0.5f - 0.5f * (b - a) / k);
+          v = (b + (a - b) * h) + k * h * (1.0f - h);
+        } else {
+          float h = sat(0.5f - 0.5f * (b + a) / k);
+          v = (a + (-b - a) * h) + k * h * (1.0f - h);
+        }
+      }
+    }
+    vals[k] = v;
+  }
+  return vals[nn - 1];
+}
+
+// SplitScene whose one-leaf Mandelbulb evaluates bulb_de inline; TAPE: and
+// every other object through the tape walker inline
+template <bool STAGE, bool TAPE>
+struct PrimeInline : SplitScene<STAGE> {
+  __device__ __forceinline__ float eval(const KFSettings& S, const int* ob,
+                                        V3 p, int cap) const {
+    const KFTables& T = this->T;
+    if (ob[O_NNODES] == 1) {
+      const int* lf = T.leaves +
+          (ob[O_LEAF0] + T.nodes[ob[O_NODE0] * KF_NODE_W + 3]) * KF_LEAF_W;
+      return eval_leaf_inline(S, lf[0],
+                              T.leaf_params + lf[1] * KF_LEAF_PARAM_W, p,
+                              lf[4], cap);
+    }
+    if constexpr (TAPE) return eval_obj_inline(T, S, ob, p, cap);
+    return SplitScene<STAGE>::eval(S, ob, p, cap);
+  }
+};
+
+// SDF object k (of the n_sdf, in order) at p: its lower sphere b under the
+// proxy where it has one, else its SDF.
+template <bool PROF, class Blk>
+__device__ __forceinline__ float prime_obj(const Blk& B, const KFSettings& S,
+                                           const int* ob, Bound b, V3 p,
+                                           bool proxy, Prof<PROF>& P,
+                                           int ph) {
+  if (proxy && ob[O_PROXY_BOUND]) {
+    float dx = p.x - b.cx, dy = p.y - b.cy, dz = p.z - b.cz;
+    return sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
+  }
+  P.trip(ph);
+  return B.eval(S, ob, p, 0);
+}
+
+// An SDF object decoded once per lane: its row, and for a one-leaf tape
+// the leaf's kind (-1 otherwise), parameters and p1; whether the proxy
+// takes its lower sphere.
+struct PrimeDec {
+  const int* ob;
+  const float* prm;
+  int kind, p1;
+  bool proxied;
+};
+
+template <class Blk>
+__device__ __forceinline__ PrimeDec prime_dec(const Blk& B, int oi) {
+  const int* ob = object_row(B.T, oi);
+  PrimeDec e{ob, nullptr, -1, 0, ob[O_PROXY_BOUND] != 0};
+  if (ob[O_NNODES] == 1) {
+    const int* lf = B.T.leaves +
+        (ob[O_LEAF0] + B.T.nodes[ob[O_NODE0] * KF_NODE_W + 3]) * KF_LEAF_W;
+    e.kind = lf[0];
+    e.p1 = lf[4];
+    e.prm = B.T.leaf_params + lf[1] * KF_LEAF_PARAM_W;
+  }
+  return e;
+}
+
+// prime_scene on the block: CACHE, the first PT_LB lower spheres from lb
+// (registers), else each by B.lower where it is used; DEC, the first PT_LB
+// objects from dec.
+template <bool PROF, bool CACHE, bool DEC = false, class Blk>
+__device__ __forceinline__ float prime_sdf(const Blk& B, const KFSettings& S,
+                                           const Bound* lb,
+                                           const PrimeDec* dec, V3 p,
+                                           bool proxy, Prof<PROF>& P,
+                                           int ph) {
+  const int* order = B.T.order + S.n_ana;
+  float v = 0.0f;
+  int k0 = 0;
+  if constexpr (DEC) {
+#pragma unroll
+    for (int k = 0; k < PT_LB; ++k) {
+      if (k < S.n_sdf) {
+        float h;
+        if (proxy && dec[k].proxied) {
+          const Bound b = lb[k];
+          float dx = p.x - b.cx, dy = p.y - b.cy, dz = p.z - b.cz;
+          h = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
+        } else {
+          P.trip(ph);
+          h = dec[k].kind >= 0
+                  ? eval_leaf_inline(S, dec[k].kind, dec[k].prm, p,
+                                     dec[k].p1, 0)
+                  : B.eval(S, dec[k].ob, p, 0);
+        }
+        v = k == 0 ? h : fminf(v, h);
+      }
+    }
+    k0 = PT_LB;
+  } else if constexpr (CACHE) {
+#pragma unroll
+    for (int k = 0; k < PT_LB; ++k) {
+      if (k < S.n_sdf) {
+        const float h = prime_obj(B, S, object_row(B.T, order[k]), lb[k], p,
+                                  proxy, P, ph);
+        v = k == 0 ? h : fminf(v, h);
+      }
+    }
+    k0 = PT_LB;
+  }
+  for (int k = k0; k < S.n_sdf; ++k) {
+    const int* ob = object_row(B.T, order[k]);
+    const Bound b = (proxy && ob[O_PROXY_BOUND]) ? B.lower(order[k])
+                                                 : Bound{0.0f, 0.0f, 0.0f,
+                                                         0.0f};
+    const float h = prime_obj(B, S, ob, b, p, proxy, P, ph);
+    v = k == 0 ? h : fminf(v, h);
+  }
+  return v;
+}
+
+// One phase of the cone march from t (prime_phase's), each step counted.
+template <bool PROF, bool CACHE, bool DEC, class Blk>
+__device__ __forceinline__ float prime_lane_phase(
+    const Blk& B, const KFSettings& S, const PrimeArgs& A, const Bound* lb,
+    const PrimeDec* dec, bool act, V3 o, V3 d, float t, bool proxy,
+    Prof<PROF>& P, int ph) {
+  bool done = !act || t >= S.t_max;
+  for (int i = 0; i < S.max_steps && !done; ++i) {
+    P.trip(ph);
+    float h = prime_sdf<PROF, CACHE, DEC>(B, S, lb, dec, along(o, d, t),
+                                          proxy, P, ph + 1);
+    float s_all = (h - A.k_m * t) * A.inv1k;
+    if ((s_all <= t * F(1e-3)) || (proxy && h < F(0.08))) break;
+    t = fminf(t + s_all, S.t_max);
+    done = t >= S.t_max;
+  }
+  P.mark(ph);
+  return t;
+}
+
+// The priming march of one coarse ray: load, both phases, write.
+template <bool PROF, bool CACHE, bool DEC, class Blk>
+__device__ __forceinline__ void prime_lane(const Blk& B, const KFSettings& S,
+                                           const PrimeArgs& A, int i,
+                                           bool act, Prof<PROF>& P) {
+  V3 o{0.0f, 0.0f, 0.0f}, d{0.0f, 0.0f, 1.0f};
+  if (act) {
+    o = V3{A.in[0][i], A.in[1][i], A.in[2][i]};
+    d = V3{A.in[3][i], A.in[4][i], A.in[5][i]};
+  }
+  PrimeDec dec[DEC ? PT_LB : 1];
+  if constexpr (DEC) {
+    const int* order = B.T.order + S.n_ana;
+#pragma unroll
+    for (int k = 0; k < PT_LB; ++k)
+      if (k < S.n_sdf) dec[k] = prime_dec(B, order[k]);
+  }
+  Bound lb[CACHE || DEC ? PT_LB : 1];
+  if constexpr (CACHE || DEC) {
+    const int* order = B.T.order + S.n_ana;
+#pragma unroll
+    for (int k = 0; k < PT_LB; ++k) {
+      lb[k] = Bound{0.0f, 0.0f, 0.0f, 0.0f};
+      if (A.has_proxy && k < S.n_sdf &&
+          object_row(B.T, order[k])[O_PROXY_BOUND])
+        lb[k] = B.lower(order[k]);
+    }
+  }
+  P.mark(PT_LOAD);
+  float t = S.t_min;
+  if (A.has_proxy)
+    t = prime_lane_phase<PROF, CACHE, DEC>(B, S, A, lb, dec, act, o, d, t,
+                                           true, P, PT_PROXY);
+  t = prime_lane_phase<PROF, CACHE, DEC>(B, S, A, lb, dec, act, o, d, t,
+                                         false, P, PT_SDF);
+  if (act) A.out[i] = t;
+  P.mark(PT_WRITE);
+}
+
+// The warp's clock64 and %globaltimer at its first and last probe.
+template <bool PROF>
+struct PrimeClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void stop(unsigned long long*, int) {}
+};
+template <>
+struct PrimeClock<true> {
+  long long c0;
+  unsigned long long g0;
+  __device__ __forceinline__ void start() {
+    c0 = clock64();
+    g0 = pt_globaltimer();
+  }
+  __device__ __forceinline__ void stop(unsigned long long* base, int item) {
+    const long long c1 = clock64();
+    const unsigned long long g1 = pt_globaltimer();
+    if ((threadIdx.x & 31) == 0) {
+      const int warp = item * KS_WARPS + (threadIdx.x >> 5);
+      unsigned long long* rec = base + (size_t)warp * KP_PHASES * 3 +
+                                PT_CLOCK * 3;
+      rec[0] = (unsigned long long)(c1 - c0);
+      rec[1] = g1 - g0;
+      rec[2] = 1ull;
+    }
+  }
+};
+
+// One item of 128 coarse rays: row-major, or (W84) a tile of 32 x 4 coarse
+// rays whose warps are 8 x 4.
+template <bool PROF, int V, class Blk>
+__device__ __forceinline__ void prime_item(const Blk& B, const KFSettings& S,
+                                           const PrimeArgs& A, int item,
+                                           unsigned long long* prof) {
+  constexpr bool CACHE = V != PV_PERSTEP && V != PV_TODAY && !pv_staged<V>();
+  constexpr int WW = pv_warp_w<V>();
+  const int tid = threadIdx.x;
+  int i;
+  bool act;
+  if constexpr (WW > 0) {
+    const int gx = (A.wc + 4 * WW - 1) / (4 * WW), hc = A.n / A.wc;
+    const int col = (item % gx) * (4 * WW) + (tid >> 5) * WW + (tid % WW);
+    const int row = (item / gx) * (32 / WW) + ((tid & 31) / WW);
+    act = col < A.wc && row < hc;
+    i = row * A.wc + col;
+  } else {
+    i = item * PT_BLOCK + tid;
+    act = i < A.n;
+  }
+  Prof<PROF> P;
+  PrimeClock<PROF> C;
+  P.begin(prof, item);
+  C.start();
+  prime_lane<PROF, CACHE, V == PV_C_DEC || V == PV_C_DEC48>(B, S, A, i, act,
+                                                          P);
+  C.stop(prof, item);
+}
+
+template <bool PROF, int V>
+__device__ __forceinline__ void prime_block(const KFTables& G,
+                                            const KFSettings& S,
+                                            const KSLayout& L,
+                                            const PrimeArgs& A,
+                                            unsigned long long* prof,
+                                            int* work) {
+  if constexpr (V == PV_TODAY) {
+    const PrimeGlobal B{G, G};
+    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
+  } else if constexpr (V == PV_TAPE) {
+    const PrimeGlobal B{G, G};
+    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
+  } else if constexpr (V == PV_STAGED) {
+    __shared__ KFTables staged;
+    unsigned char* sm = ks_smem;
+    const KFTables T = stage_scene(G, S, L, sm);
+    if (threadIdx.x == 0) staged = T;
+    __syncthreads();
+    const SplitScene<true> B{T, staged, (const float*)(sm + L.bounds),
+                             S.exit_margin};
+    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
+  } else if constexpr (V == PV_INLINE || V == PV_ILP) {
+    const PrimeInline<false, V == PV_ILP> B{{G, G, nullptr, S.exit_margin}};
+    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
+  } else if constexpr (V == PV_C_NOSTAGE) {
+    const PrimeInline<false, true> B{{G, G, nullptr, S.exit_margin}};
+    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
+  } else if constexpr (V == PV_COMBO || V == PV_COMBO_ILP || V == PV_C_ROWS ||
+                       V == PV_C_W162 || V == PV_C_W48 || V == PV_C_BV ||
+                       V == PV_C_DEC || V == PV_C_DEC48) {
+    __shared__ KFTables staged;
+    unsigned char* sm = ks_smem;
+    const KFTables T = stage_scene(G, S, L, sm);
+    if (threadIdx.x == 0) staged = T;
+    __syncthreads();
+    const PrimeInline<true, V != PV_COMBO> B{
+        {T, staged, (const float*)(sm + L.bounds), S.exit_margin}};
+    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
+  } else if constexpr (V == PV_PERSIST) {
+    __shared__ int item_slot;
+    const SplitScene<false> B{G, G, nullptr, S.exit_margin};
+    const int n_items = (A.n + PT_BLOCK - 1) / PT_BLOCK;
+    for (;;) {
+      if (threadIdx.x == 0) item_slot = atomicAdd(work, 1);
+      __syncthreads();
+      const int item = item_slot;
+      __syncthreads();
+      if (item >= n_items) break;
+      prime_item<PROF, V>(B, S, A, item, prof);
+    }
+    if (threadIdx.x == 0) {
+      __threadfence();
+      if (atomicAdd(work + 1, 1) == (int)gridDim.x - 1) {
+        work[0] = 0;
+        work[1] = 0;
+      }
+    }
+  } else {
+    const SplitScene<false> B{G, G, nullptr, S.exit_margin};
+    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
+  }
+}
+
+template <bool PROF, int V>
+__global__ void __launch_bounds__(PT_BLOCK, (V == PV_LB8 ? 8 : 1))
+pt_prime_gc(const __grid_constant__ KFTables G,
+            const __grid_constant__ KFSettings S,
+            const __grid_constant__ KSLayout L,
+            const __grid_constant__ PrimeArgs A, unsigned long long* prof,
+            int* work) {
+  prime_block<PROF, V>(G, S, L, A, prof, work);
+}
+
+template <bool PROF, int V>
+__global__ void __launch_bounds__(PT_BLOCK)
+pt_prime_bv(const KFTables G, const KFSettings S, const KSLayout L,
+            const PrimeArgs A, unsigned long long* prof, int* work) {
+  prime_block<PROF, V == PV_BYVALUE ? PV_PROD
+                   : V == PV_C_BV ? PV_COMBO_ILP : V>(G, S, L, A, prof, work);
+}
+
+template <bool PROF, int V>
+static unsigned prime_grid(const PrimeArgs& A, int smem, int& err) {
+  constexpr int WW = pv_warp_w<V>();
+  if constexpr (WW > 0) {
+    return (unsigned)(((A.wc + 4 * WW - 1) / (4 * WW)) *
+                      ((A.n / A.wc + 32 / WW - 1) / (32 / WW)));
+  }
+  const long long items = (A.n + PT_BLOCK - 1) / PT_BLOCK;
+  if constexpr (V == PV_PERSIST) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, pt_prime_gc<PROF, V>, PT_BLOCK, smem);
+    err = (int)e;
+    const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    return (unsigned)(items < resident ? items : resident);
+  }
+  return (unsigned)items;
+}
+
+template <bool PROF, int V>
+static int prime_launch(const KFTables& T, const KFSettings& S,
+                        const KSLayout& L, const PrimeArgs& A,
+                        unsigned long long* prof, int* work,
+                        cudaStream_t stream) {
+  if (V == PV_PERSIST && !work) return (int)cudaErrorInvalidValue;
+  if (pv_warp_w<V>() > 0 && (A.wc <= 0 || A.n % A.wc))
+    return (int)cudaErrorInvalidValue;
+  const int smem = pv_staged<V>() ? L.bytes : 0;
+  int err = 0;
+  if (smem > 48 * 1024) {
+    err = (int)cudaFuncSetAttribute(
+        pt_prime_gc<PROF, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err) return err;
+  }
+  const unsigned grid = prime_grid<PROF, V>(A, smem, err);
+  if (err) return err;
+  if constexpr (V == PV_TODAY || V == PV_BYVALUE || V == PV_C_BV) {
+    pt_prime_bv<PROF, V><<<grid, PT_BLOCK, smem, stream>>>(T, S, L, A, prof,
+                                                            work);
+  } else {
+    pt_prime_gc<PROF, V><<<grid, PT_BLOCK, smem, stream>>>(T, S, L, A, prof,
+                                                           work);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int V>
+static int prime_variant(const KFTables& T, const KFSettings& S,
+                         const KSLayout& L, const PrimeArgs& A,
+                         unsigned long long* prof, int* work,
+                         cudaStream_t st) {
+  if constexpr (V == PV_PROD || V == PV_TODAY || V == PV_COMBO_ILP) {
+    if (prof) return prime_launch<true, V>(T, S, L, A, prof, work, st);
+  } else {
+    if (prof) return (int)cudaErrorInvalidValue;
+  }
+  return prime_launch<false, V>(T, S, L, A, nullptr, work, st);
+}
+
+extern "C" int pt_prime_variant(KFTables T, KFSettings S, KSLayout L,
+                                PrimeArgs A, unsigned long long* prof,
+                                int* work, int variant, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (A.n <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (variant) {
+    case PV_PROD: return prime_variant<PV_PROD>(T, S, L, A, prof, work, st);
+    case PV_BYVALUE:
+      return prime_variant<PV_BYVALUE>(T, S, L, A, prof, work, st);
+    case PV_PERSTEP:
+      return prime_variant<PV_PERSTEP>(T, S, L, A, prof, work, st);
+    case PV_STAGED:
+      return prime_variant<PV_STAGED>(T, S, L, A, prof, work, st);
+    case PV_TAPE: return prime_variant<PV_TAPE>(T, S, L, A, prof, work, st);
+    case PV_LB8: return prime_variant<PV_LB8>(T, S, L, A, prof, work, st);
+    case PV_PERSIST:
+      return prime_variant<PV_PERSIST>(T, S, L, A, prof, work, st);
+    case PV_W84: return prime_variant<PV_W84>(T, S, L, A, prof, work, st);
+    case PV_TODAY: return prime_variant<PV_TODAY>(T, S, L, A, prof, work, st);
+    case PV_INLINE:
+      return prime_variant<PV_INLINE>(T, S, L, A, prof, work, st);
+    case PV_COMBO: return prime_variant<PV_COMBO>(T, S, L, A, prof, work, st);
+    case PV_ILP: return prime_variant<PV_ILP>(T, S, L, A, prof, work, st);
+    case PV_COMBO_ILP:
+      return prime_variant<PV_COMBO_ILP>(T, S, L, A, prof, work, st);
+    case PV_C_NOSTAGE:
+      return prime_variant<PV_C_NOSTAGE>(T, S, L, A, prof, work, st);
+    case PV_C_ROWS:
+      return prime_variant<PV_C_ROWS>(T, S, L, A, prof, work, st);
+    case PV_C_W162:
+      return prime_variant<PV_C_W162>(T, S, L, A, prof, work, st);
+    case PV_C_W48: return prime_variant<PV_C_W48>(T, S, L, A, prof, work, st);
+    case PV_C_BV: return prime_variant<PV_C_BV>(T, S, L, A, prof, work, st);
+    case PV_C_DEC: return prime_variant<PV_C_DEC>(T, S, L, A, prof, work, st);
+    case PV_C_DEC48:
+      return prime_variant<PV_C_DEC48>(T, S, L, A, prof, work, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Resident blocks per SM: today's kernel (variant -1) or a variant's
+// production instantiation, with smem bytes of dynamic shared memory.
+extern "C" int pt_occupancy(int variant, int smem, int* blocks_per_sm) {
+  cudaError_t err;
+  switch (variant) {
+    case -1:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, pt_prime_tile_kernel, PT_BLOCK, 0);
+      break;
+    case PV_PROD:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, pt_prime_gc<false, PV_PROD>, PT_BLOCK, 0);
+      break;
+    case PV_LB8:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, pt_prime_gc<false, PV_LB8>, PT_BLOCK, 0);
+      break;
+    case PV_COMBO_ILP:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, pt_prime_gc<false, PV_COMBO_ILP>, PT_BLOCK, smem);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
 
 extern "C" int pt_prime_tile(KFTables T, KFSettings S, PrimeArgs A,
                              int device, void* stream) {

@@ -2581,12 +2581,13 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
 
 
 # The entries of split_path.cu whose calls on a scene without a crowd go to
-# the kernels of csrc/split_staged.cu
-STAGED = {"sp_render_tile": "render_tile", "sp_trace_rays": "trace_rays"}
+# the kernels of csrc/split_staged.cu (K1, K2) and csrc/ao_fix_staged.cu
+STAGED = {"sp_render_tile": "render_tile", "sp_trace_rays": "trace_rays",
+          "sp_ao_fix": "ao_fix"}
 
 
 def staged_split_launcher(entry: str, scene_t, settings: RenderSettings,
-                          args, profile: bool = False):
+                          args, profile: bool = False, variant: int = 0):
     """Prepare a launch of K1 (entry "render_tile") or K2 ("trace_rays")
     for a scene without a crowd (csrc/split_staged.cu) on CUDA tensors ->
     (launch, outputs, prof): as split_launcher; with profile, the profiling
@@ -2594,12 +2595,12 @@ def staged_split_launcher(entry: str, scene_t, settings: RenderSettings,
     len(KP_PHASE_NAMES), 3), zeroed at every launch (per phase cycles,
     loop trips and lane-evaluations), else None. K2's two work counters
     are zeroed once here; the last block of each launch resets them."""
-    n_out = {"render_tile": 7, "trace_rays": 1}[entry]
+    n_out = {"render_tile": 7, "trace_rays": 1, "ao_fix": 1}[entry]
     return _staged_launcher(entry, _split_args(scene_t, settings, args,
-                                               n_out), profile)
+                                               n_out), profile, variant)
 
 
-def _staged_launcher(entry: str, prepared, profile: bool):
+def _staged_launcher(entry: str, prepared, profile: bool, variant: int = 0):
     """staged_split_launcher on _split_args' result."""
     from surfjax_torch.kernels import _build
     tab, ks, rays, keep, counts, out = prepared
@@ -2615,6 +2616,14 @@ def _staged_launcher(entry: str, prepared, profile: bool):
         def call(stream):
             return lib.sp_staged_render_tile(tab, ks, rays,
                                              _ptr(prof), dev.index, stream)
+    elif entry == "ao_fix":
+        layout = _scene_layout(keep[1], records=False)
+        work = torch.zeros(2, dtype=torch.int32, device=dev)
+
+        def call(stream):
+            return lib.sp_staged_ao_fix(tab, ks, layout, rays, _ptr(prof),
+                                        work.data_ptr(), variant, dev.index,
+                                        stream)
     else:
         layout = _scene_layout(keep[1], records=False)
         work = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -2684,7 +2693,8 @@ class PrimeArgs(ctypes.Structure):
     """Ray arrays and cone of a pt_prime_tile launch (csrc/prime_tile.cu)."""
     _fields_ = [("inp", ctypes.c_void_p * 6), ("out", ctypes.c_void_p),
                 ("n", ctypes.c_int), ("has_proxy", ctypes.c_int),
-                ("k_m", ctypes.c_float), ("inv1k", ctypes.c_float)]
+                ("k_m", ctypes.c_float), ("inv1k", ctypes.c_float),
+                ("wc", ctypes.c_int)]
 
 
 def _prime_fns(scene_t, settings: RenderSettings):
@@ -2708,9 +2718,21 @@ def prime_tile_reference(scene_t, settings: RenderSettings, k_m: float,
                         settings.t_max, k_m, settings.max_steps)
 
 
-def prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d):
+# the priming kernel's profile (csrc/prime_tile.cu): its phases, then the
+# slot of each warp's clock64 and %globaltimer deltas
+PRIME_PHASE_NAMES = ("load", "proxy steps", "evals proxy", "sdf steps",
+                     "evals sdf", "write")
+PRIME_CLOCK = len(PRIME_PHASE_NAMES)
+
+
+def prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d,
+                   variant=None, profile: bool = False):
     """Prepare one launch of the priming kernel on CUDA tensors ->
-    (launch, (t0,)), as split_launcher."""
+    (launch, (t0,)), as split_launcher; with `variant` (an int) the stage
+    entry pt_prime_variant, and then (launch, (t0,), prof): with profile,
+    prof is int64 (blocks * 4 warps, len(KP_PHASE_NAMES), 3), zeroed at
+    every launch (PRIME_PHASE_NAMES, then the PRIME_CLOCK slot), else
+    None."""
     from surfjax_torch.kernels import _build
     static, _ = scene_t
     ins = [a.contiguous() for a in _ray_arrays((tuple(o), tuple(d)))]
@@ -2728,16 +2750,56 @@ def prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d):
                              for _, oir in _split(static)[1]))
     args.k_m = f32(k_m)
     args.inv1k = _inv_one_plus(k_m)
-    fn = _build.load().pt_prime_tile
+    args.wc = ins[0].shape[-1] if ins[0].dim() > 1 else args.n
+    lib = _build.load()
+    if variant is None:
+        def launch():
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                _raise_on(lib.pt_prime_tile(tab, ks, args, dev.index,
+                                            ctypes.c_void_p(stream)),
+                          "pt_prime_tile")
+            return ins, tables
 
-    def launch():
+        return launch, (out,)
+    layout = _scene_layout(tables, records=False)
+    work = torch.zeros(2, dtype=torch.int32, device=dev)
+    blocks = -(-args.n // KS_THREADS)
+    ww = PRIME_WARP_W.get(variant, 0)
+    if ww:   # warps of ww x 32/ww coarse rays, four side by side
+        blocks = -(-args.wc // (4 * ww)) * -(-(args.n // args.wc) // (32 // ww))
+    prof = torch.zeros((blocks * (KS_THREADS // 32), len(KP_PHASE_NAMES), 3),
+                       dtype=torch.int64, device=dev) if profile else None
+
+    def vlaunch():
         with torch.cuda.device(dev):
+            if prof is not None:
+                prof.zero_()
             stream = torch.cuda.current_stream(dev).cuda_stream
-            _raise_on(fn(tab, ks, args, dev.index, ctypes.c_void_p(stream)),
-                      "pt_prime_tile")
-        return ins, tables
+            _raise_on(lib.pt_prime_variant(tab, ks, layout, args, _ptr(prof),
+                                           work.data_ptr(), variant,
+                                           dev.index,
+                                           ctypes.c_void_p(stream)),
+                      "pt_prime_variant")
+        return ins, tables, work
 
-    return launch, (out,)
+    return vlaunch, (out,), prof
+
+
+# stage variants whose warps take tiles of the coarse grid: warp width
+PRIME_WARP_W = {7: 8, 10: 8, 12: 8, 13: 8, 15: 16, 16: 4, 17: 8, 18: 8,
+                19: 4}
+
+
+def prime_occupancy(variant: int = -1, smem: int = 0) -> int:
+    """Resident blocks per SM of today's priming kernel (-1) or of a
+    stage variant's production instantiation (0, 5, 12) with smem bytes of
+    shared memory."""
+    from surfjax_torch.kernels import _build
+    blocks = ctypes.c_int(0)
+    _raise_on(_build.load().pt_occupancy(variant, smem, ctypes.byref(blocks)),
+              "pt_occupancy")
+    return blocks.value
 
 
 def prime_tile(scene_t, settings: RenderSettings, k_m: float, o, d):

@@ -545,7 +545,7 @@ def _split_cases(dev) -> dict:
     both modes and one 1080p pose-fit step on c5."""
     calls, _, _ = _c4_frame0_calls(dev)
     cases = {f"c4 {mode}": [(k, a) for k, a in mcalls
-                            if k in ("render_tile", "trace_rays")]
+                            if k in ("render_tile", "trace_rays", "ao_fix")]
              for mode, mcalls in calls.items()}
     cases["fit 1080p"] = _fit_calls(dev)
     return cases
@@ -563,6 +563,16 @@ def _empty_segments(args):
     """K2's arguments with every shadow segment empty (dist 0): the kernel
     then only loads dist and writes 1 on every lane."""
     return args[:4] + (torch.zeros_like(args[4]),) + args[5:]
+
+
+def _need_zero(args):
+    """ao_fix's arguments with need 0 on every lane: the kernel then only
+    loads need and ao_in and writes ao_in."""
+    return args[:4] + (torch.zeros_like(args[4]),) + args[5:]
+
+
+# the stage's profiled instantiation per kernel (ao_fix: today's schedule)
+PROFILE_VARIANT = {"ao_fix": 0}
 
 
 def split_fit(dev, res) -> None:
@@ -627,6 +637,10 @@ def split_phases(dev, res) -> None:
             if kname == "render_tile":
                 entry["ms_ao_off"] = _launch_ms(KERNELS[kname][3](
                     scene_t, st.with_(ao=False), *rays)[0])
+            elif kname == "ao_fix":
+                entry["need_lanes"] = int((args[4] > 0.5).sum())
+                entry["ms_need_zero"] = _launch_ms(
+                    KERNELS[kname][3](*_need_zero(args))[0])
             else:
                 entry["ms_empty_segments"] = _launch_ms(
                     KERNELS[kname][3](*_empty_segments(args))[0])
@@ -634,8 +648,9 @@ def split_phases(dev, res) -> None:
                 ref = KERNELS[kname][1](*args)
             fd = rt.fd_normal_evals(scene_t.static, st, ref[1]) \
                 if kname == "render_tile" else 0
-            launch, out, prof = rt.staged_split_launcher(kname, scene_t, st,
-                                                         rays, profile=True)
+            launch, out, prof = rt.staged_split_launcher(
+                kname, scene_t, st, rays, profile=True,
+                variant=PROFILE_VARIANT.get(kname, 0))
             launch()
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(flat(out),
@@ -648,9 +663,12 @@ def split_phases(dev, res) -> None:
                 raise AssertionError(
                     f"{case} call {k}: {evals} SDF evaluations profiled + "
                     f"{fd} FD, the plain version {c['evals']}")
-            if case.startswith("c4") and kname == "render_tile" and \
+            # on c4 AO evaluates the floor at every tap of every lane that
+            # takes AO: all of K1's, ao_fix's needing lanes
+            ao_lanes = entry.get("need_lanes", n)
+            if case.startswith("c4") and kname != "trace_rays" and \
                     st.ao and int(prof[:, aos, 2].sum()) != \
-                    n * 4 * st.ao_samples:
+                    ao_lanes * 4 * st.ao_samples:
                 raise AssertionError(f"{case} call {k}: AO evaluated "
                                      f"{int(prof[:, aos, 2].sum())} times, "
                                      "not lanes x taps")
@@ -663,11 +681,202 @@ def split_phases(dev, res) -> None:
                   flush=True)
     info = _build.build()
     for name, lines in _build.entries(info["log"]).items():
-        if "render_tile" in name or "trace_rays" in name:
+        if "render_tile" in name or "trace_rays" in name or \
+                "ao_fix" in name:
             entry = {"ptxas": lines,
                      "sass": _build.sass_counts(info["path"], name)}
             res[f"split entry {name}"] = entry
             print(f"split entry {name}", json.dumps(entry), flush=True)
+
+
+def _prime_args(dev):
+    """The priming kernel's call of a primed 1080p frame of c3 (`value`)."""
+    from surfjax_torch.tools.kernel_check import capture_calls
+    scene, camera, st, _ = load_config(C3)
+    camera = reframe(camera, 1920, 1080)
+    with capture_calls() as calls:
+        render(scene, camera, st.with_(backend="pallas", prime=True),
+               device=dev)
+    return calls[0][1]
+
+
+def prime_table(prof, n: int, static) -> dict:
+    """The priming kernel's profile (PRIME_PHASE_NAMES, then each warp's
+    clock64 and %globaltimer deltas) -> the phase table, the SM clock
+    (clock64 cycles over globaltimer ns, summed over the warps), the
+    distribution of cycles per warp (median, p99, max), the slowest warp's
+    cycles in ms at that clock and its own globaltimer ms, and the most
+    steps a warp took in each phase."""
+    from surfjax_torch.kernels.render_tile import (
+        PRIME_CLOCK, PRIME_PHASE_NAMES,
+    )
+    names = list(PRIME_PHASE_NAMES)
+    warp_cyc = prof[:, :PRIME_CLOCK, 0].sum(dim=1).double().cpu()
+    clk = prof[:, PRIME_CLOCK].double().cpu()
+    ghz = float(clk[:, 0].sum()) / float(clk[:, 1].sum())
+    q = torch.quantile(warp_cyc, torch.tensor([0.5, 0.99],
+                                              dtype=torch.float64))
+    slow = float(warp_cyc.max())
+    return {"phases": phase_table(prof, n, static, names),
+            "sm_clock_ghz": ghz,
+            "warp_cycles": {"median": float(q[0]), "p99": float(q[1]),
+                            "max": slow, "mean": float(warp_cyc.mean())},
+            "slowest_warp_ms": slow / ghz / 1e6,
+            "slowest_warp_globaltimer_ms": float(clk[:, 1].max()) / 1e6,
+            "max_warp_steps": {
+                ph: int(prof[:, names.index(ph), 1].max())
+                for ph in ("proxy steps", "sdf steps")},
+            "lane_steps_per_ray": {
+                ph: float(prof[:, names.index(ph), 2].sum()) / n
+                for ph in ("proxy steps", "sdf steps")}}
+
+
+def _warp_rays(args, w: int, ww: int):
+    """The priming call's arguments cut to the coarse rays of warp w: 32
+    consecutive rays (ww 0), or the ww x 32/ww tile that the warp takes,
+    kept as a tile (the grid's edge cuts it to what lies inside)."""
+    o = args[3][0]
+    n, wc = o.numel(), o.shape[-1]
+    if ww == 0:
+        idx = torch.arange(w * 32, min(w * 32 + 32, n), device=o.device)
+        shape = (idx.numel(),)
+    else:
+        item, q = divmod(w, 4)
+        gx = -(-wc // (4 * ww))
+        col0 = (item % gx) * 4 * ww + q * ww
+        row0 = (item // gx) * (32 // ww)
+        cols = torch.arange(col0, max(col0, min(col0 + ww, wc)),
+                            device=o.device)
+        rows = torch.arange(row0, max(row0, min(row0 + 32 // ww, n // wc)),
+                            device=o.device)
+        idx = (rows[:, None] * wc + cols[None, :]).reshape(-1)
+        shape = (rows.numel(), cols.numel())
+    return args[:3] + tuple(
+        tuple(c.reshape(-1)[idx].reshape(shape).contiguous() for c in a)
+        for a in args[3:5])
+
+
+def prime_phases(dev, res) -> None:
+    """Inside the priming kernel on a primed 1080p frame of c3 (`value`):
+    the kernel's time (launched back to back); the profiling
+    instantiation's outputs against the plain version's (bitwise), its SDF
+    evaluations against the plain version's count (count_ops), its phase
+    table, the SM clock it ran at and the cycles per warp (prime_table),
+    and the kernel on the slowest warp's 32 rays alone; ptxas' line of each priming entry, the resident blocks per SM and the
+    waves of the launch."""
+    from surfjax_torch.kernels import _build
+    from surfjax_torch.kernels import render_tile as rt
+    args = _prime_args(dev)
+    n = args[3][0].numel()
+    with rt.count_ops() as c:
+        ref = rt.prime_tile_reference(*args)
+    entry = {"coarse_rays": n, "plain_evals": c["evals"],
+             "plain_ops": c["ops"],
+             "ms": _launch_ms(rt.prime_launcher(*args)[0]), "profiles": {}}
+    for label, variant in PRIME_PROFILES:
+        launch, (out,), prof = rt.prime_launcher(*args, variant=variant,
+                                                 profile=True)
+        launch()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"prime {label}: the profile's t0 differs "
+                                 "from the plain version's")
+        names = list(rt.PRIME_PHASE_NAMES)
+        evals = int(prof[:, names.index("evals proxy"), 2].sum()
+                    + prof[:, names.index("evals sdf"), 2].sum())
+        if evals != c["evals"]:
+            raise AssertionError(f"prime {label}: {evals} SDF evaluations "
+                                 f"profiled, the plain version {c['evals']}")
+        entry["profiles"][label] = {"evals": evals,
+                                    "ms_profiled": _launch_ms(launch),
+                                    **prime_table(prof, n, args[0].static)}
+        # the slowest warp's rays alone, on an otherwise idle card
+        w = int(prof[:, :rt.PRIME_CLOCK, 0].sum(dim=1).argmax())
+        alone = _warp_rays(args, w, rt.PRIME_WARP_W.get(variant, 0))
+        entry["profiles"][label]["slowest_warp_alone_ms"] = _launch_ms(
+            rt.prime_launcher(*alone, variant=variant)[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = -(-n // rt.KS_THREADS)
+    smem = rt._scene_layout(rt._scene_tables(args[0], args[1], dev)[0],
+                            records=False).bytes
+    occ = {"today": rt.prime_occupancy(-1),
+           "production": rt.prime_occupancy(0),
+           "staged inline": rt.prime_occupancy(12, smem)}
+    entry["blocks"] = blocks
+    entry["blocks_per_sm"] = occ
+    entry["waves"] = {k: blocks / (sms * v) for k, v in occ.items()}
+    info = _build.build()
+    entry["ptxas"] = {name: lines for name, lines in
+                      _build.entries(info["log"]).items()
+                      if "prime" in name}
+    res["prime phases"] = entry
+    print("prime phases", json.dumps(entry), flush=True)
+
+
+# the stage's profiled instantiations of the priming kernel
+PRIME_PROFILES = (("today's schedule", 8), ("production", 0),
+                  ("staged inline", 12))
+AF_VARIANTS = ("production", "persistent", "staged persistent",
+               "today's schedule", "no warp skip", "no hoist", "by value",
+               "launch bounds 8", "launch bounds 6", "staged one block per row",
+               "persistent launch bounds 8")
+PV_VARIANTS = ("production", "by value", "lower per step", "staged",
+               "tape walker", "launch bounds 8", "persistent", "warps 8x4",
+               "today's schedule", "DE inline",
+               "staged, 8x4, DE inline", "DE and tape walker inline",
+               "staged, 8x4, DE and tape walker inline",
+               "inline, 8x4, not staged", "staged, inline, 32x1",
+               "staged, inline, 16x2", "staged, inline, 4x8",
+               "staged, inline, 8x4, by value",
+               "staged, inline, 8x4, objects decoded per lane",
+               "staged, inline, 4x8, objects decoded per lane")
+
+
+def split_variants(dev, res) -> None:
+    """Stage: every ao_fix variant on each ao_fix call of frame 0 of c4 at
+    1080p (`ao`), bitwise against the plain version, ms launched back to
+    back, with need as given and need 0."""
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools.kernel_check import flat
+    calls, _, _ = _c4_frame0_calls(dev)
+    for k, (kname, args) in enumerate(calls["ao"]):
+        if kname != "ao_fix":
+            continue
+        ref = rt.ao_fix_reference(*args)
+        out = {}
+        for v, name in enumerate(AF_VARIANTS):
+            for tag, a in (("", args), (" need 0", _need_zero(args))):
+                launch, got, _ = rt.staged_split_launcher(
+                    "ao_fix", *a[:2], a[2:], variant=v)
+                launch()
+                torch.cuda.synchronize()
+                want = ref if not tag else a[5]
+                if not torch.equal(flat(got)[0], want):
+                    raise AssertionError(f"ao_fix variant {name}{tag} "
+                                         "differs from the plain version")
+                out[name + tag] = _launch_ms(launch)
+        res[f"ao_fix variants c4 ao {k}"] = out
+        print(f"ao_fix variants c4 ao {k}", json.dumps(out), flush=True)
+
+
+def prime_variants(dev, res) -> None:
+    """Stage: every priming variant on the primed 1080p frame of c3,
+    bitwise against the plain version, ms launched back to back; today's
+    kernel beside them."""
+    from surfjax_torch.kernels import render_tile as rt
+    args = _prime_args(dev)
+    ref = rt.prime_tile_reference(*args)
+    out = {"today": _launch_ms(rt.prime_launcher(*args)[0])}
+    for v, name in enumerate(PV_VARIANTS):
+        launch, (got,), _ = rt.prime_launcher(*args, variant=v)
+        launch()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"prime variant {name} differs from the "
+                                 "plain version")
+        out[name] = _launch_ms(launch)
+    res["prime variants"] = out
+    print("prime variants", json.dumps(out), flush=True)
 
 
 SECTIONS = {
@@ -688,6 +897,9 @@ SECTIONS = {
     "split_fit": split_fit,
     "prime": prime,
     "split_phases": split_phases,
+    "prime_phases": prime_phases,
+    "split_variants": split_variants,
+    "prime_variants": prime_variants,
     "sass": sass,
 }
 

@@ -1,9 +1,10 @@
 """K1 and K2 for scenes without a crowd (surfjax_torch/kernels/csrc/
-split_staged.cu) built for the CPU behind the host stand-in of the CUDA
-runtime (tests/cuda_host.py), launched through the port's own launcher
-with the library and the stream swapped for the host's, and held bitwise
-against their plain versions, render_tile_reference and
-trace_rays_reference, on every K1 and K2 call of:
+split_staged.cu) and ao_fix (ao_fix_staged.cu) built for the CPU behind the
+host stand-in of the CUDA runtime (tests/cuda_host.py), launched through
+the port's own launcher with the library and the stream swapped for the
+host's, and held bitwise against their plain versions,
+render_tile_reference, trace_rays_reference and ao_fix_reference, on every
+K1 and K2 call of:
 
   * c4 at 64x48 (tile_rows 8) in the `config` and `ao` modes;
   * workload.mesh_soft_ao_scene and workload.two_mesh_scene;
@@ -12,11 +13,17 @@ trace_rays_reference, on every K1 and K2 call of:
   * a primed split frame (K1 with t0);
   * a scene with a directional light beside a point light with a radius,
     an unboundable SDF plane, an SDF sphere and blob and an analytic box;
-  * a ragged ray count, not a multiple of a block's 128 rays.
+  * a ragged ray count, not a multiple of a block's 128 rays;
 
-The profiling instantiation writes the same outputs; its SDF evaluations
-equal the plain version's (count_ops) less the FD normals', and on c4 its
-AO evaluations are lanes x taps exactly.
+and on every ao_fix call of c4 `ao` at 64x48 and workload.mesh_soft_ao_scene
+(also primed), c4's calls cut to a ragged count, and with need 0 and need 1
+on every lane (workload.two_mesh_scene has no object outside its meshes, so
+the split path makes no ao_fix call there, AO on or off).
+
+The profiling instantiations write the same outputs; their SDF
+evaluations equal the plain version's (count_ops) less the FD normals',
+and on c4 their AO evaluations are lanes x taps exactly (ao_fix: the
+needing lanes').
 """
 
 import contextlib
@@ -43,7 +50,8 @@ from tests import cuda_host  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFERENCE = {"render_tile": rt.render_tile_reference,
-             "trace_rays": rt.trace_rays_reference}
+             "trace_rays": rt.trace_rays_reference,
+             "ao_fix": rt.ao_fix_reference}
 
 
 def _config(name, size):
@@ -136,15 +144,23 @@ def calls():
         out[label] = [(k, a) for k, a in record(scene, cam, st)
                       if k in REFERENCE]
     out["ragged"] = [(k, _ragged(a, 300)) for k, a in out["c5 hard"]]
+    ao_fix = [(k, a) for k, a in out["c4 ao"] if k == "ao_fix"]
+    # 300 rays from the middle of the frame, where the mesh is
+    out["ragged ao"] = [(k, _ragged(a, 300, a[4].numel() // 2 - 150))
+                        for k, a in ao_fix]
+    for label, fill in (("need 0", 0.0), ("need 1", 1.0)):
+        out[label] = [(k, a[:4] + (torch.full_like(a[4], fill),) + a[5:])
+                      for k, a in ao_fix]
     return out
 
 
-def _ragged(args, n):
-    """A call's arguments with every ray array cut to its first n rays."""
+def _ragged(args, n, start=0):
+    """A call's arguments with every ray array cut to n rays from
+    `start`."""
     def cut(a):
         if isinstance(a, tuple):
             return tuple(cut(c) for c in a)
-        return a.reshape(-1)[:n].contiguous()
+        return a.reshape(-1)[start:start + n].contiguous()
     return args[:2] + tuple(cut(a) for a in args[2:])
 
 
@@ -160,13 +176,21 @@ def host_lib(tmp_path_factory):
     lib.sp_staged_trace_rays.argtypes = [rt.KFTables, rt.KFSettings,
                                          rt.KSLayout, rt.SplitRays, ptr, ptr,
                                          i32, ptr]
+    ao_lib = cuda_host.build("ao_fix_staged.cu",
+                             str(tmp_path_factory.mktemp("ao_fix_host")))
+    ao_lib.sp_staged_ao_fix.argtypes = [rt.KFTables, rt.KFSettings,
+                                        rt.KSLayout, rt.SplitRays, ptr, ptr,
+                                        i32, i32, ptr]
     k1, k2 = lib.sp_staged_render_tile, lib.sp_staged_trace_rays
+    af = ao_lib.sp_staged_ao_fix
     # the launcher passes its tensors' device index: None on the CPU
     return types.SimpleNamespace(
         sp_staged_render_tile=lambda T, S, R, prof, dev, st: k1(
             T, S, R, prof, 0, st),
         sp_staged_trace_rays=lambda T, S, L, R, prof, work, dev, st: k2(
-            T, S, L, R, prof, work, 0, st))
+            T, S, L, R, prof, work, 0, st),
+        sp_staged_ao_fix=lambda T, S, L, R, prof, work, v, dev, st: af(
+            T, S, L, R, prof, work, v, 0, st))
 
 
 @pytest.fixture
@@ -185,16 +209,20 @@ def _equal(got, ref):
 
 
 LABELS = list(CASES) + ["ragged"]
+AO_FIX_LABELS = ["c4 ao", "mesh_soft_ao", "primed", "ragged ao", "need 0",
+                 "need 1"]
+PAIRS = ([(entry, label) for entry in ("render_tile", "trace_rays")
+          for label in LABELS]
+         + [("ao_fix", label) for label in AO_FIX_LABELS])
 
 
-@pytest.mark.parametrize("label", LABELS)
-@pytest.mark.parametrize("entry", list(REFERENCE))
+@pytest.mark.parametrize("entry,label", PAIRS)
 def test_host_kernel_equals_plain(calls, on_host, label, entry):
-    """Every call of the case through the kernel, twice (K2's counters
-    reset themselves between launches), and through the wrapper's
-    launcher: bitwise the plain version's."""
+    """Every call of the case through the kernel, twice (the persistent
+    kernels' counters reset themselves between launches), and through the
+    wrapper's launcher: bitwise the plain version's."""
     mine = [args for name, args in calls[label] if name == entry]
-    if entry == "render_tile" or label != "two_meshes":
+    if entry != "trace_rays" or label != "two_meshes":
         assert mine, label
     for k, args in enumerate(mine):
         ref = REFERENCE[entry](*args)
@@ -212,11 +240,11 @@ def test_host_kernel_equals_plain(calls, on_host, label, entry):
 
 
 @pytest.mark.parametrize("label", ["c4 ao", "c5 hard", "c5 soft", "lights",
-                                   "ragged"])
+                                   "ragged", "mesh_soft_ao", "ragged ao"])
 def test_host_profile_equals_plain_and_counts(calls, on_host, label):
-    """The profiling instantiation's outputs and SDF evaluations against
-    the plain version's; on c4, AO evaluates the floor at every lane and
-    tap."""
+    """The profiling instantiations' outputs and SDF evaluations against
+    the plain version's; on c4, AO evaluates the floor at every tap of
+    every lane that takes AO (K1's every lane, ao_fix's needing lanes)."""
     aos = rt.KP_PHASE_NAMES.index("ao unbounded")
     for name, args in calls[label]:
         with rt.count_ops() as c:
@@ -233,6 +261,10 @@ def test_host_profile_equals_plain_and_counts(calls, on_host, label):
             if label == "c4 ao":
                 n = flat(args[2:])[0].numel()
                 assert int(prof[:, aos, 2].sum()) == n * 4 * st.ao_samples
+        if name == "ao_fix" and label in ("c4 ao", "ragged ao"):
+            n = int((args[4] > 0.5).sum())
+            assert n > 0
+            assert int(prof[:, aos, 2].sum()) == n * 4 * st.ao_samples
         assert evals == c["evals"], f"{label} {name}"
 
 
