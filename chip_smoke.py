@@ -165,9 +165,10 @@ CROWD_DRIFT_MAX = 1e-4
 KF_BEFORE = "3.338 ms/frame, 72 registers, 264/416 bytes of spills"
 # ptxas' report of the kernels that the staged kernels must leave as they
 # were: entry -> (stack and spills, registers), built with CUDA 12.8 for
-# sm_90a; the crowd instantiations and ao_fix as the parent of the staged
-# fused kernel (d7d452f) built them, the staged fused kernel as c31b803,
-# the parent of the staged K1 and K2 (split_staged.cu), built it
+# sm_90a; the crowd instantiations as the parent of the staged fused kernel
+# (d7d452f) built them, the staged fused kernel as c31b803, the parent of
+# the staged K1 and K2 (split_staged.cu), built it, the staged K1 and K2 as
+# 40326d7, the parent of the staged ao_fix and priming kernels, built them
 PTXAS_KEPT = {
     "_Z15kf_frame_kernelILb1EEv8KFTables10KFSettings": (
         "768 bytes stack frame, 176 bytes spill stores, 292 bytes spill loads",
@@ -181,9 +182,6 @@ PTXAS_KEPT = {
     "_Z16sp_ao_fix_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
         "592 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "Used 96 registers, used 0 barriers, 592 bytes cumulative stack size"),
-    "_Z16sp_ao_fix_kernelILb0EEv8KFTables10KFSettings9SplitRays": (
-        "464 bytes stack frame, 12 bytes spill stores, 0 bytes spill loads",
-        "Used 80 registers, used 0 barriers, 464 bytes cumulative stack size"),
     "_Z16kf_staged_kernelILb0EEv8KFTables10KFSettings8KSLayoutPyPi": (
         "528 bytes stack frame, 280 bytes spill stores, 532 bytes spill loads",
         "Used 64 registers, used 1 barriers, 528 bytes cumulative stack size"),
@@ -362,8 +360,8 @@ def main() -> int:
             raise AssertionError(f"ptxas' report of {name} changed: "
                                  f"{built.get(name)}, was {lines}")
     log(f"  ptxas' report of {len(PTXAS_KEPT)} entries (kf_frame_kernel"
-        "<true>, K1, K2 and ao_fix with a crowd, ao_fix without, the staged "
-        "fused kernel) unchanged")
+        "<true>, K1, K2 and ao_fix with a crowd, the staged fused kernel, "
+        "the staged K1 and K2) unchanged")
     c3_scene, _, c3_set, _ = load_config(os.path.join(ROOT,
                                                       "configs/c3_sdf.yaml"))
     static, params = c3_scene.freeze()
@@ -1242,24 +1240,24 @@ def main() -> int:
     prime_prof = {}
     prime_phases(dev, prime_prof)
     pp = prime_prof["prime phases"]
-    for label, prof_ in pp["profiles"].items():
-        groups = {g: [round(v["cycles_share"], 4),
-                      None if v["simt"] is None else round(v["simt"], 3),
-                      None if v["evals_per_hit"] is None
-                      else round(v["evals_per_hit"], 2)]
-                  for g, v in prof_["phases"]["groups"].items()}
-        log(f"  prime_tile {label}: {prof_['evals']} SDF evaluations "
-            f"profiled (the plain version {pp['plain_evals']}), "
-            f"{round(prof_['ms_profiled'], 4)} ms profiled; SM clock "
-            f"{prof_['sm_clock_ghz']:.4f} GHz; cycles per warp "
-            f"{json.dumps(prof_['warp_cycles'])}; the slowest warp "
-            f"{prof_['slowest_warp_ms']:.4f} ms; per phase group [cycle "
-            "share, SIMT efficiency, steps or evaluations per ray]: "
-            + json.dumps(groups))
-    log(f"  prime_tile {pp['ms']:.4f} ms, {pp['coarse_rays']} coarse rays "
-        f"in {pp['blocks']} blocks, {json.dumps(pp['blocks_per_sm'])} "
-        f"resident per SM, waves {json.dumps(pp['waves'])}; ptxas "
-        + json.dumps(pp["ptxas"]))
+    groups = {g: [round(v["cycles_share"], 4),
+                  None if v["simt"] is None else round(v["simt"], 3),
+                  None if v["evals_per_hit"] is None
+                  else round(v["evals_per_hit"], 2)]
+              for g, v in pp["phases"]["groups"].items()}
+    log(f"  prime_tile {pp['ms']:.4f} ms ({pp['ms_profiled']:.4f} profiled), "
+        f"{pp['evals']} SDF evaluations profiled (the plain version "
+        f"{pp['plain_evals']}); SM clock {pp['sm_clock_ghz']:.4f} GHz; "
+        f"cycles per warp {json.dumps(pp['warp_cycles'])}; the slowest warp "
+        f"{pp['slowest_warp_ms']:.4f} ms, its rays alone "
+        f"{pp['slowest_warp_alone_ms']:.4f} ms; most steps in a warp "
+        f"{json.dumps(pp['max_warp_steps'])}; per phase group [cycle share, "
+        "SIMT efficiency, steps or evaluations per ray]: "
+        + json.dumps(groups))
+    log(f"  prime_tile: {pp['coarse_rays']} coarse rays in {pp['blocks']} "
+        f"blocks, {pp['bytes']} bytes of shared memory and "
+        f"{pp['blocks_per_sm']} blocks resident per SM, {pp['waves']:.3f} "
+        f"waves; ptxas {json.dumps(pp['ptxas'])}")
     log(f"phase 18: the priming kernel's phase profile on primed c3 at "
         f"1920x1080 ({time.perf_counter() - t18:.1f} s) on {smi}")
 

@@ -219,28 +219,21 @@ def load() -> ctypes.CDLL:
         getattr(lib, name).argtypes = [KFTables, KFSettings, SplitRays,
                                        ctypes.c_int, ctypes.c_void_p]
     # tables, settings, (K2: layout,) rays, profile counters or null, (K2:
-    # the two work counters,) device, stream
-    lib.sp_staged_render_tile.argtypes = [KFTables, KFSettings, SplitRays,
-                                          ctypes.c_void_p, ctypes.c_int,
-                                          ctypes.c_void_p]
+    # the two work counters,) device, stream; ao_fix as K1
+    for name in ("sp_staged_render_tile", "sp_staged_ao_fix"):
+        getattr(lib, name).argtypes = [KFTables, KFSettings, SplitRays,
+                                       ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_void_p]
     lib.sp_staged_trace_rays.argtypes = [KFTables, KFSettings, KSLayout,
                                          SplitRays, ctypes.c_void_p,
                                          ctypes.c_void_p, ctypes.c_int,
                                          ctypes.c_void_p]
-    lib.pt_prime_tile.argtypes = [KFTables, KFSettings, PrimeArgs,
-                                  ctypes.c_int, ctypes.c_void_p]
-    # tables, settings, layout, rays, profile counters or null, the two
-    # work counters, variant, device, stream
-    lib.sp_staged_ao_fix.argtypes = [KFTables, KFSettings, KSLayout,
-                                     SplitRays, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
-    lib.pt_prime_variant.argtypes = [KFTables, KFSettings, KSLayout,
-                                     PrimeArgs, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
-    lib.pt_occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
-                                 ctypes.POINTER(ctypes.c_int)]
+    # tables, settings, layout, coarse rays, profile counters or null,
+    # device, stream
+    lib.pt_prime_tile.argtypes = [KFTables, KFSettings, KSLayout, PrimeArgs,
+                                  ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p]
+    lib.pt_occupancy.argtypes = [KSLayout, ctypes.POINTER(ctypes.c_int)]
     lib.mt_mesh_tile.argtypes = [MeshTileArgs, ctypes.c_int,
                                  ctypes.c_void_p]
     lib.mt_mesh_tile_profile.argtypes = [MeshTileArgs, MeshTileProf,
@@ -257,7 +250,7 @@ def load() -> ctypes.CDLL:
                  "ks_occupancy", "sp_render_tile", "sp_trace_rays",
                  "sp_ao_fix", "sp_staged_render_tile",
                  "sp_staged_trace_rays", "sp_staged_ao_fix",
-                 "pt_prime_tile", "pt_prime_variant", "pt_occupancy",
+                 "pt_prime_tile", "pt_occupancy",
                  "mt_mesh_tile",
                  "mt_mesh_tile_profile", "fp_fma_dep",
                  *mixes):

@@ -6,61 +6,46 @@
 // sp_ao_fix_kernel<false> did before it: AO again at the pre-offset
 // receivers p_off (in[0..2]) with the normals n (in[3..5]) on the lanes a
 // mesh won (need = in[6] > 0.5), ao_in (in[7]) elsewhere; the arithmetic
-// of render_tile.ao_fix_reference, bit for bit (ao_receiver is
+// of render_tile.ao_fix_reference, bit for bit (ao_receiver runs
 // ao_core<false>'s order).
 //
-// Stage build: the production and the variants it is measured against
-// (AF_*), chosen by `variant` at launch.
+// What bounds it: on c4 `ao` a third of the lanes need AO, 20 evaluations
+// of the floor each; the other lanes load 8 bytes and write 4. What held
+// the kernel it replaces back (PERF.md, PR 9): the by-value parameters
+// copied into every thread's stack frame (with need 0 on every lane it took
+// 0.155 ms, 20x its bytes), and the floor decoded anew at every tap
+// through the tape walker. The design, K1's (split_staged.cu) on the lanes
+// that need AO:
+//   * __grid_constant__ parameters, which the cores read in place;
+//   * SplitScene<false> with AO's floor decoded once per lane (hoist) and
+//     single-leaf evaluation; tables read through the parameters, every
+//     bound computed where it is used; one block per 128 rays, no shared
+//     memory, no barrier;
+//   * a warp none of whose lanes needs AO skips it;
+//   * __launch_bounds__(128, 8): 64 registers, 8 blocks per SM. The taps
+//     are a chain of dependent operations, and more warps per SM hide it
+//     (90 registers and 5 blocks per SM without the bound: 24% slower).
+// Measured and left out (PERF.md): persistent blocks, the scene staged in
+// shared memory (one block per row or persistent), the bound (128, 6).
+//
+// PROF (a template parameter: the production code has no probes) makes
+// each warp add, per phase, lane 0's clock64 deltas, the loop trips it
+// issued and __popc(__activemask()) per trip (the lanes that evaluate an
+// SDF) into its record of a scratch buffer (KP_PHASES x 3 counters, the
+// phase names of kf_staged.cuh).
 //
 // C interface (bound with ctypes, no PyTorch headers):
-//   int sp_staged_ao_fix(KFTables, KFSettings, KSLayout, SplitRays,
-//                        unsigned long long* prof, int* work, int variant,
-//                        int device, void* stream)
-// prof: null, or the profile's counters, zeroed by the caller: rows x 4 x
-// KP_PHASES x 3; work: two ints the caller zeroed once (the row counter
-// and the blocks done), which the last block of a persistent launch
-// resets.
+//   int sp_staged_ao_fix(KFTables, KFSettings, SplitRays,
+//                        unsigned long long* prof, int device, void* stream)
+// -> cudaError_t of the launch (a scene with a crowd is refused); prof:
+// null, or the profile's counters, zeroed by the caller: rows x 4 x
+// KP_PHASES x 3.
 
 #include "split_scene.cuh"
 
-enum { AF_PROD = 0,     // __grid_constant__, SplitScene<false> + hoist,
-                        // one block per row, warps without a needing lane
-                        // skip AO
-       AF_PERSIST,      // the same in persistent blocks
-       AF_STAGED,       // staged scene, persistent (K2's schedule)
-       AF_TODAY,        // by value, tables global, tape walker, no hoist
-       AF_NOSKIP,       // every warp runs AO's loop
-       AF_NOHOIST,      // without the hoist
-       AF_BYVALUE,      // the production's body, parameters by value
-       AF_LB8,          // the production, __launch_bounds__(128, 8)
-       AF_LB6,          // the production, __launch_bounds__(128, 6)
-       AF_STAGED_NP,    // staged, one block per row, (128, 8)
-       AF_PERSIST8,     // persistent, not staged, (128, 8)
-       AF_VARIANTS };
-
-// The block of today's schedule: tables in global memory, every bound
-// computed where it is used, every SDF through the tape walker.
-struct GlobalScene {
-  KFTables T;
-  const KFTables& Tm;
-  __device__ __forceinline__ Bound lower(int oi) const {
-    return object_bound(Tm, object_row(T, oi), 1, 0.0f);
-  }
-  __device__ __forceinline__ float eval(const KFSettings& S, const int* ob,
-                                        V3 p, int cap) const {
-    return eval_obj(Tm, S, ob, p, cap);
-  }
-  template <bool PROF>
-  __device__ __forceinline__ bool unbounded_min(const KFSettings& S, V3 q,
-                                                float& hmin,
-                                                Prof<PROF>& P) const {
-    return unbounded_loop(*this, S, q, hmin, P);
-  }
-};
-
 // ao_fix on ray i (act false: a lane past the last ray, which takes part
 // in the warp's probes only).
-template <bool PROF, bool SKIP, class Blk>
+template <bool PROF, class Blk>
 __device__ __forceinline__ void ao_fix_ray(const Blk& B, const KFSettings& S,
                                            const SplitRays& R, int i,
                                            bool act, Prof<PROF>& P) {
@@ -76,7 +61,7 @@ __device__ __forceinline__ void ao_fix_ray(const Blk& B, const KFSettings& S,
     }
   }
   P.mark(PH_RAY);
-  if (!SKIP || __any_sync(KF_FULL, need)) {
+  if (__any_sync(KF_FULL, need)) {
     const float a = ao_receiver(B, S, need, q0, n, P);
     if (need) ao = a;
   }
@@ -85,199 +70,33 @@ __device__ __forceinline__ void ao_fix_ray(const Blk& B, const KFSettings& S,
   P.mark(PH_WRITE);
 }
 
-// Persistent: rows from `work` until none is left; the last block to
-// finish resets the counters.
-template <bool PROF, bool SKIP, class Blk>
-__device__ __forceinline__ void ao_fix_rows(const Blk& B, const KFSettings& S,
-                                            const SplitRays& R,
-                                            unsigned long long* prof,
-                                            int* work, Prof<PROF>& P) {
-  __shared__ int item_slot;
-  const int tid = threadIdx.x;
-  const int n_items = (R.n + KS_THREADS - 1) / KS_THREADS;
-  for (;;) {
-    if (tid == 0) item_slot = atomicAdd(work, 1);
-    __syncthreads();
-    const int item = item_slot;
-    __syncthreads();
-    if (item >= n_items) break;
-    P.begin(prof, item);
-    const int i = item * KS_THREADS + tid;
-    ao_fix_ray<PROF, SKIP>(B, S, R, i, i < R.n, P);
-  }
-  if (tid == 0) {
-    __threadfence();
-    if (atomicAdd(work + 1, 1) == (int)gridDim.x - 1) {
-      work[0] = 0;
-      work[1] = 0;
-    }
-  }
-}
-
-template <bool PROF, int V>
-__device__ __forceinline__ void ao_fix_block(const KFTables& G,
-                                             const KFSettings& S,
-                                             const KSLayout& L,
-                                             const SplitRays& R,
-                                             unsigned long long* prof,
-                                             int* work) {
-  constexpr bool SKIP = V != AF_NOSKIP;
-  const int tid = threadIdx.x;
+template <bool PROF>
+__global__ void __launch_bounds__(KS_THREADS, 8)
+sp_staged_ao_fix_kernel(const __grid_constant__ KFTables G,
+                        const __grid_constant__ KFSettings S,
+                        const __grid_constant__ SplitRays R,
+                        unsigned long long* prof) {
+  SplitScene<false> B{G, G, nullptr, S.exit_margin};
+  B.hoist(S);
   Prof<PROF> P;
-  if constexpr (V == AF_TODAY) {
-    const GlobalScene B{G, G};
-    P.begin(prof, blockIdx.x);
-    const int i = blockIdx.x * KS_THREADS + tid;
-    ao_fix_ray<PROF, SKIP>(B, S, R, i, i < R.n, P);
-  } else if constexpr (V == AF_STAGED_NP) {
-    unsigned char* sm = ks_smem;
-    __shared__ KFTables staged;
-    const KFTables T = stage_scene(G, S, L, sm);
-    if (tid == 0) staged = T;
-    __syncthreads();
-    SplitScene<true> B{T, staged, (const float*)(sm + L.bounds),
-                       S.exit_margin};
-    B.hoist(S);
-    P.begin(prof, blockIdx.x);
-    const int i = blockIdx.x * KS_THREADS + tid;
-    ao_fix_ray<PROF, SKIP>(B, S, R, i, i < R.n, P);
-  } else if constexpr (V == AF_STAGED) {
-    unsigned char* sm = ks_smem;
-    __shared__ KFTables staged;
-    const KFTables T = stage_scene(G, S, L, sm);
-    if (tid == 0) staged = T;
-    __syncthreads();
-    SplitScene<true> B{T, staged, (const float*)(sm + L.bounds),
-                       S.exit_margin};
-    B.hoist(S);
-    ao_fix_rows<PROF, SKIP>(B, S, R, prof, work, P);
-  } else if constexpr (V == AF_PERSIST || V == AF_PERSIST8) {
-    SplitScene<false> B{G, G, nullptr, S.exit_margin};
-    B.hoist(S);
-    ao_fix_rows<PROF, SKIP>(B, S, R, prof, work, P);
-  } else {
-    SplitScene<false> B{G, G, nullptr, S.exit_margin};
-    if constexpr (V == AF_NOHOIST) {
-      B.one_leaf = 0;
-    } else {
-      B.hoist(S);
-    }
-    P.begin(prof, blockIdx.x);
-    const int i = blockIdx.x * KS_THREADS + tid;
-    ao_fix_ray<PROF, SKIP>(B, S, R, i, i < R.n, P);
-  }
+  P.begin(prof, blockIdx.x);
+  const int i = blockIdx.x * KS_THREADS + threadIdx.x;
+  ao_fix_ray(B, S, R, i, i < R.n, P);
 }
 
-template <bool PROF, int V>
-__global__ void __launch_bounds__(
-    KS_THREADS, (V == AF_STAGED || V == AF_LB8 || V == AF_STAGED_NP ||
-                 V == AF_PERSIST8) ? 8 : (V == AF_LB6 ? 6 : 1))
-sp_ao_fix_gc(const __grid_constant__ KFTables G,
-             const __grid_constant__ KFSettings S,
-             const __grid_constant__ KSLayout L,
-             const __grid_constant__ SplitRays R, unsigned long long* prof,
-             int* work) {
-  ao_fix_block<PROF, V>(G, S, L, R, prof, work);
-}
-
-template <bool PROF, int V>
-__global__ void __launch_bounds__(KS_THREADS)
-sp_ao_fix_bv(const KFTables G, const KFSettings S, const KSLayout L,
-             const SplitRays R, unsigned long long* prof, int* work) {
-  ao_fix_block<PROF, V == AF_BYVALUE ? AF_PROD : V>(G, S, L, R, prof, work);
-}
-
-template <bool PROF, int V>
-static int ao_fix_launch(const KFTables& T, const KFSettings& S,
-                         const KSLayout& L, const SplitRays& R,
-                         unsigned long long* prof, int* work,
-                         cudaStream_t stream) {
-  const long long rows = (R.n + KS_THREADS - 1) / KS_THREADS;
-  if constexpr (V == AF_TODAY || V == AF_BYVALUE) {
-    sp_ao_fix_bv<PROF, V><<<(unsigned)rows, KS_THREADS, 0, stream>>>(
-        T, S, L, R, prof, work);
-  } else if constexpr (V == AF_STAGED_NP) {
-    int smem = L.bytes;
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          sp_ao_fix_gc<PROF, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    sp_ao_fix_gc<PROF, V><<<(unsigned)rows, KS_THREADS, smem, stream>>>(
-        T, S, L, R, prof, work);
-  } else if constexpr (V == AF_STAGED || V == AF_PERSIST ||
-                       V == AF_PERSIST8) {
-    if (!work) return (int)cudaErrorInvalidValue;
-    const int smem = V == AF_STAGED ? L.bytes : 0;
-    cudaError_t err = cudaSuccess;
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(sp_ao_fix_gc<PROF, V>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    int device = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, sp_ao_fix_gc<PROF, V>, KS_THREADS, smem);
-    if (err != cudaSuccess) return (int)err;
-    const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    const unsigned grid = (unsigned)(rows < resident ? rows : resident);
-    sp_ao_fix_gc<PROF, V><<<grid, KS_THREADS, smem, stream>>>(
-        T, S, L, R, prof, work);
-  } else {
-    sp_ao_fix_gc<PROF, V><<<(unsigned)rows, KS_THREADS, 0, stream>>>(
-        T, S, L, R, prof, work);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <int V>
-static int ao_fix_variant(const KFTables& T, const KFSettings& S,
-                          const KSLayout& L, const SplitRays& R,
-                          unsigned long long* prof, int* work,
-                          cudaStream_t st) {
-  if constexpr (V == AF_PROD || V == AF_TODAY || V == AF_LB8) {
-    if (prof) return ao_fix_launch<true, V>(T, S, L, R, prof, work, st);
-  } else {
-    if (prof) return (int)cudaErrorInvalidValue;
-  }
-  return ao_fix_launch<false, V>(T, S, L, R, nullptr, work, st);
-}
-
-extern "C" int sp_staged_ao_fix(KFTables T, KFSettings S, KSLayout L,
-                                SplitRays R, unsigned long long* prof,
-                                int* work, int variant, int device,
+extern "C" int sp_staged_ao_fix(KFTables T, KFSettings S, SplitRays R,
+                                unsigned long long* prof, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (S.n_crowd > 0) return (int)cudaErrorInvalidValue;
   if (R.n <= 0) return 0;
+  const unsigned grid = (R.n + KS_THREADS - 1) / KS_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (variant) {
-    case AF_PROD: return ao_fix_variant<AF_PROD>(T, S, L, R, prof, work, st);
-    case AF_PERSIST:
-      return ao_fix_variant<AF_PERSIST>(T, S, L, R, prof, work, st);
-    case AF_STAGED:
-      return ao_fix_variant<AF_STAGED>(T, S, L, R, prof, work, st);
-    case AF_TODAY: return ao_fix_variant<AF_TODAY>(T, S, L, R, prof, work, st);
-    case AF_NOSKIP:
-      return ao_fix_variant<AF_NOSKIP>(T, S, L, R, prof, work, st);
-    case AF_NOHOIST:
-      return ao_fix_variant<AF_NOHOIST>(T, S, L, R, prof, work, st);
-    case AF_BYVALUE:
-      return ao_fix_variant<AF_BYVALUE>(T, S, L, R, prof, work, st);
-    case AF_LB8: return ao_fix_variant<AF_LB8>(T, S, L, R, prof, work, st);
-    case AF_LB6: return ao_fix_variant<AF_LB6>(T, S, L, R, prof, work, st);
-    case AF_STAGED_NP:
-      return ao_fix_variant<AF_STAGED_NP>(T, S, L, R, prof, work, st);
-    case AF_PERSIST8:
-      return ao_fix_variant<AF_PERSIST8>(T, S, L, R, prof, work, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (prof)
+    sp_staged_ao_fix_kernel<true><<<grid, KS_THREADS, 0, st>>>(T, S, R, prof);
+  else
+    sp_staged_ao_fix_kernel<false><<<grid, KS_THREADS, 0, st>>>(T, S, R,
+                                                                nullptr);
+  return (int)cudaGetLastError();
 }

@@ -10,23 +10,43 @@
 // spheres) and hands a ray over once the proxy is within 0.08 of a surface
 // or the cone is blocked; the second goes on from the same t with the true
 // scene SDF. A step is s = (h - k*t)/(1 + k), which keeps the whole cone
-// clear along [t, t + s]; a ray stops for good when s <= 1e-3*t.
+// clear along [t, t + s]; a ray stops for good when s <= 1e-3*t. The
+// arithmetic is that of render_tile.prime_tile_reference, op for op
+// (-fmad=false), so t0 equals it bit for bit.
 //
-// What bounds it on this card: FP32 ALU work of the phase-2 DE evaluations
-// near the fractal (a ray far from everything leaves in a few proxy steps),
-// and launch latency: at 1920x1080 there are only 270x480 coarse rays,
-// 28 bytes each.
+// What bounds it on this card: the slowest warp. At 1920x1080 the launch
+// is one wave, and its time is that warp's chain of steps one after
+// another (on c3 up to 158 steps, each a DE of the Mandelbulb and the
+// blob's tape), not the total work (PERF.md, PR 9: the slowest warp's rays
+// alone on the card take 92% of the kernel's time). The design shortens
+// that chain:
+//   * the scene staged per block in shared memory (stage_scene, as K2
+//     does): the tables and every object's lower sphere, so no step calls
+//     object_bound and the tape's reads are shared-memory loads;
+//   * the SDF inline: a one-leaf object as its leaf, the others through a
+//     copy of the tape walker, the Mandelbulb through a copy of bulb_de's
+//     body (the same operations), so the blob's tape and the bulb's orbit
+//     overlap instead of running as two out-of-line calls;
+//   * __grid_constant__ parameters;
+//   * warps of 4x8 coarse rays (blocks of 16x8), whose rays march alike,
+//     one thread per coarse ray, one block per item: at 54 registers the
+//     card holds 9 blocks per SM, so 1080p's 1,020 blocks run as one wave.
+// Measured and left out (PERF.md): persistent blocks, the bound (128, 8),
+// the lower spheres cached per lane instead of staged, 32x1, 8x4 and 16x2
+// warps, the objects decoded once per lane.
 //
-// What the design does about it: one thread per coarse ray over flat
-// arrays, 128-thread blocks; a ray that is done stops, so there is no
-// parking of done lanes and no tile-level loop gate as on the TPU (both
-// are value-exact per lane). The scene is read through the tables of
-// frame_fused.cuh and the SDF through its tape walker, so the arithmetic
-// is that of render_tile.prime_tile_reference, op for op (-fmad=false).
+// PROF (a template parameter: the production code has no probes) makes
+// each warp add, per phase, lane 0's clock64 deltas, the loop trips it
+// issued and __popc(__activemask()) per trip into its record of a scratch
+// buffer (KP_PHASES x 3 counters; phases PT_*), and write its clock64 and
+// %globaltimer deltas from its first probe to its last (PT_CLOCK).
 //
 // C interface (bound with ctypes, no PyTorch headers):
-//   int pt_prime_tile(KFTables, KFSettings, PrimeArgs, int device, void*)
-//     -> cudaError_t of the launch
+//   int pt_prime_tile(KFTables, KFSettings, KSLayout, PrimeArgs,
+//                     unsigned long long* prof, int device, void* stream)
+//     -> cudaError_t of the launch; prof: null, or the profile's counters,
+//        zeroed by the caller: blocks x 4 x KP_PHASES x 3
+//   int pt_occupancy(KSLayout, int* blocks_per_sm) -> cudaError_t
 
 #include "split_scene.cuh"
 
@@ -41,108 +61,14 @@ struct PrimeArgs {
   int wc;               // coarse rays per row (n is a multiple of it)
 };
 
-#define PT_BLOCK 128
-
-// min over the SDF objects of the object's SDF, or with `proxy` of its
-// lower-bound sphere where the object has one (O_PROXY_BOUND).
-__device__ __forceinline__ float prime_scene(const KFTables& T,
-                                             const KFSettings& S, V3 p,
-                                             bool proxy) {
-  float v = 0.0f;
-  for (int k = 0; k < S.n_sdf; ++k) {
-    const int* ob = object_row(T, T.order[S.n_ana + k]);
-    float h;
-    if (proxy && ob[O_PROXY_BOUND]) {
-      Bound b = object_bound(T, ob, 1, 0.0f);
-      float dx = p.x - b.cx, dy = p.y - b.cy, dz = p.z - b.cz;
-      h = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
-    } else {
-      h = eval_obj(T, S, ob, p, 0);
-    }
-    v = k == 0 ? h : fminf(v, h);
-  }
-  return v;
-}
-
-// One phase of the cone march from t; returns the last proven t.
-__device__ __forceinline__ float prime_phase(const KFTables& T,
-                                             const KFSettings& S,
-                                             const PrimeArgs& A, V3 o, V3 d,
-                                             float t, bool proxy) {
-  bool done = t >= S.t_max;
-  for (int i = 0; i < S.max_steps && !done; ++i) {
-    float h = prime_scene(T, S, along(o, d, t), proxy);
-    float s_all = (h - A.k_m * t) * A.inv1k;
-    if ((s_all <= t * F(1e-3)) || (proxy && h < F(0.08))) break;
-    t = fminf(t + s_all, S.t_max);
-    done = t >= S.t_max;
-  }
-  return t;
-}
-
-__global__ void __launch_bounds__(PT_BLOCK)
-pt_prime_tile_kernel(const KFTables T, const KFSettings S,
-                     const PrimeArgs A) {
-  const int i = blockIdx.x * PT_BLOCK + threadIdx.x;
-  if (i >= A.n) return;
-  const V3 o{A.in[0][i], A.in[1][i], A.in[2][i]};
-  const V3 d{A.in[3][i], A.in[4][i], A.in[5][i]};
-  float t = S.t_min;
-  if (A.has_proxy) t = prime_phase(T, S, A, o, d, t, true);
-  A.out[i] = prime_phase(T, S, A, o, d, t, false);
-}
-
-// ---------------------------------------------------------------------------
-// Stage build: the priming march on the stages (prime_lane, a template on
-// the block) and the variants it is measured against (PV_*), chosen by
-// `variant` at launch
-// ---------------------------------------------------------------------------
-
-enum { PV_PROD = 0,     // __grid_constant__, SplitScene<false>, the lower
-                        // spheres once per lane, single-leaf evaluation,
-                        // 32x1 warps, one block per 128 rays
-       PV_BYVALUE,      // parameters by value
-       PV_PERSTEP,      // each lower sphere by object_bound at every step
-       PV_STAGED,       // the scene staged per block (SplitScene<true>)
-       PV_TAPE,         // every SDF through the tape walker
-       PV_LB8,          // __launch_bounds__(128, 8)
-       PV_PERSIST,      // persistent blocks taking 128-ray items
-       PV_W84,          // warps of 8x4 coarse rays
-       PV_TODAY,        // by value, object_bound per step, tape walker
-       PV_INLINE,       // the production with the bulb's DE inline
-       PV_COMBO,        // staged, 8x4 warps, the DE inline
-       PV_ILP,          // the production, the DE and the tape walker inline
-       PV_COMBO_ILP,    // staged, 8x4 warps, DE and tape walker inline
-       PV_C_NOSTAGE,    // PV_COMBO_ILP not staged (lower spheres cached)
-       PV_C_ROWS,       // PV_COMBO_ILP in 32x1 warps
-       PV_C_W162,       // PV_COMBO_ILP in 16x2 warps
-       PV_C_W48,        // PV_COMBO_ILP in 4x8 warps
-       PV_C_BV,         // PV_COMBO_ILP by value
-       PV_C_DEC,        // PV_COMBO_ILP, the first objects decoded per lane
-       PV_C_DEC48,      // PV_C_DEC in 4x8 warps
-       PV_VARIANTS };
-
-// A variant's warp width in coarse rays (0: 32 consecutive rays)
-template <int V>
-__host__ __device__ constexpr int pv_warp_w() {
-  return (V == PV_W84 || V == PV_COMBO || V == PV_COMBO_ILP ||
-          V == PV_C_NOSTAGE || V == PV_C_BV || V == PV_C_DEC) ? 8
-       : V == PV_C_W162 ? 16 : (V == PV_C_W48 || V == PV_C_DEC48) ? 4 : 0;
-}
-template <int V>
-__host__ __device__ constexpr bool pv_staged() {
-  return V == PV_STAGED || V == PV_COMBO || V == PV_COMBO_ILP ||
-         V == PV_C_ROWS || V == PV_C_W162 || V == PV_C_W48 || V == PV_C_BV ||
-         V == PV_C_DEC || V == PV_C_DEC48;
-}
+#define PT_BLOCK KS_THREADS
+#define PT_WARP_W 4   // a warp's coarse rays per row: warps of 4x8
 
 // Profile slots (render_tile.PRIME_PHASE_NAMES), in Prof's record: cycles
 // per phase; trips: the steps (PT_PROXY, PT_SDF) and the SDF evaluations
-// (PT_*_EVAL); PT_CLOCK holds the warp's clock64 and %globaltimer deltas
-// from its first to its last probe.
+// (PT_*_EVAL); PT_CLOCK holds the warp's clock64 and %globaltimer deltas.
 enum { PT_LOAD = 0, PT_PROXY, PT_PROXY_EVAL, PT_SDF, PT_SDF_EVAL, PT_WRITE,
        PT_CLOCK };
-#define PT_LB 4   // lower spheres kept per lane, in registers
 
 __device__ __forceinline__ unsigned long long pt_globaltimer() {
 #ifdef __CUDA_ARCH__
@@ -153,20 +79,6 @@ __device__ __forceinline__ unsigned long long pt_globaltimer() {
   return 0ull;
 #endif
 }
-
-// The block of today's schedule (GlobalScene) and the production's block
-// with the tape walker (TapeScene).
-struct PrimeGlobal {
-  KFTables T;
-  const KFTables& Tm;
-  __device__ __forceinline__ Bound lower(int oi) const {
-    return object_bound(Tm, object_row(T, oi), 1, 0.0f);
-  }
-  __device__ __forceinline__ float eval(const KFSettings& S, const int* ob,
-                                        V3 p, int cap) const {
-    return eval_obj(Tm, S, ob, p, cap);
-  }
-};
 
 // bulb_de's body inline (frame_fused.cuh): the same operations
 __device__ __forceinline__ float bulb_de_inline(const float* prm, V3 p,
@@ -250,13 +162,11 @@ __device__ __forceinline__ float eval_obj_inline(const KFTables& T,
   return vals[nn - 1];
 }
 
-// SplitScene whose one-leaf Mandelbulb evaluates bulb_de inline; TAPE: and
-// every other object through the tape walker inline
-template <bool STAGE, bool TAPE>
-struct PrimeInline : SplitScene<STAGE> {
+// The staged block whose SDF evaluates inline: a one-node tape as its leaf
+// (vals[0] is that leaf's value), any other through the tape walker's copy.
+struct PrimeScene : SplitScene<true> {
   __device__ __forceinline__ float eval(const KFSettings& S, const int* ob,
                                         V3 p, int cap) const {
-    const KFTables& T = this->T;
     if (ob[O_NNODES] == 1) {
       const int* lf = T.leaves +
           (ob[O_LEAF0] + T.nodes[ob[O_NODE0] * KF_NODE_W + 3]) * KF_LEAF_W;
@@ -264,115 +174,46 @@ struct PrimeInline : SplitScene<STAGE> {
                               T.leaf_params + lf[1] * KF_LEAF_PARAM_W, p,
                               lf[4], cap);
     }
-    if constexpr (TAPE) return eval_obj_inline(T, S, ob, p, cap);
-    return SplitScene<STAGE>::eval(S, ob, p, cap);
+    return eval_obj_inline(T, S, ob, p, cap);
   }
 };
 
-// SDF object k (of the n_sdf, in order) at p: its lower sphere b under the
-// proxy where it has one, else its SDF.
+// The proxy scene (proxy) or the scene SDF at p: the min over the SDF
+// objects in order, each its SDF, or under the proxy its lower sphere where
+// it has one (O_PROXY_BOUND). Each SDF evaluation is a trip of phase ph.
 template <bool PROF, class Blk>
-__device__ __forceinline__ float prime_obj(const Blk& B, const KFSettings& S,
-                                           const int* ob, Bound b, V3 p,
-                                           bool proxy, Prof<PROF>& P,
-                                           int ph) {
-  if (proxy && ob[O_PROXY_BOUND]) {
-    float dx = p.x - b.cx, dy = p.y - b.cy, dz = p.z - b.cz;
-    return sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
-  }
-  P.trip(ph);
-  return B.eval(S, ob, p, 0);
-}
-
-// An SDF object decoded once per lane: its row, and for a one-leaf tape
-// the leaf's kind (-1 otherwise), parameters and p1; whether the proxy
-// takes its lower sphere.
-struct PrimeDec {
-  const int* ob;
-  const float* prm;
-  int kind, p1;
-  bool proxied;
-};
-
-template <class Blk>
-__device__ __forceinline__ PrimeDec prime_dec(const Blk& B, int oi) {
-  const int* ob = object_row(B.T, oi);
-  PrimeDec e{ob, nullptr, -1, 0, ob[O_PROXY_BOUND] != 0};
-  if (ob[O_NNODES] == 1) {
-    const int* lf = B.T.leaves +
-        (ob[O_LEAF0] + B.T.nodes[ob[O_NODE0] * KF_NODE_W + 3]) * KF_LEAF_W;
-    e.kind = lf[0];
-    e.p1 = lf[4];
-    e.prm = B.T.leaf_params + lf[1] * KF_LEAF_PARAM_W;
-  }
-  return e;
-}
-
-// prime_scene on the block: CACHE, the first PT_LB lower spheres from lb
-// (registers), else each by B.lower where it is used; DEC, the first PT_LB
-// objects from dec.
-template <bool PROF, bool CACHE, bool DEC = false, class Blk>
 __device__ __forceinline__ float prime_sdf(const Blk& B, const KFSettings& S,
-                                           const Bound* lb,
-                                           const PrimeDec* dec, V3 p,
-                                           bool proxy, Prof<PROF>& P,
+                                           V3 p, bool proxy, Prof<PROF>& P,
                                            int ph) {
   const int* order = B.T.order + S.n_ana;
   float v = 0.0f;
-  int k0 = 0;
-  if constexpr (DEC) {
-#pragma unroll
-    for (int k = 0; k < PT_LB; ++k) {
-      if (k < S.n_sdf) {
-        float h;
-        if (proxy && dec[k].proxied) {
-          const Bound b = lb[k];
-          float dx = p.x - b.cx, dy = p.y - b.cy, dz = p.z - b.cz;
-          h = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
-        } else {
-          P.trip(ph);
-          h = dec[k].kind >= 0
-                  ? eval_leaf_inline(S, dec[k].kind, dec[k].prm, p,
-                                     dec[k].p1, 0)
-                  : B.eval(S, dec[k].ob, p, 0);
-        }
-        v = k == 0 ? h : fminf(v, h);
-      }
-    }
-    k0 = PT_LB;
-  } else if constexpr (CACHE) {
-#pragma unroll
-    for (int k = 0; k < PT_LB; ++k) {
-      if (k < S.n_sdf) {
-        const float h = prime_obj(B, S, object_row(B.T, order[k]), lb[k], p,
-                                  proxy, P, ph);
-        v = k == 0 ? h : fminf(v, h);
-      }
-    }
-    k0 = PT_LB;
-  }
-  for (int k = k0; k < S.n_sdf; ++k) {
+  for (int k = 0; k < S.n_sdf; ++k) {
     const int* ob = object_row(B.T, order[k]);
-    const Bound b = (proxy && ob[O_PROXY_BOUND]) ? B.lower(order[k])
-                                                 : Bound{0.0f, 0.0f, 0.0f,
-                                                         0.0f};
-    const float h = prime_obj(B, S, ob, b, p, proxy, P, ph);
+    float h;
+    if (proxy && ob[O_PROXY_BOUND]) {
+      const Bound b = B.lower(order[k]);
+      float dx = p.x - b.cx, dy = p.y - b.cy, dz = p.z - b.cz;
+      h = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
+    } else {
+      P.trip(ph);
+      h = B.eval(S, ob, p, 0);
+    }
     v = k == 0 ? h : fminf(v, h);
   }
   return v;
 }
 
-// One phase of the cone march from t (prime_phase's), each step counted.
-template <bool PROF, bool CACHE, bool DEC, class Blk>
-__device__ __forceinline__ float prime_lane_phase(
-    const Blk& B, const KFSettings& S, const PrimeArgs& A, const Bound* lb,
-    const PrimeDec* dec, bool act, V3 o, V3 d, float t, bool proxy,
-    Prof<PROF>& P, int ph) {
+// One phase of the cone march from t, each step a trip of phase ph.
+template <bool PROF, class Blk>
+__device__ __forceinline__ float prime_phase(const Blk& B,
+                                             const KFSettings& S,
+                                             const PrimeArgs& A, bool act,
+                                             V3 o, V3 d, float t, bool proxy,
+                                             Prof<PROF>& P, int ph) {
   bool done = !act || t >= S.t_max;
   for (int i = 0; i < S.max_steps && !done; ++i) {
     P.trip(ph);
-    float h = prime_sdf<PROF, CACHE, DEC>(B, S, lb, dec, along(o, d, t),
-                                          proxy, P, ph + 1);
+    float h = prime_sdf(B, S, along(o, d, t), proxy, P, ph + 1);
     float s_all = (h - A.k_m * t) * A.inv1k;
     if ((s_all <= t * F(1e-3)) || (proxy && h < F(0.08))) break;
     t = fminf(t + s_all, S.t_max);
@@ -382,8 +223,9 @@ __device__ __forceinline__ float prime_lane_phase(
   return t;
 }
 
-// The priming march of one coarse ray: load, both phases, write.
-template <bool PROF, bool CACHE, bool DEC, class Blk>
+// The priming march of coarse ray i (act false: a lane outside the grid,
+// which takes part in the warp's probes only): load, both phases, write.
+template <bool PROF, class Blk>
 __device__ __forceinline__ void prime_lane(const Blk& B, const KFSettings& S,
                                            const PrimeArgs& A, int i,
                                            bool act, Prof<PROF>& P) {
@@ -392,31 +234,10 @@ __device__ __forceinline__ void prime_lane(const Blk& B, const KFSettings& S,
     o = V3{A.in[0][i], A.in[1][i], A.in[2][i]};
     d = V3{A.in[3][i], A.in[4][i], A.in[5][i]};
   }
-  PrimeDec dec[DEC ? PT_LB : 1];
-  if constexpr (DEC) {
-    const int* order = B.T.order + S.n_ana;
-#pragma unroll
-    for (int k = 0; k < PT_LB; ++k)
-      if (k < S.n_sdf) dec[k] = prime_dec(B, order[k]);
-  }
-  Bound lb[CACHE || DEC ? PT_LB : 1];
-  if constexpr (CACHE || DEC) {
-    const int* order = B.T.order + S.n_ana;
-#pragma unroll
-    for (int k = 0; k < PT_LB; ++k) {
-      lb[k] = Bound{0.0f, 0.0f, 0.0f, 0.0f};
-      if (A.has_proxy && k < S.n_sdf &&
-          object_row(B.T, order[k])[O_PROXY_BOUND])
-        lb[k] = B.lower(order[k]);
-    }
-  }
   P.mark(PT_LOAD);
   float t = S.t_min;
-  if (A.has_proxy)
-    t = prime_lane_phase<PROF, CACHE, DEC>(B, S, A, lb, dec, act, o, d, t,
-                                           true, P, PT_PROXY);
-  t = prime_lane_phase<PROF, CACHE, DEC>(B, S, A, lb, dec, act, o, d, t,
-                                         false, P, PT_SDF);
+  if (A.has_proxy) t = prime_phase(B, S, A, act, o, d, t, true, P, PT_PROXY);
+  t = prime_phase(B, S, A, act, o, d, t, false, P, PT_SDF);
   if (act) A.out[i] = t;
   P.mark(PT_WRITE);
 }
@@ -425,7 +246,7 @@ __device__ __forceinline__ void prime_lane(const Blk& B, const KFSettings& S,
 template <bool PROF>
 struct PrimeClock {
   __device__ __forceinline__ void start() {}
-  __device__ __forceinline__ void stop(unsigned long long*, int) {}
+  __device__ __forceinline__ void stop(unsigned long long*) {}
 };
 template <>
 struct PrimeClock<true> {
@@ -435,11 +256,11 @@ struct PrimeClock<true> {
     c0 = clock64();
     g0 = pt_globaltimer();
   }
-  __device__ __forceinline__ void stop(unsigned long long* base, int item) {
+  __device__ __forceinline__ void stop(unsigned long long* base) {
     const long long c1 = clock64();
     const unsigned long long g1 = pt_globaltimer();
     if ((threadIdx.x & 31) == 0) {
-      const int warp = item * KS_WARPS + (threadIdx.x >> 5);
+      const int warp = blockIdx.x * KS_WARPS + (threadIdx.x >> 5);
       unsigned long long* rec = base + (size_t)warp * KP_PHASES * 3 +
                                 PT_CLOCK * 3;
       rec[0] = (unsigned long long)(c1 - c0);
@@ -449,259 +270,73 @@ struct PrimeClock<true> {
   }
 };
 
-// One item of 128 coarse rays: row-major, or (W84) a tile of 32 x 4 coarse
-// rays whose warps are 8 x 4.
-template <bool PROF, int V, class Blk>
-__device__ __forceinline__ void prime_item(const Blk& B, const KFSettings& S,
-                                           const PrimeArgs& A, int item,
-                                           unsigned long long* prof) {
-  constexpr bool CACHE = V != PV_PERSTEP && V != PV_TODAY && !pv_staged<V>();
-  constexpr int WW = pv_warp_w<V>();
+// The block stages the scene, then marches its 16x8 coarse rays: four
+// warps side by side, each 4 rays wide and 8 high.
+template <bool PROF>
+__global__ void __launch_bounds__(PT_BLOCK)
+pt_prime_tile_kernel(const __grid_constant__ KFTables G,
+                     const __grid_constant__ KFSettings S,
+                     const __grid_constant__ KSLayout L,
+                     const __grid_constant__ PrimeArgs A,
+                     unsigned long long* prof) {
+  unsigned char* sm = ks_smem;
+  __shared__ KFTables staged;
   const int tid = threadIdx.x;
-  int i;
-  bool act;
-  if constexpr (WW > 0) {
-    const int gx = (A.wc + 4 * WW - 1) / (4 * WW), hc = A.n / A.wc;
-    const int col = (item % gx) * (4 * WW) + (tid >> 5) * WW + (tid % WW);
-    const int row = (item / gx) * (32 / WW) + ((tid & 31) / WW);
-    act = col < A.wc && row < hc;
-    i = row * A.wc + col;
-  } else {
-    i = item * PT_BLOCK + tid;
-    act = i < A.n;
-  }
+  const KFTables T = stage_scene(G, S, L, sm);
+  if (tid == 0) staged = T;
+  __syncthreads();
+  const PrimeScene B{{T, staged, (const float*)(sm + L.bounds),
+                      S.exit_margin}};
+  const int gx = (A.wc + 4 * PT_WARP_W - 1) / (4 * PT_WARP_W);
+  const int col = (blockIdx.x % gx) * (4 * PT_WARP_W) +
+                  (tid >> 5) * PT_WARP_W + (tid % PT_WARP_W);
+  const int row = (blockIdx.x / gx) * (32 / PT_WARP_W) +
+                  ((tid & 31) / PT_WARP_W);
   Prof<PROF> P;
   PrimeClock<PROF> C;
-  P.begin(prof, item);
+  P.begin(prof, blockIdx.x);
   C.start();
-  prime_lane<PROF, CACHE, V == PV_C_DEC || V == PV_C_DEC48>(B, S, A, i, act,
-                                                          P);
-  C.stop(prof, item);
+  prime_lane(B, S, A, row * A.wc + col, col < A.wc && row < A.n / A.wc, P);
+  C.stop(prof);
 }
 
-template <bool PROF, int V>
-__device__ __forceinline__ void prime_block(const KFTables& G,
-                                            const KFSettings& S,
-                                            const KSLayout& L,
-                                            const PrimeArgs& A,
-                                            unsigned long long* prof,
-                                            int* work) {
-  if constexpr (V == PV_TODAY) {
-    const PrimeGlobal B{G, G};
-    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
-  } else if constexpr (V == PV_TAPE) {
-    const PrimeGlobal B{G, G};
-    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
-  } else if constexpr (V == PV_STAGED) {
-    __shared__ KFTables staged;
-    unsigned char* sm = ks_smem;
-    const KFTables T = stage_scene(G, S, L, sm);
-    if (threadIdx.x == 0) staged = T;
-    __syncthreads();
-    const SplitScene<true> B{T, staged, (const float*)(sm + L.bounds),
-                             S.exit_margin};
-    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
-  } else if constexpr (V == PV_INLINE || V == PV_ILP) {
-    const PrimeInline<false, V == PV_ILP> B{{G, G, nullptr, S.exit_margin}};
-    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
-  } else if constexpr (V == PV_C_NOSTAGE) {
-    const PrimeInline<false, true> B{{G, G, nullptr, S.exit_margin}};
-    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
-  } else if constexpr (V == PV_COMBO || V == PV_COMBO_ILP || V == PV_C_ROWS ||
-                       V == PV_C_W162 || V == PV_C_W48 || V == PV_C_BV ||
-                       V == PV_C_DEC || V == PV_C_DEC48) {
-    __shared__ KFTables staged;
-    unsigned char* sm = ks_smem;
-    const KFTables T = stage_scene(G, S, L, sm);
-    if (threadIdx.x == 0) staged = T;
-    __syncthreads();
-    const PrimeInline<true, V != PV_COMBO> B{
-        {T, staged, (const float*)(sm + L.bounds), S.exit_margin}};
-    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
-  } else if constexpr (V == PV_PERSIST) {
-    __shared__ int item_slot;
-    const SplitScene<false> B{G, G, nullptr, S.exit_margin};
-    const int n_items = (A.n + PT_BLOCK - 1) / PT_BLOCK;
-    for (;;) {
-      if (threadIdx.x == 0) item_slot = atomicAdd(work, 1);
-      __syncthreads();
-      const int item = item_slot;
-      __syncthreads();
-      if (item >= n_items) break;
-      prime_item<PROF, V>(B, S, A, item, prof);
-    }
-    if (threadIdx.x == 0) {
-      __threadfence();
-      if (atomicAdd(work + 1, 1) == (int)gridDim.x - 1) {
-        work[0] = 0;
-        work[1] = 0;
-      }
-    }
-  } else {
-    const SplitScene<false> B{G, G, nullptr, S.exit_margin};
-    prime_item<PROF, V>(B, S, A, blockIdx.x, prof);
-  }
-}
-
-template <bool PROF, int V>
-__global__ void __launch_bounds__(PT_BLOCK, (V == PV_LB8 ? 8 : 1))
-pt_prime_gc(const __grid_constant__ KFTables G,
-            const __grid_constant__ KFSettings S,
-            const __grid_constant__ KSLayout L,
-            const __grid_constant__ PrimeArgs A, unsigned long long* prof,
-            int* work) {
-  prime_block<PROF, V>(G, S, L, A, prof, work);
-}
-
-template <bool PROF, int V>
-__global__ void __launch_bounds__(PT_BLOCK)
-pt_prime_bv(const KFTables G, const KFSettings S, const KSLayout L,
-            const PrimeArgs A, unsigned long long* prof, int* work) {
-  prime_block<PROF, V == PV_BYVALUE ? PV_PROD
-                   : V == PV_C_BV ? PV_COMBO_ILP : V>(G, S, L, A, prof, work);
-}
-
-template <bool PROF, int V>
-static unsigned prime_grid(const PrimeArgs& A, int smem, int& err) {
-  constexpr int WW = pv_warp_w<V>();
-  if constexpr (WW > 0) {
-    return (unsigned)(((A.wc + 4 * WW - 1) / (4 * WW)) *
-                      ((A.n / A.wc + 32 / WW - 1) / (32 / WW)));
-  }
-  const long long items = (A.n + PT_BLOCK - 1) / PT_BLOCK;
-  if constexpr (V == PV_PERSIST) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&device);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, pt_prime_gc<PROF, V>, PT_BLOCK, smem);
-    err = (int)e;
-    const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    return (unsigned)(items < resident ? items : resident);
-  }
-  return (unsigned)items;
-}
-
-template <bool PROF, int V>
+template <bool PROF>
 static int prime_launch(const KFTables& T, const KFSettings& S,
                         const KSLayout& L, const PrimeArgs& A,
-                        unsigned long long* prof, int* work,
-                        cudaStream_t stream) {
-  if (V == PV_PERSIST && !work) return (int)cudaErrorInvalidValue;
-  if (pv_warp_w<V>() > 0 && (A.wc <= 0 || A.n % A.wc))
-    return (int)cudaErrorInvalidValue;
-  const int smem = pv_staged<V>() ? L.bytes : 0;
-  int err = 0;
-  if (smem > 48 * 1024) {
-    err = (int)cudaFuncSetAttribute(
-        pt_prime_gc<PROF, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err) return err;
+                        unsigned long long* prof, cudaStream_t stream) {
+  if (L.bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pt_prime_tile_kernel<PROF>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+    if (err != cudaSuccess) return (int)err;
   }
-  const unsigned grid = prime_grid<PROF, V>(A, smem, err);
-  if (err) return err;
-  if constexpr (V == PV_TODAY || V == PV_BYVALUE || V == PV_C_BV) {
-    pt_prime_bv<PROF, V><<<grid, PT_BLOCK, smem, stream>>>(T, S, L, A, prof,
-                                                            work);
-  } else {
-    pt_prime_gc<PROF, V><<<grid, PT_BLOCK, smem, stream>>>(T, S, L, A, prof,
-                                                           work);
-  }
+  const unsigned grid =
+      (unsigned)(((A.wc + 4 * PT_WARP_W - 1) / (4 * PT_WARP_W)) *
+                 ((A.n / A.wc + 32 / PT_WARP_W - 1) / (32 / PT_WARP_W)));
+  pt_prime_tile_kernel<PROF><<<grid, PT_BLOCK, L.bytes, stream>>>(T, S, L, A,
+                                                                  prof);
   return (int)cudaGetLastError();
 }
 
-template <int V>
-static int prime_variant(const KFTables& T, const KFSettings& S,
-                         const KSLayout& L, const PrimeArgs& A,
-                         unsigned long long* prof, int* work,
-                         cudaStream_t st) {
-  if constexpr (V == PV_PROD || V == PV_TODAY || V == PV_COMBO_ILP) {
-    if (prof) return prime_launch<true, V>(T, S, L, A, prof, work, st);
-  } else {
-    if (prof) return (int)cudaErrorInvalidValue;
-  }
-  return prime_launch<false, V>(T, S, L, A, nullptr, work, st);
-}
-
-extern "C" int pt_prime_variant(KFTables T, KFSettings S, KSLayout L,
-                                PrimeArgs A, unsigned long long* prof,
-                                int* work, int variant, int device,
-                                void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (A.n <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (variant) {
-    case PV_PROD: return prime_variant<PV_PROD>(T, S, L, A, prof, work, st);
-    case PV_BYVALUE:
-      return prime_variant<PV_BYVALUE>(T, S, L, A, prof, work, st);
-    case PV_PERSTEP:
-      return prime_variant<PV_PERSTEP>(T, S, L, A, prof, work, st);
-    case PV_STAGED:
-      return prime_variant<PV_STAGED>(T, S, L, A, prof, work, st);
-    case PV_TAPE: return prime_variant<PV_TAPE>(T, S, L, A, prof, work, st);
-    case PV_LB8: return prime_variant<PV_LB8>(T, S, L, A, prof, work, st);
-    case PV_PERSIST:
-      return prime_variant<PV_PERSIST>(T, S, L, A, prof, work, st);
-    case PV_W84: return prime_variant<PV_W84>(T, S, L, A, prof, work, st);
-    case PV_TODAY: return prime_variant<PV_TODAY>(T, S, L, A, prof, work, st);
-    case PV_INLINE:
-      return prime_variant<PV_INLINE>(T, S, L, A, prof, work, st);
-    case PV_COMBO: return prime_variant<PV_COMBO>(T, S, L, A, prof, work, st);
-    case PV_ILP: return prime_variant<PV_ILP>(T, S, L, A, prof, work, st);
-    case PV_COMBO_ILP:
-      return prime_variant<PV_COMBO_ILP>(T, S, L, A, prof, work, st);
-    case PV_C_NOSTAGE:
-      return prime_variant<PV_C_NOSTAGE>(T, S, L, A, prof, work, st);
-    case PV_C_ROWS:
-      return prime_variant<PV_C_ROWS>(T, S, L, A, prof, work, st);
-    case PV_C_W162:
-      return prime_variant<PV_C_W162>(T, S, L, A, prof, work, st);
-    case PV_C_W48: return prime_variant<PV_C_W48>(T, S, L, A, prof, work, st);
-    case PV_C_BV: return prime_variant<PV_C_BV>(T, S, L, A, prof, work, st);
-    case PV_C_DEC: return prime_variant<PV_C_DEC>(T, S, L, A, prof, work, st);
-    case PV_C_DEC48:
-      return prime_variant<PV_C_DEC48>(T, S, L, A, prof, work, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Resident blocks per SM: today's kernel (variant -1) or a variant's
-// production instantiation, with smem bytes of dynamic shared memory.
-extern "C" int pt_occupancy(int variant, int smem, int* blocks_per_sm) {
-  cudaError_t err;
-  switch (variant) {
-    case -1:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks_per_sm, pt_prime_tile_kernel, PT_BLOCK, 0);
-      break;
-    case PV_PROD:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks_per_sm, pt_prime_gc<false, PV_PROD>, PT_BLOCK, 0);
-      break;
-    case PV_LB8:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks_per_sm, pt_prime_gc<false, PV_LB8>, PT_BLOCK, 0);
-      break;
-    case PV_COMBO_ILP:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks_per_sm, pt_prime_gc<false, PV_COMBO_ILP>, PT_BLOCK, smem);
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)err;
-}
-
-
-extern "C" int pt_prime_tile(KFTables T, KFSettings S, PrimeArgs A,
+extern "C" int pt_prime_tile(KFTables T, KFSettings S, KSLayout L,
+                             PrimeArgs A, unsigned long long* prof,
                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (A.n <= 0) return 0;
-  dim3 grid((A.n + PT_BLOCK - 1) / PT_BLOCK);
-  pt_prime_tile_kernel<<<grid, PT_BLOCK, 0, (cudaStream_t)stream>>>(T, S, A);
-  return (int)cudaGetLastError();
+  if (A.wc <= 0 || A.n % A.wc) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return prof ? prime_launch<true>(T, S, L, A, prof, st)
+              : prime_launch<false>(T, S, L, A, nullptr, st);
+}
+
+extern "C" int pt_occupancy(KSLayout L, int* blocks_per_sm) {
+  if (L.bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pt_prime_tile_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, pt_prime_tile_kernel<false>, PT_BLOCK, L.bytes);
 }

@@ -1,6 +1,6 @@
-// Split-path kernels for Hopper (sm_90a): ao_fix, and K1 and K2 for scenes
-// with a crowd (without one, K1 and K2 are the staged kernels of
-// split_staged.cu).
+// Split-path kernels for Hopper (sm_90a): K1, K2 and ao_fix for scenes
+// with a crowd (without one, the staged kernels of split_staged.cu and
+// ao_fix_staged.cu).
 //
 // Replace the three Pallas TPU kernels that surfjax's split pipeline runs
 // for scenes the fused kernel does not take (mesh scenes):
@@ -18,8 +18,8 @@
 // surfjax_torch/kernels/render_tile.py (render_tile_reference,
 // trace_rays_reference, ao_fix_reference), through the device functions
 // of frame_fused.cuh that the fused kernel runs too; the crowd's member
-// loops (settings.vector_objects) live there, so all three take a crowd,
-// and ao_fix exists also without them (<false>).
+// loops (settings.vector_objects) live there, and all three are
+// instantiated with them (<true>).
 //
 // What bounds them on this card: the scene's DE evaluations (FP32 ALU and
 // divergence) where the scene has SDF objects; on a mesh scene whose only
@@ -35,8 +35,7 @@
 // value-exact per lane.
 //
 // C interface (bound with ctypes, no PyTorch headers), each returning the
-// cudaError_t of its launch (sp_render_tile and sp_trace_rays refuse a
-// scene without a crowd):
+// cudaError_t of its launch (each refuses a scene without a crowd):
 //   int sp_render_tile(KFTables, KFSettings, SplitRays, int device, void*)
 //   int sp_trace_rays(KFTables, KFSettings, SplitRays, int device, void*)
 //   int sp_ao_fix(KFTables, KFSettings, SplitRays, int device, void*)
@@ -106,15 +105,14 @@ sp_ao_fix_kernel(const KFTables T, const KFSettings S, const SplitRays R) {
 
 typedef void (*RaysKernel)(KFTables, KFSettings, SplitRays);
 
-// Launch `with` for a scene with a crowd, else `without`, the
-// instantiation that carries no member loops (null: refused).
-static int launch_rays(RaysKernel with, RaysKernel without, const KFTables& T,
+// Launch the crowd instantiation `kernel`; a scene without a crowd is
+// refused (its kernels are the staged ones).
+static int launch_rays(RaysKernel kernel, const KFTables& T,
                        const KFSettings& S, const SplitRays& R, int device,
                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  RaysKernel kernel = S.n_crowd > 0 ? with : without;
-  if (!kernel) return (int)cudaErrorInvalidValue;
+  if (S.n_crowd <= 0) return (int)cudaErrorInvalidValue;
   if (R.n <= 0) return 0;
   dim3 grid((R.n + SP_BLOCK - 1) / SP_BLOCK);
   kernel<<<grid, SP_BLOCK, 0, (cudaStream_t)stream>>>(T, S, R);
@@ -123,18 +121,15 @@ static int launch_rays(RaysKernel with, RaysKernel without, const KFTables& T,
 
 extern "C" int sp_render_tile(KFTables T, KFSettings S, SplitRays R,
                               int device, void* stream) {
-  return launch_rays(sp_render_tile_kernel<true>, nullptr, T, S, R, device,
-                     stream);
+  return launch_rays(sp_render_tile_kernel<true>, T, S, R, device, stream);
 }
 
 extern "C" int sp_trace_rays(KFTables T, KFSettings S, SplitRays R,
                              int device, void* stream) {
-  return launch_rays(sp_trace_rays_kernel<true>, nullptr, T, S, R, device,
-                     stream);
+  return launch_rays(sp_trace_rays_kernel<true>, T, S, R, device, stream);
 }
 
 extern "C" int sp_ao_fix(KFTables T, KFSettings S, SplitRays R, int device,
                          void* stream) {
-  return launch_rays(sp_ao_fix_kernel<true>, sp_ao_fix_kernel<false>, T, S,
-                     R, device, stream);
+  return launch_rays(sp_ao_fix_kernel<true>, T, S, R, device, stream);
 }

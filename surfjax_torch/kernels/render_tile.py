@@ -2570,7 +2570,7 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
     prepared = _split_args(scene_t, settings, args, n_out)
     tab, ks, rays, keep, counts, out = prepared
     if entry in STAGED and counts[2] == 0:
-        # K1 and K2 without a crowd
+        # K1, K2 and ao_fix without a crowd
         return _staged_launcher(STAGED[entry], prepared, False)[:2]
     dev = out.device
     fn = getattr(_build.load(), entry)
@@ -2587,9 +2587,10 @@ STAGED = {"sp_render_tile": "render_tile", "sp_trace_rays": "trace_rays",
 
 
 def staged_split_launcher(entry: str, scene_t, settings: RenderSettings,
-                          args, profile: bool = False, variant: int = 0):
-    """Prepare a launch of K1 (entry "render_tile") or K2 ("trace_rays")
-    for a scene without a crowd (csrc/split_staged.cu) on CUDA tensors ->
+                          args, profile: bool = False):
+    """Prepare a launch of K1 (entry "render_tile"), K2 ("trace_rays") or
+    ao_fix ("ao_fix") for a scene without a crowd (csrc/split_staged.cu,
+    csrc/ao_fix_staged.cu) on CUDA tensors ->
     (launch, outputs, prof): as split_launcher; with profile, the profiling
     instantiation, whose counters go to prof, int64 (rows * 4 warps,
     len(KP_PHASE_NAMES), 3), zeroed at every launch (per phase cycles,
@@ -2597,10 +2598,10 @@ def staged_split_launcher(entry: str, scene_t, settings: RenderSettings,
     are zeroed once here; the last block of each launch resets them."""
     n_out = {"render_tile": 7, "trace_rays": 1, "ao_fix": 1}[entry]
     return _staged_launcher(entry, _split_args(scene_t, settings, args,
-                                               n_out), profile, variant)
+                                               n_out), profile)
 
 
-def _staged_launcher(entry: str, prepared, profile: bool, variant: int = 0):
+def _staged_launcher(entry: str, prepared, profile: bool):
     """staged_split_launcher on _split_args' result."""
     from surfjax_torch.kernels import _build
     tab, ks, rays, keep, counts, out = prepared
@@ -2612,18 +2613,11 @@ def _staged_launcher(entry: str, prepared, profile: bool, variant: int = 0):
     prof = torch.zeros((rows * (KS_THREADS // 32), len(KP_PHASE_NAMES), 3),
                        dtype=torch.int64, device=dev) if profile else None
     lib = _build.load()
-    if entry == "render_tile":
-        def call(stream):
-            return lib.sp_staged_render_tile(tab, ks, rays,
-                                             _ptr(prof), dev.index, stream)
-    elif entry == "ao_fix":
-        layout = _scene_layout(keep[1], records=False)
-        work = torch.zeros(2, dtype=torch.int32, device=dev)
+    if entry in ("render_tile", "ao_fix"):
+        fn = getattr(lib, f"sp_staged_{entry}")
 
         def call(stream):
-            return lib.sp_staged_ao_fix(tab, ks, layout, rays, _ptr(prof),
-                                        work.data_ptr(), variant, dev.index,
-                                        stream)
+            return fn(tab, ks, rays, _ptr(prof), dev.index, stream)
     else:
         layout = _scene_layout(keep[1], records=False)
         work = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -2667,7 +2661,8 @@ def _split_call(wrapper, entry: str, reference, scene_t,
 
 def render_tile(scene_t, settings: RenderSettings, o, d, t0=None):
     """K1 over rays of any shape -> the 7 tensors of render_tile_reference.
-    CUDA tensors launch the kernel (csrc/split_path.cu), counted in
+    CUDA tensors launch the kernel (csrc/split_staged.cu; with a crowd
+    csrc/split_path.cu), counted in
     `render_tile.launches`; CPU tensors run the plain version."""
     rays = (tuple(o), tuple(d)) + (() if t0 is None else (t0,))
     return _split_call(render_tile, "sp_render_tile", render_tile_reference,
@@ -2683,8 +2678,9 @@ def trace_rays(scene_t, settings: RenderSettings, o, l, dist, soft_k):
 
 
 def ao_fix(scene_t, settings: RenderSettings, p_off, n, need, ao_in):
-    """ao_fix -> ao (see ao_fix_reference); kernel or plain version as
-    render_tile; launches counted in `ao_fix.launches`."""
+    """ao_fix -> ao (see ao_fix_reference); kernel (csrc/ao_fix_staged.cu;
+    with a crowd csrc/split_path.cu) or plain version as render_tile;
+    launches counted in `ao_fix.launches`."""
     return _split_call(ao_fix, "sp_ao_fix", ao_fix_reference, scene_t,
                        settings, (tuple(p_off), tuple(n), need, ao_in), 1)[0]
 
@@ -2719,25 +2715,20 @@ def prime_tile_reference(scene_t, settings: RenderSettings, k_m: float,
 
 
 # the priming kernel's profile (csrc/prime_tile.cu): its phases, then the
-# slot of each warp's clock64 and %globaltimer deltas
+# slot of each warp's clock64 and %globaltimer deltas; its warps are 4
+# coarse rays wide and 8 high, four side by side in a block
 PRIME_PHASE_NAMES = ("load", "proxy steps", "evals proxy", "sdf steps",
                      "evals sdf", "write")
 PRIME_CLOCK = len(PRIME_PHASE_NAMES)
+PRIME_WARP_W = 4
 
 
-def prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d,
-                   variant=None, profile: bool = False):
-    """Prepare one launch of the priming kernel on CUDA tensors ->
-    (launch, (t0,)), as split_launcher; with `variant` (an int) the stage
-    entry pt_prime_variant, and then (launch, (t0,), prof): with profile,
-    prof is int64 (blocks * 4 warps, len(KP_PHASE_NAMES), 3), zeroed at
-    every launch (PRIME_PHASE_NAMES, then the PRIME_CLOCK slot), else
-    None."""
-    from surfjax_torch.kernels import _build
+def _prime_args(scene_t, settings: RenderSettings, k_m: float, o, d):
+    """The priming kernel's launch arguments -> (KFTables, KFSettings,
+    KSLayout, PrimeArgs, the tensors they point to, the output t0)."""
     static, _ = scene_t
     ins = [a.contiguous() for a in _ray_arrays((tuple(o), tuple(d)))]
-    dev = ins[0].device
-    tables, counts = _scene_tables(scene_t, settings, dev)
+    tables, counts = _scene_tables(scene_t, settings, ins[0].device)
     out = torch.empty_like(ins[0])
     tab = KFTables(*[t.data_ptr() for t in tables], None, None, None)
     ks = kernel_settings(static, settings, None, 0, counts)
@@ -2751,55 +2742,61 @@ def prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d,
     args.k_m = f32(k_m)
     args.inv1k = _inv_one_plus(k_m)
     args.wc = ins[0].shape[-1] if ins[0].dim() > 1 else args.n
-    lib = _build.load()
-    if variant is None:
-        def launch():
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                _raise_on(lib.pt_prime_tile(tab, ks, args, dev.index,
-                                            ctypes.c_void_p(stream)),
-                          "pt_prime_tile")
-            return ins, tables
-
-        return launch, (out,)
     layout = _scene_layout(tables, records=False)
-    work = torch.zeros(2, dtype=torch.int32, device=dev)
-    blocks = -(-args.n // KS_THREADS)
-    ww = PRIME_WARP_W.get(variant, 0)
-    if ww:   # warps of ww x 32/ww coarse rays, four side by side
-        blocks = -(-args.wc // (4 * ww)) * -(-(args.n // args.wc) // (32 // ww))
+    return tab, ks, layout, args, (ins, tables), out
+
+
+def prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d):
+    """Prepare one launch of the priming kernel on CUDA tensors ->
+    (launch, (t0,)), as split_launcher."""
+    launch, out, _ = _prime_launcher(scene_t, settings, k_m, o, d, False)
+    return launch, out
+
+
+def prime_profile_launcher(scene_t, settings: RenderSettings, k_m: float, o,
+                           d):
+    """The priming kernel's profiling instantiation -> (launch, (t0,),
+    prof): prof is int64 (blocks * 4 warps, len(KP_PHASE_NAMES), 3), zeroed
+    at every launch: per phase of PRIME_PHASE_NAMES cycles, loop trips and
+    lanes, then in the PRIME_CLOCK slot each warp's clock64 and
+    %globaltimer deltas."""
+    return _prime_launcher(scene_t, settings, k_m, o, d, True)
+
+
+def _prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d,
+                    profile: bool):
+    from surfjax_torch.kernels import _build
+    tab, ks, layout, args, keep, out = _prime_args(scene_t, settings, k_m,
+                                                   o, d)
+    dev = out.device
+    ww = PRIME_WARP_W
+    blocks = -(-args.wc // (4 * ww)) * -(-(args.n // args.wc) // (32 // ww))
     prof = torch.zeros((blocks * (KS_THREADS // 32), len(KP_PHASE_NAMES), 3),
                        dtype=torch.int64, device=dev) if profile else None
+    fn = _build.load().pt_prime_tile
 
-    def vlaunch():
+    def launch():
         with torch.cuda.device(dev):
             if prof is not None:
                 prof.zero_()
             stream = torch.cuda.current_stream(dev).cuda_stream
-            _raise_on(lib.pt_prime_variant(tab, ks, layout, args, _ptr(prof),
-                                           work.data_ptr(), variant,
-                                           dev.index,
-                                           ctypes.c_void_p(stream)),
-                      "pt_prime_variant")
-        return ins, tables, work
+            _raise_on(fn(tab, ks, layout, args, _ptr(prof), dev.index,
+                         ctypes.c_void_p(stream)), "pt_prime_tile")
+        return keep
 
-    return vlaunch, (out,), prof
+    return launch, (out,), prof
 
 
-# stage variants whose warps take tiles of the coarse grid: warp width
-PRIME_WARP_W = {7: 8, 10: 8, 12: 8, 13: 8, 15: 16, 16: 4, 17: 8, 18: 8,
-                19: 4}
-
-
-def prime_occupancy(variant: int = -1, smem: int = 0) -> int:
-    """Resident blocks per SM of today's priming kernel (-1) or of a
-    stage variant's production instantiation (0, 5, 12) with smem bytes of
-    shared memory."""
+def prime_occupancy(scene_t, settings: RenderSettings, dev) -> dict:
+    """The priming kernel's shared memory per block and resident blocks
+    per SM on the card, for this scene."""
     from surfjax_torch.kernels import _build
+    tables, _ = _scene_tables(scene_t, settings, dev)
+    layout = _scene_layout(tables, records=False)
     blocks = ctypes.c_int(0)
-    _raise_on(_build.load().pt_occupancy(variant, smem, ctypes.byref(blocks)),
+    _raise_on(_build.load().pt_occupancy(layout, ctypes.byref(blocks)),
               "pt_occupancy")
-    return blocks.value
+    return {"bytes": layout.bytes, "blocks_per_sm": blocks.value}
 
 
 def prime_tile(scene_t, settings: RenderSettings, k_m: float, o, d):

@@ -31,8 +31,11 @@ each call of kf_frame_kernel<false>, the per-pixel kernel it replaced, and
 the kernels' ptxas lines. `split` times each split kernel of one 1080p c4
 frame in `ao` mode, launched back to back (as chip_smoke.py's phase 7),
 `split_fit` K1 and K2 in a 1080p fit step and `prime` the priming kernel
-on c3 the same way; `split_phases` profiles K1 and K2 (chip_smoke.py's
-phase 17); `sass` hashes every entry's SASS, to compare two builds.
+on c3 the same way; `split_phases` profiles K1, K2 and ao_fix
+(chip_smoke.py's phase 17) and `prime_phases` the priming kernel on the
+primed 1080p frame of c3 (phase 18: per phase shares, the SM clock, the
+cycles per warp and the slowest warp's rays alone); `sass` hashes every
+entry's SASS, to compare two builds.
 For the fit step (the pose fit on configs/c5_anim.yaml, see `fit_bench`)
 at 256x256 and at 1920x1080 it times runs of 10 steps on both backends and
 traces one run of 5 steps on `pallas`: wall and device time per step, the
@@ -541,8 +544,8 @@ def _fit_calls(dev, size=(1920, 1080)):
 
 
 def _split_cases(dev) -> dict:
-    """The K1 and K2 calls PERF.md measures: frame 0 of c4 at 1080p in
-    both modes and one 1080p pose-fit step on c5."""
+    """The K1, K2 and ao_fix calls PERF.md measures: frame 0 of c4 at
+    1080p in both modes and one 1080p pose-fit step on c5."""
     calls, _, _ = _c4_frame0_calls(dev)
     cases = {f"c4 {mode}": [(k, a) for k, a in mcalls
                             if k in ("render_tile", "trace_rays", "ao_fix")]
@@ -569,10 +572,6 @@ def _need_zero(args):
     """ao_fix's arguments with need 0 on every lane: the kernel then only
     loads need and ao_in and writes ao_in."""
     return args[:4] + (torch.zeros_like(args[4]),) + args[5:]
-
-
-# the stage's profiled instantiation per kernel (ao_fix: today's schedule)
-PROFILE_VARIANT = {"ao_fix": 0}
 
 
 def split_fit(dev, res) -> None:
@@ -612,17 +611,18 @@ def sass(dev, res) -> None:
 
 
 def split_phases(dev, res) -> None:
-    """Inside K1 and K2 on frame 0 of c4 at 1080p (both modes) and in one
-    1080p pose-fit step on c5: per call the kernel's time (launched back to
-    back), K1's with AO off and K2's on the same rays with every shadow
-    segment empty (what a lane costs without its work); then the profiling
+    """Inside K1, K2 and ao_fix on frame 0 of c4 at 1080p (both modes) and
+    K1 and K2 in one 1080p pose-fit step on c5: per call the kernel's time
+    (launched back to back), K1's with AO off, K2's on the same rays with
+    every shadow segment empty and ao_fix's with need 0 on every lane (what
+    a lane costs without its work); then the profiling
     instantiation: its time, its outputs against the plain version's
     (bitwise), its SDF evaluations against the plain version's
     (count_ops, less the FD normals', which carry no probe), on c4 AO's
     evaluations against lanes x taps, and its phase table (per phase the
     share of the warps' cycles, the SIMT efficiency of its loops and the
     SDF evaluations per lane); last, ptxas' line and the local loads and
-    stores (LDL, STL) of every K1 and K2 entry."""
+    stores (LDL, STL) of every K1, K2 and ao_fix entry."""
     from surfjax_torch.kernels import _build
     from surfjax_torch.kernels import render_tile as rt
     from surfjax_torch.tools.kernel_check import KERNELS, flat
@@ -648,9 +648,8 @@ def split_phases(dev, res) -> None:
                 ref = KERNELS[kname][1](*args)
             fd = rt.fd_normal_evals(scene_t.static, st, ref[1]) \
                 if kname == "render_tile" else 0
-            launch, out, prof = rt.staged_split_launcher(
-                kname, scene_t, st, rays, profile=True,
-                variant=PROFILE_VARIANT.get(kname, 0))
+            launch, out, prof = rt.staged_split_launcher(kname, scene_t, st,
+                                                         rays, profile=True)
             launch()
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(flat(out),
@@ -731,29 +730,24 @@ def prime_table(prof, n: int, static) -> dict:
                 for ph in ("proxy steps", "sdf steps")}}
 
 
-def _warp_rays(args, w: int, ww: int):
-    """The priming call's arguments cut to the coarse rays of warp w: 32
-    consecutive rays (ww 0), or the ww x 32/ww tile that the warp takes,
-    kept as a tile (the grid's edge cuts it to what lies inside)."""
+def _warp_rays(args, w: int):
+    """The priming call's arguments cut to the coarse rays of the kernel's
+    warp w, kept as the tile of PRIME_WARP_W x 32/PRIME_WARP_W rays that the
+    warp takes (the grid's edge cuts it to what lies inside)."""
+    from surfjax_torch.kernels.render_tile import PRIME_WARP_W as ww
     o = args[3][0]
     n, wc = o.numel(), o.shape[-1]
-    if ww == 0:
-        idx = torch.arange(w * 32, min(w * 32 + 32, n), device=o.device)
-        shape = (idx.numel(),)
-    else:
-        item, q = divmod(w, 4)
-        gx = -(-wc // (4 * ww))
-        col0 = (item % gx) * 4 * ww + q * ww
-        row0 = (item // gx) * (32 // ww)
-        cols = torch.arange(col0, max(col0, min(col0 + ww, wc)),
-                            device=o.device)
-        rows = torch.arange(row0, max(row0, min(row0 + 32 // ww, n // wc)),
-                            device=o.device)
-        idx = (rows[:, None] * wc + cols[None, :]).reshape(-1)
-        shape = (rows.numel(), cols.numel())
+    item, q = divmod(w, 4)
+    gx = -(-wc // (4 * ww))
+    col0 = (item % gx) * 4 * ww + q * ww
+    row0 = (item // gx) * (32 // ww)
+    cols = torch.arange(col0, max(col0, min(col0 + ww, wc)), device=o.device)
+    rows = torch.arange(row0, max(row0, min(row0 + 32 // ww, n // wc)),
+                        device=o.device)
+    idx = (rows[:, None] * wc + cols[None, :]).reshape(-1)
     return args[:3] + tuple(
-        tuple(c.reshape(-1)[idx].reshape(shape).contiguous() for c in a)
-        for a in args[3:5])
+        tuple(c.reshape(-1)[idx].reshape(rows.numel(), cols.numel())
+              .contiguous() for c in a) for a in args[3:5])
 
 
 def prime_phases(dev, res) -> None:
@@ -762,121 +756,46 @@ def prime_phases(dev, res) -> None:
     instantiation's outputs against the plain version's (bitwise), its SDF
     evaluations against the plain version's count (count_ops), its phase
     table, the SM clock it ran at and the cycles per warp (prime_table),
-    and the kernel on the slowest warp's 32 rays alone; ptxas' line of each priming entry, the resident blocks per SM and the
-    waves of the launch."""
+    and the kernel on the slowest warp's rays alone; ptxas' line, the
+    resident blocks per SM and the waves of the launch."""
     from surfjax_torch.kernels import _build
     from surfjax_torch.kernels import render_tile as rt
     args = _prime_args(dev)
     n = args[3][0].numel()
     with rt.count_ops() as c:
         ref = rt.prime_tile_reference(*args)
-    entry = {"coarse_rays": n, "plain_evals": c["evals"],
-             "plain_ops": c["ops"],
-             "ms": _launch_ms(rt.prime_launcher(*args)[0]), "profiles": {}}
-    for label, variant in PRIME_PROFILES:
-        launch, (out,), prof = rt.prime_launcher(*args, variant=variant,
-                                                 profile=True)
-        launch()
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise AssertionError(f"prime {label}: the profile's t0 differs "
-                                 "from the plain version's")
-        names = list(rt.PRIME_PHASE_NAMES)
-        evals = int(prof[:, names.index("evals proxy"), 2].sum()
-                    + prof[:, names.index("evals sdf"), 2].sum())
-        if evals != c["evals"]:
-            raise AssertionError(f"prime {label}: {evals} SDF evaluations "
-                                 f"profiled, the plain version {c['evals']}")
-        entry["profiles"][label] = {"evals": evals,
-                                    "ms_profiled": _launch_ms(launch),
-                                    **prime_table(prof, n, args[0].static)}
-        # the slowest warp's rays alone, on an otherwise idle card
-        w = int(prof[:, :rt.PRIME_CLOCK, 0].sum(dim=1).argmax())
-        alone = _warp_rays(args, w, rt.PRIME_WARP_W.get(variant, 0))
-        entry["profiles"][label]["slowest_warp_alone_ms"] = _launch_ms(
-            rt.prime_launcher(*alone, variant=variant)[0])
+    launch, (out,), prof = rt.prime_profile_launcher(*args)
+    launch()
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError("prime: the profile's t0 differs from the plain "
+                             "version's")
+    names = list(rt.PRIME_PHASE_NAMES)
+    evals = int(prof[:, names.index("evals proxy"), 2].sum()
+                + prof[:, names.index("evals sdf"), 2].sum())
+    if evals != c["evals"]:
+        raise AssertionError(f"prime: {evals} SDF evaluations profiled, the "
+                             f"plain version {c['evals']}")
+    # the slowest warp's rays alone, on an otherwise idle card
+    w = int(prof[:, :rt.PRIME_CLOCK, 0].sum(dim=1).argmax())
+    occ = rt.prime_occupancy(args[0], args[1], dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = -(-n // rt.KS_THREADS)
-    smem = rt._scene_layout(rt._scene_tables(args[0], args[1], dev)[0],
-                            records=False).bytes
-    occ = {"today": rt.prime_occupancy(-1),
-           "production": rt.prime_occupancy(0),
-           "staged inline": rt.prime_occupancy(12, smem)}
-    entry["blocks"] = blocks
-    entry["blocks_per_sm"] = occ
-    entry["waves"] = {k: blocks / (sms * v) for k, v in occ.items()}
+    blocks = prof.shape[0] // (rt.KS_THREADS // 32)
     info = _build.build()
-    entry["ptxas"] = {name: lines for name, lines in
-                      _build.entries(info["log"]).items()
-                      if "prime" in name}
+    entry = {"coarse_rays": n, "plain_evals": c["evals"],
+             "plain_ops": c["ops"], "evals": evals,
+             "ms": _launch_ms(rt.prime_launcher(*args)[0]),
+             "ms_profiled": _launch_ms(launch),
+             **prime_table(prof, n, args[0].static),
+             "slowest_warp_alone_ms": _launch_ms(
+                 rt.prime_launcher(*_warp_rays(args, w))[0]),
+             "blocks": blocks, **occ,
+             "waves": blocks / (sms * occ["blocks_per_sm"]),
+             "ptxas": {name: lines for name, lines in
+                       _build.entries(info["log"]).items()
+                       if "prime" in name}}
     res["prime phases"] = entry
     print("prime phases", json.dumps(entry), flush=True)
-
-
-# the stage's profiled instantiations of the priming kernel
-PRIME_PROFILES = (("today's schedule", 8), ("production", 0),
-                  ("staged inline", 12))
-AF_VARIANTS = ("production", "persistent", "staged persistent",
-               "today's schedule", "no warp skip", "no hoist", "by value",
-               "launch bounds 8", "launch bounds 6", "staged one block per row",
-               "persistent launch bounds 8")
-PV_VARIANTS = ("production", "by value", "lower per step", "staged",
-               "tape walker", "launch bounds 8", "persistent", "warps 8x4",
-               "today's schedule", "DE inline",
-               "staged, 8x4, DE inline", "DE and tape walker inline",
-               "staged, 8x4, DE and tape walker inline",
-               "inline, 8x4, not staged", "staged, inline, 32x1",
-               "staged, inline, 16x2", "staged, inline, 4x8",
-               "staged, inline, 8x4, by value",
-               "staged, inline, 8x4, objects decoded per lane",
-               "staged, inline, 4x8, objects decoded per lane")
-
-
-def split_variants(dev, res) -> None:
-    """Stage: every ao_fix variant on each ao_fix call of frame 0 of c4 at
-    1080p (`ao`), bitwise against the plain version, ms launched back to
-    back, with need as given and need 0."""
-    from surfjax_torch.kernels import render_tile as rt
-    from surfjax_torch.tools.kernel_check import flat
-    calls, _, _ = _c4_frame0_calls(dev)
-    for k, (kname, args) in enumerate(calls["ao"]):
-        if kname != "ao_fix":
-            continue
-        ref = rt.ao_fix_reference(*args)
-        out = {}
-        for v, name in enumerate(AF_VARIANTS):
-            for tag, a in (("", args), (" need 0", _need_zero(args))):
-                launch, got, _ = rt.staged_split_launcher(
-                    "ao_fix", *a[:2], a[2:], variant=v)
-                launch()
-                torch.cuda.synchronize()
-                want = ref if not tag else a[5]
-                if not torch.equal(flat(got)[0], want):
-                    raise AssertionError(f"ao_fix variant {name}{tag} "
-                                         "differs from the plain version")
-                out[name + tag] = _launch_ms(launch)
-        res[f"ao_fix variants c4 ao {k}"] = out
-        print(f"ao_fix variants c4 ao {k}", json.dumps(out), flush=True)
-
-
-def prime_variants(dev, res) -> None:
-    """Stage: every priming variant on the primed 1080p frame of c3,
-    bitwise against the plain version, ms launched back to back; today's
-    kernel beside them."""
-    from surfjax_torch.kernels import render_tile as rt
-    args = _prime_args(dev)
-    ref = rt.prime_tile_reference(*args)
-    out = {"today": _launch_ms(rt.prime_launcher(*args)[0])}
-    for v, name in enumerate(PV_VARIANTS):
-        launch, (got,), _ = rt.prime_launcher(*args, variant=v)
-        launch()
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"prime variant {name} differs from the "
-                                 "plain version")
-        out[name] = _launch_ms(launch)
-    res["prime variants"] = out
-    print("prime variants", json.dumps(out), flush=True)
 
 
 SECTIONS = {
@@ -898,8 +817,6 @@ SECTIONS = {
     "prime": prime,
     "split_phases": split_phases,
     "prime_phases": prime_phases,
-    "split_variants": split_variants,
-    "prime_variants": prime_variants,
     "sass": sass,
 }
 

@@ -188,6 +188,34 @@ def test_staged_split_kernel_and_profile_match_plain(cuda_device, entry,
         assert int(prof[:, :, 2].sum()) + fd == c["evals"]
 
 
+@pytest.mark.parametrize("name", ["c4 ao", "mesh_soft_ao"])
+def test_staged_ao_fix_and_profile_match_plain(cuda_device, name):
+    """ao_fix without a crowd (ao_fix_staged.cu) on every call of a frame:
+    the wrapper launches the staged kernel, the production kernel and its
+    profiling instantiation equal the plain version bitwise, and the
+    profile's SDF evaluations equal the plain version's."""
+    from surfjax_torch.api import render
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools.kernel_check import capture_calls
+    scene, cam, st = _split_scene(name)
+    with capture_calls() as calls:
+        render(scene, cam, st, device=cuda_device)
+    calls = [a for k, a in calls if k == "ao_fix"]
+    assert calls
+    for args in calls:
+        with rt.count_ops() as c:
+            ref = rt.ao_fix_reference(*args)
+        before = rt.ao_fix.launches
+        got = rt.ao_fix(*args)
+        assert rt.ao_fix.launches == before + 1
+        launch, (out,), prof = rt.staged_split_launcher(
+            "ao_fix", args[0], args[1], args[2:], profile=True)
+        launch()
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(out, ref)
+        assert int(prof[:, :, 2].sum()) == c["evals"]
+
+
 PROBES = ["edges", "overflow", "edges any-hit", "overflow any-hit",
           "edges to target any-hit", "layers any-hit"]
 
@@ -388,6 +416,35 @@ def test_prime_kernel_matches_plain_and_feeds_kf(cuda_device, name):
         assert torch.equal(a, b)
     unprimed = render(scene, cam, st.with_(prime=False), device=cuda_device)
     assert float((primed.hit != unprimed.hit).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["c3_sdf", "c3_sdf_portlog"])
+def test_prime_profile_matches_plain(cuda_device, name):
+    """The priming kernel's profiling instantiation on the coarse rays of
+    a 128x96 frame: its t0 equal to the plain version's, bitwise, its SDF
+    evaluations to the plain version's count, and every warp's clock slot
+    written."""
+    from surfjax_torch.api import render
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools.kernel_check import capture_calls
+    from surfjax_torch.tools.workload import reframe
+    scene, cam, st, _ = load_config(os.path.join(ROOT, "configs",
+                                                 name + ".yaml"))
+    cam = reframe(cam, 128, 96)
+    st = st.with_(backend="pallas", prime=True, prime_min=64)
+    with capture_calls() as calls:
+        render(scene, cam, st, device=cuda_device)
+    (_, args), = calls
+    with rt.count_ops() as c:
+        ref = rt.prime_tile_reference(*args)
+    launch, (out,), prof = rt.prime_profile_launcher(*args)
+    launch()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    names = list(rt.PRIME_PHASE_NAMES)
+    assert int(prof[:, names.index("evals proxy"), 2].sum()
+               + prof[:, names.index("evals sdf"), 2].sum()) == c["evals"]
+    assert bool((prof[:, rt.PRIME_CLOCK, 2] == 1).all())
 
 
 # --- the FP32 roofline probe and the kernel-forward differentiable render ---

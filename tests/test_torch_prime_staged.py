@@ -92,14 +92,13 @@ def host_lib(tmp_path_factory):
     lib = cuda_host.build("prime_tile.cu",
                           str(tmp_path_factory.mktemp("prime_host")))
     i32, ptr = ctypes.c_int, ctypes.c_void_p
-    lib.pt_prime_variant.argtypes = [rt.KFTables, rt.KFSettings,
-                                     rt.KSLayout, rt.PrimeArgs, ptr, ptr,
-                                     i32, i32, ptr]
-    fn = lib.pt_prime_variant
+    lib.pt_prime_tile.argtypes = [rt.KFTables, rt.KFSettings, rt.KSLayout,
+                                  rt.PrimeArgs, ptr, i32, ptr]
+    fn = lib.pt_prime_tile
     # the launcher passes its tensors' device index: None on the CPU
     return types.SimpleNamespace(
-        pt_prime_variant=lambda T, S, L, A, prof, work, v, dev, st: fn(
-            T, S, L, A, prof, work, v, 0, st))
+        pt_prime_tile=lambda T, S, L, A, prof, dev, st: fn(T, S, L, A, prof,
+                                                           0, st))
 
 
 @pytest.fixture
@@ -128,7 +127,7 @@ def test_host_kernel_equals_plain(calls, on_host, label):
     version's t0."""
     args = calls[label]
     ref = rt.prime_tile_reference(*args)
-    launch, (out,), _ = rt.prime_launcher(*args, variant=0)
+    launch, (out,) = rt.prime_launcher(*args)
     for _ in range(2):
         out.fill_(-1.0)
         launch()
@@ -161,8 +160,7 @@ def test_host_profile_equals_plain_and_counts(calls, on_host, monkeypatch,
     args = calls[label]
     with rt.count_ops() as c:
         ref = rt.prime_tile_reference(*args)
-    launch, (out,), prof = rt.prime_launcher(*args, variant=0,
-                                             profile=True)
+    launch, (out,), prof = rt.prime_profile_launcher(*args)
     launch()
     assert torch.equal(out, ref)
     names = list(rt.PRIME_PHASE_NAMES)

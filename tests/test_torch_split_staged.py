@@ -179,8 +179,7 @@ def host_lib(tmp_path_factory):
     ao_lib = cuda_host.build("ao_fix_staged.cu",
                              str(tmp_path_factory.mktemp("ao_fix_host")))
     ao_lib.sp_staged_ao_fix.argtypes = [rt.KFTables, rt.KFSettings,
-                                        rt.KSLayout, rt.SplitRays, ptr, ptr,
-                                        i32, i32, ptr]
+                                        rt.SplitRays, ptr, i32, ptr]
     k1, k2 = lib.sp_staged_render_tile, lib.sp_staged_trace_rays
     af = ao_lib.sp_staged_ao_fix
     # the launcher passes its tensors' device index: None on the CPU
@@ -189,8 +188,8 @@ def host_lib(tmp_path_factory):
             T, S, R, prof, 0, st),
         sp_staged_trace_rays=lambda T, S, L, R, prof, work, dev, st: k2(
             T, S, L, R, prof, work, 0, st),
-        sp_staged_ao_fix=lambda T, S, L, R, prof, work, v, dev, st: af(
-            T, S, L, R, prof, work, v, 0, st))
+        sp_staged_ao_fix=lambda T, S, R, prof, dev, st: af(
+            T, S, R, prof, 0, st))
 
 
 @pytest.fixture
@@ -218,9 +217,9 @@ PAIRS = ([(entry, label) for entry in ("render_tile", "trace_rays")
 
 @pytest.mark.parametrize("entry,label", PAIRS)
 def test_host_kernel_equals_plain(calls, on_host, label, entry):
-    """Every call of the case through the kernel, twice (the persistent
-    kernels' counters reset themselves between launches), and through the
-    wrapper's launcher: bitwise the plain version's."""
+    """Every call of the case through the kernel, twice (K2's counters
+    reset themselves between launches), and through the wrapper's
+    launcher: bitwise the plain version's."""
     mine = [args for name, args in calls[label] if name == entry]
     if entry != "trace_rays" or label != "two_meshes":
         assert mine, label
