@@ -11,7 +11,7 @@
 //
 // What bounds it: on c4 `ao` a third of the lanes need AO, 20 evaluations
 // of the floor each; the other lanes load 8 bytes and write 4. What held
-// the kernel it replaces back (PERF.md, PR 9): the by-value parameters
+// the kernel it replaces back (PERF.md): the by-value parameters
 // copied into every thread's stack frame (with need 0 on every lane it took
 // 0.155 ms, 20x its bytes), and the floor decoded anew at every tap
 // through the tape walker. The design, K1's (split_staged.cu) on the lanes

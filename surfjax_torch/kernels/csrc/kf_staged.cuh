@@ -38,7 +38,7 @@
 // SDF) into its record of a scratch buffer (KP_PHASES x 3 counters).
 //
 // The stages (trace_pixel, ao_receiver, vis_receiver) are templates on the
-// block they run on: Block here, SplitScene in split_staged.cu. A block
+// block they run on: Block here, SplitScene in split_scene.cuh. A block
 // has T (the tables), lower and cover (an object's two bounding spheres),
 // eval (an object's SDF), intersect (an analytic object's nearest hit) and
 // unbounded_min (AO's unbounded group at a point).

@@ -17,9 +17,9 @@
 // What bounds it on this card: the slowest warp. At 1920x1080 the launch
 // is one wave, and its time is that warp's chain of steps one after
 // another (on c3 up to 158 steps, each a DE of the Mandelbulb and the
-// blob's tape), not the total work (PERF.md, PR 9: the slowest warp's rays
-// alone on the card take 92% of the kernel's time). The design shortens
-// that chain:
+// blob's tape), not the total work (PERF.md: the slowest warp's rays
+// alone on the card take over 90% of the kernel's time). The design
+// shortens that chain:
 //   * the scene staged per block in shared memory (stage_scene, as K2
 //     does): the tables and every object's lower sphere, so no step calls
 //     object_bound and the tape's reads are shared-memory loads;

@@ -9,9 +9,9 @@
 // The block the stages run on. T: the tables' pointers, by value; STAGE
 // (K2, the priming kernel): into shared memory, where stage_scene put the
 // tables and both bounding spheres of every object; else (K1, ao_fix) the
-// parameters' global tables, each bound computed where it is used. Tm: the same tables as a
-// struct in memory (the parameters, or the staged copy in shared memory),
-// for the out-of-line cores.
+// parameters' global tables, each bound computed where it is used. Tm:
+// the same tables as a struct in memory (the parameters, or the staged
+// copy in shared memory), for the out-of-line cores.
 template <bool STAGE>
 struct SplitScene {
   KFTables T;

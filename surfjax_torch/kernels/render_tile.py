@@ -2715,35 +2715,13 @@ def prime_tile_reference(scene_t, settings: RenderSettings, k_m: float,
 
 
 # the priming kernel's profile (csrc/prime_tile.cu): its phases, then the
-# slot of each warp's clock64 and %globaltimer deltas; its warps are 4
-# coarse rays wide and 8 high, four side by side in a block
+# slot of each warp's clock64 and %globaltimer deltas; its warps are
+# PRIME_WARP_W coarse rays wide and 32 / PRIME_WARP_W high, four side by
+# side in a block (the kernel's PT_WARP_W)
 PRIME_PHASE_NAMES = ("load", "proxy steps", "evals proxy", "sdf steps",
                      "evals sdf", "write")
 PRIME_CLOCK = len(PRIME_PHASE_NAMES)
 PRIME_WARP_W = 4
-
-
-def _prime_args(scene_t, settings: RenderSettings, k_m: float, o, d):
-    """The priming kernel's launch arguments -> (KFTables, KFSettings,
-    KSLayout, PrimeArgs, the tensors they point to, the output t0)."""
-    static, _ = scene_t
-    ins = [a.contiguous() for a in _ray_arrays((tuple(o), tuple(d)))]
-    tables, counts = _scene_tables(scene_t, settings, ins[0].device)
-    out = torch.empty_like(ins[0])
-    tab = KFTables(*[t.data_ptr() for t in tables], None, None, None)
-    ks = kernel_settings(static, settings, None, 0, counts)
-    args = PrimeArgs()
-    for k, a in enumerate(ins):
-        args.inp[k] = a.data_ptr()
-    args.out = out.data_ptr()
-    args.n = out.numel()
-    args.has_proxy = int(any(_proxy_bounded(oir)
-                             for _, oir in _split(static)[1]))
-    args.k_m = f32(k_m)
-    args.inv1k = _inv_one_plus(k_m)
-    args.wc = ins[0].shape[-1] if ins[0].dim() > 1 else args.n
-    layout = _scene_layout(tables, records=False)
-    return tab, ks, layout, args, (ins, tables), out
 
 
 def prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d):
@@ -2766,9 +2744,24 @@ def prime_profile_launcher(scene_t, settings: RenderSettings, k_m: float, o,
 def _prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d,
                     profile: bool):
     from surfjax_torch.kernels import _build
-    tab, ks, layout, args, keep, out = _prime_args(scene_t, settings, k_m,
-                                                   o, d)
-    dev = out.device
+    static, _ = scene_t
+    ins = [a.contiguous() for a in _ray_arrays((tuple(o), tuple(d)))]
+    dev = ins[0].device
+    tables, counts = _scene_tables(scene_t, settings, dev)
+    out = torch.empty_like(ins[0])
+    tab = KFTables(*[t.data_ptr() for t in tables], None, None, None)
+    ks = kernel_settings(static, settings, None, 0, counts)
+    layout = _scene_layout(tables, records=False)
+    args = PrimeArgs()
+    for k, a in enumerate(ins):
+        args.inp[k] = a.data_ptr()
+    args.out = out.data_ptr()
+    args.n = out.numel()
+    args.has_proxy = int(any(_proxy_bounded(oir)
+                             for _, oir in _split(static)[1]))
+    args.k_m = f32(k_m)
+    args.inv1k = _inv_one_plus(k_m)
+    args.wc = ins[0].shape[-1] if ins[0].dim() > 1 else args.n
     ww = PRIME_WARP_W
     blocks = -(-args.wc // (4 * ww)) * -(-(args.n // args.wc) // (32 // ww))
     prof = torch.zeros((blocks * (KS_THREADS // 32), len(KP_PHASE_NAMES), 3),
@@ -2782,7 +2775,7 @@ def _prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d,
             stream = torch.cuda.current_stream(dev).cuda_stream
             _raise_on(fn(tab, ks, layout, args, _ptr(prof), dev.index,
                          ctypes.c_void_p(stream)), "pt_prime_tile")
-        return keep
+        return ins, tables
 
     return launch, (out,), prof
 
