@@ -11,7 +11,9 @@ the script exits non-zero and never prints its last line):
      source, in parallel), prints ptxas' registers and spills of every
      entry and holds those of the crowd instantiation kf_frame_kernel<true>,
      of K1, K2 and ao_fix with a crowd, of the staged fused kernel and of
-     the staged K1 and K2 to what they were before the staged ao_fix;
+     the staged K1 and K2 to what they were before the staged ao_fix (K1's
+     and K2's launches without a march cap to what they were before the
+     caps, those with unres to the caps' first build);
      prints the staged kernel's shared memory per block and resident blocks
      per SM on c3;
   2. the fused kernel (for scenes without a crowd: the staged kernel,
@@ -119,7 +121,18 @@ the script exits non-zero and never prints its last line):
      warps' cycles, steps per ray and SIMT efficiency, the SM clock
      (clock64 against %globaltimer), the cycles per warp (median, p99,
      max) and the slowest warp in ms beside the kernel's time; ptxas' line,
-     resident blocks per SM and waves.
+     resident blocks per SM and waves;
+ 19. the capped-march residual (settings.march_cap, shadow_march_cap): every
+     capped and residual K1 and K2 call of a 256x256 c3 frame (caps 32/16
+     and 2/2) and of a crowd scene (hard and soft shadows, the crowd
+     instantiations) against its plain version, bitwise, unres included;
+     c3 at 1920x1080 through render() under every cap variant of surfjax's
+     tools/cap_sweep.py (breakdown.CAP_VARIANTS), bitwise equal to the
+     uncapped split path (render_rays_pallas with caps 0), with the launch
+     counts (K1 and K2 twice where capped, the fused kernel never); the
+     capped and residual launches of mc=32 sc=16 timed back to back; three
+     1080p pose-fit steps on c5 with mc=32 sc=16: losses, pose and Adam
+     moments bitwise equal to the uncapped steps'.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
@@ -127,7 +140,9 @@ per 1080p frame (value_exact mode for the fused kernel, `ao` mode for the
 split kernels, crowd_demo `config` for the fused kernel's crowd
 instantiation; the probe's entries per launch at its defaults, unroll 4)
 and bounds; K1 and K2 also with their time and bound in a 1080p fit step
-(fit_ms, fit_bound_ms, fit_bound_by).
+(fit_ms, fit_bound_ms, fit_bound_by) and their capped and residual
+launches on c3 at 1080p under mc=32 sc=16 (capped_ms, redo_ms, redo_rows:
+the share of rows re-run); their launches and errors include phase 19's.
 """
 
 from __future__ import annotations
@@ -168,16 +183,25 @@ KF_BEFORE = "3.338 ms/frame, 72 registers, 264/416 bytes of spills"
 # sm_90a; the crowd instantiations as the parent of the staged fused kernel
 # (d7d452f) built them, the staged fused kernel as c31b803, the parent of
 # the staged K1 and K2 (split_staged.cu), built it, the staged K1 and K2 as
-# 40326d7, the parent of the staged ao_fix and priming kernels, built them
+# 40326d7, the parent of the staged ao_fix and priming kernels, built them;
+# K1 and K2 without unres (their second template argument, CUT, false: the
+# launches without a march cap) as 861907e, the parent of the caps, built
+# them, and with unres (CUT) as the caps' first build did
 PTXAS_KEPT = {
     "_Z15kf_frame_kernelILb1EEv8KFTables10KFSettings": (
         "768 bytes stack frame, 176 bytes spill stores, 292 bytes spill loads",
         "Used 96 registers, used 0 barriers, 768 bytes cumulative stack size"),
-    "_Z21sp_render_tile_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
+    "_Z21sp_render_tile_kernelILb1ELb0EEv8KFTables10KFSettings9SplitRays": (
         "640 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "Used 96 registers, used 0 barriers, 640 bytes cumulative stack size"),
-    "_Z20sp_trace_rays_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
+    "_Z21sp_render_tile_kernelILb1ELb1EEv8KFTables10KFSettings9SplitRays": (
+        "640 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "Used 96 registers, used 0 barriers, 640 bytes cumulative stack size"),
+    "_Z20sp_trace_rays_kernelILb1ELb0EEv8KFTables10KFSettings9SplitRays": (
         "560 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "Used 72 registers, used 0 barriers, 560 bytes cumulative stack size"),
+    "_Z20sp_trace_rays_kernelILb1ELb1EEv8KFTables10KFSettings9SplitRays": (
+        "560 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "Used 72 registers, used 0 barriers, 560 bytes cumulative stack size"),
     "_Z16sp_ao_fix_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
         "592 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -185,13 +209,22 @@ PTXAS_KEPT = {
     "_Z16kf_staged_kernelILb0EEv8KFTables10KFSettings8KSLayoutPyPi": (
         "528 bytes stack frame, 280 bytes spill stores, 532 bytes spill loads",
         "Used 64 registers, used 1 barriers, 528 bytes cumulative stack size"),
-    "_Z28sp_staged_render_tile_kernelILb0EEv8KFTables10KFSettings9SplitRays"
-    "Py": (
+    "_Z28sp_staged_render_tile_kernelILb0ELb0EEv8KFTables10KFSettings9Split"
+    "RaysPy": (
         "144 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "Used 72 registers, used 0 barriers, 144 bytes cumulative stack size"),
-    "_Z27sp_staged_trace_rays_kernelILb0EEv8KFTables10KFSettings8KSLayout9"
-    "SplitRaysPyPi": (
+    "_Z28sp_staged_render_tile_kernelILb0ELb1EEv8KFTables10KFSettings9Split"
+    "RaysPy": (
+        "160 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "Used 72 registers, used 0 barriers, 160 bytes cumulative stack size"),
+    "_Z27sp_staged_trace_rays_kernelILb0ELb0EEv8KFTables10KFSettings8KSLayout"
+    "9SplitRaysPyPi": (
         "176 bytes stack frame, 52 bytes spill stores, 52 bytes spill loads",
+        "Used 64 registers, used 1 barriers, 176 bytes cumulative stack size, "
+        "112 bytes smem"),
+    "_Z27sp_staged_trace_rays_kernelILb0ELb1EEv8KFTables10KFSettings8KSLayout"
+    "9SplitRaysPyPi": (
+        "176 bytes stack frame, 64 bytes spill stores, 64 bytes spill loads",
         "Used 64 registers, used 1 barriers, 176 bytes cumulative stack size, "
         "112 bytes smem"),
 }
@@ -294,6 +327,145 @@ def on_equals_off(label: str, on, off) -> int:
     return ulp
 
 
+def capped_residual(dev, smi: str) -> dict:
+    """Phase 19, the capped-march residual (module docstring) -> {"launches":
+    K1's and K2's launches on its main path, "err": the largest error of
+    its kernel comparisons per kernel, "ms": per kernel the capped and
+    residual launches' ms at c3 1080p under mc=32 sc=16 and the share of
+    rows re-run}."""
+    import numpy as np
+    import torch
+    import surfjax_torch.api as api
+    from surfjax_torch.api import render
+    from surfjax_torch.config import load_config
+    from surfjax_torch.core.camera import flat_camera_rays
+    from surfjax_torch.core.scene_compile import params_to_device
+    from surfjax_torch.core.types import FrameBuffers
+    from surfjax_torch.kernels.mesh_tile import mesh_tile
+    from surfjax_torch.kernels.render_tile import (
+        ao_fix, frame_fused, render_rays_pallas, render_tile, trace_rays,
+    )
+    from surfjax_torch.tools.breakdown import CAP_VARIANTS
+    from surfjax_torch.tools.fit_bench import pose_step_fn
+    from surfjax_torch.tools.kernel_check import (
+        KERNELS, capture_calls, compare, fresh,
+    )
+    from surfjax_torch.tools.workload import crowd_scene, cuda_ms, reframe
+    t19 = time.perf_counter()
+    errs = {"render_tile": 0.0, "trace_rays": 0.0}
+    c3_scene, c3_cam, c3_st, _ = load_config(os.path.join(
+        ROOT, "configs/c3_sdf.yaml"))
+    c3_st = c3_st.with_(backend="pallas")
+    # every capped and residual K1 and K2 call against its plain version
+    cases = [(f"c3 256x256 mc={mc} sc={sc}", c3_scene,
+              reframe(c3_cam, 256, 256),
+              c3_st.with_(march_cap=mc, shadow_march_cap=sc))
+             for mc, sc in ((32, 16), (2, 2))]
+    for mode in ("hard", "soft"):
+        sc_, cam_, st_ = crowd_scene(api, n_sdf_spheres=3, size=(256, 192),
+                                     shadows=True,
+                                     soft_shadows=mode == "soft")
+        cases.append((f"crowd {mode} 256x192", sc_, cam_, st_.with_(
+            vector_objects=True, march_cap=2, shadow_march_cap=2)))
+    for name, scene, cam, st in cases:
+        with capture_calls() as calls:
+            render(scene, cam, st, device=dev)
+        names = [c[0] for c in calls]
+        if "render_tile_redo" not in names or "trace_rays_redo" not in names:
+            raise AssertionError(f"{name}: no residual re-run in {names}")
+        shares = {}
+        for k, (kname, args) in enumerate(calls):
+            err, _, _ = compare(kname, args, f"{name} call {k}")
+            base = kname.replace("_redo", "")
+            errs[base] = max(errs[base], err)
+            if kname.endswith("_redo"):
+                shares[kname] = round(float(args[3].mean()), 4)
+        log(f"  {name}: {len(calls)} capped and residual K1/K2 calls bitwise "
+            f"equal to the plain versions, unres included; rows re-run "
+            f"{json.dumps(shares)}")
+    # the full-size path: c3 at 1080p under every cap variant of the sweep
+    # against the uncapped split path
+    cam = reframe(c3_cam, 1920, 1080)
+    H, W = cam.intrinsics.height, cam.intrinsics.width
+    static, params = c3_scene.freeze()
+    params_d = params_to_device(params, dev)
+    R = torch.as_tensor(np.asarray(cam.rotation, np.float32).reshape(9),
+                        device=dev)
+    pos = torch.as_tensor(np.asarray(cam.position, np.float32), device=dev)
+    o, d, _ = flat_camera_rays(cam.intrinsics, R, pos)
+    with torch.no_grad():
+        ref = render_rays_pallas(static, c3_st, params_d, o, d)
+    ref = FrameBuffers(*(a.reshape((H, W) + tuple(a.shape[1:]))
+                         for a in ref))
+    if not all(bool(torch.isfinite(a.float()).all()) for a in ref) or \
+            not 0.3 < float(ref.hit.mean()) < 1.0:
+        raise AssertionError("c3 1080p: the uncapped split path's frame is "
+                             "not finite or its hit fraction is off")
+    wrappers = (render_tile, trace_rays, ao_fix, mesh_tile, frame_fused)
+    for w in wrappers:
+        w.launches = 0
+    n_lights = len(c3_scene.lights)
+    want = [0, 0, 0, 0, 0]
+    for name, mc, sc in CAP_VARIANTS:
+        fb = render(c3_scene, cam, c3_st.with_(march_cap=mc,
+                                                shadow_march_cap=sc),
+                    device=dev)
+        bitwise(fb, ref, FrameBuffers._fields, f"c3 1080p {name}")
+        want[0] += 2 if mc else 1
+        want[1] += (2 if sc else 1) * n_lights
+    got = [w.launches for w in wrappers]
+    if got != want:
+        raise AssertionError(f"c3 1080p caps: launches (K1, K2, ao_fix, "
+                             f"mesh, fused) {got}, expected {want}")
+    launches = {"render_tile": got[0], "trace_rays": got[1]}
+    log(f"  c3 1080p: render() under {len(CAP_VARIANTS)} cap variants "
+        f"bitwise equal to the uncapped split path; launches {launches}")
+    # the capped and residual launches of one variant, back to back
+    with capture_calls() as calls:
+        render(c3_scene, cam, c3_st.with_(march_cap=32, shadow_march_cap=16),
+               device=dev)
+    timing = {}
+    for kname, args in calls:
+        launch, _ = KERNELS[kname][3](*fresh(kname, args))
+        launch()
+        k_ms, _ = cuda_ms(lambda: [launch() for _ in range(LAUNCH_REPS)], 3)
+        base = kname.replace("_redo", "")
+        key = "redo_ms" if kname.endswith("_redo") else "capped_ms"
+        timing.setdefault(base, {})[key] = min(k_ms) / LAUNCH_REPS
+        if kname.endswith("_redo"):
+            timing[base]["redo_rows"] = float(args[3].mean())
+    log(f"  c3 1080p mc=32 sc=16, launched back to back: "
+        + json.dumps(timing))
+    # a few capped 1080p pose-fit steps against uncapped ones
+    runs = []
+    for mc, sc in ((0, 0), (32, 16)):
+        step, x, state, _ = pose_step_fn("pallas", 60, (1920, 1080), dev,
+                                         march_cap=mc, shadow_march_cap=sc)
+        render_tile.launches = trace_rays.launches = 0
+        losses = []
+        for _ in range(3):
+            x, state, loss = step(x, state)
+            losses.append(loss.detach())
+        runs.append(([*losses, x["w"], x["dt"], state["mu"]["w"],
+                      state["mu"]["dt"], state["nu"]["w"], state["nu"]["dt"]],
+                     (render_tile.launches, trace_rays.launches)))
+    for k, (a, b) in enumerate(zip(runs[0][0], runs[1][0])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"capped 1080p fit steps differ from the "
+                                 f"uncapped ones in value {k}")
+    if runs[0][1][0] != 3 or runs[1][1] != (6, 2 * runs[0][1][1]):
+        raise AssertionError(f"capped fit steps: launches K1, K2 "
+                             f"{runs[1][1]}")
+    launches["render_tile"] += runs[1][1][0]
+    launches["trace_rays"] += runs[1][1][1]
+    log(f"  c5 pose fit at 1920x1080, 3 steps with mc=32 sc=16: losses, "
+        f"pose and Adam moments bitwise equal to the uncapped steps "
+        f"(losses {[float(v) for v in runs[1][0][:3]]})")
+    log(f"phase 19: the capped-march residual ({time.perf_counter() - t19:.1f}"
+        f" s) on {smi}")
+    return {"launches": launches, "err": errs, "ms": timing}
+
+
 def main() -> int:
     # -- phase 0 ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -361,7 +533,8 @@ def main() -> int:
                                  f"{built.get(name)}, was {lines}")
     log(f"  ptxas' report of {len(PTXAS_KEPT)} entries (kf_frame_kernel"
         "<true>, K1, K2 and ao_fix with a crowd, the staged fused kernel, "
-        "the staged K1 and K2) unchanged")
+        "the staged K1 and K2, both K1 and K2 with and without unres) "
+        "unchanged")
     c3_scene, _, c3_set, _ = load_config(os.path.join(ROOT,
                                                       "configs/c3_sdf.yaml"))
     static, params = c3_scene.freeze()
@@ -1261,6 +1434,9 @@ def main() -> int:
     log(f"phase 18: the priming kernel's phase profile on primed c3 at "
         f"1920x1080 ({time.perf_counter() - t18:.1f} s) on {smi}")
 
+    # -- phase 19 -----------------------------------------------------------
+    capped = capped_residual(dev, smi)
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     # the fused kernel: times per 1080p frame in value_exact mode, the
@@ -1311,8 +1487,10 @@ def main() -> int:
             "source": f"surfjax_torch/kernels/csrc/{sources[name][0]}",
             "replaces": f"surfjax/kernels/{sources[name][1]}",
             "launches": sum(c[name] for c in mesh_launches.values())
-            + fit_launches.get(name, 0),
-            "max_abs_err": split_err[name], "ms": st7["ms"],
+            + fit_launches.get(name, 0) + capped["launches"].get(name, 0),
+            "max_abs_err": max(split_err[name],
+                               capped["err"].get(name, 0.0)),
+            "ms": st7["ms"],
             "plain_ms": st7["plain_ms"], "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None})
         if name in fit_stats:
@@ -1320,6 +1498,9 @@ def main() -> int:
             fb_ = bound(f_["ops"], f_["bytes"])
             kernels[-1].update(fit_ms=f_["ms"], fit_bound_ms=fb_[0],
                                fit_bound_by=fb_[1])
+        if name in capped["ms"]:
+            # c3 1080p, mc=32 sc=16: the capped launch and its re-run
+            kernels[-1].update(capped["ms"][name])
     for entry, info in probe.items():
         kernels.append({
             "name": entry, "route": "cuda",

@@ -251,9 +251,10 @@ def params_to_device(params, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def from_reference(static, params, device="cpu"):
+def from_reference(static, params, device="cuda"):
     """A scene frozen by surfjax -> (this package's SceneWithMeshes, dict of
-    tensors on `device`).
+    tensors on `device`: the card unless the caller asks for the CPU, as
+    every entry point of the package).
 
     `static` is surfjax's SceneWithMeshes of namedtuples (mesh statics
     included) and `params` its dict of numpy arrays; both are read by

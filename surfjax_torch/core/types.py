@@ -49,7 +49,12 @@ class RenderSettings:
     secondary_lod_iters: int = 4
     # fused path only: AO-probe fractal cap (0 = secondary_lod_iters)
     ao_lod_iters: int = 2
-    # capped-march residual scheduling (not ported yet: must stay 0)
+    # kernel paths: the capped-march residual. > 0: K1's SDF marches
+    # (march_cap) and K2's shadow marches (shadow_march_cap) first run at
+    # most this many steps, then the 128-ray rows with a lane cut off run
+    # again at the full budget; the frame equals the uncapped one bitwise,
+    # and takes the split path (the fused path takes no caps). 0: off. The
+    # eager backend ignores both.
     march_cap: int = 0
     shadow_march_cap: int = 0
     # shading

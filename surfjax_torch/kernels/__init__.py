@@ -8,5 +8,7 @@ RECORDED_CALLS = None
 
 
 def record_call(name: str, args) -> None:
+    """args: the call's arguments, or a function that makes them (called
+    only while recording)."""
     if RECORDED_CALLS is not None:
-        RECORDED_CALLS.append((name, args))
+        RECORDED_CALLS.append((name, args() if callable(args) else args))

@@ -81,11 +81,14 @@ struct KFSettings {
   float ao_strength, exit_margin, default_shell, bg_r, bg_g, bg_b;
 };
 
-// Flat ray arrays of one split-path launch (render_tile.SplitRays).
+// Flat ray arrays of one split-path launch (render_tile.SplitRays). redo:
+// null, or the flag of each 128-ray row of a residual re-run (a row whose
+// flag is 0 is left as it is).
 struct SplitRays {
   const float* in[8];
   float* out[8];
   int n;
+  const float* redo;
 };
 
 struct V3 { float x, y, z; };
@@ -497,12 +500,28 @@ __device__ __forceinline__ void bound_entry(Bound b, V3 o, V3 d,
   clip2 = none ? t_clip : fminf(t_clip, t_out);
 }
 
+// What a march tells of its step budget: whether the lane was still
+// marching when the budget ran out (surfjax's unres; the capped-march
+// residual re-runs those lanes at the full budget). Only the split path's
+// K1 and K2 ask, through Unres, which ORs it into the caller's flag; every
+// other kernel's marches take NoUnres, which holds nothing and adds no
+// code, so their code stays as it was.
+struct NoUnres {
+  static constexpr bool ON = false;
+  __device__ __forceinline__ void note(bool) const {}
+};
+struct Unres {
+  static constexpr bool ON = true;
+  bool& cut;
+  __device__ __forceinline__ void note(bool live) const { cut = cut || live; }
+};
+
 // Bounded (over-relaxed) sphere march along o + t*d of the SDF `sdf`;
 // returns hit, t in t.
-template <class Sdf>
+template <class Sdf, class U = NoUnres>
 __device__ __forceinline__ bool march_loop(const KFSettings& S, Sdf sdf,
                                            V3 o, V3 d, float& t,
-                                           float t_clip) {
+                                           float t_clip, U u = U{}) {
   bool done = t >= t_clip, hit = false;
   float h_prev = 0.0f, st_prev = 0.0f;
   for (int i = 0; i < S.max_steps && !done; ++i) {
@@ -521,14 +540,16 @@ __device__ __forceinline__ bool march_loop(const KFSettings& S, Sdf sdf,
       st_prev = okf * step;
     }
   }
+  u.note(!done);
   return hit;
 }
 
 // Penumbra march of the SDF `sdf` over [t, t_max] -> visibility in [0, 1].
-template <class Sdf>
+template <class Sdf, class U = NoUnres>
 __device__ __forceinline__ float soft_march_loop(const KFSettings& S, Sdf sdf,
                                                  V3 o, V3 l, float t,
-                                                 float t_max, float kf) {
+                                                 float t_max, float kf,
+                                                 U u = U{}) {
   float res = 1.0f, h_prev = 0.0f, st_prev = 0.0f;
   bool done = t > t_max;
   for (int i = 0; i < S.shadow_steps && !done; ++i) {
@@ -548,6 +569,7 @@ __device__ __forceinline__ float soft_march_loop(const KFSettings& S, Sdf sdf,
       st_prev = okf * step;
     }
   }
+  u.note(!done);
   return clampf(res, 0.0f, 1.0f);
 }
 
@@ -568,6 +590,37 @@ static __device__ __noinline__ float soft_march(const KFTables& T,
       t, t_max, kf);
 }
 
+// The same with the lane's unres, for the split path's crowd K1 and K2
+// (march and soft_march stay as KF's crowd kernel calls them): march_cut
+// -> 1 on a hit, 2 when the budget ran out first, 0 else; soft_march_cut
+// -> the visibility and whether the budget ran out first.
+struct SoftCut {
+  float vis;
+  bool cut;
+};
+
+static __device__ __noinline__ int march_cut(const KFTables& T,
+                                             const KFSettings& S,
+                                             const int* ob, V3 o, V3 d,
+                                             float& t, float t_clip) {
+  bool cut = false;
+  const bool hit = march_loop(
+      S, [&](V3 p) { return eval_obj(T, S, ob, p, 0); }, o, d, t, t_clip,
+      Unres{cut});
+  return hit ? 1 : (cut ? 2 : 0);
+}
+
+static __device__ __noinline__ SoftCut soft_march_cut(const KFTables& T,
+                                                      const KFSettings& S,
+                                                      const int* ob, V3 o,
+                                                      V3 l, float t,
+                                                      float t_max, float kf) {
+  bool cut = false;
+  const float v = soft_march_loop(
+      S, [&](V3 p) { return eval_obj(T, S, ob, p, S.secondary_lod); }, o, l,
+      t, t_max, kf, Unres{cut});
+  return SoftCut{v, cut};
+}
 // ---------------------------------------------------------------------------
 // The crowd: one member of the member loops (render_tile.py, "The crowd").
 // A member's SDF and bound come straight from its leaf rows, not through
@@ -666,6 +719,84 @@ static __device__ __noinline__ float crowd_soft_march(const KFSettings& S,
                                                       float t_max, float kf) {
   return soft_march_loop(S, [&](V3 p) { return crowd_sdf(m, p); }, o, l, t,
                          t_max, kf);
+}
+
+// crowd_march and crowd_soft_march with the lane's unres, as march_cut and
+// soft_march_cut.
+static __device__ __noinline__ int crowd_march_cut(const KFSettings& S,
+                                                   const CrowdMember& m,
+                                                   V3 o, V3 d, float& t,
+                                                   float t_clip) {
+  bool cut = false;
+  const bool hit = march_loop(S, [&](V3 p) { return crowd_sdf(m, p); }, o,
+                              d, t, t_clip, Unres{cut});
+  return hit ? 1 : (cut ? 2 : 0);
+}
+
+static __device__ __noinline__ SoftCut crowd_soft_march_cut(
+    const KFSettings& S, const CrowdMember& m, V3 o, V3 l, float t,
+    float t_max, float kf) {
+  bool cut = false;
+  const float v = soft_march_loop(S, [&](V3 p) { return crowd_sdf(m, p); },
+                                  o, l, t, t_max, kf, Unres{cut});
+  return SoftCut{v, cut};
+}
+
+// An object's or a member's march through march / crowd_march, or with U
+// = Unres through the _cut variants, noting the lane's unres in u.
+template <class U>
+__device__ __forceinline__ bool march_of(const KFTables& T,
+                                         const KFSettings& S, const int* ob,
+                                         V3 o, V3 d, float& t, float t_clip,
+                                         U u) {
+  if constexpr (U::ON) {
+    const int r = march_cut(T, S, ob, o, d, t, t_clip);
+    u.note(r == 2);
+    return r == 1;
+  } else {
+    return march(T, S, ob, o, d, t, t_clip);
+  }
+}
+template <class U>
+__device__ __forceinline__ float soft_march_of(const KFTables& T,
+                                               const KFSettings& S,
+                                               const int* ob, V3 o, V3 l,
+                                               float t, float t_max,
+                                               float kf, U u) {
+  if constexpr (U::ON) {
+    const SoftCut r = soft_march_cut(T, S, ob, o, l, t, t_max, kf);
+    u.note(r.cut);
+    return r.vis;
+  } else {
+    return soft_march(T, S, ob, o, l, t, t_max, kf);
+  }
+}
+template <class U>
+__device__ __forceinline__ bool member_march(const KFSettings& S,
+                                             const CrowdMember& m, V3 o,
+                                             V3 d, float& t, float t_clip,
+                                             U u) {
+  if constexpr (U::ON) {
+    const int r = crowd_march_cut(S, m, o, d, t, t_clip);
+    u.note(r == 2);
+    return r == 1;
+  } else {
+    return crowd_march(S, m, o, d, t, t_clip);
+  }
+}
+template <class U>
+__device__ __forceinline__ float member_soft_march(const KFSettings& S,
+                                                   const CrowdMember& m,
+                                                   V3 o, V3 l, float t,
+                                                   float t_max, float kf,
+                                                   U u) {
+  if constexpr (U::ON) {
+    const SoftCut r = crowd_soft_march_cut(S, m, o, l, t, t_max, kf);
+    u.note(r.cut);
+    return r.vis;
+  } else {
+    return crowd_soft_march(S, m, o, l, t, t_max, kf);
+  }
 }
 
 // Nearest boundary of a member's single sphere/box leaf in (t_min, t_max),
@@ -1016,12 +1147,13 @@ __device__ __forceinline__ const float* first_leaf_params(const KFTables& T,
 // existed, and once with them. CULL (kf_frame_kernel<true> only) culls the
 // member loops per warp against w.seg, the warp's ray cone; every lane
 // calls it, w.active false for a pixel outside the frame.
-template <bool CROWD, bool CULL = false, class Warp = NoCull>
+template <bool CROWD, bool CULL = false, class Warp = NoCull,
+          class U = NoUnres>
 __device__ __forceinline__ void trace_primary(const KFTables& T,
                                               const KFSettings& S, V3 o,
                                               V3 d, float t0, float& t,
                                               float& obj, int& leaf,
-                                              Warp w = {}) {
+                                              Warp w = {}, U u = U{}) {
   t = KF_BIG;
   obj = -1.0f;
   leaf = 0;
@@ -1078,7 +1210,7 @@ __device__ __forceinline__ void trace_primary(const KFTables& T,
       bound_entry(crowd_bound(m), o, d, t_start, t_clip, S.default_shell,
                   t1, clip2);
       // a ray that misses the bound is done before its first step
-      bool hit_j = t1 < clip2 && crowd_march(S, m, o, d, t1, clip2);
+      bool hit_j = t1 < clip2 && member_march(S, m, o, d, t1, clip2, u);
       if (hit_j && t1 < t) { t = t1; obj = m.obj; leaf = 0; }
       t_clip = fminf(t_clip, t);
     }
@@ -1095,7 +1227,7 @@ __device__ __forceinline__ void trace_primary(const KFTables& T,
       t1 = t_start;
       clip2 = t_clip;
     }
-    bool hit_i = march(T, S, ob, o, d, t1, clip2);
+    bool hit_i = march_of(T, S, ob, o, d, t1, clip2, u);
     if (hit_i && t1 < t) { t = t1; obj = (float)oi; leaf = 0; }
     t_clip = fminf(t_clip, t);
   }
@@ -1300,10 +1432,11 @@ static __device__ __noinline__ float ao_factor_culled(const KFTables& T,
 
 // Visibility of one light from the offset receiver o along l over
 // [.., dist] through the non-mesh objects; kf is the penumbra sharpness.
-template <bool CROWD>
+// U = Unres (the split path's crowd K2) notes the lane's unres.
+template <bool CROWD, class U = NoUnres>
 static __device__ __noinline__ float visibility(const KFTables& T,
                                          const KFSettings& S, V3 o, V3 l,
-                                         float dist, float kf) {
+                                         float dist, float kf, U u = U{}) {
   if (S.soft_shadows) {
     const float t0 = S.soft_shadow_tmin;
     const int* ord = T.order + S.n_ana + S.n_sdf;
@@ -1318,8 +1451,8 @@ static __device__ __noinline__ float visibility(const KFTables& T,
       } else {
         float t_lo, t_hi;
         influence_window(crowd_bound(m), o, l, t0, dist, kf, t_lo, t_hi);
-        v = crowd_soft_march(S, m, o, l, fmaxf(t_lo, t0), fminf(dist, t_hi),
-                             kf);
+        v = member_soft_march(S, m, o, l, fmaxf(t_lo, t0),
+                              fminf(dist, t_hi), kf, u);
       }
       soft_vis = fminf(soft_vis, v);
     }
@@ -1339,10 +1472,10 @@ static __device__ __noinline__ float visibility(const KFTables& T,
         Bound b = object_bound(T, ob, 1, 0.0f);
         float t_lo, t_hi;
         influence_window(b, o, l, t0, dist_i, kf, t_lo, t_hi);
-        v = soft_march(T, S, ob, o, l, fmaxf(t_lo, t0), fminf(dist_i, t_hi),
-                       kf);
+        v = soft_march_of(T, S, ob, o, l, fmaxf(t_lo, t0),
+                          fminf(dist_i, t_hi), kf, u);
       } else {
-        v = soft_march(T, S, ob, o, l, t0, dist_i, kf);
+        v = soft_march_of(T, S, ob, o, l, t0, dist_i, kf, u);
       }
       soft_vis = fminf(soft_vis, v);
     }
@@ -1372,7 +1505,7 @@ static __device__ __noinline__ float visibility(const KFTables& T,
         dist_j = 0.0f;
       float t1, clip2;
       bound_entry(b, o, l, S.shadow_eps, dist_j, S.default_shell, t1, clip2);
-      bool hit = t1 < clip2 && crowd_march(S, m, o, l, t1, clip2);
+      bool hit = t1 < clip2 && member_march(S, m, o, l, t1, clip2, u);
       vis = vis * ((hit && t1 < dist_j) ? 0.0f : 1.0f);
     }
   }
@@ -1391,7 +1524,7 @@ static __device__ __noinline__ float visibility(const KFTables& T,
       t1 = S.shadow_eps;
       clip2 = dist_i;
     }
-    bool hit = march(T, S, ob, o, l, t1, clip2);
+    bool hit = march_of(T, S, ob, o, l, t1, clip2, u);
     vis = vis * ((hit && t1 < dist_i) ? 0.0f : 1.0f);
   }
   return vis;

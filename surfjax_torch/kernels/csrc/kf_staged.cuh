@@ -118,14 +118,16 @@ struct Prof<true> {
 
 // ---------------------------------------------------------------------------
 // The marches, inlined: march_loop's and soft_march_loop's bodies unchanged
-// (frame_fused.cuh), each trip counted
+// (frame_fused.cuh), each trip counted; u notes the lane's unres (Unres:
+// the split path's K1 and K2; NoUnres, KF: nothing)
 // ---------------------------------------------------------------------------
 
 // march_loop from t over (.., t_clip): true on a hit, t its distance.
-template <class Sdf, bool PROF>
+template <class Sdf, bool PROF, class U = NoUnres>
 __device__ __forceinline__ bool march_lane(const KFSettings& S, Sdf sdf, V3 o,
                                            V3 d, float& t, float t_clip,
-                                           Prof<PROF>& P, int ph) {
+                                           Prof<PROF>& P, int ph,
+                                           U u = U{}) {
   float h_prev = 0.0f, st_prev = 0.0f;
   bool done = t >= t_clip, hit = false;
   for (int i = 0; i < S.max_steps && !done; ++i) {
@@ -145,14 +147,16 @@ __device__ __forceinline__ bool march_lane(const KFSettings& S, Sdf sdf, V3 o,
     }
     P.trip(ph);
   }
+  u.note(!done);
   return hit;
 }
 
 // soft_march_loop from t over (.., t_max) with sharpness kf -> visibility.
-template <class Sdf, bool PROF>
+template <class Sdf, bool PROF, class U = NoUnres>
 __device__ __forceinline__ float soft_lane(const KFSettings& S, Sdf sdf,
                                            V3 o, V3 l, float t, float t_max,
-                                           float kf, Prof<PROF>& P, int ph) {
+                                           float kf, Prof<PROF>& P, int ph,
+                                           U u = U{}) {
   float res = 1.0f, h_prev = 0.0f, st_prev = 0.0f;
   bool done = t > t_max;
   for (int i = 0; i < S.shadow_steps && !done; ++i) {
@@ -173,6 +177,7 @@ __device__ __forceinline__ float soft_lane(const KFSettings& S, Sdf sdf,
     }
     P.trip(ph);
   }
+  u.note(!done);
   return clampf(res, 0.0f, 1.0f);
 }
 
@@ -344,13 +349,14 @@ __device__ __forceinline__ float ao_unbounded(const Blk& B,
 // for a pixel that takes no part
 // ---------------------------------------------------------------------------
 
-// Primary trace: trace_primary<false>'s body, the bounds from the block.
-template <bool PROF, class Blk>
+// Primary trace: trace_primary<false>'s body, the bounds from the block;
+// u notes the lane's unres.
+template <bool PROF, class Blk, class U = NoUnres>
 __device__ __forceinline__ void trace_pixel(const Blk& B,
                                             const KFSettings& S, bool act,
                                             V3 o, V3 d, float t0, float& t,
                                             float& obj, int& leaf,
-                                            Prof<PROF>& P) {
+                                            Prof<PROF>& P, U u = U{}) {
   const KFTables& T = B.T;
   t = KF_BIG;
   obj = -1.0f;
@@ -381,7 +387,7 @@ __device__ __forceinline__ void trace_pixel(const Blk& B,
       }
       bool hit_i = march_lane(
           S, [&](V3 p) { return B.eval(S, ob, p, 0); }, o, d, t1,
-          clip2, P, PH_PRIMARY + kp_obj(oi));
+          clip2, P, PH_PRIMARY + kp_obj(oi), u);
       if (hit_i && t1 < t) { t = t1; obj = (float)oi; leaf = 0; }
       t_clip = fminf(t_clip, t);
     }
@@ -433,12 +439,13 @@ __device__ __forceinline__ float ao_receiver(const Blk& B,
 }
 
 // Visibility of one light for one receiver, every object on its lane
-// (visibility<false>'s order).
-template <bool PROF, class Blk>
+// (visibility<false>'s order); u notes the lane's unres.
+template <bool PROF, class Blk, class U = NoUnres>
 __device__ __forceinline__ float vis_receiver(const Blk& B,
                                               const KFSettings& S, bool act,
                                               int li, V3 o, V3 l, float dist,
-                                              float kf, Prof<PROF>& P) {
+                                              float kf, Prof<PROF>& P,
+                                              U u = U{}) {
   const KFTables& T = B.T;
   if (S.soft_shadows) {
     const float t0 = S.soft_shadow_tmin;
@@ -466,7 +473,7 @@ __device__ __forceinline__ float vis_receiver(const Blk& B,
           v = soft_lane(
               S,
               [&](V3 p) { return B.eval(S, ob, p, S.secondary_lod); },
-              o, l, t_lo, t_hi, kf, P, ph);
+              o, l, t_lo, t_hi, kf, P, ph, u);
         }
         soft_vis = fminf(soft_vis, v);
       }
@@ -502,7 +509,7 @@ __device__ __forceinline__ float vis_receiver(const Blk& B,
       }
       bool hit = march_lane(
           S, [&](V3 p) { return B.eval(S, ob, p, 0); }, o, l, t1,
-          clip2, P, kp_vis(li, oi));
+          clip2, P, kp_vis(li, oi), u);
       vis = vis * ((hit && t1 < dist_i) ? 0.0f : 1.0f);
     }
     P.mark(kp_vis(li, oi));

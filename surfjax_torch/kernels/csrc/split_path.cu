@@ -8,9 +8,11 @@
 //     ::render_tile_kernel (K1, body _k1_body): primary trace of the
 //     non-mesh objects, the face-forwarded normal, and AO at the pre-merge
 //     hit, for rays given from outside, with an optional per-ray primed
-//     march start (in[6], null when the frame is not primed);
+//     march start (in[6], null when the frame is not primed), and unres
+//     (out[7]);
 //   * sp_trace_rays_kernel <- ::trace_rays_kernel (K2, body _k2_body): the
-//     hard or soft visibility of one light through the non-mesh objects;
+//     hard or soft visibility of one light through the non-mesh objects,
+//     and unres (out[1]);
 //   * sp_ao_fix_kernel <- ::ao_fix_kernel (body _ao_fix_body): AO again at
 //     pre-offset receivers on the lanes a mesh won (need > 0.5), ao_in
 //     elsewhere.
@@ -32,7 +34,10 @@
 // 1 at once for a lane whose shadow segment is empty (dist <= 0: the
 // driver zeroes it on primary misses), which is what the full test gives
 // there. The TPU kernels' tile-level gates are not carried over: each is
-// value-exact per lane.
+// value-exact per lane. K1 and K2 take their step budgets from S, and
+// write unres and honour a residual re-run's row flags (R.redo) only in
+// their CUT instantiation, which a launch with an unres output runs, as
+// split_staged.cu's do (its note).
 //
 // C interface (bound with ctypes, no PyTorch headers), each returning the
 // cudaError_t of its launch (each refuses a scene without a crowd):
@@ -44,17 +49,27 @@
 
 #define SP_BLOCK 128
 
-template <bool CROWD>
+template <bool CROWD, bool CUT>
 __global__ void __launch_bounds__(SP_BLOCK)
 sp_render_tile_kernel(const KFTables T, const KFSettings S,
                       const SplitRays R) {
+  if constexpr (CUT) {
+    if (R.redo && !(R.redo[blockIdx.x] > 0.5f)) return;
+  }
   const int i = blockIdx.x * SP_BLOCK + threadIdx.x;
   if (i >= R.n) return;
   const V3 o{R.in[0][i], R.in[1][i], R.in[2][i]};
   const V3 d{R.in[3][i], R.in[4][i], R.in[5][i]};
   float t, obj;
   int leaf;
-  trace_primary<CROWD>(T, S, o, d, R.in[6] ? R.in[6][i] : 0.0f, t, obj, leaf);
+  bool cut = false;
+  if constexpr (CUT) {
+    trace_primary<CROWD>(T, S, o, d, R.in[6] ? R.in[6][i] : 0.0f, t, obj,
+                         leaf, NoCull{}, Unres{cut});
+  } else {
+    trace_primary<CROWD>(T, S, o, d, R.in[6] ? R.in[6][i] : 0.0f, t, obj,
+                         leaf);
+  }
   const float hitf = t < KF_BIG * 0.5f ? 1.0f : 0.0f;
   const float t_sane = hitf > 0.5f ? t : 0.0f;
   const V3 p = along(o, d, t_sane);
@@ -72,22 +87,34 @@ sp_render_tile_kernel(const KFTables T, const KFSettings S,
   R.out[4][i] = n.z;
   R.out[5][i] = ao;
   R.out[6][i] = hitf;
+  if constexpr (CUT) R.out[7][i] = cut ? 1.0f : 0.0f;
 }
 
-template <bool CROWD>
+template <bool CROWD, bool CUT>
 __global__ void __launch_bounds__(SP_BLOCK)
 sp_trace_rays_kernel(const KFTables T, const KFSettings S,
                      const SplitRays R) {
+  if constexpr (CUT) {
+    if (R.redo && !(R.redo[blockIdx.x] > 0.5f)) return;
+  }
   const int i = blockIdx.x * SP_BLOCK + threadIdx.x;
   if (i >= R.n) return;
   const float dist = R.in[6][i];
   float vis = 1.0f;
+  bool cut = false;
   if (!(dist <= 0.0f)) {
-    vis = visibility<CROWD>(T, S, V3{R.in[0][i], R.in[1][i], R.in[2][i]},
-                     V3{R.in[3][i], R.in[4][i], R.in[5][i]}, dist,
-                     R.in[7][i]);
+    if constexpr (CUT) {
+      vis = visibility<CROWD>(T, S, V3{R.in[0][i], R.in[1][i], R.in[2][i]},
+                       V3{R.in[3][i], R.in[4][i], R.in[5][i]}, dist,
+                       R.in[7][i], Unres{cut});
+    } else {
+      vis = visibility<CROWD>(T, S, V3{R.in[0][i], R.in[1][i], R.in[2][i]},
+                       V3{R.in[3][i], R.in[4][i], R.in[5][i]}, dist,
+                       R.in[7][i]);
+    }
   }
   R.out[0][i] = vis;
+  if constexpr (CUT) R.out[1][i] = cut ? 1.0f : 0.0f;
 }
 
 template <bool CROWD>
@@ -105,31 +132,41 @@ sp_ao_fix_kernel(const KFTables T, const KFSettings S, const SplitRays R) {
 
 typedef void (*RaysKernel)(KFTables, KFSettings, SplitRays);
 
-// Launch the crowd instantiation `kernel`; a scene without a crowd is
-// refused (its kernels are the staged ones).
-static int launch_rays(RaysKernel kernel, const KFTables& T,
-                       const KFSettings& S, const SplitRays& R, int device,
-                       void* stream) {
+// Launch the crowd instantiation `kernel`, or `cut` (with unres) when the
+// launch has an unres output (slot `unres` of R.out; a residual re-run
+// needs one); a scene without a crowd is refused (its kernels are the
+// staged ones).
+static int launch_rays(RaysKernel kernel, RaysKernel cut, int unres,
+                       const KFTables& T, const KFSettings& S,
+                       const SplitRays& R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (S.n_crowd <= 0) return (int)cudaErrorInvalidValue;
+  const bool with_unres = unres >= 0 && R.out[unres] != nullptr;
+  if (S.n_crowd <= 0 || (R.redo && !with_unres))
+    return (int)cudaErrorInvalidValue;
   if (R.n <= 0) return 0;
   dim3 grid((R.n + SP_BLOCK - 1) / SP_BLOCK);
-  kernel<<<grid, SP_BLOCK, 0, (cudaStream_t)stream>>>(T, S, R);
+  const RaysKernel k = with_unres ? cut : kernel;
+  k<<<grid, SP_BLOCK, 0, (cudaStream_t)stream>>>(T, S, R);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sp_render_tile(KFTables T, KFSettings S, SplitRays R,
                               int device, void* stream) {
-  return launch_rays(sp_render_tile_kernel<true>, T, S, R, device, stream);
+  return launch_rays(sp_render_tile_kernel<true, false>,
+                     sp_render_tile_kernel<true, true>, 7, T, S, R, device,
+                     stream);
 }
 
 extern "C" int sp_trace_rays(KFTables T, KFSettings S, SplitRays R,
                              int device, void* stream) {
-  return launch_rays(sp_trace_rays_kernel<true>, T, S, R, device, stream);
+  return launch_rays(sp_trace_rays_kernel<true, false>,
+                     sp_trace_rays_kernel<true, true>, 1, T, S, R, device,
+                     stream);
 }
 
 extern "C" int sp_ao_fix(KFTables T, KFSettings S, SplitRays R, int device,
                          void* stream) {
-  return launch_rays(sp_ao_fix_kernel<true>, T, S, R, device, stream);
+  return launch_rays(sp_ao_fix_kernel<true>, sp_ao_fix_kernel<true>, -1, T,
+                     S, R, device, stream);
 }

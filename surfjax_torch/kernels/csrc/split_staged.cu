@@ -12,7 +12,19 @@
 //     starts, in[6], or null), the face-forwarded normal, and AO at the
 //     pre-merge hit on every lane, misses included;
 //   * K2: the hard or soft visibility of one light through the non-mesh
-//     objects; 1 at once where the shadow segment is empty (dist <= 0).
+//     objects; 1 at once where the shadow segment is empty (dist <= 0);
+//   * both, when the launch passes an unres output (K1 out[7], K2 out[1];
+//     the instantiation CUT): unres, 1 on a lane that a march left
+//     unfinished when its step budget (S.max_steps, S.shadow_steps) ran
+//     out. The capped-march residual (surfjax's _block_residual) launches
+//     a kernel with the budgets at the cap, then again at the full budget
+//     with R.redo, the flag of each 128-ray row that has such a lane: a
+//     row whose flag is 0 returns at once (K1: the block; K2: the row it
+//     took), a flagged row writes over the capped launch's outputs. The
+//     flag costs one load per row; no capacity, no fallback, no host sync.
+//     Without a cap no unres is asked for, and the instantiation without
+//     CUT is the code the kernels had before the caps: tracking and
+//     storing unres cost K2 14% on c4 at 1080p (PERF.md).
 //
 // What bounds them: on a mesh scene whose only non-mesh object is a plane
 // (c4) the bytes of the ray arrays (K1 reads 24 and writes 28 bytes per
@@ -50,7 +62,8 @@
 // phase names of kf_staged.cuh).
 //
 // C interface (bound with ctypes, no PyTorch headers), each returning the
-// cudaError_t of its launch:
+// cudaError_t of its launch (the budgets in KFSettings, R.redo in
+// SplitRays):
 //   int sp_staged_render_tile(KFTables, KFSettings, SplitRays,
 //                             unsigned long long* prof, int device,
 //                             void* stream)
@@ -58,14 +71,15 @@
 //                            unsigned long long* prof, int* work,
 //                            int device, void* stream)
 // prof: null, or the profile's counters, zeroed by the caller: rows x 4 x
-// KP_PHASES x 3; work: two ints the caller zeroed once (the row counter and
-// the blocks done), which the last block of each launch resets.
+// KP_PHASES x 3 (launches without unres only); work: two ints the caller
+// zeroed once (the row counter and the blocks done), which the last block
+// of each launch resets.
 
 #include "split_scene.cuh"
 
 // K1 on ray i (act false: a lane past the last ray, which takes part in
-// the warp's probes only).
-template <bool PROF, class Blk>
+// the warp's probes only); CUT: with unres.
+template <bool PROF, bool CUT, class Blk>
 __device__ __forceinline__ void k1_ray(const Blk& B, const KFSettings& S,
                                        const SplitRays& R, int i, bool act,
                                        Prof<PROF>& P) {
@@ -79,7 +93,12 @@ __device__ __forceinline__ void k1_ray(const Blk& B, const KFSettings& S,
   P.mark(PH_RAY);
   float t, obj;
   int leaf;
-  trace_pixel(B, S, act, o, d, t0, t, obj, leaf, P);
+  bool cut = false;
+  if constexpr (CUT) {
+    trace_pixel(B, S, act, o, d, t0, t, obj, leaf, P, Unres{cut});
+  } else {
+    trace_pixel(B, S, act, o, d, t0, t, obj, leaf, P);
+  }
   const float hitf = t < KF_BIG * 0.5f ? 1.0f : 0.0f;
   const float t_sane = hitf > 0.5f ? t : 0.0f;
   const V3 p = along(o, d, t_sane);
@@ -102,12 +121,14 @@ __device__ __forceinline__ void k1_ray(const Blk& B, const KFSettings& S,
     R.out[4][i] = n.z;
     R.out[5][i] = ao;
     R.out[6][i] = hitf;
+    if constexpr (CUT) R.out[7][i] = cut ? 1.0f : 0.0f;
   }
   P.mark(PH_WRITE);
 }
 
-// K2 on ray i: visibility of the launch's light (the profile's light 0).
-template <bool PROF, class Blk>
+// K2 on ray i: visibility of the launch's light (the profile's light 0);
+// CUT: with unres.
+template <bool PROF, bool CUT, class Blk>
 __device__ __forceinline__ void k2_ray(const Blk& B, const KFSettings& S,
                                        const SplitRays& R, int i, bool act,
                                        Prof<PROF>& P) {
@@ -121,31 +142,44 @@ __device__ __forceinline__ void k2_ray(const Blk& B, const KFSettings& S,
     kf = R.in[7][i];
   }
   P.mark(PH_RAY);
-  const float vis = vis_receiver(B, S, live, 0, o, l, dist, kf, P);
-  if (act) R.out[0][i] = vis;
+  bool cut = false;
+  float vis;
+  if constexpr (CUT) {
+    vis = vis_receiver(B, S, live, 0, o, l, dist, kf, P, Unres{cut});
+  } else {
+    vis = vis_receiver(B, S, live, 0, o, l, dist, kf, P);
+  }
+  if (act) {
+    R.out[0][i] = vis;
+    if constexpr (CUT) R.out[1][i] = cut ? 1.0f : 0.0f;
+  }
   P.mark(PH_WRITE);
 }
 
-// K1: one block per 128-ray row.
-template <bool PROF>
+// K1: one block per 128-ray row; a re-run skips an unflagged row.
+template <bool PROF, bool CUT>
 __global__ void __launch_bounds__(KS_THREADS)
 sp_staged_render_tile_kernel(const __grid_constant__ KFTables G,
                              const __grid_constant__ KFSettings S,
                              const __grid_constant__ SplitRays R,
                              unsigned long long* prof) {
+  if constexpr (CUT) {
+    if (R.redo && !(R.redo[blockIdx.x] > 0.5f)) return;
+  }
   SplitScene<false> B{G, G, nullptr, S.exit_margin};
   B.hoist(S);
   Prof<PROF> P;
   P.begin(prof, blockIdx.x);
   const int i = blockIdx.x * KS_THREADS + threadIdx.x;
-  k1_ray(B, S, R, i, i < R.n, P);
+  k1_ray<PROF, CUT>(B, S, R, i, i < R.n, P);
 }
 
 // K2: the block stages the scene, then takes rows from `work` until none
-// is left; the last block to finish resets the counters. The bound of 8
+// is left (a re-run skips an unflagged row); the last block to finish
+// resets the counters. The bound of 8
 // resident blocks makes ptxas keep more values in registers around the
 // out-of-line cores (fewer spills; PERF.md).
-template <bool PROF>
+template <bool PROF, bool CUT>
 __global__ void __launch_bounds__(KS_THREADS, 8)
 sp_staged_trace_rays_kernel(const __grid_constant__ KFTables G,
                             const __grid_constant__ KFSettings S,
@@ -169,9 +203,12 @@ sp_staged_trace_rays_kernel(const __grid_constant__ KFTables G,
     const int item = *item_slot;
     __syncthreads();
     if (item >= n_items) break;
+    if constexpr (CUT) {
+      if (R.redo && !(R.redo[item] > 0.5f)) continue;
+    }
     P.begin(prof, item);
     const int i = item * KS_THREADS + tid;
-    k2_ray(B, S, R, i, i < R.n, P);
+    k2_ray<PROF, CUT>(B, S, R, i, i < R.n, P);
   }
   if (tid == 0) {
     __threadfence();
@@ -182,18 +219,18 @@ sp_staged_trace_rays_kernel(const __grid_constant__ KFTables G,
   }
 }
 
-template <bool PROF>
+template <bool PROF, bool CUT>
 static int render_tile_launch(const KFTables& T, const KFSettings& S,
                               const SplitRays& R, unsigned long long* prof,
                               cudaStream_t stream) {
   const unsigned grid = (R.n + KS_THREADS - 1) / KS_THREADS;
-  sp_staged_render_tile_kernel<PROF><<<grid, KS_THREADS, 0, stream>>>(
+  sp_staged_render_tile_kernel<PROF, CUT><<<grid, KS_THREADS, 0, stream>>>(
       T, S, R, prof);
   return (int)cudaGetLastError();
 }
 
 // As many blocks as the card holds at once (at most one per row).
-template <bool PROF>
+template <bool PROF, bool CUT>
 static int trace_rays_launch(const KFTables& T, const KFSettings& S,
                              const KSLayout& L, const SplitRays& R,
                              unsigned long long* prof, int* work,
@@ -201,7 +238,7 @@ static int trace_rays_launch(const KFTables& T, const KFSettings& S,
   if (!work) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   if (L.bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(sp_staged_trace_rays_kernel<PROF>,
+    err = cudaFuncSetAttribute(sp_staged_trace_rays_kernel<PROF, CUT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L.bytes);
     if (err != cudaSuccess) return (int)err;
@@ -213,25 +250,32 @@ static int trace_rays_launch(const KFTables& T, const KFSettings& S,
                                  device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sp_staged_trace_rays_kernel<PROF>, KS_THREADS, L.bytes);
+        &per_sm, sp_staged_trace_rays_kernel<PROF, CUT>, KS_THREADS,
+        L.bytes);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (R.n + KS_THREADS - 1) / KS_THREADS;
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const unsigned grid = (unsigned)(rows < resident ? rows : resident);
-  sp_staged_trace_rays_kernel<PROF><<<grid, KS_THREADS, L.bytes, stream>>>(
-      T, S, L, R, prof, work);
+  sp_staged_trace_rays_kernel<PROF, CUT>
+      <<<grid, KS_THREADS, L.bytes, stream>>>(T, S, L, R, prof, work);
   return (int)cudaGetLastError();
 }
 
+// A launch with an unres output (K1 out[7], K2 out[1]) runs the CUT
+// instantiation; a residual re-run (R.redo) needs one. The profile is of
+// launches without a cap.
 extern "C" int sp_staged_render_tile(KFTables T, KFSettings S, SplitRays R,
                                      unsigned long long* prof, int device,
                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const bool cut = R.out[7] != nullptr;
+  if ((R.redo && !cut) || (prof && cut)) return (int)cudaErrorInvalidValue;
   if (R.n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return prof ? render_tile_launch<true>(T, S, R, prof, st)
-              : render_tile_launch<false>(T, S, R, nullptr, st);
+  if (prof) return render_tile_launch<true, false>(T, S, R, prof, st);
+  return cut ? render_tile_launch<false, true>(T, S, R, nullptr, st)
+             : render_tile_launch<false, false>(T, S, R, nullptr, st);
 }
 
 extern "C" int sp_staged_trace_rays(KFTables T, KFSettings S, KSLayout L,
@@ -239,8 +283,12 @@ extern "C" int sp_staged_trace_rays(KFTables T, KFSettings S, KSLayout L,
                                     int* work, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const bool cut = R.out[1] != nullptr;
+  if ((R.redo && !cut) || (prof && cut)) return (int)cudaErrorInvalidValue;
   if (R.n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return prof ? trace_rays_launch<true>(T, S, L, R, prof, work, st)
-              : trace_rays_launch<false>(T, S, L, R, nullptr, work, st);
+  if (prof) return trace_rays_launch<true, false>(T, S, L, R, prof, work, st);
+  return cut ? trace_rays_launch<false, true>(T, S, L, R, nullptr, work, st)
+             : trace_rays_launch<false, false>(T, S, L, R, nullptr, work,
+                                               st);
 }

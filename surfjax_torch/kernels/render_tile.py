@@ -28,7 +28,13 @@ that the cores take by loops over member rows (surfjax's `_crowd_*`
 sections; "The crowd" below). With settings.prime a cone march on a
 1/4-resolution grid (`prime_tile`, surfjax's `prime_tile_kernel`) finds for
 every 4x4 pixel block a start t0 before which no SDF surface lies, and the
-frame's SDF marches begin there.
+frame's SDF marches begin there. With settings.march_cap or
+shadow_march_cap the split path runs surfjax's capped-march residual: K1 or
+K2 with its step budgets at the cap, which flags the lanes the cap cut off
+(unres), then the same kernel at the full budget over the 128-ray rows
+holding such a lane, in place (`render_tile_redo`, `trace_rays_redo`); a
+lane re-run at the full budget gives what an uncapped launch gives it, so
+the frame equals the uncapped one bitwise. Capped frames never take KF.
 
 Every wrapper (`frame_fused`, `render_tile`, `trace_rays`, `ao_fix`,
 `prime_tile`) launches its CUDA kernel for CUDA tensors, counting the
@@ -414,11 +420,12 @@ def _prime_march(proxy_fn, sdf_fn, o, d, t_min: float, t_max: float,
 
 def _march(sdf_fn, o, d, t_init, t_clip, max_steps: int, hit_eps: float,
            relax: float = 1.0, eps_scale: float = 0.0):
-    """Bounded march, gated per lane -> (t, hit).
+    """Bounded march, gated per lane -> (t, hit, unres).
 
     Every lane takes at most max_steps substeps and stops when it hits
     (h < hit_eps + eps_scale*t) or passes t_clip; substeps of a done lane
-    are identity. relax > 1 over-relaxes the step by `relax`; when two
+    are identity. unres: the lanes still marching when the budget ran out
+    (surfjax's unres_f; the capped-march residual re-runs them). relax > 1 over-relaxes the step by `relax`; when two
     consecutive safety spheres stop overlapping (st_prev > h_prev + |h|)
     the lane retreats to the conservative point and the test is skipped."""
     eps = f32(hit_eps)
@@ -455,7 +462,7 @@ def _march(sdf_fn, o, d, t_init, t_clip, max_steps: int, hit_eps: float,
         h_prev = torch.where(done_new, h_prev, okf * h)
         st_prev = torch.where(done_new, st_prev, okf * step)
         done = done_new
-    return t, hit
+    return t, hit, ~done
 
 
 def _fd_normal(sdf_fn, p, eps: float):
@@ -762,28 +769,29 @@ def _crowd_analytic_trace(crowd, crowd_refs, o, d, t_min, t_max, state,
     return _crowd_sections(crowd.ana_ranges, member, state)
 
 
-def _crowd_trace(crowd, crowd_refs, o, d, t_start, settings, exit_margin,
-                 state, keep=None):
+def _crowd_trace(crowd, crowd_refs, o, d, t_start, settings, steps: int,
+                 exit_margin, state, keep=None):
     """Bound entry and march of every SDF member (singles, then pairs),
-    each clipped by the nearest hit so far. state -> (t, obj, leaf,
-    t_clip); keep as in _crowd_analytic_trace."""
+    each clipped by the nearest hit so far, in `steps` steps. state ->
+    (t, obj, leaf, t_clip, unres); keep as in _crowd_analytic_trace."""
     cm = crowd_refs[0]
 
     def member(j, tag, carry):
-        t, obj, leaf, t_clip = carry
+        t, obj, leaf, t_clip, unres = carry
         b, sdf_j = _crowd_shape(crowd, crowd_refs, j, tag)
         lanes = t.numel() if keep is None else keep(j)
         _tally(lanes, 30)
         t1, clip2 = _bound_entry(b, o, d, t_start, t_clip, exit_margin)
         if keep is not None:      # a skipped lane's march is done at once
             clip2 = torch.where(lanes, clip2, t1)
-        t_j, hit_j = _march(sdf_j, o, d, t1, clip2, settings.max_steps,
-                            settings.hit_eps, relax=settings.over_relax,
-                            eps_scale=settings.hit_eps_scale)
+        t_j, hit_j, un_j = _march(sdf_j, o, d, t1, clip2, steps,
+                                  settings.hit_eps, relax=settings.over_relax,
+                                  eps_scale=settings.hit_eps_scale)
         better = hit_j & (t_j < t)
         t = torch.where(better, t_j, t)
         return (t, torch.where(better, float(cm[j, 1]), obj),
-                torch.where(better, 0.0, leaf), torch.minimum(t_clip, t))
+                torch.where(better, 0.0, leaf), torch.minimum(t_clip, t),
+                unres | un_j)
 
     return _crowd_sections(crowd.sdf_ranges + crowd.pair_ranges, member,
                            state)
@@ -854,16 +862,18 @@ def _crowd_ao_terms(crowd, crowd_refs, p_off, taps, settings, terms, need,
                            terms)
 
 
-def _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings, eps_margin,
-                    vis, keep=None):
+def _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings, steps: int,
+                    eps_margin, state, keep=None):
     """Hard shadows of the crowd: SDF members (singles, then pairs) by
-    any-hit marches with the segment skip and the bound entry/exit clip,
-    analytic members exactly. -> vis. keep(key, j), key "hard_sdf" or
-    "hard_ana": as in _crowd_analytic_trace."""
+    any-hit marches of `steps` steps with the segment skip and the bound
+    entry/exit clip, analytic members exactly. state -> (vis, unres).
+    keep(key, j), key "hard_sdf" or "hard_ana": as in
+    _crowd_analytic_trace."""
     cm, lp, _ = crowd_refs
     eps = f32(settings.shadow_eps)
 
-    def member(j, tag, vis):
+    def member(j, tag, carry):
+        vis, unres = carry
         b, sdf_j = _crowd_shape(crowd, crowd_refs, j, tag)
         dist_j = torch.where(vis <= 0.0, 0.0, dist)
         if keep is not None:
@@ -874,12 +884,14 @@ def _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings, eps_margin,
         dist_j = torch.where(dseg > f32(eps_margin), 0.0, dist_j)
         t1, clip2 = _bound_entry(b, o, l, torch.full_like(dist_j, eps),
                                  dist_j, eps_margin)
-        t_s, hit_s = _march(sdf_j, o, l, t1, clip2, settings.max_steps,
-                            settings.hit_eps, relax=settings.over_relax,
-                            eps_scale=settings.hit_eps_scale)
-        return vis * torch.where(hit_s & (t_s < dist_j), 0.0, 1.0)
+        t_s, hit_s, un_j = _march(sdf_j, o, l, t1, clip2, steps,
+                                  settings.hit_eps, relax=settings.over_relax,
+                                  eps_scale=settings.hit_eps_scale)
+        return (vis * torch.where(hit_s & (t_s < dist_j), 0.0, 1.0),
+                unres | un_j)
 
-    def member_analytic(j, is_sphere, vis):
+    def member_analytic(j, is_sphere, carry):
+        vis, unres = carry
         t_j = _leaf_exact_t(lp[int(cm[j, 0])], is_sphere, o, l, eps, dist)
         lanes = (dist > 0.0) & (vis > 0.0)   # a dark lane skips the rest
         occ = t_j < dist
@@ -889,21 +901,24 @@ def _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings, eps_margin,
             occ = occ & kept
         _tally(lanes, _ANALYTIC_LEAF_OPS[LEAF_SPHERE if is_sphere
                                          else LEAF_BOX])
-        return vis * torch.where(occ, 0.0, 1.0)
+        return vis * torch.where(occ, 0.0, 1.0), unres
 
-    vis = _crowd_sections(crowd.sdf_ranges + crowd.pair_ranges, member, vis)
-    return _crowd_sections(crowd.ana_ranges, member_analytic, vis)
+    state = _crowd_sections(crowd.sdf_ranges + crowd.pair_ranges, member,
+                            state)
+    return _crowd_sections(crowd.ana_ranges, member_analytic, state)
 
 
-def _crowd_soft_vis(crowd, crowd_refs, o, l, dist, settings, kf, soft_vis,
-                    keep=None):
+def _crowd_soft_vis(crowd, crowd_refs, o, l, dist, settings, steps: int, kf,
+                    state, keep=None):
     """Penumbrae of the crowd: sphere members in closed form (no march),
-    boxes and pairs by influence-window marches. -> soft_vis. keep(key, j),
-    key "soft": as in _crowd_analytic_trace."""
+    boxes and pairs by influence-window marches of `steps` steps. state ->
+    (soft_vis, unres). keep(key, j), key "soft": as in
+    _crowd_analytic_trace."""
     cm, lp, _ = crowd_refs
     t0 = f32(settings.soft_shadow_tmin)
 
-    def member(j, tag, soft_vis):
+    def member(j, tag, carry):
+        soft_vis, unres = carry
         live = (dist > 0.0) & (soft_vis > 0.0)   # a dark lane skips the rest
         kept = None if keep is None else keep("soft", j, live)
         if tag is True:
@@ -914,20 +929,20 @@ def _crowd_soft_vis(crowd, crowd_refs, o, l, dist, settings, kf, soft_vis,
                 lanes = lanes & kept
                 v_j = torch.where(kept, v_j, soft_vis)
             _tally(lanes, 70)
-            return v_j
+            return v_j, unres
         b, sdf_j = _crowd_shape(crowd, crowd_refs, j, tag)
         dist_j = torch.where(soft_vis <= 0.0, 0.0, dist)
         if keep is not None:
             dist_j = torch.where(kept, dist_j, 0.0)
         _tally(dist_j > 0.0, 30)
         t_lo, t_hi = _influence_window(b, o, l, t0, dist_j, kf)
-        v_j = _soft_march(sdf_j, o, l, maximum(t_lo, t0),
-                          torch.minimum(dist_j, t_hi), kf,
-                          settings.shadow_steps, relax=settings.over_relax)
-        return torch.minimum(soft_vis, v_j)
+        v_j, un_j = _soft_march(sdf_j, o, l, maximum(t_lo, t0),
+                                torch.minimum(dist_j, t_hi), kf, steps,
+                                relax=settings.over_relax)
+        return torch.minimum(soft_vis, v_j), unres | un_j
 
     return _crowd_sections(crowd.all_ranges + crowd.pair_ranges, member,
-                           soft_vis)
+                           state)
 
 
 def _crowd_shade(crowd, crowd_refs, n_objects: int, mat_table, obj, hit,
@@ -960,9 +975,9 @@ def _crowd_shade(crowd, crowd_refs, n_objects: int, mat_table, obj, hit,
 
 
 def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
-               t0=None, cull=None):
+               t0=None, march_cap: int = 0, cull=None):
     """Primary trace over (settings.t_min, settings.t_max) of the non-mesh
-    objects -> (t, obj f32, leaf f32, hit_f f32).
+    objects -> (t, obj f32, leaf f32, hit_f f32, unres f32).
 
     Analytic objects are intersected exactly (scene order), then the
     analytic crowd members; then the crowd's SDF members are marched, then
@@ -970,9 +985,15 @@ def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
     bound-sphere entry and clipped by the nearest hit so far. t0 (per
     lane, from the priming pass) is a start before which no SDF surface
     lies: SDF marches begin at max(t_min, t0), analytic hits ignore it.
-    cull(key, j, live) -> the lanes that visit member j in the loop `key`
+    Every SDF march takes march_cap steps, or settings.max_steps when
+    march_cap is 0; unres flags the lanes some march left unfinished (the
+    capped-march residual re-runs them at the full budget; with cap 0, the
+    lanes that ran out of max_steps, a miss everywhere). cull(key, j,
+    live) -> the lanes that visit member j in the loop `key`
     (CrowdMasks.lanes), None: every lane visits every member."""
     crowd, analytic, sdf_objs = split_crowd(static, settings)
+    steps = march_cap or settings.max_steps
+    unres = torch.zeros_like(o[0], dtype=torch.bool)
     t_a = torch.full_like(o[0], BIG)
     obj = torch.full_like(o[0], -1.0)
     leaf = torch.zeros_like(o[0])
@@ -996,9 +1017,9 @@ def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
         t_start = maximum(t0, f32(t_min))
     exit_margin = _exit_margin(settings)
     if crowd is not None and crowd.has_sdf:
-        t, obj, leaf, _ = _crowd_trace(
-            crowd, crowd_refs, o, d, t_start, settings, exit_margin,
-            (t, obj, leaf, minimum(t, f32(t_max))),
+        t, obj, leaf, _, unres = _crowd_trace(
+            crowd, crowd_refs, o, d, t_start, settings, steps, exit_margin,
+            (t, obj, leaf, minimum(t, f32(t_max)), unres),
             _bind(cull, "primary_sdf"))
     if sdf_objs:
         fast_fn = _fast_leaf_fn(settings)
@@ -1013,16 +1034,18 @@ def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
                                          exit_margin, shell=shell_i)
             else:
                 t1, clip2 = t_start, t_clip
-            t_i, hit_i = _march(sdf_i, o, d, t1, clip2, settings.max_steps,
-                                settings.hit_eps, relax=settings.over_relax,
-                                eps_scale=settings.hit_eps_scale)
+            t_i, hit_i, un_i = _march(sdf_i, o, d, t1, clip2, steps,
+                                      settings.hit_eps,
+                                      relax=settings.over_relax,
+                                      eps_scale=settings.hit_eps_scale)
             better = hit_i & (t_i < t)
             t = torch.where(better, t_i, t)
             obj = torch.where(better, float(i), obj)
             leaf = torch.where(better, 0.0, leaf)
             t_clip = torch.minimum(t_clip, t)
+            unres = unres | un_i
     hit_f = torch.where(t < f32(BIG * 0.5), 1.0, 0.0)
-    return t, obj, leaf, hit_f
+    return t, obj, leaf, hit_f, torch.where(unres, 1.0, 0.0)
 
 
 def normals_core(static, settings: RenderSettings, lp, nparams, p, obj,
@@ -1169,11 +1192,12 @@ def _seg_bound_dist(b, o, l, t_lo: float, dist):
 
 def _soft_march(sdf_fn, o, d, t_init, t_max, k, steps: int,
                 relax: float = 1.0):
-    """Penumbra march, gated per lane -> visibility in [0, 1].
+    """Penumbra march, gated per lane -> (visibility in [0, 1], unres).
 
     res = min(res, k*h/t); the step never skips a stretch where k*d/t
     could fall below res; relax > 1 over-relaxes with the same retreat
-    rule as _march. A lane stops below res 0.004 or past t_max."""
+    rule as _march. A lane stops below res 0.004 or past t_max; unres as
+    in _march."""
     kf = k if isinstance(k, torch.Tensor) else f32(k)
     w = f32(relax)
     relaxed = relax > 1.0
@@ -1206,24 +1230,28 @@ def _soft_march(sdf_fn, o, d, t_init, t_max, k, steps: int,
         h_prev = torch.where(done_new, h_prev, okf * h)
         st_prev = torch.where(done_new, st_prev, okf * step)
         done = done_new
-    return clamp(res, 0.0, 1.0)
+    return clamp(res, 0.0, 1.0), ~done
 
 
 def visibility_core(static, settings: RenderSettings, lp, nparams,
-                    o, l, dist, soft_k=None, cull=None):
+                    o, l, dist, soft_k=None, march_cap: int = 0, cull=None):
     """Shadow visibility of secondary rays through the non-mesh objects
-    -> vis.
+    -> (vis, unres f32).
 
     Soft shadows: every object's penumbra factor, combined by min (closed
     forms for single plane/sphere leaves, influence-window marches for
     bounded objects; lanes already dark skip later objects). Hard shadows:
     analytic objects occlude exactly, SDF objects by any-hit marches that
-    skip segments clear of the object's cover sphere. cull(key, j, live): as in
-    trace_core, keys "hard_sdf", "hard_ana" and "soft" of this light."""
+    skip segments clear of the object's cover sphere. Each march takes
+    march_cap steps, or when march_cap is 0 settings.shadow_steps (soft)
+    or settings.max_steps (hard); unres as in trace_core. cull(key, j,
+    live): as in trace_core, keys "hard_sdf", "hard_ana" and "soft" of
+    this light."""
     crowd, analytic, sdf_objs = split_crowd(static, settings)
     crowd_refs = _crowd_refs(static, settings, lp, nparams)
     vis = torch.ones_like(o[0])
     eps = settings.shadow_eps
+    unres = torch.zeros_like(o[0], dtype=torch.bool)
 
     if settings.soft_shadows and (analytic or sdf_objs or crowd):
         nonmesh = sorted(analytic + sdf_objs,
@@ -1232,10 +1260,12 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
         kf = k if isinstance(k, torch.Tensor) else f32(k)
         t0 = f32(settings.soft_shadow_tmin)
         lod_fn = _fast_leaf_fn(settings, settings.secondary_lod_iters)
+        steps = march_cap or settings.shadow_steps
         soft_vis = torch.ones_like(o[0])
         if crowd is not None:
-            soft_vis = _crowd_soft_vis(crowd, crowd_refs, o, l, dist,
-                                       settings, kf, soft_vis, cull)
+            soft_vis, unres = _crowd_soft_vis(
+                crowd, crowd_refs, o, l, dist, settings, steps, kf,
+                (soft_vis, unres), cull)
         for i, oir in nonmesh:
             cf = _single_leaf_closed_form(oir)
             if cf is not None:
@@ -1252,25 +1282,26 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
             if b is not None:
                 _tally(dist_i > 0.0, 30)
                 t_lo, t_hi = _influence_window(b, o, l, t0, dist_i, kf)
-                v_i = _soft_march(sdf_i, o, l, maximum(t_lo, t0),
-                                  torch.minimum(dist_i, t_hi), kf,
-                                  settings.shadow_steps,
-                                  relax=settings.over_relax)
+                v_i, un_i = _soft_march(sdf_i, o, l, maximum(t_lo, t0),
+                                        torch.minimum(dist_i, t_hi), kf,
+                                        steps, relax=settings.over_relax)
             else:
-                v_i = _soft_march(sdf_i, o, l, torch.full_like(dist_i, t0),
-                                  dist_i, kf, settings.shadow_steps,
-                                  relax=settings.over_relax)
+                v_i, un_i = _soft_march(sdf_i, o, l,
+                                        torch.full_like(dist_i, t0), dist_i,
+                                        kf, steps, relax=settings.over_relax)
             soft_vis = torch.minimum(soft_vis, v_i)
-        return vis * soft_vis
+            unres = unres | un_i
+        return vis * soft_vis, torch.where(unres, 1.0, 0.0)
 
     for _, oir in analytic:
         t_i, _ = intersect_analytic(oir, lp, o, l, eps, dist)
         _tally(dist > 0.0, _analytic_ops(oir))
         vis = vis * torch.where(t_i < dist, 0.0, 1.0)
     eps_margin = _exit_margin(settings)
+    steps = march_cap or settings.max_steps
     if crowd is not None:
-        vis = _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings,
-                              eps_margin, vis, cull)
+        vis, unres = _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings,
+                                     steps, eps_margin, (vis, unres), cull)
     if sdf_objs:
         fast_fn = _fast_leaf_fn(settings)
         for i, oir in sorted(sdf_objs, key=lambda io: len(io[1].nodes)):
@@ -1288,12 +1319,14 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
                                          dist_i, eps_margin)
             else:
                 t1, clip2 = torch.full_like(dist_i, f32(eps)), dist_i
-            t_s, hit_s = _march(sdf_i, o, l, t1, clip2, settings.max_steps,
-                                settings.hit_eps, relax=settings.over_relax,
-                                eps_scale=settings.hit_eps_scale)
+            t_s, hit_s, un_i = _march(sdf_i, o, l, t1, clip2, steps,
+                                      settings.hit_eps,
+                                      relax=settings.over_relax,
+                                      eps_scale=settings.hit_eps_scale)
             occ = hit_s & (t_s < dist_i)
             vis = vis * torch.where(occ, 0.0, 1.0)
-    return vis
+            unres = unres | un_i
+    return vis, torch.where(unres, 1.0, 0.0)
 
 
 def _bind(cull, key: str):
@@ -1381,12 +1414,13 @@ def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n,
 
 
 def scene_march_twin(static, settings: RenderSettings, leaf_params,
-                     node_params, o, d, t0=None):
-    """Trace + normals + AO of flat rays -> (t, obj, n, ao, hit_f); the
-    counterpart of surfjax's scene_march_twin. t0: see trace_core."""
+                     node_params, o, d, t0=None, march_cap: int = 0):
+    """Trace + normals + AO of flat rays -> (t, obj, n, ao, hit_f, unres);
+    the counterpart of surfjax's scene_march_twin, with K1's unres. t0,
+    march_cap: see trace_core."""
     lp, nparams = leaf_params, node_params
-    t, obj, leaf, hit_f = trace_core(static, settings, lp, nparams, o, d,
-                                     t0=t0)
+    t, obj, leaf, hit_f, unres = trace_core(static, settings, lp, nparams, o,
+                                            d, t0=t0, march_cap=march_cap)
     t_sane = torch.where(hit_f > 0.5, t, 0.0)
     p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
     n = normals_core(static, settings, lp, nparams, p, obj, leaf, d)
@@ -1395,7 +1429,7 @@ def scene_march_twin(static, settings: RenderSettings, leaf_params,
         ao = _ao_compute(static, settings, lp, nparams, p, n)
     else:
         ao = torch.ones_like(p[0])
-    return t, obj, n, ao, hit_f
+    return t, obj, n, ao, hit_f, unres
 
 
 # ---------------------------------------------------------------------------
@@ -1490,7 +1524,7 @@ def fused_pixels(scene_t, settings: RenderSettings, o, d, t0=None,
     if masks is not None:
         masks.tally()
 
-    t, obj, leaf, hit_f = trace_core(
+    t, obj, leaf, hit_f, _ = trace_core(
         static, settings, lp, nparams, o, d, t0=t0, cull=cull)
     hit = hit_f > 0.5
     t_sane = torch.where(hit, t, 0.0)
@@ -1515,7 +1549,7 @@ def fused_pixels(scene_t, settings: RenderSettings, o, d, t0=None,
         lcol = (lrow[3], lrow[4], lrow[5])
         if settings.shadows:
             dist_eff = torch.where(hit, dist, 0.0)
-            vis = visibility_core(
+            vis, _ = visibility_core(
                 static, settings, lp, nparams, p_off, l, dist_eff,
                 soft_k=soft_k, cull=None if cull is None else
                 (lambda key, j, live=None, li=li: cull((key, li), j, live)))
@@ -1839,7 +1873,7 @@ def crowd_warp_masks(scene_t, settings: RenderSettings, intr, cam_rows,
     vote("primary_sdf", ((0, sdf_end), (single_end, n)), cone, shell,
          CULL_SQRT)
 
-    t, obj, leaf, hit_f = trace_core(
+    t, obj, leaf, hit_f, _ = trace_core(
         static, settings, lp, nparams, o, d,
         t0=None if t0 is None else t0.reshape(-1))
     hit = hit_f > 0.5
@@ -1880,9 +1914,10 @@ def check_scene(static, settings: RenderSettings, meshes: bool = False
                 ) -> None:
     """Raise on anything the kernels and their plain versions do not take;
     meshes=False for the fused path, which takes no mesh objects."""
-    if settings.march_cap or settings.shadow_march_cap:
-        raise NotImplementedError(
-            "march_cap / shadow_march_cap are not ported yet")
+    if settings.march_cap < 0 or settings.shadow_march_cap < 0:
+        raise ValueError(
+            f"march caps must be >= 0; got march_cap={settings.march_cap}, "
+            f"shadow_march_cap={settings.shadow_march_cap}")
     if settings.max_steps <= 0 or settings.shadow_steps <= 0:
         raise ValueError(
             f"step budgets must be positive; got max_steps="
@@ -2290,6 +2325,11 @@ def frame_fused(scene_t, settings: RenderSettings, intr, cam_rows, t0=None):
     kernel does not take raises."""
     static, params = scene_t
     check_scene(static, settings)
+    if settings.march_cap or settings.shadow_march_cap:
+        raise NotImplementedError(
+            "frame_fused takes no march_cap / shadow_march_cap (surfjax's KF "
+            "reads none); capped frames take the split path "
+            "(fused_frame_ok)")
     if cam_rows.dim() != 2 or cam_rows.shape[1] != 12:
         raise ValueError(f"cam_rows must be (F, 12); got "
                          f"{tuple(cam_rows.shape)}")
@@ -2327,10 +2367,11 @@ def frame_buffers(out) -> FrameBuffers:
 
 
 def fused_frame_ok(static, settings: RenderSettings) -> bool:
-    """True when a frame takes KF: a mesh-free scene. Mesh scenes take the
-    split pipeline (the reference also sends the capped-march residual
-    there; caps are not ported and raise)."""
-    return not _split(static)[2]
+    """True when a frame takes KF: a mesh-free scene without march caps.
+    Mesh scenes and capped frames (the capped-march residual) take the
+    split pipeline, as in surfjax."""
+    return (not _split(static)[2] and not settings.march_cap
+            and not settings.shadow_march_cap)
 
 
 def _maybe_warn_crowd(static, settings: RenderSettings) -> None:
@@ -2475,32 +2516,42 @@ def render_frame_pallas(static, intr, settings: RenderSettings, params,
 
 
 class SplitRays(ctypes.Structure):
-    """Flat ray arrays of a split-kernel launch (csrc/split_path.cu)."""
+    """Flat ray arrays of a split-kernel launch (csrc/frame_fused.cuh):
+    inputs, outputs, the ray count and, for a residual re-run, the redo
+    flag of each 128-ray row (null: every row)."""
     _fields_ = [("inp", ctypes.c_void_p * 8), ("out", ctypes.c_void_p * 8),
-                ("n", ctypes.c_int)]
+                ("n", ctypes.c_int), ("redo", ctypes.c_void_p)]
 
 
-def render_tile_reference(scene_t, settings: RenderSettings, o, d, t0=None):
-    """Plain version of K1 -> (t, obj, nx, ny, nz, ao, hit_f): the raw
-    trace t of the non-mesh objects (BIG on a miss), the object index as a
-    float (-1 on a miss), the face-forwarded normal, AO at the hit (on
-    every lane, as surfjax's K1 does) and the hit flag. t0: the primed
-    march starts of trace_core, or None."""
+def render_tile_reference(scene_t, settings: RenderSettings, o, d, t0=None,
+                          march_cap=None):
+    """Plain version of K1 -> (t, obj, nx, ny, nz, ao, hit_f, unres): the
+    raw trace t of the non-mesh objects (BIG on a miss), the object index
+    as a float (-1 on a miss), the face-forwarded normal, AO at the hit (on
+    every lane, as surfjax's K1 does), the hit flag and the lanes whose
+    march the step budget cut off. t0, march_cap: see trace_core
+    (march_cap None: settings.march_cap)."""
     static, params = scene_t
-    t, obj, n, ao, hit_f = scene_march_twin(
+    if march_cap is None:
+        march_cap = settings.march_cap
+    t, obj, n, ao, hit_f, unres = scene_march_twin(
         static, settings, params["leaf_params"], params["node_params"], o, d,
-        t0=t0)
-    return (t, obj, n[0], n[1], n[2], ao, hit_f)
+        t0=t0, march_cap=march_cap)
+    return (t, obj, n[0], n[1], n[2], ao, hit_f, unres)
 
 
 def trace_rays_reference(scene_t, settings: RenderSettings, o, l, dist,
-                         soft_k):
-    """Plain version of K2 -> vis of one light along l over [.., dist]
-    through the non-mesh objects (soft_k: per-lane penumbra sharpness)."""
+                         soft_k, march_cap=None):
+    """Plain version of K2 -> (vis, unres): the visibility of one light
+    along l over [.., dist] through the non-mesh objects (soft_k: per-lane
+    penumbra sharpness) and the lanes whose march the step budget cut off
+    (march_cap: see visibility_core; None: settings.shadow_march_cap)."""
     static, params = scene_t
+    if march_cap is None:
+        march_cap = settings.shadow_march_cap
     return visibility_core(static, settings, params["leaf_params"],
                            params["node_params"], o, l, dist,
-                           soft_k=soft_k)
+                           soft_k=soft_k, march_cap=march_cap)
 
 
 def ao_fix_reference(scene_t, settings: RenderSettings, p_off, n, need,
@@ -2512,6 +2563,61 @@ def ao_fix_reference(scene_t, settings: RenderSettings, p_off, n, need,
                          params["node_params"], p_off, n,
                          already_offset=True, need=need > 0.5)
     return torch.where(need > 0.5, ao_new, ao_in)
+
+
+def redo_rows(unres):
+    """A capped launch's unres -> the redo flag of each 128-ray row of the
+    flat rays (1.0 where a lane of the row was cut off): one reduction on
+    the device, no sync."""
+    flat = unres.reshape(-1)
+    if flat.numel() % LANES:
+        flat = torch.cat([flat, flat.new_zeros(-flat.numel() % LANES)])
+    return flat.reshape(-1, LANES).amax(dim=1)
+
+
+def _redo_reference(reference, scene_t, settings: RenderSettings, outs,
+                    redo, args):
+    """The residual re-run by the plain version `reference`: the rays of
+    the rows flagged in `redo` gathered (nonzero), run at the full budget
+    and written over those lanes of `outs` in place -> outs."""
+    ins = _ray_arrays(args)
+    n = ins[0].numel()
+    rows = torch.nonzero(redo > 0.5).reshape(-1)
+    lanes = (rows[:, None] * LANES
+             + torch.arange(LANES, device=rows.device)).reshape(-1)
+    lanes = lanes[lanes < n]
+    if lanes.numel() == 0:
+        return outs
+    sub, k = [], 0
+    for a in args:
+        m = len(a) if isinstance(a, tuple) else 1
+        part = [c.reshape(-1)[lanes] for c in ins[k:k + m]]
+        sub.append(tuple(part) if isinstance(a, tuple) else part[0])
+        k += m
+    got = reference(scene_t, settings, *sub, march_cap=0)
+    for out, g in zip(outs, got):
+        out.view(-1)[lanes] = g
+    return outs
+
+
+def render_tile_redo_reference(scene_t, settings: RenderSettings, outs, redo,
+                               o, d, t0=None):
+    """Plain version of K1's residual re-run: render_tile_reference at the
+    full budget on the 128-ray rows flagged in `redo` (redo_rows), written
+    over those rows of `outs` (the capped launch's 8 outputs) in place ->
+    outs. A lane re-run at the full budget gives what an uncapped launch
+    gives it, so the outputs then equal the uncapped launch's."""
+    args = (tuple(o), tuple(d)) + (() if t0 is None else (t0,))
+    return _redo_reference(render_tile_reference, scene_t, settings, outs,
+                           redo, args)
+
+
+def trace_rays_redo_reference(scene_t, settings: RenderSettings, outs, redo,
+                              o, l, dist, soft_k):
+    """Plain version of K2's residual re-run, as render_tile_redo_reference
+    (outs: the capped launch's vis and unres)."""
+    return _redo_reference(trace_rays_reference, scene_t, settings, outs,
+                           redo, (tuple(o), tuple(l), dist, soft_k))
 
 
 def _ray_arrays(args):
@@ -2527,25 +2633,59 @@ def _ray_arrays(args):
     return ins
 
 
-def _split_args(scene_t, settings: RenderSettings, args, n_out: int):
-    """A split kernel's launch arguments -> (KFTables, KFSettings,
-    SplitRays, the tensors they point to, the scene's counts, the output
-    tensor (n_out, *shape))."""
+def _cap_of(entry: str, settings: RenderSettings, redo) -> int:
+    """The step cap of a launch of the split kernel `entry` (a wrapper's
+    name): settings.march_cap for K1, shadow_march_cap for K2; 0 for a
+    residual re-run (the full budget) and for ao_fix."""
+    if redo is not None:
+        return 0
+    return {"render_tile": settings.march_cap,
+            "trace_rays": settings.shadow_march_cap}.get(entry, 0)
+
+
+def _split_args(entry: str, scene_t, settings: RenderSettings, args,
+                n_out: int, outs=None, redo=None):
+    """A launch of the split kernel `entry` (a wrapper's name) -> (KFTables,
+    KFSettings, SplitRays, the tensors they point to, the scene's counts,
+    the n_out outputs). K1 and K2 with a cap (_cap_of) run every step
+    budget at the cap and write unres, their last output; without one they
+    write no unres, and that output is None. outs: the outputs to write (a
+    residual re-run, which runs at the full budget, writes over its capped
+    launch's, unres included), else new ones; redo: the per-row flags of a
+    residual re-run (redo_rows), else every row runs."""
     static, _ = scene_t
     ins = [a.contiguous() for a in _ray_arrays(args)]
     shape, dev = ins[0].shape, ins[0].device
     tables, counts = _scene_tables(scene_t, settings, dev)
-    out = torch.empty((n_out,) + tuple(shape), dtype=torch.float32,
-                      device=dev)
+    cap = _cap_of(entry, settings, redo)
+    if cap:
+        settings = settings.with_(max_steps=cap, shadow_steps=cap)
+    if outs is None:
+        outs = tuple(torch.empty(shape, dtype=torch.float32, device=dev)
+                     for _ in range(n_out))
+        if not cap and entry in ("render_tile", "trace_rays"):
+            outs = outs[:-1] + (None,)
+    keep = [ins, tables]
+    if redo is not None:
+        rows = -(-ins[0].numel() // LANES)
+        _check_f32_on("redo", redo, dev)
+        if len(outs) != n_out or redo.shape != (rows,) or any(
+                o.shape != shape or o.dtype != torch.float32 or o.device != dev
+                or not o.is_contiguous() for o in outs):
+            raise ValueError(f"a residual re-run takes {n_out} contiguous "
+                             f"float32 outputs of shape {tuple(shape)} and "
+                             f"a redo flag per 128-ray row ({rows},)")
+        keep.append(redo)
     tab = KFTables(*[t.data_ptr() for t in tables], None, None, None)
     ks = kernel_settings(static, settings, None, 0, counts)
     rays = SplitRays()
     for k, a in enumerate(ins):
         rays.inp[k] = a.data_ptr()
-    for k in range(n_out):
-        rays.out[k] = out[k].data_ptr()
-    rays.n = out[0].numel()
-    return tab, ks, rays, (ins, tables), counts, out
+    for k, o in enumerate(outs):
+        rays.out[k] = _ptr(o)
+    rays.n = ins[0].numel()
+    rays.redo = _ptr(redo)
+    return tab, ks, rays, tuple(keep), counts, tuple(outs)
 
 
 def _split_enqueue(dev, call, entry: str, keep):
@@ -2561,44 +2701,50 @@ def _split_enqueue(dev, call, entry: str, keep):
 
 
 def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
-                   n_out: int):
-    """Prepare one launch of the split kernel `entry` on CUDA tensors ->
-    (launch, outputs): launch() enqueues the kernel on the current stream,
-    writing `outputs`, and raises if the launch was refused. The wrappers
-    launch once; chip_smoke.py times repeated launches."""
+                   n_out: int, outs=None, redo=None):
+    """Prepare one launch of the split kernel `entry` (sp_render_tile,
+    sp_trace_rays, sp_ao_fix) on CUDA tensors -> (launch, outputs):
+    launch() enqueues the kernel on the current stream, writing `outputs`,
+    and raises if the launch was refused. The cap, outs and redo: see
+    _split_args. The wrappers launch once; chip_smoke.py times repeated
+    launches."""
     from surfjax_torch.kernels import _build
-    prepared = _split_args(scene_t, settings, args, n_out)
+    prepared = _split_args(STAGED[entry], scene_t, settings, args, n_out,
+                           outs, redo)
     tab, ks, rays, keep, counts, out = prepared
-    if entry in STAGED and counts[2] == 0:
+    if counts[2] == 0:
         # K1, K2 and ao_fix without a crowd
         return _staged_launcher(STAGED[entry], prepared, False)[:2]
-    dev = out.device
+    dev = keep[0][0].device
     fn = getattr(_build.load(), entry)
     launch = _split_enqueue(
         dev, lambda stream: fn(tab, ks, rays, dev.index, stream), entry,
         keep)
-    return launch, tuple(out[k] for k in range(n_out))
+    return launch, out
 
 
 # The entries of split_path.cu whose calls on a scene without a crowd go to
 # the kernels of csrc/split_staged.cu (K1, K2) and csrc/ao_fix_staged.cu
 STAGED = {"sp_render_tile": "render_tile", "sp_trace_rays": "trace_rays",
           "sp_ao_fix": "ao_fix"}
+# outputs of each split kernel
+N_OUT = {"render_tile": 8, "trace_rays": 2, "ao_fix": 1}
 
 
 def staged_split_launcher(entry: str, scene_t, settings: RenderSettings,
-                          args, profile: bool = False):
+                          args, profile: bool = False, outs=None, redo=None):
     """Prepare a launch of K1 (entry "render_tile"), K2 ("trace_rays") or
     ao_fix ("ao_fix") for a scene without a crowd (csrc/split_staged.cu,
     csrc/ao_fix_staged.cu) on CUDA tensors ->
-    (launch, outputs, prof): as split_launcher; with profile, the profiling
+    (launch, outputs, prof): as split_launcher; with profile (launches
+    without a cap), the profiling
     instantiation, whose counters go to prof, int64 (rows * 4 warps,
     len(KP_PHASE_NAMES), 3), zeroed at every launch (per phase cycles,
     loop trips and lane-evaluations), else None. K2's two work counters
     are zeroed once here; the last block of each launch resets them."""
-    n_out = {"render_tile": 7, "trace_rays": 1, "ao_fix": 1}[entry]
-    return _staged_launcher(entry, _split_args(scene_t, settings, args,
-                                               n_out), profile)
+    return _staged_launcher(entry, _split_args(entry, scene_t, settings, args,
+                                               N_OUT[entry], outs, redo),
+                            profile)
 
 
 def _staged_launcher(entry: str, prepared, profile: bool):
@@ -2608,7 +2754,7 @@ def _staged_launcher(entry: str, prepared, profile: bool):
     if counts[2] > 0:
         raise ValueError("the staged split kernels take scenes without a "
                          "crowd")
-    dev = out.device
+    dev = keep[0][0].device
     rows = -(-rays.n // KS_THREADS)
     prof = torch.zeros((rows * (KS_THREADS // 32), len(KP_PHASE_NAMES), 3),
                        dtype=torch.int64, device=dev) if profile else None
@@ -2633,7 +2779,7 @@ def _staged_launcher(entry: str, prepared, profile: bool):
         return call(stream)
 
     launch = _split_enqueue(dev, zeroed_call, f"sp_staged_{entry}", keep)
-    return launch, tuple(out[k] for k in range(out.shape[0])), prof
+    return launch, out, prof
 
 
 def _ptr(ten):
@@ -2641,40 +2787,83 @@ def _ptr(ten):
 
 
 def _split_call(wrapper, entry: str, reference, scene_t,
-                settings: RenderSettings, args, n_out: int):
+                settings: RenderSettings, args, n_out: int, outs=None,
+                redo=None):
     """Check the scene and the ray arrays (`args`: the plain version's ray
     arguments), then launch the CUDA kernel `entry` (CUDA tensors, counted
-    in `wrapper.launches`) or run `reference` (CPU)."""
+    in `wrapper.launches`) or run `reference` (CPU). outs, redo: a
+    residual re-run (_split_args), whose plain version is
+    _redo_reference."""
     check_scene(scene_t.static, settings, meshes=True)
     dev = _ray_arrays(args)[0].device
-    record_call(wrapper.__name__, (scene_t, settings) + tuple(args))
+    if redo is None:
+        record_call(wrapper.__name__, (scene_t, settings) + tuple(args))
+    else:
+        # the outputs as they are before the re-run writes over them
+        record_call(wrapper.__name__ + "_redo", lambda: (
+            (scene_t, settings, tuple(o.clone() for o in outs), redo)
+            + tuple(args)))
     if dev.type == "cpu":
+        if redo is not None:
+            return _redo_reference(reference, scene_t, settings, outs, redo,
+                                   args)
         out = reference(scene_t, settings, *args)
-        return out if isinstance(out, tuple) else (out,)
+        if not isinstance(out, tuple):
+            return (out,)
+        # as the kernel: unres only from a capped launch
+        return out if _cap_of(wrapper.__name__, settings, None) else \
+            out[:-1] + (None,)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    launch, out = split_launcher(entry, scene_t, settings, args, n_out)
+    launch, out = split_launcher(entry, scene_t, settings, args, n_out, outs,
+                                 redo)
     launch()
     wrapper.launches += 1
     return out
 
 
 def render_tile(scene_t, settings: RenderSettings, o, d, t0=None):
-    """K1 over rays of any shape -> the 7 tensors of render_tile_reference.
-    CUDA tensors launch the kernel (csrc/split_staged.cu; with a crowd
-    csrc/split_path.cu), counted in
-    `render_tile.launches`; CPU tensors run the plain version."""
+    """K1 over rays of any shape -> the 8 outputs of render_tile_reference.
+    With settings.march_cap > 0 every SDF march stops after march_cap
+    steps (the residual's capped launch, see render_tile_redo) and unres
+    flags the lanes cut off; without a cap unres is None (the kernel
+    tracks none). CUDA tensors launch the kernel (csrc/split_staged.cu;
+    with a crowd csrc/split_path.cu), counted in `render_tile.launches`;
+    CPU tensors run the plain version."""
     rays = (tuple(o), tuple(d)) + (() if t0 is None else (t0,))
     return _split_call(render_tile, "sp_render_tile", render_tile_reference,
-                       scene_t, settings, rays, 7)
+                       scene_t, settings, rays, 8)
+
+
+def render_tile_redo(scene_t, settings: RenderSettings, outs, redo, o, d,
+                     t0=None):
+    """K1's residual re-run: the kernel at the full budget over all the
+    rays, each 128-ray row whose flag in `redo` (redo_rows of the capped
+    launch's unres) is 0 returning at once and each flagged row writing
+    over its lanes of `outs`, the capped launch's 8 outputs -> outs, then
+    equal to an uncapped launch's. Counted in `render_tile.launches`; on
+    CPU tensors render_tile_redo_reference."""
+    rays = (tuple(o), tuple(d)) + (() if t0 is None else (t0,))
+    return _split_call(render_tile, "sp_render_tile", render_tile_reference,
+                       scene_t, settings, rays, 8, tuple(outs), redo)
 
 
 def trace_rays(scene_t, settings: RenderSettings, o, l, dist, soft_k):
-    """K2 -> vis (see trace_rays_reference); kernel or plain version as
-    render_tile; launches counted in `trace_rays.launches`."""
+    """K2 -> (vis, unres) (see trace_rays_reference); the cap
+    settings.shadow_march_cap and unres as in render_tile; kernel or plain
+    version as render_tile; launches counted in `trace_rays.launches`."""
     return _split_call(trace_rays, "sp_trace_rays", trace_rays_reference,
                        scene_t, settings,
-                       (tuple(o), tuple(l), dist, soft_k), 1)[0]
+                       (tuple(o), tuple(l), dist, soft_k), 2)
+
+
+def trace_rays_redo(scene_t, settings: RenderSettings, outs, redo, o, l,
+                    dist, soft_k):
+    """K2's residual re-run, as render_tile_redo (outs: the capped
+    launch's vis and unres); counted in `trace_rays.launches`."""
+    return _split_call(trace_rays, "sp_trace_rays", trace_rays_reference,
+                       scene_t, settings, (tuple(o), tuple(l), dist, soft_k),
+                       2, tuple(outs), redo)
 
 
 def ao_fix(scene_t, settings: RenderSettings, p_off, n, need, ao_in):
@@ -2850,8 +3039,9 @@ def _face_forward(nv, d):
 
 def _pallas_primary(static, settings: RenderSettings, params, o2, d2,
                     t0=None):
-    """Primary stage on (rows_total, 128)-tiled rays: K1 -> merge of each
-    mesh's packet-kernel hits -> AO fix at the receivers a mesh won.
+    """Primary stage on (rows_total, 128)-tiled rays: K1 (with
+    settings.march_cap, then its residual re-run) -> merge of each mesh's
+    packet-kernel hits -> AO fix at the receivers a mesh won.
     -> (t, obj, n, n_geom, ao, hit_f); t is the raw t (callers mask by
     hit_f)."""
     from surfjax_torch.engines.mesh import (
@@ -2862,8 +3052,13 @@ def _pallas_primary(static, settings: RenderSettings, params, o2, d2,
     )
     scene_t = SceneTensors(static, params)
     _, _, mesh = _split(static)
-    t, obj, nx, ny, nz, ao, hit_f = render_tile(scene_t, settings, o2, d2,
-                                                t0=t0)
+    out = render_tile(scene_t, settings, o2, d2, t0=t0)
+    if settings.march_cap:
+        # the capped-march residual: the rows with a lane the cap cut off
+        # again at the full budget, in place (the same t0)
+        out = render_tile_redo(scene_t, settings, out, redo_rows(out[7]), o2,
+                               d2, t0=t0)
+    t, obj, nx, ny, nz, ao, hit_f, _ = out
     n = (nx, ny, nz)
     n_geom = n
     mesh_won = torch.zeros_like(t)
@@ -2924,13 +3119,18 @@ def _offset(o2, d2, t_sane, n_geom, settings: RenderSettings):
 def _pallas_vis(static, settings: RenderSettings, params, p_off, l,
                 dist_eff, soft_k):
     """One light's visibility on (rows, 128)-tiled receivers: K2 through
-    the non-mesh objects, then every mesh's any-hit occlusion."""
+    the non-mesh objects (with settings.shadow_march_cap, then its
+    residual re-run), then every mesh's any-hit occlusion."""
     from surfjax_torch.engines.mesh import _mesh_arrays, intersect_mesh
     from surfjax_torch.kernels.mesh_tile import (
         MAX_PACKET_TRIS, mesh_tile_kernel,
     )
-    vis = trace_rays(SceneTensors(static, params), settings, p_off, l,
-                     dist_eff, soft_k)
+    scene_t = SceneTensors(static, params)
+    out = trace_rays(scene_t, settings, p_off, l, dist_eff, soft_k)
+    if settings.shadow_march_cap:
+        out = trace_rays_redo(scene_t, settings, out, redo_rows(out[1]),
+                              p_off, l, dist_eff, soft_k)
+    vis = out[0]
     for _, oir in _split(static)[2]:
         ms = static.mesh_static[oir.mesh]
         if ms.n_tris > MAX_PACKET_TRIS:

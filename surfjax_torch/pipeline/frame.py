@@ -7,8 +7,10 @@ DDA of engines/mesh.py). With backend="pallas" a mesh-free scene goes to
 the fused path and a mesh scene to the split path, frame by frame
 (kernels/render_tile.py), with the crowd loops (settings.vector_objects)
 and the cone-priming pass (settings.prime) where the settings ask for
-them; both raise NotImplementedError for the march caps, which the port
-does not carry.
+them; a frame with march caps (settings.march_cap, shadow_march_cap)
+takes the split path and its capped-march residual, whose frame equals
+the uncapped one bitwise. The eager path ignores the caps, as surfjax's
+does.
 
 `render_rays` with backend="jnp" is differentiable in the scene parameters
 and the rays (the march through engines/sdf.sphere_trace's IFT adjoint,

@@ -35,7 +35,15 @@ on c3 the same way; `split_phases` profiles K1, K2 and ao_fix
 (chip_smoke.py's phase 17) and `prime_phases` the priming kernel on the
 primed 1080p frame of c3 (phase 18: per phase shares, the SM clock, the
 cycles per warp and the slowest warp's rays alone); `sass` hashes every
-entry's SASS, to compare two builds.
+entry's SASS, to compare two builds. `caps` runs frame 0 of c3 at 1920x1080
+(`value`) on the split path under the cap variants of surfjax's
+tools/cap_sweep.py (CAP_VARIANTS): per variant the frame
+(render_rays_pallas on its flat rays), K1 and K2 and their residual
+re-runs launched back to back, and the share of 128-ray rows each re-run
+takes; beside them KF on the same frame and the uncapped split path,
+timed first and last; for the uncapped frame and the two variants with
+both caps, each launch's operations (the plain version's count_ops) and
+bytes.
 For the fit step (the pose fit on configs/c5_anim.yaml, see `fit_bench`)
 at 256x256 and at 1920x1080 it times runs of 10 steps on both backends and
 traces one run of 5 steps on `pallas`: wall and device time per step, the
@@ -600,6 +608,99 @@ def prime(dev, res) -> None:
     print("prime c3 1080p", json.dumps(out), flush=True)
 
 
+# surfjax's tools/cap_sweep.py variants: (name, march_cap, shadow_march_cap)
+CAP_VARIANTS = (("mc=24", 24, 0), ("mc=32", 32, 0), ("mc=48", 48, 0),
+                ("sc=12", 0, 12), ("sc=16", 0, 16), ("sc=24", 0, 24),
+                ("mc=32 sc=16", 32, 16), ("mc=24 sc=12", 24, 12))
+
+
+def _spread(times) -> dict:
+    t = sorted(times)
+    return {"min": t[0], "median": t[len(t) // 2], "max": t[-1]}
+
+
+def caps(dev, res) -> None:
+    """The capped-march residual on frame 0 of c3 at 1920x1080 (module
+    docstring): ms per frame, ms per launch, rows re-run and, where
+    counted, each launch's operations and bytes (inputs read once on the
+    lanes that run, outputs written once, a re-run's row flags)."""
+    from surfjax_torch.core.camera import flat_camera_rays
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools.kernel_check import (
+        KERNELS, capture_calls, flat, fresh,
+    )
+    scene_t, camera, modes, _, row0 = _c3_frame0(dev)
+    intr = camera.intrinsics
+    st = modes["value"]
+    static, params = scene_t
+    o, d, _ = flat_camera_rays(intr, row0[0, :9], row0[0, 9:])
+    lanes = o[0].numel()
+
+    def frame(s):
+        return lambda: rt.render_rays_pallas(static, s, params, o, d)
+
+    def timed(call):
+        call()
+        torch.cuda.synchronize()
+        return _spread(cuda_ms(call, REPS)[0])
+
+    def counted(kname, args):
+        """-> (operations, bytes) of one launch, by the plain version: the
+        lanes that run (a re-run's flagged rows) read their inputs once
+        (K2 only dist where the shadow segment is empty) and write every
+        output once; a re-run also reads its row flags."""
+        with rt.count_ops() as c:
+            KERNELS[kname][1](*fresh(kname, args))
+        redo = kname.endswith("_redo")
+        rays = args[4:] if redo else args[2:]
+        ins = flat(rays)
+        n = ins[0].numel()     # the padded rays of the split path
+        run = torch.ones(n, dtype=torch.bool, device=dev)
+        if redo:
+            run = args[3].repeat_interleave(rt.LANES)[:n] > 0.5
+        n_run = int(run.sum())
+        if kname.startswith("trace_rays"):
+            live = int((run & ~(rays[2].reshape(-1) <= 0.0)).sum())
+            n_in = n_run + (len(ins) - 1) * live
+        else:
+            n_in = n_run * len(ins)
+        # without a cap K1 and K2 write no unres
+        written = len(KERNELS[kname][2]) - (
+            0 if redo or rt._cap_of(kname, args[1], None) else 1)
+        n_out = n_run * written
+        return c["ops"], 4 * (n_in + n_out) + (args[3].numel() * 4
+                                               if redo else 0)
+
+    out = {"lanes": lanes, "split uncapped first": timed(frame(st))}
+    out["KF frame_fused"] = timed(
+        lambda: rt.frame_fused(scene_t, st, intr, row0))
+    out["KF render"] = timed(lambda: rt.render_frame_pallas(
+        static, intr, st, params, row0[0, :9], row0[0, 9:]))
+    for name, mc, sc in (("baseline", 0, 0),) + CAP_VARIANTS:
+        s = st.with_(march_cap=mc, shadow_march_cap=sc)
+        entry = {"frame": timed(frame(s)) if mc or sc else None}
+        with capture_calls() as calls:
+            frame(s)()
+        k2 = 0
+        for kname, args in calls:
+            key = {"render_tile": "K1", "render_tile_redo": "K1 redo",
+                   "trace_rays": "K2", "trace_rays_redo": "K2 redo"}[kname]
+            if kname.startswith("trace_rays"):
+                key += f" light {k2}"
+                k2 += kname.endswith("_redo")
+            e = {"ms": _launch_ms(KERNELS[kname][3](*fresh(kname, args))[0])}
+            if kname.endswith("_redo"):
+                e["rows_share"] = float(args[3].mean())
+            if name in ("baseline", "mc=32 sc=16", "mc=24 sc=12"):
+                e["ops"], e["bytes"] = counted(kname, args)
+            entry[key] = e
+        out[name] = entry
+        print(f"caps {name}", json.dumps(entry), flush=True)
+    out["split uncapped last"] = timed(frame(st))
+    res["caps c3 1080p"] = out
+    print("caps c3 1080p", json.dumps(out), flush=True)
+
+
 def sass(dev, res) -> None:
     """The hash of every entry's SASS (_build.sass_hashes), to compare the
     code of two builds."""
@@ -818,6 +919,7 @@ SECTIONS = {
     "split_phases": split_phases,
     "prime_phases": prime_phases,
     "sass": sass,
+    "caps": caps,
 }
 
 

@@ -35,15 +35,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 C5 = os.path.join(ROOT, "configs", "c5_anim.yaml")
 
 
-def pose_step_fn(backend: str, steps: int, size=None, device="cuda"):
+def pose_step_fn(backend: str, steps: int, size=None, device="cuda",
+                 **over):
     """-> (step, x0, state0, intrinsics): step(x, state) -> (x, state,
-    loss tensor) is one pose-fit step on c5 with `backend`, whose step size
-    decays over `steps`; (x0, state0) the probe pose and a fresh optimizer
-    state."""
+    loss tensor) is one pose-fit step on c5 with `backend` (and the
+    settings in `over`), whose step size decays over `steps`; (x0, state0)
+    the probe pose and a fresh optimizer state."""
     scene, camera, settings, cfg, _ = fit_main_path(C5)
     if size is not None:
         camera = reframe(camera, *size)
-    settings = settings.with_(backend=backend)
+    settings = settings.with_(backend=backend, **over)
     device, static, params, intr, R0, t0 = fit._setup(scene, camera, device)
     target = torch.full((intr.height, intr.width, 3), 0.5, device=device)
     loss_fn = fit.pose_loss_fn(static, intr, settings, params, R0, t0, target)

@@ -2,12 +2,13 @@
 plain versions.
 
 `capture_calls` records the arguments of every call a frame makes to one
-of their wrappers (render_tile, trace_rays, ao_fix, mesh_tile, prime_tile)
-while it renders; `compare` runs one recorded call through the wrapper (the
-CUDA kernel, for CUDA tensors) and through the plain version on the same
-inputs, and holds them bitwise; `KERNELS` also gives each kernel's
-launcher, which prepares a launch once for timing. `chip_smoke.py` and
-the CUDA tests use them.
+of their wrappers (render_tile, trace_rays, ao_fix, mesh_tile, prime_tile,
+and the residual re-runs render_tile_redo and trace_rays_redo, recorded
+with their outputs as they were before the re-run) while it renders;
+`compare` runs one recorded call through the wrapper (the CUDA kernel, for
+CUDA tensors) and through the plain version on the same inputs, and holds
+them bitwise; `KERNELS` also gives each kernel's launcher, which prepares
+a launch once for timing. `chip_smoke.py` and the CUDA tests use them.
 """
 
 from __future__ import annotations
@@ -27,15 +28,27 @@ def _split(entry: str, n_out: int):
     return launcher
 
 
+def _redo(entry: str, n_out: int):
+    def launcher(scene_t, settings, outs, redo, *rays):
+        return rt.split_launcher(entry, scene_t, settings, rays, n_out,
+                                 tuple(outs), redo)
+    return launcher
+
+
 # wrapper name -> (wrapper, plain version, output names, launcher: the
 # wrapper's arguments -> (launch, outputs) of a prepared kernel, for
 # timing back-to-back launches)
+K1_OUT = ("t", "obj", "nx", "ny", "nz", "ao", "hit", "unres")
+K2_OUT = ("vis", "unres")
 KERNELS = {
-    "render_tile": (rt.render_tile, rt.render_tile_reference,
-                    ("t", "obj", "nx", "ny", "nz", "ao", "hit"),
-                    _split("sp_render_tile", 7)),
-    "trace_rays": (rt.trace_rays, rt.trace_rays_reference, ("vis",),
-                   _split("sp_trace_rays", 1)),
+    "render_tile": (rt.render_tile, rt.render_tile_reference, K1_OUT,
+                    _split("sp_render_tile", 8)),
+    "render_tile_redo": (rt.render_tile_redo, rt.render_tile_redo_reference,
+                         K1_OUT, _redo("sp_render_tile", 8)),
+    "trace_rays": (rt.trace_rays, rt.trace_rays_reference, K2_OUT,
+                   _split("sp_trace_rays", 2)),
+    "trace_rays_redo": (rt.trace_rays_redo, rt.trace_rays_redo_reference,
+                        K2_OUT, _redo("sp_trace_rays", 2)),
     "ao_fix": (rt.ao_fix, rt.ao_fix_reference, ("ao",),
                _split("sp_ao_fix", 1)),
     "mesh_tile": (mt.mesh_tile, mt.mesh_tile_reference,
@@ -59,8 +72,20 @@ def capture_calls():
         kernels.RECORDED_CALLS = None
 
 
+def fresh(name: str, args):
+    """A recorded call's arguments, with a copy of the outputs that a
+    residual re-run writes over, so that the call can run again."""
+    if name.endswith("_redo"):
+        return args[:2] + (tuple(o.clone() for o in args[2]),) + args[3:]
+    return args
+
+
 def flat(out):
-    """A wrapper's or plain version's result -> a flat list of tensors."""
+    """A wrapper's or plain version's result -> a flat list of tensors (an
+    output the kernel did not write, None, left out: K1's and K2's unres
+    without a cap, the last output)."""
+    if out is None:
+        return []
     if isinstance(out, torch.Tensor):
         return [out]
     return [t for o in out for t in flat(o)]
@@ -70,10 +95,11 @@ def compare(name: str, args, label: str):
     """Run one recorded call through the wrapper and the plain version ->
     (largest abs difference over the outputs, wrapper outputs, plain
     outputs). Raises AssertionError naming the first output that is not
-    bitwise equal."""
+    bitwise equal; the outputs are the wrapper's (without a cap K1 and K2
+    write no unres, which the plain version computes all the same)."""
     wrapper, reference, names, _ = KERNELS[name]
-    got = flat(wrapper(*args))
-    ref = flat(reference(*args))
+    got = flat(wrapper(*fresh(name, args)))
+    ref = flat(reference(*fresh(name, args)))[:len(got)]
     errs = [float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
             for a, b in zip(got, ref)]
     for out_name, a, b, err in zip(names, got, ref, errs):

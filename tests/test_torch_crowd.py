@@ -97,7 +97,8 @@ def test_crowd_membership_equals_reference(name):
     ref_meta = sj_rt._crowd_meta_cached(static, sj_st)
     pt_st = pt_api.RenderSettings(vector_objects=True)
     own_static, _ = _membership_scene(pt_api, name).freeze()
-    for pstatic in (from_reference(static, params)[0], own_static):
+    for pstatic in (from_reference(static, params, device="cpu")[0],
+                    own_static):
         crowd, rest_ana, rest_sdf = pt_rt.split_crowd(pstatic, pt_st)
         assert [i for i, _ in crowd.members] == \
             [i for i, _ in ref_crowd.members]

@@ -103,7 +103,7 @@ def _lane_gates(scene_t, st, intr, rows):
     o3, d3 = rt.frame_rays(intr, rows)
     o = tuple(c.reshape(-1) for c in o3)
     d = tuple(c.reshape(-1) for c in d3)
-    t, obj, leaf, hit_f = rt.trace_core(static, st, lp, nparams, o, d)
+    t, obj, leaf, hit_f, _ = rt.trace_core(static, st, lp, nparams, o, d)
     hit = hit_f > 0.5
     t_sane = torch.where(hit, t, 0.0)
     p = tuple(o[k] + t_sane * d[k] for k in range(3))
@@ -147,11 +147,11 @@ def _lane_gates(scene_t, st, intr, rows):
                     else:
                         t_lo, t_hi = rt._influence_window(b, p_off, l, t0,
                                                           dist, kf)
-                        v = rt._soft_march(sdf_j, p_off, l,
-                                           maximum(t_lo, t0),
-                                           torch.minimum(dist, t_hi), kf,
-                                           st.shadow_steps,
-                                           relax=st.over_relax)
+                        v, _ = rt._soft_march(sdf_j, p_off, l,
+                                              maximum(t_lo, t0),
+                                              torch.minimum(dist, t_hi), kf,
+                                              st.shadow_steps,
+                                              relax=st.over_relax)
                     put(("soft", li), j, hit & (v < 1.0))
                 elif ana:
                     put(("hard_ana", li), j, hit & (rt._leaf_exact_t(

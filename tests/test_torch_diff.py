@@ -41,7 +41,7 @@ def _sphere_pair():
     s = sj_api.Scene().add(sj_api.Sphere((0.0, 0.0, 5.0), 1.0),
                            sj_api.Material.lambert(), engine="sdf")
     static, params = s.freeze()
-    pstatic, pparams = from_reference(static, params)
+    pstatic, pparams = from_reference(static, params, device="cpu")
     return (static.ir.objects[0], {k: jnp.asarray(v)
                                    for k, v in params.items()},
             pstatic.ir.objects[0], pparams)
@@ -148,7 +148,7 @@ def test_grad_through_full_render():
     static, params = s.freeze()
     sj_st = SjSettings(shadows=True, max_steps=64)
     pt_st = pt_api.RenderSettings(**dataclasses.asdict(sj_st))
-    pstatic, pparams = from_reference(static, params)
+    pstatic, pparams = from_reference(static, params, device="cpu")
 
     n = 32 * 32
     ang = np.random.default_rng(1).uniform(-0.3, 0.3, (2, n)).astype(F32)
@@ -196,7 +196,7 @@ def test_soft_shadow_visibility_carries_no_gradient():
     sj_st = SjSettings(shadows=True, soft_shadows=True, max_steps=96,
                        shadow_steps=24, t_max=20.0)
     pt_st = pt_api.RenderSettings(**dataclasses.asdict(sj_st))
-    pstatic, pparams = from_reference(static, params)
+    pstatic, pparams = from_reference(static, params, device="cpu")
     ang = np.random.default_rng(2).uniform(-0.35, 0.35, (2, 256)).astype(F32)
     d = [np.sin(ang[0]), np.sin(ang[1]) - F32(0.1),
          np.sqrt(1 - np.sin(ang[0])**2 - np.sin(ang[1])**2)]

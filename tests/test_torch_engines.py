@@ -109,7 +109,7 @@ def test_eval_sdf_all_six_ops():
     """Every CSG op of the tape, bitwise on sphere/box/plane leaves; the
     object with a bulb leaf within the eager DE's log ULPs."""
     static, params = _ops_scene()
-    pstatic, pparams = from_reference(static, params)
+    pstatic, pparams = from_reference(static, params, device="cpu")
     pj, pt = _points(4)
     ops = set()
     for oir, poir in zip(static.ir.objects, pstatic.ir.objects):
@@ -142,7 +142,7 @@ def test_analytic_intervals_and_event_csg_bitwise():
     """Leaf intervals of all three kinds and the event CSG of union,
     intersect and subtract trees, with analytic normals: bitwise."""
     static, params = _csg_scene()
-    pstatic, pparams = from_reference(static, params)
+    pstatic, pparams = from_reference(static, params, device="cpu")
     (oj, dj), (ot, dt) = _rays(5)
     lpj = jnp.asarray(params["leaf_params"])
     hits = 0
@@ -176,7 +176,7 @@ def test_soft_shadow_march_and_ao_probes():
     contracts multiply-adds there; measured <= 1e-6) and the AO probes (op
     by op on both sides: bitwise), on the smooth-union object."""
     static, params = _ops_scene()
-    pstatic, pparams = from_reference(static, params)
+    pstatic, pparams = from_reference(static, params, device="cpu")
     oir, poir = static.ir.objects[3], pstatic.ir.objects[3]
     lpj = jnp.asarray(params["leaf_params"])
     npj = jnp.asarray(params["node_params"])

@@ -48,7 +48,8 @@ class Frozen:
         self.static, self.params = scene.freeze()
 
     def freeze(self):
-        return from_reference(self.static, self.params)[0], self.params
+        return (from_reference(self.static, self.params, device="cpu")[0],
+                self.params)
 
 
 def port_settings(sj_st, **over):
@@ -56,7 +57,7 @@ def port_settings(sj_st, **over):
 
 
 def _port_rays(scene, cam):
-    pstatic, pparams = from_reference(*scene.freeze())
+    pstatic, pparams = from_reference(*scene.freeze(), device="cpu")
     R, t = _pose_tensors(cam, "cpu")
     o, d, _ = flat_camera_rays(cam.intrinsics, R, t)
     return pstatic, pparams, o, d

@@ -57,14 +57,14 @@ def test_cores_match_scene_march_twin():
     ref = sj_scene_march_twin(static, sj_st,
                               jnp.asarray(params["leaf_params"]),
                               jnp.asarray(params["node_params"]), o, d)
-    pstatic, pparams = from_reference(static, params)
+    pstatic, pparams = from_reference(static, params, device="cpu")
     ot = tuple(torch.from_numpy(np.array(c)) for c in o)
     dt = tuple(torch.from_numpy(np.array(c)) for c in d)
     got = scene_march_twin(pstatic, sj_st, pparams["leaf_params"],
                            pparams["node_params"], ot, dt)
     t_r, obj_r, n_r, ao_r, hit_r = (np.asarray(a) if not isinstance(a, tuple)
                                     else a for a in ref)
-    t_g, obj_g, n_g, ao_g, hit_g = got
+    t_g, obj_g, n_g, ao_g, hit_g, _ = got
     np.testing.assert_array_equal(hit_g.numpy(), hit_r)
     np.testing.assert_array_equal(obj_g.numpy(), obj_r)
     np.testing.assert_allclose(t_g.numpy(), t_r, rtol=0, atol=1e-5)

@@ -96,7 +96,7 @@ def _dda_pair(v, f, o, d, t_min=1e-3, t_max=1e4):
         {k: jnp.asarray(a) for k, a in ref_params.items()},
         tuple(jnp.asarray(c) for c in o), tuple(jnp.asarray(c) for c in d),
         t_min, t_max)
-    static, params = from_reference(ref_static, ref_params)
+    static, params = from_reference(ref_static, ref_params, device="cpu")
     t_p, tri_p = pt_mesh.intersect_mesh(
         static.mesh_static[0], 0, params,
         tuple(torch.from_numpy(c) for c in o),
@@ -130,7 +130,7 @@ def test_intersect_mesh_from_inside_and_per_ray_t_max():
     t_max = np.where(np.arange(64) % 2 == 0, 0.5, 10.0).astype(np.float32)
     ref_static, ref_params = sj_api.Scene().add(
         sj_api.TriangleMesh(vertices=v, faces=f)).freeze()
-    static, params = from_reference(ref_static, ref_params)
+    static, params = from_reference(ref_static, ref_params, device="cpu")
     t_cut, _ = pt_mesh.intersect_mesh(
         static.mesh_static[0], 0, params,
         tuple(torch.from_numpy(c) for c in o),
@@ -146,7 +146,7 @@ def test_mesh_normal_matches_reference(smooth):
     o, d = _rays(512, seed=2)
     ref_static, ref_params = sj_api.Scene().add(
         sj_api.TriangleMesh(vertices=v, faces=f, smooth=smooth)).freeze()
-    static, params = from_reference(ref_static, ref_params)
+    static, params = from_reference(ref_static, ref_params, device="cpu")
     t, tri = pt_mesh.intersect_mesh(
         static.mesh_static[0], 0, params,
         tuple(torch.from_numpy(c) for c in o),

@@ -355,7 +355,7 @@ def test_culled_shells_against_surfjax():
         np.int32)
     ref_static, ref_params = sj_api.Scene().add(
         sj_api.TriangleMesh(vertices=verts, faces=faces)).freeze()
-    static, params = from_reference(ref_static, ref_params)
+    static, params = from_reference(ref_static, ref_params, device="cpu")
     ms = static.mesh_static[0]
     rng = np.random.default_rng(5)
     tg = centre + rng.uniform(-0.25, 0.25, (16 * 128, 3)).astype(np.float32)

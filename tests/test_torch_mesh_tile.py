@@ -48,7 +48,7 @@ def _mesh(subdivisions=2, scale=0.8, z=3.0):
     v = v * F32(scale) + np.asarray([0.0, 0.0, z], np.float32)
     ref_static, ref_params = sj_api.Scene().add(
         sj_api.TriangleMesh(vertices=v, faces=f)).freeze()
-    static, params = from_reference(ref_static, ref_params)
+    static, params = from_reference(ref_static, ref_params, device="cpu")
     return (ref_static.mesh_static[0], ref_params, static.mesh_static[0],
             params)
 
@@ -121,7 +121,7 @@ def test_mesh_candidates_conservative(R):
     v = v * F32(0.9) + np.asarray([0.0, 0.0, 3.2], np.float32)
     ref_static, ref_params = sj_api.Scene().add(
         sj_api.TriangleMesh(vertices=v, faces=f)).freeze()
-    static, params = from_reference(ref_static, ref_params)
+    static, params = from_reference(ref_static, ref_params, device="cpu")
     tri = ref_params["mesh0_tri_packed"]
     o, d = _rays(64, seed=7)
     t_min, t_max = F32(1e-3), F32(1e4)

@@ -158,6 +158,32 @@ def test_prime_and_crowd_wrappers_take_only_cpu_or_cuda_tensors():
     assert [w.launches for w in wrappers] == before
 
 
+def test_capped_calls_on_meta_tensors_launch_nothing():
+    """A capped K1 or K2 call and their residual re-runs on a tensor on
+    neither the CPU nor a card raise and count no launch: a capped call
+    launches the kernels or raises, it never falls back."""
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools import workload
+    scene, cam, st = workload.mesh_soft_ao_scene(api, 8)
+    static, params = scene.freeze()
+    scene_t = SceneTensors(static, params_to_device(params, "meta"))
+    rays = tuple(torch.zeros((8, 128), device="meta") for _ in range(3))
+    outs = tuple(torch.zeros((8, 128), device="meta") for _ in range(8))
+    redo = torch.ones(8, device="meta")
+    before = (rt.render_tile.launches, rt.trace_rays.launches)
+    capped = st.with_(march_cap=8, shadow_march_cap=8)
+    for call in (
+            lambda: rt.render_tile(scene_t, capped, rays, rays),
+            lambda: rt.trace_rays(scene_t, capped, rays, rays, rays[0],
+                                  rays[0]),
+            lambda: rt.render_tile_redo(scene_t, st, outs, redo, rays, rays),
+            lambda: rt.trace_rays_redo(scene_t, st, outs[:2], redo, rays,
+                                       rays, rays[0], rays[0])):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    assert (rt.render_tile.launches, rt.trace_rays.launches) == before
+
+
 def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
     scene, cam, st = _c1()
     static, params = scene.freeze()

@@ -40,7 +40,8 @@ def test_compile_matches_reference(name):
     pt_scene, pt_cam, pt_st, pt_extras = pt_config.load_config(path)
     ref_static, ref_params = sj_scene.freeze()
     static, params = pt_scene.freeze()
-    carried_static, carried_params = from_reference(ref_static, ref_params)
+    carried_static, carried_params = from_reference(ref_static, ref_params,
+                                                    device="cpu")
 
     # IR tuples: namedtuples compare as tuples, field by field
     assert static == ref_static
@@ -60,8 +61,9 @@ def test_compile_matches_reference(name):
 
 def test_crowd_demo_fused_path_raises():
     """crowd_demo keeps vector_objects on. The crowd loops are carried, so
-    the fused path renders the scene through them; what it still does not
-    carry (the march caps) it refuses instead of rendering otherwise."""
+    the fused path renders the scene through them. With march caps the
+    frames take the split path (the fused path takes no caps) and its
+    capped-march residual, and come out as the uncapped ones, bitwise."""
     scene, cam, st, _ = pt_config.load_config(
         os.path.join(CONFIG_DIR, "crowd_demo.yaml"))
     assert st.vector_objects
@@ -72,10 +74,11 @@ def test_crowd_demo_fused_path_raises():
     fb = pt_api.render_sequence(scene, cam, (R, pos),
                                 st.with_(backend="pallas"), device="cpu")
     assert fb.rgb.shape == (1, 8, 8, 3) and float(fb.hit.mean()) > 0.3
-    with pytest.raises(NotImplementedError, match="march_cap"):
-        pt_api.render_sequence(scene, cam, (R, pos),
-                               st.with_(backend="pallas", march_cap=16),
-                               device="cpu")
+    capped = pt_api.render_sequence(
+        scene, cam, (R, pos),
+        st.with_(backend="pallas", march_cap=2, shadow_march_cap=2),
+        device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(capped, fb))
 
 
 def test_render_settings_fields_and_defaults():
@@ -152,7 +155,7 @@ def test_port_compiles_meshes_like_reference():
     path = os.path.join(CONFIG_DIR, "c4_mesh.yaml")
     ref = sj_config.load_config(path)[0].freeze()
     pairs.append((pt_config.load_config(path)[0].freeze(), ref))
-    static, params = from_reference(*ref)
+    static, params = from_reference(*ref, device="cpu")
     pairs.append(((static, {k: v.numpy() for k, v in params.items()}), ref))
     for (static, params), (ref_static, ref_params) in pairs:
         assert static == ref_static

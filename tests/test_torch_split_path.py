@@ -46,7 +46,7 @@ def _soft_scene(size=32, **over):
     static, params = sj_scene.freeze()
     sj_st = sj_st.with_(tile_rows=8, **over)
     pt_st = pt_api.RenderSettings(**dataclasses.asdict(sj_st))
-    pstatic, pparams = from_reference(static, params)
+    pstatic, pparams = from_reference(static, params, device="cpu")
     return ((static, params, sj_st),
             (pt_rt.SceneTensors(pstatic, pparams), pt_st), cam)
 
@@ -70,20 +70,22 @@ def _k1_both(ref, port, o, d):
     got = pt_rt.render_tile_reference(
         scene_t, pt_st, tuple(torch.from_numpy(c) for c in o),
         tuple(torch.from_numpy(c) for c in d))
-    t, obj, n, ao, hit, _ = sj_rt.render_tile_kernel(
+    t, obj, n, ao, hit, unres = sj_rt.render_tile_kernel(
         static, sj_st, 0, jnp.asarray(params["leaf_params"]),
         jnp.asarray(params["node_params"]),
         tuple(jnp.asarray(c) for c in o), tuple(jnp.asarray(c) for c in d))
     return [a.numpy() for a in got], \
-        [np.asarray(a) for a in (t, obj, n[0], n[1], n[2], ao, hit)]
+        [np.asarray(a) for a in (t, obj, n[0], n[1], n[2], ao, hit, unres)]
 
 
 def test_plain_k1_matches_reference_kernel():
     ref, port, cam = _soft_scene()
     o, d = _camera_rays(cam)
-    (t, obj, nx, ny, nz, ao, hit), (t_r, obj_r, nx_r, ny_r, nz_r, ao_r,
-                                    hit_r) = _k1_both(ref, port, o, d)
+    (t, obj, nx, ny, nz, ao, hit, unres), (t_r, obj_r, nx_r, ny_r, nz_r,
+                                           ao_r, hit_r, unres_r) = \
+        _k1_both(ref, port, o, d)
     np.testing.assert_array_equal(hit, hit_r)
+    np.testing.assert_array_equal(unres, unres_r)
     np.testing.assert_array_equal(obj, obj_r)
     h = hit > 0.5
     np.testing.assert_allclose(t[h], t_r[h], rtol=0, atol=1e-5)
@@ -98,7 +100,7 @@ def _receivers(port, o, d):
     """Offset receivers, light directions, distances and sharpness of the
     scene's point light from the port's K1 hits, as numpy arrays."""
     scene_t, pt_st = port
-    t, obj, nx, ny, nz, ao, hit = pt_rt.render_tile_reference(
+    t, obj, nx, ny, nz, ao, hit, _ = pt_rt.render_tile_reference(
         scene_t, pt_st, tuple(torch.from_numpy(c) for c in o),
         tuple(torch.from_numpy(c) for c in d))
     ts = torch.where(hit > 0.5, t, 0.0)
@@ -126,12 +128,13 @@ def test_plain_k2_matches_reference_kernel(soft):
     o, d = _camera_rays(cam)
     p_off, l, dist, soft_k, _, _, hit = _receivers(port, o, d)
     scene_t, pt_st = port
-    got = pt_rt.trace_rays_reference(
+    got, unres = pt_rt.trace_rays_reference(
         scene_t, pt_st, tuple(torch.from_numpy(c) for c in p_off),
         tuple(torch.from_numpy(c) for c in l), torch.from_numpy(dist),
-        torch.from_numpy(soft_k)).numpy()
+        torch.from_numpy(soft_k))
+    got = got.numpy()
     static, params, sj_st = ref
-    vis_r, _ = sj_rt.trace_rays_kernel(
+    vis_r, unres_r = sj_rt.trace_rays_kernel(
         static, sj_st, 0, jnp.asarray(params["leaf_params"]),
         jnp.asarray(params["node_params"]),
         tuple(jnp.asarray(c) for c in p_off),
@@ -139,6 +142,7 @@ def test_plain_k2_matches_reference_kernel(soft):
         jnp.asarray(soft_k))
     np.testing.assert_allclose(got, np.asarray(vis_r), rtol=0,
                                atol=1e-5 if soft else 0.0)
+    np.testing.assert_array_equal(unres.numpy(), np.asarray(unres_r))
     assert (got < 0.5).any() and (got[hit > 0.5] > 0.5).any()
 
 
@@ -242,7 +246,8 @@ def test_render_runs_on_the_card_by_default():
 def test_split_wrappers_cpu_runs_plain_and_others_raise():
     """On CPU tensors each wrapper runs its plain version and counts no
     launch; a tensor on another device is refused; settings the split
-    path does not carry raise."""
+    path does not take (a negative march cap, tile_rows not a multiple of
+    8) raise."""
     _, (scene_t, st), cam = _soft_scene(8)
     o, d = (tuple(torch.from_numpy(c) for c in a) for a in _camera_rays(
         dataclasses.replace(cam, intrinsics=dataclasses.replace(
@@ -251,11 +256,13 @@ def test_split_wrappers_cpu_runs_plain_and_others_raise():
     before = [w.launches for w in wrappers]
     got = pt_rt.render_tile(scene_t, st, o, d)
     ref = pt_rt.render_tile_reference(scene_t, st, o, d)
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    # without a cap the wrapper gives no unres, as the kernel writes none
+    assert got[7] is None
+    assert all(torch.equal(a, b) for a, b in zip(got[:7], ref))
     ones = torch.ones_like(o[0])
-    vis = pt_rt.trace_rays(scene_t, st, o, d, ones, ones * 8.0)
-    assert torch.equal(vis, pt_rt.trace_rays_reference(
-        scene_t, st, o, d, ones, ones * 8.0))
+    vis, unres = pt_rt.trace_rays(scene_t, st, o, d, ones, ones * 8.0)
+    assert unres is None and torch.equal(vis, pt_rt.trace_rays_reference(
+        scene_t, st, o, d, ones, ones * 8.0)[0])
     ao = pt_rt.ao_fix(scene_t, st, o, d, ones, ones)
     assert ao.shape == o[0].shape
     assert [w.launches for w in wrappers] == before
@@ -264,9 +271,9 @@ def test_split_wrappers_cpu_runs_plain_and_others_raise():
         pt_rt.render_tile(scene_t, st, meta, tuple(c.to("meta") for c in d))
     with pytest.raises(ValueError, match="float32"):
         pt_rt.render_tile(scene_t, st, tuple(c.double() for c in o), d)
-    for bad in (dict(march_cap=16), dict(shadow_march_cap=8),
+    for bad in (dict(march_cap=-1), dict(shadow_march_cap=-8),
                 dict(tile_rows=12)):
-        with pytest.raises((NotImplementedError, ValueError)):
+        with pytest.raises(ValueError):
             pt_rt.render_tile(scene_t, st.with_(**bad), o, d)
 
 
