@@ -132,7 +132,19 @@ the script exits non-zero and never prints its last line):
      counts (K1 and K2 twice where capped, the fused kernel never); the
      capped and residual launches of mc=32 sc=16 timed back to back; three
      1080p pose-fit steps on c5 with mc=32 sc=16: losses, pose and Adam
-     moments bitwise equal to the uncapped steps'.
+     moments bitwise equal to the uncapped steps';
+ 20. the card against the C++ golden (surfjax_torch/golden/): frame 0 of
+     c1, c2, c3 (modes `value` and `value_exact`), c4 (modes `config` and
+     `ao`) and c5 at the config's own camera and size, rendered
+     on the card with backend="pallas" (the fused kernel on c1, c2, c3 and
+     c5; K1, K2 and the mesh kernel on c4, and ao_fix in `ao` mode: each
+     launch counted) and by the C++ golden on the host's threads; per case
+     the shares of equal hit and obj_id, for rgb, depth and normal over the
+     pixels both hit the largest and q99 ULP distance and the share within
+     1 ULP, the largest rgb difference and the golden's seconds; each case
+     held to the bounds surfjax holds its own path to against the golden
+     (golden/compare.py BOUNDS), or where surfjax's own fused path breaks
+     one on that frame (c3, c5), to surfjax's figure (REFERENCE_FIGURES).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
@@ -228,6 +240,11 @@ PTXAS_KEPT = {
         "Used 64 registers, used 1 barriers, 176 bytes cumulative stack size, "
         "112 bytes smem"),
 }
+# phase 20: (config, bound class of golden/compare.py), each at the
+# config's own camera and size
+GOLDEN_CASES = (("c1_sphere", "strict"), ("c2_csg", "strict"),
+                ("c3_sdf", "sdf"), ("c4_mesh", "mesh"),
+                ("c5_anim", "strict"))
 PRIME_HIT_MAX = 1e-4   # share of pixels whose hit flag priming may change
 PROBE_K = 16           # substeps of the probe's comparison with plain
 PROBE_UNROLL = 4       # the sweep row whose launch time the kernels line gives
@@ -464,6 +481,77 @@ def capped_residual(dev, smi: str) -> dict:
     log(f"phase 19: the capped-march residual ({time.perf_counter() - t19:.1f}"
         f" s) on {smi}")
     return {"launches": launches, "err": errs, "ms": timing}
+
+
+def golden_phase(dev, smi: str) -> list:
+    """Phase 20, the card's frames against the C++ golden (module
+    docstring) -> one dict per case: config, mode, size, launches, the
+    golden's seconds and golden_gap's figures."""
+    from surfjax_torch.api import render
+    from surfjax_torch.config import load_config
+    from surfjax_torch.golden import cpp_bridge
+    from surfjax_torch.golden.compare import broken_bounds, golden_gap
+    from surfjax_torch.kernels.mesh_tile import mesh_tile
+    from surfjax_torch.kernels.render_tile import (
+        ao_fix, frame_fused, render_tile, trace_rays,
+    )
+    from surfjax_torch.tools.workload import EXACT, mesh_modes
+    t20 = time.perf_counter()
+    cpp_bridge.build()
+    log(f"  C++ golden ready in {time.perf_counter() - t20:.1f} s "
+        f"({os.path.relpath(cpp_bridge.library_path(), ROOT)})")
+    wrappers = {"frame_fused": frame_fused, "render_tile": render_tile,
+                "trace_rays": trace_rays, "ao_fix": ao_fix,
+                "mesh_tile": mesh_tile}
+    rows, broken = [], []
+    for name, kind in GOLDEN_CASES:
+        scene, cam, st, _ = load_config(os.path.join(ROOT, "configs",
+                                                     name + ".yaml"))
+        if kind == "mesh":
+            modes = mesh_modes(st)
+        elif kind == "sdf":
+            modes = {"value": st.with_(backend="pallas"),
+                     "value_exact": st.with_(backend="pallas", **EXACT)}
+        else:
+            modes = {"config": st.with_(backend="pallas")}
+        golds = {}
+        for mode, mst in modes.items():
+            # the golden has no LoD and no over-relaxation (EXACT's
+            # fields): c3's two modes share one golden frame
+            gkey = (mst.ao, mst.soft_shadows)
+            if gkey not in golds:
+                tg = time.perf_counter()
+                golds[gkey] = (cpp_bridge.render(scene, cam, mst),
+                               time.perf_counter() - tg)
+            gold, golden_s = golds[gkey]
+            for w in wrappers.values():
+                w.launches = 0
+            fb = render(scene, cam, mst, device=dev)
+            launches = {k: w.launches for k, w in wrappers.items()}
+            if kind == "mesh":
+                want = {"render_tile", "trace_rays", "mesh_tile"} | (
+                    {"ao_fix"} if mst.ao else set())
+            else:
+                want = {"frame_fused"}
+            if {k for k, v in launches.items() if v} != want:
+                raise AssertionError(f"{name} {mode}: launches {launches}, "
+                                     f"expected {sorted(want)} only")
+            gap = golden_gap(fb, gold)
+            intr = cam.intrinsics
+            row = {"config": name, "mode": mode,
+                   "size": f"{intr.width}x{intr.height}",
+                   "launches": {k: v for k, v in launches.items() if v},
+                   "golden_s": golden_s, **gap}
+            rows.append(row)
+            log(f"  {name} {mode}: " + json.dumps(row))
+            broken += [f"{name} {mode}: {b}"
+                       for b in broken_bounds(gap, kind, name, mode)]
+    if broken:
+        raise AssertionError("phase 20: the card breaks the golden bounds: "
+                             + "; ".join(broken))
+    log(f"phase 20: the card against the C++ golden on c1-c5 "
+        f"({time.perf_counter() - t20:.1f} s) on {smi}")
+    return rows
 
 
 def main() -> int:
@@ -1436,6 +1524,9 @@ def main() -> int:
 
     # -- phase 19 -----------------------------------------------------------
     capped = capped_residual(dev, smi)
+
+    # -- phase 20 -----------------------------------------------------------
+    golden_phase(dev, smi)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

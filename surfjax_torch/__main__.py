@@ -1,13 +1,21 @@
 """Command line.
 
     python -m surfjax_torch render --config configs/c4_mesh.yaml \\
-        [--backend jnp|pallas] [--device cpu] --out frame.png
+        [--backend jnp|pallas] [--device cpu] [--gbuffer] \\
+        [--profile-dir prof/] --out frame.png|frame.exr
+    python -m surfjax_torch render --config ... --golden --out g.png
     python -m surfjax_torch animate --config configs/c5_anim.yaml \\
-        --frames 16 [--device cpu] --out-dir frames/
+        --frames 16 [--chunk-size 4] [--device cpu] --out-dir frames/
     python -m surfjax_torch fit --config configs/c5_anim.yaml \\
         [--mode pose|sdf] [--steps 60] [--backend jnp|pallas] [--device cpu]
 
-All run on the CUDA device unless --device names another.
+All run on the CUDA device unless --device names another; `render
+--golden` runs the NumPy golden oracle on the host's threads instead.
+`--gbuffer` also writes <out>_gbuffer.npz (rgb, depth, normal, float32);
+an .exr output is linear float32 rgb, a .png tonemapped; `--profile-dir`
+writes a torch.profiler Chrome trace of the render there. `animate
+--chunk-size` renders chunks of frames, each saved as it completes, and a
+rerun of the same command skips the chunks that are done.
 """
 
 from __future__ import annotations
@@ -35,17 +43,36 @@ def _sync(device) -> None:
 
 
 def cmd_render(args):
-    from surfjax_torch import render
-    from surfjax_torch.io.image import save_png
+    from surfjax_torch.io.image import save_exr, save_golden, save_png
     scene, camera, settings, _ = _load(args)
-    t0 = time.perf_counter()
-    fb = render(scene, camera, settings, device=args.device)
-    _sync(args.device)
-    dt = time.perf_counter() - t0
-    rgb = fb.rgb.cpu().numpy()
-    print(f"rendered {rgb.shape[1]}x{rgb.shape[0]} in {dt:.3f}s "
-          f"({settings.backend} on {args.device})")
-    save_png(args.out, rgb)
+    if args.golden:
+        from surfjax_torch.golden import renderer as golden
+        t0 = time.perf_counter()
+        fb = golden.render_parallel(scene, camera, settings)
+        dt = time.perf_counter() - t0
+        rgb, depth, normal = fb["rgb"], fb["depth"], fb["normal"]
+        where = "golden on the host"
+    else:
+        from surfjax_torch import render
+        from surfjax_torch.utils.profiling import trace_render
+        t0 = time.perf_counter()
+        with trace_render(args.profile_dir):
+            fb = render(scene, camera, settings, device=args.device)
+            _sync(args.device)
+        dt = time.perf_counter() - t0
+        rgb, depth, normal = (a.cpu().numpy()
+                              for a in (fb.rgb, fb.depth, fb.normal))
+        where = f"{settings.backend} on {args.device}"
+    print(f"rendered {rgb.shape[1]}x{rgb.shape[0]} in {dt:.3f}s ({where})")
+    if args.out.lower().endswith(".exr"):
+        save_exr(args.out, rgb)
+    else:
+        save_png(args.out, rgb)
+    if args.gbuffer:
+        base, _ = os.path.splitext(args.out)
+        save_golden(base + "_gbuffer.npz",
+                    {"rgb": rgb, "depth": depth, "normal": normal})
+        print(f"wrote {base}_gbuffer.npz")
     print(f"wrote {args.out}")
 
 
@@ -68,11 +95,26 @@ def cmd_animate(args):
     ts = torch.stack([t for _, t in poses]) + torch.as_tensor(
         np.asarray(anim.get("center", (0, 0, 0)), np.float32))
     t0 = time.perf_counter()
-    frames = render_sequence(scene, camera, (Rs, ts), settings,
-                             device=args.device)
-    _sync(args.device)
+    if args.chunk_size:
+        from surfjax_torch.utils.checkpoint import SequenceCheckpointer
+        cp = SequenceCheckpointer(args.out_dir, chunk_size=args.chunk_size)
+
+        def render_chunk(start, count):
+            fb = render_sequence(
+                scene, camera,
+                (Rs[start:start + count], ts[start:start + count]),
+                settings, device=args.device)
+            return fb.rgb.cpu().numpy()
+
+        cp.render_all(n, render_chunk)
+        # n frames asked: chunks left by a longer run must not leak in
+        rgb = cp.load_all(n)
+    else:
+        frames = render_sequence(scene, camera, (Rs, ts), settings,
+                                 device=args.device)
+        _sync(args.device)
+        rgb = frames.rgb.cpu().numpy()
     dt = time.perf_counter() - t0
-    rgb = frames.rgb.cpu().numpy()
     print(f"rendered {n} frames in {dt:.3f}s ({n / dt:.2f} frames/s, "
           f"{settings.backend} on {args.device})")
     os.makedirs(args.out_dir, exist_ok=True)
@@ -138,13 +180,23 @@ def main(argv=None):
                              "plain versions of the kernels)")
         sp.set_defaults(fn=fn)
         if name == "render":
-            sp.add_argument("--out", default="frame.png")
+            sp.add_argument("--out", default="frame.png",
+                            help=".png (tonemapped) or .exr (linear)")
+            sp.add_argument("--golden", action="store_true",
+                            help="render with the NumPy golden oracle on "
+                                 "the host")
+            sp.add_argument("--gbuffer", action="store_true",
+                            help="also write <out>_gbuffer.npz")
+            sp.add_argument("--profile-dir", default=None,
+                            help="write a torch.profiler trace here")
         elif name == "fit":
             sp.add_argument("--mode", choices=("pose", "sdf"), default=None)
             sp.add_argument("--steps", type=int, default=None)
         else:
             sp.add_argument("--frames", type=int, default=None)
             sp.add_argument("--out-dir", default="frames")
+            sp.add_argument("--chunk-size", type=int, default=None,
+                            help="render in chunks, resumable")
     args = p.parse_args(argv)
     return args.fn(args)
 

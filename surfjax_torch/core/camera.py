@@ -127,3 +127,25 @@ def orbit_pose(radius, height, theta):
                           rx[1], dy[1], fz[1],
                           rx[2], dy[2], fz[2]])
     return R_flat, eye
+
+
+def pose_interp(p0, p1, t):
+    """Linear pose interpolation: the translation lerped, the rotation
+    lerped and its columns re-orthonormalized (Gram-Schmidt on the first
+    two, the third their cross product). p = (R_flat (9,), trans (3,)) as
+    float32 tensors, t a float or 0-d tensor -> the pose at t."""
+    R0, t0 = p0
+    R1, t1 = p1
+    R = R0 + (R1 - R0) * t
+    c0 = torch.stack([R[0], R[3], R[6]])
+    c1 = torch.stack([R[1], R[4], R[7]])
+    c0 = c0 / sqrt(torch.sum(c0 * c0))
+    c1 = c1 - c0 * torch.sum(c0 * c1)
+    c1 = c1 / sqrt(torch.sum(c1 * c1))
+    c2 = torch.stack([c0[1] * c1[2] - c0[2] * c1[1],
+                      c0[2] * c1[0] - c0[0] * c1[2],
+                      c0[0] * c1[1] - c0[1] * c1[0]])
+    Rn = torch.stack([c0[0], c1[0], c2[0],
+                      c0[1], c1[1], c2[1],
+                      c0[2], c1[2], c2[2]])
+    return Rn, t0 + (t1 - t0) * t

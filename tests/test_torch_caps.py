@@ -42,6 +42,7 @@ from surfjax_torch.core.scene_compile import (  # noqa: E402
     from_reference, params_to_device,
 )
 from surfjax_torch.diff import fit as pt_fit  # noqa: E402
+from surfjax_torch.io.image import ulp_diff_f32  # noqa: E402
 from surfjax_torch.kernels import _build  # noqa: E402
 from surfjax_torch.kernels import render_tile as rt  # noqa: E402
 from surfjax_torch.tools import workload  # noqa: E402
@@ -193,15 +194,12 @@ def c3_traced():
     return ref, port, o, d, traced
 
 
-def test_plain_k1_matches_reference_op_by_op(c3_traced):
-    """The plain trace_core at march_cap 24 against surfjax's at the same
-    cap, op by op (jax.disable_jit): hits, objects and unres equal; t
-    differs on 6 of 576 lanes, by up to 2.21e-3 (inside the hit band, a
-    march that stopped a step apart; the same lanes and values at cap 0,
-    so the cap adds nothing). Jitted, surfjax's trace_core agrees on hits,
-    objects and unres, and t differs on 26 lanes by at most 4.8e-7
-    (XLA:CPU's arithmetic; ROADMAP queue 3)."""
-    (static, params, sj_st), _, o, d, (t, obj, _, hit, unres) = c3_traced
+@pytest.fixture(scope="module")
+def c3_reference_traces(c3_traced):
+    """surfjax's trace_core at march_cap 24 on c3_traced's rays, op by op
+    (jax.disable_jit) and jitted -> (op by op, jitted), each (t, obj, leaf,
+    hit, unres) as numpy."""
+    (static, params, sj_st), _, o, d, _ = c3_traced
     args = (jnp.asarray(params["leaf_params"]),
             jnp.asarray(params["node_params"]),
             tuple(jnp.asarray(c) for c in o), tuple(jnp.asarray(c) for c in d))
@@ -210,16 +208,49 @@ def test_plain_k1_matches_reference_op_by_op(c3_traced):
         return sj_rt.trace_core(static, sj_st, *a, sj_st.t_min, sj_st.t_max,
                                 march_cap=24)
     with jax.disable_jit():
-        t_r, obj_r, _, hit_r, unres_r = core(*args)
-    t_j, obj_j, _, hit_j, unres_j = jax.jit(core)(*args)
-    for a, b, c in ((hit, hit_r, hit_j), (obj, obj_r, obj_j),
-                    (unres, unres_r, unres_j)):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
-    dt_op = np.abs(t.numpy() - np.asarray(t_r))
-    assert (dt_op > 0.0).sum() <= 6 and dt_op.max() < 2.5e-3
-    assert np.abs(t.numpy() - np.asarray(t_j)).max() < 1e-6
+        op = core(*args)
+    jit = jax.jit(core)(*args)
+    return (tuple(np.asarray(v) for v in op),
+            tuple(np.asarray(v) for v in jit))
+
+
+# surfjax's own op-by-op and jitted traces part by more than this on a lane
+# whose march stopped a step apart inside the hit band
+REFERENCE_SPLIT = 1e-3
+
+
+def test_plain_k1_matches_reference_op_by_op(c3_traced, c3_reference_traces):
+    """The plain trace_core at march_cap 24 against surfjax's at the same
+    cap: hits, objects and unres equal to surfjax's op by op
+    (jax.disable_jit) and jitted. t within 1 ULP of surfjax op by op on
+    every lane but those where surfjax's own two paths split by more than
+    1e-3: at most one lane (342: port 2.4411104, op by op 2.438904,
+    jitted 2.4411106), where the port is within 1 ULP of jitted surfjax.
+    Against jitted surfjax t differs on 26 lanes by at most 4.8e-7
+    (XLA:CPU's arithmetic; ROADMAP queue 3)."""
+    *_, (t, obj, _, hit, unres) = c3_traced
+    op, jit = c3_reference_traces
+    for a, k in ((hit, 3), (obj, 1), (unres, 4)):
+        np.testing.assert_array_equal(a.numpy(), op[k])
+        np.testing.assert_array_equal(a.numpy(), jit[k])
+    t = t.numpy()
+    split = np.abs(op[0] - jit[0]) > REFERENCE_SPLIT
+    assert split.sum() <= 1
+    assert ulp_diff_f32(t[~split], op[0][~split]).max() <= 1
+    assert ulp_diff_f32(t[split], jit[0][split]).max(initial=0) <= 1
+    assert np.abs(t - jit[0]).max() < 1e-6
     assert 0.0 < float(unres.mean()) < 0.5
+
+
+def test_c3_op_by_op_gap_is_the_references_own(c3_reference_traces):
+    """The 2.2e-3 gap in t between the port and surfjax op by op on
+    c3-portlog at 24x24 (lane 342) is surfjax's own: its op-by-op and
+    jitted traces split there by more than 2e-3 (2.438904 against
+    2.4411106), a march that stopped a step apart inside the hit band."""
+    op, jit = c3_reference_traces
+    gap = np.abs(op[0] - jit[0])
+    assert np.flatnonzero(gap > REFERENCE_SPLIT).tolist() == [342]
+    assert gap[342] > 2e-3
 
 
 @pytest.mark.parametrize("soft", [True, False])

@@ -61,6 +61,34 @@ lp, losses = fit_sdf(scene, cam, target, steps=2, settings=st, device="cpu")
 assert lp.shape[1] == 8 and len(losses) == 2
 assert float(fp32_peak.fp32_peak_reference(
     "cheb_mix", *fp32_peak.seeds(1, 1, "cpu"), 4).mean()) > 1.0
+# the golden oracles, the image I/O, the utilities and the command line
+import os, tempfile
+import numpy as np
+import torch
+from surfjax_torch import __main__ as cli
+from surfjax_torch.core.camera import pose_interp
+from surfjax_torch.golden import cpp_bridge, renderer as golden
+from surfjax_torch.io.image import max_ulp, save_exr, save_golden
+from surfjax_torch.utils import checks, metrics, profiling
+scene, cam, st, _ = load_config("configs/c1_sphere.yaml")
+cam = Camera(Intrinsics.from_fov(16, 16, 45.0), cam.rotation, cam.position)
+g = golden.render_parallel(scene, cam, st, n_workers=2)
+assert max_ulp(cpp_bridge.render(scene, cam, st)["rgb"], g["rgb"]) <= 1
+fb = checks.checked(render)(scene, cam, st, device="cpu")
+assert checks.validate_framebuffers(fb)["ok"]
+metrics.FrameMetrics().record(width=16, height=16, wall_s=0.1, hits=1.0,
+                              n_lights=1, shadows=True, ao=False)
+R = torch.eye(3).reshape(9)
+pose_interp((R, torch.zeros(3)), (R, torch.ones(3)), 0.5)
+with tempfile.TemporaryDirectory() as tmp:
+    with profiling.trace_render(tmp), profiling.annotate("c1"):
+        render(scene, cam, st, device="cpu")
+    save_exr(os.path.join(tmp, "g.exr"), g["rgb"])
+    save_golden(os.path.join(tmp, "g.npz"), g)
+    checkpoint.SequenceCheckpointer(tmp, 1).render_all(
+        1, lambda s, n: g["rgb"][None])
+    cli.main(["render", "--config", "configs/c1_sphere.yaml", "--golden",
+              "--gbuffer", "--out", os.path.join(tmp, "c1.png")])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "surfjax"))
 print("LOADED", loaded)
