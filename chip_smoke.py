@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive surfjax_torch's fused-frame, split (mesh), crowd, primed and fit
-paths and its FP32 roofline probe on one CUDA GPU and check them.
+"""Drive surfjax_torch's fused-frame, split (mesh), crowd, primed, fit and
+sharded paths and its FP32 roofline probe on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -144,7 +144,23 @@ the script exits non-zero and never prints its last line):
      1 ULP, the largest rgb difference and the golden's seconds; each case
      held to the bounds surfjax holds its own path to against the golden
      (golden/compare.py BOUNDS), or where surfjax's own fused path breaks
-     one on that frame (c3, c5), to surfjax's figure (REFERENCE_FIGURES).
+     one on that frame (c3, c5), to surfjax's figure (REFERENCE_FIGURES);
+ 21. the sharding layer (surfjax_torch/parallel): (a) a world of one rank
+     in this process over NCCL: c3 (`value`) and c4 (`ao`) frame 0 at
+     1920x1080 through render_frame_sharded, every kernel call of each
+     held against its plain version, each frame bitwise equal to
+     render_rays_pallas on the same rays; render_sequence_sharded of c3 at
+     1920x1080 x 48 frames, frames 0, 24 and 47 bitwise equal to the
+     unsharded split path, ms/frame beside the unsharded split path's and
+     KF's render_sequence; ring_trace on c4's 8192 triangles with frame
+     0's primary rays, bitwise equal to one pass over the whole table and
+     beside the grid DDA (hits and ids equal, t within 2e-7 relative); the
+     dry run's step; (b) spawned gloo worlds of 2 and 4 ranks, every rank
+     on this card: the same frames bitwise equal to (a), the c3 sequence
+     of 4 frames on meshes (2, 1), (1, 2) and (2, 2) bitwise equal to (a),
+     the ring at D = 2 and 4 bitwise equal to D = 1, the dry run at world
+     4 within 1e-6 relative of world 1; each rank checks that it imported
+     no jax and that the split kernels launched on its sharded path.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
@@ -154,7 +170,8 @@ instantiation; the probe's entries per launch at its defaults, unroll 4)
 and bounds; K1 and K2 also with their time and bound in a 1080p fit step
 (fit_ms, fit_bound_ms, fit_bound_by) and their capped and residual
 launches on c3 at 1080p under mc=32 sc=16 (capped_ms, redo_ms, redo_rows:
-the share of rows re-run); their launches and errors include phase 19's.
+the share of rows re-run); their launches and errors include phase 19's;
+the split kernels' also phase 21's (the sharded paths' launches).
 """
 
 from __future__ import annotations
@@ -253,6 +270,14 @@ PROBE_UNROLL = 4       # the sweep row whose launch time the kernels line gives
 # own two backends to
 FIT_LOSS_REL, FIT_GRAD_REL, FIT_GRAD_COS = 2e-3, 0.1, 0.995
 FIT_CPU_REL = 1e-3     # the card's hybrid gradient against the CPU's
+# the split path's kernels (K1, K2, ao_fix, the mesh kernel)
+SPLIT = ("render_tile", "trace_rays", "ao_fix", "mesh_tile")
+SHARD_FRAMES = 4       # the sequence of the gloo worlds (phase 21)
+# phase 21's gloo worlds on the card: world size -> the meshes its c3
+# sequence is rendered on
+SHARD_WORLDS = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+RING_T_REL = 2e-7      # the ring's t against the grid DDA on hit lanes
+DRYRUN_REL = 1e-6      # the dry run's step at world 4 against world 1
 
 
 def bound(n_ops: float, n_bytes: float):
@@ -554,6 +579,360 @@ def golden_phase(dev, smi: str) -> list:
     return rows
 
 
+def _split_wrappers() -> dict:
+    from surfjax_torch.kernels import mesh_tile as mt, render_tile as rt
+    return {"render_tile": rt.render_tile, "trace_rays": rt.trace_rays,
+            "ao_fix": rt.ao_fix, "mesh_tile": mt.mesh_tile}
+
+
+def _counted(fn, totals: dict):
+    """fn() with the split kernels' counts set to 0 just before it and
+    read just after, added to totals -> (fn's result, its counts)."""
+    wrappers = _split_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    got = {k: w.launches for k, w in wrappers.items()}
+    for k, v in got.items():
+        totals[k] = totals.get(k, 0) + v
+    return out, got
+
+
+def _wall_ms(fn, reps: int, dev):
+    """-> (per-call ms on the host clock, each call ended by a sync of the
+    card, last result)."""
+    import torch
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    times, out = [], None
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def _digests(fb) -> list:
+    """sha256 of each buffer's bytes: equal digests, equal bits."""
+    import hashlib
+    return [hashlib.sha256(a.contiguous().cpu().numpy().tobytes()).hexdigest()
+            for a in fb]
+
+
+def _shard_cases(n_frames: int, size=None):
+    """-> {"c3": (scene, camera at frame 0, settings `value`, poses),
+    "c4": (scene, camera at frame 0, settings `ao`, poses)}, at 1920x1080
+    or at size (w, h)."""
+    from surfjax_torch.tools.workload import (
+        main_path, mesh_main_path, reframe,
+    )
+    c3 = main_path(os.path.join(ROOT, "configs/c3_sdf.yaml"), n_frames)
+    c4 = mesh_main_path(os.path.join(ROOT, "configs/c4_mesh.yaml"),
+                        n_frames)
+    out = {}
+    for key, (scene, cam, Rs, ps, modes), mode in (("c3", c3, "value"),
+                                                   ("c4", c4, "ao")):
+        if size is not None:
+            cam = reframe(cam, *size)
+        cam0 = dataclasses.replace(cam,
+                                   position=tuple(float(x) for x in ps[0]))
+        out[key] = (scene, cam0, modes[mode], (Rs, ps))
+    return out
+
+
+def _ring_inputs(dev, scene, cam):
+    """c4's mesh as shard_triangles takes it, and frame 0's primary rays
+    on dev -> (MeshTables, o, d)."""
+    from surfjax_torch.core.camera import flat_camera_rays
+    from surfjax_torch.engines.mesh import MeshTables
+    from surfjax_torch.pipeline.frame import _pose_tensors
+    static, params = scene.freeze()
+    tables = MeshTables(static.mesh_static[0],
+                        {k[len("mesh0_"):]: v for k, v in params.items()
+                         if k.startswith("mesh0_")})
+    R, t = _pose_tensors(cam, dev)
+    o, d, _ = flat_camera_rays(cam.intrinsics, R, t)
+    return tables, tuple(c.contiguous() for c in o), d
+
+
+def _sharding_rank(world: int, device_type: str, size) -> dict:
+    """One rank of a phase-21 gloo world, every rank on the card: c3 and c4
+    frame 0 on the default mesh, the c3 sequence on each mesh of
+    SHARD_WORLDS[world], the ring over the world, at world 4 the dry run
+    -> digests, times, the split kernels' counts on the sharded path."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from surfjax_torch.kernels import _build
+    from surfjax_torch.parallel import (
+        make_mesh, render_frame_sharded, render_sequence_sharded,
+    )
+    from surfjax_torch.parallel.dryrun import dryrun_step
+    from surfjax_torch.parallel.mesh import (
+        params_to_device, rank_device, render_frame_shard,
+    )
+    from surfjax_torch.parallel.ring_mesh import ring_trace, shard_triangles
+    from surfjax_torch.pipeline.frame import _pose_tensors
+    dev = rank_device(device_type)
+    if dev.type == "cuda":
+        _build.load()
+        torch.cuda.set_device(dev)
+    counts, out = {}, {"frames": {}, "sequences": {}, "ms": {}}
+    cases = _shard_cases(SHARD_FRAMES, size)
+    mesh = make_mesh(device=device_type)
+    coord = mesh.get_coordinate()
+    for key, (scene, cam, st, _) in cases.items():
+        (ms, fb), _ = _counted(lambda: _wall_ms(lambda: render_frame_sharded(
+            scene, cam, st, mesh, device_type), 1, dev), counts)
+        out["frames"][key] = _digests(fb)
+        out["ms"][f"{key} frame"] = ms[0]
+        static, params = scene.freeze()
+        params = params_to_device(params, dev)
+        R, t = _pose_tensors(cam, dev)
+        ms, _ = _wall_ms(lambda: render_frame_shard(
+            static, st, params, cam.intrinsics, R, t, coord[1], world), 1,
+            dev)
+        out["ms"][f"{key} shard alone"] = ms[0]
+    scene, cam, st, poses_ = cases["c3"]
+    for shape in SHARD_WORLDS[world]:
+        smesh = make_mesh(*shape, device=device_type)
+        (ms, fb), _ = _counted(lambda: _wall_ms(
+            lambda: render_sequence_sharded(scene, cam, poses_, st, smesh,
+                                            device_type), 1, dev), counts)
+        out["sequences"][str(shape)] = _digests(fb)
+        out["ms"][f"c3 sequence {shape}"] = ms[0]
+    c4_scene, c4_cam, c4_st, _ = cases["c4"]
+    tables, o, d = _ring_inputs(dev, c4_scene, c4_cam)
+    ring = init_device_mesh(device_type, (world,), mesh_dim_names=("shard",))
+    ms, (t, tri) = _wall_ms(lambda: ring_trace(
+        shard_triangles(tables, world), o, d, c4_st.t_min, c4_st.t_max,
+        ring), 1, dev)
+    out["ring"] = _digests((t, tri))
+    out["ms"]["ring"] = ms[0]
+    if world == 4:
+        out["dryrun"] = dryrun_step(device_type)
+    out["counts"] = counts
+    out["jax"] = "jax" in sys.modules
+    out["rank"] = dist.get_rank()
+    return out
+
+
+def sharding_phase(dev, smi: str, size=None, n_seq: int = 48) -> dict:
+    """Phase 21, the sharding layer on the card (module docstring), at
+    1920x1080 or at size (w, h) -> {"launches": the split kernels'
+    launches on the sharded paths of worlds 1, 2 and 4, "ms": the times,
+    "err": per kernel the largest error of its calls in world 1's sharded
+    frames against the plain version}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from surfjax_torch.api import render_sequence
+    from surfjax_torch.core.camera import flat_camera_rays
+    from surfjax_torch.core.math import BIG
+    from surfjax_torch.core.types import FrameBuffers
+    from surfjax_torch.engines.mesh import intersect_mesh
+    from surfjax_torch.kernels.render_tile import render_rays_pallas
+    from surfjax_torch.parallel import (
+        initialize_distributed, make_mesh, render_frame_sharded,
+        render_sequence_sharded,
+    )
+    from surfjax_torch.parallel.dryrun import dryrun_step
+    from surfjax_torch.parallel.launch import run_world
+    from surfjax_torch.parallel.mesh import _crop_reshape, params_to_device
+    from surfjax_torch.parallel.ring_mesh import (
+        NO_ID, _mt_shard, ring_trace, shard_triangles,
+    )
+    from surfjax_torch.pipeline.frame import _pose_tensors
+    from surfjax_torch.tools.kernel_check import capture_calls, compare
+    t21 = time.perf_counter()
+    names = FrameBuffers._fields
+    totals, ms, errs = {}, {}, {}
+    # (a) world 1 in this process: NCCL on the card
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    # NCCL reaches the store at its first collective: it outlives the group
+    store = tempfile.TemporaryDirectory()
+    initialize_distributed(dev.type, init_method=f"file://{store.name}/store",
+                           rank=0, world_size=1)
+    try:
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one)
+        if float(one) != 1.0:
+            raise AssertionError(f"{dist.get_backend()}'s all_reduce over "
+                                 "one rank")
+        mesh = make_mesh(1, 1, device=dev.type)
+        cases = _shard_cases(n_seq, size)
+        ref_digests = {}
+
+        def unsharded(scene, cam, st):
+            static, params = scene.freeze()
+            params = params_to_device(params, dev)
+            R, t = _pose_tensors(cam, dev)
+            o, d, n = flat_camera_rays(cam.intrinsics, R, t)
+            intr = cam.intrinsics
+            with torch.no_grad():
+                return _crop_reshape(render_rays_pallas(static, st, params,
+                                                        o, d),
+                                     n, intr.height, intr.width)
+
+        for key, (scene, cam, st, _) in cases.items():
+            with capture_calls() as calls:
+                fb, got = _counted(lambda: render_frame_sharded(
+                    scene, cam, st, mesh, dev.type), totals)
+            want = {"render_tile", "trace_rays"} | (
+                {"mesh_tile", "ao_fix"} if key == "c4" else set())
+            if {k for k, v in got.items() if v} != want:
+                raise AssertionError(f"{key} sharded frame: launches {got}, "
+                                     f"expected {sorted(want)} only")
+            # every kernel call of the sharded frame against its plain
+            # version, at the shapes the sharded path gives it
+            for k, (kname, args) in enumerate(calls):
+                err, _, _ = compare(kname, args, f"{key} sharded call {k}")
+                errs[kname] = max(errs.get(kname, 0.0), err)
+            log(f"  {key} sharded frame: {len(calls)} kernel calls bitwise "
+                "equal to their plain versions")
+            del calls
+            bitwise(fb, unsharded(scene, cam, st), names,
+                    f"{key} frame 0 sharded (world 1) == render_rays_pallas")
+            ref_digests[key] = _digests(fb)
+            s_ms, _ = _wall_ms(lambda: render_frame_sharded(
+                scene, cam, st, mesh, dev.type), 3, dev)
+            u_ms, _ = _wall_ms(lambda: unsharded(scene, cam, st), 3, dev)
+            ms[f"{key} frame"] = {"sharded": s_ms,
+                                  "unsharded split path": u_ms}
+            log(f"  {key} frame 0, world 1: launches {got}, ms "
+                + json.dumps(ms[f"{key} frame"]))
+            del fb
+        # the c3 sequence against the unsharded split path, frame by frame
+        scene, cam, st, (Rs, ps) = cases["c3"]
+        (seq_ms, fb), got = _counted(lambda: _wall_ms(
+            lambda: render_sequence_sharded(scene, cam, (Rs, ps), st, mesh,
+                                            dev.type), 1, dev), totals)
+        if got["render_tile"] < n_seq or got["trace_rays"] < n_seq:
+            raise AssertionError(f"c3 sequence: launches {got}")
+        check_sequence("c3 sharded", fb, len(scene.objects), 2e-4, 2.5e-3)
+        for f in (0, n_seq // 2, n_seq - 1):
+            cam_f = dataclasses.replace(
+                cam, position=tuple(float(x) for x in ps[f]))
+            bitwise([a[f] for a in fb], unsharded(scene, cam_f, st), names,
+                    f"c3 sequence frame {f} sharded == split path")
+        ref_digests["c3 sequence"] = _digests([a[:SHARD_FRAMES] for a in fb])
+        del fb
+
+        def split_loop():
+            for f in range(n_seq):
+                unsharded(scene, dataclasses.replace(
+                    cam, position=tuple(float(x) for x in ps[f])), st)
+
+        s_ms, _ = _wall_ms(lambda: render_sequence_sharded(
+            scene, cam, (Rs, ps), st, mesh, dev.type), 2, dev)
+        u_ms, _ = _wall_ms(split_loop, 2, dev)
+        k_ms, _ = _wall_ms(lambda: render_sequence(
+            scene, cam, (Rs, ps), st, device=dev), 3, dev)
+        ms["c3 sequence"] = {
+            "frames": n_seq,
+            "sharded ms/frame": [t / n_seq for t in seq_ms + s_ms],
+            "unsharded split path ms/frame": [t / n_seq for t in u_ms],
+            "KF render_sequence ms/frame": [t / n_seq for t in k_ms]}
+        log(f"  c3 sequence x {n_seq}, world 1: launches {got}; "
+            + json.dumps(ms["c3 sequence"]))
+        # the ring over c4's mesh and frame 0's primary rays
+        scene, cam, st, _ = cases["c4"]
+        tables, o, d = _ring_inputs(dev, scene, cam)
+        ring = init_device_mesh(dev.type, (1,), mesh_dim_names=("shard",))
+        r_ms, (t1, tri1) = _wall_ms(lambda: ring_trace(
+            shard_triangles(tables, 1), o, d, st.t_min, st.t_max, ring), 2,
+            dev)
+        full = [torch.as_tensor(tables.arrays[k], device=dev)
+                for k in ("tri_v0", "tri_e1", "tri_e2")]
+        n_tris = full[0].shape[0]
+        p_ms, (t_p, tri_p) = _wall_ms(lambda: _mt_shard(
+            o, d, *full, torch.arange(n_tris, dtype=torch.int32, device=dev),
+            st.t_min, torch.full_like(o[0], st.t_max),
+            torch.full_like(o[0], BIG),
+            torch.full_like(o[0], NO_ID, dtype=torch.int32)), 1, dev)
+        tri_p = torch.where(t_p < BIG * 0.5, tri_p, n_tris)
+        bitwise((t1, tri1), (t_p, tri_p), ("t", "tri"),
+                "ring D=1 == one pass over the whole table")
+        static, params = scene.freeze()
+        params = params_to_device(params, dev)
+        d_ms, (t_d, tri_d) = _wall_ms(lambda: intersect_mesh(
+            static.mesh_static[0], 0, params, o, d, st.t_min, st.t_max), 1,
+            dev)
+        hit = t1 < BIG * 0.5
+        if not torch.equal(hit, t_d < BIG * 0.5):
+            raise AssertionError("ring and grid DDA disagree on hits: "
+                                 f"{int((hit != (t_d < BIG * 0.5)).sum())}")
+        if not torch.equal(tri1[hit], tri_d[hit]):
+            raise AssertionError("ring and grid DDA disagree on triangle "
+                                 f"ids on {int((tri1 != tri_d)[hit].sum())}"
+                                 " hit lanes")
+        rel = float(((t1 - t_d).abs() / t_d.abs())[hit].max())
+        if rel > RING_T_REL:
+            raise AssertionError(f"ring t against the grid DDA: {rel} "
+                                 f"relative (bound {RING_T_REL})")
+        ref_digests["ring"] = _digests((t1, tri1))
+        ms["ring"] = {"rays": int(o[0].shape[0]), "triangles": n_tris,
+                      "hit lanes": int(hit.sum()), "ring D=1 ms": r_ms,
+                      "one pass ms": p_ms, "grid DDA ms": d_ms,
+                      "t rel vs DDA": rel}
+        log("  ring on c4's mesh, frame 0's primary rays: "
+            + json.dumps(ms["ring"]))
+        leaf1, loss1 = dryrun_step(dev.type, n_frames=4)
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+    # (b) gloo worlds of 2 and 4, every rank on this card, spawned
+    for world, shapes in SHARD_WORLDS.items():
+        tw = time.perf_counter()
+        ranks = run_world(_sharding_rank, world, world, dev.type, size,
+                          device=dev.type, backend="gloo", timeout=600.0)
+        for res in ranks:
+            label = f"world {world} rank {res['rank']}"
+            if res["jax"]:
+                raise AssertionError(f"{label}: jax was imported")
+            if any(res["counts"].get(k, 0) < 1 for k in SPLIT):
+                raise AssertionError(f"{label}: launches {res['counts']}")
+            for key in ("c3", "c4"):
+                if res["frames"][key] != ref_digests[key]:
+                    raise AssertionError(f"{label}: {key} frame 0 differs "
+                                         "from world 1")
+            for shape in shapes:
+                if res["sequences"][str(shape)] != ref_digests["c3 sequence"]:
+                    raise AssertionError(f"{label}: the c3 sequence on "
+                                         f"{shape} differs from world 1")
+            if res["ring"] != ref_digests["ring"]:
+                raise AssertionError(f"{label}: the ring at D={world} "
+                                     "differs from D=1")
+            if world == 4:
+                leaf4, loss4 = res["dryrun"]
+                rel = max(abs(loss4 - loss1) / abs(loss1),
+                          float(np.abs(leaf4 - leaf1).max()
+                                / np.abs(leaf1).max()))
+                if rel > DRYRUN_REL:
+                    raise AssertionError(f"{label}: the dry run differs "
+                                         f"from world 1 by {rel} relative")
+                ms["dryrun world 4 vs 1 rel"] = rel
+            for k, v in res["counts"].items():
+                totals[k] = totals.get(k, 0) + v
+        ms[f"world {world}"] = {f"rank {r['rank']}": r["ms"] for r in ranks}
+        secs = time.perf_counter() - tw
+        log(f"  gloo world of {world} ({secs:.1f} s): frames, sequences on "
+            f"{list(shapes)} and the ring at D={world} bitwise equal to "
+            f"world 1; ms " + json.dumps(ms[f"world {world}"]))
+    log(f"  the dry run at world 4 against world 1: "
+        f"{ms['dryrun world 4 vs 1 rel']:.3g} relative")
+    log(f"phase 21: the sharding layer, launches {totals} "
+        f"({time.perf_counter() - t21:.1f} s) on {smi}")
+    return {"launches": totals, "ms": ms, "err": errs}
+
+
 def main() -> int:
     # -- phase 0 ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -763,7 +1142,7 @@ def main() -> int:
     # -- phase 5 ------------------------------------------------------------
     t5 = time.perf_counter()
     import surfjax_torch.api as api
-    split = ("render_tile", "trace_rays", "ao_fix", "mesh_tile")
+    split = SPLIT
     c4_path = os.path.join(ROOT, "configs/c4_mesh.yaml")
     c4_scene, c4_cam, c4_st, _ = load_config(c4_path)
     cases = [(f"c4 {mode}", c4_scene, reframe(c4_cam, 256, 256), st)
@@ -795,7 +1174,7 @@ def main() -> int:
     n_frames = len(ps)
     n_objects = len(scene.objects)
     H, W = camera.intrinsics.height, camera.intrinsics.width
-    wrappers = dict(zip(split, (render_tile, trace_rays, ao_fix, mesh_tile)))
+    wrappers = _split_wrappers()
     mesh_results, mesh_launches = {}, {}
     for mode, st in modes.items():
         call = lambda st=st: render_sequence(scene, camera, (Rs, ps), st,
@@ -1528,6 +1907,9 @@ def main() -> int:
     # -- phase 20 -----------------------------------------------------------
     golden_phase(dev, smi)
 
+    # -- phase 21 -----------------------------------------------------------
+    sharded = sharding_phase(dev, smi)
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     # the fused kernel: times per 1080p frame in value_exact mode, the
@@ -1539,8 +1921,10 @@ def main() -> int:
     # fit step (phase 14); the crowd instantiation:
     # crowd_demo `config` per 1080p frame, launches of phase 9, errors over
     # phases 8 and 9; the priming kernel: the 1080p frame of phase 10; K1
-    # and K2 also count the fit's launches (phase 14); the probe's entries:
-    # one launch at the tool's defaults (unroll 4), launches of its sweep
+    # and K2 also count the fit's launches (phase 14); the split kernels
+    # also count the sharded paths' launches and errors (phase 21); the
+    # probe's entries: one launch at the tool's defaults (unroll 4),
+    # launches of its sweep
     kernels = [{
         "name": "frame_fused", "route": "cuda",
         "source": "surfjax_torch/kernels/csrc/kf_staged.cu",
@@ -1578,9 +1962,11 @@ def main() -> int:
             "source": f"surfjax_torch/kernels/csrc/{sources[name][0]}",
             "replaces": f"surfjax/kernels/{sources[name][1]}",
             "launches": sum(c[name] for c in mesh_launches.values())
-            + fit_launches.get(name, 0) + capped["launches"].get(name, 0),
+            + fit_launches.get(name, 0) + capped["launches"].get(name, 0)
+            + sharded["launches"].get(name, 0),
             "max_abs_err": max(split_err[name],
-                               capped["err"].get(name, 0.0)),
+                               capped["err"].get(name, 0.0),
+                               sharded["err"].get(name, 0.0)),
             "ms": st7["ms"],
             "plain_ms": st7["plain_ms"], "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None})

@@ -89,6 +89,20 @@ with tempfile.TemporaryDirectory() as tmp:
         1, lambda s, n: g["rgb"][None])
     cli.main(["render", "--config", "configs/c1_sphere.yaml", "--golden",
               "--gbuffer", "--out", os.path.join(tmp, "c1.png")])
+# the sharding layer: a frame through a gloo group of one
+import torch.distributed as dist
+from surfjax_torch.parallel import (
+    initialize_distributed, make_mesh, render_frame_sharded,
+)
+from surfjax_torch.parallel import dryrun, launch, ring_mesh
+os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+with tempfile.TemporaryDirectory() as tmp:
+    initialize_distributed("cpu", init_method="file://" + tmp + "/store",
+                           rank=0, world_size=1)
+    fb = render_frame_sharded(scene, cam, st.with_(backend="pallas"),
+                              make_mesh(device="cpu"), device="cpu")
+    assert tuple(fb.rgb.shape) == (16, 16, 3) and float(fb.hit.mean()) > 0.1
+    dist.destroy_process_group()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "surfjax"))
 print("LOADED", loaded)
