@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive surfjax_torch's fused-frame, split (mesh), crowd, primed, fit and
-sharded paths and its FP32 roofline probe on one CUDA GPU and check them.
+sharded paths, its benchmark harness and its FP32 roofline probe on one
+CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -160,7 +161,29 @@ the script exits non-zero and never prints its last line):
      of 4 frames on meshes (2, 1), (1, 2) and (2, 2) bitwise equal to (a),
      the ring at D = 2 and 4 bitwise equal to D = 1, the dry run at world
      4 within 1e-6 relative of world 1; each rank checks that it imported
-     no jax and that the split kernels launched on its sharded path.
+     no jax and that the split kernels launched on its sharded path; (c)
+     the dry run's defaults: dryrun_multichip(2) with no device (its gloo
+     ranks on the card) within 1e-6 relative of world 1, and `python -m
+     surfjax_torch.parallel.dryrun 2` in a process of its own, its printed
+     loss within the same bound of world 1's, plus the half unit of the
+     sixth decimal it rounds to.
+ 22. the benchmark harness and its entry points (surfjax_torch/bench.py,
+     tools/bench_all.py, quickstart.py): (a) run_bench() in this process,
+     c3 at 1920x1080 x 48 frames in both modes, 3 repeats: KF launched
+     once per render_sequence call and nothing else, the hits per frame of
+     both modes equal to phase 3's, rays_per_frame equal to phase 3's
+     frames'; (b) `python -m surfjax_torch bench --repeats 1` in a process
+     of its own: one JSON line, the same rays_per_frame; (c) bench_all's
+     `matrix` and `gated` rows in this process, each row's launches: KF
+     alone on c1, c2, c3 and c5_seq, the crowd instantiation on crowd64,
+     K1, K2 and the mesh kernel and no KF on the c4 rows; in (a) and (c)
+     the first and last frame of every timed call held bitwise against the
+     plain versions on the same inputs (frame_fused_reference on a
+     mesh-free scene; on a mesh, each kernel call of the two frames
+     rendered again against its plain version, and those frames against
+     the call's), and the hits the row counted equal to those frames'; (d)
+     the quickstart on the card in a process of its own, into a temporary
+     directory.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
@@ -171,7 +194,10 @@ and bounds; K1 and K2 also with their time and bound in a 1080p fit step
 (fit_ms, fit_bound_ms, fit_bound_by) and their capped and residual
 launches on c3 at 1080p under mc=32 sc=16 (capped_ms, redo_ms, redo_rows:
 the share of rows re-run); their launches and errors include phase 19's;
-the split kernels' also phase 21's (the sharded paths' launches).
+the split kernels' also phase 21's (the sharded paths' launches); KF's,
+its crowd instantiation's and the split kernels' also phase 22's (the
+harness and the workload matrix in this process, launches and the errors
+of their frames against the plain versions).
 """
 
 from __future__ import annotations
@@ -725,6 +751,8 @@ def sharding_phase(dev, smi: str, size=None, n_seq: int = 48) -> dict:
     launches on the sharded paths of worlds 1, 2 and 4, "ms": the times,
     "err": per kernel the largest error of its calls in world 1's sharded
     frames against the plain version}."""
+    import re
+    import subprocess
     import tempfile
 
     import numpy as np
@@ -742,7 +770,7 @@ def sharding_phase(dev, smi: str, size=None, n_seq: int = 48) -> dict:
         initialize_distributed, make_mesh, render_frame_sharded,
         render_sequence_sharded,
     )
-    from surfjax_torch.parallel.dryrun import dryrun_step
+    from surfjax_torch.parallel.dryrun import dryrun_multichip, dryrun_step
     from surfjax_torch.parallel.launch import run_world
     from surfjax_torch.parallel.mesh import _crop_reshape, params_to_device
     from surfjax_torch.parallel.ring_mesh import (
@@ -928,9 +956,253 @@ def sharding_phase(dev, smi: str, size=None, n_seq: int = 48) -> dict:
             f"world 1; ms " + json.dumps(ms[f"world {world}"]))
     log(f"  the dry run at world 4 against world 1: "
         f"{ms['dryrun world 4 vs 1 rel']:.3g} relative")
+    # (c) the dry run's defaults: the ranks go on the card
+    tw = time.perf_counter()
+    leaf2, loss2 = dryrun_multichip(2)
+    rel = max(abs(loss2 - loss1) / abs(loss1),
+              float(np.abs(leaf2 - leaf1).max() / np.abs(leaf1).max()))
+    if rel > DRYRUN_REL:
+        raise AssertionError(f"dryrun_multichip(2) differs from world 1 by "
+                             f"{rel} relative")
+    ms["dryrun_multichip(2) vs world 1 rel"] = rel
+    proc = subprocess.run(
+        [sys.executable, "-m", "surfjax_torch.parallel.dryrun", "2"],
+        cwd=ROOT, env=_module_env(), capture_output=True, text=True,
+        timeout=600)
+    printed = re.search(r"loss=(\S+) OK", proc.stdout)
+    if proc.returncode != 0 or printed is None:
+        raise AssertionError("python -m surfjax_torch.parallel.dryrun 2 "
+                             f"failed:\n{proc.stdout}{proc.stderr[-4000:]}")
+    # the printed loss is rounded to 6 decimals: half a unit of the last
+    # one on top of the bound
+    if abs(float(printed.group(1)) - loss1) > 5e-7 + DRYRUN_REL * abs(loss1):
+        raise AssertionError(f"the dry run's command line printed loss "
+                             f"{printed.group(1)}, world 1 {loss1!r}")
+    log(f"  the dry run's defaults on the card: dryrun_multichip(2) "
+        f"{rel:.3g} relative of world 1; the command line: "
+        f"{proc.stdout.strip()} ({time.perf_counter() - tw:.1f} s)")
     log(f"phase 21: the sharding layer, launches {totals} "
         f"({time.perf_counter() - t21:.1f} s) on {smi}")
     return {"launches": totals, "ms": ms, "err": errs}
+
+
+BENCH_KERNELS = ("frame_fused", "render_tile", "trace_rays", "ao_fix",
+                 "mesh_tile", "prime_tile")
+C4_ROW_KERNELS = ("render_tile", "trace_rays", "mesh_tile")
+
+
+def _module_env() -> dict:
+    """The environment of a `python -m surfjax_torch...` child process: this
+    checkout first on its path."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+
+
+def check_frames(seqs: list, timings: list, dev, errs: dict,
+                 label: str) -> None:
+    """Frames 0 and F-1 of each recorded call held bitwise against the
+    plain versions on the same inputs (mesh-free: frame_fused_reference
+    on the frame's camera row; mesh: each split-kernel call of the two
+    frames rendered again, and those frames equal to the call's), and
+    the call's hits per frame equal to those time_mode counted; then
+    the records are dropped. seqs: (scene, camera, poses, settings,
+    buffers) of each call; timings: bench.time_mode's results, one per
+    call; errs: per kernel the largest error so far, updated."""
+    import numpy as np
+    import torch
+
+    from surfjax_torch.api import render_sequence
+    from surfjax_torch.core.scene_compile import params_to_device
+    from surfjax_torch.core.types import FrameBuffers
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools.kernel_check import capture_calls, compare
+    from surfjax_torch.tools.workload import cam_rows_of
+    if len(seqs) != len(timings):
+        raise AssertionError(f"{label}: {len(timings)} timed modes, "
+                             f"{len(seqs)} recorded sequences")
+    for (scene, camera, (Rs, ps), st, fb), timing in zip(seqs, timings):
+        hits = fb.hit.sum(dim=(1, 2), dtype=torch.float64).cpu().numpy()
+        if not np.array_equal(hits, timing.hits):
+            raise AssertionError(f"{label}: the checked frames' hits "
+                                 "differ from the counted ones")
+        idx = sorted({0, len(ps) - 1})
+        static, params = scene.freeze()
+        if static.mesh_static:
+            with capture_calls() as calls:
+                again = render_sequence(scene, camera, (Rs[idx], ps[idx]),
+                                        st, device=dev)
+            if not set(C4_ROW_KERNELS) <= {c[0] for c in calls}:
+                raise AssertionError(f"{label}: calls {[c[0] for c in calls]}")
+            for k, (kname, args) in enumerate(calls):
+                err, _, _ = compare(kname, args, f"{label} call {k}")
+                errs[kname] = max(errs[kname], err)
+            bitwise(FrameBuffers(*(a[idx] for a in fb)), again,
+                    FrameBuffers._fields,
+                    f"{label} frames {idx} against {len(calls)} kernel "
+                    "calls each equal to its plain version")
+            continue
+        key = ("frame_fused_crowd" if rt.split_crowd(static, st)[0]
+               is not None else "frame_fused")
+        scene_t = rt.SceneTensors(static, params_to_device(params, dev))
+        rows_ = cam_rows_of(Rs, ps, dev)
+        for f in idx:
+            ref = rt.frame_fused_reference(scene_t, st, camera.intrinsics,
+                                           rows_[f:f + 1])
+            errs[key] = max(errs[key], bitwise(
+                FrameBuffers(*(a[f:f + 1] for a in fb)),
+                rt.frame_buffers(ref), FrameBuffers._fields,
+                f"{label} frame {f} against the plain version"))
+    timings.clear()
+    seqs.clear()
+
+
+def bench_phase(dev, smi: str, hits3: dict) -> dict:
+    """Phase 22: the benchmark harness (surfjax_torch.bench), its `bench`
+    subcommand, the workload matrix (tools/bench_all.py, --rows matrix and
+    gated) and the quickstart on the card. hits3: phase 3's hits per frame
+    of each mode. -> {"launches": per kernel, the launches of the in-process
+    runs (a) and (c); "err": per kernel, the largest error of the checks
+    of their frames against the plain versions; KF's crowd instantiation
+    as frame_fused_crowd}."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from surfjax_torch import bench
+    from surfjax_torch.kernels import mesh_tile as mt, render_tile as rt
+    from surfjax_torch.tools import bench_all, scenes
+    t22 = time.perf_counter()
+    wrappers = {"frame_fused": rt.frame_fused, "render_tile": rt.render_tile,
+                "trace_rays": rt.trace_rays, "ao_fix": rt.ao_fix,
+                "mesh_tile": mt.mesh_tile, "prime_tile": rt.prime_tile}
+    totals = dict.fromkeys(BENCH_KERNELS + ("frame_fused_crowd",), 0)
+    errs = dict.fromkeys(totals, 0.0)
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        return out, {k: w.launches for k, w in wrappers.items()}
+
+    # every bench.time_mode call of a run and the buffers of its last
+    # render_sequence call, kept for the checks against the plain versions
+    timings, seqs = [], []
+    time_mode, render_sequence = bench.time_mode, bench.render_sequence
+
+    def recording_time_mode(*args, **kw):
+        timings.append(time_mode(*args, **kw))
+        return timings[-1]
+
+    def recording_sequence(scene, camera, poses_, settings, device):
+        fb = render_sequence(scene, camera, poses_, settings, device=device)
+        if seqs and seqs[-1][2] is poses_ and seqs[-1][3] is settings:
+            seqs.pop()
+        seqs.append((scene, camera, poses_, settings, fb))
+        return fb
+
+    # bench_all holds its own name of time_mode; both call bench's
+    # render_sequence
+    bench.time_mode = bench_all.time_mode = recording_time_mode
+    bench.render_sequence = recording_sequence
+    try:
+        # (a) run_bench in this process
+        hb, got = counted(lambda: bench.run_bench(device=dev))
+        want = dict.fromkeys(BENCH_KERNELS, 0)
+        want["frame_fused"] = 2 * (1 + hb["repeats"])   # one per call
+        if got != want:
+            raise AssertionError(f"run_bench launched {got}, expected "
+                                 f"{want}")
+        for k, v in got.items():
+            totals[k] += v
+        for timing, mode in zip(timings, ("value", "value_exact")):
+            if not np.array_equal(timing.hits, hits3[mode]):
+                raise AssertionError(f"run_bench's hits per frame ({mode}) "
+                                     "differ from phase 3's")
+        check_frames(seqs, timings, dev, errs, "run_bench")
+        scene, camera, settings = bench.metric_workload()[:3]
+        rays3 = int(bench.rays_per_frame(scene, settings, camera.intrinsics,
+                                         float(hits3["value"].sum()) / 48))
+        if hb["rays_per_frame"] != rays3:
+            raise AssertionError(f"rays_per_frame {hb['rays_per_frame']}, "
+                                 f"from phase 3's frames {rays3}")
+        log("  run_bench (hits per frame == phase 3's, both modes; frames "
+            "0 and 47 == the plain version's; launches "
+            f"{got['frame_fused']} of KF, none else): " + json.dumps(hb))
+
+        # (c) the workload matrix and the gated rows: each row's launches,
+        # its first and last frame against the plain versions
+        for kind in ("matrix", "gated"):
+            for workload, measure in bench_all.rows(kind, dev):
+                rows, got = counted(measure)
+                kf = got["frame_fused"]
+                others = {k: v for k, v in got.items() if k != "frame_fused"}
+                if workload in ("c4_fixture", "c4_config"):
+                    ok = kf == 0 and all(got[k] > 0 for k in C4_ROW_KERNELS)
+                else:
+                    ok = kf > 0 and not any(others.values())
+                if not ok:
+                    raise AssertionError(f"{kind} {workload}: launches {got}")
+                if workload == "crowd64":
+                    # KF's launches on a crowd are its crowd instantiation's
+                    sc, _, st = scenes.crowd64()
+                    if rt.split_crowd(sc.freeze()[0], st)[0] is None:
+                        raise AssertionError("crowd64 forms no crowd")
+                    totals["frame_fused_crowd"] += kf
+                for k, v in got.items():
+                    if not (workload == "crowd64" and k == "frame_fused"):
+                        totals[k] += v
+                check_frames(seqs, timings, dev, errs,
+                             f"{kind} {workload}")
+                for r in rows:
+                    if not r["frame_ms"] > 0:
+                        raise AssertionError(f"{kind} {workload}: {r}")
+                    log(f"  {kind} {workload}: " + json.dumps(r))
+                log(f"    launches {json.dumps(got)}")
+    finally:
+        bench.time_mode = bench_all.time_mode = time_mode
+        bench.render_sequence = render_sequence
+
+    # (b) the command line in a process of its own
+    env = _module_env()
+    tb = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "surfjax_torch", "bench", "--repeats", "1"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError("python -m surfjax_torch bench failed:\n"
+                             + proc.stderr[-4000:])
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} lines: {lines}")
+    sub = json.loads(lines[0])
+    if sub["rays_per_frame"] != hb["rays_per_frame"]:
+        raise AssertionError(f"bench's rays_per_frame {sub['rays_per_frame']}"
+                             f" against run_bench's {hb['rays_per_frame']}")
+    log(f"  python -m surfjax_torch bench --repeats 1 "
+        f"({time.perf_counter() - tb:.1f} s): {lines[0]}")
+
+    # (d) the quickstart on the card, in a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        tq = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "surfjax_torch.quickstart", "--out-dir",
+             tmp], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError("the quickstart failed:\n"
+                                 + proc.stderr[-4000:])
+        png = os.path.join(tmp, "frame.png")
+        if not os.path.getsize(png) > 0:
+            raise AssertionError("the quickstart wrote no frame.png")
+        for ln in proc.stdout.splitlines():
+            log(f"  quickstart: {ln}")
+        log(f"  quickstart ({time.perf_counter() - tq:.1f} s): frame.png "
+            f"{os.path.getsize(png)} bytes")
+    log(f"phase 22: the benchmark harness, the workload matrix and the "
+        f"quickstart, launches {json.dumps(totals)} "
+        f"({time.perf_counter() - t22:.1f} s) on {smi}")
+    return {"launches": totals, "err": errs}
 
 
 def main() -> int:
@@ -1057,6 +1329,7 @@ def main() -> int:
     n_objects = len(scene.objects)
     H, W = camera.intrinsics.height, camera.intrinsics.width
     results = {}
+    hits3 = {}   # hits per frame of each mode, exact, for phase 22
     frame_fused.launches = 0
     for mode, st in modes.items():
         call = lambda st=st: render_sequence(scene, camera, (Rs, ps), st,
@@ -1065,6 +1338,7 @@ def main() -> int:
         torch.cuda.synchronize()
         times, fb = cuda_ms(call, 3)
         results[mode] = (times, st, fb)
+        hits3[mode] = fb.hit.sum(dim=(1, 2), dtype=torch.float64).cpu()
     main_launches = frame_fused.launches
     if main_launches < 1:
         raise AssertionError("the main path launched no kernel")
@@ -1910,6 +2184,9 @@ def main() -> int:
     # -- phase 21 -----------------------------------------------------------
     sharded = sharding_phase(dev, smi)
 
+    # -- phase 22 -----------------------------------------------------------
+    benched = bench_phase(dev, smi, {k: v.numpy() for k, v in hits3.items()})
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     # the fused kernel: times per 1080p frame in value_exact mode, the
@@ -1922,14 +2199,18 @@ def main() -> int:
     # crowd_demo `config` per 1080p frame, launches of phase 9, errors over
     # phases 8 and 9; the priming kernel: the 1080p frame of phase 10; K1
     # and K2 also count the fit's launches (phase 14); the split kernels
-    # also count the sharded paths' launches and errors (phase 21); the
+    # also count the sharded paths' launches and errors (phase 21); KF,
+    # its crowd instantiation and the split kernels also count the
+    # launches of the benchmark harness and the workload matrix and the
+    # errors of their frames against the plain versions (phase 22); the
     # probe's entries: one launch at the tool's defaults (unroll 4),
     # launches of its sweep
     kernels = [{
         "name": "frame_fused", "route": "cuda",
         "source": "surfjax_torch/kernels/csrc/kf_staged.cu",
         "replaces": "surfjax/kernels/render_tile.py:2196",
-        "launches": main_launches, "max_abs_err": max_err,
+        "launches": main_launches + benched["launches"]["frame_fused"],
+        "max_abs_err": max(max_err, benched["err"]["frame_fused"]),
         "ms": per_frame["value_exact"][0],
         "plain_ms": per_frame["value_exact"][1],
         "bound_ms": kf_bound[0], "bound_by": kf_bound[1],
@@ -1938,7 +2219,8 @@ def main() -> int:
         "name": "frame_fused_crowd", "route": "cuda",
         "source": "surfjax_torch/kernels/csrc/frame_fused.cu",
         "replaces": "surfjax/kernels/render_tile.py:1013",
-        "launches": crowd_launches, "max_abs_err": crowd_err,
+        "launches": crowd_launches + benched["launches"]["frame_fused_crowd"],
+        "max_abs_err": max(crowd_err, benched["err"]["frame_fused_crowd"]),
         "ms": crowd_frame[0], "plain_ms": crowd_frame[1],
         "bound_ms": crowd_bound[0], "bound_by": crowd_bound[1],
         "library_ms": None}, {
@@ -1963,10 +2245,12 @@ def main() -> int:
             "replaces": f"surfjax/kernels/{sources[name][1]}",
             "launches": sum(c[name] for c in mesh_launches.values())
             + fit_launches.get(name, 0) + capped["launches"].get(name, 0)
-            + sharded["launches"].get(name, 0),
+            + sharded["launches"].get(name, 0)
+            + benched["launches"][name],
             "max_abs_err": max(split_err[name],
                                capped["err"].get(name, 0.0),
-                               sharded["err"].get(name, 0.0)),
+                               sharded["err"].get(name, 0.0),
+                               benched["err"][name]),
             "ms": st7["ms"],
             "plain_ms": st7["plain_ms"], "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None})

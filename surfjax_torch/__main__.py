@@ -8,6 +8,8 @@
         --frames 16 [--chunk-size 4] [--device cpu] --out-dir frames/
     python -m surfjax_torch fit --config configs/c5_anim.yaml \\
         [--mode pose|sdf] [--steps 60] [--backend jnp|pallas] [--device cpu]
+    python -m surfjax_torch bench [--config configs/c3_sdf.yaml] \\
+        [--repeats 5] [--device cpu]
 
 All run on the CUDA device unless --device names another; `render
 --golden` runs the NumPy golden oracle on the host's threads instead.
@@ -15,12 +17,15 @@ All run on the CUDA device unless --device names another; `render
 an .exr output is linear float32 rgb, a .png tonemapped; `--profile-dir`
 writes a torch.profiler Chrome trace of the render there. `animate
 --chunk-size` renders chunks of frames, each saved as it completes, and a
-rerun of the same command skips the chunks that are done.
+rerun of the same command skips the chunks that are done. `bench` prints
+the JSON line of `surfjax_torch.bench.run_bench` (the pinned 1080p x 48
+frame workload of the config, c3 by default, in both fidelity modes).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -165,6 +170,12 @@ def cmd_fit(args):
         raise SystemExit(f"unknown fit mode {mode!r}")
 
 
+def cmd_bench(args):
+    from surfjax_torch.bench import run_bench
+    print(json.dumps(run_bench(config=args.config, repeats=args.repeats,
+                               device=args.device)))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="surfjax_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -197,6 +208,12 @@ def main(argv=None):
             sp.add_argument("--out-dir", default="frames")
             sp.add_argument("--chunk-size", type=int, default=None,
                             help="render in chunks, resumable")
+    sp = sub.add_parser("bench", help="run the benchmark harness")
+    sp.add_argument("--config", default=None)
+    sp.add_argument("--repeats", type=int, default=5)
+    sp.add_argument("--device", default="cuda",
+                    help="torch device (default cuda)")
+    sp.set_defaults(fn=cmd_bench)
     args = p.parse_args(argv)
     return args.fn(args)
 

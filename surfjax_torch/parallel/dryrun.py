@@ -10,12 +10,16 @@ autograd; the sums are added across ranks with `all_reduce` and divided
 by the global count F * N * 3, and every rank takes the same SGD step at
 1e-2.
 
-    python -m surfjax_torch.parallel.dryrun N   # N gloo ranks on the CPU
+    python -m surfjax_torch.parallel.dryrun N [--device cpu]
+
+runs it in N spawned gloo ranks, every rank on the card (`cuda:0` when
+there is one; gloo, because NCCL takes one rank per device) unless
+`--device cpu` puts them on the CPU.
 """
 
 from __future__ import annotations
 
-import sys
+import argparse
 
 import numpy as np
 import torch
@@ -26,7 +30,7 @@ from surfjax_torch.core.scene_compile import params_to_device
 from surfjax_torch.parallel.mesh import (
     all_reduce_sum, make_mesh, rank_device, shard_range,
 )
-from surfjax_torch.pipeline.frame import render_rays
+from surfjax_torch.pipeline.frame import _check_device, render_rays
 
 LR = 1e-2
 SIZE = 16        # the frame's width and height
@@ -93,10 +97,11 @@ def step_shard(static, settings, params, intr, Rs, ts, coord, shape):
     return total.detach(), grad
 
 
-def dryrun_step(device="cpu", n_frames=None):
+def dryrun_step(device="cuda", n_frames=None):
     """One fit step on this rank of the world's mesh (every rank calls it)
     over n_frames frames (default 2 * n_frame, as surfjax's) -> (the
     updated leaf_params, the loss), numpy, equal on every rank."""
+    device = _check_device(device)
     n_frame, n_tile = mesh_shape(dist.get_world_size())
     mesh = make_mesh(n_frame, n_tile, device=device)
     dev = rank_device(mesh.device_type)
@@ -116,12 +121,16 @@ def dryrun_step(device="cpu", n_frames=None):
     return new_leaf.cpu().numpy(), float(loss)
 
 
-def dryrun_multichip(n_devices: int):
+def dryrun_multichip(n_devices: int, device="cuda"):
     """One sharded fit step in a world of n_devices gloo ranks spawned on
-    the CPU -> (updated leaf_params, loss) of rank 0, after checking that
-    every rank holds the same."""
+    `device`'s type (the card unless the caller asks for "cpu"; rank r on
+    `cuda:(r % device count)`) -> (updated leaf_params, loss) of rank 0,
+    after checking that every rank holds the same. Without a card a card
+    request raises before any rank is spawned."""
     from surfjax_torch.parallel.launch import run_world
-    results = run_world(dryrun_step, n_devices, "cpu", device="cpu")
+    kind = torch.device(device).type
+    results = run_world(dryrun_step, n_devices, kind, device=kind,
+                        backend="gloo")
     new_leaf, loss = results[0]
     for leaf_r, loss_r in results[1:]:
         if loss_r != loss or not np.array_equal(leaf_r, new_leaf):
@@ -134,5 +143,14 @@ def dryrun_multichip(n_devices: int):
     return new_leaf, loss
 
 
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="surfjax_torch.parallel.dryrun")
+    ap.add_argument("n_devices", type=int, nargs="?", default=4)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device type of the ranks (default cuda)")
+    args = ap.parse_args(argv)
+    dryrun_multichip(args.n_devices, device=args.device)
+
+
 if __name__ == "__main__":
-    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 4)
+    main()

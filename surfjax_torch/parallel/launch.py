@@ -40,12 +40,16 @@ def _rank_main(fn, args, rank: int, world: int, init_method: str,
             dist.destroy_process_group()
 
 
-def run_world(fn, world: int, *args, device: str = "cpu", backend=None,
+def run_world(fn, world: int, *args, device: str = "cuda", backend=None,
               timeout: float = 600.0) -> list:
-    """fn(*args) on ranks 0..world-1 of a new process group (the backend
-    follows `device` unless `backend` names one: gloo on the CPU, NCCL on
-    cards; several ranks on one card need gloo) -> [rank 0's result,
-    ...]. Raises if a rank fails or none answers within `timeout` s."""
+    """fn(*args) on ranks 0..world-1 of a new process group on `device`'s
+    type (the card unless the caller asks for "cpu"; the backend follows
+    it unless `backend` names one: gloo on the CPU, NCCL on cards; several
+    ranks on one card need gloo) -> [rank 0's result, ...]. Raises if a
+    rank fails or none answers within `timeout` s, and without a card on a
+    card request before spawning anything."""
+    from surfjax_torch.pipeline.frame import _check_device
+    device = _check_device(device).type
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         results = ctx.Queue()

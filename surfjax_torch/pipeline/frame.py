@@ -293,8 +293,8 @@ def _check_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
-                           "available; this package does not fall back to "
-                           "the CPU")
+                           "available (torch.cuda.is_available() is false); "
+                           "this package does not fall back to the CPU")
     return device
 
 

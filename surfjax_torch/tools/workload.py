@@ -17,7 +17,9 @@ perturbed leaf parameters the command line's `fit` starts from.
 
 from __future__ import annotations
 
+import os
 import subprocess
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,6 +30,9 @@ from surfjax_torch.core.camera import Intrinsics
 from surfjax_torch.meshgen import octasphere
 
 EXACT = dict(secondary_lod_iters=0, ao_lod_iters=0, over_relax=1.0)
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+C3 = os.path.join(ROOT, "configs", "c3_sdf.yaml")
 
 
 def gpu_line(fields: str = "name,power.limit") -> str:
@@ -61,17 +66,35 @@ def cam_rows_of(R_flats, positions, device):
                      dim=1).to(device=device, dtype=torch.float32).contiguous()
 
 
-def _jitter(n_frames: int):
+def jitter(n_frames: int):
+    """(F, 3) float32: frame i moved by 1e-4 * i on every axis."""
     return np.float32(1e-4) * np.arange(
         n_frames, dtype=np.float32)[:, None] * np.ones((1, 3), np.float32)
 
 
+def metric_workload(config: Optional[str] = None, width: int = 1920,
+                    height: int = 1080, n_frames: int = 48):
+    """THE pinned metric workload of `surfjax_torch.bench`: the config's
+    (default configs/c3_sdf.yaml) scene with its camera reframed to
+    width x height at the same vertical fov (kept as it is if it already
+    has that size), and n_frames positions, frame i moved by 1e-4 * i on
+    every axis -> (scene, camera, settings, R_flats (F, 9), positions
+    (F, 3)), the poses float32 numpy. The settings are the config's; the
+    caller picks the backend."""
+    scene, camera, settings, _ = load_config(config or C3)
+    intr = camera.intrinsics
+    if (intr.width, intr.height) != (width, height):
+        camera = reframe(camera, width, height)
+    R_flats, positions = poses(camera, n_frames, jitter(n_frames))
+    return scene, camera, settings, R_flats, positions
+
+
 def main_path(config_path: str, n_frames: int = 48):
-    """-> (scene, camera at 1920x1080, R_flats, positions, modes), modes a
-    dict of the two fidelity modes' RenderSettings with backend pallas."""
-    scene, camera, settings, _ = load_config(config_path)
-    camera = reframe(camera, 1920, 1080)
-    Rs, ps = poses(camera, n_frames, _jitter(n_frames))
+    """metric_workload at 1920x1080 -> (scene, camera, R_flats, positions,
+    modes), modes a dict of the two fidelity modes' RenderSettings with
+    backend pallas."""
+    scene, camera, settings, Rs, ps = metric_workload(config_path,
+                                                      n_frames=n_frames)
     modes = {"value": settings.with_(backend="pallas"),
              "value_exact": settings.with_(backend="pallas", **EXACT)}
     return scene, camera, Rs, ps, modes
@@ -88,7 +111,7 @@ def mesh_main_path(config_path: str, n_frames: int = 16):
     """-> (scene, camera, R_flats, positions, modes) of a mesh config at
     its own size and tile_rows, modes as mesh_modes."""
     scene, camera, settings, _ = load_config(config_path)
-    Rs, ps = poses(camera, n_frames, _jitter(n_frames))
+    Rs, ps = poses(camera, n_frames, jitter(n_frames))
     return scene, camera, Rs, ps, mesh_modes(settings)
 
 
@@ -414,7 +437,7 @@ def crowd_main_path(config_path: str, n_frames: int = 48):
     on), both with backend pallas."""
     scene, camera, settings, _ = load_config(config_path)
     camera = reframe(camera, 1920, 1080)
-    Rs, ps = poses(camera, n_frames, _jitter(n_frames))
+    Rs, ps = poses(camera, n_frames, jitter(n_frames))
     modes = {"config": settings.with_(backend="pallas"),
              "soft": settings.with_(backend="pallas", soft_shadows=True)}
     return scene, camera, Rs, ps, modes

@@ -103,6 +103,13 @@ with tempfile.TemporaryDirectory() as tmp:
                               make_mesh(device="cpu"), device="cpu")
     assert tuple(fb.rgb.shape) == (16, 16, 3) and float(fb.hit.mean()) > 0.1
     dist.destroy_process_group()
+# the benchmark harness, the workload matrix and the quickstart
+from surfjax_torch import bench, quickstart
+from surfjax_torch.tools import bench_all, scenes
+r = bench.run_bench("configs/c1_sphere.yaml", repeats=1, width=8, height=8,
+                    n_frames=1, device="cpu")
+assert r["primary_rays"] == 64 and r["device"] == "cpu"
+assert len(scenes.crowd64()[0].objects) == 65
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "surfjax"))
 print("LOADED", loaded)
@@ -123,7 +130,10 @@ def test_package_renders_without_importing_jax():
 @pytest.mark.parametrize("command", [
     ["chip_smoke.py"], ["-m", "surfjax_torch.tools.breakdown"],
     ["-m", "surfjax_torch.tools.fp32_peak"],
-    ["-m", "surfjax_torch.tools.fit_bench"]])
+    ["-m", "surfjax_torch.tools.fit_bench"], ["-m", "surfjax_torch.bench"],
+    ["-m", "surfjax_torch", "bench"], ["-m", "surfjax_torch.tools.bench_all"],
+    ["-m", "surfjax_torch.quickstart"],
+    ["-m", "surfjax_torch.parallel.dryrun", "2"]])
 def test_gpu_scripts_refuse_to_run_without_a_card(command):
     """The chip scripts measure the card: without one they exit non-zero
     and print no result line, instead of measuring the CPU."""
@@ -134,6 +144,22 @@ def test_gpu_scripts_refuse_to_run_without_a_card(command):
     assert proc.returncode != 0
     assert "is_available() is false" in proc.stderr
     assert '"ok"' not in proc.stdout
+
+
+def test_dry_run_defaults_to_the_card():
+    """dryrun_step, dryrun_multichip and run_world run on the card unless
+    asked for the CPU: without one each raises before any rank is
+    spawned."""
+    import multiprocessing
+    from surfjax_torch.parallel import dryrun, launch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal "
+                    "without one")
+    for call in (dryrun.dryrun_step, lambda: dryrun.dryrun_multichip(2),
+                 lambda: launch.run_world(dryrun.dryrun_step, 2, "cpu")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert multiprocessing.active_children() == []
 
 
 def _c1(size=8):

@@ -284,7 +284,7 @@ def test_dryrun_multichip_matches_world1(world1):
     rendering the same 4 frames: the sums run in another order, so within
     1e-6 relative."""
     leaf1, loss1 = dryrun.dryrun_step("cpu", n_frames=4)
-    leaf4, loss4 = dryrun.dryrun_multichip(4)
+    leaf4, loss4 = dryrun.dryrun_multichip(4, device="cpu")
     assert abs(loss4 - loss1) <= 1e-6 * abs(loss1), (loss4, loss1)
     np.testing.assert_allclose(leaf4, leaf1, rtol=1e-6, atol=1e-9)
     assert loss1 > 0.0
