@@ -14,7 +14,8 @@ the script exits non-zero and never prints its last line):
      of K1, K2 and ao_fix with a crowd, of the staged fused kernel and of
      the staged K1 and K2 to what they were before the staged ao_fix (K1's
      and K2's launches without a march cap to what they were before the
-     caps, those with unres to the caps' first build);
+     caps, those with unres to the caps' first build; K1 and K2 with a
+     crowd to their culled build);
      prints the staged kernel's shared memory per block and resident blocks
      per SM on c3;
   2. the fused kernel (for scenes without a crowd: the staged kernel,
@@ -184,6 +185,26 @@ the script exits non-zero and never prints its last line):
      the call's), and the hits the row counted equal to those frames'; (d)
      the quickstart on the card in a process of its own, into a temporary
      directory.
+ 23. the split path's crowd main path (workload.crowd_mesh_main_path:
+     surfjax_torch/configs/crowd_mesh.yaml, crowd_demo's 49 objects and
+     c4's octasphere, at 1920x1080 x 16 frames in one render_sequence call
+     per mode, `config` and `soft`): one warm-up call and three timed with
+     CUDA events, the launches of every kernel counted (K1, K2 and ao_fix
+     only in their crowd instantiations, the mesh kernel beside them, the
+     staged kernels and KF never), outputs checked (the mesh and at least
+     10 crowd members on frame 0); frames 0 and 15 rendered again, every
+     kernel call of the two frames against its plain version, K1 and K2
+     also against the plain version visiting only the members each warp
+     votes (render_tile.split_warp_masks; a mesh kernel call whose
+     arguments equal an earlier one's, as the `soft` mode's equal the
+     `config` mode's, held against that call's plain result), and those
+     frames bitwise equal to frames 0 and 15 of every timed call; frame
+     0's per-kernel table: each call launched back to back, K1 with AO
+     off, K2 on empty segments, ao_fix with need 0, the plain version's
+     time, the culled and unculled operations and bounds, the masked
+     members per warp; then a ray batch that shoots each point both ways
+     (its warps' directions sum to 0) through K1 and, as shadow segments,
+     through K2 in both modes, each call held the same way.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
@@ -197,11 +218,16 @@ the share of rows re-run); their launches and errors include phase 19's;
 the split kernels' also phase 21's (the sharded paths' launches); KF's,
 its crowd instantiation's and the split kernels' also phase 22's (the
 harness and the workload matrix in this process, launches and the errors
-of their frames against the plain versions).
+of their frames against the plain versions). The split kernels' crowd
+instantiations (render_tile_crowd, trace_rays_crowd, ao_fix_crowd) have
+entries of their own: frame 0 of phase 23's `config` mode, launches of
+its main path, errors over phases 8, 19 and 23, the bound of the culled
+algorithm; their launches elsewhere leave the staged kernels' counts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -235,32 +261,37 @@ CROWD_DRIFT_MAX = 1e-4
 KF_BEFORE = "3.338 ms/frame, 72 registers, 264/416 bytes of spills"
 # ptxas' report of the kernels that the staged kernels must leave as they
 # were: entry -> (stack and spills, registers), built with CUDA 12.8 for
-# sm_90a; the crowd instantiations as the parent of the staged fused kernel
-# (d7d452f) built them, the staged fused kernel as c31b803, the parent of
-# the staged K1 and K2 (split_staged.cu), built it, the staged K1 and K2 as
-# 40326d7, the parent of the staged ao_fix and priming kernels, built them;
-# K1 and K2 without unres (their second template argument, CUT, false: the
-# launches without a march cap) as 861907e, the parent of the caps, built
-# them, and with unres (CUT) as the caps' first build did
+# sm_90a; the crowd instantiation of KF as the parent of the staged fused
+# kernel (d7d452f) built it, the staged fused kernel as c31b803, the parent
+# of the staged K1 and K2 (split_staged.cu), built it, the staged K1 and K2
+# as 40326d7, the parent of the staged ao_fix and priming kernels, built
+# them; K1 and K2 without unres (their second template argument, CUT,
+# false: the launches without a march cap) as 861907e, the parent of the
+# caps, built them, and with unres (CUT) as the caps' first build did; K1
+# and K2 with a crowd (split_path.cu, template argument CUT) as their
+# culled build did, and ao_fix with a crowd as that build left it: its
+# out-of-line AO core lost its other callers (K1 with a crowd), and ptxas
+# gave it 116 registers and 560 bytes of stack where it had 96 and 592
 PTXAS_KEPT = {
     "_Z15kf_frame_kernelILb1EEv8KFTables10KFSettings": (
         "768 bytes stack frame, 176 bytes spill stores, 292 bytes spill loads",
         "Used 96 registers, used 0 barriers, 768 bytes cumulative stack size"),
-    "_Z21sp_render_tile_kernelILb1ELb0EEv8KFTables10KFSettings9SplitRays": (
-        "640 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "Used 96 registers, used 0 barriers, 640 bytes cumulative stack size"),
-    "_Z21sp_render_tile_kernelILb1ELb1EEv8KFTables10KFSettings9SplitRays": (
-        "640 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
-        "Used 96 registers, used 0 barriers, 640 bytes cumulative stack size"),
-    "_Z20sp_trace_rays_kernelILb1ELb0EEv8KFTables10KFSettings9SplitRays": (
-        "560 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
-        "Used 72 registers, used 0 barriers, 560 bytes cumulative stack size"),
-    "_Z20sp_trace_rays_kernelILb1ELb1EEv8KFTables10KFSettings9SplitRays": (
-        "560 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "Used 72 registers, used 0 barriers, 560 bytes cumulative stack size"),
+    "_Z21sp_render_tile_kernelILb0EEv8KFTables10KFSettings9SplitRays": (
+        "480 bytes stack frame, 120 bytes spill stores, 124 bytes spill loads",
+        "Used 64 registers, used 0 barriers, 480 bytes cumulative stack size"),
+    "_Z21sp_render_tile_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
+        "496 bytes stack frame, 130 bytes spill stores, 140 bytes spill loads",
+        "Used 64 registers, used 0 barriers, 496 bytes cumulative stack size"),
+    "_Z20sp_trace_rays_kernelILb0EEv8KFTables10KFSettings9SplitRays": (
+        "224 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 80 registers, used 0 barriers, 224 bytes cumulative stack size"),
+    "_Z20sp_trace_rays_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
+        "240 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 80 registers, used 0 barriers, 240 bytes cumulative stack size"),
     "_Z16sp_ao_fix_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
-        "592 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "Used 96 registers, used 0 barriers, 592 bytes cumulative stack size"),
+        "560 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 116 registers, used 0 barriers, 560 bytes cumulative stack "
+        "size"),
     "_Z16kf_staged_kernelILb0EEv8KFTables10KFSettings8KSLayoutPyPi": (
         "528 bytes stack frame, 280 bytes spill stores, 532 bytes spill loads",
         "Used 64 registers, used 1 barriers, 528 bytes cumulative stack size"),
@@ -298,6 +329,8 @@ FIT_LOSS_REL, FIT_GRAD_REL, FIT_GRAD_COS = 2e-3, 0.1, 0.995
 FIT_CPU_REL = 1e-3     # the card's hybrid gradient against the CPU's
 # the split path's kernels (K1, K2, ao_fix, the mesh kernel)
 SPLIT = ("render_tile", "trace_rays", "ao_fix", "mesh_tile")
+# their crowd instantiations (csrc/split_path.cu), counted apart
+CROWD_SPLIT = ("render_tile_crowd", "trace_rays_crowd", "ao_fix_crowd")
 SHARD_FRAMES = 4       # the sequence of the gloo worlds (phase 21)
 # phase 21's gloo worlds on the card: world size -> the meshes its c3
 # sequence is rendered on
@@ -444,8 +477,8 @@ def capped_residual(dev, smi: str) -> dict:
         shares = {}
         for k, (kname, args) in enumerate(calls):
             err, _, _ = compare(kname, args, f"{name} call {k}")
-            base = kname.replace("_redo", "")
-            errs[base] = max(errs[base], err)
+            key = kernel_key(kname, args)
+            errs[key] = max(errs.get(key, 0.0), err)
             if kname.endswith("_redo"):
                 shares[kname] = round(float(args[3].mean()), 4)
         log(f"  {name}: {len(calls)} capped and residual K1/K2 calls bitwise "
@@ -606,9 +639,27 @@ def golden_phase(dev, smi: str) -> list:
 
 
 def _split_wrappers() -> dict:
+    """-> kernel -> its launch counter (`.launches`): the split wrappers
+    for the staged kernels and the mesh kernel, their `.crowd` for the
+    crowd instantiations."""
     from surfjax_torch.kernels import mesh_tile as mt, render_tile as rt
     return {"render_tile": rt.render_tile, "trace_rays": rt.trace_rays,
-            "ao_fix": rt.ao_fix, "mesh_tile": mt.mesh_tile}
+            "ao_fix": rt.ao_fix, "mesh_tile": mt.mesh_tile,
+            "render_tile_crowd": rt.render_tile.crowd,
+            "trace_rays_crowd": rt.trace_rays.crowd,
+            "ao_fix_crowd": rt.ao_fix.crowd}
+
+
+def kernel_key(kname: str, args) -> str:
+    """A recorded split-kernel call -> the kernel it launches: its wrapper's
+    name without `_redo`, `_crowd` added where the scene forms a crowd
+    (csrc/split_path.cu's instantiations)."""
+    from surfjax_torch.kernels.render_tile import launches_crowd
+    base = kname.replace("_redo", "")
+    if base in ("render_tile", "trace_rays", "ao_fix") and \
+            launches_crowd(args[0].static, args[1]):
+        return base + "_crowd"
+    return base
 
 
 def _counted(fn, totals: dict):
@@ -984,6 +1035,266 @@ def sharding_phase(dev, smi: str, size=None, n_seq: int = 48) -> dict:
     log(f"phase 21: the sharding layer, launches {totals} "
         f"({time.perf_counter() - t21:.1f} s) on {smi}")
     return {"launches": totals, "ms": ms, "err": errs}
+
+
+def _same_args(a, b) -> bool:
+    """Two recorded arguments equal: tensors bitwise and of one dtype and
+    shape, sequences item by item, anything else by ==."""
+    import torch
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) \
+            and a.dtype == b.dtype and a.shape == b.shape \
+            and torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) and \
+            all(_same_args(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
+               memo=None):
+    """One recorded split-kernel call of a crowd scene: the kernel against
+    its plain version, bitwise, and K1 and K2 also against the plain
+    version visiting only the members each warp votes (split_warp_masks).
+    memo: None, or a list of earlier mesh_tile calls with their plain
+    results; a mesh_tile call whose arguments equal one of them is held
+    against that result rather than running the plain grid DDA again (the
+    two modes of the crowd-mesh path give the mesh kernel the same rays).
+    -> the kernel's outputs (flat). stats: None, or the kernel's per-frame
+    sums to add this call's numbers
+    to: its time launched back to back, K1's with AO off, K2's on empty
+    segments, ao_fix's with need 0, the plain version's time, the
+    operations of the unculled and the culled algorithm (count_ops), the
+    bytes it must move and, per loop, the masked members per warp."""
+    import torch
+
+    from surfjax_torch.kernels.render_tile import count_ops
+    from surfjax_torch.tools.breakdown import _empty_segments, _need_zero
+    from surfjax_torch.tools.kernel_check import KERNELS, flat, masks_of
+    from surfjax_torch.tools.workload import cuda_ms
+    wrapper, reference, names, launcher = KERNELS[kname]
+    key = kernel_key(kname, args)
+    got = flat(wrapper(*args))
+    # operations are counted for the table only: counting syncs the host
+    # with the card at every tally
+    counted = count_ops if stats is not None else \
+        lambda: contextlib.nullcontext({})
+    seen = None
+    if memo is not None and kname == "mesh_tile":
+        seen = next((m for m in memo if _same_args(m[0], args)), None)
+    if seen is None:
+        with counted() as plain_ops:
+            p_ms, ref = cuda_ms(lambda: reference(*args), 1)
+        if memo is not None and kname == "mesh_tile":
+            memo.append((args, ref, p_ms, plain_ops))
+    else:
+        _, ref, p_ms, plain_ops = seen
+    refs = [("plain", flat(ref)[:len(got)])]
+    culled_ops = plain_ops
+    counts = {}
+    if kname in ("render_tile", "trace_rays"):
+        m = masks_of(kname, args)
+        counts = m.counts()
+        with counted() as culled_ops:
+            masked = reference(*args, masks=m)
+        refs.append(("masked plain", flat(masked)[:len(got)]))
+    for which, r in refs:
+        for out_name, a, b in zip(names, got, r):
+            if not torch.equal(a, b):
+                err = float((a.double() - b.double()).abs().max())
+                raise AssertionError(f"{label}: {key} differs from its "
+                                     f"{which} version in {out_name} "
+                                     f"(max abs diff {err})")
+    errs[key] = max(errs.get(key, 0.0), max(
+        float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+        for a, b in zip(got, refs[0][1])))
+    if stats is None:
+        return got
+    s_ = stats.setdefault(key, dict(ms=0.0, plain_ms=0.0, ops=0,
+                                    ops_unculled=0, bytes=0, calls=0))
+
+    def launch_ms(call_args):
+        launch, _ = launcher(*call_args)
+        launch()
+        k_ms, _ = cuda_ms(lambda: [launch() for _ in range(LAUNCH_REPS)], 3)
+        return min(k_ms) / LAUNCH_REPS
+
+    s_["ms"] += launch_ms(args)
+    scene_t, st = args[:2]
+    if kname == "render_tile":
+        s_["ms_ao_off"] = s_.get("ms_ao_off", 0.0) + launch_ms(
+            (scene_t, st.with_(ao=False)) + tuple(args[2:]))
+    elif kname == "trace_rays":
+        s_["ms_empty_segments"] = s_.get("ms_empty_segments", 0.0) + \
+            launch_ms(_empty_segments(args))
+    elif kname == "ao_fix":
+        s_["ms_need_zero"] = s_.get("ms_need_zero", 0.0) + launch_ms(
+            _need_zero(args))
+    s_["plain_ms"] += p_ms[0]
+    s_["ops"] += culled_ops["ops"]
+    s_["ops_unculled"] += plain_ops["ops"]
+    s_["bytes"] += bytes_read(kname, args) + nbytes(got)
+    s_["calls"] += 1
+    for loop, (mean, top) in counts.items():
+        s_.setdefault("masked_members", {})[
+            f"{loop} call {s_['calls'] - 1}"] = [round(mean, 3), top]
+    return got
+
+
+def opposed_rays(n_pairs: int, seed: int = 5):
+    """n_pairs rays from scattered origins above crowd_demo's floor, each
+    aimed at a random point of the crowd's field (numpy, from seed), and
+    each also shot the other way: ray 2k+1 is ray 2k with its direction
+    negated, so a whole warp's directions sum to exactly 0 -> (o, d), each
+    float32 (3, 2 n_pairs)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    o = rng.uniform((-3.0, 0.2, -2.5), (3.0, 2.5, 1.0), (n_pairs, 3))
+    d = rng.uniform((-4.5, -1.0, 1.5), (4.5, 0.0, 9.0), (n_pairs, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.repeat(o.astype(np.float32), 2, axis=0)
+    d = np.stack((d, -d), 1).reshape(-1, 3).astype(np.float32)
+    return o.T.copy(), d.T.copy()
+
+
+def _hold_opposed(dev, scene, modes: dict, errs: dict) -> int:
+    """A ray batch that shoots each point both ways (opposed_rays, 4083
+    rays: the last warp ragged) through K1 with the crowd, and through K2
+    in both modes as shadow segments of length 6, each call held as
+    _hold_call holds them: each warp's capsule takes the fallback axis,
+    and a kernel that culled with no axis would miss the crowd. -> the
+    number of calls held."""
+    import torch
+
+    from surfjax_torch.core.math import f32
+    from surfjax_torch.core.scene_compile import params_to_device
+    from surfjax_torch.kernels.render_tile import SceneTensors
+    o_np, d_np = opposed_rays(2048)
+    n = o_np.shape[1] - 13
+    o = tuple(torch.as_tensor(c[:n], device=dev) for c in o_np)
+    d = tuple(torch.as_tensor(c[:n], device=dev) for c in d_np)
+    static, params = scene.freeze()
+    scene_t = SceneTensors(static, params_to_device(params, dev))
+    calls = [("render_tile", (scene_t, modes["config"], o, d))]
+    calls += [("trace_rays", (scene_t, st, o, d,
+                              torch.full((n,), 6.0, device=dev),
+                              torch.full((n,), f32(st.soft_shadow_k),
+                                         device=dev)))
+              for st in modes.values()]
+    outs = [_hold_call(kname, args, f"opposed rays {kname}", errs)
+            for kname, args in calls]
+    ids = torch.unique(outs[0][1]).tolist()
+    if sum(0 <= i < len(scene.objects) - 1 for i in ids) < 10:
+        raise AssertionError(f"opposed rays: K1 hit the objects {ids}")
+    return len(calls)
+
+
+def crowd_mesh_phase(dev, smi: str) -> dict:
+    """Phase 23, the split path's crowd main path (module docstring) ->
+    {"launches": per crowd kernel, its launches on the path (both modes);
+    "err": per crowd kernel, the largest error of its checks; "frame":
+    per mode and kernel, frame 0's per-kernel table (_hold_call's stats
+    with each kernel's bound, culled and unculled); "results": per mode
+    the path's figures}."""
+    import torch
+
+    from surfjax_torch.api import render_sequence
+    from surfjax_torch.core.types import FrameBuffers
+    from surfjax_torch.kernels.render_tile import frame_fused, split_crowd
+    from surfjax_torch.tools.kernel_check import capture_calls
+    from surfjax_torch.tools.workload import crowd_mesh_main_path, cuda_ms
+    t23 = time.perf_counter()
+    scene, camera, Rs, ps, modes = crowd_mesh_main_path()
+    n_frames, n_lights = len(ps), len(scene.lights)
+    H, W = camera.intrinsics.height, camera.intrinsics.width
+    static = scene.freeze()[0]
+    mesh_id = len(scene.objects) - 1
+    n_members = len(split_crowd(static, modes["config"])[0].members)
+    wrappers = dict(_split_wrappers(), frame_fused=frame_fused)
+    idx = [0, n_frames - 1]
+    launches = dict.fromkeys(CROWD_SPLIT, 0)
+    errs, frame, results, memo = {}, {}, {}, []
+    for mode, st in modes.items():
+        call = lambda st=st: render_sequence(scene, camera, (Rs, ps), st,
+                                             device=dev)
+        for w in wrappers.values():
+            w.launches = 0
+        call()
+        torch.cuda.synchronize()
+        times, kept = [], []
+        for _ in range(3):
+            ms, fb = cuda_ms(call, 1)
+            times += ms
+            kept.append(FrameBuffers(*(a[idx].clone() for a in fb)))
+        got = {k: w.launches for k, w in wrappers.items()}
+        calls_made = 4 * n_frames
+        want = dict.fromkeys(wrappers, 0)
+        want.update(render_tile_crowd=calls_made,
+                    trace_rays_crowd=calls_made * n_lights,
+                    ao_fix_crowd=calls_made if st.ao else 0,
+                    mesh_tile=calls_made * (1 + n_lights))
+        if got != want:
+            raise AssertionError(f"crowd_mesh {mode}: launches {got}, "
+                                 f"expected {want}")
+        for k in CROWD_SPLIT:
+            launches[k] += got[k]
+        step, drift = check_sequence(f"crowd_mesh {mode}", fb,
+                                     len(scene.objects), CROWD_STEP_MAX,
+                                     CROWD_DRIFT_MAX)
+        ids = torch.unique(fb.obj_id[0])
+        n_crowd_ids = int(((ids >= 0) & (ids != mesh_id)).sum())
+        if mesh_id not in ids.tolist() or n_crowd_ids < 10:
+            raise AssertionError(f"crowd_mesh {mode}: frame 0 shows the mesh "
+                                 f"{mesh_id in ids.tolist()} and "
+                                 f"{n_crowd_ids} crowd members")
+        # frames 0 and F-1 again, each kernel call against its plain
+        # versions; the timed calls' frames equal to those
+        with capture_calls() as calls:
+            again = render_sequence(scene, camera, (Rs[idx], ps[idx]), st,
+                                    device=dev)
+        firsts = [k for k, (kname, _) in enumerate(calls)
+                  if kname == "render_tile"]
+        if len(firsts) != 2:
+            raise AssertionError(f"crowd_mesh {mode}: K1 calls at {firsts}")
+        stats = {}
+        for k, (kname, args) in enumerate(calls):
+            _hold_call(kname, args, f"crowd_mesh {mode} call {k}", errs,
+                       stats if k < firsts[1] else None, memo)
+        for c, fbk in enumerate(kept):
+            bitwise(fbk, again, FrameBuffers._fields,
+                    f"crowd_mesh {mode} timed call {c} frames {idx}")
+        for key, s_ in stats.items():
+            if key in CROWD_SPLIT:
+                s_["bound_ms"], s_["bound_by"] = bound(s_["ops"], s_["bytes"])
+                s_["unculled_bound_ms"] = bound(s_["ops_unculled"],
+                                                s_["bytes"])[0]
+            log(f"  {mode} frame 0 {key}: " + json.dumps(s_))
+        frame[mode] = stats
+        n_hits = float(fb.hit.sum()) / n_frames
+        rays = float(W * H) + n_hits * n_lights * st.shadows \
+            + n_hits * st.ao_samples * st.ao
+        s_frame = min(times) / 1e3 / n_frames
+        results[mode] = dict(
+            ms_per_frame=min(times) / n_frames,
+            ms_per_call=[round(t, 3) for t in times],
+            frames_per_s=1.0 / s_frame, rays_per_frame=rays,
+            mrays_per_s=rays / s_frame / 1e6, hit_fraction=n_hits / (W * H),
+            mesh_fraction=float((fb.obj_id[0] == mesh_id).float().mean()),
+            crowd_ids=n_crowd_ids, hit_fraction_drift=drift,
+            hit_fraction_max_step=step, launches=got)
+        log(f"  {mode}: " + json.dumps(results[mode]))
+    t_opp = time.perf_counter()
+    held = _hold_opposed(dev, scene, modes, errs)
+    log(f"  a batch shooting each point both ways: {held} calls (K1, K2 "
+        "hard and soft) bitwise equal to their plain versions, masked and "
+        f"unmasked ({time.perf_counter() - t_opp:.1f} s)")
+    log(f"phase 23: the crowd-mesh main path 1920x1080 x {n_frames} frames, "
+        f"{n_members} crowd members, frames 0 and {n_frames - 1} of every "
+        f"timed call bitwise equal to the plain versions, masked and "
+        f"unmasked; launches {json.dumps(launches)} "
+        f"({time.perf_counter() - t23:.1f} s) on {smi}")
+    return {"launches": launches, "err": errs, "frame": frame,
+            "results": results}
 
 
 BENCH_KERNELS = ("frame_fused", "render_tile", "trace_rays", "ao_fix",
@@ -1571,7 +1882,8 @@ def main() -> int:
                 raise AssertionError(f"{name}: calls {[c[0] for c in calls]}")
             for k, (kname, args) in enumerate(calls):
                 err, _, _ = compare(kname, args, f"{name} call {k}")
-                split_err[kname] = max(split_err[kname], err)
+                key = kernel_key(kname, args)
+                split_err[key] = max(split_err.get(key, 0.0), err)
             log(f"  {name}: {len(calls)} split kernel calls bitwise equal")
         else:
             scene_t = SceneTensors(static, params_to_device(params, dev))
@@ -2187,6 +2499,9 @@ def main() -> int:
     # -- phase 22 -----------------------------------------------------------
     benched = bench_phase(dev, smi, {k: v.numpy() for k, v in hits3.items()})
 
+    # -- phase 23 -----------------------------------------------------------
+    crowd_split = crowd_mesh_phase(dev, smi)
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     # the fused kernel: times per 1080p frame in value_exact mode, the
@@ -2262,6 +2577,25 @@ def main() -> int:
         if name in capped["ms"]:
             # c3 1080p, mc=32 sc=16: the capped launch and its re-run
             kernels[-1].update(capped["ms"][name])
+    # the split kernels' crowd instantiations: frame 0 of the crowd-mesh
+    # path at 1080p in `config` mode (every call of the frame, each
+    # launched back to back), launches of phase 23's main path, errors
+    # over phases 8, 19 and 23 (phase 23 also against the masked plain
+    # versions); the bound counts the culled algorithm
+    for name in CROWD_SPLIT:
+        f_ = crowd_split["frame"]["config"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "surfjax_torch/kernels/csrc/split_path.cu",
+            "replaces": "surfjax/kernels/"
+                        + sources[name.replace("_crowd", "")][1],
+            "launches": crowd_split["launches"][name],
+            "max_abs_err": max(split_err.get(name, 0.0),
+                               capped["err"].get(name, 0.0),
+                               crowd_split["err"][name]),
+            "ms": f_["ms"], "plain_ms": f_["plain_ms"],
+            "bound_ms": f_["bound_ms"], "bound_by": f_["bound_by"],
+            "library_ms": None})
     for entry, info in probe.items():
         kernels.append({
             "name": entry, "route": "cuda",

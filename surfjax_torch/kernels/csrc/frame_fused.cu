@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(128)
 kf_frame_kernel(const KFTables T, const KFSettings S);
 
 // The crowd instantiation: the per-pixel program with the member loops
-// culled per warp (the cores' CULL instantiation, frame_fused.cuh,
+// culled per warp (the cores' crowd instantiation, frame_fused.cuh,
 // "Warp-level member culling"). Every lane stays to the end so that the
 // warp votes whole: a pixel outside the frame traces a ray that nobody
 // reads, and a lane without a hit runs the AO and light calls only to vote.
@@ -76,9 +76,8 @@ kf_frame_kernel<true>(const KFTables T, const KFSettings S) {
   int leaf;
   const float t0 = (T.t0 && in_frame)
       ? T.t0[((size_t)f * S.H + i) * S.W + j] : 0.0f;
-  trace_primary<true, true>(T, S, o, d, t0, t, obj, leaf,
-                            WarpCull{warp_cone(S, o, d, in_frame), {},
-                                     in_frame});
+  trace_primary<true>(T, S, o, d, t0, t, obj, leaf,
+                      WarpCull{warp_cone(S, o, d, in_frame), {}, in_frame});
   const bool hit = in_frame && t < KF_BIG * 0.5f;
   const float hitf = hit ? 1.0f : 0.0f;
   const float t_sane = hit ? t : 0.0f;

@@ -898,9 +898,11 @@ __device__ __forceinline__ float seg_bound_dist(Bound bd, V3 o, V3 l,
 // members in member order with their exact per-lane gates. A member outside
 // the mask is one whose per-lane gate makes it an exact no-op on every lane
 // of the warp, so the result is bitwise that of the plain member loops,
-// which visit every member. The cores below take it as their CULL
-// instantiation (a WarpCull argument); the other kernels instantiate them
-// with CULL false and visit every member.
+// which visit every member. The cores below take it through a WarpCull
+// argument (trace_primary<true>, ao_core's CULL instantiation,
+// visibility_culled); ao_fix with a crowd and the per-pixel profiling
+// kernel visit every member. The split path's crowd K1 and K2 vote the
+// same way over warps of 32 consecutive rays (split_path.cu, warp_rays).
 //
 // Every collective runs with all 32 lanes present (KF_FULL): pixels outside
 // the frame and lanes without a hit take part as non-contributors
@@ -1015,6 +1017,28 @@ __device__ __forceinline__ WarpSeg warp_ball(V3 p, bool active) {
   return make_seg(c, V3{0.0f, 0.0f, 0.0f}, 0.0f, r, 0.0f, any);
 }
 
+// Rays o_i + t*d_i, t in [0, len], each from its own origin (the split
+// kernels' rays, given from outside): the ball of the active lanes'
+// origins swept along their normalised mean direction u, each point widened
+// by max_i |d_i - u| + widen per unit t, since |(o_i + t d_i) - (a + t u)|
+// <= |o_i - a| + t |d_i - u|. From one origin the ball is that point and
+// the capsule is warp_cone's. Directions that cancel (a batch shooting each
+// point both ways sums to exactly 0) or a sum whose square is not a normal
+// float leave no mean: any unit axis then serves, as sig = max_i |d_i - u|
+// <= 2 still bounds every lane (cull_keep takes sig >= 1 at t = len).
+__device__ __forceinline__ WarpSeg warp_rays(V3 o, V3 d, float len,
+                                             float widen, bool active) {
+  const WarpSeg ball = warp_ball(o, active);
+  const V3 m{warp_sum(active ? d.x : 0.0f), warp_sum(active ? d.y : 0.0f),
+             warp_sum(active ? d.z : 0.0f)};
+  const float mm = vdot(m, m);
+  const V3 u = (mm >= F(1.17549435e-38) && mm <= F(3.40282347e+38))
+      ? vnormalize(m) : V3{1.0f, 0.0f, 0.0f};
+  const V3 e{d.x - u.x, d.y - u.y, d.z - u.z};
+  const float sig = warp_max(active ? sqrtf(vdot(e, e)) : 0.0f);
+  return make_seg(ball.a, u, len, ball.rA, sig + widen, ball.any);
+}
+
 // One light's shadow capsules from the receivers' ball: hard (the
 // segments themselves) and soft (widened by the penumbra radii).
 __device__ __forceinline__ void warp_light(const KFSettings& S,
@@ -1098,10 +1122,11 @@ __device__ __forceinline__ void cull_members(const KFTables& T, int lo,
   }
 }
 
-// What kf_frame_kernel<true> hands a core with CULL: the warp's capsule of
-// its member loops (seg: the rays' cone, the receivers' ball, a light's
+// What a crowd kernel hands a culled core: the warp's capsule of its
+// member loops (seg: the rays' capsule, the receivers' ball, a light's
 // hard capsule; soft: a light's soft one) and whether this lane takes part
-// (in the frame, with a hit). The cores' other instantiations get NoCull.
+// (in the frame, with a hit, with a ray). The cores' other instantiations
+// get NoCull.
 struct WarpCull {
   WarpSeg seg, soft;
   bool active;
@@ -1144,11 +1169,12 @@ __device__ __forceinline__ const float* first_leaf_params(const KFTables& T,
 // The cores below are templates on CROWD: the kernels are instantiated
 // once without the member loops, for scenes with no crowd (n_crowd == 0),
 // whose code and register use are then what they were before the crowd
-// existed, and once with them. CULL (kf_frame_kernel<true> only) culls the
-// member loops per warp against w.seg, the warp's ray cone; every lane
-// calls it, w.active false for a pixel outside the frame.
-template <bool CROWD, bool CULL = false, class Warp = NoCull,
-          class U = NoUnres>
+// existed, and once with them. The primary trace's member loops are culled
+// per warp against w.seg, the warp's capsule of rays (KF's crowd kernel
+// and the split path's crowd K1); every lane calls it, w.active false for
+// a lane without a ray (a pixel outside the frame, a lane past the last
+// ray).
+template <bool CROWD, class Warp = NoCull, class U = NoUnres>
 __device__ __forceinline__ void trace_primary(const KFTables& T,
                                               const KFSettings& S, V3 o,
                                               V3 d, float t0, float& t,
@@ -1164,7 +1190,7 @@ __device__ __forceinline__ void trace_primary(const KFTables& T,
                                   S.t_max, li);
     if (ti < t) { t = ti; obj = (float)oi; leaf = li; }
   }
-  if constexpr (CULL) {
+  if constexpr (CROWD) {
     cull_members(T, S.crowd_sdf_end, S.crowd_single_end, w.seg, 0.0f,
                  CULL_SQRT, [&] { return w.active; }, [&](int j, Bound) {
       if (!w.active) return;
@@ -1172,16 +1198,10 @@ __device__ __forceinline__ void trace_primary(const KFTables& T,
       float tj = crowd_exact_t(m, o, d, S.t_min, S.t_max);
       if (tj < t) { t = tj; obj = m.obj; leaf = 0; }
     });
-  } else if constexpr (CROWD) {
-    for (int j = S.crowd_sdf_end; j < S.crowd_single_end; ++j) {
-      const CrowdMember m = crowd_member(T, j);
-      float tj = crowd_exact_t(m, o, d, S.t_min, S.t_max);
-      if (tj < t) { t = tj; obj = m.obj; leaf = 0; }
-    }
   }
   const float t_start = fmaxf(t0, S.t_min);
   float t_clip = fminf(t, S.t_max);
-  if constexpr (CULL) {
+  if constexpr (CROWD) {
     // SDF members: singles, then pairs; a skipped member would have left
     // t and t_clip as they are (t_clip <= t throughout)
     auto march_member = [&](int j, Bound b) {
@@ -1190,7 +1210,7 @@ __device__ __forceinline__ void trace_primary(const KFTables& T,
       bound_entry(b, o, d, t_start, t_clip, S.default_shell, t1, clip2);
       if (t1 < clip2) {
         const CrowdMember m = crowd_member(T, j);
-        if (crowd_march(S, m, o, d, t1, clip2) && t1 < t) {
+        if (member_march(S, m, o, d, t1, clip2, u) && t1 < t) {
           t = t1; obj = m.obj; leaf = 0;
         }
       }
@@ -1201,19 +1221,6 @@ __device__ __forceinline__ void trace_primary(const KFTables& T,
                  live, march_member);
     cull_members(T, S.crowd_single_end, S.n_crowd, w.seg, S.default_shell,
                  CULL_SQRT, live, march_member);
-  } else if constexpr (CROWD) {
-    for (int j = 0; j < S.n_crowd; ++j) {
-      if (j == S.crowd_sdf_end) j = S.crowd_single_end;  // SDF members only
-      if (j >= S.n_crowd) break;
-      const CrowdMember m = crowd_member(T, j);
-      float t1, clip2;
-      bound_entry(crowd_bound(m), o, d, t_start, t_clip, S.default_shell,
-                  t1, clip2);
-      // a ray that misses the bound is done before its first step
-      bool hit_j = t1 < clip2 && member_march(S, m, o, d, t1, clip2, u);
-      if (hit_j && t1 < t) { t = t1; obj = m.obj; leaf = 0; }
-      t_clip = fminf(t_clip, t);
-    }
   }
   for (int k = 0; k < S.n_sdf; ++k) {
     const int oi = T.order[S.n_ana + k];
@@ -1294,10 +1301,26 @@ __device__ __forceinline__ V3 hit_normal(const KFTables& T,
 // into them in turn (max is exact in any order). CULL: the member loop is
 // culled against w.seg, the warp's ball of receivers; every lane of the
 // warp calls it, w.active false for a lane without a hit.
-template <bool CROWD, bool CULL, class Warp>
+// AO's unbounded group as the split path's crowd K1 takes it: decoded once
+// per lane (Floor, the caller's hoist), and when it is one object whose
+// tape is one leaf (a floor) evaluated as that leaf inline: eval_obj's
+// operations on the same operands, without the tape walker's call and
+// local array at every tap. NoFloor: every unbounded object through its
+// tape, as the other kernels take it.
+struct NoFloor {
+  static constexpr bool ON = false;
+};
+struct Floor {
+  static constexpr bool ON = true;
+  bool one;
+  int kind, p1;
+  const float* prm;
+};
+
+template <bool CROWD, bool CULL, class Warp, class Flr = NoFloor>
 __device__ __forceinline__ float ao_core(const KFTables& T,
                                          const KFSettings& S, V3 q0, V3 n,
-                                         Warp w) {
+                                         Warp w, Flr fl = Flr{}) {
   if constexpr (CULL) {
     if (!__any_sync(KF_FULL, w.active)) return 1.0f;   // the whole warp
   }
@@ -1336,14 +1359,24 @@ __device__ __forceinline__ float ao_core(const KFTables& T,
       V3 q{q0.x + dd.x * r, q0.y + dd.y * r, q0.z + dd.z * r};
       float term = 0.0f;
       if (any_unbounded) {
-        float hmin = 0.0f;
-        bool first = true;
-        for (int k = 0; k < n_rest; ++k) {
-          const int* ob = object_row(T, rest[k]);
-          if (ob[O_BOUNDABLE]) continue;
-          float h = eval_obj(T, S, ob, q, cap);
-          hmin = first ? h : fminf(hmin, h);
-          first = false;
+        auto tapes = [&] {
+          float hmin = 0.0f;
+          bool first = true;
+          for (int k = 0; k < n_rest; ++k) {
+            const int* ob = object_row(T, rest[k]);
+            if (ob[O_BOUNDABLE]) continue;
+            float h = eval_obj(T, S, ob, q, cap);
+            hmin = first ? h : fminf(hmin, h);
+            first = false;
+          }
+          return hmin;
+        };
+        float hmin;
+        if constexpr (Flr::ON) {
+          hmin = fl.one ? eval_leaf(S, fl.kind, fl.prm, q, fl.p1, cap)
+                        : tapes();
+        } else {
+          hmin = tapes();
         }
         term = fmaxf(azr - hmin, 0.0f) / r;
       }
@@ -1422,40 +1455,119 @@ static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettin
   return ao_core<CROWD, false>(T, S, q0, n, NoCull{});
 }
 
+template <class Flr = NoFloor>
 static __device__ __noinline__ float ao_factor_culled(const KFTables& T,
                                                       const KFSettings& S,
                                                       V3 q0, V3 n,
                                                       WarpSeg ball,
-                                                      bool active) {
-  return ao_core<true, true>(T, S, q0, n, WarpCull{ball, ball, active});
+                                                      bool active,
+                                                      Flr fl = Flr{}) {
+  return ao_core<true, true>(T, S, q0, n, WarpCull{ball, ball, active}, fl);
 }
 
 // Visibility of one light from the offset receiver o along l over
-// [.., dist] through the non-mesh objects; kf is the penumbra sharpness.
-// U = Unres (the split path's crowd K2) notes the lane's unres.
-template <bool CROWD, class U = NoUnres>
+// [.., dist] through the non-mesh objects of a scene without a crowd; kf
+// is the penumbra sharpness (kf_frame_prof.cu's; the crowd kernels run
+// visibility_culled below).
 static __device__ __noinline__ float visibility(const KFTables& T,
-                                         const KFSettings& S, V3 o, V3 l,
-                                         float dist, float kf, U u = U{}) {
+                                                const KFSettings& S, V3 o,
+                                                V3 l, float dist, float kf) {
+  if (S.soft_shadows) {
+    const float t0 = S.soft_shadow_tmin;
+    const int* ord = T.order + S.n_ana + S.n_sdf;
+    float soft_vis = 1.0f;
+    for (int k = 0; k < S.n_ana + S.n_sdf; ++k) {
+      const int* ob = object_row(T, ord[k]);
+      const int cf = ob[O_CLOSED_FORM];
+      if (cf >= 0) {
+        const float* prm = first_leaf_params(T, ob);
+        float v = cf == LEAF_PLANE ? penumbra_plane(prm, o, l, t0, dist, kf)
+                                   : penumbra_sphere(prm, o, l, t0, dist, kf);
+        soft_vis = fminf(soft_vis, v);
+        continue;
+      }
+      const float dist_i = soft_vis <= 0.0f ? 0.0f : dist;
+      float v;
+      if (ob[O_BOUNDABLE]) {
+        Bound b = object_bound(T, ob, 1, 0.0f);
+        float t_lo, t_hi;
+        influence_window(b, o, l, t0, dist_i, kf, t_lo, t_hi);
+        v = soft_march(T, S, ob, o, l, fmaxf(t_lo, t0), fminf(dist_i, t_hi),
+                       kf);
+      } else {
+        v = soft_march(T, S, ob, o, l, t0, dist_i, kf);
+      }
+      soft_vis = fminf(soft_vis, v);
+    }
+    return soft_vis;
+  }
+  float vis = 1.0f;
+  for (int k = 0; k < S.n_ana; ++k) {
+    int leaf;
+    float ti = intersect_analytic(T, object_row(T, T.order[k]), o, l,
+                                  S.shadow_eps, dist, leaf);
+    vis = vis * (ti < dist ? 0.0f : 1.0f);
+  }
+  for (int k = 0; k < S.n_sdf; ++k) {
+    const int* ob = object_row(T, T.order[S.n_ana + k]);
+    float dist_i = vis <= 0.0f ? 0.0f : dist;
+    float t1, clip2;
+    if (ob[O_BOUNDABLE]) {
+      Bound b = object_bound(T, ob, 0, S.exit_margin);
+      // a segment clear of the cover sphere by more than the worst hit
+      // epsilon cannot register an occlusion
+      if (seg_bound_dist(b, o, l, S.shadow_eps, dist) > S.exit_margin)
+        dist_i = 0.0f;
+      bound_entry(b, o, l, S.shadow_eps, dist_i, S.default_shell, t1, clip2);
+    } else {
+      t1 = S.shadow_eps;
+      clip2 = dist_i;
+    }
+    bool hit = march(T, S, ob, o, l, t1, clip2);
+    vis = vis * ((hit && t1 < dist_i) ? 0.0f : 1.0f);
+  }
+  return vis;
+}
+
+// Visibility with a crowd, as kf_frame_kernel<true> and the split path's
+// crowd K2 run it: the member loops culled against the warp's hard and
+// soft capsules of this light; every lane of the warp calls it, `active`
+// false for a lane without a hit (KF) or shadow segment (K2). U = Unres
+// (K2 under a cap) notes the lane's unres. The objects outside the crowd
+// repeat visibility's code: calling visibility here instead changed the
+// per-pixel kernel's SASS (ptxas compiles a device function once for all
+// its callers) and made the sphere crowds 10% slower, and a wrapper around
+// one shared core changed K2's. The capsules go by value: by reference
+// they live in each thread's stack frame, and the crowd kernel ran 5%
+// slower.
+template <class U = NoUnres>
+static __device__ __noinline__ float visibility_culled(
+    const KFTables& T, const KFSettings& S, V3 o, V3 l, float dist, float kf,
+    WarpSeg hard, WarpSeg soft, bool active, U u = U{}) {
+  if (!__any_sync(KF_FULL, active)) return 1.0f;   // the whole warp
   if (S.soft_shadows) {
     const float t0 = S.soft_shadow_tmin;
     const int* ord = T.order + S.n_ana + S.n_sdf;
     float soft_vis = 1.0f;
     // the crowd: spheres in closed form, boxes and pairs by windowed
     // marches; a lane already dark gains nothing from a further member
-    for (int j = 0; CROWD && j < S.n_crowd && soft_vis > 0.0f; ++j) {
+    cull_members(T, 0, S.n_crowd, soft, 0.0f, CULL_SQRT,
+                 [&] { return active && soft_vis > 0.0f; },
+                 [&](int j, Bound b) {
+      if (!(active && soft_vis > 0.0f)) return;
       const CrowdMember m = crowd_member(T, j);
       float v;
       if (m.op == OP_LEAF && m.s0) {
         v = penumbra_sphere(m.prm0, o, l, t0, dist, kf);
       } else {
         float t_lo, t_hi;
-        influence_window(crowd_bound(m), o, l, t0, dist, kf, t_lo, t_hi);
+        influence_window(b, o, l, t0, dist, kf, t_lo, t_hi);
         v = member_soft_march(S, m, o, l, fmaxf(t_lo, t0),
                               fminf(dist, t_hi), kf, u);
       }
       soft_vis = fminf(soft_vis, v);
-    }
+    });
+    if (!active) return 1.0f;
     for (int k = 0; k < S.n_ana + S.n_sdf; ++k) {
       const int* ob = object_row(T, ord[k]);
       const int cf = ob[O_CLOSED_FORM];
@@ -1490,116 +1602,6 @@ static __device__ __noinline__ float visibility(const KFTables& T,
   }
   // the crowd: SDF members (singles, then pairs) by any-hit marches, then
   // the analytic members exactly; an occluded lane stays occluded
-  for (int pass = 0; CROWD && pass < 2; ++pass) {
-    for (int j = 0; j < S.n_crowd && vis > 0.0f; ++j) {
-      const CrowdMember m = crowd_member(T, j);
-      if ((m.type == CROWD_ANALYTIC) != (pass == 1)) continue;
-      if (pass == 1) {
-        float tj = crowd_exact_t(m, o, l, S.shadow_eps, dist);
-        vis = vis * (tj < dist ? 0.0f : 1.0f);
-        continue;
-      }
-      const Bound b = crowd_bound(m);
-      float dist_j = dist;
-      if (seg_bound_dist(b, o, l, S.shadow_eps, dist_j) > S.exit_margin)
-        dist_j = 0.0f;
-      float t1, clip2;
-      bound_entry(b, o, l, S.shadow_eps, dist_j, S.default_shell, t1, clip2);
-      bool hit = t1 < clip2 && member_march(S, m, o, l, t1, clip2, u);
-      vis = vis * ((hit && t1 < dist_j) ? 0.0f : 1.0f);
-    }
-  }
-  for (int k = 0; k < S.n_sdf; ++k) {
-    const int* ob = object_row(T, T.order[S.n_ana + k]);
-    float dist_i = vis <= 0.0f ? 0.0f : dist;
-    float t1, clip2;
-    if (ob[O_BOUNDABLE]) {
-      Bound b = object_bound(T, ob, 0, S.exit_margin);
-      // a segment clear of the cover sphere by more than the worst hit
-      // epsilon cannot register an occlusion
-      if (seg_bound_dist(b, o, l, S.shadow_eps, dist) > S.exit_margin)
-        dist_i = 0.0f;
-      bound_entry(b, o, l, S.shadow_eps, dist_i, S.default_shell, t1, clip2);
-    } else {
-      t1 = S.shadow_eps;
-      clip2 = dist_i;
-    }
-    bool hit = march_of(T, S, ob, o, l, t1, clip2, u);
-    vis = vis * ((hit && t1 < dist_i) ? 0.0f : 1.0f);
-  }
-  return vis;
-}
-
-// visibility<true> as kf_frame_kernel<true> runs it: the member loops
-// culled against the warp's hard and soft capsules of this light; every
-// lane of the warp calls it, `active` false for a lane without a hit. The
-// objects outside the crowd repeat visibility<CROWD>'s code: calling
-// visibility<false> here instead changed kf_frame_kernel<false>'s SASS
-// (ptxas compiles a device function once for all its callers) and made the
-// sphere crowds 10% slower, and a wrapper around one shared core changed
-// K2's. The capsules go by value: by reference they live in each thread's
-// stack frame, and the crowd kernel ran 5% slower.
-static __device__ __noinline__ float visibility_culled(
-    const KFTables& T, const KFSettings& S, V3 o, V3 l, float dist, float kf,
-    WarpSeg hard, WarpSeg soft, bool active) {
-  if (!__any_sync(KF_FULL, active)) return 1.0f;   // the whole warp
-  if (S.soft_shadows) {
-    const float t0 = S.soft_shadow_tmin;
-    const int* ord = T.order + S.n_ana + S.n_sdf;
-    float soft_vis = 1.0f;
-    // the crowd: spheres in closed form, boxes and pairs by windowed
-    // marches; a lane already dark gains nothing from a further member
-    cull_members(T, 0, S.n_crowd, soft, 0.0f, CULL_SQRT,
-                 [&] { return active && soft_vis > 0.0f; },
-                 [&](int j, Bound b) {
-      if (!(active && soft_vis > 0.0f)) return;
-      const CrowdMember m = crowd_member(T, j);
-      float v;
-      if (m.op == OP_LEAF && m.s0) {
-        v = penumbra_sphere(m.prm0, o, l, t0, dist, kf);
-      } else {
-        float t_lo, t_hi;
-        influence_window(b, o, l, t0, dist, kf, t_lo, t_hi);
-        v = crowd_soft_march(S, m, o, l, fmaxf(t_lo, t0), fminf(dist, t_hi),
-                             kf);
-      }
-      soft_vis = fminf(soft_vis, v);
-    });
-    if (!active) return 1.0f;
-    for (int k = 0; k < S.n_ana + S.n_sdf; ++k) {
-      const int* ob = object_row(T, ord[k]);
-      const int cf = ob[O_CLOSED_FORM];
-      if (cf >= 0) {
-        const float* prm = first_leaf_params(T, ob);
-        float v = cf == LEAF_PLANE ? penumbra_plane(prm, o, l, t0, dist, kf)
-                                   : penumbra_sphere(prm, o, l, t0, dist, kf);
-        soft_vis = fminf(soft_vis, v);
-        continue;
-      }
-      const float dist_i = soft_vis <= 0.0f ? 0.0f : dist;
-      float v;
-      if (ob[O_BOUNDABLE]) {
-        Bound b = object_bound(T, ob, 1, 0.0f);
-        float t_lo, t_hi;
-        influence_window(b, o, l, t0, dist_i, kf, t_lo, t_hi);
-        v = soft_march(T, S, ob, o, l, fmaxf(t_lo, t0), fminf(dist_i, t_hi),
-                       kf);
-      } else {
-        v = soft_march(T, S, ob, o, l, t0, dist_i, kf);
-      }
-      soft_vis = fminf(soft_vis, v);
-    }
-    return soft_vis;
-  }
-  float vis = 1.0f;
-  for (int k = 0; k < S.n_ana; ++k) {
-    int leaf;
-    float ti = intersect_analytic(T, object_row(T, T.order[k]), o, l,
-                                  S.shadow_eps, dist, leaf);
-    vis = vis * (ti < dist ? 0.0f : 1.0f);
-  }
-  // the crowd: SDF members (singles, then pairs) by any-hit marches, then
-  // the analytic members exactly; an occluded lane stays occluded
   auto lit = [&] { return active && vis > 0.0f; };
   auto march_member = [&](int j, Bound b) {
     if (!(active && vis > 0.0f)) return;
@@ -1608,7 +1610,7 @@ static __device__ __noinline__ float visibility_culled(
     float t1, clip2;
     bound_entry(b, o, l, S.shadow_eps, dist, S.default_shell, t1, clip2);
     const CrowdMember m = crowd_member(T, j);
-    bool hit = t1 < clip2 && crowd_march(S, m, o, l, t1, clip2);
+    bool hit = t1 < clip2 && member_march(S, m, o, l, t1, clip2, u);
     vis = vis * ((hit && t1 < dist) ? 0.0f : 1.0f);
   };
   cull_members(T, 0, S.crowd_sdf_end, hard, S.exit_margin, CULL_LIN, lit,
@@ -1638,7 +1640,7 @@ static __device__ __noinline__ float visibility_culled(
       t1 = S.shadow_eps;
       clip2 = dist_i;
     }
-    bool hit = march(T, S, ob, o, l, t1, clip2);
+    bool hit = march_of(T, S, ob, o, l, t1, clip2, u);
     vis = vis * ((hit && t1 < dist_i) ? 0.0f : 1.0f);
   }
   return vis;

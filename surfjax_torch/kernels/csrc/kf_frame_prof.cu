@@ -6,7 +6,7 @@
 // Its body is kf_frame_kernel<false>'s: one thread per pixel, 128-thread
 // blocks of 16x8 pixels, the out-of-line cores of frame_fused.cuh
 // (trace_primary<false>, hit_normal<false>, ao_factor<false>,
-// visibility<false>) unchanged. Two differences, both for the probes:
+// visibility) unchanged. Two differences, both for the probes:
 // a lane outside the frame stays to the end, idle, instead of returning,
 // and the secondary work of a hit pixel is split at the probes into one
 // `if (hit)` per phase, so that every lane of a warp reaches each probe.
@@ -81,7 +81,7 @@ kf_frame_prof_kernel(const KFTables T, const KFSettings S,
       if (S.shadows) {
         const float radius = lrow[6];
         const float kf = radius > 0.0f ? dist / radius : S.soft_shadow_k;
-        vis = visibility<false>(T, S, p_off, l, dist, kf);
+        vis = visibility(T, S, p_off, l, dist, kf);
       }
     }
     P.mark(PF_VIS + (li < KP_LIGHTS - 1 ? li : KP_LIGHTS - 1));

@@ -25,7 +25,7 @@
 //   * per pixel: ray, primary trace (t0 on primed frames), normal, offset
 //     receiver -> the pixel's record in shared memory (so nothing of it
 //     stays live in registers across the marches); AO; per light the
-//     visibility, object by object in visibility<false>'s order, and
+//     visibility, object by object in visibility's order, and
 //     add_light; the nine planes. The marches are march_loop's and
 //     soft_march_loop's bodies, inlined.
 // Block-wide wavefronts (hit compaction, object-major AO, visibility passes
@@ -439,7 +439,7 @@ __device__ __forceinline__ float ao_receiver(const Blk& B,
 }
 
 // Visibility of one light for one receiver, every object on its lane
-// (visibility<false>'s order); u notes the lane's unres.
+// (visibility's order); u notes the lane's unres.
 template <bool PROF, class Blk, class U = NoUnres>
 __device__ __forceinline__ float vis_receiver(const Blk& B,
                                               const KFSettings& S, bool act,

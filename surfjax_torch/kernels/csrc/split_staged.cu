@@ -38,7 +38,7 @@
 //   * __grid_constant__ parameters, which the cores read in place;
 //   * one thread per ray over the flat padded arrays, running the stages
 //     trace_pixel, ao_receiver and vis_receiver (trace_primary<false>'s,
-//     ao_core<false>'s and visibility<false>'s order) on SplitScene;
+//     ao_core<false>'s and visibility's order) on SplitScene;
 //   * single-leaf evaluation: an object whose tape is one leaf evaluates
 //     as that leaf, and an analytic object of one leaf intersects as that
 //     leaf, inline: the same operations on the same operands as the tape

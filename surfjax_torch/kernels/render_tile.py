@@ -47,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -1414,19 +1415,22 @@ def _ao_compute(static, settings: RenderSettings, lp, nparams, p, n,
 
 
 def scene_march_twin(static, settings: RenderSettings, leaf_params,
-                     node_params, o, d, t0=None, march_cap: int = 0):
+                     node_params, o, d, t0=None, march_cap: int = 0,
+                     cull=None):
     """Trace + normals + AO of flat rays -> (t, obj, n, ao, hit_f, unres);
     the counterpart of surfjax's scene_march_twin, with K1's unres. t0,
-    march_cap: see trace_core."""
+    march_cap, cull: see trace_core (cull's keys "primary_ana",
+    "primary_sdf", "ao")."""
     lp, nparams = leaf_params, node_params
     t, obj, leaf, hit_f, unres = trace_core(static, settings, lp, nparams, o,
-                                            d, t0=t0, march_cap=march_cap)
+                                            d, t0=t0, march_cap=march_cap,
+                                            cull=cull)
     t_sane = torch.where(hit_f > 0.5, t, 0.0)
     p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
     n = normals_core(static, settings, lp, nparams, p, obj, leaf, d)
     analytic, sdf_objs, _ = _split(static)
     if settings.ao and (analytic or sdf_objs):
-        ao = _ao_compute(static, settings, lp, nparams, p, n)
+        ao = _ao_compute(static, settings, lp, nparams, p, n, cull=cull)
     else:
         ao = torch.ones_like(p[0])
     return t, obj, n, ao, hit_f, unres
@@ -1619,10 +1623,17 @@ CULL_SQRT = f32(2.0 ** -8)    # slack of those that subtract squares
 #     3, len 6, inverse 2, u 3, rB 1) or a directional one's 3, inv_len 2,
 #     the hard capsule 8 (slope 2, make_seg 6), the soft one 12 (rB_soft 4,
 #     slope 2, make_seg 6) -> 43 / 31.
+#   warp_rays (the split kernels' rays from their own origins): warp_ball
+#     less its make_seg 50, 3 sums 15, vnormalize 10, d - u 3, |d - u| 6,
+#     max 5, + widen 1, make_seg 6 -> 96; K2 adds the longest segment (max
+#     5) and, for soft shadows, the penumbra widening (1/kf 1, max 5,
+#     scale and slack 2) -> 101 / 109.
 _CULL_KEEP_OPS = 44
 _CULL_CONE_OPS = 45
 _CULL_BALL_OPS = 56
 _CULL_LIGHT_OPS = {LIGHT_POINT: 43, LIGHT_DIRECTIONAL: 31}
+_CULL_RAYS_OPS = 96
+_CULL_SHADOW_OPS = {False: 101, True: 109}   # by settings.soft_shadows
 
 
 def _cull_bound_ops(tag) -> int:
@@ -1714,6 +1725,24 @@ def _warp_ball(p, active):
                      active.any(dim=1, keepdim=True))
 
 
+def _warp_rays(o, d, length, widen, active):
+    """Rays o_i + t*d_i, t in [0, length], from the lanes' own origins: the
+    origins' ball swept along the lanes' mean direction, each point
+    widened by max |d_i - u| + widen per unit t; the axis (1, 0, 0) where
+    the directions cancel or their sum's square is not a normal float
+    (kernel: warp_rays)."""
+    ball = _warp_ball(o, active)
+    m = tuple(_warp_sum(torch.where(active, c, 0.0)) for c in d)
+    mm = (m[0] * m[0] + m[1] * m[1]) + m[2] * m[2]
+    ok = (mm >= f32(1.17549435e-38)) & (mm <= f32(3.40282347e+38))
+    u = tuple(torch.where(ok, c, 1.0 if k == 0 else 0.0)
+              for k, c in enumerate(vnormalize(m)))
+    e = (d[0] - u[0], d[1] - u[1], d[2] - u[2])
+    chord = sqrt((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2])
+    sig = torch.where(active, chord, 0.0).amax(dim=1, keepdim=True)
+    return _make_seg(ball.a, u, length, ball.rA, sig + widen, ball.any)
+
+
 def _warp_light(settings: RenderSettings, kind: int, lrow, ball, dist, kf,
                 active):
     """One light's hard and soft capsules (kernel: warp_light)."""
@@ -1776,6 +1805,7 @@ class CrowdMasks(NamedTuple):
     hit_warps: torch.Tensor  # (n_warps,) warps with a hit lane
     test_ops: tuple          # per member: one lane's test of it
     hit_ops: int             # per lane of a warp with a hit: its regions
+    all_ops: int = _CULL_CONE_OPS   # per lane of every warp: its regions
 
     def lanes(self, key, j: int, live=None):
         """-> (F*H*W,) bool: the pixels that visit member j in `key`.
@@ -1799,10 +1829,11 @@ class CrowdMasks(NamedTuple):
         return self.masks[key][self.warp_of, j]
 
     def tally(self) -> None:
-        """count_ops: the warps' regions on all 32 lanes: the rays' cone
-        on every warp, the receivers' ball and the lights' capsules on the
-        warps with a hit (the member tests: `lanes`)."""
-        _tally(32 * self.hit_warps.numel(), _CULL_CONE_OPS)
+        """count_ops: the warps' regions on all 32 lanes: in KF the rays'
+        cone on every warp, the receivers' ball and the lights' capsules on
+        the warps with a hit (the member tests: `lanes`); in the split
+        kernels the regions of split_warp_masks."""
+        _tally(32 * self.hit_warps.numel(), self.all_ops)
         _tally(32 * int(self.hit_warps.sum()), self.hit_ops)
 
     def counts(self) -> dict:
@@ -1819,6 +1850,53 @@ class CrowdMasks(NamedTuple):
         return out
 
 
+class _Members(NamedTuple):
+    """A crowd's members as the votes test them."""
+    n: int
+    bounds: tuple            # (cx, cy, cz, R), each (n,) float32
+    test_ops: tuple          # per member: one lane's test of it
+    sdf_end: int             # singles [0, sdf_end) are SDF, then analytic
+    single_end: int          # [single_end, n): the pairs
+    shell: torch.Tensor      # the primary SDF loop's reach
+    margin: torch.Tensor     # the hard shadows' SDF loop's reach
+
+
+def _member_table(scene_t, settings: RenderSettings, dev,
+                  who: str) -> _Members:
+    static, params = scene_t
+    crowd = split_crowd(static, settings)[0]
+    if crowd is None:
+        raise ValueError(f"{who}: the scene forms no crowd")
+    refs = _crowd_refs(static, settings, params["leaf_params"],
+                       params["node_params"])
+    tags = {}
+    for lo, hi, tag in crowd.all_ranges + crowd.pair_ranges:
+        for j in range(lo, hi):
+            tags[j] = tag
+    n = len(crowd.members)
+    bounds = [_crowd_shape(crowd, refs, j, tags[j])[0] for j in range(n)]
+    b = tuple(torch.stack([torch.as_tensor(bj[k], dtype=torch.float32,
+                                           device=dev).reshape(())
+                           for bj in bounds]) for k in range(4))
+    em = _exit_margin(settings)
+    return _Members(n, b, tuple(_CULL_KEEP_OPS + _cull_bound_ops(tags[j])
+                                for j in range(n)),
+                    crowd.n_sph_sdf + crowd.n_box_sdf, crowd.n_singles,
+                    f32(max(_PROXY_SWITCH, em)), f32(em))
+
+
+def _vote(mt: _Members, masks, ranges, tests, key, rs, seg, reach, rel):
+    """Each warp's mask of the members [lo, hi) of every range in rs that
+    its capsule `seg` keeps (cull_keep), into masks[key]."""
+    tests[key] = (seg, reach, rel)
+    keep = (cull_margin(mt.bounds, reach, seg, rel) <= 0.0) & seg.any
+    in_range = torch.zeros(mt.n, dtype=torch.bool, device=keep.device)
+    for lo, hi in rs:
+        in_range[lo:hi] = True
+    masks[key] = keep & in_range.view(1, -1)
+    ranges[key] = rs
+
+
 def crowd_warp_masks(scene_t, settings: RenderSettings, intr, cam_rows,
                      t0=None) -> CrowdMasks:
     """The member masks each warp of kf_frame_kernel<true> votes, with the
@@ -1827,9 +1905,6 @@ def crowd_warp_masks(scene_t, settings: RenderSettings, intr, cam_rows,
     of the pixels in the frame; the hit pixels' offset receivers and their
     shadow rays (from the plain trace, which the masks do not change)."""
     static, params = scene_t
-    crowd = split_crowd(static, settings)[0]
-    if crowd is None:
-        raise ValueError("crowd_warp_masks: the scene forms no crowd")
     F, H, W = cam_rows.shape[0], intr.height, intr.width
     dev = cam_rows.device
     lp, nparams = params["leaf_params"], params["node_params"]
@@ -1838,34 +1913,12 @@ def crowd_warp_masks(scene_t, settings: RenderSettings, intr, cam_rows,
     d = tuple(c.reshape(-1) for c in d3)
     lanes, warp_of = _warp_layout(F, H, W, dev)
     in_frame = lanes >= 0
-
-    refs = _crowd_refs(static, settings, lp, nparams)
-    tags = {}
-    for lo, hi, tag in crowd.all_ranges + crowd.pair_ranges:
-        for j in range(lo, hi):
-            tags[j] = tag
-    n = len(crowd.members)
-    bounds = [_crowd_shape(crowd, refs, j, tags[j])[0] for j in range(n)]
-    test_ops = tuple(_CULL_KEEP_OPS + _cull_bound_ops(tags[j])
-                     for j in range(n))
-    b = tuple(torch.stack([torch.as_tensor(bj[k], dtype=torch.float32,
-                                           device=dev).reshape(())
-                           for bj in bounds]) for k in range(4))
-    sdf_end = crowd.n_sph_sdf + crowd.n_box_sdf
-    single_end = crowd.n_singles
-    em = _exit_margin(settings)
-    shell, margin = f32(max(_PROXY_SWITCH, em)), f32(em)
-
+    mt = _member_table(scene_t, settings, dev, "crowd_warp_masks")
+    n, b, test_ops = mt.n, mt.bounds, mt.test_ops
+    sdf_end, single_end = mt.sdf_end, mt.single_end
+    shell, margin = mt.shell, mt.margin
     masks, ranges, tests = {}, {}, {}
-
-    def vote(key, rs, seg, reach, rel):
-        tests[key] = (seg, reach, rel)
-        keep = (cull_margin(b, reach, seg, rel) <= 0.0) & seg.any
-        in_range = torch.zeros(n, dtype=torch.bool, device=dev)
-        for lo, hi in rs:
-            in_range[lo:hi] = True
-        masks[key] = keep & in_range.view(1, -1)
-        ranges[key] = rs
+    vote = functools.partial(_vote, mt, masks, ranges, tests)
 
     cone = _warp_cone(settings, tuple(_gather(c, lanes, 0.0) for c in o),
                       tuple(_gather(c, lanes, 0.0) for c in d), in_frame)
@@ -1908,6 +1961,123 @@ def crowd_warp_masks(scene_t, settings: RenderSettings, intr, cam_rows,
                      CULL_SQRT)
     return CrowdMasks(masks, warp_of, ranges, tests, b, active.any(dim=1),
                       test_ops, hit_ops)
+
+
+class SplitMasks(NamedTuple):
+    """split_warp_masks' result: K1's masks (keys "primary_ana",
+    "primary_sdf" and, with AO, "ao"; None without primary rays) and K2's,
+    one CrowdMasks per shadow-ray set (keys "hard_sdf" and "hard_ana", or
+    "soft"), for render_tile_reference's and trace_rays_reference's
+    `masks`."""
+    k1: object
+    k2: tuple
+
+
+def _split_layout(rays, n_lanes: int = 32):
+    """The split kernels' warps over flat rays of any shape: 32
+    consecutive rays of the flat padded arrays -> (lane index into the
+    flat rays for each of the (n_warps, 32) lanes, -1 past the last ray;
+    warp of every ray, in the rays' shape)."""
+    n = rays.numel()
+    idx = torch.arange(-(-n // n_lanes) * n_lanes, device=rays.device)
+    lanes = torch.where(idx < n, idx, -1).reshape(-1, n_lanes)
+    return lanes, (idx[:n] // n_lanes).reshape(rays.shape)
+
+
+def split_warp_masks(scene_t, settings: RenderSettings, o, d, t0=None,
+                     shadow_rays=()) -> SplitMasks:
+    """The member masks each warp of K1 and K2 with a crowd votes
+    (csrc/split_path.cu), with the kernels' regions, tests and slack, for
+    rays given from outside. A warp is 32 consecutive rays of the flat
+    (padded) arrays; a lane past the last ray votes nothing.
+
+    K1 on rays o, d (component tuples of any one shape; t0 the primed
+    starts or None): the primary loops test the rays' capsule (warp_rays:
+    the ball of the lanes' origins swept along their mean direction, over
+    [0, t_max]), AO the ball of every lane's receiver (K1 takes AO on
+    every lane, misses included; the plain trace gives the receivers,
+    which the masks do not change). o = None: no K1 masks.
+
+    K2 on each (o, l, dist, soft_k) of shadow_rays, the arguments of one
+    trace_rays call: the lanes with a shadow segment (not dist <= 0)
+    vote the capsule of their segments o + t*l, t in [0, the warp's
+    longest dist]; soft shadows widen it by the penumbra radius t/kf, so
+    by max 1/kf per unit t. Under a shadow march cap (the launch that
+    writes unres) a warp with a lane of kf < 1.2, whose windows take the
+    whole segment, keeps every member: its march would note the lane's
+    unres though it cannot darken it."""
+    static, params = scene_t
+    lp, nparams = params["leaf_params"], params["node_params"]
+    dev = params["leaf_params"].device
+    mt = _member_table(scene_t, settings, dev, "split_warp_masks")
+    n = mt.n
+    k1 = None
+    if o is not None:
+        lanes, warp_of = _split_layout(o[0])
+        valid = lanes >= 0
+        flat = lambda c: c.reshape(-1)   # noqa: E731
+        of, df = tuple(map(flat, o)), tuple(map(flat, d))
+        masks, ranges, tests = {}, {}, {}
+        vote = functools.partial(_vote, mt, masks, ranges, tests)
+        rays = _warp_rays(tuple(_gather(c, lanes, 0.0) for c in of),
+                          tuple(_gather(c, lanes, 0.0) for c in df),
+                          torch.full((lanes.shape[0], 1), f32(settings.t_max),
+                                     device=dev), 0.0, valid)
+        vote("primary_ana", ((mt.sdf_end, mt.single_end),), rays, 0.0,
+             CULL_SQRT)
+        vote("primary_sdf", ((0, mt.sdf_end), (mt.single_end, n)), rays,
+             mt.shell, CULL_SQRT)
+        all_ops = _CULL_RAYS_OPS
+        analytic, sdf_objs, _ = _split(static)
+        if settings.ao and (analytic or sdf_objs):
+            t, obj, leaf, hit_f, _ = trace_core(
+                static, settings, lp, nparams, of, df,
+                t0=None if t0 is None else t0.reshape(-1))
+            t_sane = torch.where(hit_f > 0.5, t, 0.0)
+            p = tuple(of[k] + t_sane * df[k] for k in range(3))
+            nrm = normals_core(static, settings, lp, nparams, p, obj, leaf,
+                               df)
+            eps = f32(settings.shadow_eps)
+            q0 = tuple(p[k] + nrm[k] * eps for k in range(3))
+            ball = _warp_ball(tuple(_gather(c, lanes, 0.0) for c in q0),
+                              valid)
+            vote("ao", ((0, n),), ball, f32(2.0 * f32(settings.ao_radius)),
+                 CULL_LIN)
+            all_ops += _CULL_BALL_OPS
+        k1 = CrowdMasks(masks, warp_of, ranges, tests, mt.bounds,
+                        valid.any(dim=1), mt.test_ops, 0, all_ops)
+    k2 = []
+    soft = bool(settings.soft_shadows)
+    for so, sl, dist, kf in shadow_rays:
+        lanes, warp_of = _split_layout(dist)
+        g = lambda c, fill: _gather(c.reshape(-1), lanes, fill)  # noqa
+        act = g(~(dist <= 0.0), False).bool()
+        length = torch.where(act, g(dist, 0.0), 0.0).amax(dim=1,
+                                                          keepdim=True)
+        widen = 0.0
+        if soft:
+            kinv = torch.where(act, 1.0 / g(kf, 1.0), 0.0).amax(
+                dim=1, keepdim=True)
+            widen = kinv * f32(1.0 + 2.0 ** -18) + CULL_SQRT
+        seg = _warp_rays(tuple(g(c, 0.0) for c in so),
+                         tuple(g(c, 0.0) for c in sl), length, widen, act)
+        masks, ranges, tests = {}, {}, {}
+        vote = functools.partial(_vote, mt, masks, ranges, tests)
+        if soft:
+            if settings.shadow_march_cap:
+                low = (act & (g(kf, 1.0) < f32(1.2))).any(dim=1,
+                                                          keepdim=True)
+                seg = seg._replace(rA=torch.where(low, f32(BIG), seg.rA))
+            vote("soft", ((0, n),), seg, 0.0, CULL_SQRT)
+        else:
+            vote("hard_sdf", ((0, mt.sdf_end), (mt.single_end, n)), seg,
+                 mt.margin, CULL_LIN)
+            vote("hard_ana", ((mt.sdf_end, mt.single_end),), seg, 0.0,
+                 CULL_SQRT)
+        k2.append(CrowdMasks(masks, warp_of, ranges, tests, mt.bounds,
+                             act.any(dim=1), mt.test_ops,
+                             _CULL_SHADOW_OPS[soft], 0))
+    return SplitMasks(k1, tuple(k2))
 
 
 def check_scene(static, settings: RenderSettings, meshes: bool = False
@@ -2098,12 +2268,27 @@ def kernel_settings(static, settings: RenderSettings, intr, F: int,
 
 
 @functools.lru_cache(maxsize=16)
-def _packed_on(static, vector_objects: bool, device: str):
-    """pack_scene's int tables as tensors on `device` and its counts, kept
-    across calls (the wrappers run once per frame and light)."""
+def _packed(static, vector_objects: bool):
+    """pack_scene's int tables and counts, kept across calls (the wrappers
+    run once per frame and light)."""
     *tables, counts = pack_scene(
         static, RenderSettings(vector_objects=vector_objects))
+    return tables, counts
+
+
+@functools.lru_cache(maxsize=16)
+def _packed_on(static, vector_objects: bool, device: str):
+    """_packed's tables as tensors on `device`, and its counts."""
+    tables, counts = _packed(static, vector_objects)
     return [torch.as_tensor(a, device=device) for a in tables], counts
+
+
+def launches_crowd(static, settings: RenderSettings) -> bool:
+    """Whether a split kernel's call on this scene launches
+    csrc/split_path.cu's crowd instantiation (pack_scene forms a crowd)
+    rather than the staged kernel: the one test behind split_launcher's
+    choice, the wrappers' two counts and chip_smoke.py's kernels line."""
+    return _packed(static, bool(settings.vector_objects))[1][2] > 0
 
 
 def _scene_tables(scene_t, settings: RenderSettings, dev):
@@ -2524,34 +2709,45 @@ class SplitRays(ctypes.Structure):
 
 
 def render_tile_reference(scene_t, settings: RenderSettings, o, d, t0=None,
-                          march_cap=None):
+                          march_cap=None, masks=None):
     """Plain version of K1 -> (t, obj, nx, ny, nz, ao, hit_f, unres): the
     raw trace t of the non-mesh objects (BIG on a miss), the object index
     as a float (-1 on a miss), the face-forwarded normal, AO at the hit (on
     every lane, as surfjax's K1 does), the hit flag and the lanes whose
     march the step budget cut off. t0, march_cap: see trace_core
-    (march_cap None: settings.march_cap)."""
+    (march_cap None: settings.march_cap). masks: split_warp_masks(...).k1
+    for these rays, or None; with masks each warp visits only its masked
+    members, as the crowd kernel does, and count_ops counts that culled
+    algorithm; the outputs are the same to the bit."""
     static, params = scene_t
     if march_cap is None:
         march_cap = settings.march_cap
+    if masks is not None:
+        masks.tally()
     t, obj, n, ao, hit_f, unres = scene_march_twin(
         static, settings, params["leaf_params"], params["node_params"], o, d,
-        t0=t0, march_cap=march_cap)
+        t0=t0, march_cap=march_cap,
+        cull=None if masks is None else masks.lanes)
     return (t, obj, n[0], n[1], n[2], ao, hit_f, unres)
 
 
 def trace_rays_reference(scene_t, settings: RenderSettings, o, l, dist,
-                         soft_k, march_cap=None):
+                         soft_k, march_cap=None, masks=None):
     """Plain version of K2 -> (vis, unres): the visibility of one light
     along l over [.., dist] through the non-mesh objects (soft_k: per-lane
     penumbra sharpness) and the lanes whose march the step budget cut off
-    (march_cap: see visibility_core; None: settings.shadow_march_cap)."""
+    (march_cap: see visibility_core; None: settings.shadow_march_cap).
+    masks: split_warp_masks(..., shadow_rays=[(o, l, dist, soft_k)]).k2[0],
+    or None: as render_tile_reference's."""
     static, params = scene_t
     if march_cap is None:
         march_cap = settings.shadow_march_cap
+    if masks is not None:
+        masks.tally()
     return visibility_core(static, settings, params["leaf_params"],
                            params["node_params"], o, l, dist,
-                           soft_k=soft_k, march_cap=march_cap)
+                           soft_k=soft_k, march_cap=march_cap,
+                           cull=None if masks is None else masks.lanes)
 
 
 def ao_fix_reference(scene_t, settings: RenderSettings, p_off, n, need,
@@ -2711,8 +2907,8 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
     from surfjax_torch.kernels import _build
     prepared = _split_args(STAGED[entry], scene_t, settings, args, n_out,
                            outs, redo)
-    tab, ks, rays, keep, counts, out = prepared
-    if counts[2] == 0:
+    tab, ks, rays, keep, _, out = prepared
+    if not launches_crowd(scene_t.static, settings):
         # K1, K2 and ao_fix without a crowd
         return _staged_launcher(STAGED[entry], prepared, False)[:2]
     dev = keep[0][0].device
@@ -2818,7 +3014,9 @@ def _split_call(wrapper, entry: str, reference, scene_t,
     launch, out = split_launcher(entry, scene_t, settings, args, n_out, outs,
                                  redo)
     launch()
-    wrapper.launches += 1
+    # the staged kernels and the crowd's are two kernels: two counts
+    crowd = launches_crowd(scene_t.static, settings)
+    (wrapper.crowd if crowd else wrapper).launches += 1
     return out
 
 
@@ -2827,9 +3025,10 @@ def render_tile(scene_t, settings: RenderSettings, o, d, t0=None):
     With settings.march_cap > 0 every SDF march stops after march_cap
     steps (the residual's capped launch, see render_tile_redo) and unres
     flags the lanes cut off; without a cap unres is None (the kernel
-    tracks none). CUDA tensors launch the kernel (csrc/split_staged.cu;
-    with a crowd csrc/split_path.cu), counted in `render_tile.launches`;
-    CPU tensors run the plain version."""
+    tracks none). CUDA tensors launch the kernel (csrc/split_staged.cu,
+    counted in `render_tile.launches`; with a crowd csrc/split_path.cu,
+    counted in `render_tile.crowd.launches`); CPU tensors run the plain
+    version."""
     rays = (tuple(o), tuple(d)) + (() if t0 is None else (t0,))
     return _split_call(render_tile, "sp_render_tile", render_tile_reference,
                        scene_t, settings, rays, 8)
@@ -2841,7 +3040,7 @@ def render_tile_redo(scene_t, settings: RenderSettings, outs, redo, o, d,
     rays, each 128-ray row whose flag in `redo` (redo_rows of the capped
     launch's unres) is 0 returning at once and each flagged row writing
     over its lanes of `outs`, the capped launch's 8 outputs -> outs, then
-    equal to an uncapped launch's. Counted in `render_tile.launches`; on
+    equal to an uncapped launch's. Counted as render_tile's launches; on
     CPU tensors render_tile_redo_reference."""
     rays = (tuple(o), tuple(d)) + (() if t0 is None else (t0,))
     return _split_call(render_tile, "sp_render_tile", render_tile_reference,
@@ -2851,7 +3050,8 @@ def render_tile_redo(scene_t, settings: RenderSettings, outs, redo, o, d,
 def trace_rays(scene_t, settings: RenderSettings, o, l, dist, soft_k):
     """K2 -> (vis, unres) (see trace_rays_reference); the cap
     settings.shadow_march_cap and unres as in render_tile; kernel or plain
-    version as render_tile; launches counted in `trace_rays.launches`."""
+    version as render_tile; launches counted in `trace_rays.launches`
+    (with a crowd `trace_rays.crowd.launches`)."""
     return _split_call(trace_rays, "sp_trace_rays", trace_rays_reference,
                        scene_t, settings,
                        (tuple(o), tuple(l), dist, soft_k), 2)
@@ -2860,7 +3060,7 @@ def trace_rays(scene_t, settings: RenderSettings, o, l, dist, soft_k):
 def trace_rays_redo(scene_t, settings: RenderSettings, outs, redo, o, l,
                     dist, soft_k):
     """K2's residual re-run, as render_tile_redo (outs: the capped
-    launch's vis and unres); counted in `trace_rays.launches`."""
+    launch's vis and unres); counted as trace_rays' launches."""
     return _split_call(trace_rays, "sp_trace_rays", trace_rays_reference,
                        scene_t, settings, (tuple(o), tuple(l), dist, soft_k),
                        2, tuple(outs), redo)
@@ -2869,7 +3069,8 @@ def trace_rays_redo(scene_t, settings: RenderSettings, outs, redo, o, l,
 def ao_fix(scene_t, settings: RenderSettings, p_off, n, need, ao_in):
     """ao_fix -> ao (see ao_fix_reference); kernel (csrc/ao_fix_staged.cu;
     with a crowd csrc/split_path.cu) or plain version as render_tile;
-    launches counted in `ao_fix.launches`."""
+    launches counted in `ao_fix.launches` (with a crowd
+    `ao_fix.crowd.launches`)."""
     return _split_call(ao_fix, "sp_ao_fix", ao_fix_reference, scene_t,
                        settings, (tuple(p_off), tuple(n), need, ao_in), 1)[0]
 
@@ -3005,6 +3206,11 @@ def prime_tile(scene_t, settings: RenderSettings, k_m: float, o, d):
 
 
 render_tile.launches = trace_rays.launches = ao_fix.launches = 0
+# the crowd instantiations' launches (csrc/split_path.cu), apart from the
+# staged kernels' that the same wrappers launch for scenes without a crowd
+render_tile.crowd = types.SimpleNamespace(launches=0)
+trace_rays.crowd = types.SimpleNamespace(launches=0)
+ao_fix.crowd = types.SimpleNamespace(launches=0)
 prime_tile.launches = 0
 
 

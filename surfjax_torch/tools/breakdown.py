@@ -30,8 +30,10 @@ trip, over 32) and the SDF evaluations per hit pixel, beside the share of
 each call of kf_frame_kernel<false>, the per-pixel kernel it replaced, and
 the kernels' ptxas lines. `split` times each split kernel of one 1080p c4
 frame in `ao` mode, launched back to back (as chip_smoke.py's phase 7),
-`split_fit` K1 and K2 in a 1080p fit step and `prime` the priming kernel
-on c3 the same way; `split_phases` profiles K1, K2 and ao_fix
+`split_fit` K1 and K2 in a 1080p fit step, `split_crowd` K1, K2 and
+ao_fix with a crowd on frame 0 of the crowd-mesh path (both modes; also
+K1 with AO off, K2 on empty segments, ao_fix with need 0, and the whole
+16-frame call) and `prime` the priming kernel on c3 the same way; `split_phases` profiles K1, K2 and ao_fix
 (chip_smoke.py's phase 17) and `prime_phases` the priming kernel on the
 primed 1080p frame of c3 (phase 18: per phase shares, the SM clock, the
 cycles per warp and the slowest warp's rays alone); `sass` hashes every
@@ -541,6 +543,43 @@ def split(dev, res) -> None:
     print("split c4 ao", json.dumps(out), flush=True)
 
 
+def split_crowd(dev, res) -> None:
+    """The split path's crowd kernels on frame 0 of the crowd-mesh path
+    (`workload.crowd_mesh_main_path`) at 1080p, both modes: per kernel the
+    frame's calls launched back to back (LAUNCHES), K1's with AO off, K2's
+    on empty shadow segments, ao_fix's with need 0; then the whole
+    `render_sequence` call of its 16 frames, ms per frame."""
+    from surfjax_torch.tools.kernel_check import KERNELS, capture_calls
+    from surfjax_torch.tools.workload import crowd_mesh_main_path
+    scene, camera, Rs, ps, modes = crowd_mesh_main_path()
+    cam0 = dataclasses.replace(camera,
+                               position=tuple(float(x) for x in ps[0]))
+    for mode, st in modes.items():
+        with capture_calls() as calls:
+            render(scene, cam0, st, device=dev)
+        out = {}
+        for kname, args in calls:
+            launcher = KERNELS[kname][3]
+            out[kname] = out.get(kname, 0.0) + _launch_ms(
+                launcher(*args)[0])
+            if kname == "render_tile":
+                key, alt = "render_tile ao off", launcher(
+                    args[0], args[1].with_(ao=False), *args[2:])
+            elif kname == "trace_rays":
+                key, alt = "trace_rays empty segments", launcher(
+                    *_empty_segments(args))
+            elif kname == "ao_fix":
+                key, alt = "ao_fix need 0", launcher(*_need_zero(args))
+            else:
+                continue
+            out[key] = out.get(key, 0.0) + _launch_ms(alt[0])
+        times, _ = cuda_ms(lambda st=st: render_sequence(
+            scene, camera, (Rs, ps), st, device=dev), REPS)
+        out["render_sequence ms/frame"] = [t / len(ps) for t in times]
+        res[f"split crowd {mode}"] = out
+        print(f"split crowd {mode}", json.dumps(out), flush=True)
+
+
 def _fit_calls(dev, size=(1920, 1080)):
     """The K1 and K2 calls of one pose-fit step on c5 at `size`."""
     from surfjax_torch.tools.fit_bench import pose_step_fn
@@ -917,6 +956,7 @@ SECTIONS = {
     "split_fit": split_fit,
     "prime": prime,
     "split_phases": split_phases,
+    "split_crowd": split_crowd,
     "prime_phases": prime_phases,
     "sass": sass,
     "caps": caps,

@@ -8,7 +8,10 @@ call in the `value` (config settings) and `value_exact` (LoDs 0,
 over_relax 1.0) modes. The split path's is configs/c4_mesh.yaml at its own
 1920x1080 and tile_rows, 16 positions jittered the same way, in the
 `config` mode (the yaml's settings: hard shadows, no AO) and the `ao` mode
-(AO and soft shadows on). The fit's is configs/c5_anim.yaml as it is
+(AO and soft shadows on). The split path's crowd kernels' is
+surfjax_torch/configs/crowd_mesh.yaml (crowd_demo with c4's octasphere) at
+1920x1080, 16 positions, modes `config` and `soft`
+(crowd_mesh_main_path). The fit's is configs/c5_anim.yaml as it is
 (256x256, its own `fit:` block), started from the perturbed pose and the
 perturbed leaf parameters the command line's `fit` starts from.
 `chip_smoke.py`, the CUDA tests, `surfjax_torch.tools.breakdown` and
@@ -33,6 +36,8 @@ EXACT = dict(secondary_lod_iters=0, ao_lod_iters=0, over_relax=1.0)
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 C3 = os.path.join(ROOT, "configs", "c3_sdf.yaml")
+# the crowd with a mesh: the split path's crowd kernels' main path
+CROWD_MESH = os.path.join(ROOT, "surfjax_torch", "configs", "crowd_mesh.yaml")
 
 
 def gpu_line(fields: str = "name,power.limit") -> str:
@@ -441,6 +446,16 @@ def crowd_main_path(config_path: str, n_frames: int = 48):
     modes = {"config": settings.with_(backend="pallas"),
              "soft": settings.with_(backend="pallas", soft_shadows=True)}
     return scene, camera, Rs, ps, modes
+
+
+def crowd_mesh_main_path(n_frames: int = 16):
+    """The split path's crowd main path: surfjax_torch/configs/
+    crowd_mesh.yaml (crowd_demo's 49 objects and c4's octasphere) as
+    crowd_main_path has a crowd config, n_frames positions -> (scene,
+    camera at 1920x1080, R_flats, positions, modes `config` and `soft`).
+    The mesh sends every frame through K1 and K2 with the crowd's member
+    loops, the mesh kernel and ao_fix."""
+    return crowd_main_path(CROWD_MESH, n_frames)
 
 
 # the perturbed pose the pose fit starts from: (axis-angle w, position dt)
