@@ -15,7 +15,8 @@ the script exits non-zero and never prints its last line):
      the staged K1 and K2 to what they were before the staged ao_fix (K1's
      and K2's launches without a march cap to what they were before the
      caps, those with unres to the caps' first build; K1 and K2 with a
-     crowd to their culled build);
+     crowd to their culled build, ao_fix with a crowd to its redesign's
+     build, ao_fix_crowd.cu);
      prints the staged kernel's shared memory per block and resident blocks
      per SM on c3;
   2. the fused kernel (for scenes without a crowd: the staged kernel,
@@ -56,8 +57,9 @@ the script exits non-zero and never prints its last line):
      kernel's blocks do not tile), the culling's edge scene in both modes
      (250x131) and a crowd beside a mesh through the split path; KF also
      against the culled twin (each warp visiting only the members in its
-     masks); each also with the crowd off: geometry bitwise equal, rgb
-     within 2 ULP;
+     masks), K1, K2 and ao_fix with a crowd against their masked plain
+     versions the same way; each also with the crowd off: geometry
+     bitwise equal, rgb within 2 ULP;
   9. the crowd main path: configs/crowd_demo.yaml (49 objects) at
      1920x1080, 48 camera positions in one render_sequence call, modes
      `config` (hard shadows + AO) and `soft` (soft shadows on): launch
@@ -193,9 +195,9 @@ the script exits non-zero and never prints its last line):
      only in their crowd instantiations, the mesh kernel beside them, the
      staged kernels and KF never), outputs checked (the mesh and at least
      10 crowd members on frame 0); frames 0 and 15 rendered again, every
-     kernel call of the two frames against its plain version, K1 and K2
-     also against the plain version visiting only the members each warp
-     votes (render_tile.split_warp_masks; a mesh kernel call whose
+     kernel call of the two frames against its plain version, K1, K2 and
+     ao_fix also against the plain version visiting only the members each
+     warp votes (render_tile.split_warp_masks; a mesh kernel call whose
      arguments equal an earlier one's, as the `soft` mode's equal the
      `config` mode's, held against that call's plain result), and those
      frames bitwise equal to frames 0 and 15 of every timed call; frame
@@ -269,9 +271,10 @@ KF_BEFORE = "3.338 ms/frame, 72 registers, 264/416 bytes of spills"
 # false: the launches without a march cap) as 861907e, the parent of the
 # caps, built them, and with unres (CUT) as the caps' first build did; K1
 # and K2 with a crowd (split_path.cu, template argument CUT) as their
-# culled build did, and ao_fix with a crowd as that build left it: its
-# out-of-line AO core lost its other callers (K1 with a crowd), and ptxas
-# gave it 116 registers and 560 bytes of stack where it had 96 and 592
+# culled build did; ao_fix with a crowd as its redesign
+# (ao_fix_crowd.cu, a unit of its own, __launch_bounds__(128, 5)) built it,
+# in place of split_path.cu's sp_ao_fix_kernel<true>, which it replaces
+# (116 registers and 560 bytes of stack in its last build)
 PTXAS_KEPT = {
     "_Z15kf_frame_kernelILb1EEv8KFTables10KFSettings": (
         "768 bytes stack frame, 176 bytes spill stores, 292 bytes spill loads",
@@ -288,9 +291,9 @@ PTXAS_KEPT = {
     "_Z20sp_trace_rays_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
         "240 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "Used 80 registers, used 0 barriers, 240 bytes cumulative stack size"),
-    "_Z16sp_ao_fix_kernelILb1EEv8KFTables10KFSettings9SplitRays": (
-        "560 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "Used 116 registers, used 0 barriers, 560 bytes cumulative stack "
+    "_Z22sp_crowd_ao_fix_kernelILb0EEv8KFTables10KFSettings9SplitRaysPy": (
+        "320 bytes stack frame, 36 bytes spill stores, 16 bytes spill loads",
+        "Used 96 registers, used 0 barriers, 320 bytes cumulative stack "
         "size"),
     "_Z16kf_staged_kernelILb0EEv8KFTables10KFSettings8KSLayoutPyPi": (
         "528 bytes stack frame, 280 bytes spill stores, 532 bytes spill loads",
@@ -653,7 +656,7 @@ def _split_wrappers() -> dict:
 def kernel_key(kname: str, args) -> str:
     """A recorded split-kernel call -> the kernel it launches: its wrapper's
     name without `_redo`, `_crowd` added where the scene forms a crowd
-    (csrc/split_path.cu's instantiations)."""
+    (csrc/split_path.cu's instantiations, csrc/ao_fix_crowd.cu)."""
     from surfjax_torch.kernels.render_tile import launches_crowd
     base = kname.replace("_redo", "")
     if base in ("render_tile", "trace_rays", "ao_fix") and \
@@ -1054,8 +1057,9 @@ def _same_args(a, b) -> bool:
 def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
                memo=None):
     """One recorded split-kernel call of a crowd scene: the kernel against
-    its plain version, bitwise, and K1 and K2 also against the plain
-    version visiting only the members each warp votes (split_warp_masks).
+    its plain version, bitwise, and K1, K2 and ao_fix also against the
+    plain version visiting only the members each warp votes
+    (split_warp_masks).
     memo: None, or a list of earlier mesh_tile calls with their plain
     results; a mesh_tile call whose arguments equal one of them is held
     against that result rather than running the plain grid DDA again (the
@@ -1092,7 +1096,7 @@ def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
     refs = [("plain", flat(ref)[:len(got)])]
     culled_ops = plain_ops
     counts = {}
-    if kname in ("render_tile", "trace_rays"):
+    if kname in ("render_tile", "trace_rays", "ao_fix"):
         m = masks_of(kname, args)
         counts = m.counts()
         with counted() as culled_ops:
@@ -1881,10 +1885,9 @@ def main() -> int:
                     {c[0] for c in calls}:
                 raise AssertionError(f"{name}: calls {[c[0] for c in calls]}")
             for k, (kname, args) in enumerate(calls):
-                err, _, _ = compare(kname, args, f"{name} call {k}")
-                key = kernel_key(kname, args)
-                split_err[key] = max(split_err.get(key, 0.0), err)
-            log(f"  {name}: {len(calls)} split kernel calls bitwise equal")
+                _hold_call(kname, args, f"{name} call {k}", split_err)
+            log(f"  {name}: {len(calls)} split kernel calls bitwise equal "
+                "(K1, K2 and ao_fix also to the masked plain versions)")
         else:
             scene_t = SceneTensors(static, params_to_device(params, dev))
             before = frame_fused.launches
@@ -2580,13 +2583,15 @@ def main() -> int:
     # the split kernels' crowd instantiations: frame 0 of the crowd-mesh
     # path at 1080p in `config` mode (every call of the frame, each
     # launched back to back), launches of phase 23's main path, errors
-    # over phases 8, 19 and 23 (phase 23 also against the masked plain
-    # versions); the bound counts the culled algorithm
+    # over phases 8, 19 and 23 (phases 8 and 23 also against the masked
+    # plain versions); the bound counts the culled algorithm
     for name in CROWD_SPLIT:
         f_ = crowd_split["frame"]["config"][name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "surfjax_torch/kernels/csrc/split_path.cu",
+            "source": "surfjax_torch/kernels/csrc/" + (
+                "ao_fix_crowd.cu" if name == "ao_fix_crowd"
+                else "split_path.cu"),
             "replaces": "surfjax/kernels/"
                         + sources[name.replace("_crowd", "")][1],
             "launches": crowd_split["launches"][name],

@@ -35,6 +35,7 @@ NO_FMA = ("-fmad=false",)
 SOURCES = {"frame_fused.cu": NO_FMA, "kf_staged.cu": NO_FMA,
            "kf_frame_prof.cu": NO_FMA, "split_path.cu": NO_FMA,
            "split_staged.cu": NO_FMA, "ao_fix_staged.cu": NO_FMA,
+           "ao_fix_crowd.cu": NO_FMA,
            "mesh_tile.cu": NO_FMA, "prime_tile.cu": NO_FMA,
            "fp32_peak.cu": NO_FMA, "fp32_peak_fma.cu": ("-fmad=true",)}
 
@@ -215,12 +216,13 @@ def load() -> ctypes.CDLL:
     lib.kf_frame_profile.argtypes = [KFTables, KFSettings, ctypes.c_void_p,
                                      ctypes.c_int, ctypes.c_void_p]
     lib.ks_occupancy.argtypes = [KSLayout, ctypes.POINTER(ctypes.c_int)]
-    for name in ("sp_render_tile", "sp_trace_rays", "sp_ao_fix"):
+    for name in ("sp_render_tile", "sp_trace_rays"):
         getattr(lib, name).argtypes = [KFTables, KFSettings, SplitRays,
                                        ctypes.c_int, ctypes.c_void_p]
     # tables, settings, (K2: layout,) rays, profile counters or null, (K2:
-    # the two work counters,) device, stream; ao_fix as K1
-    for name in ("sp_staged_render_tile", "sp_staged_ao_fix"):
+    # the two work counters,) device, stream; ao_fix (with a crowd:
+    # sp_ao_fix) as K1
+    for name in ("sp_staged_render_tile", "sp_staged_ao_fix", "sp_ao_fix"):
         getattr(lib, name).argtypes = [KFTables, KFSettings, SplitRays,
                                        ctypes.c_void_p, ctypes.c_int,
                                        ctypes.c_void_p]

@@ -1,5 +1,5 @@
-// ao_fix for scenes without a crowd (with a crowd, split_path.cu's
-// sp_ao_fix_kernel<true>), on the per-ray stages of kf_staged.cuh.
+// ao_fix for scenes without a crowd (with a crowd, ao_fix_crowd.cu), on
+// the per-ray stages of kf_staged.cuh.
 //
 // Replaces, for scenes with no crowd, surfjax/kernels/render_tile.py::
 // ao_fix_kernel (body _ao_fix_body), as split_path.cu's

@@ -900,9 +900,10 @@ __device__ __forceinline__ float seg_bound_dist(Bound bd, V3 o, V3 l,
 // of the warp, so the result is bitwise that of the plain member loops,
 // which visit every member. The cores below take it through a WarpCull
 // argument (trace_primary<true>, ao_core's CULL instantiation,
-// visibility_culled); ao_fix with a crowd and the per-pixel profiling
-// kernel visit every member. The split path's crowd K1 and K2 vote the
-// same way over warps of 32 consecutive rays (split_path.cu, warp_rays).
+// visibility_culled); the per-pixel profiling kernel visits every member.
+// The split path's crowd K1, K2 and ao_fix vote the same way over warps of
+// 32 consecutive rays (split_path.cu, warp_rays; ao_fix_crowd.cu, the
+// needing receivers' ball).
 //
 // Every collective runs with all 32 lanes present (KF_FULL): pixels outside
 // the frame and lanes without a hit take part as non-contributors
@@ -1446,9 +1447,10 @@ __device__ __forceinline__ float ao_core(const KFTables& T,
 
 // The AO core is called out of line. Without CULL it keeps the name and
 // signature every kernel called before the culling existed (chip_smoke.py
-// phase 1 holds those kernels' code). With CULL the ball goes by value: by
-// reference it lives in each thread's stack frame, and the crowd kernel
-// ran 5% slower.
+// phase 1 holds those kernels' code); only kf_frame_prof.cu calls it now,
+// as ao_factor<false>. With CULL (KF, K1 and ao_fix with a crowd) the ball
+// goes by value: by reference it lives in each thread's stack frame, and
+// the crowd kernel ran 5% slower.
 template <bool CROWD>
 static __device__ __noinline__ float ao_factor(const KFTables& T, const KFSettings& S,
                                         V3 q0, V3 n) {

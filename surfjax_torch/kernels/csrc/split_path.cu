@@ -1,10 +1,11 @@
-// Split-path kernels for Hopper (sm_90a): K1, K2 and ao_fix for scenes
-// with a crowd (without one, the staged kernels of split_staged.cu and
-// ao_fix_staged.cu).
+// Split-path kernels for Hopper (sm_90a): K1 and K2 for scenes with a
+// crowd (without one, the staged kernels of split_staged.cu; ao_fix with a
+// crowd is ao_fix_crowd.cu, a unit of its own so that K1's and K2's code
+// does not move).
 //
-// Replace the three Pallas TPU kernels that surfjax's split pipeline runs
-// for scenes the fused kernel does not take (a crowd beside a mesh, or
-// under a march cap):
+// Replace two of the three Pallas TPU kernels that surfjax's split
+// pipeline runs for scenes the fused kernel does not take (a crowd beside
+// a mesh, or under a march cap):
 //   * sp_render_tile_kernel <- surfjax/kernels/render_tile.py
 //     ::render_tile_kernel (K1, body _k1_body): primary trace of the
 //     non-mesh objects, the face-forwarded normal, and AO at the pre-merge
@@ -14,14 +15,11 @@
 //   * sp_trace_rays_kernel <- ::trace_rays_kernel (K2, body _k2_body): the
 //     hard or soft visibility of one light through the non-mesh objects,
 //     1 at once where the shadow segment is empty (dist <= 0), and unres
-//     (out[1]);
-//   * sp_ao_fix_kernel <- ::ao_fix_kernel (body _ao_fix_body): AO again at
-//     pre-offset receivers on the lanes a mesh won (need > 0.5), ao_in
-//     elsewhere.
+//     (out[1]).
 // Each is the per-lane program of the PyTorch plain version in
 // surfjax_torch/kernels/render_tile.py (render_tile_reference,
-// trace_rays_reference, ao_fix_reference), through the cores of
-// frame_fused.cuh that KF's crowd kernel runs too.
+// trace_rays_reference), through the cores of frame_fused.cuh that KF's
+// crowd kernel runs too.
 //
 // What bounds K1 and K2 with a crowd: the crowd's member loops. A lane
 // visits a member in the primary trace, in AO and in every light's
@@ -51,8 +49,8 @@
 //     stays to the end so that the warp votes whole: a lane past the last
 //     ray traces the last ray and writes nothing, a K2 lane without a
 //     segment only votes, and a warp with no lane left returns at once;
-//   * AO's floor decoded once per lane (SplitScene::hoist) and evaluated
-//     as its leaf inline (Floor), as the staged K1 does;
+//   * AO's floor decoded once per lane (floor_of, split_scene.cuh) and
+//     evaluated as its leaf inline (Floor), as the staged K1 does;
 //   * one block per 128-ray row, one thread per ray.
 // The CUT instantiation (a launch with an unres output: a march cap or
 // its residual re-run, R.redo) notes each lane's unres as the plain
@@ -66,20 +64,10 @@
 // cudaError_t of its launch (each refuses a scene without a crowd):
 //   int sp_render_tile(KFTables, KFSettings, SplitRays, int device, void*)
 //   int sp_trace_rays(KFTables, KFSettings, SplitRays, int device, void*)
-//   int sp_ao_fix(KFTables, KFSettings, SplitRays, int device, void*)
 
 #include "split_scene.cuh"
 
 #define SP_BLOCK 128
-
-// AO's floor as SplitScene::hoist decodes it for the staged kernels.
-static __device__ __forceinline__ Floor floor_of(const KFTables& T,
-                                                 const KFSettings& S) {
-  SplitScene<false> B{T, T, nullptr, S.exit_margin};
-  B.hoist(S);
-  return B.one_leaf ? Floor{true, B.kind, B.p1, B.prm}
-                    : Floor{false, 0, 0, nullptr};
-}
 
 // K1: one block per 128-ray row, one thread per ray. Every lane stays to
 // the end so that its warp votes whole: a lane past the last ray traces the
@@ -179,19 +167,6 @@ sp_trace_rays_kernel(const __grid_constant__ KFTables T,
   if constexpr (CUT) R.out[1][i] = cut ? 1.0f : 0.0f;
 }
 
-template <bool CROWD>
-__global__ void __launch_bounds__(SP_BLOCK)
-sp_ao_fix_kernel(const KFTables T, const KFSettings S, const SplitRays R) {
-  const int i = blockIdx.x * SP_BLOCK + threadIdx.x;
-  if (i >= R.n) return;
-  float ao = R.in[7][i];
-  if (R.in[6][i] > 0.5f) {
-    ao = ao_factor<CROWD>(T, S, V3{R.in[0][i], R.in[1][i], R.in[2][i]},
-                   V3{R.in[3][i], R.in[4][i], R.in[5][i]});
-  }
-  R.out[0][i] = ao;
-}
-
 typedef void (*RaysKernel)(KFTables, KFSettings, SplitRays);
 
 // Launch the crowd instantiation `kernel`, or `cut` (with unres) when the
@@ -203,7 +178,7 @@ static int launch_rays(RaysKernel kernel, RaysKernel cut, int unres,
                        const SplitRays& R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bool with_unres = unres >= 0 && R.out[unres] != nullptr;
+  const bool with_unres = R.out[unres] != nullptr;
   if (S.n_crowd <= 0 || (R.redo && !with_unres))
     return (int)cudaErrorInvalidValue;
   if (R.n <= 0) return 0;
@@ -224,10 +199,4 @@ extern "C" int sp_trace_rays(KFTables T, KFSettings S, SplitRays R,
                              int device, void* stream) {
   return launch_rays(sp_trace_rays_kernel<false>, sp_trace_rays_kernel<true>,
                      1, T, S, R, device, stream);
-}
-
-extern "C" int sp_ao_fix(KFTables T, KFSettings S, SplitRays R, int device,
-                         void* stream) {
-  return launch_rays(sp_ao_fix_kernel<true>, sp_ao_fix_kernel<true>, -1, T,
-                     S, R, device, stream);
 }

@@ -1,7 +1,9 @@
 // The block the split path's per-ray stages run on for scenes without a
 // crowd (SplitScene), shared by K1 and K2 (split_staged.cu), ao_fix
 // (ao_fix_staged.cu) and the priming kernel (prime_tile.cu). The stages
-// themselves are kf_staged.cuh's, templates on the block type.
+// themselves are kf_staged.cuh's, templates on the block type. floor_of
+// hands its hoisted floor to the crowd kernels (split_path.cu,
+// ao_fix_crowd.cu).
 #pragma once
 
 #include "kf_staged.cuh"
@@ -102,3 +104,13 @@ struct SplitScene {
     return unbounded_loop(*this, S, q, hmin, P);
   }
 };
+
+// AO's floor as SplitScene::hoist decodes it, for the crowd kernels' AO
+// core (ao_factor_culled): K1 with a crowd and ao_fix with a crowd.
+static __device__ __forceinline__ Floor floor_of(const KFTables& T,
+                                                 const KFSettings& S) {
+  SplitScene<false> B{T, T, nullptr, S.exit_margin};
+  B.hoist(S);
+  return B.one_leaf ? Floor{true, B.kind, B.p1, B.prm}
+                    : Floor{false, 0, 0, nullptr};
+}

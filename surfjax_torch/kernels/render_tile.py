@@ -1965,12 +1965,14 @@ def crowd_warp_masks(scene_t, settings: RenderSettings, intr, cam_rows,
 
 class SplitMasks(NamedTuple):
     """split_warp_masks' result: K1's masks (keys "primary_ana",
-    "primary_sdf" and, with AO, "ao"; None without primary rays) and K2's,
+    "primary_sdf" and, with AO, "ao"; None without primary rays), K2's,
     one CrowdMasks per shadow-ray set (keys "hard_sdf" and "hard_ana", or
-    "soft"), for render_tile_reference's and trace_rays_reference's
-    `masks`."""
+    "soft"), and ao_fix's (key "ao"; None without its rays), for
+    render_tile_reference's, trace_rays_reference's and
+    ao_fix_reference's `masks`."""
     k1: object
     k2: tuple
+    ao_fix: object = None
 
 
 def _split_layout(rays, n_lanes: int = 32):
@@ -1985,11 +1987,12 @@ def _split_layout(rays, n_lanes: int = 32):
 
 
 def split_warp_masks(scene_t, settings: RenderSettings, o, d, t0=None,
-                     shadow_rays=()) -> SplitMasks:
-    """The member masks each warp of K1 and K2 with a crowd votes
-    (csrc/split_path.cu), with the kernels' regions, tests and slack, for
-    rays given from outside. A warp is 32 consecutive rays of the flat
-    (padded) arrays; a lane past the last ray votes nothing.
+                     shadow_rays=(), ao_fix=None) -> SplitMasks:
+    """The member masks each warp of K1, K2 and ao_fix with a crowd votes
+    (csrc/split_path.cu, csrc/ao_fix_crowd.cu), with the kernels' regions,
+    tests and slack, for rays given from outside. A warp is 32 consecutive
+    rays of the flat (padded) arrays; a lane past the last ray votes
+    nothing.
 
     K1 on rays o, d (component tuples of any one shape; t0 the primed
     starts or None): the primary loops test the rays' capsule (warp_rays:
@@ -2005,7 +2008,13 @@ def split_warp_masks(scene_t, settings: RenderSettings, o, d, t0=None,
     by max 1/kf per unit t. Under a shadow march cap (the launch that
     writes unres) a warp with a lane of kf < 1.2, whose windows take the
     whole segment, keeps every member: its march would note the lane's
-    unres though it cannot darken it."""
+    unres though it cannot darken it.
+
+    ao_fix on (p_off, need), an ao_fix call's pre-offset receivers and
+    need (any one shape): the lanes with need > 0.5 vote the ball of their
+    receivers (warp_ball; AO's reach 2*ao_radius, slack CULL_LIN), a lane
+    past the last ray or without need votes nothing, and a warp without a
+    needing lane skips AO, so it forms no ball and tests no member."""
     static, params = scene_t
     lp, nparams = params["leaf_params"], params["node_params"]
     dev = params["leaf_params"].device
@@ -2077,7 +2086,19 @@ def split_warp_masks(scene_t, settings: RenderSettings, o, d, t0=None,
         k2.append(CrowdMasks(masks, warp_of, ranges, tests, mt.bounds,
                              act.any(dim=1), mt.test_ops,
                              _CULL_SHADOW_OPS[soft], 0))
-    return SplitMasks(k1, tuple(k2))
+    fix = None
+    if ao_fix is not None:
+        p_off, need = ao_fix
+        lanes, warp_of = _split_layout(need)
+        act = _gather((need > 0.5).reshape(-1), lanes, False).bool()
+        ball = _warp_ball(tuple(_gather(c.reshape(-1), lanes, 0.0)
+                                for c in p_off), act)
+        masks, ranges, tests = {}, {}, {}
+        _vote(mt, masks, ranges, tests, "ao", ((0, n),), ball,
+              f32(2.0 * f32(settings.ao_radius)), CULL_LIN)
+        fix = CrowdMasks(masks, warp_of, ranges, tests, mt.bounds,
+                         act.any(dim=1), mt.test_ops, _CULL_BALL_OPS, 0)
+    return SplitMasks(k1, tuple(k2), fix)
 
 
 def check_scene(static, settings: RenderSettings, meshes: bool = False
@@ -2284,10 +2305,11 @@ def _packed_on(static, vector_objects: bool, device: str):
 
 
 def launches_crowd(static, settings: RenderSettings) -> bool:
-    """Whether a split kernel's call on this scene launches
-    csrc/split_path.cu's crowd instantiation (pack_scene forms a crowd)
-    rather than the staged kernel: the one test behind split_launcher's
-    choice, the wrappers' two counts and chip_smoke.py's kernels line."""
+    """Whether a split kernel's call on this scene launches the crowd
+    kernel (csrc/split_path.cu, csrc/ao_fix_crowd.cu; pack_scene forms a
+    crowd) rather than the staged kernel: the one test behind
+    split_launcher's choice, the wrappers' two counts and chip_smoke.py's
+    kernels line."""
     return _packed(static, bool(settings.vector_objects))[1][2] > 0
 
 
@@ -2751,13 +2773,17 @@ def trace_rays_reference(scene_t, settings: RenderSettings, o, l, dist,
 
 
 def ao_fix_reference(scene_t, settings: RenderSettings, p_off, n, need,
-                     ao_in):
+                     ao_in, masks=None):
     """Plain version of ao_fix -> AO at the pre-offset receivers p_off
-    where need > 0.5, ao_in elsewhere."""
+    where need > 0.5, ao_in elsewhere. masks: split_warp_masks(...,
+    ao_fix=(p_off, need)).ao_fix, or None: as render_tile_reference's."""
     static, params = scene_t
+    if masks is not None:
+        masks.tally()
     ao_new = _ao_compute(static, settings, params["leaf_params"],
                          params["node_params"], p_off, n,
-                         already_offset=True, need=need > 0.5)
+                         already_offset=True, need=need > 0.5,
+                         cull=None if masks is None else masks.lanes)
     return torch.where(need > 0.5, ao_new, ao_in)
 
 
@@ -2911,6 +2937,8 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
     if not launches_crowd(scene_t.static, settings):
         # K1, K2 and ao_fix without a crowd
         return _staged_launcher(STAGED[entry], prepared, False)[:2]
+    if entry == "sp_ao_fix":
+        return _crowd_ao_fix_launcher(prepared, False)[:2]
     dev = keep[0][0].device
     fn = getattr(_build.load(), entry)
     launch = _split_enqueue(
@@ -2976,6 +3004,41 @@ def _staged_launcher(entry: str, prepared, profile: bool):
 
     launch = _split_enqueue(dev, zeroed_call, f"sp_staged_{entry}", keep)
     return launch, out, prof
+
+
+# the phases of ao_fix with a crowd (csrc/ao_fix_crowd.cu, AF_PHASES): a
+# warp's record holds their clock64 cycles, then 1 if it skipped AO
+AF_PHASE_NAMES = ("load", "vote", "ao", "write")
+
+
+def crowd_ao_fix_launcher(scene_t, settings: RenderSettings, args,
+                          profile: bool = False):
+    """Prepare a launch of ao_fix for a scene with a crowd
+    (csrc/ao_fix_crowd.cu) on CUDA tensors -> (launch, outputs, prof): as
+    split_launcher; with profile, the profiling instantiation, whose
+    counters go to prof, int64 (one row per warp of 32 rays,
+    len(AF_PHASE_NAMES) + 1), zeroed at every launch, else None."""
+    return _crowd_ao_fix_launcher(
+        _split_args("ao_fix", scene_t, settings, args, 1), profile)
+
+
+def _crowd_ao_fix_launcher(prepared, profile: bool):
+    """crowd_ao_fix_launcher on _split_args' result."""
+    from surfjax_torch.kernels import _build
+    tab, ks, rays, keep, counts, out = prepared
+    if counts[2] <= 0:
+        raise ValueError("ao_fix_crowd.cu takes scenes with a crowd")
+    dev = keep[0][0].device
+    prof = torch.zeros((-(-rays.n // 32), len(AF_PHASE_NAMES) + 1),
+                       dtype=torch.int64, device=dev) if profile else None
+    fn = _build.load().sp_ao_fix
+
+    def call(stream):
+        if prof is not None:
+            prof.zero_()
+        return fn(tab, ks, rays, _ptr(prof), dev.index, stream)
+
+    return _split_enqueue(dev, call, "sp_ao_fix", keep), out, prof
 
 
 def _ptr(ten):
@@ -3068,7 +3131,7 @@ def trace_rays_redo(scene_t, settings: RenderSettings, outs, redo, o, l,
 
 def ao_fix(scene_t, settings: RenderSettings, p_off, n, need, ao_in):
     """ao_fix -> ao (see ao_fix_reference); kernel (csrc/ao_fix_staged.cu;
-    with a crowd csrc/split_path.cu) or plain version as render_tile;
+    with a crowd csrc/ao_fix_crowd.cu) or plain version as render_tile;
     launches counted in `ao_fix.launches` (with a crowd
     `ao_fix.crowd.launches`)."""
     return _split_call(ao_fix, "sp_ao_fix", ao_fix_reference, scene_t,
@@ -3206,8 +3269,9 @@ def prime_tile(scene_t, settings: RenderSettings, k_m: float, o, d):
 
 
 render_tile.launches = trace_rays.launches = ao_fix.launches = 0
-# the crowd instantiations' launches (csrc/split_path.cu), apart from the
-# staged kernels' that the same wrappers launch for scenes without a crowd
+# the crowd kernels' launches (csrc/split_path.cu, ao_fix_crowd.cu), apart
+# from the staged kernels' that the same wrappers launch for scenes without
+# a crowd
 render_tile.crowd = types.SimpleNamespace(launches=0)
 trace_rays.crowd = types.SimpleNamespace(launches=0)
 ao_fix.crowd = types.SimpleNamespace(launches=0)

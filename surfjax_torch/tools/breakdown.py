@@ -32,11 +32,14 @@ the kernels' ptxas lines. `split` times each split kernel of one 1080p c4
 frame in `ao` mode, launched back to back (as chip_smoke.py's phase 7),
 `split_fit` K1 and K2 in a 1080p fit step, `split_crowd` K1, K2 and
 ao_fix with a crowd on frame 0 of the crowd-mesh path (both modes; also
-K1 with AO off, K2 on empty segments, ao_fix with need 0, and the whole
-16-frame call) and `prime` the priming kernel on c3 the same way; `split_phases` profiles K1, K2 and ao_fix
-(chip_smoke.py's phase 17) and `prime_phases` the priming kernel on the
-primed 1080p frame of c3 (phase 18: per phase shares, the SM clock, the
-cycles per warp and the slowest warp's rays alone); `sass` hashes every
+K1 with AO off, K2 on empty segments, ao_fix with need 0, ao_fix's vote
+counted from its need and its profiling instantiation's phases and
+skipped warps, the whole 16-frame call, and the crowd ao_fix's ptxas
+line) and `prime` the priming kernel on c3 the same way; `split_phases`
+profiles K1, K2 and ao_fix (chip_smoke.py's phase 17) and
+`prime_phases` the priming kernel on the primed 1080p frame of c3 (phase
+18: per phase shares, the SM clock, the cycles per warp and the slowest
+warp's rays alone); `sass` hashes every
 entry's SASS, to compare two builds. `caps` runs frame 0 of c3 at 1920x1080
 (`value`) on the split path under the cap variants of surfjax's
 tools/cap_sweep.py (CAP_VARIANTS): per variant the frame
@@ -547,8 +550,10 @@ def split_crowd(dev, res) -> None:
     """The split path's crowd kernels on frame 0 of the crowd-mesh path
     (`workload.crowd_mesh_main_path`) at 1080p, both modes: per kernel the
     frame's calls launched back to back (LAUNCHES), K1's with AO off, K2's
-    on empty shadow segments, ao_fix's with need 0; then the whole
-    `render_sequence` call of its 16 frames, ms per frame."""
+    on empty shadow segments, ao_fix's with need 0, its vote
+    (ao_fix_votes) and its profile (ao_fix_profile); then the whole
+    `render_sequence` call of its 16 frames, ms per frame; last, ptxas'
+    line of ao_fix with a crowd."""
     from surfjax_torch.tools.kernel_check import KERNELS, capture_calls
     from surfjax_torch.tools.workload import crowd_mesh_main_path
     scene, camera, Rs, ps, modes = crowd_mesh_main_path()
@@ -570,6 +575,8 @@ def split_crowd(dev, res) -> None:
                     *_empty_segments(args))
             elif kname == "ao_fix":
                 key, alt = "ao_fix need 0", launcher(*_need_zero(args))
+                out["ao_fix votes"] = ao_fix_votes(args)
+                out["ao_fix profile"] = ao_fix_profile(args)
             else:
                 continue
             out[key] = out.get(key, 0.0) + _launch_ms(alt[0])
@@ -578,6 +585,67 @@ def split_crowd(dev, res) -> None:
         out["render_sequence ms/frame"] = [t / len(ps) for t in times]
         res[f"split crowd {mode}"] = out
         print(f"split crowd {mode}", json.dumps(out), flush=True)
+    from surfjax_torch.kernels import _build
+    for name, lines in _build.entries(_build.build()["log"]).items():
+        if "ao_fix_kernel" in name:
+            res[f"split crowd entry {name}"] = lines
+            print(f"split crowd entry {name}", json.dumps(lines), flush=True)
+
+
+def ao_fix_votes(args) -> dict:
+    """An ao_fix call on a crowd scene, counted on the host from its need:
+    the needing lanes' share of the lanes, the share of 32-lane warps that
+    hold one (the others skip AO), and the members each of those warps
+    keeps of the crowd's by its vote (split_warp_masks' ao_fix: mean,
+    largest)."""
+    from surfjax_torch.tools.kernel_check import masks_of
+    need = args[4].reshape(-1) > 0.5
+    masks = masks_of("ao_fix", args)
+    mean, top = masks.counts()["ao"]
+    return {"lanes": need.numel(), "need_share": float(need.float().mean()),
+            "warps": masks.hit_warps.numel(),
+            "warp_share": float(masks.hit_warps.float().mean()),
+            "members": masks.masks["ao"].shape[1],
+            "masked_per_warp": [mean, top]}
+
+
+def ao_fix_profile(args) -> dict:
+    """ao_fix with a crowd's profiling instantiation (csrc/ao_fix_crowd.cu)
+    on one call: its time launched back to back, its output against the
+    production kernel's (bitwise), per phase (AF_PHASE_NAMES) the share of
+    the cycles of all warps and of the warps that ran AO, those warps'
+    mean cycles, and the warps that skipped AO (held to the vote's count of
+    warps without a needing lane)."""
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools.kernel_check import KERNELS, masks_of
+    launch, out, prof = rt.crowd_ao_fix_launcher(args[0], args[1], args[2:],
+                                                 profile=True)
+    launch()
+    ref_launch, ref = KERNELS["ao_fix"][3](*args)
+    ref_launch()
+    torch.cuda.synchronize()
+    if not torch.equal(out[0], ref[0]):
+        raise AssertionError("ao_fix's profile differs from the kernel")
+    skipped = prof[:, -1] > 0
+    ran = int(masks_of("ao_fix", args).hit_warps.sum())
+    if int((~skipped).sum()) != ran:
+        raise AssertionError(f"{int((~skipped).sum())} warps ran AO, the "
+                             f"vote has {ran} with a needing lane")
+    cyc = prof[:, :-1].double()
+
+    def shares(c):
+        return {k: float(v) for k, v in zip(rt.AF_PHASE_NAMES,
+                                            c / max(float(c.sum()), 1.0))}
+
+    return {"ms_profiled": _launch_ms(launch), "warps": prof.shape[0],
+            "skipped": int(skipped.sum()),
+            "skipped_share": float(skipped.double().mean()),
+            "share": shares(cyc.sum(0)),
+            "share_ran": shares(cyc[~skipped].sum(0)),
+            "cycles_per_warp_ran": float(cyc[~skipped].sum(1).mean())
+            if ran else 0.0,
+            "cycles_per_warp_skipped": float(cyc[skipped].sum(1).mean())
+            if bool(skipped.any()) else 0.0}
 
 
 def _fit_calls(dev, size=(1920, 1080)):

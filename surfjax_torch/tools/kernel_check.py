@@ -8,8 +8,9 @@ with their outputs as they were before the re-run) while it renders;
 `compare` runs one recorded call through the wrapper (the CUDA kernel, for
 CUDA tensors) and through the plain version on the same inputs, and holds
 them bitwise; `KERNELS` also gives each kernel's launcher, which prepares
-a launch once for timing; `masks_of` gives a K1 or K2 call on a crowd the
-member masks its crowd kernel votes, for the plain version's `masks=`.
+a launch once for timing; `masks_of` gives a K1, K2 or ao_fix call on a
+crowd the member masks its crowd kernel votes, for the plain version's
+`masks=`.
 `chip_smoke.py` and the CUDA tests use them.
 """
 
@@ -114,13 +115,17 @@ def compare(name: str, args, label: str):
 
 def masks_of(name: str, args):
     """The member masks each warp of the crowd kernel votes for a recorded
-    K1 ("render_tile") or K2 ("trace_rays") call on a scene with a crowd
-    (render_tile.split_warp_masks): the plain version called with
-    `masks=` them visits only those members, as the kernel does."""
+    K1 ("render_tile"), K2 ("trace_rays") or ao_fix ("ao_fix") call on a
+    scene with a crowd (render_tile.split_warp_masks): the plain version
+    called with `masks=` them visits only those members, as the kernel
+    does."""
     scene_t, settings = args[:2]
     if name == "render_tile":
         return rt.split_warp_masks(scene_t, settings, *args[2:]).k1
     if name == "trace_rays":
         return rt.split_warp_masks(scene_t, settings, None, None,
                                    shadow_rays=(args[2:],)).k2[0]
+    if name == "ao_fix":
+        return rt.split_warp_masks(scene_t, settings, None, None,
+                                   ao_fix=(args[2], args[4])).ao_fix
     raise ValueError(f"no member masks for {name}")

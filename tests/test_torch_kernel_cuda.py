@@ -368,6 +368,38 @@ def test_crowd_split_kernels_match_plain(cuda_device):
     assert int((fb.obj_id == len(scene.objects) - 1).sum()) > 10
 
 
+def test_crowd_ao_fix_culled_and_profiled(cuda_device):
+    """ao_fix with a crowd (ao_fix_crowd.cu) on the crowd + mesh frame, with
+    the call's need and with one needing lane per warp: the kernel and its
+    profiling instantiation equal the plain version and the masked plain
+    version bitwise, and the profile marks as skipped exactly the warps
+    without a needing lane."""
+    from surfjax_torch.api import render
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.tools.kernel_check import capture_calls, masks_of
+    scene, cam, st = _crowd_case("crowd + mesh")
+    with capture_calls() as calls:
+        render(scene, cam, st.with_(vector_objects=True), device=cuda_device)
+    (args,) = [a for k, a in calls if k == "ao_fix"]
+    lane = torch.arange(args[4].numel(), device=cuda_device)
+    one = torch.where(lane % 32 == (lane // 32 * 7) % 32, 1.0, 0.0)
+    for need in (args[4], one.reshape(args[4].shape)):
+        a = args[:4] + (need, args[5])
+        masks = masks_of("ao_fix", a)
+        ref = rt.ao_fix_reference(*a)
+        before = rt.ao_fix.crowd.launches
+        got = rt.ao_fix(*a)
+        assert rt.ao_fix.crowd.launches == before + 1
+        launch, (prof_out,), prof = rt.crowd_ao_fix_launcher(
+            a[0], a[1], a[2:], profile=True)
+        launch()
+        torch.cuda.synchronize()
+        for b in (ref, rt.ao_fix_reference(*a, masks=masks)):
+            assert torch.equal(got, b)
+            assert torch.equal(prof_out, b)
+        assert torch.equal(prof[:, -1] == 0, masks.hit_warps)
+
+
 def test_large_crowd_renders_on_the_card(cuda_device):
     """256 members: the 64-object mask does not bound the crowd."""
     from surfjax_torch import api

@@ -1,10 +1,11 @@
 """The split path's crowd kernels (K1 and K2 with a crowd,
-surfjax_torch/kernels/csrc/split_path.cu, which cull the crowd's members
-per warp of 32 consecutive rays) through their plain versions on the CPU:
+surfjax_torch/kernels/csrc/split_path.cu, and ao_fix with a crowd,
+csrc/ao_fix_crowd.cu, which cull the crowd's members per warp of 32
+consecutive rays) through their plain versions on the CPU:
 `render_tile.split_warp_masks` votes each warp's member masks with the
 kernels' regions, tests and slack, and `render_tile_reference(...,
-masks=)` / `trace_rays_reference(..., masks=)` visit per warp only the
-masked members, as the kernels do.
+masks=)` / `trace_rays_reference(..., masks=)` / `ao_fix_reference(...,
+masks=)` visit per warp only the masked members, as the kernels do.
 
   (a) the scene: surfjax_torch/configs/crowd_mesh.yaml compiles to the
       same tables in both packages, its first 49 objects and its lights
@@ -39,7 +40,15 @@ pixel), cut to 2,931 lanes so that the last warp is ragged, and on 931
 rays from random origins (466 more, each shot both ways, for the opposed
 case); K2's receivers come from the plain K1 (the split path's offsets
 and light rays, without the mesh merge), and the opposed case also
-launches K2 on the opposed rays themselves.
+launches K2 on the opposed rays themselves. ao_fix is called on the
+ao_fix call of the port's plain split render of crowd_mesh at 40x23 (cut
+to 8,179 lanes), with the call's need (the mesh's lanes) and four others
+(AO_FIX_CASES): (b) and (c) hold for each, and (d) for the mesh's lanes
+(counted: 2.0 of 48 members per warp with a needing lane on the 1080p
+frame, breakdown.ao_fix_votes, 7.9 here, where a warp spans a wider
+patch); a member is also swept
+across the ao_fix vote's boundary, as tests/test_torch_crowd_cull.py does
+for KF.
 """
 
 import functools
@@ -71,6 +80,11 @@ K2_OUT = ("vis", "unres")
 CASES = ("crowd_mesh config", "crowd_mesh soft", "crowd + mesh",
          "crowd soft", "random origins", "random origins soft",
          "opposed rays")
+# ao_fix on the crowd_mesh frame's own call, each with another need: the
+# mesh's lanes (the call's), one needing lane per warp (lane 7w mod 32 of
+# warp w), lanes 0 and 31 of every warp, no lane, every lane
+AO_FIX_CASES = ("ao_fix mesh", "ao_fix one lane", "ao_fix both ends",
+                "ao_fix none", "ao_fix all")
 
 
 def _split_rays(cam, cut=13):
@@ -152,9 +166,52 @@ def _shadow_args(scene_t, st, o, d, k1):
 
 
 @functools.lru_cache(maxsize=None)
+def _ao_fix_frame():
+    """The ao_fix call of the port's plain split render of crowd_mesh at
+    40x23 (the receivers of the frame's merged hits, need where the mesh
+    won), its flat arrays cut to 8,179 lanes so that the last warp is
+    ragged."""
+    from surfjax_torch.tools.kernel_check import capture_calls
+    scene, cam, st, _ = pt_config.load_config(workload.CROWD_MESH)
+    with capture_calls() as calls:
+        pt_api.render(scene, workload.reframe(cam, *SIZE),
+                      st.with_(backend="pallas"), device="cpu")
+    (args,) = [a for k, a in calls if k == "ao_fix"]
+    n = args[4].numel() - 13
+
+    def cut(a):
+        return a.reshape(-1)[:n].contiguous()
+
+    return (scene,) + args[:2] + (tuple(map(cut, args[2])),
+                                  tuple(map(cut, args[3])), cut(args[4]),
+                                  cut(args[5]))
+
+
+def _ao_fix_args(name, scene_t=None):
+    """-> the arguments of ao_fix on the crowd_mesh frame with the need of
+    the case `name` (AO_FIX_CASES); scene_t: another scene in its place."""
+    _, scene_t0, st, p_off, n, need, ao_in = _ao_fix_frame()
+    lane = torch.arange(need.numel()) % 32
+    warp = torch.arange(need.numel()) // 32
+    kind = name.split(" ", 1)[1]
+    pick = {"mesh": need > 0.5, "one lane": lane == (7 * warp) % 32,
+            "both ends": (lane == 0) | (lane == 31),
+            "none": torch.zeros_like(need, dtype=torch.bool),
+            "all": torch.ones_like(need, dtype=torch.bool)}[kind]
+    return (scene_t or scene_t0, st, p_off, n,
+            torch.where(pick, 1.0, 0.0), ao_in)
+
+
+@functools.lru_cache(maxsize=None)
 def _calls(name, cap=0):
     """-> [(kernel, args, plain outputs)] of one K1 call and the K2 call
-    of every light; cap: march_cap and shadow_march_cap."""
+    of every light, or of one ao_fix call (AO_FIX_CASES); cap: march_cap
+    and shadow_march_cap (ao_fix takes none)."""
+    if name.startswith("ao_fix"):
+        args = _ao_fix_args(name)
+        args = (args[0], args[1].with_(march_cap=cap,
+                                       shadow_march_cap=cap)) + args[2:]
+        return [("ao_fix", args, rt.ao_fix_reference(*args))]
     scene_t, st, o, d = _case(name)
     st = st.with_(march_cap=cap, shadow_march_cap=cap)
     k1_args = (scene_t, st, o, d)
@@ -238,7 +295,10 @@ def _gates(kname, args):
     em = rt._exit_margin(st)
     sdf_end, single_end = crowd.n_sph_sdf + crowd.n_box_sdf, crowd.n_singles
     cols = {}
-    if kname == "render_tile":
+    if kname == "ao_fix":
+        o, need = args[2], args[4] > 0.5
+        gate = f32(2.0 * f32(st.ao_radius))
+    elif kname == "render_tile":
         o, d = args[2], args[3]
         t, obj, leaf, hit_f, _ = rt.trace_core(static, st, lp, nparams, o, d)
         t_sane = torch.where(hit_f > 0.5, t, 0.0)
@@ -258,7 +318,11 @@ def _gates(kname, args):
             b, sdf_j = rt._crowd_shape(crowd, refs, j, tag)
             prm = lp[int(refs[0][j, 0])]
             ana = sdf_end <= j < single_end
-            if kname == "render_tile":
+            if kname == "ao_fix":      # AO's far gate on the needing lanes
+                dx, dy, dz = (o[k] - b[k] for k in range(3))
+                cols.setdefault("ao", {})[j] = need & (rt.sqrt(
+                    (dx * dx + dy * dy) + dz * dz) - b[3] <= gate)
+            elif kname == "render_tile":
                 if ana:
                     cols.setdefault("primary_ana", {})[j] = rt._leaf_exact_t(
                         prm, tag, o, d, f32(st.t_min), f32(st.t_max)) \
@@ -295,7 +359,7 @@ def _gates(kname, args):
     return out
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + AO_FIX_CASES)
 def test_masks_are_conservative(name):
     for kname, args, _ in _calls(name):
         masks = masks_of(kname, args)
@@ -331,11 +395,15 @@ def test_opposed_rays_leave_no_mean_direction():
 # --- (c) masks change nothing -----------------------------------------------
 
 @pytest.mark.parametrize("cap", [0, 2])
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + AO_FIX_CASES)
 def test_masked_plain_equals_unmasked(name, cap):
     for kname, args, ref in _calls(name, cap):
         masks = masks_of(kname, args)
-        if kname == "render_tile":
+        if kname == "ao_fix":
+            got = (rt.ao_fix_reference(*args, masks=masks),)
+            ref = (ref,)
+            names = ("ao",)
+        elif kname == "render_tile":
             got = rt.render_tile_reference(*args, masks=masks)
             names = K1_OUT
         else:
@@ -344,7 +412,7 @@ def test_masked_plain_equals_unmasked(name, cap):
         assert len(got) == len(ref) == len(names)
         for label, a, b in zip(names, got, ref):
             assert torch.equal(a, b), (name, cap, kname, label)
-    if cap and not name.startswith(("random", "opposed")):
+    if cap and not name.startswith(("random", "opposed", "ao_fix")):
         # the caps cut some march off: unres is not trivially 0
         assert any(float(c[2][-1].sum()) > 0 for c in _calls(name, cap))
 
@@ -379,15 +447,26 @@ def test_soft_cap_keeps_every_member_where_a_window_is_whole():
 
 # --- (d) masks cut work ----------------------------------------------------
 
-@pytest.mark.parametrize("name", ["crowd_mesh config", "crowd_mesh soft"])
+@pytest.mark.parametrize("name", ["crowd_mesh config", "crowd_mesh soft",
+                                  "ao_fix mesh"])
 def test_masks_cut_work(name):
     """Mean masked members per warp of each loop at most 16 of 48 on
     crowd_mesh at 40x23, and count_ops of the culled algorithm below 0.8 of
-    the unculled one (module docstring has the figures)."""
+    the unculled one (module docstring has the figures). ao_fix (the
+    mesh's lanes) cuts the members its needing lanes visit, each its
+    warp's masked ones, below 0.8 of the 48 each visits unculled, but not
+    its count_ops: each warp with a needing lane votes (the ball, one test
+    per member), which costs more operations than the gates it saves."""
     for kname, args, _ in _calls(name):
         masks = masks_of(kname, args)
         for loop, (mean, top) in masks.counts().items():
             assert mean <= 16.0, (kname, loop, mean, top)
+        if kname == "ao_fix":
+            need = args[4].reshape(-1) > 0.5
+            m = masks.masks["ao"]
+            visits = int(m[masks.warp_of.reshape(-1)[need]].sum())
+            assert 0 < visits < 0.8 * int(need.sum()) * m.shape[1]
+            continue
         ref = rt.render_tile_reference if kname == "render_tile" else \
             rt.trace_rays_reference
         with rt.count_ops() as plain:
@@ -395,3 +474,49 @@ def test_masks_cut_work(name):
         with rt.count_ops() as culled:
             ref(*args, masks=masks)
         assert culled["ops"] < 0.8 * plain["ops"], kname
+
+
+def _with_radius(scene, obj_idx: int, radius: float):
+    """The scene with one sphere object's radius replaced."""
+    new = pt_api.Scene()
+    for k, o in enumerate(scene.objects):
+        node = pt_api.Sphere(center=o.node.center, radius=radius) \
+            if k == obj_idx else o.node
+        new.add(node, o.material, engine=o.engine)
+    for light in scene.lights:
+        new.add_light(light)
+    return new
+
+
+@pytest.mark.parametrize("delta", [-1.0, 0.0, 1.0])
+def test_ao_fix_member_swept_across_the_boundary(delta):
+    """ao_fix with need on every lane of the crowd_mesh frame: the SDF
+    sphere member nearest a warp's AO test boundary (outside it) is grown
+    until the test sits at delta times its slack from the boundary (-1:
+    one slack outside, 0: on it, 1: one slack inside): the masks stay
+    conservative and the masked plain version equal to the unmasked one."""
+    args = _ao_fix_args("ao_fix all")
+    masks = masks_of("ao_fix", args)
+    seg, reach, rel = masks.tests["ao"]
+    crowd = rt.split_crowd(args[0].static, args[1])[0]
+    margin = rt.cull_margin(masks.bounds, reach, seg, rel)
+    slack = rt.cull_margin(masks.bounds, reach, seg, 0.0) - margin
+    sph = torch.zeros_like(margin, dtype=torch.bool)
+    sph[:, :crowd.n_sph_sdf] = True
+    near = torch.where(sph & seg.any & (margin > 0.0), margin, float("inf"))
+    w, j = divmod(int(near.argmin()), near.shape[1])
+    grow = (float(margin[w, j]) + delta * float(slack[w, j])) / (1.0 + rel)
+    scene = _with_radius(_ao_fix_frame()[0], crowd.members[j][0],
+                         float(masks.bounds[3][j]) + grow)
+    static, params = scene.freeze()
+    args = _ao_fix_args("ao_fix all", rt.SceneTensors(
+        static, params_to_device(params, "cpu")))
+    masks = masks_of("ao_fix", args)
+    if delta:       # one slack inside: voted in; one slack outside: not
+        assert bool(masks.masks["ao"][w, j]) == (delta > 0)
+    gates = _gates("ao_fix", args)["ao"]
+    need = torch.zeros(masks.masks["ao"].shape, dtype=torch.int32)
+    need.index_add_(0, masks.warp_of, gates.to(torch.int32))
+    assert not ((need > 0) & ~masks.masks["ao"]).any()
+    assert torch.equal(rt.ao_fix_reference(*args),
+                       rt.ao_fix_reference(*args, masks=masks))

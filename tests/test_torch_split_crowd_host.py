@@ -1,10 +1,11 @@
-"""K1 and K2 with a crowd (surfjax_torch/kernels/csrc/split_path.cu, the
-member loops culled per warp of 32 consecutive rays) built for the CPU
-behind the host stand-in of the CUDA runtime (tests/cuda_host.py: each
-CUDA thread a std::thread, the warp's votes and shuffles through per-warp
-barriers), launched through the port's own `render_tile.split_launcher`
-with the library and the stream swapped for the host's, and held bitwise
-against their plain versions, unres included, on:
+"""K1 and K2 with a crowd (surfjax_torch/kernels/csrc/split_path.cu) and
+ao_fix with a crowd (csrc/ao_fix_crowd.cu), the member loops culled per
+warp of 32 consecutive rays, built for the CPU behind the host stand-in
+of the CUDA runtime (tests/cuda_host.py: each CUDA thread a std::thread,
+the warp's votes and shuffles through per-warp barriers), launched
+through the port's own `render_tile.split_launcher` with the library and
+the stream swapped for the host's, and held bitwise against their plain
+versions, unres included, on:
 
   * K1 and K2 (every light) on the rays of tests/test_torch_split_crowd.py
     (a 40x23 frame in the split path's layout, cut to a ragged count; 931
@@ -17,8 +18,14 @@ against their plain versions, unres included, on:
     kf < 1.2 on the near receivers, where the capped launch keeps every
     member so that unres stays the plain version's.
 
-ao_fix with a crowd is the parent's code and is held on the card
-(chip_smoke.py phases 8 and 23).
+ao_fix with a crowd is held the same way against its plain version and
+the plain version that visits only the members each warp votes
+(split_warp_masks' ao_fix), on the ao_fix call of the crowd_mesh frame of
+tests/test_torch_split_crowd.py (40x23, cut to 8,179 lanes) with each of
+its needs (the mesh's lanes, one needing lane per warp, lanes 0 and 31 of
+every warp, none, all); its profiling instantiation (render_tile.
+crowd_ao_fix_launcher(..., profile=True)) writes the same output and
+marks as skipped exactly the warps without a needing lane.
 """
 
 import contextlib
@@ -35,11 +42,13 @@ from surfjax_torch.core.scene_compile import params_to_device  # noqa: E402
 from surfjax_torch.kernels import _build  # noqa: E402
 from surfjax_torch.kernels import render_tile as rt  # noqa: E402
 from surfjax_torch.tools import workload  # noqa: E402
-from surfjax_torch.tools.kernel_check import KERNELS, flat, fresh  # noqa
+from surfjax_torch.tools.kernel_check import (  # noqa: E402
+    KERNELS, flat, fresh, masks_of,
+)
 
 from tests import cuda_host  # noqa: E402
 from tests.test_torch_split_crowd import (  # noqa: E402
-    _calls, _shadow_args, _split_rays,
+    AO_FIX_CASES, _ao_fix_args, _calls, _shadow_args, _split_rays,
 )
 
 ENTRIES = ("sp_render_tile", "sp_trace_rays")
@@ -96,6 +105,11 @@ def host_lib(tmp_path_factory):
                       ctypes.c_int, ctypes.c_void_p]
         # the launcher passes its tensors' device index: None on the CPU
         fns[entry] = (lambda f: lambda T, S, R, dev, st: f(T, S, R, 0, st))(f)
+    f = cuda_host.build("ao_fix_crowd.cu", str(
+        tmp_path_factory.mktemp("ao_fix_crowd_host"))).sp_ao_fix
+    f.argtypes = [rt.KFTables, rt.KFSettings, rt.SplitRays, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_void_p]
+    fns["sp_ao_fix"] = lambda T, S, R, prof, dev, st: f(T, S, R, prof, 0, st)
     return types.SimpleNamespace(**fns)
 
 
@@ -137,3 +151,20 @@ def test_host_edges_have_a_whole_window_lane():
     kf = torch.cat([a[5].reshape(-1)[~(a[4].reshape(-1) <= 0)]
                     for k, a, _ in _edge_calls(3) if k == "trace_rays"])
     assert bool((kf < 1.2).any())
+
+
+@pytest.mark.parametrize("name", AO_FIX_CASES)
+def test_host_crowd_ao_fix_equals_plain(on_host, name):
+    args = _ao_fix_args(name)
+    assert args[4].numel() % 32      # the last warp is ragged
+    ref = rt.ao_fix_reference(*args)
+    masks = masks_of("ao_fix", args)
+    assert torch.equal(ref, rt.ao_fix_reference(*args, masks=masks))
+    launch, (out,) = KERNELS["ao_fix"][3](*args)
+    launch()
+    assert torch.equal(out, ref), name
+    launch, (out,), prof = rt.crowd_ao_fix_launcher(args[0], args[1],
+                                                    args[2:], profile=True)
+    launch()
+    assert torch.equal(out, ref), name
+    assert torch.equal(prof[:, -1] == 0, masks.hit_warps)
