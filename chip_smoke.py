@@ -207,6 +207,34 @@ the script exits non-zero and never prints its last line):
      members per warp; then a ray batch that shoots each point both ways
      (its warps' directions sum to 0) through K1 and, as shadow segments,
      through K2 in both modes, each call held the same way.
+ 24. scenes past the kernels' former fixed bounds (64 objects outside the
+     crowd, 32 tape nodes, 16 analytic leaves), which take the kernels'
+     KF_WIDE build (the *_wide.cu units; the default build's SASS is the
+     parent's): (a) the per-object half of compile_scaling and its crowd
+     (surfjax_torch/tools/compile_scaling.py, tools/compile_scaling.py's
+     spheres and two-leaf smooth pairs over a floor) at 65 and 129
+     objects, 1920x1080 x 2 frames per render_sequence call: the first
+     call's seconds and the steady ms/frame, KF launched once per call
+     (the per-object rows in its KF_WIDE build), finite frames, the
+     crowd's geometry bitwise the per-object one and its rgb within 2 ULP;
+     KF's KF_WIDE build alone on the 129 spheres: its frames those of the
+     row's last call, frame 0 bitwise equal to the plain version at
+     1080p, its time without AO and with it, and KF with a crowd in its
+     KF_WIDE build on crowd 120+8+70 at 1080p, AO off and on; (b) every
+     KF_WIDE kernel against its plain version, bitwise, on
+     workload.limit_cases at 128x72 (65 and 129 objects, 128 crowd
+     members beside 71 objects, with and without a mesh, smooth unions of
+     17 and 65 spheres left- and right-deep, analytic unions of 17 and 40
+     leaves): KF on each mesh-free case (staged, or with the crowd), every
+     K1 and K2 call of the split path's forward over the camera's rays,
+     the 70 spheres beside a mesh through render() with the crowd off and
+     on (K1, K2, ao_fix and the mesh kernel; with the crowd on, the
+     default build), the crowd beside 71 objects and a mesh through
+     render() (K1, K2 and ao_fix with a crowd in their KF_WIDE build), the
+     priming kernel on two primed frames; (c) the 65-object scene primed
+     at 1920x1080 through render(): its priming call and its KF launch
+     with the primed starts bitwise equal to the plain versions, the
+     frame KF's.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
@@ -224,7 +252,13 @@ of their frames against the plain versions). The split kernels' crowd
 instantiations (render_tile_crowd, trace_rays_crowd, ao_fix_crowd) have
 entries of their own: frame 0 of phase 23's `config` mode, launches of
 its main path, errors over phases 8, 19 and 23, the bound of the culled
-algorithm; their launches elsewhere leave the staged kernels' counts.
+algorithm; their launches elsewhere leave the staged kernels' counts. KF's
+and its crowd instantiation's launches also count phase 24's
+compile_scaling path, and every kernel's error phase 24's checks; KF's
+entry gives its KF_WIDE build's launches there (wide_launches) and its
+time per 1080p frame alone on 129 objects (wide_ms; with AO wide_ao_ms),
+its crowd instantiation's the KF_WIDE build's time on crowd 120+8+70 at
+1080p (wide_ms, AO off; wide_ao_ms, AO on).
 """
 
 from __future__ import annotations
@@ -338,6 +372,12 @@ SHARD_FRAMES = 4       # the sequence of the gloo worlds (phase 21)
 # phase 21's gloo worlds on the card: world size -> the meshes its c3
 # sequence is rendered on
 SHARD_WORLDS = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+# phase 24: compile_scaling's counts, its frames per call, and the size
+# at which the kernels are held against their plain versions on
+# workload.limit_cases
+LIMIT_COUNTS = (64, 128)
+LIMIT_FRAMES = 2
+LIMITS_SIZE = (128, 72)
 RING_T_REL = 2e-7      # the ring's t against the grid DDA on hit lanes
 DRYRUN_REL = 1e-6      # the dry run's step at world 4 against world 1
 
@@ -1056,8 +1096,8 @@ def _same_args(a, b) -> bool:
 
 def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
                memo=None):
-    """One recorded split-kernel call of a crowd scene: the kernel against
-    its plain version, bitwise, and K1, K2 and ao_fix also against the
+    """One recorded kernel call: the kernel against its plain version,
+    bitwise, and on a crowd scene K1, K2 and ao_fix also against the
     plain version visiting only the members each warp votes
     (split_warp_masks).
     memo: None, or a list of earlier mesh_tile calls with their plain
@@ -1096,7 +1136,7 @@ def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
     refs = [("plain", flat(ref)[:len(got)])]
     culled_ops = plain_ops
     counts = {}
-    if kname in ("render_tile", "trace_rays", "ao_fix"):
+    if key.endswith("_crowd"):
         m = masks_of(kname, args)
         counts = m.counts()
         with counted() as culled_ops:
@@ -1299,6 +1339,238 @@ def crowd_mesh_phase(dev, smi: str) -> dict:
         f"({time.perf_counter() - t23:.1f} s) on {smi}")
     return {"launches": launches, "err": errs, "frame": frame,
             "results": results}
+
+
+def limits_phase(dev, smi: str) -> dict:
+    """Phase 24, scenes past the kernels' former fixed bounds (module
+    docstring) -> {"launches": the fused kernel's on compile_scaling's
+    path, per instantiation; "err": per kernel, the largest error of its
+    checks; "rows": compile_scaling's rows}."""
+    import numpy as np
+    import torch
+
+    from surfjax_torch import api
+    from surfjax_torch.core.camera import flat_camera_rays
+    from surfjax_torch.core.scene_compile import ENGINE_MESH, params_to_device
+    from surfjax_torch.core.types import FrameBuffers
+    from surfjax_torch.kernels.render_tile import (
+        SceneTensors, frame_buffers, frame_fused, frame_fused_reference,
+        launches_crowd, prime_frame, prime_tile, render_rays_pallas,
+        wide_scene,
+    )
+    from surfjax_torch.tools import compile_scaling
+    from surfjax_torch.tools.kernel_check import capture_calls
+    from surfjax_torch.tools.workload import (
+        cam_rows_of, cuda_ms, limit_cases, reframe,
+    )
+    t24 = time.perf_counter()
+    # (a) compile_scaling's per-object half and its crowd at 1080p: the
+    # counts set to 0 just before each call and read just after
+    launches = {"frame_fused": 0, "frame_fused_crowd": 0}
+    rows, errs, widest = [], {}, None
+    for kind in ("sphere", "csgpair"):
+        for n in LIMIT_COUNTS:
+            fbs = {}
+            for mode, vec in compile_scaling.MODES:
+                got = []
+                row = compile_scaling.measure(n, vec, kind, LIMIT_FRAMES, 3,
+                                              device=dev, out=got)
+                key = "frame_fused_crowd" if vec else "frame_fused"
+                if row["launches"] != 4:
+                    raise AssertionError(f"compile_scaling {kind} {n} {mode}"
+                                         f": {row['launches']} launches, "
+                                         "expected 4")
+                launches[key] += row["launches"]
+                fb = got[-1]
+                ids = fb.obj_id
+                if not all(bool(torch.isfinite(a).all()) for a in fb) or \
+                        not bool(((ids >= -1) & (ids <= n)).all()) or \
+                        row["hit_fraction"] < 0.2:
+                    raise AssertionError(f"compile_scaling {kind} {n} {mode}"
+                                         f": bad frames ({row})")
+                fbs[mode] = fb
+                if (kind, n, vec) == ("sphere", LIMIT_COUNTS[-1], False):
+                    widest = fb
+                rows.append(row)
+                log(f"  compile_scaling {kind} {row['objects']} objects "
+                    f"{mode}: first call {row['first_s']:.4f} s, "
+                    f"{row['ms_frame']:.4f} ms/frame, hit fraction "
+                    f"{row['hit_fraction']:.4f}")
+            on, off = fbs["crowd"], fbs["per-object"]
+            for name in ("depth", "normal", "hit", "obj_id"):
+                if not torch.equal(getattr(on, name), getattr(off, name)):
+                    raise AssertionError(f"compile_scaling {kind} {n}: the "
+                                         f"crowd changed {name}")
+            ulp = (on.rgb.view(torch.int32).long()
+                   - off.rgb.view(torch.int32).long()).abs().max()
+            if int(ulp) > 2:
+                raise AssertionError(f"compile_scaling {kind} {n}: the crowd "
+                                     f"moved rgb by {int(ulp)} ulp")
+    for key, n_l in launches.items():
+        if n_l < 1:
+            raise AssertionError(f"compile_scaling launched no {key}")
+    log(f"  compile_scaling at 1920x1080 x {LIMIT_FRAMES} frames: "
+        + json.dumps(rows))
+    # KF's KF_WIDE build alone on the widest per-object row, 129 spheres:
+    # its frames those of the row's last call, frame 0 bitwise equal to
+    # the plain version at 1080p (where each persistent block takes more
+    # than one tile), then its time, without AO as the row and with it
+    t_w = time.perf_counter()
+    scene, cam, seq = compile_scaling.case(LIMIT_COUNTS[-1], "sphere",
+                                           LIMIT_FRAMES)
+    static, params = scene.freeze()
+    if not wide_scene(static, False):
+        raise AssertionError("compile_scaling's widest row takes the "
+                             "default build")
+    scene_t = SceneTensors(static, params_to_device(params, dev))
+    st = compile_scaling.settings_of(False)
+    intr = cam.intrinsics
+    rows12 = cam_rows_of(*seq, dev)
+    out = frame_fused(scene_t, st, intr, rows12)
+    bitwise(frame_buffers(out), widest, FrameBuffers._fields,
+            f"compile_scaling {LIMIT_COUNTS[-1] + 1} spheres per object, "
+            "KF's frames against the row's")
+    errs["frame_fused"] = bitwise(
+        [a[:1] for a in out], frame_fused_reference(scene_t, st, intr,
+                                                    rows12[:1]),
+        NINE, f"KF_WIDE on {LIMIT_COUNTS[-1] + 1} spheres, 1080p frame 0")
+    k_ms, _ = cuda_ms(lambda: frame_fused(scene_t, st, intr, rows12), 3)
+    wide_ms = min(k_ms) / LIMIT_FRAMES
+    st_ao = st.with_(ao=True)
+    frame_fused(scene_t, st_ao, intr, rows12)
+    k_ms, _ = cuda_ms(lambda: frame_fused(scene_t, st_ao, intr, rows12), 3)
+    wide_ao_ms = min(k_ms) / LIMIT_FRAMES
+    # KF with a crowd in its KF_WIDE build: crowd 120+8+70 at 1080p, AO
+    # off and on (AO's objects past the mask's 64 in ao_core)
+    c_scene, c_cam, c_st = limit_cases(api, (1920, 1080))["crowd 120+8+70"]
+    c_static, c_params = c_scene.freeze()
+    if not (wide_scene(c_static, True) and launches_crowd(c_static, c_st)):
+        raise AssertionError("crowd 120+8+70 takes no wide crowd kernel")
+    c_t = SceneTensors(c_static, params_to_device(c_params, dev))
+    c_rows = cam_rows_of(np.asarray(c_cam.rotation, np.float32).reshape(1, 9),
+                         np.asarray(c_cam.position, np.float32).reshape(1, 3),
+                         dev)
+    crowd_ms = {}
+    for ao in (False, True):
+        st_c = c_st.with_(ao=ao)
+        frame_fused(c_t, st_c, c_cam.intrinsics, c_rows)
+        k_ms, _ = cuda_ms(lambda st_c=st_c: frame_fused(
+            c_t, st_c, c_cam.intrinsics, c_rows), 3)
+        crowd_ms["ao" if ao else "no_ao"] = min(k_ms)
+    log(f"  KF's KF_WIDE build on {LIMIT_COUNTS[-1] + 1} spheres at "
+        f"1920x1080: {wide_ms:.4f} ms/frame, with AO {wide_ao_ms:.4f}; with "
+        f"a crowd on crowd 120+8+70 (71 objects outside it) "
+        f"{crowd_ms['no_ao']:.4f}, with AO {crowd_ms['ao']:.4f} "
+        f"({time.perf_counter() - t_w:.1f} s)")
+    t_b = time.perf_counter()
+    # (b) every kernel whose source changed against its plain version on
+    # workload.limit_cases at 128x72: KF (staged, and with a crowd), K1,
+    # K2 and ao_fix (staged and with a crowd) with the mesh kernel, the
+    # priming kernel
+    cases = limit_cases(api, LIMITS_SIZE)
+    n_calls = 0
+    for name, (scene, cam, st) in cases.items():
+        static, params = scene.freeze()
+        if not wide_scene(static, bool(st.vector_objects)):
+            raise AssertionError(f"limits {name}: not a wide scene")
+        scene_t = SceneTensors(static, params_to_device(params, dev))
+        intr = cam.intrinsics
+        R = np.asarray(cam.rotation, np.float32).reshape(1, 9)
+        pos = np.asarray(cam.position, np.float32).reshape(1, 3)
+        if "mesh" in name:
+            mesh_id = next(i for i, o in enumerate(static.ir.objects)
+                           if o.engine == ENGINE_MESH)
+            for vec in sorted({False, True} if name == "mesh + 70" else
+                              {bool(st.vector_objects)}):
+                with capture_calls() as calls:
+                    fb = api.render(scene, cam, st.with_(vector_objects=vec),
+                                    device=dev)
+                names = {kernel_key(k, a) for k, a in calls}
+                want = {"render_tile", "trace_rays", "ao_fix", "mesh_tile"}
+                if vec:
+                    want = {k + "_crowd" if k != "mesh_tile" else k
+                            for k in want}
+                if names != want:
+                    raise AssertionError(f"limits {name} crowd {vec}: "
+                                         f"kernels {names}, expected {want}")
+                for k, (kname, args) in enumerate(calls):
+                    _hold_call(kname, args, f"limits {name} crowd {vec} "
+                               f"call {k}", errs)
+                n_calls += len(calls)
+                if int((fb.obj_id == mesh_id).sum()) < 10:
+                    raise AssertionError(f"limits {name}: the mesh is not "
+                                         "in view")
+            continue
+        rows12 = cam_rows_of(R, pos, dev)
+        key = "frame_fused_crowd" if launches_crowd(static, st) \
+            else "frame_fused"
+        out = frame_fused(scene_t, st, intr, rows12)
+        ref = frame_fused_reference(scene_t, st, intr, rows12)
+        errs[key] = max(errs.get(key, 0.0),
+                        bitwise(out, ref, NINE, f"limits {name} {key}"))
+        o, d, _ = flat_camera_rays(intr, rows12[0, :9], rows12[0, 9:])
+        with capture_calls() as calls:
+            render_rays_pallas(static, st, scene_t.params, o, d)
+        for k, (kname, args) in enumerate(calls):
+            _hold_call(kname, args, f"limits {name} call {k}", errs)
+        n_calls += len(calls) + 1
+        if name in ("64 spheres", "smooth 65 right"):
+            with capture_calls() as calls:
+                api.render(scene, cam, st.with_(prime=True, prime_min=64),
+                           device=dev)
+            if [k for k, _ in calls] != ["prime_tile"]:
+                raise AssertionError(f"limits {name} primed: calls "
+                                     f"{[k for k, _ in calls]}")
+            _hold_call("prime_tile", calls[0][1], f"limits {name} primed",
+                       errs)
+            n_calls += 1
+    log(f"  {n_calls} kernel calls held ({time.perf_counter() - t_b:.1f} s)")
+    # (c) a primed 1080p frame of the 65-object scene through render(): its
+    # priming call and its KF launch (KF_WIDE, with the primed starts)
+    # bitwise equal to their plain versions, the frame KF's
+    t_c = time.perf_counter()
+    scene, cam, st = limit_cases(api)["64 spheres"]
+    cam = reframe(cam, 1920, 1080)
+    st = st.with_(prime=True)
+    before = (prime_tile.launches, frame_fused.launches)
+    with capture_calls() as calls:
+        ms, fb = cuda_ms(lambda: api.render(scene, cam, st, device=dev), 1)
+    made = (prime_tile.launches - before[0],
+            frame_fused.launches - before[1])
+    if made != (1, 1) or [k for k, _ in calls] != ["prime_tile"]:
+        raise AssertionError(f"limits primed 1080p: launches {made}, calls "
+                             f"{[k for k, _ in calls]}")
+    _hold_call("prime_tile", calls[0][1], "limits primed 1080p", errs)
+    static, params = scene.freeze()
+    scene_t = SceneTensors(static, params_to_device(params, dev))
+    R, pos = (torch.as_tensor(np.asarray(a, np.float32).reshape(-1),
+                              device=dev)
+              for a in (cam.rotation, cam.position))
+    t0 = prime_frame(static, cam.intrinsics, st, scene_t.params, R, pos)[None]
+    row = torch.cat([R, pos]).reshape(1, 12)
+    out = frame_fused(scene_t, st, cam.intrinsics, row, t0)
+    errs["frame_fused"] = max(errs["frame_fused"], bitwise(
+        out, frame_fused_reference(scene_t, st, cam.intrinsics, row, t0),
+        NINE, "limits primed 1080p KF_WIDE"))
+    bitwise(FrameBuffers(*(a[0] for a in frame_buffers(out))), fb,
+            FrameBuffers._fields, "limits primed 1080p render() against KF")
+    if float(fb.hit.float().mean()) < 0.5:
+        raise AssertionError("limits primed 1080p: bad frame")
+    log(f"  the 65-object scene primed at 1920x1080: {ms[0]:.2f} ms "
+        "through render(), its priming call and KF launch bitwise equal to "
+        f"the plain versions ({time.perf_counter() - t_c:.1f} s)")
+    log(f"phase 24: scenes past the former fixed bounds: compile_scaling "
+        f"at {', '.join(str(n + 1) for n in LIMIT_COUNTS)} objects (per "
+        f"object and as a crowd, both kinds), launches "
+        f"{json.dumps(launches)}; {n_calls} kernel calls on "
+        f"{len(cases)} scenes at {LIMITS_SIZE[0]}x{LIMITS_SIZE[1]} bitwise "
+        f"equal to their plain versions; errors {json.dumps(errs)} "
+        f"({time.perf_counter() - t24:.1f} s) on {smi}")
+    return {"launches": launches, "err": errs, "rows": rows,
+            "wide_ms": wide_ms, "wide_ao_ms": wide_ao_ms,
+            "wide_crowd_ms": crowd_ms,
+            "wide_launches": sum(r["launches"] for r in rows
+                                 if r["mode"] == "per-object")}
 
 
 BENCH_KERNELS = ("frame_fused", "render_tile", "trace_rays", "ao_fix",
@@ -2505,6 +2777,9 @@ def main() -> int:
     # -- phase 23 -----------------------------------------------------------
     crowd_split = crowd_mesh_phase(dev, smi)
 
+    # -- phase 24 -----------------------------------------------------------
+    limits = limits_phase(dev, smi)
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     # the fused kernel: times per 1080p frame in value_exact mode, the
@@ -2520,32 +2795,46 @@ def main() -> int:
     # also count the sharded paths' launches and errors (phase 21); KF,
     # its crowd instantiation and the split kernels also count the
     # launches of the benchmark harness and the workload matrix and the
-    # errors of their frames against the plain versions (phase 22); the
-    # probe's entries: one launch at the tool's defaults (unroll 4),
-    # launches of its sweep
+    # errors of their frames against the plain versions (phase 22); KF and
+    # its crowd instantiation also count compile_scaling's launches (phase
+    # 24), and every kernel the errors of phase 24's checks; the probe's
+    # entries: one launch at the tool's defaults (unroll 4), launches of
+    # its sweep
     kernels = [{
         "name": "frame_fused", "route": "cuda",
         "source": "surfjax_torch/kernels/csrc/kf_staged.cu",
         "replaces": "surfjax/kernels/render_tile.py:2196",
-        "launches": main_launches + benched["launches"]["frame_fused"],
-        "max_abs_err": max(max_err, benched["err"]["frame_fused"]),
+        "launches": main_launches + benched["launches"]["frame_fused"]
+        + limits["launches"]["frame_fused"],
+        "max_abs_err": max(max_err, benched["err"]["frame_fused"],
+                           limits["err"].get("frame_fused", 0.0)),
         "ms": per_frame["value_exact"][0],
         "plain_ms": per_frame["value_exact"][1],
         "bound_ms": kf_bound[0], "bound_by": kf_bound[1],
-        "library_ms": None}, {
+        "library_ms": None,
+        # its KF_WIDE build: compile_scaling's per-object rows (phase 24),
+        # the kernel alone per 1080p frame on 129 objects, AO off and on
+        "wide_launches": limits["wide_launches"],
+        "wide_ms": limits["wide_ms"], "wide_ao_ms": limits["wide_ao_ms"]}, {
         # the fused kernel's instantiation with the crowd's member loops
         "name": "frame_fused_crowd", "route": "cuda",
         "source": "surfjax_torch/kernels/csrc/frame_fused.cu",
         "replaces": "surfjax/kernels/render_tile.py:1013",
-        "launches": crowd_launches + benched["launches"]["frame_fused_crowd"],
-        "max_abs_err": max(crowd_err, benched["err"]["frame_fused_crowd"]),
+        "launches": crowd_launches + benched["launches"]["frame_fused_crowd"]
+        + limits["launches"]["frame_fused_crowd"],
+        "max_abs_err": max(crowd_err, benched["err"]["frame_fused_crowd"],
+                           limits["err"].get("frame_fused_crowd", 0.0)),
         "ms": crowd_frame[0], "plain_ms": crowd_frame[1],
         "bound_ms": crowd_bound[0], "bound_by": crowd_bound[1],
-        "library_ms": None}, {
+        "library_ms": None,
+        # its KF_WIDE build per 1080p frame on crowd 120+8+70 (phase 24)
+        "wide_ms": limits["wide_crowd_ms"]["no_ao"],
+        "wide_ao_ms": limits["wide_crowd_ms"]["ao"]}, {
         "name": "prime_tile", "route": "cuda",
         "source": "surfjax_torch/kernels/csrc/prime_tile.cu",
         "replaces": "surfjax/kernels/render_tile.py:634",
-        "launches": prime_launches, "max_abs_err": prime_err,
+        "launches": prime_launches,
+        "max_abs_err": max(prime_err, limits["err"].get("prime_tile", 0.0)),
         "ms": prime_stats["prime_tile_ms"],
         "plain_ms": prime_stats["plain_ms"],
         "bound_ms": prime_bound[0], "bound_by": prime_bound[1],
@@ -2568,7 +2857,8 @@ def main() -> int:
             "max_abs_err": max(split_err[name],
                                capped["err"].get(name, 0.0),
                                sharded["err"].get(name, 0.0),
-                               benched["err"][name]),
+                               benched["err"][name],
+                               limits["err"].get(name, 0.0)),
             "ms": st7["ms"],
             "plain_ms": st7["plain_ms"], "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None})
@@ -2597,7 +2887,8 @@ def main() -> int:
             "launches": crowd_split["launches"][name],
             "max_abs_err": max(split_err.get(name, 0.0),
                                capped["err"].get(name, 0.0),
-                               crowd_split["err"][name]),
+                               crowd_split["err"][name],
+                               limits["err"].get(name, 0.0)),
             "ms": f_["ms"], "plain_ms": f_["plain_ms"],
             "bound_ms": f_["bound_ms"], "bound_by": f_["bound_by"],
             "library_ms": None})

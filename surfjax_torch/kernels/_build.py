@@ -38,6 +38,16 @@ SOURCES = {"frame_fused.cu": NO_FMA, "kf_staged.cu": NO_FMA,
            "ao_fix_crowd.cu": NO_FMA,
            "mesh_tile.cu": NO_FMA, "prime_tile.cu": NO_FMA,
            "fp32_peak.cu": NO_FMA, "fp32_peak_fma.cu": ("-fmad=true",)}
+# the KF_WIDE builds of the kernels that take SDF and analytic objects
+# (csrc/frame_fused.cuh), for scenes past their per-thread arrays; their C
+# entries are WIDE_ENTRIES' names with _wide at the end
+WIDE_ENTRIES = ("kf_frame_fused", "ks_frame_fused", "ks_occupancy",
+                "sp_render_tile", "sp_trace_rays", "sp_ao_fix",
+                "sp_staged_render_tile", "sp_staged_trace_rays",
+                "sp_staged_ao_fix", "pt_prime_tile", "pt_occupancy")
+SOURCES.update({name.replace(".cu", "_wide.cu"): NO_FMA for name in (
+    "frame_fused.cu", "kf_staged.cu", "split_path.cu", "split_staged.cu",
+    "ao_fix_staged.cu", "ao_fix_crowd.cu", "prime_tile.cu")})
 
 
 def _source_files():
@@ -259,6 +269,11 @@ def load() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_int
     lib.kf_error_string.argtypes = [ctypes.c_int]
     lib.kf_error_string.restype = ctypes.c_char_p
+    # each entry's KF_WIDE build (csrc/*_wide.cu) takes the same arguments
+    for name in WIDE_ENTRIES:
+        wide = getattr(lib, name + "_wide")
+        wide.argtypes = getattr(lib, name).argtypes
+        wide.restype = ctypes.c_int
     return lib
 
 

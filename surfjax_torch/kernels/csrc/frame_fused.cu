@@ -23,11 +23,17 @@
 //     are not carried over: each per-lane gate is value-exact.
 //   * The scene is interpreted, not compiled in: the host packs each
 //     SceneIR into small int tables (objects, tape nodes, leaves, march
-//     orders) and the kernel walks each object's post-order CSG tape with a
-//     fixed per-thread value array (KF_MAX_NODES). One build serves every
-//     scene. The alternative, generating and compiling source per SceneIR
-//     as Pallas unrolls it at trace time, would trade a build per scene for
-//     straight-line code; it is left to later speed work.
+//     orders) and the kernel walks each object's CSG tape with a
+//     per-thread value array: one value per node up to KF_TAPE_NODES
+//     nodes, and past that value slots that the host's Sethi-Ullman
+//     allocation (render_tile.tape_rows) keeps within floor(log2(leaves))
+//     + 1 for a tape of any length. The default build serves the scenes
+//     within the per-thread arrays of frame_fused.cuh; the KF_WIDE units
+//     (*_wide.cu) serve the rest, of any object count, tape length or leaf
+//     count, chosen per scene by render_tile.wide_scene. The alternative,
+//     generating and compiling source per SceneIR as Pallas unrolls it at
+//     trace time, would trade a build per scene for straight-line code;
+//     it is left to later speed work.
 //   * Built with -fmad=false and without fast math: division and sqrtf are
 //     IEEE and no multiply-add is contracted, so each operation rounds as
 //     the PyTorch twin's does (render_tile.frame_fused_reference).

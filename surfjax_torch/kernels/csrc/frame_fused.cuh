@@ -9,11 +9,26 @@
 
 #include <cuda_runtime.h>
 
-// Fixed per-thread bounds; the Python wrapper raises above them.
-#define KF_MAX_NODES 32        // tape value array (MAX_TAPE_NODES)
-#define KF_MAX_LEAVES 16       // event-CSG intervals (MAX_ANALYTIC_LEAVES)
-#define KF_MAX_OBJECTS 64      // AO near-object bit mask (MAX_OBJECTS):
-                               // the objects outside the crowd
+// Per-thread arrays, and the scenes past them. A tape of up to
+// KF_TAPE_NODES nodes keeps surfjax's post-order rows, and eval_obj a
+// value per node; an analytic object of up to KF_EVENT_LEAVES leaves keeps
+// its leaves' intervals for the event CSG; AO's near-object mask holds up
+// to KF_AO_MASK_BITS objects outside the crowd. A scene past any of them
+// takes the KF_WIDE build of the same kernels (the *_wide.cu units, under
+// names ending in _wide; render_tile.wide_scene picks them): a longer tape
+// comes as slot rows (render_tile.tape_rows), whose Sethi-Ullman slots
+// stay within KF_TAPE_SLOTS for any length; a wider analytic object takes
+// the event CSG that computes each interval again where it is needed; AO
+// tests a later object's gate again (ao_core, ao_receiver). The other
+// builds compile none of that, so a scene within the arrays runs the code
+// it always ran.
+#ifndef KF_WIDE
+#define KF_WIDE 0
+#endif
+#define KF_TAPE_NODES 32       // render_tile.TAPE_NODES
+#define KF_TAPE_SLOTS 32       // render_tile.TAPE_SLOTS
+#define KF_EVENT_LEAVES 16     // render_tile.EVENT_LEAVES
+#define KF_AO_MASK_BITS 64     // render_tile.AO_MASK_BITS
 #define KF_MAX_AO_TAPS 36      // 9 AO directions x 4 taps
 
 // Row widths of the host-packed tables (render_tile.pack_scene).
@@ -31,7 +46,8 @@
 
 enum { LEAF_SPHERE = 0, LEAF_PLANE = 1, LEAF_BOX = 2, LEAF_MANDELBULB = 3 };
 enum { OP_LEAF = 0, OP_UNION = 1, OP_INTERSECT = 2, OP_SUBTRACT = 3,
-       OP_SMOOTH_UNION = 4, OP_SMOOTH_INTERSECT = 5, OP_SMOOTH_SUBTRACT = 6 };
+       OP_SMOOTH_UNION = 4, OP_SMOOTH_INTERSECT = 5, OP_SMOOTH_SUBTRACT = 6,
+       OP_MARGIN = 7 };   // a slot row that carries a bound margin only
 enum { ENGINE_ANALYTIC = 0, ENGINE_SDF = 1, ENGINE_MESH = 2 };
 enum { LIGHT_POINT = 0 };
 // Columns of an object row.
@@ -50,7 +66,9 @@ enum { CROWD_SDF = 0, CROWD_ANALYTIC = 1, CROWD_PAIR = 2 };
 // Device pointers, one struct by value (render_tile.KFTables).
 struct KFTables {
   const int* objects;       // (n_objects, KF_OBJ_W), meshes included
-  const int* nodes;         // (total nodes, KF_NODE_W): op, a, b, leaf, pslot
+  const int* nodes;         // (total rows, KF_NODE_W): op, a, b, leaf, pslot
+                            // in surfjax's post-order, or slot rows past
+                            // KF_TAPE_NODES nodes (render_tile.tape_rows)
   const int* leaves;        // (total leaves, KF_LEAF_W): kind slot sign p0 p1
   const int* order;         // of the objects outside the crowd: analytic,
                             // SDF by nodes, both by nodes
@@ -247,11 +265,66 @@ __device__ __forceinline__ float eval_leaf(const KFSettings& S, int kind,
   }
 }
 
-// The object's post-order CSG tape, interpreted per thread.
+#if KF_WIDE
+// One operation of a tape's node on its operands' values; pk: its smooth
+// k (eval_obj's arithmetic).
+__device__ __forceinline__ float csg_value(int op, float a, float b,
+                                           const float* pk) {
+  if (op == OP_UNION) return fminf(a, b);
+  if (op == OP_INTERSECT) return fmaxf(a, b);
+  if (op == OP_SUBTRACT) return fmaxf(a, -b);
+  const float k = *pk;
+  if (op == OP_SMOOTH_UNION) {
+    float h = sat(0.5f + 0.5f * (b - a) / k);
+    return (b + (a - b) * h) - k * h * (1.0f - h);
+  }
+  if (op == OP_SMOOTH_INTERSECT) {
+    float h = sat(0.5f - 0.5f * (b - a) / k);
+    return (b + (a - b) * h) + k * h * (1.0f - h);
+  }
+  float h = sat(0.5f - 0.5f * (b + a) / k);
+  return (a + (-b - a) * h) + k * h * (1.0f - h);
+}
+
+// A tape of slot rows (render_tile.tape_rows): a leaf (OP_LEAF, dst, -1,
+// leaf, -1), an operation (op, a, b, dst, -2 - pslot, or -1 without a k),
+// with a, b and dst value slots in vals; then the OP_MARGIN rows that
+// carry its smooth ops' pslots for object_bound. Each node takes
+// eval_obj's operation on the same operands; the root's value ends in
+// slot 0.
+__device__ __forceinline__ float eval_slots(const KFTables& T,
+                                            const KFSettings& S,
+                                            const int* ob, V3 p, int cap,
+                                            float* vals) {
+  const int n0 = ob[O_NODE0], nn = ob[O_NNODES], l0 = ob[O_LEAF0];
+  for (int k = 0; k < nn; ++k) {
+    const int* nd = T.nodes + (n0 + k) * KF_NODE_W;
+    const int op = nd[0];
+    if (op == OP_MARGIN) break;
+    if (op == OP_LEAF) {
+      const int* lf = T.leaves + (l0 + nd[3]) * KF_LEAF_W;
+      vals[nd[1]] = eval_leaf(S, lf[0],
+                              T.leaf_params + lf[1] * KF_LEAF_PARAM_W, p,
+                              lf[4], cap);
+    } else {
+      vals[nd[3]] = csg_value(op, vals[nd[1]], vals[nd[2]],
+                              T.node_params + (-2 - nd[4]));
+    }
+  }
+  return vals[0];
+}
+#endif
+
+// The object's post-order CSG tape, interpreted per thread (in a KF_WIDE
+// build a tape of slot rows by eval_slots, in the same array).
 static __device__ __noinline__ float eval_obj(const KFTables& T, const KFSettings& S,
                                        const int* ob, V3 p, int cap) {
-  float vals[KF_MAX_NODES];
+  float vals[KF_TAPE_NODES];
   const int n0 = ob[O_NODE0], nn = ob[O_NNODES], l0 = ob[O_LEAF0];
+#if KF_WIDE
+  static_assert(KF_TAPE_SLOTS <= KF_TAPE_NODES, "slots share eval_obj's array");
+  if (nn > KF_TAPE_NODES) return eval_slots(T, S, ob, p, cap, vals);
+#endif
   for (int k = 0; k < nn; ++k) {
     const int* nd = T.nodes + (n0 + k) * KF_NODE_W;
     const int op = nd[0];
@@ -364,13 +437,85 @@ __device__ __forceinline__ bool eval_tree(const KFTables& T, const int* ob,
   return (v >> (nn - 1)) & 1u;
 }
 
+#if KF_WIDE
+// eval_tree over slot rows (eval_slots' layout; an analytic tape has no
+// OP_MARGIN row); inside(leaf) is a leaf's inside bit, and each slot's bit
+// stands in for its value.
+template <class In>
+__device__ __forceinline__ bool eval_tree_slots(const KFTables& T,
+                                                const int* ob, In inside) {
+  unsigned v = 0u;
+  const int n0 = ob[O_NODE0], nn = ob[O_NNODES];
+  for (int k = 0; k < nn; ++k) {
+    const int* nd = T.nodes + (n0 + k) * KF_NODE_W;
+    unsigned r;
+    int dst;
+    if (nd[0] == OP_LEAF) {
+      r = inside(nd[3]);
+      dst = nd[1];
+    } else {
+      unsigned a = (v >> nd[1]) & 1u, b = (v >> nd[2]) & 1u;
+      r = nd[0] == OP_UNION ? (a | b)
+          : nd[0] == OP_INTERSECT ? (a & b) : (a & (b ^ 1u));
+      dst = nd[3];
+    }
+    v = (v & ~(1u << dst)) | (r << dst);
+  }
+  return v & 1u;
+}
+
+// intersect_analytic for an object of more than KF_EVENT_LEAVES leaves:
+// the same events in the same order, each leaf's interval computed again
+// (by the same leaf_interval) wherever an event's inside bits need it.
+__device__ __forceinline__ float intersect_wide(const KFTables& T,
+                                                const int* ob, V3 o, V3 d,
+                                                float t_min, float t_max,
+                                                int& leaf_out) {
+  const int nl = ob[O_NLEAVES], l0 = ob[O_LEAF0];
+  auto interval = [&](int li, float& t0, float& t1) {
+    const int* lf = T.leaves + (l0 + li) * KF_LEAF_W;
+    leaf_interval(lf[0], T.leaf_params + lf[1] * KF_LEAF_PARAM_W, o, d, t0,
+                  t1);
+  };
+  leaf_out = 0;
+  float t_best = KF_BIG;
+  for (int li = 0; li < nl; ++li) {
+    float e0, e1;
+    interval(li, e0, e1);
+    for (int ep = 0; ep < 2; ++ep) {
+      const float t_e = ep ? e1 : e0;
+      // leaf lj's inside bit just before (after false) or after the event
+      auto inside = [&](bool after) {
+        return [&, after](int lj) -> unsigned {
+          if (lj == li) return (ep == 1) != after;
+          float j0, j1;
+          interval(lj, j0, j1);
+          return (j0 < t_e) && (t_e < j1);
+        };
+      };
+      bool flip = eval_tree_slots(T, ob, inside(false)) !=
+                  eval_tree_slots(T, ob, inside(true));
+      if (flip && t_e > t_min && t_e < t_max && t_e < t_best) {
+        t_best = t_e;
+        leaf_out = li;
+      }
+    }
+  }
+  return t_best;
+}
+#endif
+
 // Nearest hit of one analytic object in (t_min, t_max) -> t (BIG on miss).
 static __device__ __noinline__ float intersect_analytic(const KFTables& T,
                                                  const int* ob, V3 o, V3 d,
                                                  float t_min, float t_max,
                                                  int& leaf_out) {
   const int nl = ob[O_NLEAVES], l0 = ob[O_LEAF0];
-  float i0[KF_MAX_LEAVES], i1[KF_MAX_LEAVES];
+#if KF_WIDE
+  if (nl > KF_EVENT_LEAVES)
+    return intersect_wide(T, ob, o, d, t_min, t_max, leaf_out);
+#endif
+  float i0[KF_EVENT_LEAVES], i1[KF_EVENT_LEAVES];
   for (int li = 0; li < nl; ++li) {
     const int* lf = T.leaves + (l0 + li) * KF_LEAF_W;
     leaf_interval(lf[0], T.leaf_params + lf[1] * KF_LEAF_PARAM_W, o, d,
@@ -463,6 +608,8 @@ static __device__ __noinline__ Bound object_bound(const KFTables& T, const int* 
     float rr = sqrtf((dx * dx + dy * dy) + dz * dz) + br;
     R = li == 0 ? rr : fmaxf(R, rr);
   }
+  // in surfjax's post-order: slot rows carry the pslots on their
+  // OP_MARGIN rows, their operations' own as -2 - pslot
   float k_margin = 0.0f;
   const int n0 = ob[O_NODE0], nn = ob[O_NNODES];
   for (int k = 0; k < nn; ++k) {
@@ -1292,16 +1439,26 @@ __device__ __forceinline__ V3 hit_normal(const KFTables& T,
   return V3{n.x * sgn, n.y * sgn, n.z * sgn};
 }
 
+// AO's gate: whether the receiver q0 lies within `gate` of a bound (the
+// operations of ao_core's and ao_receiver's mask loops).
+__device__ __forceinline__ bool ao_near(Bound b, V3 q0, float gate) {
+  float dx = q0.x - b.cx, dy = q0.y - b.cy, dz = q0.z - b.cz;
+  float hb = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
+  return hb <= gate;
+}
+
 // AO factor at the offset receiver q0 with normal n, over the non-mesh
 // objects. Per tap the occlusion of the unboundable objects (one
 // scene-min group), of every other bounded object and of every crowd member
 // within 2*ao_radius combine by max; a farther one contributes exactly
-// zero and is skipped. The objects outside the crowd are at most
-// KF_MAX_OBJECTS (one bit each); crowd members are not counted: with a
-// crowd the tap terms are kept per thread and each near member is folded
-// into them in turn (max is exact in any order). CULL: the member loop is
-// culled against w.seg, the warp's ball of receivers; every lane of the
-// warp calls it, w.active false for a lane without a hit.
+// zero and is skipped. The objects outside the crowd take one bit each, up
+// to KF_AO_MASK_BITS; a KF_WIDE build keeps the tap terms, tests a later
+// object's gate once after the taps (the same operations on the same
+// operands, so the same objects are folded in) and folds a near one's taps
+// into them. With a crowd the tap terms are kept per thread and each near
+// member is folded into them in turn (max is exact in any order). CULL: the
+// member loop is culled against w.seg, the warp's ball of receivers; every
+// lane of the warp calls it, w.active false for a lane without a hit.
 // AO's unbounded group as the split path's crowd K1 takes it: decoded once
 // per lane (Floor, the caller's hoist), and when it is one object whose
 // tape is one leaf (a floor) evaluated as that leaf inline: eval_obj's
@@ -1336,6 +1493,9 @@ __device__ __forceinline__ float ao_core(const KFTables& T,
       any_unbounded = true;
       continue;
     }
+#if KF_WIDE
+    if (k >= KF_AO_MASK_BITS) continue;   // gated once more after the taps
+#endif
     Bound b = object_bound(T, ob, 1, 0.0f);
     float dx = q0.x - b.cx, dy = q0.y - b.cy, dz = q0.z - b.cz;
     float hb = sqrtf((dx * dx + dy * dy) + dz * dz) - b.R;
@@ -1347,7 +1507,8 @@ __device__ __forceinline__ float ao_core(const KFTables& T,
   V3 t2{n.y * t1.z - n.z * t1.y, n.z * t1.x - n.x * t1.z,
         n.x * t1.y - n.y * t1.x};
   const int cap = S.ao_lod;
-  float terms[CROWD ? KF_MAX_AO_TAPS : 1];
+  constexpr bool TERMS = CROWD || KF_WIDE;   // per-tap terms kept
+  float terms[TERMS ? KF_MAX_AO_TAPS : 1];
   float occ = 0.0f;
   for (int s = 0; s < S.ao_samples; ++s) {
     const float ax = AO_DIRS[s][0], ay = AO_DIRS[s][1], az = AO_DIRS[s][2];
@@ -1381,18 +1542,46 @@ __device__ __forceinline__ float ao_core(const KFTables& T,
         }
         term = fmaxf(azr - hmin, 0.0f) / r;
       }
+#if KF_WIDE
+      for (int k = 0; k < n_rest && k < KF_AO_MASK_BITS; ++k) {
+#else
       for (int k = 0; k < n_rest; ++k) {
+#endif
         if (!((near >> k) & 1ull)) continue;
         float h = eval_obj(T, S, object_row(T, rest[k]), q, cap);
         term = fmaxf(term, fmaxf(azr - h, 0.0f) / r);
       }
-      if constexpr (CROWD) {
+      if constexpr (TERMS) {
         terms[s * 4 + tap - 1] = term;
       } else {
         occ = (s == 0 && tap == 1) ? term : occ + term;
       }
     }
   }
+#if KF_WIDE
+  // past the mask: each object's gate once more (the mask loop's
+  // operations), then its taps, folded into the tap terms as a crowd
+  // member is (the same q, r and azr; max is exact in any order)
+  for (int k = KF_AO_MASK_BITS; k < n_rest; ++k) {
+    const int* ob = object_row(T, rest[k]);
+    if (!ob[O_BOUNDABLE] ||
+        !ao_near(object_bound(T, ob, 1, 0.0f), q0, gate))
+      continue;
+    for (int s = 0; s < S.ao_samples; ++s) {
+      const float ax = AO_DIRS[s][0], ay = AO_DIRS[s][1], az = AO_DIRS[s][2];
+      V3 dd{(ax * t1.x + ay * t2.x) + az * n.x,
+            (ax * t1.y + ay * t2.y) + az * n.y,
+            (ax * t1.z + ay * t2.z) + az * n.z};
+      for (int tap = 1; tap <= 4; ++tap) {
+        const float r = (S.ao_radius * (float)tap) * 0.25f;
+        V3 q{q0.x + dd.x * r, q0.y + dd.y * r, q0.z + dd.z * r};
+        float h = eval_obj(T, S, ob, q, cap);
+        float& term = terms[s * 4 + tap - 1];
+        term = fmaxf(term, fmaxf(az * r - h, 0.0f) / r);
+      }
+    }
+  }
+#endif
   if constexpr (CULL) {
     cull_members(T, 0, S.n_crowd, w.seg, gate, CULL_LIN,
                  [&] { return w.active; }, [&](int j, Bound b) {
@@ -1437,7 +1626,7 @@ __device__ __forceinline__ float ao_core(const KFTables& T,
       }
     }
   }
-  if constexpr (CROWD) {
+  if constexpr (TERMS) {
     for (int i = 0; i < S.ao_samples * 4; ++i)
       occ = i == 0 ? terms[0] : occ + terms[i];
   }

@@ -396,7 +396,10 @@ __device__ __forceinline__ void trace_pixel(const Blk& B,
 }
 
 // AO of one receiver, all taps and objects on its lane (ao_core<false>'s
-// order).
+// order; in a KF_WIDE build, as in ao_core's, the tap terms are kept, an
+// object past the mask's KF_AO_MASK_BITS has its gate tested once after
+// the taps, on its lower bound staged in shared memory, and a near one's
+// taps are folded into the terms).
 template <bool PROF, class Blk>
 __device__ __forceinline__ float ao_receiver(const Blk& B,
                                              const KFSettings& S, bool act,
@@ -406,7 +409,11 @@ __device__ __forceinline__ float ao_receiver(const Blk& B,
   const int* rest = T.order + n_rest;
   const float gate = 2.0f * S.ao_radius;
   unsigned long long near = 0ull;
+#if KF_WIDE
+  for (int k = 0; k < n_rest && k < KF_AO_MASK_BITS && act; ++k) {
+#else
   for (int k = 0; k < n_rest && act; ++k) {
+#endif
     const int* ob = object_row(T, rest[k]);
     if (!ob[O_BOUNDABLE]) continue;
     Bound b = B.lower(rest[k]);
@@ -418,12 +425,19 @@ __device__ __forceinline__ float ao_receiver(const Blk& B,
   ao_frame(n, t1, t2);
   P.mark(PH_AO_SETUP);
   float occ = 0.0f;
+#if KF_WIDE
+  float terms[KF_MAX_AO_TAPS];
+#endif
   for (int tp = 0; tp < S.ao_samples * 4; ++tp) {
     float r, azr;
     const V3 q = ao_tap(S, q0, n, t1, t2, tp, r, azr);
     float term = act ? ao_unbounded(B, S, q, r, azr, P) : 0.0f;
     P.mark(PH_AO_UNB);
+#if KF_WIDE
+    for (int k = 0; k < n_rest && k < KF_AO_MASK_BITS; ++k) {
+#else
     for (int k = 0; k < n_rest; ++k) {
+#endif
       if ((near >> k) & 1ull) {
         float h = B.eval(S, object_row(T, rest[k]), q, S.ao_lod);
         P.trip(PH_AO_OBJ + kp_obj(rest[k]));
@@ -432,8 +446,32 @@ __device__ __forceinline__ float ao_receiver(const Blk& B,
       if (!object_row(T, rest[k])[O_BOUNDABLE]) continue;
       P.mark(PH_AO_OBJ + kp_obj(rest[k]));
     }
+#if KF_WIDE
+    terms[tp] = term;
+#else
     occ = tp == 0 ? term : occ + term;
+#endif
   }
+#if KF_WIDE
+  // past the mask: each object's gate once (the mask loop's operations),
+  // then its taps (the same q, r and azr; max is exact in any order)
+  for (int k = KF_AO_MASK_BITS; k < n_rest; ++k) {
+    const int* ob = object_row(T, rest[k]);
+    if (!ob[O_BOUNDABLE]) continue;
+    if (act && ao_near(B.lower(rest[k]), q0, gate)) {
+      for (int tp = 0; tp < S.ao_samples * 4; ++tp) {
+        float r, azr;
+        const V3 q = ao_tap(S, q0, n, t1, t2, tp, r, azr);
+        float h = B.eval(S, ob, q, S.ao_lod);
+        P.trip(PH_AO_OBJ + kp_obj(rest[k]));
+        terms[tp] = fmaxf(terms[tp], fmaxf(azr - h, 0.0f) / r);
+      }
+    }
+    P.mark(PH_AO_OBJ + kp_obj(rest[k]));
+  }
+  for (int tp = 0; tp < S.ao_samples * 4; ++tp)
+    occ = tp == 0 ? terms[0] : occ + terms[tp];
+#endif
   occ = occ / (float)(S.ao_samples * 4);
   return sat(1.0f - S.ao_strength * occ);
 }

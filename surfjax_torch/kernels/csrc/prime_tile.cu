@@ -120,13 +120,17 @@ __device__ __forceinline__ float eval_leaf_inline(const KFSettings& S,
   }
 }
 
-// eval_obj's body inline (frame_fused.cuh): the same operations
+// eval_obj's body inline (frame_fused.cuh): the same operations (in a
+// KF_WIDE build a tape of slot rows by eval_slots)
 __device__ __forceinline__ float eval_obj_inline(const KFTables& T,
                                                  const KFSettings& S,
                                                  const int* ob, V3 p,
                                                  int cap) {
-  float vals[KF_MAX_NODES];
+  float vals[KF_TAPE_NODES];
   const int n0 = ob[O_NODE0], nn = ob[O_NNODES], l0 = ob[O_LEAF0];
+#if KF_WIDE
+  if (nn > KF_TAPE_NODES) return eval_slots(T, S, ob, p, cap, vals);
+#endif
   for (int k = 0; k < nn; ++k) {
     const int* nd = T.nodes + (n0 + k) * KF_NODE_W;
     const int op = nd[0];

@@ -1,0 +1,11 @@
+// split_staged.cu's kernels, K1 and K2 without a crowd, in their KF_WIDE build
+// (frame_fused.cuh): for scenes past the per-thread arrays (tapes of
+// more than 32 nodes, analytic objects of more than 16 leaves, more than
+// 64 objects outside the crowd), which render_tile.wide_scene sends here.
+// Every kernel and C entry takes its name with _wide at the end.
+#define KF_WIDE 1
+#define sp_staged_render_tile_kernel sp_staged_render_tile_kernel_wide
+#define sp_staged_trace_rays_kernel sp_staged_trace_rays_kernel_wide
+#define sp_staged_render_tile sp_staged_render_tile_wide
+#define sp_staged_trace_rays sp_staged_trace_rays_wide
+#include "split_staged.cu"

@@ -84,10 +84,19 @@ BULB_BOUND_COVER = 1.3
 BULB_BOUND_LOWER = 1.39
 _PROXY_SWITCH = 0.08   # default entry-shell inflation of a bound sphere
 
-# Fixed per-thread bounds of the CUDA kernel (csrc/frame_fused.cuh).
-MAX_TAPE_NODES = 32    # value array of the tape walker
-MAX_ANALYTIC_LEAVES = 16   # interval arrays of the event CSG
-MAX_OBJECTS = 64       # AO near-object bit mask
+# The kernels' per-thread arrays (csrc/frame_fused.cuh): a value per node of
+# a tape of up to TAPE_NODES nodes, the intervals of an analytic object of
+# up to EVENT_LEAVES leaves, AO's mask of up to AO_MASK_BITS objects outside
+# the crowd. A scene past any of them takes the kernels' KF_WIDE build
+# (wide_scene): slot rows for a longer tape, TAPE_SLOTS value slots of
+# which tape_rows' allocation needs at most floor(log2(leaves)) + 1.
+TAPE_NODES = 32
+TAPE_SLOTS = 32
+EVENT_LEAVES = 16
+AO_MASK_BITS = 64
+# Shared memory a block may opt into on the H100 (232,448 bytes): the
+# staged kernels' capacity where no card is at hand (smem_capacity).
+SMEM_OPTIN_H100 = 232448
 LANES = 128            # lanes of a padded split-path ray row, as in surfjax
 
 
@@ -2101,10 +2110,15 @@ def split_warp_masks(scene_t, settings: RenderSettings, o, d, t0=None,
     return SplitMasks(k1, tuple(k2), fix)
 
 
-def check_scene(static, settings: RenderSettings, meshes: bool = False
-                ) -> None:
+def check_scene(static, settings: RenderSettings, meshes: bool = False,
+                dev=None) -> None:
     """Raise on anything the kernels and their plain versions do not take;
-    meshes=False for the fused path, which takes no mesh objects."""
+    meshes=False for the fused path, which takes no mesh objects. The one
+    size a scene can outgrow is the staged kernels' shared memory (scenes
+    without a crowd: KF, K2 and the priming kernel stage the whole scene
+    per block): staged_layout's bytes (with the fused kernel's pixel
+    records where meshes is False) against the opt-in limit of `dev`
+    (smem_capacity)."""
     if settings.march_cap < 0 or settings.shadow_march_cap < 0:
         raise ValueError(
             f"march caps must be >= 0; got march_cap={settings.march_cap}, "
@@ -2125,37 +2139,44 @@ def check_scene(static, settings: RenderSettings, meshes: bool = False
     if meshes and (settings.tile_rows <= 0 or settings.tile_rows % 8):
         raise ValueError(f"tile_rows must be a positive multiple of 8; got "
                          f"{settings.tile_rows}")
-    _, rest_ana, rest_sdf = split_crowd(static, settings)
-    if len(rest_ana) + len(rest_sdf) > MAX_OBJECTS:
-        raise ValueError(
-            f"scene has {len(rest_ana) + len(rest_sdf)} non-mesh objects "
-            f"outside the crowd; the kernels take at most {MAX_OBJECTS} "
-            "(crowd members, see vector_objects, are not counted)")
     for oir in static.ir.objects:
         if oir.engine == ENGINE_MESH:
             if not meshes:
                 raise ValueError("the fused path takes no mesh objects; "
                                  "mesh scenes take the split path")
             continue
-        if len(oir.nodes) > MAX_TAPE_NODES:
-            raise ValueError(
-                f"object tape has {len(oir.nodes)} nodes; the kernels take "
-                f"at most {MAX_TAPE_NODES}")
-        if len(oir.leaves) > MAX_ANALYTIC_LEAVES and \
-                oir.engine == ENGINE_ANALYTIC:
-            raise ValueError(
-                f"analytic object has {len(oir.leaves)} leaves; the "
-                f"kernels take at most {MAX_ANALYTIC_LEAVES}")
         for lf in oir.leaves:
             if lf.kind == LEAF_MANDELBULB and lf.p0 != 8:
                 raise NotImplementedError(POWER8_ONLY_MSG)
+    tables, counts = _packed(static, bool(settings.vector_objects))
+    if counts[2] == 0:
+        lay = staged_layout(*_table_sizes(tables), records=not meshes)
+        cap = smem_capacity(dev)
+        if lay.bytes > cap:
+            card = "this card" if dev is not None and \
+                torch.device(dev).type == "cuda" else "the H100"
+            raise ValueError(
+                f"the staged scene takes {lay.bytes} bytes of shared memory "
+                f"per block, past the {cap} a block may opt into on {card}; "
+                "vector_objects=True takes its single spheres and boxes and "
+                "two-leaf pairs out of the staged tables")
+
+
+def smem_capacity(dev=None) -> int:
+    """Shared memory one block may opt into on `dev` (a CUDA device), else
+    on the H100 the kernels are built for (SMEM_OPTIN_H100)."""
+    if dev is not None and torch.device(dev).type == "cuda":
+        return torch.cuda.get_device_properties(
+            dev).shared_memory_per_block_optin
+    return SMEM_OPTIN_H100
 
 
 # --- the CUDA route ---------------------------------------------------------
 
 # Row widths of the int tables the kernels read (see frame_fused.cuh).
 OBJ_W = 12
-NODE_W = 5
+NODE_W = 5      # op, a, b, leaf, pslot (tape_rows)
+OP_MARGIN = 7   # a slot row that carries a smooth op's bound margin only
 LEAF_W = 5
 CROWD_W = 8     # crowd_meta's six columns, then the member's type and tag
 # member types of a crowd row, and the tag: is_sphere for a single,
@@ -2203,6 +2224,63 @@ def _crowd_rows(crowd, meta) -> np.ndarray:
     return rows
 
 
+def tape_rows(tape) -> list:
+    """An object's post-order CSG tape -> its rows for the kernels' tape
+    walkers (csrc/frame_fused.cuh eval_obj, eval_tree, object_bound).
+
+    A tape of up to TAPE_NODES nodes keeps surfjax's rows, (op, a, b,
+    leaf, pslot) in post-order with a and b node indices, and the walker
+    keeps a value per node. A longer one (and so every analytic object of
+    more than 16 leaves) comes as slot rows, in the order the walker
+    evaluates them: a leaf (OP_LEAF, dst, -1, leaf, -1), an operation
+    (op, a, b, dst, -2 - pslot, or -1 without a smooth k), a, b and dst
+    value slots; then one (OP_MARGIN, -1, -1, -1, pslot) row per smooth op,
+    in the post-order, so that object_bound, which adds the k of every
+    row with a pslot >= 0 in row order, sums the bound's margin as
+    surfjax does.
+
+    The slots come from Sethi-Ullman allocation: a node's subtree takes
+    slots from its own slot up, the child that needs more slots goes first
+    (into that slot) and the other into the next, so a slot is free once
+    its value is consumed and the root's value ends in slot 0. At most
+    floor(log2(leaves)) + 1 slots are live, whatever the tree's shape
+    (surfjax's left-first post-order keeps a right-deep chain's every
+    leaf). Only the order of independent subtrees changes: each node takes
+    the same operation on the same operands, a as a and b as b, so its
+    value is bitwise the same. A mesh object's empty tape gives no rows."""
+    if len(tape) <= TAPE_NODES:
+        return [list(nd) for nd in tape]
+    need = []
+    for nd in tape:
+        if nd.op == OP_LEAF:
+            need.append(1)
+        else:
+            na, nb = need[nd.a], need[nd.b]
+            need.append(na + 1 if na == nb else max(na, nb))
+    if need[-1] > TAPE_SLOTS:
+        raise ValueError(f"object tape needs {need[-1]} value slots; the "
+                         f"kernels hold {TAPE_SLOTS}")
+    rows = []
+    stack = [(len(tape) - 1, 0, False)]   # (node, slot, children done)
+    while stack:
+        k, slot, done = stack.pop()
+        nd = tape[k]
+        if nd.op == OP_LEAF:
+            rows.append([OP_LEAF, slot, -1, nd.leaf, -1])
+            continue
+        b_first = need[nd.b] > need[nd.a]
+        if done:
+            sa, sb = (slot + 1, slot) if b_first else (slot, slot + 1)
+            rows.append([nd.op, sa, sb, slot,
+                         -2 - nd.pslot if nd.pslot >= 0 else -1])
+            continue
+        first, second = (nd.b, nd.a) if b_first else (nd.a, nd.b)
+        stack += [(k, slot, True), (second, slot + 1, False),
+                  (first, slot, False)]
+    return rows + [[OP_MARGIN, -1, -1, -1, nd.pslot] for nd in tape
+                   if nd.pslot >= 0]
+
+
 def pack_scene(static, settings: RenderSettings = RenderSettings()):
     """Host-side statics of a scene -> int32 numpy tables for the kernels:
     objects (n, OBJ_W), nodes (total, NODE_W), leaves (total, LEAF_W),
@@ -2219,12 +2297,13 @@ def pack_scene(static, settings: RenderSettings = RenderSettings()):
     for i, oir in enumerate(static.ir.objects):
         cf = _single_leaf_closed_form(oir)
         boundable = not any(lf.kind == LEAF_PLANE for lf in oir.leaves)
+        rows = tape_rows(oir.nodes)
         objects.append([oir.engine, oir.mat, oir.shininess, len(nodes),
-                        len(oir.nodes), len(leaves), len(oir.leaves),
+                        len(rows), len(leaves), len(oir.leaves),
                         int(boundable), -1 if cf is None else cf,
                         int(_bulb_shell_static(oir)), member_row.get(i, -1),
                         int(_proxy_bounded(oir))])
-        nodes.extend(list(nd) for nd in oir.nodes)
+        nodes.extend(rows)
         leaves.extend(list(lf) for lf in oir.leaves)
     by_nodes = lambda io: len(io[1].nodes)  # noqa: E731
     order = ([i for i, _ in analytic]
@@ -2311,6 +2390,42 @@ def launches_crowd(static, settings: RenderSettings) -> bool:
     split_launcher's choice, the wrappers' two counts and chip_smoke.py's
     kernels line."""
     return _packed(static, bool(settings.vector_objects))[1][2] > 0
+
+
+@functools.lru_cache(maxsize=16)
+def wide_scene(static, vector_objects: bool) -> bool:
+    """Whether a scene is past the kernels' per-thread arrays: more than
+    AO_MASK_BITS non-mesh objects outside the crowd, a tape of more than
+    TAPE_NODES nodes or an analytic object of more than EVENT_LEAVES
+    leaves. Such a scene takes the kernels' KF_WIDE build (kernel_lib)."""
+    _, ana, sdf = split_crowd(static,
+                              RenderSettings(vector_objects=vector_objects))
+    return len(ana) + len(sdf) > AO_MASK_BITS or any(
+        len(oir.nodes) > TAPE_NODES or (oir.engine == ENGINE_ANALYTIC and
+                                        len(oir.leaves) > EVENT_LEAVES)
+        for oir in static.ir.objects if oir.engine != ENGINE_MESH)
+
+
+class _WideLib:
+    """The kernels' library with each of _build.WIDE_ENTRIES bound to its
+    KF_WIDE build (the entry's name with _wide at the end)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        from surfjax_torch.kernels import _build
+        return getattr(self._lib, name + "_wide"
+                       if name in _build.WIDE_ENTRIES else name)
+
+
+def kernel_lib(static, settings: RenderSettings):
+    """The library whose entries a launch on this scene calls: the default
+    build, or for a wide_scene the KF_WIDE build."""
+    from surfjax_torch.kernels import _build
+    lib = _build.load()
+    return _WideLib(lib) if wide_scene(
+        static, bool(settings.vector_objects)) else lib
 
 
 def _scene_tables(scene_t, settings: RenderSettings, dev):
@@ -2407,6 +2522,15 @@ def _scene_layout(tables, records: bool = True) -> KSLayout:
                          node_params.numel(), records)
 
 
+def _table_sizes(tables) -> tuple:
+    """staged_layout's table sizes from pack_scene's int tables alone: the
+    parameter tables have a row per leaf and per smooth op, at least one
+    (scene_compile's freeze)."""
+    objects, nodes, leaves, order = tables[:4]
+    return (objects.shape[0], nodes.shape[0], leaves.shape[0], order.size,
+            leaves.shape[0], max(1, int((nodes[:, 4] >= 0).sum())))
+
+
 def _kernel_args(scene_t, settings: RenderSettings, intr, cam_rows, t0):
     """The launch's arguments -> (KFTables, KFSettings, the scene's tables,
     its counts, the output tensor (9, F, H, W))."""
@@ -2427,11 +2551,10 @@ def _kernel_args(scene_t, settings: RenderSettings, intr, cam_rows, t0):
 
 
 def _launch_kernel(scene_t, settings: RenderSettings, intr, cam_rows, t0):
-    from surfjax_torch.kernels import _build
     dev = cam_rows.device
     tab, ks, tables, counts, out = _kernel_args(scene_t, settings, intr,
                                                 cam_rows, t0)
-    lib = _build.load()
+    lib = kernel_lib(scene_t.static, settings)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if counts[2] > 0:   # a crowd: kf_frame_kernel<true>
@@ -2457,7 +2580,6 @@ def _fused_launcher(scene_t, settings: RenderSettings, intr, cam_rows, t0,
     profiling, not a render path), into out (9, F, H, W); with profile,
     prof is int64 (tiles * 4 warps, len(KP_PHASE_NAMES), 3), zeroed at
     every launch, else None. Raises on a crowd."""
-    from surfjax_torch.kernels import _build
     dev = cam_rows.device
     tab, ks, tables, counts, out = _kernel_args(scene_t, settings, intr,
                                                 cam_rows.contiguous(), t0)
@@ -2467,7 +2589,7 @@ def _fused_launcher(scene_t, settings: RenderSettings, intr, cam_rows, t0,
     tiles = (-(-intr.width // 16) * -(-intr.height // 8) * cam_rows.shape[0])
     prof = torch.zeros((tiles * (KS_THREADS // 32), len(KP_PHASE_NAMES), 3),
                        dtype=torch.int64, device=dev) if profile else None
-    lib = _build.load()
+    lib = kernel_lib(scene_t.static, settings)
 
     def launch():
         if prof is not None:
@@ -2503,6 +2625,10 @@ def frame_profile_launcher(scene_t, settings: RenderSettings, intr,
     """The profile of kf_frame_kernel<false>, the per-pixel kernel the
     staged kernel replaced (csrc/kf_frame_prof.cu; see _fused_launcher):
     its phases are KF_PROF_NAMES, the first of prof's, cycles only."""
+    if wide_scene(scene_t.static, bool(settings.vector_objects)):
+        raise ValueError("the replaced per-pixel kernel has no KF_WIDE "
+                         "build: it takes scenes within the kernels' arrays")
+
     def call(lib, tab, ks, layout, prof, stream):
         return lib.kf_frame_profile(tab, ks, prof, cam_rows.device.index,
                                     stream)
@@ -2513,11 +2639,11 @@ def frame_profile_launcher(scene_t, settings: RenderSettings, intr,
 def staged_occupancy(scene_t, settings: RenderSettings, dev) -> dict:
     """The production staged kernel's shared memory per block and resident
     blocks per SM on the card, for this scene."""
-    from surfjax_torch.kernels import _build
     tables, _ = _scene_tables(scene_t, settings, dev)
     layout = _scene_layout(tables)
     blocks = ctypes.c_int(0)
-    _raise_on(_build.load().ks_occupancy(layout, ctypes.byref(blocks)),
+    _raise_on(kernel_lib(scene_t.static, settings).ks_occupancy(
+        layout, ctypes.byref(blocks)),
               "ks_occupancy")
     return {"bytes": layout.bytes, "blocks_per_sm": blocks.value}
 
@@ -2531,7 +2657,7 @@ def frame_fused(scene_t, settings: RenderSettings, intr, cam_rows, t0=None):
     `frame_fused.launches`); CPU tensors run the plain twin. Anything the
     kernel does not take raises."""
     static, params = scene_t
-    check_scene(static, settings)
+    check_scene(static, settings, dev=cam_rows.device)
     if settings.march_cap or settings.shadow_march_cap:
         raise NotImplementedError(
             "frame_fused takes no march_cap / shadow_march_cap (surfjax's KF "
@@ -2592,8 +2718,7 @@ def _maybe_warn_crowd(static, settings: RenderSettings) -> None:
         warnings.warn(
             f"scene has {len(probe.members)} crowd-eligible objects; "
             "consider RenderSettings(vector_objects=True): member loops "
-            f"with bitwise-equal geometry, and no limit of {MAX_OBJECTS} "
-            "objects", RuntimeWarning)
+            "with bitwise-equal geometry", RuntimeWarning)
 
 
 def render_sequence_pallas(static, intr, settings: RenderSettings, params,
@@ -2669,7 +2794,8 @@ def render_frame_pallas(static, intr, settings: RenderSettings, params,
     them small)."""
     fused = fused_frame_ok(static, settings)
     _maybe_warn_crowd(static, settings)
-    check_scene(static, settings, meshes=not fused)
+    check_scene(static, settings, meshes=not fused,
+                dev=params["leaf_params"].device)
     t0 = prime_frame(static, intr, settings, params, R_flat, cam_pos)
     if fused:
         cam_rows = torch.cat([R_flat.reshape(9), cam_pos.reshape(3)]
@@ -2930,17 +3056,17 @@ def split_launcher(entry: str, scene_t, settings: RenderSettings, args,
     and raises if the launch was refused. The cap, outs and redo: see
     _split_args. The wrappers launch once; chip_smoke.py times repeated
     launches."""
-    from surfjax_torch.kernels import _build
     prepared = _split_args(STAGED[entry], scene_t, settings, args, n_out,
                            outs, redo)
     tab, ks, rays, keep, _, out = prepared
+    lib = kernel_lib(scene_t.static, settings)
     if not launches_crowd(scene_t.static, settings):
         # K1, K2 and ao_fix without a crowd
-        return _staged_launcher(STAGED[entry], prepared, False)[:2]
+        return _staged_launcher(STAGED[entry], prepared, False, lib)[:2]
     if entry == "sp_ao_fix":
-        return _crowd_ao_fix_launcher(prepared, False)[:2]
+        return _crowd_ao_fix_launcher(prepared, False, lib)[:2]
     dev = keep[0][0].device
-    fn = getattr(_build.load(), entry)
+    fn = getattr(lib, entry)
     launch = _split_enqueue(
         dev, lambda stream: fn(tab, ks, rays, dev.index, stream), entry,
         keep)
@@ -2968,12 +3094,12 @@ def staged_split_launcher(entry: str, scene_t, settings: RenderSettings,
     are zeroed once here; the last block of each launch resets them."""
     return _staged_launcher(entry, _split_args(entry, scene_t, settings, args,
                                                N_OUT[entry], outs, redo),
-                            profile)
+                            profile, kernel_lib(scene_t.static, settings))
 
 
-def _staged_launcher(entry: str, prepared, profile: bool):
-    """staged_split_launcher on _split_args' result."""
-    from surfjax_torch.kernels import _build
+def _staged_launcher(entry: str, prepared, profile: bool, lib):
+    """staged_split_launcher on _split_args' result, with lib's entries
+    (kernel_lib)."""
     tab, ks, rays, keep, counts, out = prepared
     if counts[2] > 0:
         raise ValueError("the staged split kernels take scenes without a "
@@ -2982,7 +3108,6 @@ def _staged_launcher(entry: str, prepared, profile: bool):
     rows = -(-rays.n // KS_THREADS)
     prof = torch.zeros((rows * (KS_THREADS // 32), len(KP_PHASE_NAMES), 3),
                        dtype=torch.int64, device=dev) if profile else None
-    lib = _build.load()
     if entry in ("render_tile", "ao_fix"):
         fn = getattr(lib, f"sp_staged_{entry}")
 
@@ -3019,19 +3144,20 @@ def crowd_ao_fix_launcher(scene_t, settings: RenderSettings, args,
     counters go to prof, int64 (one row per warp of 32 rays,
     len(AF_PHASE_NAMES) + 1), zeroed at every launch, else None."""
     return _crowd_ao_fix_launcher(
-        _split_args("ao_fix", scene_t, settings, args, 1), profile)
+        _split_args("ao_fix", scene_t, settings, args, 1), profile,
+        kernel_lib(scene_t.static, settings))
 
 
-def _crowd_ao_fix_launcher(prepared, profile: bool):
-    """crowd_ao_fix_launcher on _split_args' result."""
-    from surfjax_torch.kernels import _build
+def _crowd_ao_fix_launcher(prepared, profile: bool, lib):
+    """crowd_ao_fix_launcher on _split_args' result, with lib's entries
+    (kernel_lib)."""
     tab, ks, rays, keep, counts, out = prepared
     if counts[2] <= 0:
         raise ValueError("ao_fix_crowd.cu takes scenes with a crowd")
     dev = keep[0][0].device
     prof = torch.zeros((-(-rays.n // 32), len(AF_PHASE_NAMES) + 1),
                        dtype=torch.int64, device=dev) if profile else None
-    fn = _build.load().sp_ao_fix
+    fn = lib.sp_ao_fix
 
     def call(stream):
         if prof is not None:
@@ -3053,8 +3179,8 @@ def _split_call(wrapper, entry: str, reference, scene_t,
     in `wrapper.launches`) or run `reference` (CPU). outs, redo: a
     residual re-run (_split_args), whose plain version is
     _redo_reference."""
-    check_scene(scene_t.static, settings, meshes=True)
     dev = _ray_arrays(args)[0].device
+    check_scene(scene_t.static, settings, meshes=True, dev=dev)
     if redo is None:
         record_call(wrapper.__name__, (scene_t, settings) + tuple(args))
     else:
@@ -3196,7 +3322,6 @@ def prime_profile_launcher(scene_t, settings: RenderSettings, k_m: float, o,
 
 def _prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d,
                     profile: bool):
-    from surfjax_torch.kernels import _build
     static, _ = scene_t
     ins = [a.contiguous() for a in _ray_arrays((tuple(o), tuple(d)))]
     dev = ins[0].device
@@ -3219,7 +3344,7 @@ def _prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d,
     blocks = -(-args.wc // (4 * ww)) * -(-(args.n // args.wc) // (32 // ww))
     prof = torch.zeros((blocks * (KS_THREADS // 32), len(KP_PHASE_NAMES), 3),
                        dtype=torch.int64, device=dev) if profile else None
-    fn = _build.load().pt_prime_tile
+    fn = kernel_lib(scene_t.static, settings).pt_prime_tile
 
     def launch():
         with torch.cuda.device(dev):
@@ -3236,11 +3361,11 @@ def _prime_launcher(scene_t, settings: RenderSettings, k_m: float, o, d,
 def prime_occupancy(scene_t, settings: RenderSettings, dev) -> dict:
     """The priming kernel's shared memory per block and resident blocks
     per SM on the card, for this scene."""
-    from surfjax_torch.kernels import _build
     tables, _ = _scene_tables(scene_t, settings, dev)
     layout = _scene_layout(tables, records=False)
     blocks = ctypes.c_int(0)
-    _raise_on(_build.load().pt_occupancy(layout, ctypes.byref(blocks)),
+    _raise_on(kernel_lib(scene_t.static, settings).pt_occupancy(
+        layout, ctypes.byref(blocks)),
               "pt_occupancy")
     return {"bytes": layout.bytes, "blocks_per_sm": blocks.value}
 
@@ -3250,13 +3375,13 @@ def prime_tile(scene_t, settings: RenderSettings, k_m: float, o, d):
     prime_tile_reference). CUDA tensors launch the kernel
     (csrc/prime_tile.cu), counted in `prime_tile.launches`; CPU tensors
     run the plain version."""
+    o, d = tuple(o), tuple(d)
+    dev = _ray_arrays((o, d))[0].device
     check_scene(scene_t.static, settings,
-                meshes=bool(_split(scene_t.static)[2]))
+                meshes=bool(_split(scene_t.static)[2]), dev=dev)
     if split_crowd(scene_t.static, settings)[0] is not None:
         raise ValueError("the priming pass does not take a crowd: "
                          "prime_frame skips it when one is active")
-    o, d = tuple(o), tuple(d)
-    dev = _ray_arrays((o, d))[0].device
     record_call("prime_tile", (scene_t, settings, k_m, o, d))
     if dev.type == "cpu":
         return prime_tile_reference(scene_t, settings, k_m, o, d)

@@ -39,7 +39,11 @@ line) and `prime` the priming kernel on c3 the same way; `split_phases`
 profiles K1, K2 and ao_fix (chip_smoke.py's phase 17) and
 `prime_phases` the priming kernel on the primed 1080p frame of c3 (phase
 18: per phase shares, the SM clock, the cycles per warp and the slowest
-warp's rays alone); `sass` hashes every
+warp's rays alone); `wide` times the kernels' KF_WIDE build at 1080p
+with AO off and on: KF on compile_scaling's 129 spheres and, with a
+crowd, on workload.limit_cases' `crowd 120+8+70` (71 objects outside the
+crowd), and K1 on the camera's rays of `120+8` (129 objects) and of
+`crowd 120+8+70`; `sass` hashes every
 entry's SASS, to compare two builds. `caps` runs frame 0 of c3 at 1920x1080
 (`value`) on the split path under the cap variants of surfjax's
 tools/cap_sweep.py (CAP_VARIANTS): per variant the frame
@@ -721,6 +725,54 @@ CAP_VARIANTS = (("mc=24", 24, 0), ("mc=32", 32, 0), ("mc=48", 48, 0),
                 ("mc=32 sc=16", 32, 16), ("mc=24 sc=12", 24, 12))
 
 
+def wide(dev, res) -> None:
+    """The KF_WIDE build at 1920x1080, AO off and on: KF (frame 0, the
+    fastest of REPS calls) and K1 (every call of the split path's forward
+    over the camera's rays, launched back to back), ms per frame."""
+    import numpy as np
+
+    from surfjax_torch import api
+    from surfjax_torch.core.camera import flat_camera_rays
+    from surfjax_torch.kernels.render_tile import render_rays_pallas
+    from surfjax_torch.tools import compile_scaling
+    from surfjax_torch.tools.kernel_check import KERNELS, capture_calls
+    from surfjax_torch.tools.workload import limit_cases
+    scene, cam, seq = compile_scaling.case(128, "sphere", 1)
+    # name -> (scene, camera, settings, camera rows, kernels timed)
+    cases = {"129 spheres": (scene, cam, compile_scaling.settings_of(False),
+                             cam_rows_of(*seq, dev), ("KF",))}
+    big = limit_cases(api, (1920, 1080))
+    for name, kernels in (("120+8", ("K1",)),
+                          ("crowd 120+8+70", ("KF", "K1"))):
+        scene, cam, st = big[name]
+        cases[name] = (scene, cam, st, cam_rows_of(
+            np.asarray(cam.rotation, np.float32).reshape(1, 9),
+            np.asarray(cam.position, np.float32).reshape(1, 3), dev),
+            kernels)
+    out = {}
+    for name, (scene, cam, st, rows, kernels) in cases.items():
+        static, params = scene.freeze()
+        scene_t = SceneTensors(static, params_to_device(params, dev))
+        intr = cam.intrinsics
+        for ao in (False, True):
+            st_a = st.with_(ao=ao)
+            key = f"{name} ao {'on' if ao else 'off'}"
+            if "KF" in kernels:
+                frame_fused(scene_t, st_a, intr, rows)
+                ms, _ = cuda_ms(lambda st_a=st_a: frame_fused(
+                    scene_t, st_a, intr, rows), REPS)
+                out["KF " + key] = min(ms)
+            if "K1" in kernels:
+                o, d, _ = flat_camera_rays(intr, rows[0, :9], rows[0, 9:])
+                with capture_calls() as calls:
+                    render_rays_pallas(static, st_a, scene_t.params, o, d)
+                out["K1 " + key] = sum(
+                    _launch_ms(KERNELS[k][3](*a)[0]) for k, a in calls
+                    if k == "render_tile")
+    res["wide"] = out
+    print("wide", json.dumps(out), flush=True)
+
+
 def _spread(times) -> dict:
     t = sorted(times)
     return {"min": t[0], "median": t[len(t) // 2], "max": t[-1]}
@@ -1028,6 +1080,7 @@ SECTIONS = {
     "prime_phases": prime_phases,
     "sass": sass,
     "caps": caps,
+    "wide": wide,
 }
 
 

@@ -458,6 +458,136 @@ def crowd_mesh_main_path(n_frames: int = 16):
     return crowd_main_path(CROWD_MESH, n_frames)
 
 
+def _floor_grid(api, scene, n: int, engine="sdf", radius=0.11, pitch=0.26,
+                cols=12):
+    """n small spheres on a grid just above the floor of _limit_view, close
+    enough that a receiver's AO gate holds dozens of them."""
+    mats = _crowd_mats(api, 3)
+    for i in range(n):
+        c = ((i % cols - (cols - 1) / 2) * pitch, -0.85 + 0.02 * (i % 3),
+             2.2 + (i // cols) * pitch)
+        scene.add(api.Sphere(center=c, radius=radius), mats[i % 3],
+                  engine=engine)
+
+
+def _limit_view(api, scene, size, plane=True, **settings):
+    """A floor, a point light and a camera looking down at _floor_grid's
+    spheres -> (scene, camera, settings with backend pallas)."""
+    if plane:
+        scene.add(api.Plane(normal=(0.0, 1.0, 0.0), offset=-1.0),
+                  api.Material.lambert(albedo=(0.5, 0.5, 0.55)))
+    scene.add_light(api.PointLight(position=(2.0, 4.0, 0.0)))
+    cam = api.Camera.pinhole(size[0], size[1], fov_y_deg=55.0,
+                             position=(0.0, 1.2, 0.6),
+                             target=(0.0, -0.9, 3.4))
+    st = api.RenderSettings(backend="pallas", tile_rows=8, max_steps=64,
+                            shadow_steps=32, shadows=True, **settings)
+    return scene, cam, st
+
+
+def _chain(api, leaves, op, right: bool):
+    """leaves joined by op (a function of two nodes) into a left-deep
+    chain, op(op(l0, l1), l2)..., or a right-deep one, l0 op (l1 op ...)."""
+    if right:
+        node = leaves[-1]
+        for lf in reversed(leaves[:-1]):
+            node = op(lf, node)
+        return node
+    node = leaves[0]
+    for lf in leaves[1:]:
+        node = op(node, lf)
+    return node
+
+
+def tape_object(api, n_leaves: int, right: bool, smooth: bool = True):
+    """One object of n_leaves spheres in a ring of blobs: an SDF smooth
+    union (smooth) or an analytic union of spheres and boxes, a chain of
+    2 * n_leaves - 1 nodes, left- or right-deep."""
+    leaves = []
+    for i in range(n_leaves):
+        a = 2.0 * np.pi * i / n_leaves
+        c = (0.7 * float(np.cos(a)), -0.55 + 0.25 * float(np.sin(3 * a)),
+             3.2 + 0.7 * float(np.sin(a)))
+        if not smooth and i % 3 == 2:
+            leaves.append(api.Box(center=c, half_extents=(0.12, 0.15, 0.1)))
+        else:
+            leaves.append(api.Sphere(center=c, radius=0.18))
+    if smooth:
+        return _chain(api, leaves,
+                      lambda a, b: api.smooth_union(a, b, 0.08), right)
+    return _chain(api, leaves, api.union, right)
+
+
+def limit_cases(api, size=(32, 32)):
+    """-> {name: (scene, camera, settings)}: scenes past the kernels'
+    former fixed bounds (64 objects outside the crowd, 32 tape nodes, 16
+    analytic leaves), built with the package's api module; vector_objects
+    is set where the case names a crowd, and only there.
+
+      * `64 spheres`: 64 SDF spheres and a floor (65 objects), hard
+        shadows and AO; `120+8`: 120 SDF spheres, 8 analytic boxes
+        and a floor, hard and (`... soft`) soft shadows, AO on both;
+      * `crowd 120+8+70`: the 128 beside 70 three-leaf SDF unions, which the
+        crowd does not take, so 71 objects stay outside it;
+      * `smooth 17 left|right`, `smooth 65 left|right`: one SDF smooth
+        union of 17 or 65 spheres (33 and 129 nodes) over a floor;
+      * `union 17`, `union 40`: one analytic union of spheres and boxes;
+      * `mesh + 70`: a 32-triangle mesh beside 70 SDF spheres, through
+        the split path, AO on;
+      * `crowd 120+8+70 + mesh`: `crowd 120+8+70` with that mesh beside it,
+        so the split path's crowd kernels take 71 objects outside the
+        crowd.
+    """
+    def grid(n_sdf, boxes=0, threes=0, crowd=False, soft=False, mesh=None):
+        scene = api.Scene()
+        _floor_grid(api, scene, n_sdf)
+        mats = _crowd_mats(api, 2)
+        for k in range(boxes):
+            c = ((k - 3.5) * 0.3, -0.3, 2.0)
+            scene.add(api.Box(center=c, half_extents=(0.1, 0.1, 0.1)),
+                      mats[k % 2], engine="analytic")
+        for k in range(threes):
+            c = ((k % 10 - 4.5) * 0.32, -0.45, 2.4 + (k // 10) * 0.32)
+            S = api.Sphere
+            scene.add(api.union(api.union(S(center=c, radius=0.07),
+                                          S(center=(c[0] + 0.08, c[1], c[2]),
+                                            radius=0.06)),
+                                S(center=(c[0], c[1] + 0.08, c[2]),
+                                  radius=0.05)), mats[k % 2], engine="sdf")
+        if mesh is not None:
+            v, f = octasphere(1)
+            v = v * 0.35 + np.asarray(mesh, np.float32)
+            scene.add(api.TriangleMesh(vertices=v, faces=f),
+                      api.Material.lambert(albedo=(0.7, 0.7, 0.75)))
+        return _limit_view(api, scene, size, ao=True, soft_shadows=soft,
+                           vector_objects=crowd)
+
+    def one(node, engine):
+        scene = api.Scene()
+        scene.add(node, api.Material.blinn_phong(albedo=(0.4, 0.7, 0.5),
+                                                 shininess=16),
+                  engine=engine)
+        return _limit_view(api, scene, size, ao=True)
+
+    cases = {
+        "64 spheres": grid(64),
+        "120+8": grid(120, boxes=8),
+        "120+8 soft": grid(120, boxes=8, soft=True),
+        "crowd 120+8+70": grid(120, boxes=8, threes=70, crowd=True),
+        "mesh + 70": grid(70, mesh=(0.5, -0.55, 2.9)),
+        "crowd 120+8+70 + mesh": grid(120, boxes=8, threes=70, crowd=True,
+                                      mesh=(0.6, -0.55, 4.45)),
+    }
+    for n in (17, 65):
+        for side in ("left", "right"):
+            cases[f"smooth {n} {side}"] = one(
+                tape_object(api, n, side == "right"), "sdf")
+    for n in (17, 40):
+        cases[f"union {n}"] = one(tape_object(api, n, True, smooth=False),
+                                  "analytic")
+    return cases
+
+
 # the perturbed pose the pose fit starts from: (axis-angle w, position dt)
 FIT_POSE_INIT = ((0.05, -0.04, 0.03), (0.05, -0.05, 0.0))
 

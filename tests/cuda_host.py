@@ -34,10 +34,11 @@ def gxx():
 
 def build(source: str, out_dir: str) -> ctypes.CDLL:
     """Compile csrc/`source` for the host into out_dir -> the library. The
-    headers of csrc are rewritten beside it, so that the source includes
-    the rewritten ones."""
+    headers and sources of csrc are rewritten beside it, so that the
+    source includes the rewritten ones (a KF_WIDE unit includes its
+    source)."""
     for name in os.listdir(CSRC):
-        if name.endswith(".cuh"):
+        if name.endswith((".cuh", ".cu")):
             with open(os.path.join(CSRC, name)) as fh:
                 text = host_source(fh.read())
             with open(os.path.join(out_dir, name), "w") as fh:

@@ -401,7 +401,7 @@ def test_crowd_ao_fix_culled_and_profiled(cuda_device):
 
 
 def test_large_crowd_renders_on_the_card(cuda_device):
-    """256 members: the 64-object mask does not bound the crowd."""
+    """256 members through the crowd's loops."""
     from surfjax_torch import api
     from surfjax_torch.tools.workload import sphere_crowd
     scene, cam, st = sphere_crowd(api, 256, size=(128, 96))
@@ -647,3 +647,99 @@ def test_staged_kernel_and_its_profile_match_twin(cuda_device, mode):
         assert bool((tot[:, 2] <= 32 * tot[:, 1]).all())
         for name in ("ray", "normal", "primary o0", "primary o1"):
             assert int(tot[names.index(name), 0]) > 0, name
+
+
+# --- scenes past the former fixed bounds (workload.limit_cases) -------------
+
+def _limit_case(name, size=(64, 36)):
+    from surfjax_torch import api
+    from surfjax_torch.tools.workload import limit_cases
+    return limit_cases(api, size)[name]
+
+
+LIMIT_NAMES = ["64 spheres", "120+8", "120+8 soft", "crowd 120+8+70",
+               "mesh + 70", "crowd 120+8+70 + mesh", "smooth 17 left",
+               "smooth 17 right", "smooth 65 left", "smooth 65 right",
+               "union 17", "union 40"]
+
+
+@pytest.mark.parametrize("name", LIMIT_NAMES)
+def test_limit_case_kernels_match_plain(cuda_device, name):
+    """KF (staged, or with the crowd) on a mesh-free case, and every
+    split-kernel call of the case (the forward over the camera's rays, or
+    the mesh scene's render with the crowd off and on), bitwise equal to
+    their plain versions; the crowd with the mesh and 71 objects outside
+    it takes the KF_WIDE build of K1, K2 and ao_fix with a crowd."""
+    from surfjax_torch import api
+    from surfjax_torch.core.camera import flat_camera_rays
+    from surfjax_torch.kernels.render_tile import render_rays_pallas
+    from surfjax_torch.tools.kernel_check import KERNELS, capture_calls, flat
+    scene, cam, st = _limit_case(name)
+    static, params = scene.freeze()
+    scene_t = SceneTensors(static, params_to_device(params, cuda_device))
+    rows = torch.as_tensor(np.concatenate(
+        [np.asarray(cam.rotation, np.float32).reshape(1, 9),
+         np.asarray(cam.position, np.float32).reshape(1, 3)], axis=1),
+        device=cuda_device)
+    calls = []
+    if "mesh" in name:
+        for vec in sorted({False, True} if name == "mesh + 70" else
+                          {bool(st.vector_objects)}):
+            with capture_calls() as got_calls:
+                api.render(scene, cam, st.with_(vector_objects=vec),
+                           device=cuda_device)
+            calls += got_calls
+    else:
+        before = frame_fused.launches
+        got = frame_fused(scene_t, st, cam.intrinsics, rows)
+        assert frame_fused.launches == before + 1
+        ref = frame_fused_reference(scene_t, st, cam.intrinsics, rows)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        o, d, _ = flat_camera_rays(cam.intrinsics, rows[0, :9],
+                                   rows[0, 9:])
+        with capture_calls() as calls:
+            render_rays_pallas(static, st, scene_t.params, o, d)
+    assert {"render_tile", "trace_rays"} <= {k for k, _ in calls}
+    for k, (kname, args) in enumerate(calls):
+        wrapper, reference = KERNELS[kname][:2]
+        out = flat(wrapper(*args))
+        ref = flat(reference(*args))[:len(out)]
+        torch.cuda.synchronize()
+        for j, (a, b) in enumerate(zip(out, ref)):
+            assert torch.equal(a, b), f"{name} call {k} {kname} output {j}"
+
+
+@pytest.mark.parametrize("name", ["64 spheres", "smooth 65 right"])
+def test_limit_case_primed_matches_plain(cuda_device, name):
+    from surfjax_torch import api
+    from surfjax_torch.kernels.render_tile import (
+        prime_tile, prime_tile_reference,
+    )
+    from surfjax_torch.tools.kernel_check import capture_calls
+    scene, cam, st = _limit_case(name, (128, 72))
+    before = prime_tile.launches
+    with capture_calls() as calls:
+        fb = api.render(scene, cam, st.with_(prime=True, prime_min=64),
+                        device=cuda_device)
+    assert prime_tile.launches == before + 1
+    assert [k for k, _ in calls] == ["prime_tile"]
+    args = calls[0][1]
+    assert torch.equal(prime_tile(*args), prime_tile_reference(*args))
+    assert float(fb.hit.float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("kind", ["sphere", "csgpair"])
+def test_compile_scaling_past_64_objects(cuda_device, kind):
+    """compile_scaling's 129 objects per object and as a crowd, at
+    256x144: one launch per call, the crowd changing no hit, id or
+    depth."""
+    from surfjax_torch.tools import compile_scaling
+    fbs = []
+    for _, vec in compile_scaling.MODES:
+        row = compile_scaling.measure(128, vec, kind, 2, 1, size=(256, 144),
+                                      device=cuda_device, out=fbs)
+        assert row["launches"] == 2 and row["ms_frame"] > 0.0
+        assert row["hit_fraction"] > 0.2
+    for name in ("hit", "obj_id", "depth", "normal"):
+        assert torch.equal(getattr(fbs[0], name), getattr(fbs[1], name))

@@ -110,6 +110,13 @@ r = bench.run_bench("configs/c1_sphere.yaml", repeats=1, width=8, height=8,
                     n_frames=1, device="cpu")
 assert r["primary_rays"] == 64 and r["device"] == "cpu"
 assert len(scenes.crowd64()[0].objects) == 65
+# scenes past the kernels' former fixed bounds, and compile_scaling
+from surfjax_torch.tools import compile_scaling
+scene, cam, st = workload.limit_cases(api, (8, 8))["smooth 17 left"]
+assert float(render(scene, cam, st, device="cpu").hit.mean()) > 0.1
+row = compile_scaling.measure(70, False, size=(16, 9), repeats=0,
+                              device="cpu")
+assert row["objects"] == 71 and row["hit_fraction"] > 0.2
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "surfjax"))
 print("LOADED", loaded)
@@ -133,6 +140,7 @@ def test_package_renders_without_importing_jax():
     ["-m", "surfjax_torch.tools.fit_bench"], ["-m", "surfjax_torch.bench"],
     ["-m", "surfjax_torch", "bench"], ["-m", "surfjax_torch.tools.bench_all"],
     ["-m", "surfjax_torch.quickstart"],
+    ["-m", "surfjax_torch.tools.compile_scaling"],
     ["-m", "surfjax_torch.parallel.dryrun", "2"]])
 def test_gpu_scripts_refuse_to_run_without_a_card(command):
     """The chip scripts measure the card: without one they exit non-zero
@@ -274,3 +282,36 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(NotImplementedError, match="power=8"):
         frame_fused(SceneTensors(bstatic, params_to_device(bparams, "cpu")),
                     st, cam.intrinsics, rows)
+
+
+@pytest.mark.parametrize("name", ["64 spheres", "smooth 17 right"])
+def test_limit_scenes_reach_the_kernel_wrappers(name, monkeypatch):
+    """A 65-object scene and a 33-node tape on backend="pallas": the fused
+    path's frame goes to frame_fused, a capped frame's calls to the split
+    wrappers (record_call), and nothing reaches the eager pipeline."""
+    from surfjax_torch.kernels import render_tile as rt
+    from surfjax_torch.pipeline import frame
+    from surfjax_torch.tools import workload
+    from surfjax_torch.tools.kernel_check import capture_calls
+
+    def eager(*args, **kw):
+        raise AssertionError("the eager pipeline was called")
+
+    for fn in ("render_rays", "trace_scene", "compute_normals",
+               "light_visibility"):
+        monkeypatch.setattr(frame, fn, eager)
+    fused = []
+    real = rt.frame_fused
+
+    def counted(*args, **kw):
+        fused.append(args[1])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(rt, "frame_fused", counted)
+    scene, cam, st = workload.limit_cases(api, (8, 8))[name]
+    fb = api.render(scene, cam, st, device="cpu")
+    assert len(fused) == 1 and float(fb.hit.mean()) > 0.5
+    with capture_calls() as calls:
+        api.render(scene, cam, st.with_(march_cap=8), device="cpu")
+    assert len(fused) == 1
+    assert {"render_tile", "trace_rays"} <= {k for k, _ in calls}
