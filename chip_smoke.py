@@ -41,14 +41,22 @@ the script exits non-zero and never prints its last line):
      per shadow ray) and with K = 8 (every tile overflows);
   6. the mesh main path: configs/c4_mesh.yaml at 1920x1080, 16 camera
      positions in one render_sequence call per mode (`config`: the yaml's
-     settings; `ao`: AO and soft shadows on), one warm-up call and three
-     timed with CUDA events; launch counts (every split kernel > 0, the
-     fused kernel 0), output checks, frame 0 against render();
-  7. every split kernel call of one 1080p c4 frame against its plain
-     version, bitwise, both timed, in both modes; the mesh kernel's bound
-     counts the culled algorithm it runs (its warps' votes, then each
-     lane's voted candidates up to its first occluder), the unculled
-     count beside it;
+     settings; `ao`: AO and soft shadows on), one pass of the split path
+     over all 16 frames: the first call's launches per pass (K1, K2 per
+     light, ao_fix where AO is on, the mesh kernel for the primary rays
+     and per light, the fused kernel never) and its peak memory, then
+     three calls timed with CUDA events; output checks, every frame of
+     every call bitwise equal to render() of that frame;
+  7. every split kernel call of one more 16-frame c4 call per mode,
+     launched again at the pass's shape, its rows of frames 0 and 15
+     bitwise equal to its plain version run on those two frames alone
+     (frame_cut: the ray arrays by rows, the mesh kernel's tables by
+     tiles); per frame: the kernel's and the wrapper's times, operations
+     and bytes on frame 0's cut launched alone (one 1080p frame's call),
+     the plain version's time (the two frames' halved) and the whole pass
+     launched back to back over its frames (pass_ms); the mesh kernel's
+     bound counts the culled algorithm it runs (its warps' votes, then
+     each lane's voted candidates up to its first occluder);
   8. the crowd loops (settings.vector_objects) in KF, K1, K2 and ao_fix
      against their plain versions, bitwise, at 256x256 x 2 frames: nine
      and four small objects with hard shadows + AO and with soft shadows,
@@ -68,9 +76,17 @@ the script exits non-zero and never prints its last line):
      masked members per warp of frame 0; the kernel alone with AO off,
      shadows off, both off and the crowd off;
  10. the priming kernel against its plain version, bitwise, at 256x256 and
-     at 1920x1080; the primed main path: render(prime=True) on c3 at
-     1920x1080 launches prime_tile then KF with its t0; hit mask against
-     the unprimed frame's, times with and without priming;
+     at 1920x1080; render(prime=True) on c3 at 1920x1080 launches
+     prime_tile then KF with its t0; hit mask against the unprimed
+     frame's, times with and without priming; the primed main path: c3
+     (`value`, prime=True) at 1920x1080 x 16 frames in one
+     render_sequence call, one pass: one priming launch over every
+     frame's coarse rays and one KF launch, its peak memory, three calls
+     timed, every frame of every call bitwise equal to a primed render()
+     of that frame; the pass's priming launch over all 16 frames' coarse
+     rays and its KF launch with all 16 t0, their coarse rows and pixels
+     of frames 0 and 15 bitwise equal to the plain versions on those
+     frames alone;
  11. member-count scaling: crowds of 16, 64 and 256 spheres at 1920x1080,
      frame 0 of each against the twin, bitwise;
  12. the FP32 roofline probe (tools/fp32_peak.py): every entry built with
@@ -154,11 +170,12 @@ the script exits non-zero and never prints its last line):
      1920x1080 through render_frame_sharded, every kernel call of each
      held against its plain version, each frame bitwise equal to
      render_rays_pallas on the same rays; render_sequence_sharded of c3 at
-     1920x1080 x 48 frames, frames 0, 24 and 47 bitwise equal to the
-     unsharded split path, ms/frame beside the unsharded split path's and
-     KF's render_sequence; ring_trace on c4's 8192 triangles with frame
-     0's primary rays, bitwise equal to one pass over the whole table and
-     beside the grid DDA (hits and ids equal, t within 2e-7 relative); the
+     1920x1080 x 48 frames (the shard's frames in passes of whole frames,
+     K1 and K2 launched once per pass), frames 0, 24 and 47 bitwise equal
+     to the unsharded split path, ms/frame beside the unsharded split
+     path's and KF's render_sequence; ring_trace on c4's 8192 triangles
+     with frame 0's primary rays, bitwise equal to one pass over the whole
+     table and beside the grid DDA (hits and ids equal, t within 2e-7 relative); the
      dry run's step; (b) spawned gloo worlds of 2 and 4 ranks, every rank
      on this card: the same frames bitwise equal to (a), the c3 sequence
      of 4 frames on meshes (2, 1), (1, 2) and (2, 2) bitwise equal to (a),
@@ -190,21 +207,25 @@ the script exits non-zero and never prints its last line):
  23. the split path's crowd main path (workload.crowd_mesh_main_path:
      surfjax_torch/configs/crowd_mesh.yaml, crowd_demo's 49 objects and
      c4's octasphere, at 1920x1080 x 16 frames in one render_sequence call
-     per mode, `config` and `soft`): one warm-up call and three timed with
-     CUDA events, the launches of every kernel counted (K1, K2 and ao_fix
-     only in their crowd instantiations, the mesh kernel beside them, the
-     staged kernels and KF never), outputs checked (the mesh and at least
-     10 crowd members on frame 0); frames 0 and 15 rendered again, every
-     kernel call of the two frames against its plain version, K1, K2 and
-     ao_fix also against the plain version visiting only the members each
-     warp votes (render_tile.split_warp_masks; a mesh kernel call whose
-     arguments equal an earlier one's, as the `soft` mode's equal the
-     `config` mode's, held against that call's plain result), and those
-     frames bitwise equal to frames 0 and 15 of every timed call; frame
-     0's per-kernel table: each call launched back to back, K1 with AO
-     off, K2 on empty segments, ao_fix with need 0, the plain version's
-     time, the culled and unculled operations and bounds, the masked
-     members per warp; then a ray batch that shoots each point both ways
+     per mode, `config` and `soft`, one pass): the first call's launches
+     per pass (K1, K2 and ao_fix only in their crowd instantiations, the
+     mesh kernel beside them, the staged kernels and KF never) and its
+     peak memory, three calls timed with CUDA events, every frame of
+     every call bitwise equal to render() of that frame, outputs checked
+     (the mesh and at least 10 crowd members on frame 0); every kernel
+     call of one more 16-frame call, launched again at the pass's shape,
+     its rows of frames 0 and 15 against the plain version run on those
+     two frames alone (frame_cut), K1, K2 and ao_fix also against the
+     plain version visiting only the members each warp votes
+     (render_tile.split_warp_masks; a mesh kernel call whose arguments
+     equal an earlier one's, as the `soft` mode's equal the `config`
+     mode's, held against that call's plain result); the per-frame table
+     (frames 0 and 15 each cut and launched alone, halved): each call
+     launched back to back, K1 with AO off, K2 on empty segments, ao_fix
+     with need 0, the plain version's time, the culled and unculled
+     operations and bounds, the masked members per warp, and the whole
+     pass launched back to back over its frames (pass_ms); then a ray
+     batch that shoots each point both ways
      (its warps' directions sum to 0) through K1 and, as shadow segments,
      through K2 in both modes, each call held the same way.
  24. scenes past the kernels' former fixed bounds (64 objects outside the
@@ -239,7 +260,9 @@ the script exits non-zero and never prints its last line):
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main paths, largest errors, times
 per 1080p frame (value_exact mode for the fused kernel, `ao` mode for the
-split kernels, crowd_demo `config` for the fused kernel's crowd
+split kernels, frame 0 of phase 7's pass launched alone, with pass_ms
+the pass's launch over its 16 frames, crowd_demo `config` for the
+fused kernel's crowd
 instantiation; the probe's entries per launch at its defaults, unroll 4)
 and bounds; K1 and K2 also with their time and bound in a 1080p fit step
 (fit_ms, fit_bound_ms, fit_bound_by) and their capped and residual
@@ -250,7 +273,8 @@ its crowd instantiation's and the split kernels' also phase 22's (the
 harness and the workload matrix in this process, launches and the errors
 of their frames against the plain versions). The split kernels' crowd
 instantiations (render_tile_crowd, trace_rays_crowd, ao_fix_crowd) have
-entries of their own: frame 0 of phase 23's `config` mode, launches of
+entries of their own: per frame of phase 23's `config` pass (frames 0
+and 15 each launched alone, halved; pass_ms the pass's), launches of
 its main path, errors over phases 8, 19 and 23, the bound of the culled
 algorithm; their launches elsewhere leave the staged kernels' counts. KF's
 and its crowd instantiation's launches also count phase 24's
@@ -369,6 +393,7 @@ SPLIT = ("render_tile", "trace_rays", "ao_fix", "mesh_tile")
 # their crowd instantiations (csrc/split_path.cu), counted apart
 CROWD_SPLIT = ("render_tile_crowd", "trace_rays_crowd", "ao_fix_crowd")
 SHARD_FRAMES = 4       # the sequence of the gloo worlds (phase 21)
+PRIME_FRAMES = 16      # the primed main path's frames (phase 10)
 # phase 21's gloo worlds on the card: world size -> the meshes its c3
 # sequence is rendered on
 SHARD_WORLDS = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
@@ -453,6 +478,109 @@ def check_sequence(mode: str, fb, n_objects: int, step_max: float,
             f"{mode}: hit fraction moves by {step} between frames and by "
             f"{drift} from frame 0 (bounds {step_max} and {drift_max})")
     return step, drift
+
+
+def frames_alone(scene, camera, positions, st, dev) -> list:
+    """Each frame of a camera path rendered alone by render() -> its
+    FrameBuffers, frame after frame."""
+    from surfjax_torch.api import render
+    return [render(scene, dataclasses.replace(
+        camera, position=tuple(float(x) for x in p)), st, device=dev)
+        for p in positions]
+
+
+def same_frames(fb, alone, label: str) -> None:
+    """Each frame of a sequence's buffers bitwise equal to that frame
+    rendered alone (frames_alone, in the same order); raises on the first
+    buffer that differs."""
+    import torch
+
+    from surfjax_torch.core.types import FrameBuffers
+    if fb.rgb.shape[0] != len(alone):
+        raise AssertionError(f"{label}: {fb.rgb.shape[0]} frames, "
+                             f"{len(alone)} rendered alone")
+    for f, single in enumerate(alone):
+        for field in FrameBuffers._fields:
+            if not torch.equal(getattr(fb, field)[f], getattr(single, field)):
+                raise AssertionError(f"{label}: frame {f} differs from "
+                                     f"render() of that frame in {field}")
+
+
+def pass_launches(scene, camera, st, n_frames: int) -> dict:
+    """The launches of a batched sequence of n_frames on the split path
+    -> per kernel of _split_wrappers and frame_fused: per pass
+    (render_tile.frames_per_pass) K1 once, the mesh kernel once per mesh
+    for the primary rays and once per mesh and light, ao_fix once where
+    AO meets a mesh and another object, K2 once per light (K1, K2 and
+    ao_fix under their crowd instantiation's key on a crowd scene), KF
+    never."""
+    from surfjax_torch.kernels import render_tile as rt
+    static = scene.freeze()[0]
+    passes = -(-n_frames // rt.frames_per_pass(rt.pass_rays(
+        static, camera.intrinsics, st)))
+    meshes = len(rt._split(static)[2])
+    lights = len(static.ir.lights) * bool(st.shadows)
+    crowd = "_crowd" if rt.launches_crowd(static, st) else ""
+    want = dict.fromkeys(list(_split_wrappers()) + ["frame_fused"], 0)
+    want["render_tile" + crowd] = passes
+    want["trace_rays" + crowd] = passes * lights
+    want["mesh_tile"] = passes * meshes * (1 + lights)
+    want["ao_fix" + crowd] = passes * bool(
+        st.ao and meshes and len(static.ir.objects) > meshes)
+    return want
+
+
+def frame_rows(t, rows: int, frames):
+    """The rows of a batched pass's array that belong to the given frames,
+    each frame taking `rows` rows (of tiled rays, or of the mesh kernel's
+    tiles), joined in the order given."""
+    import torch
+    return torch.cat([t[f * rows:(f + 1) * rows] for f in frames])
+
+
+def frame_cut(kname: str, args, rows: int, frames):
+    """A recorded kernel call of a batched pass whose frames each take
+    `rows` rows of its (rows, 128) ray arrays (prime_tile: of its coarse
+    grid) -> the call's arguments cut to the given frames: every ray array
+    (and a residual re-run's outputs and row flags) by rows, the mesh
+    kernel's candidate table and counts by tiles; scene, settings,
+    triangles and scalars as they are. The kernels take each tile, warp
+    and ray on its own, so the cut is the call those frames make alone;
+    raises where an array's rows are not whole frames."""
+    import torch
+
+    def cut(a, n):
+        if isinstance(a, torch.Tensor):
+            if a.dim() == 0 or a.shape[0] % n:
+                raise AssertionError(f"{kname}: an argument of shape "
+                                     f"{tuple(a.shape)} is not in frames "
+                                     f"of {n} rows")
+            return frame_rows(a, n, frames)
+        if isinstance(a, tuple):
+            return tuple(cut(x, n) for x in a)
+        return a
+
+    if kname == "mesh_tile":
+        tri, cand, counts = args[:3]
+        tiles = rows // (args[3][0].shape[0] // cand.shape[0])
+        return (tri, cut(cand, tiles), cut(counts, tiles)) \
+            + tuple(cut(a, rows) for a in args[3:6]) + tuple(args[6:])
+    if kname == "prime_tile":
+        return tuple(args[:3]) + tuple(cut(a, rows) for a in args[3:])
+    return tuple(args[:2]) + tuple(cut(a, rows) for a in args[2:])
+
+
+def peak_bytes(call, dev):
+    """call() with the card's peak memory tracked -> (its result, the most
+    bytes allocated above what was allocated before it, each pass
+    included)."""
+    import torch
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = call()
+    torch.cuda.synchronize(dev)
+    return out, torch.cuda.max_memory_allocated(dev) - base
 
 
 def on_equals_off(label: str, on, off) -> int:
@@ -859,6 +987,7 @@ def sharding_phase(dev, smi: str, size=None, n_seq: int = 48) -> dict:
     from surfjax_torch.core.math import BIG
     from surfjax_torch.core.types import FrameBuffers
     from surfjax_torch.engines.mesh import intersect_mesh
+    from surfjax_torch.kernels import render_tile as rt
     from surfjax_torch.kernels.render_tile import render_rays_pallas
     from surfjax_torch.parallel import (
         initialize_distributed, make_mesh, render_frame_sharded,
@@ -936,8 +1065,15 @@ def sharding_phase(dev, smi: str, size=None, n_seq: int = 48) -> dict:
         (seq_ms, fb), got = _counted(lambda: _wall_ms(
             lambda: render_sequence_sharded(scene, cam, (Rs, ps), st, mesh,
                                             dev.type), 1, dev), totals)
-        if got["render_tile"] < n_seq or got["trace_rays"] < n_seq:
-            raise AssertionError(f"c3 sequence: launches {got}")
+        # world 1's shard is every frame whole, padded to whole tiles, in
+        # passes of whole frames: K1 once and K2 once per light per pass
+        intr = cam.intrinsics
+        passes = -(-n_seq // rt.frames_per_pass(rt.batch_rays(
+            intr.width * intr.height, st)))
+        if got["render_tile"] != passes or \
+                got["trace_rays"] != passes * len(scene.lights):
+            raise AssertionError(f"c3 sequence: launches {got}, expected "
+                                 f"{passes} passes")
         check_sequence("c3 sharded", fb, len(scene.objects), 2e-4, 2.5e-3)
         for f in (0, n_seq // 2, n_seq - 1):
             cam_f = dataclasses.replace(
@@ -1095,7 +1231,7 @@ def _same_args(a, b) -> bool:
 
 
 def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
-               memo=None):
+               memo=None, part=None):
     """One recorded kernel call: the kernel against its plain version,
     bitwise, and on a crowd scene K1, K2 and ao_fix also against the
     plain version visiting only the members each warp votes
@@ -1104,12 +1240,18 @@ def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
     results; a mesh_tile call whose arguments equal one of them is held
     against that result rather than running the plain grid DDA again (the
     two modes of the crowd-mesh path give the mesh kernel the same rays).
-    -> the kernel's outputs (flat). stats: None, or the kernel's per-frame
-    sums to add this call's numbers
+    part: None, or (rows, frames): args are a call of a batched pass
+    whose frames each take `rows` rows of its ray arrays; the kernel runs
+    on the whole pass, and its rows of those frames are held against the
+    plain versions run on those frames alone (frame_cut).
+    -> the kernel's outputs (flat; with part, of those frames). stats:
+    None, or the kernel's sums to add this call's numbers
     to: its time launched back to back, K1's with AO off, K2's on empty
-    segments, ao_fix's with need 0, the plain version's time, the
-    operations of the unculled and the culled algorithm (count_ops), the
-    bytes it must move and, per loop, the masked members per warp."""
+    segments, ao_fix's with need 0 (with part, each frame's cut launched
+    alone, and the whole pass's time as pass_ms), the plain version's
+    time, the operations of the unculled and the culled algorithm
+    (count_ops), the bytes it must move and, per loop, the masked members
+    per warp."""
     import torch
 
     from surfjax_torch.kernels.render_tile import count_ops
@@ -1119,6 +1261,12 @@ def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
     wrapper, reference, names, launcher = KERNELS[kname]
     key = kernel_key(kname, args)
     got = flat(wrapper(*args))
+    held, timed = args, [args]
+    if part is not None:
+        rows, frames = part
+        got = [frame_rows(g, rows, frames) for g in got]
+        held = frame_cut(kname, args, rows, frames)
+        timed = [frame_cut(kname, args, rows, [f]) for f in frames]
     # operations are counted for the table only: counting syncs the host
     # with the card at every tally
     counted = count_ops if stats is not None else \
@@ -1128,7 +1276,7 @@ def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
         seen = next((m for m in memo if _same_args(m[0], args)), None)
     if seen is None:
         with counted() as plain_ops:
-            p_ms, ref = cuda_ms(lambda: reference(*args), 1)
+            p_ms, ref = cuda_ms(lambda: reference(*held), 1)
         if memo is not None and kname == "mesh_tile":
             memo.append((args, ref, p_ms, plain_ops))
     else:
@@ -1137,10 +1285,10 @@ def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
     culled_ops = plain_ops
     counts = {}
     if key.endswith("_crowd"):
-        m = masks_of(kname, args)
+        m = masks_of(kname, held)
         counts = m.counts()
         with counted() as culled_ops:
-            masked = reference(*args, masks=m)
+            masked = reference(*held, masks=m)
         refs.append(("masked plain", flat(masked)[:len(got)]))
     for which, r in refs:
         for out_name, a, b in zip(names, got, r):
@@ -1163,21 +1311,24 @@ def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
         k_ms, _ = cuda_ms(lambda: [launch() for _ in range(LAUNCH_REPS)], 3)
         return min(k_ms) / LAUNCH_REPS
 
-    s_["ms"] += launch_ms(args)
     scene_t, st = args[:2]
-    if kname == "render_tile":
-        s_["ms_ao_off"] = s_.get("ms_ao_off", 0.0) + launch_ms(
-            (scene_t, st.with_(ao=False)) + tuple(args[2:]))
-    elif kname == "trace_rays":
-        s_["ms_empty_segments"] = s_.get("ms_empty_segments", 0.0) + \
-            launch_ms(_empty_segments(args))
-    elif kname == "ao_fix":
-        s_["ms_need_zero"] = s_.get("ms_need_zero", 0.0) + launch_ms(
-            _need_zero(args))
+    for one in timed:
+        s_["ms"] += launch_ms(one)
+        if kname == "render_tile":
+            s_["ms_ao_off"] = s_.get("ms_ao_off", 0.0) + launch_ms(
+                (scene_t, st.with_(ao=False)) + tuple(one[2:]))
+        elif kname == "trace_rays":
+            s_["ms_empty_segments"] = s_.get("ms_empty_segments", 0.0) + \
+                launch_ms(_empty_segments(one))
+        elif kname == "ao_fix":
+            s_["ms_need_zero"] = s_.get("ms_need_zero", 0.0) + launch_ms(
+                _need_zero(one))
+    if part is not None:
+        s_["pass_ms"] = s_.get("pass_ms", 0.0) + launch_ms(args)
     s_["plain_ms"] += p_ms[0]
     s_["ops"] += culled_ops["ops"]
     s_["ops_unculled"] += plain_ops["ops"]
-    s_["bytes"] += bytes_read(kname, args) + nbytes(got)
+    s_["bytes"] += bytes_read(kname, held) + nbytes(got)
     s_["calls"] += 1
     for loop, (mean, top) in counts.items():
         s_.setdefault("masked_members", {})[
@@ -1237,14 +1388,16 @@ def crowd_mesh_phase(dev, smi: str) -> dict:
     """Phase 23, the split path's crowd main path (module docstring) ->
     {"launches": per crowd kernel, its launches on the path (both modes);
     "err": per crowd kernel, the largest error of its checks; "frame":
-    per mode and kernel, frame 0's per-kernel table (_hold_call's stats
-    with each kernel's bound, culled and unculled); "results": per mode
-    the path's figures}."""
+    per mode and kernel, the per-frame table of frames 0 and F-1 of a
+    16-frame pass, each cut and launched alone (_hold_call's stats halved,
+    pass_ms over the pass's frames, with each kernel's bound, culled and
+    unculled); "results": per mode the path's figures}."""
     import torch
 
     from surfjax_torch.api import render_sequence
-    from surfjax_torch.core.types import FrameBuffers
-    from surfjax_torch.kernels.render_tile import frame_fused, split_crowd
+    from surfjax_torch.kernels.render_tile import (
+        LANES, frame_fused, pass_rays, split_crowd,
+    )
     from surfjax_torch.tools.kernel_check import capture_calls
     from surfjax_torch.tools.workload import crowd_mesh_main_path, cuda_ms
     t23 = time.perf_counter()
@@ -1254,6 +1407,7 @@ def crowd_mesh_phase(dev, smi: str) -> dict:
     static = scene.freeze()[0]
     mesh_id = len(scene.objects) - 1
     n_members = len(split_crowd(static, modes["config"])[0].members)
+    rows = pass_rays(static, camera.intrinsics, modes["config"]) // LANES
     wrappers = dict(_split_wrappers(), frame_fused=frame_fused)
     idx = [0, n_frames - 1]
     launches = dict.fromkeys(CROWD_SPLIT, 0)
@@ -1261,25 +1415,21 @@ def crowd_mesh_phase(dev, smi: str) -> dict:
     for mode, st in modes.items():
         call = lambda st=st: render_sequence(scene, camera, (Rs, ps), st,
                                              device=dev)
+        alone = frames_alone(scene, camera, ps, st, dev)
         for w in wrappers.values():
             w.launches = 0
-        call()
-        torch.cuda.synchronize()
-        times, kept = [], []
-        for _ in range(3):
-            ms, fb = cuda_ms(call, 1)
-            times += ms
-            kept.append(FrameBuffers(*(a[idx].clone() for a in fb)))
+        fb, peak = peak_bytes(call, dev)
         got = {k: w.launches for k, w in wrappers.items()}
-        calls_made = 4 * n_frames
-        want = dict.fromkeys(wrappers, 0)
-        want.update(render_tile_crowd=calls_made,
-                    trace_rays_crowd=calls_made * n_lights,
-                    ao_fix_crowd=calls_made if st.ao else 0,
-                    mesh_tile=calls_made * (1 + n_lights))
+        want = pass_launches(scene, camera, st, n_frames)
         if got != want:
             raise AssertionError(f"crowd_mesh {mode}: launches {got}, "
                                  f"expected {want}")
+        same_frames(fb, alone, f"crowd_mesh {mode} first call")
+        times = []
+        for c in range(3):
+            ms, fb = cuda_ms(call, 1)
+            times += ms
+            same_frames(fb, alone, f"crowd_mesh {mode} timed call {c}")
         for k in CROWD_SPLIT:
             launches[k] += got[k]
         step, drift = check_sequence(f"crowd_mesh {mode}", fb,
@@ -1291,28 +1441,33 @@ def crowd_mesh_phase(dev, smi: str) -> dict:
             raise AssertionError(f"crowd_mesh {mode}: frame 0 shows the mesh "
                                  f"{mesh_id in ids.tolist()} and "
                                  f"{n_crowd_ids} crowd members")
-        # frames 0 and F-1 again, each kernel call against its plain
-        # versions; the timed calls' frames equal to those
+        # the kernel calls of one more call, each launched at the pass's
+        # shape, its rows of frames 0 and F-1 held against the plain
+        # versions on those frames alone; the table per frame: frames 0
+        # and F-1 each launched alone, halved, and the pass's time over
+        # its frames
         with capture_calls() as calls:
-            again = render_sequence(scene, camera, (Rs[idx], ps[idx]), st,
-                                    device=dev)
-        firsts = [k for k, (kname, _) in enumerate(calls)
-                  if kname == "render_tile"]
-        if len(firsts) != 2:
-            raise AssertionError(f"crowd_mesh {mode}: K1 calls at {firsts}")
+            again = call()
+        same_frames(again, alone, f"crowd_mesh {mode} recorded call")
+        del again, alone
+        k1 = [k for k, (kname, _) in enumerate(calls)
+              if kname == "render_tile"]
+        if len(k1) != 1:
+            raise AssertionError(f"crowd_mesh {mode}: K1 calls at {k1}")
         stats = {}
         for k, (kname, args) in enumerate(calls):
             _hold_call(kname, args, f"crowd_mesh {mode} call {k}", errs,
-                       stats if k < firsts[1] else None, memo)
-        for c, fbk in enumerate(kept):
-            bitwise(fbk, again, FrameBuffers._fields,
-                    f"crowd_mesh {mode} timed call {c} frames {idx}")
+                       stats, memo, part=(rows, idx))
+        del calls
         for key, s_ in stats.items():
+            for name in s_:
+                if name != "calls" and isinstance(s_[name], (int, float)):
+                    s_[name] /= n_frames if name == "pass_ms" else len(idx)
             if key in CROWD_SPLIT:
                 s_["bound_ms"], s_["bound_by"] = bound(s_["ops"], s_["bytes"])
                 s_["unculled_bound_ms"] = bound(s_["ops_unculled"],
                                                 s_["bytes"])[0]
-            log(f"  {mode} frame 0 {key}: " + json.dumps(s_))
+            log(f"  {mode} per frame (frames {idx}) {key}: " + json.dumps(s_))
         frame[mode] = stats
         n_hits = float(fb.hit.sum()) / n_frames
         rays = float(W * H) + n_hits * n_lights * st.shadows \
@@ -1325,16 +1480,20 @@ def crowd_mesh_phase(dev, smi: str) -> dict:
             mrays_per_s=rays / s_frame / 1e6, hit_fraction=n_hits / (W * H),
             mesh_fraction=float((fb.obj_id[0] == mesh_id).float().mean()),
             crowd_ids=n_crowd_ids, hit_fraction_drift=drift,
-            hit_fraction_max_step=step, launches=got)
+            hit_fraction_max_step=step, launches=got,
+            peak_bytes_per_pass=peak, peak_bytes_per_ray=peak / (
+                n_frames * pass_rays(static, camera.intrinsics, st)))
         log(f"  {mode}: " + json.dumps(results[mode]))
+        del fb
     t_opp = time.perf_counter()
     held = _hold_opposed(dev, scene, modes, errs)
     log(f"  a batch shooting each point both ways: {held} calls (K1, K2 "
         "hard and soft) bitwise equal to their plain versions, masked and "
         f"unmasked ({time.perf_counter() - t_opp:.1f} s)")
     log(f"phase 23: the crowd-mesh main path 1920x1080 x {n_frames} frames, "
-        f"{n_members} crowd members, frames 0 and {n_frames - 1} of every "
-        f"timed call bitwise equal to the plain versions, masked and "
+        f"{n_members} crowd members, in one pass, every frame of every "
+        f"call == render(), the pass's kernel calls on frames 0 and "
+        f"{n_frames - 1} bitwise equal to the plain versions, masked and "
         f"unmasked; launches {json.dumps(launches)} "
         f"({time.perf_counter() - t23:.1f} s) on {smi}")
     return {"launches": launches, "err": errs, "frame": frame,
@@ -1807,15 +1966,13 @@ def main() -> int:
     from surfjax_torch.core.scene_compile import params_to_device
     from surfjax_torch.core.types import FrameBuffers
     from surfjax_torch.kernels import _build
-    from surfjax_torch.kernels.mesh_tile import (
-        mesh_tile, mesh_tile_reference,
-    )
+    from surfjax_torch.kernels.mesh_tile import mesh_tile
     from surfjax_torch.kernels.render_tile import (
         SceneTensors, ao_fix, count_ops, frame_buffers, frame_fused,
         frame_fused_reference, render_tile, trace_rays,
     )
     from surfjax_torch.tools.kernel_check import (
-        KERNELS, capture_calls, compare,
+        KERNELS, capture_calls, compare, flat, fresh,
     )
     from surfjax_torch.tools.workload import (
         EXACT, cam_rows_of, cuda_ms, gpu_line, main_path, mesh_main_path,
@@ -1823,14 +1980,15 @@ def main() -> int:
         reframe, sphere_crowd, two_mesh_scene,
     )
     from surfjax_torch.kernels.render_tile import (
-        crowd_warp_masks, prime_frame, prime_tile, split_crowd,
+        LANES, crowd_warp_masks, frames_per_pass, pass_rays, prime_frame,
+        prime_frames, prime_tile, split_crowd,
     )
     from surfjax_torch.tools.breakdown import (
         crowd_variants, fused_path, kf_phases, mesh_phases, prime_phases,
         split_phases,
     )
     from surfjax_torch.kernels.mesh_tile import (
-        MT_TEST_OPS, mesh_cull_count, mesh_warp_masks,
+        mesh_cull_count, mesh_warp_masks,
     )
     from surfjax_torch.tools.workload import mesh_probe_calls
     from surfjax_torch.kernels.render_tile import staged_occupancy
@@ -2030,38 +2188,37 @@ def main() -> int:
         f"({time.perf_counter() - t5:.1f} s)")
 
     # -- phase 6 ------------------------------------------------------------
+    # the c4 main path: 16 frames in one pass of the split path, launches
+    # per pass, every frame of each timed call against render() of it
     t6 = time.perf_counter()
     scene, camera, Rs, ps, modes = mesh_main_path(c4_path)
     n_frames = len(ps)
     n_objects = len(scene.objects)
     H, W = camera.intrinsics.height, camera.intrinsics.width
-    wrappers = _split_wrappers()
-    mesh_results, mesh_launches = {}, {}
+    wrappers = dict(_split_wrappers(), frame_fused=frame_fused)
+    mesh_results, mesh_launches, mesh_alone = {}, {}, {}
     for mode, st in modes.items():
         call = lambda st=st: render_sequence(scene, camera, (Rs, ps), st,
                                              device=dev)
-        for w in list(wrappers.values()) + [frame_fused]:
+        alone = frames_alone(scene, camera, ps, st, dev)
+        mesh_alone[mode] = (alone[0], alone[-1])
+        for w in wrappers.values():
             w.launches = 0
-        call()
-        torch.cuda.synchronize()
-        times, fb = cuda_ms(call, 3)
-        mesh_launches[mode] = {name: w.launches
-                               for name, w in wrappers.items()}
-        mesh_launches[mode]["frame_fused"] = frame_fused.launches
-        mesh_results[mode] = (times, st, fb)
-    for mode, (times, st, fb) in mesh_results.items():
-        counts = mesh_launches[mode]
-        needed = [k for k in split if k != "ao_fix" or st.ao]
-        if any(counts[k] < 1 for k in needed) or counts["frame_fused"]:
-            raise AssertionError(f"{mode}: launch counts {counts}")
+        fb, peak = peak_bytes(call, dev)
+        counts = {name: w.launches for name, w in wrappers.items()}
+        want = pass_launches(scene, camera, st, n_frames)
+        if counts != want:
+            raise AssertionError(f"{mode}: launches {counts}, expected "
+                                 f"{want}")
+        same_frames(fb, alone, f"c4 {mode} first call")
+        times = []
+        for c in range(3):
+            ms, fb = cuda_ms(call, 1)
+            times += ms
+            same_frames(fb, alone, f"c4 {mode} timed call {c}")
+        mesh_launches[mode] = counts
         step, drift = check_sequence(mode, fb, n_objects, MESH_STEP_MAX,
                                      MESH_DRIFT_MAX)
-        single = render(scene, dataclasses.replace(
-            camera, position=tuple(float(x) for x in ps[0])), st, device=dev)
-        for field in FrameBuffers._fields:
-            if not torch.equal(getattr(single, field), getattr(fb, field)[0]):
-                raise AssertionError(f"{mode}: frame 0 of the sequence "
-                                     f"differs from render() in {field}")
         n_hits = float(fb.hit.sum()) / n_frames
         rays = float(W * H) + n_hits * len(scene.lights) * st.shadows \
             + n_hits * st.ao_samples * st.ao
@@ -2072,57 +2229,79 @@ def main() -> int:
             frames_per_s=1.0 / s_frame, rays_per_frame=rays,
             mrays_per_s=rays / s_frame / 1e6, hit_fraction=n_hits / (W * H),
             hit_fraction_drift=drift, hit_fraction_max_step=step,
-            launches=counts)
+            launches=counts, peak_bytes_per_pass=peak,
+            peak_bytes_per_ray=peak / (n_frames * pass_rays(
+                scene.freeze()[0], camera.intrinsics, st)))
         log(f"  {mode}: " + json.dumps(mesh_results[mode]))
-    log(f"phase 6: mesh main path 1920x1080 x {n_frames} frames "
+        del fb, alone
+    log(f"phase 6: mesh main path 1920x1080 x {n_frames} frames in one pass "
+        f"(launches per pass; every frame of every call == render()) "
         f"({time.perf_counter() - t6:.1f} s) on {smi}")
 
     # -- phase 7 ------------------------------------------------------------
-    # every split kernel call of one 1080p frame, kernel against plain
+    # every split kernel call of one 16-frame pass of phase 6's main path,
+    # launched at the pass's shape, its rows of frames 0 and F-1 held
+    # against the plain version run on those two frames alone (frame_cut);
+    # per frame: the kernel's times, operations and bytes on frame 0's cut
+    # launched alone (one 1080p frame's call), the plain version's time
+    # (the two frames' halved), and the whole pass launched back to back
+    # over its frames (pass_ms)
     t7 = time.perf_counter()
-    cam0 = dataclasses.replace(camera,
-                               position=tuple(float(x) for x in ps[0]))
+    idx = [0, n_frames - 1]
+    rows = pass_rays(scene.freeze()[0], camera.intrinsics,
+                     modes["ao"]) // LANES
     per_kernel = {}
     for mode, st in modes.items():
         with capture_calls() as calls:
-            render(scene, cam0, st, device=dev)
-        stats = {k: dict(ms=0.0, call_ms=0.0, plain_ms=0.0, ops=0, bytes=0,
-                         calls=0) for k in split}
+            render_sequence(scene, camera, (Rs, ps), st, device=dev)
+        stats = {k: dict(ms=0.0, call_ms=0.0, pass_ms=0.0, plain_ms=0.0,
+                         ops=0, bytes=0, calls=0) for k in split}
         for k, (kname, args) in enumerate(calls):
-            wrapper = KERNELS[kname][0]
-            c_ms, _ = cuda_ms(lambda: wrapper(*args), 3)
-            # the kernel alone: prepared once, launched back to back
-            launch, _ = KERNELS[kname][3](*args)
-            launch()
-            k_ms, _ = cuda_ms(lambda: [launch() for _ in range(LAUNCH_REPS)],
-                              3)
-            p_ms, _ = cuda_ms(lambda: KERNELS[kname][1](*args), 1)
-            err, got, _ = compare(kname, args, f"c4 {mode} 1080p call {k}")
+            wrapper, reference, names, launcher = KERNELS[kname]
+            label = f"c4 {mode} 1080p x {n_frames} call {k} {kname}"
+            got = [frame_rows(g, rows, idx)
+                   for g in flat(wrapper(*fresh(kname, args)))]
+            held = frame_cut(kname, args, rows, idx)
+            p_ms, ref = cuda_ms(lambda: reference(*held), 1)
+            err = bitwise(got, flat(ref)[:len(got)], names,
+                          f"{label} frames {idx} == plain")
             split_err[kname] = max(split_err[kname], err)
+            del got, ref, held
+            one = frame_cut(kname, args, rows, [0])
+            c_ms, got1 = cuda_ms(lambda: wrapper(*fresh(kname, one)), 3)
+            # the kernel alone: prepared once, launched back to back, on
+            # frame 0 and on the whole pass
+            k_ms = []
+            for call_args in (one, args):
+                launch, _ = launcher(*fresh(kname, call_args))
+                launch()
+                k_ms.append(min(cuda_ms(
+                    lambda: [launch() for _ in range(LAUNCH_REPS)], 3)[0])
+                    / LAUNCH_REPS)
+                del launch
             if kname == "mesh_tile":
-                culled = mesh_cull_count(args, mesh_warp_masks(
-                    *args[:7], args[9]))
+                culled = mesh_cull_count(one, mesh_warp_masks(
+                    *one[:7], one[9]))
                 ops = culled["ops"]
-                unculled = int(mesh_tile_reference(
-                    *args, count_tests=True)[-1].sum())
-                log(f"  {mode} call {k} mesh_tile: culled "
-                    f"{json.dumps(culled)}; unculled lane-tests {unculled}"
-                    f" ({MT_TEST_OPS * unculled:.4g} ops)")
+                log(f"  {mode} call {k} mesh_tile frame 0: culled "
+                    f"{json.dumps(culled)}")
             else:
                 with count_ops() as c:
-                    KERNELS[kname][1](*args)
+                    reference(*fresh(kname, one))
                 ops = c["ops"]
             s_ = stats[kname]
-            s_["ms"] += min(k_ms) / LAUNCH_REPS
+            s_["ms"] += k_ms[0]
+            s_["pass_ms"] += k_ms[1] / n_frames
             s_["call_ms"] += min(c_ms)
-            s_["plain_ms"] += p_ms[0]
+            s_["plain_ms"] += p_ms[0] / len(idx)
             s_["ops"] += ops
-            s_["bytes"] += bytes_read(kname, args) + nbytes(got)
+            s_["bytes"] += bytes_read(kname, one) + nbytes(flat(got1))
             s_["calls"] += 1
         per_kernel[mode] = stats
-        log(f"  {mode}: " + json.dumps(stats))
-    log(f"phase 7: split kernels vs plain at one 1920x1080 frame "
-        f"({time.perf_counter() - t7:.1f} s) on {smi}")
+        del calls
+        log(f"  {mode} per frame: " + json.dumps(stats))
+    log(f"phase 7: split kernels of a {n_frames}-frame 1920x1080 pass, "
+        f"frames {idx} vs plain ({time.perf_counter() - t7:.1f} s) on {smi}")
 
     # -- phase 8 ------------------------------------------------------------
     # the crowd loops: kernel against plain and crowd on against crowd off
@@ -2308,7 +2487,6 @@ def main() -> int:
                 f"{PRIME_HIT_MAX} of the frame)")
         if not bool(torch.isfinite(primed.rgb).all()):
             raise AssertionError("primed frame: non-finite rgb")
-    prime_launches = counts[0]
     # times at 1080p: the priming kernel launched back to back, KF on one
     # frame with and without its t0, and the two render() calls
     launch, _ = KERNELS["prime_tile"][3](*args)
@@ -2344,6 +2522,68 @@ def main() -> int:
         render_ms_primed=min(call_p), render_ms_unprimed=min(call_u),
         mean_t0=float(t0[t0 < st10.t_max].mean()))
     log("  primed c3 1080p: " + json.dumps(prime_stats))
+    # the primed main path: c3 `value` primed, 1080p x PRIME_FRAMES frames
+    # in one pass (one priming launch over every frame's coarse rays, one
+    # KF launch with their t0), every frame of each call == render()
+    scene10, cam10, Rs10, ps10, modes10 = main_path(
+        os.path.join(ROOT, "configs/c3_sdf.yaml"), PRIME_FRAMES)
+    st10 = modes10["value"].with_(prime=True)
+    call10 = lambda: render_sequence(scene10, cam10, (Rs10, ps10), st10,
+                                     device=dev)
+    alone = frames_alone(scene10, cam10, ps10, st10, dev)
+    prime_tile.launches = frame_fused.launches = 0
+    seq10, peak10 = peak_bytes(call10, dev)
+    seq_launches = (prime_tile.launches, frame_fused.launches)
+    static10, params10 = scene10.freeze()
+    passes = -(-PRIME_FRAMES // frames_per_pass(pass_rays(
+        static10, cam10.intrinsics, st10)))
+    if seq_launches != (passes, passes):
+        raise AssertionError(f"primed sequence: launches (prime_tile, KF) "
+                             f"{seq_launches}, expected {passes} each")
+    same_frames(seq10, alone, "primed c3 first call")
+    seq_ms = []
+    for c in range(3):
+        ms, seq10 = cuda_ms(call10, 1)
+        seq_ms += ms
+        same_frames(seq10, alone, f"primed c3 timed call {c}")
+    check_sequence("primed c3", seq10, len(scene10.objects), 2e-4, 2.5e-3)
+    del seq10, alone
+    # the pass's two kernels at its shape: prime_tile over every frame's
+    # coarse rays and KF over every frame with their t0, the coarse rows
+    # and the pixels of frames 0 and F-1 held against the plain versions
+    # on those frames alone
+    idx10 = [0, PRIME_FRAMES - 1]
+    params10 = params_to_device(params10, dev)
+    Rs10_t, ps10_t = (torch.as_tensor(np.asarray(a, np.float32).reshape(
+        PRIME_FRAMES, -1), device=dev) for a in (Rs10, ps10))
+    with capture_calls() as calls:
+        t0_all = prime_frames(static10, cam10.intrinsics, st10, params10,
+                              Rs10_t, ps10_t)
+    (kname, args), = calls
+    hc10 = args[3][0].shape[0] // PRIME_FRAMES
+    got = [frame_rows(g, hc10, idx10) for g in flat(prime_tile(*args))]
+    ref = KERNELS["prime_tile"][1](*frame_cut(kname, args, hc10, idx10))
+    prime_err = max(prime_err, bitwise(
+        got, flat(ref), KERNELS["prime_tile"][2],
+        f"primed c3 1080p x {PRIME_FRAMES} prime_tile frames {idx10}"))
+    rows10 = cam_rows_of(Rs10_t, ps10_t, dev)
+    scene_t10 = SceneTensors(static10, params10)
+    out = frame_fused(scene_t10, st10, cam10.intrinsics, rows10, t0_all)
+    ref = frame_fused_reference(scene_t10, st10, cam10.intrinsics,
+                                rows10[idx10], t0_all[idx10])
+    prime_err = max(prime_err, bitwise(
+        [a[idx10] for a in out], ref, NINE,
+        f"primed c3 1080p x {PRIME_FRAMES} KF frames {idx10}"))
+    del calls, args, got, ref, out, t0_all
+    prime_launches, kf_primed_launches = seq_launches
+    prime_stats.update(
+        sequence_ms_per_frame=min(seq_ms) / PRIME_FRAMES,
+        sequence_ms_per_call=[round(t, 3) for t in seq_ms],
+        sequence_launches=seq_launches, sequence_peak_bytes_per_pass=peak10,
+        sequence_peak_bytes_per_pixel=peak10 / (
+            PRIME_FRAMES * cam10.intrinsics.width * cam10.intrinsics.height))
+    log(f"  primed c3 1080p x {PRIME_FRAMES} frames: " + json.dumps({
+        k: v for k, v in prime_stats.items() if k.startswith("sequence")}))
     log(f"phase 10: priming kernel vs plain and the primed main path "
         f"({time.perf_counter() - t10:.1f} s) on {smi}")
 
@@ -2784,13 +3024,17 @@ def main() -> int:
         raise AssertionError("jax was imported")
     # the fused kernel: times per 1080p frame in value_exact mode, the
     # error the largest over every buffer of phases 2 and 4; the split
-    # kernels: times per 1080p frame of c4 in `ao` mode (all calls of the
-    # frame, each kernel launched back to back), launches over both modes
+    # kernels: times per 1080p frame of c4 in `ao` mode (all calls of frame
+    # 0 of phase 7's pass, each cut and launched back to back alone;
+    # pass_ms the whole pass's over its frames), launches per pass over
+    # both modes
     # of phase 6, errors over phases 5, 7 and 8 and (K1, K2) the fit steps
     # held in phase 14, K1 and K2 also their time and bound in one 1080p
     # fit step (phase 14); the crowd instantiation:
     # crowd_demo `config` per 1080p frame, launches of phase 9, errors over
-    # phases 8 and 9; the priming kernel: the 1080p frame of phase 10; K1
+    # phases 8 and 9; the priming kernel: the 1080p frame of phase 10,
+    # launches of its 16-frame primed main path (KF's count that KF launch
+    # too); K1
     # and K2 also count the fit's launches (phase 14); the split kernels
     # also count the sharded paths' launches and errors (phase 21); KF,
     # its crowd instantiation and the split kernels also count the
@@ -2804,7 +3048,8 @@ def main() -> int:
         "name": "frame_fused", "route": "cuda",
         "source": "surfjax_torch/kernels/csrc/kf_staged.cu",
         "replaces": "surfjax/kernels/render_tile.py:2196",
-        "launches": main_launches + benched["launches"]["frame_fused"]
+        "launches": main_launches + kf_primed_launches
+        + benched["launches"]["frame_fused"]
         + limits["launches"]["frame_fused"],
         "max_abs_err": max(max_err, benched["err"]["frame_fused"],
                            limits["err"].get("frame_fused", 0.0)),
@@ -2861,7 +3106,7 @@ def main() -> int:
                                limits["err"].get(name, 0.0)),
             "ms": st7["ms"],
             "plain_ms": st7["plain_ms"], "bound_ms": b[0], "bound_by": b[1],
-            "library_ms": None})
+            "library_ms": None, "pass_ms": st7["pass_ms"]})
         if name in fit_stats:
             f_ = fit_stats[name]
             fb_ = bound(f_["ops"], f_["bytes"])
@@ -2870,9 +3115,10 @@ def main() -> int:
         if name in capped["ms"]:
             # c3 1080p, mc=32 sc=16: the capped launch and its re-run
             kernels[-1].update(capped["ms"][name])
-    # the split kernels' crowd instantiations: frame 0 of the crowd-mesh
-    # path at 1080p in `config` mode (every call of the frame, each
-    # launched back to back), launches of phase 23's main path, errors
+    # the split kernels' crowd instantiations: per frame of the crowd-mesh
+    # pass at 1080p in `config` mode (every call, frames 0 and 15 each cut
+    # and launched back to back alone, halved; pass_ms the whole pass's
+    # over its frames), launches of phase 23's main path, errors
     # over phases 8, 19 and 23 (phases 8 and 23 also against the masked
     # plain versions); the bound counts the culled algorithm
     for name in CROWD_SPLIT:
@@ -2891,7 +3137,7 @@ def main() -> int:
                                limits["err"].get(name, 0.0)),
             "ms": f_["ms"], "plain_ms": f_["plain_ms"],
             "bound_ms": f_["bound_ms"], "bound_by": f_["bound_by"],
-            "library_ms": None})
+            "library_ms": None, "pass_ms": f_["pass_ms"]})
     for entry, info in probe.items():
         kernels.append({
             "name": entry, "route": "cuda",

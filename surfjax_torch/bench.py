@@ -21,7 +21,10 @@ over the stacked buffers and `torch.cuda.synchronize()`, with the host
 clock around all of it and CUDA events around the same work; the figure is
 the fastest call's time over its frames. On the card the kernel paths run
 (`backend="pallas"`): a mesh-free scene is one fused launch per call, a
-mesh scene goes frame by frame through the split path. Ray accounting:
+mesh scene (or a primed one) goes in passes of whole frames through the
+split path (or the priming pass and KF), each kernel launched once per
+pass (render_tile.PASS_RAYS rays at most; c4's 16 frames at 1080p are one
+pass). Ray accounting:
 primary = H*W; shadow = one ray per (hit, light); AO = one probe ray per
 (hit, probe direction).
 

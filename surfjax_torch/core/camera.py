@@ -73,8 +73,10 @@ def look_at(eye, target, up=(0.0, 1.0, 0.0)
 def camera_ray_dirs_dyn(intr: Intrinsics, R_flat, rows, cols):
     """Normalized world-space ray directions for pixel centres.
 
-    R_flat: (9,) float32 tensor, row-major world_from_cam rotation;
-    rows/cols: float32 tensors of pixel row/col indices (any shape)."""
+    R_flat: (9,) float32 tensor, row-major world_from_cam rotation, or
+    per_frame(R_flats, rows.dim()) for F frames at once (a leading frame
+    axis on the result); rows/cols: float32 tensors of pixel row/col
+    indices (any shape)."""
     i = rows.to(torch.float32)
     j = cols.to(torch.float32)
     xc = fdiv(j + 0.5 - f32(intr.cx), intr.fx)
@@ -85,10 +87,21 @@ def camera_ray_dirs_dyn(intr: Intrinsics, R_flat, rows, cols):
     return vnormalize((dx, dy, dz))
 
 
+def per_frame(rows, ndim: int):
+    """(F, k) rows of F frames (rotations, positions) -> (k, F, 1, ...,
+    1) with ndim trailing ones: entry j broadcasts against a frame's
+    ndim-dimensional pixel arrays, so camera_ray_dirs_dyn takes it as its
+    R_flat and gives every frame's rays at once, each the number the
+    frame's own (9,) rotation gives."""
+    return rows.T.reshape(rows.shape[1], rows.shape[0], *([1] * ndim))
+
+
 def flat_camera_rays(intr: Intrinsics, R_flat, cam_pos, pad_to: int = 1):
     """Flat (row-major) per-pixel rays of a pose given as tensors: the one
     definition of the pixel grid the fit loop renders. pad_to > 1 pads the
-    ray count to a multiple by repeating the last pixel.
+    ray count to a multiple by repeating the last pixel. R_flat (9,) and
+    cam_pos (3,) give rays of shape (n_pad,); R_flat (F, 9) and cam_pos
+    (F, 3), F frames' rays of shape (F, n_pad).
     -> (o tuple, d tuple, number of real pixels)."""
     n = intr.width * intr.height
     n_pad = ((n + pad_to - 1) // pad_to) * pad_to
@@ -100,8 +113,10 @@ def flat_camera_rays(intr: Intrinsics, R_flat, cam_pos, pad_to: int = 1):
     if n_pad > n:
         rows = torch.cat([rows, rows[-1:].expand(n_pad - n)])
         cols = torch.cat([cols, cols[-1:].expand(n_pad - n)])
+    if R_flat.dim() == 2:
+        R_flat, cam_pos = per_frame(R_flat, 1), per_frame(cam_pos, 1)
     d = camera_ray_dirs_dyn(intr, R_flat, rows, cols)
-    o = tuple(cam_pos[k].expand(rows.shape) for k in range(3))
+    o = tuple(cam_pos[k].expand(d[0].shape) for k in range(3))
     return o, d, n
 
 

@@ -47,13 +47,21 @@ MT_WX = 16       # the kernel's warps: 16 x 2 rays (csrc/mesh_tile.cu)
 VOTE_SLOTS = 256  # candidate slots mesh_warp_masks compares at a time
 
 
+# The most (tile, triangle) entries mesh_candidates tests at a time: a
+# batch with more tiles (a sequence's frames in one pass) is taken in
+# groups of whole tiles, each tile's candidates being its own.
+CAND_ENTRIES = 1 << 26
+
+
 def mesh_candidates(ms, tri_packed, o2, d2, t_min, t_max, tile_rows: int,
                     K: int = PACKET_K):
     """-> (cand (tiles, K) int32 triangle ids, counts (tiles,) int32).
 
     Conservative per-tile candidate sets by segment-AABB culling plus
     three oriented axes. Slots at and above a tile's count hold the last
-    triangle, as in the reference; a count above K means overflow."""
+    triangle, as in the reference; a count above K means overflow. The
+    tiles' ranges are formed at once, their overlap with the triangles in
+    groups of at most CAND_ENTRIES entries (_tile_candidates)."""
     rows, lanes = o2[0].shape
     tiles = rows // tile_rows
     bmin = [np.float32(v) for v in ms.bbox_min]
@@ -90,20 +98,7 @@ def mesh_candidates(ms, tri_packed, o2, d2, t_min, t_max, tile_rows: int,
         return (lo.reshape(tiles, -1).amin(dim=1),
                 hi.reshape(tiles, -1).amax(dim=1))
 
-    # triangle boxes from the packed v0/e1/e2
-    v0 = tri_packed[:, 0:3]
-    p1 = v0 + tri_packed[:, 3:6]
-    p2 = v0 + tri_packed[:, 6:9]
-    tri_lo = torch.minimum(torch.minimum(v0, p1), p2)
-    tri_hi = torch.maximum(torch.maximum(v0, p1), p2)
-
-    eps = f32(1e-4)
-    overlap = torch.ones((tiles, tri_packed.shape[0]), dtype=torch.bool,
-                         device=o2[0].device)
-    for ax in range(3):
-        lo, hi = tile_range(pa[ax], pb[ax])
-        overlap &= tri_lo[None, :, ax] <= hi[:, None] + eps
-        overlap &= tri_hi[None, :, ax] >= lo[:, None] - eps
+    boxes = [tile_range(pa[ax], pb[ax]) for ax in range(3)]
 
     # Oriented refinement: the mean segment direction of the tile and two
     # orthogonals as separating axes. Any axis is sound (the segments'
@@ -127,17 +122,49 @@ def mesh_candidates(ms, tri_packed, o2, d2, t_min, t_max, tile_rows: int,
     u = u / sqrt((u[:, 0:1] * u[:, 0:1] + u[:, 1:2] * u[:, 1:2])
                  + u[:, 2:3] * u[:, 2:3])
     v = torch.linalg.cross(w, u, dim=1)
-    verts = (v0, p1, p2)
+    axes = []
     for a in (w, u, v):
+        sa, sb = ((q[0].reshape(tiles, -1) * a[:, 0:1]
+                   + q[1].reshape(tiles, -1) * a[:, 1:2])
+                  + q[2].reshape(tiles, -1) * a[:, 2:3] for q in (pa, pb))
+        axes.append((a,) + tile_range(sa.reshape(o2[0].shape),
+                                      sb.reshape(o2[0].shape)))
+
+    step = max(1, CAND_ENTRIES // max(1, tri_packed.shape[0]))
+    parts = [_tile_candidates(
+        tri_packed, [(lo[g], hi[g]) for lo, hi in boxes],
+        [(a[g], lo[g], hi[g]) for a, lo, hi in axes], K)
+        for g in (slice(s, s + step) for s in range(0, tiles, step))]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def _tile_candidates(tri_packed, boxes, axes, K: int):
+    """mesh_candidates for a group of tiles, given per tile its box (lo,
+    hi per axis) and its three oriented axes with the range of its
+    segments' projections on each -> (cand, counts) of the group."""
+    tiles = boxes[0][0].shape[0]
+    # triangle boxes from the packed v0/e1/e2
+    v0 = tri_packed[:, 0:3]
+    p1 = v0 + tri_packed[:, 3:6]
+    p2 = v0 + tri_packed[:, 6:9]
+    tri_lo = torch.minimum(torch.minimum(v0, p1), p2)
+    tri_hi = torch.maximum(torch.maximum(v0, p1), p2)
+
+    eps = f32(1e-4)
+    overlap = torch.ones((tiles, tri_packed.shape[0]), dtype=torch.bool,
+                         device=tri_packed.device)
+    for ax, (lo, hi) in enumerate(boxes):
+        overlap &= tri_lo[None, :, ax] <= hi[:, None] + eps
+        overlap &= tri_hi[None, :, ax] >= lo[:, None] - eps
+    verts = (v0, p1, p2)
+    for a, slo, shi in axes:
         tproj = [(a[:, 0:1] * vt[None, :, 0] + a[:, 1:2] * vt[None, :, 1])
                  + a[:, 2:3] * vt[None, :, 2] for vt in verts]
         tpro_lo = torch.minimum(torch.minimum(tproj[0], tproj[1]), tproj[2])
         tpro_hi = torch.maximum(torch.maximum(tproj[0], tproj[1]), tproj[2])
-        sa, sb = ((q[0].reshape(tiles, -1) * a[:, 0:1]
-                   + q[1].reshape(tiles, -1) * a[:, 1:2])
-                  + q[2].reshape(tiles, -1) * a[:, 2:3] for q in (pa, pb))
-        slo, shi = tile_range(sa.reshape(o2[0].shape),
-                              sb.reshape(o2[0].shape))
         overlap &= tpro_lo <= shi[:, None] + eps
         overlap &= tpro_hi >= slo[:, None] - eps
 
@@ -151,7 +178,7 @@ def mesh_candidates(ms, tri_packed, o2, d2, t_min, t_max, tile_rows: int,
     s_idx = slot[t_idx, f_idx]
     keep = s_idx < K
     cand = torch.full((tiles, K), F_n - 1, dtype=torch.int32,
-                      device=o2[0].device)
+                      device=tri_packed.device)
     cand[t_idx[keep], s_idx[keep].long()] = f_idx[keep].to(torch.int32)
     return cand, counts
 

@@ -2721,48 +2721,112 @@ def _maybe_warn_crowd(static, settings: RenderSettings) -> None:
             "with bitwise-equal geometry", RuntimeWarning)
 
 
+# The most rays one pass of a batched sequence holds: the split path's
+# padded rays (tile_rows x 128 per tile), or a primed mesh-free pass's
+# pixels. Sized from the peak memory a pass took per ray on the H100 (the
+# split path 243 bytes per padded ray on c4 and 277 on crowd-mesh, primed
+# c3 73 per pixel; PERF.md, "The sequences"): 16 frames of c4 or
+# crowd-mesh at 1920x1080 (33.9M and 33.4M padded rays) run in one pass,
+# and a full pass of 2**26 rays peaks near 18.6 GB, under a quarter of an
+# 80 GB card. It also keeps every kernel's int ray index far below 2**31.
+PASS_RAYS = 1 << 26
+
+
+def prime_applies(static, intr, settings: RenderSettings) -> bool:
+    """True when the frames of this scene and size are primed: priming
+    needs settings.prime, an SDF object, min(H, W) >= settings.prime_min
+    and no active crowd (members are cheap primitives; the pass does not
+    know them)."""
+    crowd, _, sdf_objs = split_crowd(static, settings)
+    return bool(settings.prime and sdf_objs and crowd is None
+                and min(intr.height, intr.width) >= settings.prime_min)
+
+
+def pass_rays(static, intr, settings: RenderSettings) -> int:
+    """The rays one frame takes of a pass (PASS_RAYS): its padded split-path
+    rays, or its pixels where it takes KF."""
+    if fused_frame_ok(static, settings):
+        return intr.height * intr.width
+    R = settings.tile_rows
+    return (-(-intr.height // R) * R) * (-(-intr.width // LANES) * LANES)
+
+
+def frames_per_pass(rays_per_frame: int) -> int:
+    """The whole frames of rays_per_frame rays each that one pass takes:
+    as many as PASS_RAYS holds, at least one."""
+    return max(1, PASS_RAYS // rays_per_frame)
+
+
+def batch_rays(n_rays: int, settings: RenderSettings) -> int:
+    """The rays a batch of n_rays flat rays takes of a pass: padded to
+    whole tiles of tile_rows x 128 (_pad_rays)."""
+    block = settings.tile_rows * LANES
+    return -(-n_rays // block) * block
+
+
+def in_passes(n_frames: int, rays_per_frame: int,
+              render_frames) -> FrameBuffers:
+    """render_frames(s) of a slice s of whole frames -> FrameBuffers with a
+    leading frame axis, called once per pass (frames_per_pass), the
+    passes joined along the frame axis."""
+    per = frames_per_pass(rays_per_frame)
+    parts = [render_frames(slice(a, a + per))
+             for a in range(0, n_frames, per)]
+    if len(parts) == 1:
+        return parts[0]
+    return FrameBuffers(*(torch.cat(p) for p in zip(*parts)))
+
+
 def render_sequence_pallas(static, intr, settings: RenderSettings, params,
                            R_flats, positions) -> FrameBuffers:
     """F frames -> FrameBuffers with a leading frame axis (see
-    frame_buffers): one fused call for a mesh-free scene without priming,
-    else one frame after another (priming is a single-frame pass, and a
-    mesh scene takes the split path), as surfjax's _sequence_jit routes
-    them."""
+    frame_buffers), as surfjax's _sequence_jit runs them: an unprimed
+    mesh-free scene in one KF launch over all F frames; any other (a mesh
+    or march caps: the split path; priming) in passes of as many whole
+    frames as PASS_RAYS allows (in_passes), each pass launching every
+    kernel once over all its frames (_render_pass); a frame of more than
+    PASS_RAYS rays takes a pass of its own, as render() renders it. The
+    frames equal render()'s bitwise, whatever the pass size."""
+    if fused_frame_ok(static, settings) and not prime_applies(
+            static, intr, settings):
+        _maybe_warn_crowd(static, settings)
+        return frame_buffers(frame_fused(SceneTensors(static, params),
+                                         settings, intr,
+                                         _cam_rows(R_flats, positions)))
+    return in_passes(R_flats.shape[0], pass_rays(static, intr, settings),
+                     lambda s: _render_pass(static, intr, settings, params,
+                                            R_flats[s], positions[s]))
+
+
+def _cam_rows(R_flats, positions):
+    """(F, 9) rotations and (F, 3) positions -> KF's (F, 12) float32
+    camera rows."""
     F = R_flats.shape[0]
-    if settings.prime or not fused_frame_ok(static, settings):
-        frames = [render_frame_pallas(static, intr, settings, params,
-                                      R_flats[f], positions[f])
-                  for f in range(F)]
-        return FrameBuffers(*(torch.stack(parts) for parts in zip(*frames)))
-    _maybe_warn_crowd(static, settings)
-    cam_rows = torch.cat([R_flats.reshape(F, 9), positions.reshape(F, 3)],
-                         dim=1).to(torch.float32).contiguous()
-    return frame_buffers(frame_fused(SceneTensors(static, params), settings,
-                                     intr, cam_rows))
+    return torch.cat([R_flats.reshape(F, 9), positions.reshape(F, 3)],
+                     dim=1).to(torch.float32).contiguous()
 
 
 PRIME_BLOCK = 4    # a coarse ray of the priming pass stands for 4x4 pixels
 
 
-def prime_frame(static, intr, settings: RenderSettings, params, R_flat,
-                cam_pos):
-    """The priming pass of one frame -> t0 (H, W), a safe SDF-march start
-    for every pixel, or None when the frame is not primed: priming needs
-    settings.prime, an SDF object, min(H, W) >= settings.prime_min and no
-    active crowd (members are cheap primitives; the pass does not know
-    them).
+def prime_frames(static, intr, settings: RenderSettings, params, R_flats,
+                 positions):
+    """The priming pass of F frames -> t0 (F, H, W), a safe SDF-march start
+    for every pixel, or None when the frames are not primed
+    (prime_applies). One prime_tile launch takes every frame's coarse
+    rays, stacked as (F * Hc, Wc): the kernel marches each coarse ray on
+    its own, so a warp that spans two frames gives each ray its own t0.
 
     One coarse ray per 4x4 pixel block, through the middle of the block's
     (edge-clamped) pixel range, so every child pixel lies within 1.5 px of
     it on each axis; the cone marched is twice as wide as the block, which
     leaves each child a clearance of k_blk*t at t_safe."""
-    from surfjax_torch.core.camera import camera_ray_dirs_dyn
-    H, W = intr.height, intr.width
-    crowd, _, sdf_objs = split_crowd(static, settings)
-    if not (settings.prime and sdf_objs and min(H, W) >= settings.prime_min
-            and crowd is None):
+    from surfjax_torch.core.camera import camera_ray_dirs_dyn, per_frame
+    if not prime_applies(static, intr, settings):
         return None
-    dev = R_flat.device
+    H, W = intr.height, intr.width
+    F = R_flats.shape[0]
+    dev = R_flats.device
     C = PRIME_BLOCK
     Hc, Wc = (H + C - 1) // C, (W + C - 1) // C
 
@@ -2774,73 +2838,109 @@ def prime_frame(static, intr, settings: RenderSettings, params, R_flat,
 
     rr_c, cc_c = torch.meshgrid(centres(Hc, H), centres(Wc, W),
                                 indexing="ij")
-    d_c = tuple(c.contiguous() for c in
-                camera_ray_dirs_dyn(intr, R_flat, rr_c, cc_c))
-    o_c = tuple(cam_pos[k].expand(rr_c.shape).contiguous() for k in range(3))
+    d_c = tuple(c.reshape(F * Hc, Wc).contiguous() for c in
+                camera_ray_dirs_dyn(intr, per_frame(R_flats, 2), rr_c, cc_c))
+    pos = per_frame(positions, 2)
+    o_c = tuple(pos[k].expand(F, Hc, Wc).reshape(F * Hc, Wc).contiguous()
+                for k in range(3))
     k_blk = 1.5 * np.sqrt(2.0) / min(intr.fx, intr.fy)
     t0_c = prime_tile(SceneTensors(static, params), settings,
-                      float(2.0 * k_blk), o_c, d_c)
-    return (t0_c.repeat_interleave(C, dim=0).repeat_interleave(C, dim=1)
-            [:H, :W].contiguous())
+                      float(2.0 * k_blk), o_c, d_c).reshape(F, Hc, Wc)
+    return (t0_c.repeat_interleave(C, dim=1).repeat_interleave(C, dim=2)
+            [:, :H, :W].contiguous())
 
 
-def render_frame_pallas(static, intr, settings: RenderSettings, params,
-                        R_flat, cam_pos) -> FrameBuffers:
-    """One frame -> FrameBuffers (H, W, ...): the priming pass where it
-    applies (prime_frame), then the fused path for a mesh-free scene; else
-    the split path on SQUARE pixel tiles, each (tile_rows, 128) block of
-    the padded ray arrays a tile_rows x 128 rectangle of the image (the
-    mesh kernel's candidate sets are per tile, so spatial coherence keeps
-    them small)."""
-    fused = fused_frame_ok(static, settings)
-    _maybe_warn_crowd(static, settings)
-    check_scene(static, settings, meshes=not fused,
-                dev=params["leaf_params"].device)
-    t0 = prime_frame(static, intr, settings, params, R_flat, cam_pos)
-    if fused:
-        cam_rows = torch.cat([R_flat.reshape(9), cam_pos.reshape(3)]
-                             ).reshape(1, 12).to(torch.float32).contiguous()
-        fb = frame_buffers(frame_fused(
-            SceneTensors(static, params), settings, intr, cam_rows,
-            None if t0 is None else t0[None]))
-        return FrameBuffers(*(a[0] for a in fb))
-    from surfjax_torch.core.camera import camera_ray_dirs_dyn
-    dev = R_flat.device
-    H, W = intr.height, intr.width
-    R = settings.tile_rows
+def prime_frame(static, intr, settings: RenderSettings, params, R_flat,
+                cam_pos):
+    """prime_frames of one frame -> t0 (H, W), or None."""
+    t0 = prime_frames(static, intr, settings, params, R_flat.reshape(1, 9),
+                      cam_pos.reshape(1, 3))
+    return None if t0 is None else t0[0]
+
+
+class _Tiles(NamedTuple):
+    """The split path's square pixel tiles of a frame: each (tile_rows,
+    128) block of the padded ray arrays is a tile_rows x 128 rectangle of
+    the image (the mesh kernel's candidate sets are per tile, so spatial
+    coherence keeps them small). rr, cc: (H2, W2) float32 pixel indices,
+    clamped to the image, of the padded grid."""
+    H: int
+    W: int
+    R: int
+    ty: int
+    tx: int
+    rr: torch.Tensor
+    cc: torch.Tensor
+
+    def layout(self, a):
+        """(F, H2, W2) per-pixel values -> (F * ty * tx * R, 128) rays,
+        frame after frame, tile after tile."""
+        F = a.shape[0]
+        return (a.reshape(F, self.ty, self.R, self.tx, LANES)
+                .permute(0, 1, 3, 2, 4).reshape(-1, LANES))
+
+    def untile(self, a):
+        """(F * ty * tx * R, 128, ...) rays -> (F, H, W, ...) pixels."""
+        ch = a.shape[2:]
+        a = a.reshape((-1, self.ty, self.tx, self.R, LANES) + ch)
+        a = a.permute((0, 1, 3, 2, 4) + tuple(range(5, 5 + len(ch))))
+        return a.reshape((-1, self.ty * self.R, self.tx * LANES) + ch)[
+            :, :self.H, :self.W]
+
+
+def _tiles(intr, tile_rows: int, dev) -> _Tiles:
+    H, W, R = intr.height, intr.width, tile_rows
     H2 = ((H + R - 1) // R) * R
     W2 = ((W + LANES - 1) // LANES) * LANES
-    ty, tx = H2 // R, W2 // LANES
     rows = torch.clamp(torch.arange(H2, dtype=torch.float32, device=dev),
                        max=float(H - 1))
     cols = torch.clamp(torch.arange(W2, dtype=torch.float32, device=dev),
                        max=float(W - 1))
     rr, cc = torch.meshgrid(rows, cols, indexing="ij")
+    return _Tiles(H, W, R, H2 // R, W2 // LANES, rr, cc)
 
-    def tile_layout(a):
-        return (a.reshape(ty, R, tx, LANES).permute(0, 2, 1, 3)
-                .reshape(ty * tx * R, LANES))
 
-    def untile(a):
-        a = a.reshape(ty, tx, R, LANES).permute(0, 2, 1, 3)
-        return a.reshape(H2, W2)[:H, :W]
-
-    rr_t, cc_t = tile_layout(rr), tile_layout(cc)
-    d = tuple(c.contiguous() for c in
-              camera_ray_dirs_dyn(intr, R_flat, rr_t, cc_t))
-    o = tuple(cam_pos[k].expand(rr_t.shape).contiguous() for k in range(3))
+def _render_pass(static, intr, settings: RenderSettings, params, R_flats,
+                 positions) -> FrameBuffers:
+    """F frames in one pass -> FrameBuffers (F, H, W, ...): the priming
+    pass where it applies (prime_frames), then one KF launch for a
+    mesh-free scene; else the split path once over every frame's tiles,
+    the frames joined at whole tiles (_Tiles), so no tile and no warp
+    spans two of them."""
+    from surfjax_torch.core.camera import camera_ray_dirs_dyn, per_frame
+    fused = fused_frame_ok(static, settings)
+    F = R_flats.shape[0]
+    _maybe_warn_crowd(static, settings)
+    check_scene(static, settings, meshes=not fused,
+                dev=params["leaf_params"].device)
+    t0 = prime_frames(static, intr, settings, params, R_flats, positions)
+    if fused:
+        return frame_buffers(frame_fused(
+            SceneTensors(static, params), settings, intr,
+            _cam_rows(R_flats, positions), t0))
+    tiles = _tiles(intr, settings.tile_rows, R_flats.device)
+    # one frame's tiled pixel indices, every frame's rays from them
+    rr_t, cc_t = (tiles.layout(a[None]) for a in (tiles.rr, tiles.cc))
+    d = tuple(c.reshape(-1, LANES).contiguous() for c in camera_ray_dirs_dyn(
+        intr, per_frame(R_flats, 2), rr_t, cc_t))
+    pos = per_frame(positions, 2)
+    o = tuple(pos[k].expand((F,) + rr_t.shape).reshape(-1, LANES)
+              .contiguous() for k in range(3))
     if t0 is not None:
         # a padded lane repeats an edge pixel's ray and takes its start
-        t0 = tile_layout(t0[rr.long(), cc.long()]).contiguous()
+        t0 = tiles.layout(t0[:, tiles.rr.long(), tiles.cc.long()]
+                          ).contiguous()
     fb = _render_padded(static, settings, params, o, d, t0=t0)
-    return FrameBuffers(
-        rgb=torch.stack([untile(fb.rgb[..., k]) for k in range(3)], dim=-1),
-        depth=untile(fb.depth),
-        normal=torch.stack([untile(fb.normal[..., k]) for k in range(3)],
-                           dim=-1),
-        hit=untile(fb.hit),
-        obj_id=untile(fb.obj_id),
-    )
+    return FrameBuffers(*(tiles.untile(a) for a in fb))
+
+
+def render_frame_pallas(static, intr, settings: RenderSettings, params,
+                        R_flat, cam_pos) -> FrameBuffers:
+    """One frame -> FrameBuffers (H, W, ...): _render_pass of that frame
+    alone."""
+    fb = _render_pass(static, intr, settings, params, R_flat.reshape(1, 9),
+                      cam_pos.reshape(1, 3))
+    return FrameBuffers(*(a[0] for a in fb))
 
 
 # ---------------------------------------------------------------------------
@@ -3404,26 +3504,43 @@ prime_tile.launches = 0
 
 
 def _pad_rays(arrs, rows: int):
-    """Flat (N,) ray components -> (rows_total, 128) padded by repeating
-    the last ray, and N."""
-    n = arrs[0].shape[0]
+    """(..., N) ray components -> (rows_total, 128): each batch's N rays
+    padded to whole tiles of rows x 128 by repeating its last ray, the
+    batches one after another; and N."""
+    n = arrs[0].shape[-1]
     block = rows * LANES
     n_pad = ((n + block - 1) // block) * block
     out = []
     for a in arrs:
-        a = torch.cat([a, a[-1:].expand(n_pad - n)])
-        out.append(a.reshape(n_pad // LANES, LANES))
+        a = torch.cat([a, a[..., -1:].expand(*a.shape[:-1], n_pad - n)],
+                      dim=-1)
+        out.append(a.reshape(-1, LANES))
     return tuple(out), n
 
 
 def render_rays_pallas(static, settings: RenderSettings, params, o, d
                        ) -> FrameBuffers:
-    """Split-path render of a flat ray batch (padded to whole tiles)."""
-    (ox, oy, oz, dx, dy, dz), n_rays = _pad_rays(
-        (o[0], o[1], o[2], d[0], d[1], d[2]), settings.tile_rows)
-    fb = _render_padded(static, settings, params, (ox, oy, oz), (dx, dy, dz))
-    return FrameBuffers(*(a.reshape((-1,) + a.shape[2:])[:n_rays]
-                          for a in fb))
+    """Split-path render of flat rays: components of shape (N,), the case
+    F = 1 of (F, N) for F batches (a shard's frames). Each batch is padded
+    to whole tiles on its own; the batches go in passes of whole batches
+    (in_passes), each pass launching every kernel once -> FrameBuffers
+    (N, ...) or (F, N, ...)."""
+    if o[0].dim() == 1:
+        fb = render_rays_pallas(static, settings, params,
+                                tuple(c[None] for c in o),
+                                tuple(c[None] for c in d))
+        return FrameBuffers(*(a[0] for a in fb))
+    n_rays = o[0].shape[1]
+
+    def one_pass(s):
+        rays = tuple(c[s] for c in tuple(o) + tuple(d))
+        (ox, oy, oz, dx, dy, dz), _ = _pad_rays(rays, settings.tile_rows)
+        fb = _render_padded(static, settings, params, (ox, oy, oz),
+                            (dx, dy, dz))
+        return FrameBuffers(*(a.reshape((rays[0].shape[0], -1) + a.shape[2:])
+                              [:, :n_rays] for a in fb))
+
+    return in_passes(o[0].shape[0], batch_rays(n_rays, settings), one_pass)
 
 
 def _face_forward(nv, d):

@@ -39,17 +39,6 @@ from surfjax_torch.pipeline.frame import (
 )
 
 
-def _render_fn(static, settings: RenderSettings):
-    """Per-shard renderer honouring settings.backend: the split path's
-    kernels (K1, K2, ao_fix, and the mesh kernel for mesh scenes) or the
-    eager pipeline."""
-    _check_backend(settings)
-    if settings.backend == "pallas":
-        from surfjax_torch.kernels.render_tile import render_rays_pallas
-        return lambda p, o, d: render_rays_pallas(static, settings, p, o, d)
-    return lambda p, o, d: render_rays(static, settings, p, o, d)
-
-
 def initialize_distributed(device="cuda", **kw) -> None:
     """Join the process group: `torch.distributed.init_process_group(**kw)`
     with NCCL for `cuda` and gloo for `cpu` unless kw names a backend.
@@ -168,11 +157,12 @@ def render_frame_shard(static, settings: RenderSettings, params,
                        count: int) -> FrameBuffers:
     """Shard `index` of `count` of one frame: the frame's flat rays padded
     to a multiple of count (the last pixel repeated), the index-th
-    contiguous block rendered -> flat FrameBuffers of that block."""
-    o, d, _ = flat_camera_rays(intr, R_flat, cam_pos, pad_to=count)
-    sl = shard_range(o[0].shape[0], index, count)
-    return _render_fn(static, settings)(params, tuple(c[sl] for c in o),
-                                        tuple(c[sl] for c in d))
+    contiguous block rendered -> flat FrameBuffers of that block. The
+    one-frame case of render_sequence_shard."""
+    fb = render_sequence_shard(static, settings, params, intr,
+                               R_flat.reshape(1, 9), cam_pos.reshape(1, 3),
+                               (0, index), (1, count))
+    return FrameBuffers(*(a[0] for a in fb))
 
 
 def render_sequence_shard(static, settings: RenderSettings, params,
@@ -180,14 +170,25 @@ def render_sequence_shard(static, settings: RenderSettings, params,
                           coord: Tuple[int, int],
                           shape: Tuple[int, int]) -> FrameBuffers:
     """The shard at coord (frame, tile) of a (n_frame, n_tile) mesh: the
-    coord[0]-th contiguous block of frames, of each frame the coord[1]-th
-    block of its rays -> FrameBuffers (frames of the block, rays of the
-    block, ...)."""
-    frames = range(R_flats.shape[0])[shard_range(R_flats.shape[0],
-                                                 coord[0], shape[0])]
-    fbs = [render_frame_shard(static, settings, params, intr, R_flats[f],
-                              positions[f], coord[1], shape[1])
-           for f in frames]
+    coord[0]-th contiguous block of frames, of each frame its flat rays
+    padded to a multiple of n_tile (the last pixel repeated) and the
+    coord[1]-th contiguous block of them -> FrameBuffers (frames of the
+    block, rays of the block, ...). With backend="pallas" the split path's
+    kernels render the blocks in passes of whole frames, each block padded
+    to whole tiles on its own (render_tile.render_rays_pallas), each
+    kernel launched once per pass; with backend="jnp" the eager pipeline
+    renders them frame after frame."""
+    _check_backend(settings)
+    frames = shard_range(R_flats.shape[0], coord[0], shape[0])
+    o, d, _ = flat_camera_rays(intr, R_flats[frames], positions[frames],
+                               pad_to=shape[1])
+    sl = shard_range(o[0].shape[1], coord[1], shape[1])
+    o, d = (tuple(c[:, sl] for c in v) for v in (o, d))
+    if settings.backend == "pallas":
+        from surfjax_torch.kernels.render_tile import render_rays_pallas
+        return render_rays_pallas(static, settings, params, o, d)
+    fbs = [render_rays(static, settings, params, tuple(c[f] for c in o),
+                       tuple(c[f] for c in d)) for f in range(o[0].shape[0])]
     return FrameBuffers(*(torch.stack(parts) for parts in zip(*fbs)))
 
 

@@ -4,8 +4,9 @@ Counterpart of `surfjax/pipeline/frame.py`. With backend="jnp" a frame is
 traced, shaded and written by the eager functions below (primary hits ->
 normals -> shadow rays -> AO probes -> shading; meshes through the grid
 DDA of engines/mesh.py). With backend="pallas" a mesh-free scene goes to
-the fused path and a mesh scene to the split path, frame by frame
-(kernels/render_tile.py), with the crowd loops (settings.vector_objects)
+the fused path and a mesh scene to the split path (kernels/render_tile.py;
+a sequence's frames in passes, each kernel launched once per pass), with
+the crowd loops (settings.vector_objects)
 and the cone-priming pass (settings.prime) where the settings ask for
 them; a frame with march caps (settings.march_cap, shadow_march_cap)
 takes the split path and its capped-march residual, whose frame equals
@@ -316,10 +317,16 @@ def render_sequence(scene, camera, poses,
     """Batched camera path, all frames on `device`.
 
     poses: (R_flats (F, 9), positions (F, 3)). Returns FrameBuffers with a
-    leading frame axis. With backend="pallas" a mesh-free scene renders
-    every frame in one fused launch; a mesh scene (the split path) and a
-    primed one (a priming pass per frame) go frame by frame, as surfjax's
-    _sequence_jit routes them."""
+    leading frame axis. With backend="pallas" the frames render as
+    surfjax's _sequence_jit renders them, every kernel over all frames at
+    once: an unprimed mesh-free scene in one fused launch; a mesh scene,
+    a capped or a primed one in passes of whole frames
+    (render_tile.PASS_RAYS rays at most; one pass for 16 frames of c4 at
+    1920x1080), each pass launching each kernel once over all its frames
+    (render_tile.render_sequence_pallas), where surfjax vmaps the whole
+    sequence in one program. With backend="jnp" the eager pipeline renders
+    frame after frame (surfjax vmaps it too; batched at 1080p, the eager
+    pipeline's tensors would take tens of GB)."""
     device = _check_device(device)
     static, params = scene.freeze()
     _check_backend(settings)

@@ -21,7 +21,10 @@ For the sphere crowds of 16, 64 and 256 members (`workload.sphere_crowd`,
 1920x1080 x 8 frames, hard shadows, one point light, no AO) it times the
 kernel alone, which visits the members through the crowd's loops.
 For primed c3 it times `render` of one 1080p frame with and without
-priming and traces one primed call. `kf` times the fused kernel through its
+priming and traces one primed call. `sequence` runs the sequence main
+paths (c4, crowd-mesh, primed c3 at 1080p x 16 frames) through
+render_sequence: launches, peak memory, ms/frame and the device's busy
+share of a traced call. `kf` times the fused kernel through its
 wrapper on c3 (48 frames, both modes) and on primed c3 (frame 0 with its
 t0). `kf_phases` profiles the staged kernel on frame 0 of c3 in both
 modes (its profiling instantiation): per phase the share of the warps'
@@ -73,6 +76,7 @@ checkout on PYTHONPATH:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import sys
 import time
@@ -249,6 +253,56 @@ def c4(dev, res) -> None:
 
 
 C3 = "configs/c3_sdf.yaml"
+SEQ_FRAMES = 16
+
+
+def sequence(dev, res) -> None:
+    """The sequence main paths at 1920x1080 x SEQ_FRAMES frames through
+    render_sequence: c4 (`config`, `ao`), crowd-mesh (`config`, `soft`)
+    and primed c3 (`value`, prime=True). Per path the first call's
+    launches per kernel and the card's peak memory above what was
+    allocated before it, REPS calls timed with CUDA events (ms/frame) and
+    one traced call (device ms per frame and the device's busy share).
+    It reads only the entry point and the wrappers' counters, so it times
+    a checkout that renders frame by frame the same way."""
+    from surfjax_torch.kernels import mesh_tile as mt, render_tile as rt
+    from surfjax_torch.tools.workload import crowd_mesh_main_path
+    wrappers = {"frame_fused": rt.frame_fused, "prime_tile": rt.prime_tile,
+                "render_tile": rt.render_tile, "trace_rays": rt.trace_rays,
+                "ao_fix": rt.ao_fix, "mesh_tile": mt.mesh_tile,
+                "render_tile_crowd": rt.render_tile.crowd,
+                "trace_rays_crowd": rt.trace_rays.crowd,
+                "ao_fix_crowd": rt.ao_fix.crowd}
+    F = SEQ_FRAMES
+    paths = [("c4", mesh_main_path("configs/c4_mesh.yaml", F)),
+             ("crowd_mesh", crowd_mesh_main_path(F))]
+    cases = [(f"{name} {mode}", scene, camera, Rs, ps, st)
+             for name, (scene, camera, Rs, ps, modes) in paths
+             for mode, st in modes.items()]
+    scene, camera, Rs, ps, modes = main_path(C3, F)
+    cases.append(("c3 primed", scene, camera, Rs, ps,
+                  modes["value"].with_(prime=True)))
+    for label, scene, camera, Rs, ps, st in cases:
+        call = functools.partial(render_sequence, scene, camera, (Rs, ps),
+                                 st, device=dev)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+        ms, _ = cuda_ms(call, REPS)
+        prof = profile_call(call)
+        out = {"ms_per_frame": [t / F for t in ms], "launches": launches,
+               "peak_bytes": peak,
+               "device_ms_per_frame": prof["device_ms"] / F,
+               "wall_ms_per_frame": prof["wall_ms"] / F,
+               "busy_share": 1.0 - prof["idle_share"], "top": prof["top"]}
+        res[f"sequence {label}"] = out
+        print(f"sequence {label}", json.dumps(out), flush=True)
 
 
 def _c3_frame0(dev):
@@ -1067,6 +1121,7 @@ SECTIONS = {
     "spheres": sphere_crowds,
     "c3_primed": c3_primed,
     "c4": c4,
+    "sequence": sequence,
     "fit": fit_steps,
     "kf": kf,
     "kf_phases": kf_phases,

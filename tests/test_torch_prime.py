@@ -146,8 +146,8 @@ def test_primed_frame_matches_reference_primed_frame(primed_and_unprimed):
 
 def test_prime_gate_and_sequence_routing():
     """Priming runs only with settings.prime, an SDF object, a frame of at
-    least prime_min pixels a side and no crowd; a primed sequence goes
-    frame by frame (one priming pass each) and equals render()."""
+    least prime_min pixels a side and no crowd; a primed sequence takes
+    one priming pass over all its frames and equals render()."""
     scene, cam, st = _config3(pt_api, size=64)
     static, params = scene.freeze()
     params = {k: torch.as_tensor(v) for k, v in params.items()}
@@ -176,7 +176,7 @@ def test_prime_gate_and_sequence_routing():
     before = pt_rt.prime_tile.launches
     with capture_calls() as calls:
         seq = pt_api.render_sequence(scene, cam, (Rs, ps), st, device="cpu")
-    assert [c[0] for c in calls] == ["prime_tile"] * 2
+    assert [c[0] for c in calls] == ["prime_tile"]
     assert pt_rt.prime_tile.launches == before     # CPU: the plain version
     single = pt_api.render(scene, dataclasses.replace(
         cam, position=tuple(float(x) for x in ps[1])), st, device="cpu")
