@@ -93,9 +93,15 @@ the script exits non-zero and never prints its last line):
      -fmad=false against its plain version, bitwise (the explicit-FMA chains
      within 1 ULP of their float64 plain versions), the contracted entries
      within 1e-5, at K = 16 on 64 x 256 x 128 lanes and every unroll; then
-     the timed sweep at the tool's defaults: ps per iteration-lane and
-     Tflop/s per row, contracted over uncontracted, and what c3's Mandelbulb
-     iteration-lanes per 1080p frame cost at the probe's rate;
+     the timed sweep at the tool's defaults (3 repeats): ps per
+     iteration-lane and Tflop/s per row, contracted over uncontracted, and
+     what c3's Mandelbulb iteration-lanes per 1080p frame cost at the
+     probe's rate; then inside the mixes (tools/breakdown.py
+     `probe_phases`, once per mix): the SM clock under load, cycles per
+     substep per warp, the warps' finish spread and the SMs' busy share,
+     the loop's SASS per substep by pipe, ptxas' registers, blocks per SM,
+     the issue bound at the measured clock beside the operations bound;
+     fma_dep's Tflop/s against the peak at that clock;
  13. the kernel-forward differentiable render (diff/hybrid.py) on c5 at
      256x256: forward bitwise equal to render_rays_pallas; the pose loss
      and gradient on `pallas` against `jnp` and against the same run on the
@@ -2659,7 +2665,7 @@ def main() -> int:
                    "within 1 ULP of" if pk in fp.CHAINS else
                    "bitwise equal to") + " the plain version")
     fp.fp32_peak.launches.clear()
-    sweep = fp.run()
+    sweep = fp.run(repeats=3)
     probe_launches = dict(fp.fp32_peak.launches)
     for name, row in sweep.items():
         log("  " + fp.format_row(name, row))
@@ -2683,8 +2689,43 @@ def main() -> int:
             f"({floor_ms / per_frame[mode][0]:.1%}); the kernel achieves "
             f"{per_frame[mode][0] * 1e9 / iters:.3f} ps per iteration-lane "
             "all told")
+    # inside the mixes (breakdown.probe_phases, once per mix, then fma_dep
+    # against the clock they ran at): the SM clock under load, cycles per
+    # substep, the warps' finish spread, SASS per substep by pipe, ptxas,
+    # blocks per SM and the issue bound
+    from surfjax_torch.tools.breakdown import probe_label, probe_phases
+    inside = {}
+    for pk in fp.KINDS:
+        probe_phases(dev, inside, kinds=(pk,))
+    for label, row in inside.items():
+        if isinstance(row, str):
+            log(f"  {label}: {row} (clocks.sm, power.draw)")
+        elif "issue_bound" in row:
+            ib = row["issue_bound"]
+            log(f"  {label}: {row['ms']:.4f} ms, "
+                f"{row['ps_per_iter_lane']:.4f} ps/iter-lane; SM clock "
+                f"{row['sm_clock_ghz']:.4f} GHz (warps "
+                f"{row['warp_ghz']['p01']:.4f}-{row['warp_ghz']['p99']:.4f});"
+                f" {row['cycles_per_substep']['median']:.1f} cycles per "
+                f"substep per warp; finish {row['finish_us']['min']:.1f}-"
+                f"{row['finish_us']['max']:.1f} us, SMs busy "
+                f"{row['sm_busy_share']:.1%}; SASS per substep "
+                + json.dumps({k: round(v, 3) for k, v in
+                              row["sass"]["per_substep"].items()})
+                + f", CALLs in the loop {row['sass']['calls_in_loop']} of "
+                f"{row['sass']['calls']}; {row['ptxas'][1]}, "
+                f"{row['blocks_per_sm']} blocks/SM, grid {row['grid']} "
+                f"({row['waves']:.2f} waves); issue bound {ib['ms']:.4f} ms "
+                f"({ib['bound_by']}) = {row['issue_share']:.1%} of the time, "
+                f"operations bound {row['ops_bound_ms']:.4f} ms = "
+                f"{row['ops_share']:.1%}")
+        else:
+            log(f"  {label}: " + json.dumps(row))
     for entry, info in probe.items():
         pk, fma = info["kind"], info["fma"]
+        if pk in fp.MIXES:
+            info["issue_bound"] = inside[probe_label(
+                pk, fma, PROBE_UNROLL)]["issue_bound"]["ms"]
         k = fp.DEFAULT_ITERS * (fp.FMA_K_SCALE if pk in fp.CHAINS else 1)
         info["ms"] = sweep[f"{pk}{'_fma' if fma else ''}@u{PROBE_UNROLL}"][
             "ms_launch_K"]
@@ -3147,7 +3188,9 @@ def main() -> int:
             "launches": probe_launches[entry], "max_abs_err": info["err"],
             "ms": info["ms"], "plain_ms": info["plain_ms"],
             "bound_ms": info["bound"][0], "bound_by": info["bound"][1],
-            "library_ms": None})
+            "library_ms": None,
+            **({"issue_bound_ms": info["issue_bound"]}
+               if "issue_bound" in info else {})})
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -157,35 +157,83 @@ def sass_hashes(lib_path: str, names) -> dict:
     return out
 
 
-def sass_loops(lib_path: str, name: str) -> list:
-    """-> the loops of one entry's SASS, as cuobjdump prints it: for each
-    backward branch, {"start", "end" (its addresses), "instructions" (in
-    [start, end]), and per class the count: "fp32" (FADD, FMUL, FFMA,
-    FSETP, FMNMX, FSEL, MUFU), "shared" (LDS), "global" (LDG, LD),
-    "shuffle" (SHFL, VOTE)}, innermost first (fewest instructions)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    res = subprocess.run([tool, "-sass", "-fun", name, lib_path],
-                         capture_output=True, text=True, timeout=300)
+# sass_loops' instruction classes: by default the kinds of work it counts
+LOOP_CLASSES = {"fp32": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL",
+                         "MUFU"),
+                "shared": ("LDS",), "global": ("LDG", "LD."),
+                "shuffle": ("SHFL", "VOTE")}
+# ... or by the pipe that issues them (compute capability 9.0): FP32 add,
+# multiply and FMA; the multi-function unit (reciprocal, reciprocal square
+# root); compares, min, max and selects; integer arithmetic and logic;
+# branches and calls; whatever is left counts in "instructions" only
+PIPE_CLASSES = {"fp32": ("FADD", "FMUL", "FFMA"), "mufu": ("MUFU",),
+                "compare": ("FSETP", "FMNMX", "FSEL", "FCHK", "FSET",
+                            "ISETP", "IMNMX", "SEL", "PLOP3", "P2R", "R2P"),
+                "integer": ("IADD", "IMAD", "LOP", "SHF", "LEA", "IABS",
+                            "FLO", "POPC", "PRMT", "BMSK", "I2F", "F2I"),
+                "branch": ("BRA", "BRX", "BSSY", "BSYNC", "CALL", "RET",
+                           "EXIT", "WARPSYNC", "BREAK", "JMP", "YIELD")}
+
+
+def _sass_code(lines) -> list:
     code = []
-    for ln in res.stdout.splitlines():
+    for ln in lines:
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
         if m:
             code.append((int(m.group(1), 16), m.group(2)))
-    classes = {"fp32": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL",
-                        "MUFU"),
-               "shared": ("LDS",), "global": ("LDG", "LD."),
-               "shuffle": ("SHFL", "VOTE")}
+    return code
+
+
+def _cuobjdump(lib_path: str, fun: str) -> str:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", "-fun", fun, lib_path],
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+
+
+def sass_of_many(lib_path: str, names) -> dict:
+    """-> {entry: its SASS as (address, text) per instruction} for several
+    entries, from one cuobjdump call that takes their names as one comma
+    list (an entry that stands in several of the library's units has the
+    SASS of each, one after the other)."""
+    out, cur = {}, None
+    for ln in _cuobjdump(lib_path, ",".join(names)).splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+        elif cur is not None:
+            cur.append(ln)
+    return {name: _sass_code(out.get(name, ())) for name in names}
+
+
+def sass_of(lib_path: str, name: str) -> list:
+    """-> one entry's SASS, as cuobjdump prints it: (address, text) per
+    instruction."""
+    return sass_of_many(lib_path, [name])[name]
+
+
+def opcode(text: str) -> str:
+    """An instruction's opcode, its predicate guard dropped."""
+    return text.split()[1] if text.startswith("@") else text.split()[0]
+
+
+def sass_loops(lib_path: str, name: str, classes=None, code=None) -> list:
+    """-> the loops of one entry's SASS (`code`, or sass_of's): for each
+    backward branch, {"start", "end" (its addresses), "instructions" (in
+    [start, end]), and the count of each class of `classes` (by default
+    LOOP_CLASSES)}, innermost first (fewest instructions)."""
+    if code is None:
+        code = sass_of(lib_path, name)
+    classes = LOOP_CLASSES if classes is None else classes
     loops = []
     for addr, text in code:
         m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
         if not m or int(m.group(1), 16) > addr:
             continue
         start = int(m.group(1), 16)
-        body = [t for a, t in code if start <= a <= addr]
-        ops = [t.split()[1] if t.startswith("@") else t.split()[0]
-               for t in body]
+        ops = [opcode(t) for a, t in code if start <= a <= addr]
         loop = {"start": hex(start), "end": hex(addr),
-                "instructions": len(body)}
+                "instructions": len(ops)}
         for cls, names in classes.items():
             loop[cls] = sum(op.startswith(names) for op in ops)
         loops.append(loop)
@@ -251,11 +299,16 @@ def load() -> ctypes.CDLL:
     lib.mt_mesh_tile_profile.argtypes = [MeshTileArgs, MeshTileProf,
                                          ctypes.c_int, ctypes.c_void_p]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    mixes = ("fp_bulb_mix", "fp_cheb_mix", "fp_bulb_mix_fma",
-             "fp_cheb_mix_fma")
-    for name in mixes:
-        # px, py, pz, out, n, iters, unroll, device, stream
-        getattr(lib, name).argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    for fma in ("", "_fma"):
+        # cheb, px, py, pz, out, profile records or null, n, iters, unroll,
+        # device, stream
+        getattr(lib, "fp_mix" + fma).argtypes = [i32] + [ptr] * 5 + [
+            i32] * 4 + [ptr]
+        # cheb, unroll, prof, device, blocks per SM
+        getattr(lib, "fp_mix_occupancy" + fma).argtypes = [i32] * 4 + [
+            ctypes.POINTER(ctypes.c_int)]
+    mixes = ("fp_mix", "fp_mix_fma", "fp_mix_occupancy",
+             "fp_mix_occupancy_fma")
     # a, out, n, iters, chains per thread, device, stream
     lib.fp_fma_dep.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
     for name in ("kf_frame_fused", "ks_frame_fused", "kf_frame_profile",

@@ -42,7 +42,15 @@ line) and `prime` the priming kernel on c3 the same way; `split_phases`
 profiles K1, K2 and ao_fix (chip_smoke.py's phase 17) and
 `prime_phases` the priming kernel on the primed 1080p frame of c3 (phase
 18: per phase shares, the SM clock, the cycles per warp and the slowest
-warp's rays alone); `wide` times the kernels' KF_WIDE build at 1080p
+warp's rays alone); `probe_phases` goes inside the FP32 probe's mixes
+(fp32_peak.py) at its defaults, each build and unroll: the kernel's time,
+its profiling instantiation's SM clock (clock64 over %globaltimer), cycles
+per substep per warp, the warps' finish times and the SMs' busy share, the
+trip loop's SASS per substep by pipe (its fast path: the slow paths' CALL
+blocks left out), ptxas' line, blocks per SM, the issue bound at the
+measured clock and the operations bound; then fma_dep against the peak at
+that clock, and nvidia-smi's SM clock under each; `wide` times the
+kernels' KF_WIDE build at 1080p
 with AO off and on: KF on compile_scaling's 129 spheres and, with a
 crowd, on workload.limit_cases' `crowd 120+8+70` (71 objects outside the
 crowd), and K1 on the camera's rays of `120+8` (129 objects) and of
@@ -1112,6 +1120,123 @@ def prime_phases(dev, res) -> None:
     print("prime phases", json.dumps(entry), flush=True)
 
 
+def busy_clock(launch, count: int) -> str:
+    """nvidia-smi's SM clock and power draw while `count` launches of a
+    prepared kernel run back to back (read after the first has had time to
+    start)."""
+    for _ in range(count):
+        launch()
+    time.sleep(0.2)
+    line = gpu_line("clocks.sm,power.draw")
+    torch.cuda.synchronize()
+    return line
+
+
+def probe_label(kind: str, fma: bool, unroll: int) -> str:
+    """The key of a probe_phases row: entry and unroll."""
+    from surfjax_torch.tools import fp32_peak as fp
+    return f"probe {fp.entry_name(kind, fma)} u{unroll}"
+
+
+def probe_row(kind: str, fma: bool, unroll: int, seeds, names: dict,
+              code: dict, iters: int) -> dict:
+    """One mix instantiation at the probe's size: the kernel's time per
+    launch (ms, and ps per iteration-lane), its profiling instantiation's
+    output against the kernel's (bitwise) and its table (fp32_peak.
+    profile_table), the SASS of its trip loop per substep by pipe
+    (substep_sass), its ptxas lines, blocks per SM, grid and waves, the
+    issue bound at the measured clock and the operations bound, and the
+    time's share of each."""
+    from surfjax_torch.tools import fp32_peak as fp
+    dev = seeds[0].device
+    n = seeds[0].numel()
+    launch, out = fp.peak_launcher(kind, *seeds, iters, unroll, fma)
+    plaunch, pout, prof = fp.profile_launcher(kind, *seeds, iters, unroll,
+                                              fma)
+    plaunch()
+    launch()
+    # a launch takes milliseconds: three samples of three back to back
+    ms = min(cuda_ms(lambda: [launch() for _ in range(3)], 3)[0]) / 3
+    if not torch.equal(out, pout):
+        raise AssertionError(f"{kind} fma={fma} u{unroll}: the profile's "
+                             "output differs from the kernel's")
+    grid, per_sm = fp.mix_grid(kind, fma, n, unroll, False, dev)
+    _, prof_per_sm = fp.mix_grid(kind, fma, n, unroll, True, dev)
+    table = fp.profile_table(prof, iters)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    name, ptxas = names[(kind, fma, unroll, False)]
+    sass = fp.substep_sass(code[name], unroll)
+    lane_iters = float(n) * iters
+    issue = fp.issue_bound(sass["per_substep"], lane_iters,
+                           table["sm_clock_ghz"], sms)
+    ops_ms = fp.ops_per_iter(kind) * lane_iters / (
+        fp.FP32_PEAK_TFLOPS * 1e12) * 1e3
+    return {"ms": ms, "ps_per_iter_lane": ms * 1e9 / lane_iters,
+            "grid": grid, "blocks_per_sm": per_sm,
+            "waves": grid / (sms * per_sm), "ptxas": ptxas,
+            "profile_ptxas": names[(kind, fma, unroll, True)][1],
+            "profile_blocks_per_sm": prof_per_sm,
+            **table, "sass": sass, "issue_bound": issue,
+            "issue_share": issue["ms"] / ms, "ops_bound_ms": ops_ms,
+            "ops_share": ops_ms / ms}
+
+
+def probe_phases(dev, res, kinds=None, iters=None) -> None:
+    """Inside the FP32 probe (fp32_peak.py) at its defaults (2,097,152
+    lanes, K = 512), for each kind in `kinds` (all three by default). A
+    mix: for each build (-fmad=false and contracted) and unroll the row of
+    probe_row, and the SM clock nvidia-smi reads under the kernel at
+    unroll 4. fma_dep (8 chains, K x 32): its Tflop/s against 132 x 128 x
+    2 x the SM clock measured in the mixes' rows of `res`, and
+    nvidia-smi's clock under it."""
+    from surfjax_torch.kernels import _build
+    from surfjax_torch.tools import fp32_peak as fp
+    kinds = fp.KINDS if kinds is None else kinds
+    iters = fp.DEFAULT_ITERS if iters is None else iters
+    seeds = fp.seeds(fp.DEFAULT_ROWS, fp.DEFAULT_GRID, dev)
+    info = _build.build()
+    names = fp.mix_names(info["log"])
+    mixes = [kind for kind in kinds if kind in fp.MIXES]
+    code = _build.sass_of_many(info["path"], [
+        names[(kind, fma, u, False)][0] for kind in mixes
+        for fma in (False, True) for u in fp.UNROLLS])
+    warm, _ = fp.peak_launcher("fma_dep", *seeds, iters * fp.FMA_K_SCALE, 8)
+    for _ in range(20):
+        warm()
+    torch.cuda.synchronize()
+    for kind in mixes:
+        for fma in (False, True):
+            for u in fp.UNROLLS:
+                row = probe_row(kind, fma, u, seeds, names, code, iters)
+                label = probe_label(kind, fma, u)
+                res[label] = row
+                print(label, json.dumps(row), flush=True)
+        mix, _ = fp.peak_launcher(kind, *seeds, iters, 4)
+        res[f"probe {kind} smi"] = busy_clock(mix, 250)
+        print(f"probe {kind} smi", res[f"probe {kind} smi"], flush=True)
+    if "fma_dep" not in kinds:
+        return
+    clocks = [row["sm_clock_ghz"] for label, row in res.items()
+              if label.startswith("probe fp_") and "sm_clock_ghz" in row]
+    if not clocks:
+        raise RuntimeError("probe_phases: fma_dep is read against the SM "
+                           "clock of the mixes' rows: run a mix first")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k = iters * fp.FMA_K_SCALE
+    chain, _ = fp.peak_launcher("fma_dep", *seeds, k, 8)
+    ms = _launch_ms(chain)
+    tflops = 2.0 * seeds[0].numel() * k / (ms * 1e-3) / 1e12
+    ghz = sum(clocks) / len(clocks)
+    peak = sms * 128 * 2 * ghz / 1e3
+    entry = {"ms": ms, "tflops": tflops, "sm_clock_ghz_of_mixes": ghz,
+             "peak_at_that_clock_tflops": peak,
+             "share_at_that_clock": tflops / peak,
+             "share_of_data_sheet": tflops / fp.FP32_PEAK_TFLOPS,
+             "smi": busy_clock(chain, 500)}
+    res["probe fma_dep u8"] = entry
+    print("probe fma_dep u8", json.dumps(entry), flush=True)
+
+
 SECTIONS = {
     "c3": lambda dev, res: fused_path(
         "c3", main_path("configs/c3_sdf.yaml"), dev, features_off, res),
@@ -1133,6 +1258,7 @@ SECTIONS = {
     "split_phases": split_phases,
     "split_crowd": split_crowd,
     "prime_phases": prime_phases,
+    "probe_phases": probe_phases,
     "sass": sass,
     "caps": caps,
     "wide": wide,

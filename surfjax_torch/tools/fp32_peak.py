@@ -5,7 +5,8 @@ probe (counterpart of `tools/vpu_peak.py`).
         [--grid 64] [--repeats 5] [--unroll 1,4,8]
 
 Synthetic kernels (kernels/csrc/fp32_peak.cu) run over grid*rows*128
-float32 lanes, one thread per lane, everything in registers, no divergence:
+float32 lanes, everything in registers, no divergence (the mixes: one orbit
+per thread, in blocks of MIX_BLOCK = 64 threads):
 
   bulb_mix  K substeps of the expanded ("std") power-8 orbit update, on
             seeds uniform in [0.1, 0.3]^3 (numpy default_rng(0)) that never
@@ -45,7 +46,14 @@ and a square root counted as 1 each, as the TPU tool counts its rsqrt:
 `render_tile.BULB_ITER_OPS` holds these two numbers, so that the rate
 printed here and the operation bound of the render kernels speak of the
 same operations; the rate under the flat 60 that the bounds used before is
-printed beside it. fma_dep counts 2 per iteration.
+printed beside it. fma_dep counts 2 per iteration. Under -fmad=false every
+one of them is an instruction of its own, while 67 Tflop/s counts an FMA as
+two operations: no such kernel can pass half of that operations bound. The
+bound the mixes do meet is the issue bound (issue_bound: the instructions
+of the loop's fast path, from the SASS, over the SM's issue slots at the
+measured clock), which `breakdown.py probe_phases` prints beside the time
+with the profiling instantiation's clock, cycles and finish times
+(profile_launcher, profile_table).
 
 Needs one CUDA card; prints the card's name and power limit first and one
 JSON line last.
@@ -54,8 +62,10 @@ JSON line last.
 from __future__ import annotations
 
 import argparse
+import bisect
 import ctypes
 import json
+import re
 import sys
 
 import numpy as np
@@ -73,6 +83,10 @@ CHAINS = ("fma_dep",)
 KINDS = MIXES + CHAINS
 UNROLLS = (1, 4, 8)
 DEFAULT_ITERS, DEFAULT_ROWS, DEFAULT_GRID, DEFAULT_REPEATS = 512, 256, 64, 5
+# threads per block of the mixes (FP_MIX_BLOCK): smaller blocks than the
+# first port's 256 shorten the tail of the last ones (PERF.md §6, PR 18)
+MIX_BLOCK = 64
+PROF_WORDS = 4      # a warp's profile record (FP_PROF_WORDS)
 
 
 def ops_per_iter(kind: str) -> int:
@@ -127,12 +141,21 @@ def entry_name(kind: str, fma: bool = False) -> str:
     return f"fp_{kind}" + ("_fma" if fma else "")
 
 
-def peak_launcher(kind: str, px, py, pz, iters: int, unroll: int = 1,
-                  fma: bool = False):
-    """Prepare one launch of a probe kernel on CUDA tensors -> (launch,
-    out): launch() enqueues the kernel on the current stream, writing
-    `out`, counts itself in `fp32_peak.launches[entry]` and raises if the
-    launch was refused."""
+def mix_grid(kind: str, fma: bool, n: int, unroll: int, profile: bool,
+             dev) -> tuple:
+    """-> (the grid a mix launch over n lanes takes, the blocks an SM holds
+    of its instantiation, from the library: fp_mix_occupancy)."""
+    from surfjax_torch.kernels import _build
+    from surfjax_torch.kernels.render_tile import _raise_on
+    per_sm = ctypes.c_int(0)
+    name = "fp_mix_occupancy" + ("_fma" if fma else "")
+    _raise_on(getattr(_build.load(), name)(
+        int(kind == "cheb_mix"), unroll, int(profile), dev.index,
+        ctypes.byref(per_sm)), name)
+    return -(-n // MIX_BLOCK), per_sm.value
+
+
+def _launcher(kind, px, py, pz, iters, unroll, fma, profile):
     from surfjax_torch.kernels import _build
     from surfjax_torch.kernels.render_tile import _raise_on
     entry = entry_name(kind, fma)
@@ -146,22 +169,59 @@ def peak_launcher(kind: str, px, py, pz, iters: int, unroll: int = 1,
                 a.shape != px.shape or not a.is_contiguous():
             raise ValueError(f"{entry}: need contiguous float32 tensors of "
                              f"one shape on {dev}")
-    if px.numel() % unroll:
-        raise ValueError(f"{entry}: {px.numel()} lanes do not divide into "
-                         f"{unroll} chains per thread")
     out = torch.empty_like(px)
-    fn = getattr(_build.load(), entry)
-    ptrs = [ctypes.c_void_p(a.data_ptr()) for a in ins + [out]]
+    n = px.numel()
+    lib, prof = _build.load(), None
+    if kind in CHAINS:
+        if n % unroll:
+            raise ValueError(f"{entry}: {n} lanes do not divide into "
+                             f"{unroll} chains per thread")
+        fn = lib.fp_fma_dep
+        args = [ctypes.c_void_p(a.data_ptr()) for a in ins + [out]] + [
+            n, iters, unroll, dev.index]
+    else:
+        if profile:
+            prof = torch.zeros((-(-n // MIX_BLOCK) * MIX_BLOCK // 32,
+                                PROF_WORDS), dtype=torch.int64, device=dev)
+        fn = getattr(lib, "fp_mix" + ("_fma" if fma else ""))
+        args = [int(kind == "cheb_mix")] + [
+            ctypes.c_void_p(a.data_ptr()) for a in ins + [out]] + [
+            ctypes.c_void_p(prof.data_ptr() if profile else None), n, iters,
+            unroll, dev.index]
+    key = entry + ("_profile" if profile else "")
 
     def launch():
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            _raise_on(fn(*ptrs, px.numel(), iters, unroll, dev.index,
-                         ctypes.c_void_p(stream)), entry)
-        fp32_peak.launches[entry] = fp32_peak.launches.get(entry, 0) + 1
+            _raise_on(fn(*args, ctypes.c_void_p(stream)), entry)
+        fp32_peak.launches[key] = fp32_peak.launches.get(key, 0) + 1
         return ins     # the arrays the kernel reads stay alive with launch
 
+    return launch, out, prof
+
+
+def peak_launcher(kind: str, px, py, pz, iters: int, unroll: int = 1,
+                  fma: bool = False):
+    """Prepare one launch of a probe kernel on CUDA tensors -> (launch,
+    out): launch() enqueues the kernel on the current stream, writing
+    `out`, counts itself in `fp32_peak.launches[entry]` and raises if the
+    launch was refused. A mix runs one block of MIX_BLOCK threads per
+    MIX_BLOCK lanes."""
+    launch, out, _ = _launcher(kind, px, py, pz, iters, unroll, fma, False)
     return launch, out
+
+
+def profile_launcher(kind: str, px, py, pz, iters: int, unroll: int = 1,
+                     fma: bool = False):
+    """A mix's profiling instantiation, prepared as peak_launcher prepares
+    the kernel -> (launch, out, prof): prof holds one record per warp of
+    the grid (PROF_WORDS int64: lane 0's clock64 delta over the kernel,
+    its %globaltimer at the start and at the end, its SM), written by
+    each launch; launches count under `<entry>_profile`."""
+    if kind not in MIXES:
+        raise ValueError(f"only the mixes have a profiling instantiation; "
+                         f"got {kind!r}")
+    return _launcher(kind, px, py, pz, iters, unroll, fma, True)
 
 
 def fp32_peak(kind: str, px, py, pz, iters: int, unroll: int = 1,
@@ -218,6 +278,139 @@ def check_rows(rows: dict) -> None:
             raise RuntimeError(
                 f"{name} reads {r['tflops']:.2f} Tflop/s, more than the "
                 f"best fma_dep row's {best:.2f}: the measurement is broken")
+
+
+# Per SM and cycle on compute capability 9.0: the lanes of FP32 add,
+# multiply and FMA (128), of the multi-function unit (16: reciprocal,
+# reciprocal square root), of compares, min and max (64) and of integer
+# add, multiply-add, logic and shifts (64) (CUDA C++ Programming Guide,
+# "Arithmetic Instructions", throughput per clock cycle per multiprocessor);
+# one warp instruction issued per scheduler and cycle, four schedulers per
+# SM (NVIDIA H100 Tensor Core GPU Architecture white paper). Compares and
+# integer work are counted as two pipes of their own, so that the bound
+# stays a least time if they share one.
+PIPE_LANES = {"fp32": 128, "mufu": 16, "compare": 64, "integer": 64}
+ISSUE_PER_SM = 4
+
+
+def mix_names(log: str) -> dict:
+    """build()'s log -> {(kind, fma, unroll, prof): (the mix kernel's
+    mangled name, its ptxas lines)}."""
+    from surfjax_torch.kernels import _build
+    out = {}
+    for name, lines in _build.entries(log).items():
+        m = re.search(r"fp_mix_kernel(_fma)?ILi(\d)ELi(\d)ELb([01])E", name)
+        if m:
+            kind = "cheb_mix" if m.group(2) == "1" else "bulb_mix"
+            out[(kind, bool(m.group(1)), int(m.group(3)),
+                 m.group(4) == "1")] = (name, lines)
+    return out
+
+
+def substep_sass(code, unroll: int) -> dict:
+    """A mix kernel's SASS (`_build.sass_of`) -> its innermost loop that
+    holds MUFU (the trip loop: `unroll` substeps and the loop's own
+    test), its path when no orbit escapes and no IEEE division
+    or square root leaves its fast path (the loop less each block that a
+    forward branch skips which holds a CALL and no MUFU: the call of the
+    slow path), that path's instructions per class of
+    `_build.PIPE_CLASSES` per substep, and the CALLs inside
+    the loop and in the whole kernel."""
+    from surfjax_torch.kernels import _build
+    loops = [lp for lp in _build.sass_loops(None, None, _build.PIPE_CLASSES,
+                                            code) if lp["mufu"]]
+    if not loops:
+        raise RuntimeError("no loop with MUFU in the mix kernel's SASS")
+    loop = loops[0]
+    lo, hi = int(loop["start"], 16), int(loop["end"], 16)
+    body = sorted((a, _build.opcode(t), t) for a, t in code
+                  if lo <= a <= hi)
+    addrs = [a for a, _, _ in body]
+    skipped = set()
+    for k, (a, _, t) in enumerate(body):
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
+        if not m or int(m.group(1), 16) <= a:
+            continue
+        block = range(k + 1, bisect.bisect_left(addrs, int(m.group(1), 16)))
+        ops = [body[j][1] for j in block]
+        if any(op.startswith("CALL") for op in ops) and \
+                not any(op.startswith("MUFU") for op in ops):
+            skipped.update(block)
+    path = [op for k, (_, op, _) in enumerate(body) if k not in skipped]
+    per = {"instructions": len(path) / unroll}
+    for cls, names in _build.PIPE_CLASSES.items():
+        per[cls] = sum(op.startswith(names) for op in path) / unroll
+    per["other"] = per["instructions"] - sum(
+        per[k] for k in _build.PIPE_CLASSES)
+    calls = [a for a, t in code if _build.opcode(t).startswith("CALL")]
+    return {"loop": loop, "path_instructions": len(path),
+            "per_substep": per,
+            "calls_in_loop": sum(lo <= a <= hi for a in calls),
+            "calls": len(calls)}
+
+
+def issue_bound(per_substep: dict, lane_iters: float, ghz: float,
+                sms: int) -> dict:
+    """The least time for the instructions of `lane_iters`
+    iteration-lanes, `per_substep` (substep_sass) each, on `sms` SMs at
+    `ghz`: per pipe the SM cycles of one warp's substep (its instructions
+    over the pipe's lanes per SM and cycle x 32; issue: over ISSUE_PER_SM)
+    -> {"cycles": per pipe, "bound_by", "ms", "ps_per_iter_lane"}."""
+    cyc = {"issue": per_substep["instructions"] / ISSUE_PER_SM}
+    cyc.update({k: per_substep[k] * 32 / lanes
+                for k, lanes in PIPE_LANES.items()})
+    by = max(cyc, key=cyc.get)
+    ms = lane_iters / 32 * cyc[by] / (sms * ghz * 1e9) * 1e3
+    return {"cycles": cyc, "bound_by": by, "ms": ms,
+            "ps_per_iter_lane": ms * 1e9 / lane_iters}
+
+
+def profile_table(prof, iters: int) -> dict:
+    """A profile launch's records (profile_launcher: one row per warp) ->
+    the SM clock under load (clock64 cycles over %globaltimer ns: over all
+    warps, and per warp median, 1st and 99th percentile), cycles per
+    substep per warp (a warp's cycles over K: median, min, max), the
+    warps' finish times from the launch's first start (us: min, median,
+    99th percentile, max), the launch's span (us), the SMs it ran on,
+    warps per SM (min, max), each SM's last finish (us: min, median, max)
+    and the SMs' busy share of the span."""
+    rec = prof.cpu()
+    t0 = int(rec[:, 1].min())
+    cyc = rec[:, 0].double()
+    start = (rec[:, 1] - t0).double()
+    end = (rec[:, 2] - t0).double()
+    ns = end - start
+    per_substep = cyc / iters
+    ghz = cyc[ns > 0] / ns[ns > 0]
+    qs = torch.tensor([0.01, 0.5, 0.99], dtype=torch.float64)
+    q_ghz = torch.quantile(ghz, qs)
+    q_end = torch.quantile(end, qs)
+    span = float(end.max())
+    sm = rec[:, 3]
+    sms = torch.unique(sm)
+    per_sm_warps = torch.stack([(sm == k).sum() for k in sms])
+    sm_first = torch.stack([start[sm == k].min() for k in sms])
+    sm_last = torch.stack([end[sm == k].max() for k in sms])
+    q_last = torch.quantile(sm_last, qs)
+    return {
+        "sm_clock_ghz": float(cyc.sum() / ns.sum()),
+        "warp_ghz": {"p01": float(q_ghz[0]), "median": float(q_ghz[1]),
+                     "p99": float(q_ghz[2])},
+        "cycles_per_substep": {"median": float(per_substep.median()),
+                               "min": float(per_substep.min()),
+                               "max": float(per_substep.max())},
+        "finish_us": {"min": float(end.min()) / 1e3,
+                      "median": float(q_end[1]) / 1e3,
+                      "p99": float(q_end[2]) / 1e3, "max": span / 1e3},
+        "span_us": span / 1e3,
+        "sms": int(sms.numel()),
+        "warps_per_sm": {"min": int(per_sm_warps.min()),
+                         "max": int(per_sm_warps.max())},
+        "sm_last_finish_us": {"min": float(sm_last.min()) / 1e3,
+                              "median": float(q_last[1]) / 1e3,
+                              "max": float(sm_last.max()) / 1e3},
+        "sm_busy_share": float((sm_last - sm_first).sum())
+        / (sms.numel() * span) if span > 0 else float("nan")}
 
 
 def run(iters: int = DEFAULT_ITERS, rows: int = DEFAULT_ROWS,

@@ -233,6 +233,7 @@ inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline long long clock64() {
   return std::chrono::steady_clock::now().time_since_epoch().count();
 }
