@@ -35,6 +35,7 @@ import torch
 from surfjax_torch.core.math import BIG, f32, sqrt
 from surfjax_torch.engines.mesh import moller_trumbore, per_lane
 from surfjax_torch.kernels import record_call
+from surfjax_torch.utils.profiling import annotate
 
 PACKET_K = 1024  # candidate budget per tile; overflow -> full-table scan
 # Above this triangle count the reference routes a mesh through the grid
@@ -53,6 +54,7 @@ VOTE_SLOTS = 256  # candidate slots mesh_warp_masks compares at a time
 CAND_ENTRIES = 1 << 26
 
 
+@annotate("surfjax_torch.mesh_candidates")
 def mesh_candidates(ms, tri_packed, o2, d2, t_min, t_max, tile_rows: int,
                     K: int = PACKET_K):
     """-> (cand (tiles, K) int32 triangle ids, counts (tiles,) int32).
@@ -641,6 +643,7 @@ def mesh_tile_launcher(tri_packed, cand, counts, o2, d2, t_maxv,
     return launch, outs
 
 
+@annotate("surfjax_torch.kernel.mesh_tile")
 def mesh_tile(tri_packed, cand, counts, o2, d2, t_maxv, t_min: float,
               smooth: bool, any_hit: bool, box=None):
     """The mesh kernel over (rows, 128) rays and a tile's candidates ->

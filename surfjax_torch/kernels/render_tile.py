@@ -75,6 +75,7 @@ from surfjax_torch.engines.sdf import (
 )
 from surfjax_torch.kernels import record_call
 from surfjax_torch.shade import shade_object
+from surfjax_torch.utils.profiling import annotate
 
 # Bulb bounding-radius factors (canonical units x leaf scale), as in
 # surfjax: COVER contains the hit region {DE < 0.045*scale} and gates
@@ -2648,6 +2649,7 @@ def staged_occupancy(scene_t, settings: RenderSettings, dev) -> dict:
     return {"bytes": layout.bytes, "blocks_per_sm": blocks.value}
 
 
+@annotate("surfjax_torch.kernel.kf")
 def frame_fused(scene_t, settings: RenderSettings, intr, cam_rows, t0=None):
     """KF for F frames -> the 9 float32 (F, H, W) tensors of
     frame_fused_reference; t0 (F, H, W) float32 or None: the primed march
@@ -2682,6 +2684,7 @@ def frame_fused(scene_t, settings: RenderSettings, intr, cam_rows, t0=None):
 frame_fused.launches = 0
 
 
+@annotate("surfjax_torch.outputs")
 def frame_buffers(out) -> FrameBuffers:
     """The 9 (F, H, W) tensors of frame_fused -> FrameBuffers with a
     leading frame axis: rgb (F, H, W, 3), depth/hit (F, H, W), obj_id
@@ -2774,7 +2777,8 @@ def in_passes(n_frames: int, rays_per_frame: int,
              for a in range(0, n_frames, per)]
     if len(parts) == 1:
         return parts[0]
-    return FrameBuffers(*(torch.cat(p) for p in zip(*parts)))
+    with annotate("surfjax_torch.outputs"):
+        return FrameBuffers(*(torch.cat(p) for p in zip(*parts)))
 
 
 def render_sequence_pallas(static, intr, settings: RenderSettings, params,
@@ -2789,10 +2793,11 @@ def render_sequence_pallas(static, intr, settings: RenderSettings, params,
     frames equal render()'s bitwise, whatever the pass size."""
     if fused_frame_ok(static, settings) and not prime_applies(
             static, intr, settings):
-        _maybe_warn_crowd(static, settings)
-        return frame_buffers(frame_fused(SceneTensors(static, params),
-                                         settings, intr,
-                                         _cam_rows(R_flats, positions)))
+        with annotate("surfjax_torch.pass"):
+            _maybe_warn_crowd(static, settings)
+            return frame_buffers(frame_fused(SceneTensors(static, params),
+                                             settings, intr,
+                                             _cam_rows(R_flats, positions)))
     return in_passes(R_flats.shape[0], pass_rays(static, intr, settings),
                      lambda s: _render_pass(static, intr, settings, params,
                                             R_flats[s], positions[s]))
@@ -2824,30 +2829,32 @@ def prime_frames(static, intr, settings: RenderSettings, params, R_flats,
     from surfjax_torch.core.camera import camera_ray_dirs_dyn, per_frame
     if not prime_applies(static, intr, settings):
         return None
-    H, W = intr.height, intr.width
-    F = R_flats.shape[0]
-    dev = R_flats.device
-    C = PRIME_BLOCK
-    Hc, Wc = (H + C - 1) // C, (W + C - 1) // C
+    with annotate("surfjax_torch.prime"):
+        H, W = intr.height, intr.width
+        F = R_flats.shape[0]
+        dev = R_flats.device
+        C = PRIME_BLOCK
+        Hc, Wc = (H + C - 1) // C, (W + C - 1) // C
 
-    def centres(n_coarse: int, n_px: int):
-        i = torch.arange(n_coarse, dtype=torch.float32, device=dev)
-        last = float(n_px - 1)
-        return (torch.clamp(i * C, max=last)
-                + torch.clamp(i * C + (C - 1), max=last)) * 0.5
+        def centres(n_coarse: int, n_px: int):
+            i = torch.arange(n_coarse, dtype=torch.float32, device=dev)
+            last = float(n_px - 1)
+            return (torch.clamp(i * C, max=last)
+                    + torch.clamp(i * C + (C - 1), max=last)) * 0.5
 
-    rr_c, cc_c = torch.meshgrid(centres(Hc, H), centres(Wc, W),
-                                indexing="ij")
-    d_c = tuple(c.reshape(F * Hc, Wc).contiguous() for c in
-                camera_ray_dirs_dyn(intr, per_frame(R_flats, 2), rr_c, cc_c))
-    pos = per_frame(positions, 2)
-    o_c = tuple(pos[k].expand(F, Hc, Wc).reshape(F * Hc, Wc).contiguous()
-                for k in range(3))
-    k_blk = 1.5 * np.sqrt(2.0) / min(intr.fx, intr.fy)
-    t0_c = prime_tile(SceneTensors(static, params), settings,
-                      float(2.0 * k_blk), o_c, d_c).reshape(F, Hc, Wc)
-    return (t0_c.repeat_interleave(C, dim=1).repeat_interleave(C, dim=2)
-            [:, :H, :W].contiguous())
+        rr_c, cc_c = torch.meshgrid(centres(Hc, H), centres(Wc, W),
+                                    indexing="ij")
+        d_c = tuple(c.reshape(F * Hc, Wc).contiguous() for c in
+                    camera_ray_dirs_dyn(intr, per_frame(R_flats, 2), rr_c,
+                                        cc_c))
+        pos = per_frame(positions, 2)
+        o_c = tuple(pos[k].expand(F, Hc, Wc).reshape(F * Hc, Wc)
+                    .contiguous() for k in range(3))
+        k_blk = 1.5 * np.sqrt(2.0) / min(intr.fx, intr.fy)
+        t0_c = prime_tile(SceneTensors(static, params), settings,
+                          float(2.0 * k_blk), o_c, d_c).reshape(F, Hc, Wc)
+        return (t0_c.repeat_interleave(C, dim=1).repeat_interleave(C, dim=2)
+                [:, :H, :W].contiguous())
 
 
 def prime_frame(static, intr, settings: RenderSettings, params, R_flat,
@@ -2900,6 +2907,7 @@ def _tiles(intr, tile_rows: int, dev) -> _Tiles:
     return _Tiles(H, W, R, H2 // R, W2 // LANES, rr, cc)
 
 
+@annotate("surfjax_torch.pass")
 def _render_pass(static, intr, settings: RenderSettings, params, R_flats,
                  positions) -> FrameBuffers:
     """F frames in one pass -> FrameBuffers (F, H, W, ...): the priming
@@ -2918,20 +2926,23 @@ def _render_pass(static, intr, settings: RenderSettings, params, R_flats,
         return frame_buffers(frame_fused(
             SceneTensors(static, params), settings, intr,
             _cam_rows(R_flats, positions), t0))
-    tiles = _tiles(intr, settings.tile_rows, R_flats.device)
-    # one frame's tiled pixel indices, every frame's rays from them
-    rr_t, cc_t = (tiles.layout(a[None]) for a in (tiles.rr, tiles.cc))
-    d = tuple(c.reshape(-1, LANES).contiguous() for c in camera_ray_dirs_dyn(
-        intr, per_frame(R_flats, 2), rr_t, cc_t))
-    pos = per_frame(positions, 2)
-    o = tuple(pos[k].expand((F,) + rr_t.shape).reshape(-1, LANES)
-              .contiguous() for k in range(3))
-    if t0 is not None:
-        # a padded lane repeats an edge pixel's ray and takes its start
-        t0 = tiles.layout(t0[:, tiles.rr.long(), tiles.cc.long()]
-                          ).contiguous()
+    with annotate("surfjax_torch.rays"):
+        tiles = _tiles(intr, settings.tile_rows, R_flats.device)
+        # one frame's tiled pixel indices, every frame's rays from them
+        rr_t, cc_t = (tiles.layout(a[None]) for a in (tiles.rr, tiles.cc))
+        d = tuple(c.reshape(-1, LANES).contiguous()
+                  for c in camera_ray_dirs_dyn(
+                      intr, per_frame(R_flats, 2), rr_t, cc_t))
+        pos = per_frame(positions, 2)
+        o = tuple(pos[k].expand((F,) + rr_t.shape).reshape(-1, LANES)
+                  .contiguous() for k in range(3))
+        if t0 is not None:
+            # a padded lane repeats an edge pixel's ray and takes its start
+            t0 = tiles.layout(t0[:, tiles.rr.long(), tiles.cc.long()]
+                              ).contiguous()
     fb = _render_padded(static, settings, params, o, d, t0=t0)
-    return FrameBuffers(*(tiles.untile(a) for a in fb))
+    with annotate("surfjax_torch.outputs"):
+        return FrameBuffers(*(tiles.untile(a) for a in fb))
 
 
 def render_frame_pallas(static, intr, settings: RenderSettings, params,
@@ -3309,6 +3320,7 @@ def _split_call(wrapper, entry: str, reference, scene_t,
     return out
 
 
+@annotate("surfjax_torch.kernel.k1")
 def render_tile(scene_t, settings: RenderSettings, o, d, t0=None):
     """K1 over rays of any shape -> the 8 outputs of render_tile_reference.
     With settings.march_cap > 0 every SDF march stops after march_cap
@@ -3323,6 +3335,7 @@ def render_tile(scene_t, settings: RenderSettings, o, d, t0=None):
                        scene_t, settings, rays, 8)
 
 
+@annotate("surfjax_torch.kernel.k1")
 def render_tile_redo(scene_t, settings: RenderSettings, outs, redo, o, d,
                      t0=None):
     """K1's residual re-run: the kernel at the full budget over all the
@@ -3336,6 +3349,7 @@ def render_tile_redo(scene_t, settings: RenderSettings, outs, redo, o, d,
                        scene_t, settings, rays, 8, tuple(outs), redo)
 
 
+@annotate("surfjax_torch.kernel.k2")
 def trace_rays(scene_t, settings: RenderSettings, o, l, dist, soft_k):
     """K2 -> (vis, unres) (see trace_rays_reference); the cap
     settings.shadow_march_cap and unres as in render_tile; kernel or plain
@@ -3346,6 +3360,7 @@ def trace_rays(scene_t, settings: RenderSettings, o, l, dist, soft_k):
                        (tuple(o), tuple(l), dist, soft_k), 2)
 
 
+@annotate("surfjax_torch.kernel.k2")
 def trace_rays_redo(scene_t, settings: RenderSettings, outs, redo, o, l,
                     dist, soft_k):
     """K2's residual re-run, as render_tile_redo (outs: the capped
@@ -3355,6 +3370,7 @@ def trace_rays_redo(scene_t, settings: RenderSettings, outs, redo, o, l,
                        2, tuple(outs), redo)
 
 
+@annotate("surfjax_torch.kernel.ao_fix")
 def ao_fix(scene_t, settings: RenderSettings, p_off, n, need, ao_in):
     """ao_fix -> ao (see ao_fix_reference); kernel (csrc/ao_fix_staged.cu;
     with a crowd csrc/ao_fix_crowd.cu) or plain version as render_tile;
@@ -3470,6 +3486,7 @@ def prime_occupancy(scene_t, settings: RenderSettings, dev) -> dict:
     return {"bytes": layout.bytes, "blocks_per_sm": blocks.value}
 
 
+@annotate("surfjax_torch.kernel.prime_tile")
 def prime_tile(scene_t, settings: RenderSettings, k_m: float, o, d):
     """The priming kernel over coarse rays of any shape -> t0 (see
     prime_tile_reference). CUDA tensors launch the kernel
@@ -3549,6 +3566,7 @@ def _face_forward(nv, d):
     return (nv[0] * s, nv[1] * s, nv[2] * s)
 
 
+@annotate("surfjax_torch.primary")
 def _pallas_primary(static, settings: RenderSettings, params, o2, d2,
                     t0=None):
     """Primary stage on (rows_total, 128)-tiled rays: K1 (with
@@ -3599,23 +3617,26 @@ def _pallas_primary(static, settings: RenderSettings, params, o2, d2,
             t_m, n_s, n_g = mesh_tile_kernel(ms, settings,
                                              arrays["tri_packed"], o2, d2,
                                              settings.t_max)
-        better = t_m < torch.where(hit_f > 0.5, t, BIG)
-        t = torch.where(better, t_m, t)
-        obj = torch.where(better, float(i), obj)
-        hit_f = torch.where(better, 1.0, hit_f)
-        # face-forward both the shading and the geometric mesh normals
-        n_s = _face_forward(n_s, d2)
-        n_g = _face_forward(n_g, d2)
-        n = tuple(torch.where(better, a, b) for a, b in zip(n_s, n))
-        n_geom = tuple(torch.where(better, a, b) for a, b in zip(n_g, n_geom))
-        mesh_won = torch.where(better, 1.0, mesh_won)
+        with annotate("surfjax_torch.merge"):
+            better = t_m < torch.where(hit_f > 0.5, t, BIG)
+            t = torch.where(better, t_m, t)
+            obj = torch.where(better, float(i), obj)
+            hit_f = torch.where(better, 1.0, hit_f)
+            # face-forward both the shading and the geometric mesh normals
+            n_s = _face_forward(n_s, d2)
+            n_g = _face_forward(n_g, d2)
+            n = tuple(torch.where(better, a, b) for a, b in zip(n_s, n))
+            n_geom = tuple(torch.where(better, a, b)
+                           for a, b in zip(n_g, n_geom))
+            mesh_won = torch.where(better, 1.0, mesh_won)
 
     # AO at mesh-won lanes: K1 probed its own pre-merge hit, so AO is
     # taken again at the merged receiver, offset along the geometric
     # normal, against the non-mesh objects
     if mesh and settings.ao and len(static.ir.objects) > len(mesh):
-        t_sane = torch.where(hit_f > 0.5, t, 0.0)
-        p_off = _offset(o2, d2, t_sane, n_geom, settings)
+        with annotate("surfjax_torch.merge"):
+            t_sane = torch.where(hit_f > 0.5, t, 0.0)
+            p_off = _offset(o2, d2, t_sane, n_geom, settings)
         ao = ao_fix(scene_t, settings, p_off, n, mesh_won, ao)
     return t, obj, n, n_geom, ao, hit_f
 
@@ -3628,6 +3649,7 @@ def _offset(o2, d2, t_sane, n_geom, settings: RenderSettings):
     return tuple((o2[k] + t_sane * d2[k]) + n_geom[k] * eps for k in range(3))
 
 
+@annotate("surfjax_torch.visibility")
 def _pallas_vis(static, settings: RenderSettings, params, p_off, l,
                 dist_eff, soft_k):
     """One light's visibility on (rows, 128)-tiled receivers: K2 through
@@ -3659,6 +3681,7 @@ def _pallas_vis(static, settings: RenderSettings, params, p_off, l,
     return vis
 
 
+@annotate("surfjax_torch.lights")
 def _light_terms(static, settings: RenderSettings, params, p_off, hit_f,
                  vis_fn):
     """Per light (direction, colour, visibility) at the receivers p_off;
@@ -3702,17 +3725,19 @@ def _shade_padded(static, settings: RenderSettings, params, d2, t_sane, obj,
     ambient = (amb[0], amb[1], amb[2])
     bg = settings.background
     hit = hit_f > 0.5
-    rgb = _shade_hits(static, settings, params, obj, hit, ambient, ao, n, v,
-                      light_terms,
-                      tuple(torch.full_like(hit_f, f32(bg[k]))
-                            for k in range(3)))
-    return FrameBuffers(
-        rgb=torch.stack(rgb, dim=-1),
-        depth=t_sane,
-        normal=torch.stack([c * hit_f for c in n], dim=-1),
-        hit=hit_f,
-        obj_id=torch.where(hit, obj.to(torch.int32), -1).to(torch.int32),
-    )
+    with annotate("surfjax_torch.shade"):
+        rgb = _shade_hits(static, settings, params, obj, hit, ambient, ao, n,
+                          v, light_terms,
+                          tuple(torch.full_like(hit_f, f32(bg[k]))
+                                for k in range(3)))
+    with annotate("surfjax_torch.outputs"):
+        return FrameBuffers(
+            rgb=torch.stack(rgb, dim=-1),
+            depth=t_sane,
+            normal=torch.stack([c * hit_f for c in n], dim=-1),
+            hit=hit_f,
+            obj_id=torch.where(hit, obj.to(torch.int32), -1).to(torch.int32),
+        )
 
 
 def _render_padded(static, settings: RenderSettings, params, o2, d2,

@@ -44,6 +44,7 @@ from surfjax_torch.engines.sdf import (
     ao_probes, eval_sdf, normal_fd, soft_shadow_march, sphere_trace,
 )
 from surfjax_torch.shade import shade_object
+from surfjax_torch.utils.profiling import annotate
 
 
 def trace_scene(static: SceneWithMeshes, settings: RenderSettings, params,
@@ -300,6 +301,7 @@ def _check_device(device) -> torch.device:
 
 
 @torch.no_grad()
+@annotate("surfjax_torch.render_frame")
 def render_frame(scene, camera, settings: RenderSettings = RenderSettings(),
                  device="cuda") -> FrameBuffers:
     device = _check_device(device)
@@ -311,6 +313,7 @@ def render_frame(scene, camera, settings: RenderSettings = RenderSettings(),
 
 
 @torch.no_grad()
+@annotate("surfjax_torch.render_sequence")
 def render_sequence(scene, camera, poses,
                     settings: RenderSettings = RenderSettings(),
                     device="cuda") -> FrameBuffers:

@@ -69,15 +69,13 @@ from surfjax_torch import __main__ as cli
 from surfjax_torch.core.camera import pose_interp
 from surfjax_torch.golden import cpp_bridge, renderer as golden
 from surfjax_torch.io.image import max_ulp, save_exr, save_golden
-from surfjax_torch.utils import checks, metrics, profiling
+from surfjax_torch.utils import checks, profiling
 scene, cam, st, _ = load_config("configs/c1_sphere.yaml")
 cam = Camera(Intrinsics.from_fov(16, 16, 45.0), cam.rotation, cam.position)
 g = golden.render_parallel(scene, cam, st, n_workers=2)
 assert max_ulp(cpp_bridge.render(scene, cam, st)["rgb"], g["rgb"]) <= 1
 fb = checks.checked(render)(scene, cam, st, device="cpu")
 assert checks.validate_framebuffers(fb)["ok"]
-metrics.FrameMetrics().record(width=16, height=16, wall_s=0.1, hits=1.0,
-                              n_lights=1, shadows=True, ao=False)
 R = torch.eye(3).reshape(9)
 pose_interp((R, torch.zeros(3)), (R, torch.ones(3)), 0.5)
 with tempfile.TemporaryDirectory() as tmp:

@@ -1,5 +1,5 @@
 """The port's utilities against surfjax's (tests/test_utils.py holds
-surfjax's own): pose_interp, FrameMetrics, validate_framebuffers, the
+surfjax's own): pose_interp, validate_framebuffers, the
 NaN/Inf tap `checked`, trace_render and annotate, and the resumable
 SequenceCheckpointer (resume, fault, chunk-size change, shorter rerun)."""
 
@@ -17,7 +17,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from surfjax.core.camera import orbit_pose as sj_orbit_pose  # noqa: E402
 from surfjax.core.camera import pose_interp as sj_pose_interp  # noqa: E402
-from surfjax.utils.metrics import FrameMetrics as SjFrameMetrics  # noqa: E402
 
 from surfjax_torch import render  # noqa: E402
 from surfjax_torch.config import load_config  # noqa: E402
@@ -27,7 +26,6 @@ from surfjax_torch.utils.checkpoint import SequenceCheckpointer  # noqa: E402
 from surfjax_torch.utils.checks import (  # noqa: E402
     NonFiniteError, checked, validate_framebuffers,
 )
-from surfjax_torch.utils.metrics import FrameMetrics  # noqa: E402
 from surfjax_torch.utils.profiling import annotate, trace_render  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,23 +52,6 @@ def test_pose_interp_matches_surfjax(t):
     np.testing.assert_array_equal(R.numpy(), np.asarray(R_ref))
     Rm = R.double().numpy().reshape(3, 3)
     np.testing.assert_allclose(Rm.T @ Rm, np.eye(3), atol=1e-6)
-
-
-def test_frame_metrics_record_equal_to_surfjax(tmp_path):
-    kw = dict(width=64, height=48, wall_s=0.0123, hits=2000.0, n_lights=2,
-              shadows=True, ao=True, ao_samples=5)
-    path = str(tmp_path / "sub" / "metrics.jsonl")
-    m = FrameMetrics(path)
-    rec = m.record(**kw)
-    ref = SjFrameMetrics().record(**kw)
-    rec.pop("ts"), ref.pop("ts")
-    assert rec == ref
-    assert rec["rays_total"] == 64 * 48 + 2 * 2000 + 5 * 2000
-    m.record(**dict(kw, shadows=False, ao=False, tag="b"))
-    with open(path) as fh:
-        lines = [json.loads(line) for line in fh]
-    assert [r["tag"] for r in lines] == ["frame", "b"]
-    assert lines[1]["rays_total"] == 64 * 48 and len(m.records) == 2
 
 
 def test_validate_framebuffers():
