@@ -43,20 +43,24 @@ the script exits non-zero and never prints its last line):
      positions in one render_sequence call per mode (`config`: the yaml's
      settings; `ao`: AO and soft shadows on), one pass of the split path
      over all 16 frames: the first call's launches per pass (K1, K2 per
-     light, ao_fix where AO is on, the mesh kernel for the primary rays
-     and per light, the fused kernel never) and its peak memory, then
+     light, ao_fix where AO is on, the mesh kernel and the candidate
+     kernel for the primary rays and per light, the fused kernel never)
+     and its peak memory, then
      three calls timed with CUDA events; output checks, every frame of
      every call bitwise equal to render() of that frame;
   7. every split kernel call of one more 16-frame c4 call per mode,
      launched again at the pass's shape, its rows of frames 0 and 15
      bitwise equal to its plain version run on those two frames alone
-     (frame_cut: the ray arrays by rows, the mesh kernel's tables by
-     tiles); per frame: the kernel's and the wrapper's times, operations
+     (frame_cut: the ray arrays by rows, the mesh kernel's tables and
+     the candidate kernel's outputs by tiles; out_rows); per frame: the
+     kernel's and the wrapper's times, operations
      and bytes on frame 0's cut launched alone (one 1080p frame's call),
      the plain version's time (the two frames' halved) and the whole pass
      launched back to back over its frames (pass_ms); the mesh kernel's
      bound counts the culled algorithm it runs (its warps' votes, then
-     each lane's voted candidates up to its first occluder);
+     each lane's voted candidates up to its first occluder), the candidate
+     kernel's (mesh_candidates, csrc/mesh_candidates.cu) its bytes: the
+     triangle table and each ray's origin, direction and segment end;
   8. the crowd loops (settings.vector_objects) in KF, K1, K2 and ao_fix
      against their plain versions, bitwise, at 256x256 x 2 frames: nine
      and four small objects with hard shadows + AO and with soft shadows,
@@ -395,7 +399,8 @@ PROBE_UNROLL = 4       # the sweep row whose launch time the kernels line gives
 FIT_LOSS_REL, FIT_GRAD_REL, FIT_GRAD_COS = 2e-3, 0.1, 0.995
 FIT_CPU_REL = 1e-3     # the card's hybrid gradient against the CPU's
 # the split path's kernels (K1, K2, ao_fix, the mesh kernel)
-SPLIT = ("render_tile", "trace_rays", "ao_fix", "mesh_tile")
+SPLIT = ("render_tile", "trace_rays", "ao_fix", "mesh_tile",
+         "mesh_candidates")
 # their crowd instantiations (csrc/split_path.cu), counted apart
 CROWD_SPLIT = ("render_tile_crowd", "trace_rays_crowd", "ao_fix_crowd")
 SHARD_FRAMES = 4       # the sequence of the gloo worlds (phase 21)
@@ -431,9 +436,13 @@ def bytes_read(kname: str, args) -> int:
     soft_k only where the shadow segment is not empty (not dist <= 0),
     ao_fix reads p_off and n only where need > 0.5; the other ray arrays
     on every lane. The mesh kernel counts its whole triangle and candidate
-    tables and every ray."""
+    tables and every ray; the candidate kernel the triangle table and each
+    ray's origin, direction and segment end."""
     if kname == "mesh_tile":
         return nbytes(args[:6])   # table, candidates, counts, rays
+    if kname == "mesh_candidates":
+        lanes = args[2][0].numel()
+        return nbytes(args[1:4]) + 4 * lanes   # table, o, d, t_max
     if kname == "trace_rays":
         dist = args[4]
         lanes = int((~(dist <= 0.0)).sum())
@@ -531,6 +540,7 @@ def pass_launches(scene, camera, st, n_frames: int) -> dict:
     want["render_tile" + crowd] = passes
     want["trace_rays" + crowd] = passes * lights
     want["mesh_tile"] = passes * meshes * (1 + lights)
+    want["mesh_candidates"] = want["mesh_tile"]
     want["ao_fix" + crowd] = passes * bool(
         st.ao and meshes and len(static.ir.objects) > meshes)
     return want
@@ -542,6 +552,12 @@ def frame_rows(t, rows: int, frames):
     tiles), joined in the order given."""
     import torch
     return torch.cat([t[f * rows:(f + 1) * rows] for f in frames])
+
+
+def out_rows(kname: str, args, rows: int) -> int:
+    """The rows of a kernel call's outputs that one frame of `rows` ray
+    rows takes: the candidate kernel's are tiles, the others' rays."""
+    return rows // args[6] if kname == "mesh_candidates" else rows
 
 
 def frame_cut(kname: str, args, rows: int, frames):
@@ -817,11 +833,12 @@ def golden_phase(dev, smi: str) -> list:
 
 def _split_wrappers() -> dict:
     """-> kernel -> its launch counter (`.launches`): the split wrappers
-    for the staged kernels and the mesh kernel, their `.crowd` for the
-    crowd instantiations."""
+    for the staged kernels, the mesh kernel and the candidate kernel, their
+    `.crowd` for the crowd instantiations."""
     from surfjax_torch.kernels import mesh_tile as mt, render_tile as rt
     return {"render_tile": rt.render_tile, "trace_rays": rt.trace_rays,
             "ao_fix": rt.ao_fix, "mesh_tile": mt.mesh_tile,
+            "mesh_candidates": mt.mesh_candidates,
             "render_tile_crowd": rt.render_tile.crowd,
             "trace_rays_crowd": rt.trace_rays.crowd,
             "ao_fix_crowd": rt.ao_fix.crowd}
@@ -1043,7 +1060,8 @@ def sharding_phase(dev, smi: str, size=None, n_seq: int = 48) -> dict:
                 fb, got = _counted(lambda: render_frame_sharded(
                     scene, cam, st, mesh, dev.type), totals)
             want = {"render_tile", "trace_rays"} | (
-                {"mesh_tile", "ao_fix"} if key == "c4" else set())
+                {"mesh_tile", "mesh_candidates", "ao_fix"} if key == "c4"
+                else set())
             if {k for k, v in got.items() if v} != want:
                 raise AssertionError(f"{key} sharded frame: launches {got}, "
                                      f"expected {sorted(want)} only")
@@ -1270,7 +1288,8 @@ def _hold_call(kname: str, args, label: str, errs: dict, stats=None,
     held, timed = args, [args]
     if part is not None:
         rows, frames = part
-        got = [frame_rows(g, rows, frames) for g in got]
+        got = [frame_rows(g, out_rows(kname, args, rows), frames)
+               for g in got]
         held = frame_cut(kname, args, rows, frames)
         timed = [frame_cut(kname, args, rows, [f]) for f in frames]
     # operations are counted for the table only: counting syncs the host
@@ -1651,9 +1670,10 @@ def limits_phase(dev, smi: str) -> dict:
                     fb = api.render(scene, cam, st.with_(vector_objects=vec),
                                     device=dev)
                 names = {kernel_key(k, a) for k, a in calls}
-                want = {"render_tile", "trace_rays", "ao_fix", "mesh_tile"}
+                want = {"render_tile", "trace_rays", "ao_fix", "mesh_tile",
+                        "mesh_candidates"}
                 if vec:
-                    want = {k + "_crowd" if k != "mesh_tile" else k
+                    want = {k if k.startswith("mesh") else k + "_crowd"
                             for k in want}
                 if names != want:
                     raise AssertionError(f"limits {name} crowd {vec}: "
@@ -1739,8 +1759,8 @@ def limits_phase(dev, smi: str) -> dict:
 
 
 BENCH_KERNELS = ("frame_fused", "render_tile", "trace_rays", "ao_fix",
-                 "mesh_tile", "prime_tile")
-C4_ROW_KERNELS = ("render_tile", "trace_rays", "mesh_tile")
+                 "mesh_tile", "prime_tile", "mesh_candidates")
+C4_ROW_KERNELS = ("render_tile", "trace_rays", "mesh_tile", "mesh_candidates")
 
 
 def _module_env() -> dict:
@@ -1827,7 +1847,8 @@ def bench_phase(dev, smi: str, hits3: dict) -> dict:
     t22 = time.perf_counter()
     wrappers = {"frame_fused": rt.frame_fused, "render_tile": rt.render_tile,
                 "trace_rays": rt.trace_rays, "ao_fix": rt.ao_fix,
-                "mesh_tile": mt.mesh_tile, "prime_tile": rt.prime_tile}
+                "mesh_tile": mt.mesh_tile, "prime_tile": rt.prime_tile,
+                "mesh_candidates": mt.mesh_candidates}
     totals = dict.fromkeys(BENCH_KERNELS + ("frame_fused_crowd",), 0)
     errs = dict.fromkeys(totals, 0.0)
 
@@ -2265,7 +2286,7 @@ def main() -> int:
         for k, (kname, args) in enumerate(calls):
             wrapper, reference, names, launcher = KERNELS[kname]
             label = f"c4 {mode} 1080p x {n_frames} call {k} {kname}"
-            got = [frame_rows(g, rows, idx)
+            got = [frame_rows(g, out_rows(kname, args, rows), idx)
                    for g in flat(wrapper(*fresh(kname, args)))]
             held = frame_cut(kname, args, rows, idx)
             p_ms, ref = cuda_ms(lambda: reference(*held), 1)
@@ -3128,7 +3149,8 @@ def main() -> int:
     sources = {"render_tile": ("split_staged.cu", "render_tile.py:2005"),
                "trace_rays": ("split_staged.cu", "render_tile.py:2037"),
                "ao_fix": ("ao_fix_staged.cu", "render_tile.py:1954"),
-               "mesh_tile": ("mesh_tile.cu", "mesh_tile.py:348")}
+               "mesh_tile": ("mesh_tile.cu", "mesh_tile.py:348"),
+               "mesh_candidates": ("mesh_candidates.cu", "mesh_tile.py:59")}
     for name in split:
         st7 = per_kernel["ao"][name]
         b = bound(st7["ops"], st7["bytes"])

@@ -36,7 +36,8 @@ SOURCES = {"frame_fused.cu": NO_FMA, "kf_staged.cu": NO_FMA,
            "kf_frame_prof.cu": NO_FMA, "split_path.cu": NO_FMA,
            "split_staged.cu": NO_FMA, "ao_fix_staged.cu": NO_FMA,
            "ao_fix_crowd.cu": NO_FMA,
-           "mesh_tile.cu": NO_FMA, "prime_tile.cu": NO_FMA,
+           "mesh_tile.cu": NO_FMA, "mesh_candidates.cu": NO_FMA,
+           "prime_tile.cu": NO_FMA,
            "fp32_peak.cu": NO_FMA, "fp32_peak_fma.cu": ("-fmad=true",)}
 # the KF_WIDE builds of the kernels that take SDF and analytic objects
 # (csrc/frame_fused.cuh), for scenes past their per-thread arrays; their C
@@ -258,7 +259,9 @@ def sass_counts(lib_path: str, name: str) -> dict:
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures."""
-    from surfjax_torch.kernels.mesh_tile import MeshTileArgs, MeshTileProf
+    from surfjax_torch.kernels.mesh_tile import (
+        McArgs, MeshTileArgs, MeshTileProf,
+    )
     from surfjax_torch.kernels.render_tile import (
         KFSettings, KFTables, KSLayout, PrimeArgs, SplitRays,
     )
@@ -298,6 +301,7 @@ def load() -> ctypes.CDLL:
                                  ctypes.c_void_p]
     lib.mt_mesh_tile_profile.argtypes = [MeshTileArgs, MeshTileProf,
                                          ctypes.c_int, ctypes.c_void_p]
+    lib.mc_candidates.argtypes = [McArgs, ctypes.c_int, ctypes.c_void_p]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fma in ("", "_fma"):
         # cheb, px, py, pz, out, profile records or null, n, iters, unroll,
@@ -317,7 +321,7 @@ def load() -> ctypes.CDLL:
                  "sp_staged_trace_rays", "sp_staged_ao_fix",
                  "pt_prime_tile", "pt_occupancy",
                  "mt_mesh_tile",
-                 "mt_mesh_tile_profile", "fp_fma_dep",
+                 "mt_mesh_tile_profile", "mc_candidates", "fp_fma_dep",
                  *mixes):
         getattr(lib, name).restype = ctypes.c_int
     lib.kf_error_string.argtypes = [ctypes.c_int]

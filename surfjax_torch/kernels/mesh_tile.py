@@ -1,13 +1,15 @@
 """Packet (per-tile) triangle-mesh intersection: the counterpart of
 `surfjax/kernels/mesh_tile.py`.
 
-  1. `mesh_candidates` (tensor code): every ray is clipped to the mesh's
-     grid box; a tile's frustum is the AABB of its lanes' entry/exit
-     segment endpoints, refined by three oriented separating axes. The
-     candidate triangles of a tile are those whose AABB and projections
-     overlap it, compacted into a (tiles, K) index table. The sets are
-     conservative, so the nearest hit over a tile's candidates equals the
-     brute-force nearest hit.
+  1. `mesh_candidates`, the wrapper of the hand-written CUDA kernel
+     (csrc/mesh_candidates.cu) with its plain version
+     `mesh_candidates_reference`: every ray is clipped to the mesh's grid
+     box; a tile's frustum is the AABB of its lanes' entry/exit segment
+     endpoints, refined by three oriented separating axes. The candidate
+     triangles of a tile are those whose AABB and projections overlap it,
+     compacted into a (tiles, K) index table. The sets are conservative,
+     so the nearest hit over a tile's candidates equals the brute-force
+     nearest hit.
   2. `mesh_tile`, the wrapper of the hand-written CUDA kernel
      (csrc/mesh_tile.cu) with its plain version `mesh_tile_reference`:
      Moller-Trumbore of every ray of a tile against the tile's candidates
@@ -48,10 +50,13 @@ MT_WX = 16       # the kernel's warps: 16 x 2 rays (csrc/mesh_tile.cu)
 VOTE_SLOTS = 256  # candidate slots mesh_warp_masks compares at a time
 
 
-# The most (tile, triangle) entries mesh_candidates tests at a time: a
+# The most (tile, triangle) entries the plain version tests at a time: a
 # batch with more tiles (a sequence's frames in one pass) is taken in
-# groups of whole tiles, each tile's candidates being its own.
+# groups of whole tiles, each tile's candidates being its own. The kernel
+# takes every tile at once.
 CAND_ENTRIES = 1 << 26
+MC_THREADS = 256  # the candidate kernel's threads per tile
+                  # (csrc/mesh_candidates.cu)
 
 
 @annotate("surfjax_torch.mesh_candidates")
@@ -60,82 +65,69 @@ def mesh_candidates(ms, tri_packed, o2, d2, t_min, t_max, tile_rows: int,
     """-> (cand (tiles, K) int32 triangle ids, counts (tiles,) int32).
 
     Conservative per-tile candidate sets by segment-AABB culling plus
-    three oriented axes. Slots at and above a tile's count hold the last
-    triangle, as in the reference; a count above K means overflow. The
-    tiles' ranges are formed at once, their overlap with the triangles in
-    groups of at most CAND_ENTRIES entries (_tile_candidates)."""
-    rows, lanes = o2[0].shape
+    three oriented axes (mesh_candidates_reference). Slots at and above a
+    tile's count hold the last triangle, as in the reference; a count
+    above K means overflow. t_max is a Python float or a per-lane tensor.
+
+    CUDA tensors launch the hand-written kernel (csrc/mesh_candidates.cu,
+    one launch per call, counted in `mesh_candidates.launches`); CPU
+    tensors run the plain version. Anything else raises."""
+    args = (ms, tri_packed, o2, d2, t_min, t_max, tile_rows, K)
+    record_call("mesh_candidates", args)
+    dev = o2[0].device
+    with annotate("surfjax_torch.kernel.mesh_candidates"):
+        if dev.type == "cuda":
+            launch, out = mesh_candidates_launcher(*args)
+            launch()
+            mesh_candidates.launches += 1
+            return out
+        if dev.type == "cpu":
+            return mesh_candidates_reference(*args)
+    raise ValueError(f"unsupported device {dev}")
+
+
+mesh_candidates.launches = 0
+
+
+def mesh_candidates_reference(ms, tri_packed, o2, d2, t_min, t_max,
+                              tile_rows: int, K: int = PACKET_K):
+    """The candidate kernel's plain version -> (cand, counts), the
+    kernel's to the bit.
+
+    Every ray is clipped to the mesh's grid box (_lane_clip); a tile's
+    region is the box of its lanes' segment endpoints and, on three
+    oriented axes (the valid lanes' directions summed in the kernel's
+    order, _tile_sum, and two orthogonals, _axes), the range of the
+    endpoints' projections. The candidates of a tile are the triangles
+    whose box and projections meet its region, padded by eps; each
+    triangle a lane's segment meets is among them. The tiles' regions are
+    formed at once, their overlap with the triangles in groups of at most
+    CAND_ENTRIES entries (_tile_candidates)."""
+    rows = o2[0].shape[0]
     tiles = rows // tile_rows
-    bmin = [np.float32(v) for v in ms.bbox_min]
-    bext = [np.float32(ms.cell_size[0] * ms.nx),
-            np.float32(ms.cell_size[1] * ms.ny),
-            np.float32(ms.cell_size[2] * ms.nz)]
-    bmax = [float(bmin[ax] + bext[ax]) for ax in range(3)]
-    bmin = [float(v) for v in bmin]
-
-    # per-lane ray/box clip (slab)
-    t_lo = torch.full_like(o2[0], f32(t_min))
-    t_hi = per_lane(o2[0], t_max)
-    for ax in range(3):
-        dz = d2[ax] == 0.0
-        inv = 1.0 / torch.where(dz, 1.0, d2[ax])
-        ta = (bmin[ax] - o2[ax]) * inv
-        tb = (bmax[ax] - o2[ax]) * inv
-        tn = torch.minimum(ta, tb)
-        tf = torch.maximum(ta, tb)
-        in_slab = (o2[ax] > bmin[ax]) & (o2[ax] < bmax[ax])
-        tn = torch.where(dz, torch.where(in_slab, -BIG, BIG), tn)
-        tf = torch.where(dz, torch.where(in_slab, BIG, -BIG), tf)
-        t_lo = torch.maximum(t_lo, tn)
-        t_hi = torch.minimum(t_hi, tf)
-    valid = t_lo <= t_hi
-
-    # segment endpoints; invalid lanes contribute empty boxes
-    pa = [o2[ax] + t_lo * d2[ax] for ax in range(3)]
-    pb = [o2[ax] + t_hi * d2[ax] for ax in range(3)]
+    pa, pb, valid = _lane_clip(o2, d2, per_lane(o2[0], t_max), t_min,
+                               grid_box(ms))
+    valid = valid.reshape(tiles, -1)
+    pa, pb = ([c.reshape(tiles, -1) for c in p] for p in (pa, pb))
 
     def tile_range(a_lane, b_lane):
-        lo = torch.where(valid, torch.minimum(a_lane, b_lane), BIG)
-        hi = torch.where(valid, torch.maximum(a_lane, b_lane), -BIG)
-        return (lo.reshape(tiles, -1).amin(dim=1),
-                hi.reshape(tiles, -1).amax(dim=1))
+        lo, hi = _ranges(a_lane, b_lane, valid)
+        return lo.amin(dim=1), hi.amax(dim=1)
 
     boxes = [tile_range(pa[ax], pb[ax]) for ax in range(3)]
-
-    # Oriented refinement: the mean segment direction of the tile and two
-    # orthogonals as separating axes. Any axis is sound (the segments'
-    # projections lie inside their endpoints' projection hull); the eps
-    # guards rounding. The projections are written out in float32 with
-    # no matrix product, so neither bf16 nor TF32 can shrink a triangle's
-    # projected range (surfjax pins HIGHEST for that reason: a bf16
-    # projection culled true hits on its device).
-    dsum = [torch.where(valid, d2[ax], 0.0).reshape(tiles, -1).sum(dim=1)
-            for ax in range(3)]
-    nrm = sqrt((dsum[0] * dsum[0] + dsum[1] * dsum[1]) + dsum[2] * dsum[2])
-    ok = nrm > f32(1e-6)
-    w = torch.stack([torch.where(ok, dsum[ax] / torch.where(ok, nrm, 1.0),
-                                 1.0 if ax == 0 else 0.0)
-                     for ax in range(3)], dim=1)              # (tiles, 3)
-    ref = torch.zeros_like(w)
-    big_y = torch.abs(w[:, 1]) >= f32(0.9)
-    ref[:, 0] = torch.where(big_y, 1.0, 0.0)
-    ref[:, 1] = torch.where(big_y, 0.0, 1.0)
-    u = torch.linalg.cross(w, ref, dim=1)
-    u = u / sqrt((u[:, 0:1] * u[:, 0:1] + u[:, 1:2] * u[:, 1:2])
-                 + u[:, 2:3] * u[:, 2:3])
-    v = torch.linalg.cross(w, u, dim=1)
-    axes = []
-    for a in (w, u, v):
-        sa, sb = ((q[0].reshape(tiles, -1) * a[:, 0:1]
-                   + q[1].reshape(tiles, -1) * a[:, 1:2])
-                  + q[2].reshape(tiles, -1) * a[:, 2:3] for q in (pa, pb))
-        axes.append((a,) + tile_range(sa.reshape(o2[0].shape),
-                                      sb.reshape(o2[0].shape)))
+    # The projections are written out in float32 with no matrix product,
+    # so neither bf16 nor TF32 can shrink a triangle's projected range
+    # (surfjax pins HIGHEST for that reason: a bf16 projection culled true
+    # hits on its device).
+    axes = [(a,) + tile_range(_dot([c[:, None] for c in a], pa),
+                              _dot([c[:, None] for c in a], pb))
+            for a in _axes([_tile_sum(torch.where(valid, c.reshape(
+                tiles, -1), 0.0)) for c in d2])]
 
     step = max(1, CAND_ENTRIES // max(1, tri_packed.shape[0]))
     parts = [_tile_candidates(
         tri_packed, [(lo[g], hi[g]) for lo, hi in boxes],
-        [(a[g], lo[g], hi[g]) for a, lo, hi in axes], K)
+        [([c[g] for c in a], lo[g], hi[g]) for a, lo, hi in axes], K)
         for g in (slice(s, s + step) for s in range(0, tiles, step))]
     if len(parts) == 1:
         return parts[0]
@@ -143,10 +135,31 @@ def mesh_candidates(ms, tri_packed, o2, d2, t_min, t_max, tile_rows: int,
             torch.cat([p[1] for p in parts]))
 
 
+def _tile_sum(x):
+    """(tiles, n) per-lane values -> (tiles,) each row's sum in the
+    candidate kernel's order: thread k of MC_THREADS adds lanes k,
+    k + MC_THREADS, ... in turn to +0.0 (lanes past the tile's end add
+    +0.0), each warp's 32 sums go through the butterfly (_butterfly_sum)
+    and the warps' totals are added in warp order."""
+    tiles, n = x.shape
+    steps = -(-n // MC_THREADS)
+    x = torch.nn.functional.pad(x, (0, steps * MC_THREADS - n))
+    x = x.reshape(tiles, steps, MC_THREADS)
+    s = torch.zeros((tiles, MC_THREADS), dtype=x.dtype, device=x.device)
+    for k in range(steps):
+        s = s + x[:, k]
+    w = _butterfly_sum(s.reshape(-1, 32)).reshape(tiles, -1)
+    total = w[:, 0]
+    for k in range(1, w.shape[1]):
+        total = total + w[:, k]
+    return total
+
+
 def _tile_candidates(tri_packed, boxes, axes, K: int):
-    """mesh_candidates for a group of tiles, given per tile its box (lo,
-    hi per axis) and its three oriented axes with the range of its
-    segments' projections on each -> (cand, counts) of the group."""
+    """The plain candidates for a group of tiles, given per tile its box
+    (lo, hi per axis) and its three oriented axes (three (tiles,)
+    components each) with the range of its segments' projections on each
+    -> (cand, counts) of the group."""
     tiles = boxes[0][0].shape[0]
     # triangle boxes from the packed v0/e1/e2
     v0 = tri_packed[:, 0:3]
@@ -163,8 +176,8 @@ def _tile_candidates(tri_packed, boxes, axes, K: int):
         overlap &= tri_hi[None, :, ax] >= lo[:, None] - eps
     verts = (v0, p1, p2)
     for a, slo, shi in axes:
-        tproj = [(a[:, 0:1] * vt[None, :, 0] + a[:, 1:2] * vt[None, :, 1])
-                 + a[:, 2:3] * vt[None, :, 2] for vt in verts]
+        tproj = [_dot([c[:, None] for c in a],
+                      [vt[None, :, k] for k in range(3)]) for vt in verts]
         tpro_lo = torch.minimum(torch.minimum(tproj[0], tproj[1]), tproj[2])
         tpro_hi = torch.maximum(torch.maximum(tproj[0], tproj[1]), tproj[2])
         overlap &= tpro_lo <= shi[:, None] + eps
@@ -183,6 +196,72 @@ def _tile_candidates(tri_packed, boxes, axes, K: int):
                       device=tri_packed.device)
     cand[t_idx[keep], s_idx[keep].long()] = f_idx[keep].to(torch.int32)
     return cand, counts
+
+
+class McArgs(ctypes.Structure):
+    """Arguments of mc_candidates (csrc/mesh_candidates.cu), passed by
+    value."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "tri", "ox", "oy", "oz", "dx", "dy", "dz", "tmax", "cand",
+        "counts")] + \
+        [(name, ctypes.c_int) for name in (
+            "tiles", "tile_rays", "K", "n_tris")] + \
+        [("t_min", ctypes.c_float), ("t_max", ctypes.c_float),
+         ("box_lo", ctypes.c_float * 3), ("box_hi", ctypes.c_float * 3)]
+
+
+def mesh_candidates_launcher(ms, tri_packed, o2, d2, t_min, t_max,
+                             tile_rows: int, K: int = PACKET_K):
+    """Prepare one launch of the candidate kernel on CUDA tensors
+    (mesh_candidates' arguments) -> (launch, (cand, counts)): launch()
+    enqueues the kernel on the current stream, writes cand and counts, and
+    raises if the launch was refused. The wrapper launches once;
+    chip_smoke.py times repeated launches."""
+    from surfjax_torch.kernels import _build
+    rows, lanes = o2[0].shape
+    if rows % tile_rows:
+        raise ValueError(f"{rows} ray rows do not split into tiles of "
+                         f"{tile_rows} rows")
+    tiles = rows // tile_rows
+    dev = o2[0].device
+    lane_t = isinstance(t_max, torch.Tensor)
+    if lane_t and t_max.shape != o2[0].shape:
+        t_max = per_lane(o2[0], t_max)
+    rays = [r.contiguous() for r in list(o2) + list(d2)] + \
+        ([t_max.contiguous()] if lane_t else [])
+    tri = tri_packed.contiguous()
+    for name, ten in [("tri_packed", tri)] + \
+            [(f"ray array {k}", r) for k, r in enumerate(rays)]:
+        if ten.device != dev or ten.dtype != torch.float32:
+            raise ValueError(f"{name}: need float32 on {dev}; got "
+                             f"{ten.dtype} on {ten.device}")
+        if name.startswith("ray") and ten.shape != o2[0].shape:
+            raise ValueError(f"{name}: shape {tuple(ten.shape)}, expected "
+                             f"{tuple(o2[0].shape)}")
+    if tri.dim() != 2 or tri.shape[1] != ROW_W:
+        raise ValueError(f"tri_packed must be (F, {ROW_W}); got "
+                         f"{tuple(tri.shape)}")
+    cand = torch.empty((tiles, K), dtype=torch.int32, device=dev)
+    counts = torch.empty((tiles,), dtype=torch.int32, device=dev)
+    args = McArgs(tri.data_ptr(), *[r.data_ptr() for r in rays[:6]],
+                  rays[6].data_ptr() if lane_t else None, cand.data_ptr(),
+                  counts.data_ptr(), tiles=tiles,
+                  tile_rays=tile_rows * lanes, K=K, n_tris=tri.shape[0],
+                  t_min=f32(t_min), t_max=0.0 if lane_t else f32(t_max))
+    args.box_lo[:], args.box_hi[:] = grid_box(ms)
+    lib = _build.load()
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.mc_candidates(args, dev.index, ctypes.c_void_p(
+                torch.cuda.current_stream(dev).cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"mc_candidates launch failed: cudaError "
+                               f"{err} ({_build.error_string(err)})")
+        # the arrays the kernel reads stay alive as long as launch does
+        return tri, rays, cand, counts
+
+    return launch, (cand, counts)
 
 
 def _check_inputs(tri_packed, cand, counts, o2, d2, t_maxv):
@@ -411,12 +490,12 @@ def _cross(a, b):
             a[0] * b[1] - a[1] * b[0]]
 
 
-def _warp_axes(d_w, valid_w):
-    """The warp's three oriented axes (csrc warp_box): its valid lanes'
-    directions summed in the butterfly's order and normalised, and two
-    orthogonals, as mesh_candidates forms them per tile -> [w, u, v],
-    each three (warps,) tensors."""
-    w = [_butterfly_sum(torch.where(valid_w, c, 0.0)) for c in d_w]
+def _axes(w):
+    """Three oriented axes from a summed direction w (three tensors): w
+    normalised ((1, 0, 0) where its norm is 1e-6 or less) and two
+    orthogonals -> [w, u, v], each three tensors of w's shape; the
+    arithmetic of csrc/mesh_tile.cu's warp_box and
+    csrc/mesh_candidates.cu."""
     nrm = sqrt((w[0] * w[0] + w[1] * w[1]) + w[2] * w[2])
     ok = nrm > f32(1e-6)
     w = [torch.where(ok, c / nrm, 1.0 if k == 0 else 0.0)
@@ -428,6 +507,14 @@ def _warp_axes(d_w, valid_w):
     un = sqrt((u[0] * u[0] + u[1] * u[1]) + u[2] * u[2])
     u = [c / un for c in u]
     return [w, u, _cross(w, u)]
+
+
+def _warp_axes(d_w, valid_w):
+    """The warp's three oriented axes (csrc/mesh_tile.cu's warp_box): its
+    valid lanes' directions summed in the butterfly's order, then _axes
+    -> [w, u, v], each three (warps,) tensors."""
+    return _axes([_butterfly_sum(torch.where(valid_w, c, 0.0))
+                  for c in d_w])
 
 
 def _dot(a, p):
@@ -683,8 +770,8 @@ def mesh_tile_kernel(ms, settings, tri_packed, o2, d2, t_max,
     # shadow (any-hit) rays accept from shadow_eps, not t_min, so their
     # candidate segments start there too
     t_seg_min = settings.shadow_eps if any_hit else settings.t_min
-    cand, counts = mesh_candidates(ms, tri_packed, o2, d2, t_seg_min, t_max,
+    t_maxv = per_lane(o2[0], t_max)
+    cand, counts = mesh_candidates(ms, tri_packed, o2, d2, t_seg_min, t_maxv,
                                    settings.tile_rows)
-    return mesh_tile(tri_packed, cand, counts, o2, d2,
-                     per_lane(o2[0], t_max), t_seg_min, ms.smooth, any_hit,
-                     grid_box(ms))
+    return mesh_tile(tri_packed, cand, counts, o2, d2, t_maxv, t_seg_min,
+                     ms.smooth, any_hit, grid_box(ms))

@@ -558,10 +558,11 @@ def mesh_phases(dev, res) -> None:
 
 def mesh_glue(dev, res) -> None:
     """The host glue around the mesh kernel on frame 0 of c4 at 1080p, per
-    mesh call: mesh_candidates' device time (its tensor ops, from a traced
+    mesh call: mesh_candidates' device time (its kernel, from a traced
     call), its host time (wall time of the call, the queue empty before
-    it), and the host's time inside its `nonzero` (which waits for the
-    device: the sync), alone and in a traced render() of the frame."""
+    it), and the host's time in calls that wait for the device (none
+    since the candidate kernel replaced the tensor code and its
+    `nonzero`), alone and in a traced render() of the frame."""
     from surfjax_torch.kernels.mesh_tile import mesh_candidates
     calls, ms_, modes = _c4_mesh_calls(dev)
     scene, camera, Rs, ps, _ = mesh_main_path(C4)

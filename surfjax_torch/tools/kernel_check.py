@@ -2,8 +2,8 @@
 plain versions.
 
 `capture_calls` records the arguments of every call a frame makes to one
-of their wrappers (render_tile, trace_rays, ao_fix, mesh_tile, prime_tile,
-and the residual re-runs render_tile_redo and trace_rays_redo, recorded
+of their wrappers (render_tile, trace_rays, ao_fix, mesh_candidates,
+mesh_tile, prime_tile, and the residual re-runs render_tile_redo and trace_rays_redo, recorded
 with their outputs as they were before the re-run) while it renders;
 `compare` runs one recorded call through the wrapper (the CUDA kernel, for
 CUDA tensors) and through the plain version on the same inputs, and holds
@@ -57,6 +57,8 @@ KERNELS = {
     "mesh_tile": (mt.mesh_tile, mt.mesh_tile_reference,
                   ("t", "nsx", "nsy", "nsz", "ngx", "ngy", "ngz"),
                   mt.mesh_tile_launcher),
+    "mesh_candidates": (mt.mesh_candidates, mt.mesh_candidates_reference,
+                        ("cand", "counts"), mt.mesh_candidates_launcher),
     "prime_tile": (rt.prime_tile, rt.prime_tile_reference, ("t0",),
                    rt.prime_launcher),
 }

@@ -264,14 +264,96 @@ def test_render_on_cuda_uses_the_split_kernels(cuda_device):
     from surfjax_torch.kernels.mesh_tile import mesh_tile
     from surfjax_torch.kernels.render_tile import ao_fix, render_tile, \
         trace_rays
+    from surfjax_torch.kernels.mesh_tile import mesh_candidates
     scene, cam, st = _split_scene("c4 ao")
-    wrappers = (render_tile, trace_rays, ao_fix, mesh_tile, frame_fused)
+    wrappers = (render_tile, trace_rays, ao_fix, mesh_tile, frame_fused,
+                mesh_candidates)
     before = [w.launches for w in wrappers]
     fb = render(scene, cam, st, device=cuda_device)
     assert [w.launches - b for w, b in zip(wrappers, before)] == \
-        [1, 1, 1, 2, 0]
+        [1, 1, 1, 2, 0, 2]
     assert fb.rgb.device.type == "cuda"
     assert bool(torch.isfinite(fb.rgb).all())
+
+
+# --- the candidate kernel (csrc/mesh_candidates.cu) at c4's size ----------
+
+def _c4_pass(device, mode):
+    """c4's main path (1920x1080 x 16 frames, one pass) in `mode` ->
+    (FrameBuffers, the pass's mesh_candidates calls)."""
+    from surfjax_torch.tools.kernel_check import capture_calls
+    from surfjax_torch.tools.workload import mesh_main_path
+    scene, camera, Rs, ps, modes = mesh_main_path(
+        os.path.join(ROOT, "configs", "c4_mesh.yaml"))
+    with capture_calls() as calls:
+        fb = render_sequence(scene, camera, (Rs, ps), modes[mode],
+                             device=device)
+    return fb, [a for k, a in calls if k == "mesh_candidates"]
+
+
+@pytest.mark.parametrize("mode", ["config", "ao"])
+def test_candidates_at_c4_size_equal_the_plain_version_on_the_cpu(
+        cuda_device, mode):
+    """Both mesh_candidates calls of a 16-frame 1080p c4 pass (primary and
+    shadow): one launch each, and (cand, counts) bitwise those of the
+    plain version run on CPU copies of the same inputs."""
+    from surfjax_torch.kernels.mesh_tile import (
+        mesh_candidates, mesh_candidates_reference,
+    )
+
+    def cpu(a):
+        # the ray tuples; the mesh's MeshStatic (a NamedTuple) as it is
+        if isinstance(a, torch.Tensor):
+            return a.cpu()
+        return tuple(cpu(x) for x in a) if type(a) is tuple else a
+
+    _, calls = _c4_pass(cuda_device, mode)
+    assert len(calls) == 2
+    for k, args in enumerate(calls):
+        before = mesh_candidates.launches
+        got = mesh_candidates(*args)
+        torch.cuda.synchronize()
+        assert mesh_candidates.launches == before + 1
+        ref = mesh_candidates_reference(*cpu(args))
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b), f"{mode} call {k}"
+        over = float((ref[1] > ref[0].shape[1]).float().mean())
+        print(f"c4 {mode} call {k}: {ref[1].numel()} tiles, share past "
+              f"K {over:.4f}, counts max {int(ref[1].max())}")
+
+
+def test_c4_frames_equal_a_parent_checkout(cuda_device, tmp_path):
+    """Every FrameBuffers buffer of c4's 16-frame 1080p pass, both modes,
+    bitwise equal to those of another checkout of the port (its root in
+    SURFJAX_PARENT_CHECKOUT) rendering the same poses on the same card in
+    a subprocess: a change to the candidate sets' construction must not
+    move a pixel."""
+    import subprocess
+    import sys
+    parent = os.environ.get("SURFJAX_PARENT_CHECKOUT")
+    if not parent:
+        pytest.skip("set SURFJAX_PARENT_CHECKOUT to the root of the "
+                    "checkout to compare with")
+    script = (
+        "import sys, torch\n"
+        "from surfjax_torch.api import render_sequence\n"
+        "from surfjax_torch.tools.workload import mesh_main_path\n"
+        "scene, camera, Rs, ps, modes = mesh_main_path(sys.argv[1])\n"
+        "for mode in ('config', 'ao'):\n"
+        "    fb = render_sequence(scene, camera, (Rs, ps), modes[mode],\n"
+        "                         device=torch.device('cuda', 0))\n"
+        "    torch.save({f: getattr(fb, f).cpu() for f in fb._fields},\n"
+        "               f'{sys.argv[2]}/{mode}.pt')\n")
+    subprocess.run([sys.executable, "-c", script,
+                    os.path.join(ROOT, "configs", "c4_mesh.yaml"),
+                    str(tmp_path)], check=True, cwd=parent,
+                   env=dict(os.environ, PYTHONPATH=parent))
+    for mode in ("config", "ao"):
+        fb, _ = _c4_pass(cuda_device, mode)
+        want = torch.load(tmp_path / f"{mode}.pt")
+        for field in fb._fields:
+            assert torch.equal(getattr(fb, field).cpu(), want[field]), \
+                f"{mode} {field}"
 
 
 # --- the crowd loops in KF, K1, K2 and ao_fix; the priming kernel -----------

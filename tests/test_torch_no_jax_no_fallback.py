@@ -232,6 +232,34 @@ def test_prime_and_crowd_wrappers_take_only_cpu_or_cuda_tensors():
     assert [w.launches for w in wrappers] == before
 
 
+def test_candidate_wrapper_takes_only_cpu_or_cuda_tensors():
+    """mesh_candidates on a tensor on neither the CPU nor a card raises and
+    counts no launch; on the CPU it runs the plain version, bitwise, and
+    counts none either."""
+    import numpy as np
+
+    from surfjax_torch.kernels import mesh_tile as mt
+    from surfjax_torch.meshgen import octasphere
+    v, f = octasphere(2)
+    static, params = api.Scene().add(api.TriangleMesh(
+        vertices=v * np.float32(0.8) + np.float32([0.0, 0.0, 3.0]),
+        faces=f)).freeze()
+    ms, tri = static.mesh_static[0], torch.as_tensor(
+        params["mesh0_tri_packed"])
+    o = tuple(torch.zeros((4, 128)) for _ in range(3))
+    d = (torch.zeros((4, 128)), torch.zeros((4, 128)), torch.ones((4, 128)))
+    before = mt.mesh_candidates.launches
+    got = mt.mesh_candidates(ms, tri, o, d, 1e-3, 1e4, 2)
+    ref = mt.mesh_candidates_reference(ms, tri, o, d, 1e-3, 1e4, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert int(got[1].min()) > 0
+    meta = lambda ts: tuple(t.to("meta") for t in ts)  # noqa: E731
+    with pytest.raises(ValueError, match="unsupported device"):
+        mt.mesh_candidates(ms, tri.to("meta"), meta(o), meta(d), 1e-3, 1e4,
+                           2)
+    assert mt.mesh_candidates.launches == before
+
+
 def test_capped_calls_on_meta_tensors_launch_nothing():
     """A capped K1 or K2 call and their residual re-runs on a tensor on
     neither the CPU nor a card raise and count no launch: a capped call

@@ -370,7 +370,7 @@ def _hold(calls, label):
     bitwise -> the names called."""
     names = []
     for k, (kname, args) in enumerate(calls):
-        if kname == "mesh_tile":
+        if kname in ("mesh_candidates", "mesh_tile"):
             continue
         ref = flat(KERNELS[kname][1](*args))
         launch, out = KERNELS[kname][3](*args)[:2]

@@ -138,21 +138,22 @@ def test_batched_sequence_equals_frames_alone(name, per):
 def _calls_of_pass(scene, cam, st):
     """The recorded kernel calls of one pass, in order: the priming call
     where it applies; then K1 (and its residual re-run under a cap), the
-    mesh kernel per mesh, ao_fix where AO meets a mesh and another
-    object, and per light K2 (and its re-run) and the mesh kernel per
-    mesh; none more for a mesh-free scene, which takes KF."""
+    candidates and the mesh kernel per mesh, ao_fix where AO meets a mesh
+    and another object, and per light K2 (and its re-run) and the
+    candidates and the mesh kernel per mesh; none more for a mesh-free
+    scene, which takes KF."""
     static = scene.freeze()[0]
     names = ["prime_tile"] * rt.prime_applies(static, cam.intrinsics, st)
     if rt.fused_frame_ok(static, st):
         return names
     meshes = len(rt._split(static)[2])
     names += ["render_tile"] + ["render_tile_redo"] * bool(st.march_cap)
-    names += ["mesh_tile"] * meshes
+    names += ["mesh_candidates", "mesh_tile"] * meshes
     if st.ao and meshes and len(static.ir.objects) > meshes:
         names.append("ao_fix")
     for _ in static.ir.lights:
         names += ["trace_rays"] + ["trace_rays_redo"] * bool(
-            st.shadow_march_cap) + ["mesh_tile"] * meshes
+            st.shadow_march_cap) + ["mesh_candidates", "mesh_tile"] * meshes
     return names
 
 

@@ -34,8 +34,9 @@ def test_c4_sequence_matches_surfjax():
     ref = sj_rs(sj_s, sj_c, poses, sj_st)
     with capture_calls() as calls:
         got = api.render_sequence(pt_s, pt_c, poses, pt_st, device="cpu")
-    assert [c[0] for c in calls] == ["render_tile", "mesh_tile",
-                                     "trace_rays", "mesh_tile"]
+    assert [c[0] for c in calls] == ["render_tile", "mesh_candidates",
+                                     "mesh_tile", "trace_rays",
+                                     "mesh_candidates", "mesh_tile"]
     for f in range(2):
         g = gaps([np.asarray(a)[f] for a in ref], [a[f] for a in got])
         assert g["hit_agree"] > 0.999 and g["obj_agree"] > 0.999, (f, g)

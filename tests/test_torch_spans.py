@@ -5,9 +5,10 @@ functions.
 
   * a split-path pass (a mesh beside an SDF sphere, AO and soft shadows,
     two frames in one pass): the ray set-up, the primary stage with K1,
-    the candidates and mesh kernel per mesh and their merge, ao_fix; per
-    light the visibility with K2 and the candidates and mesh kernel per
-    mesh; the shading and the outputs last;
+    the candidates (holding their kernel's span) and mesh kernel per mesh
+    and their merge, ao_fix; per light the visibility with K2 and the
+    candidates and mesh kernel per mesh; the shading and the outputs
+    last; mesh_candidates called alone leaves its span and its kernel's;
   * a mesh-free sequence and frame: KF and the outputs in the pass, no
     span of the split path;
   * with no profiler running a span records nothing, and the decorated
@@ -25,6 +26,7 @@ torch.set_num_threads(1)
 from surfjax_torch import api  # noqa: E402
 from surfjax_torch.kernels import mesh_tile as mt  # noqa: E402
 from surfjax_torch.kernels import render_tile as rt  # noqa: E402
+from surfjax_torch.meshgen import octasphere  # noqa: E402
 from surfjax_torch.pipeline import frame  # noqa: E402
 from surfjax_torch.tools import workload  # noqa: E402
 from surfjax_torch.utils import profiling  # noqa: E402
@@ -97,10 +99,34 @@ def test_split_pass_spans_follow_its_calls():
     assert _names(lights) == ["visibility"] * n_lights
     for _, kids in lights:
         assert _names(kids) == vis
-    # the kernels', the candidates' and the merges' spans are leaves
+    # the kernels' and the merges' spans are leaves; the candidates' span
+    # holds its kernel's
     for name, kids in _child(top, "primary") + lights[0][1]:
-        assert kids == [], name
+        assert _names(kids) == (["kernel.mesh_candidates"]
+                                if name == "mesh_candidates" else []), name
+        assert all(k == [] for _, k in kids), name
     assert _child(top, "rays") == [] and _child(top, "shade") == []
+
+
+def test_candidates_span_holds_one_kernel_span():
+    """mesh_candidates called alone: its span and, nested, its kernel's
+    (the plain version's on the CPU), once per call; the launch counter
+    moves only on the card."""
+    v, f = octasphere(2)
+    scene = api.Scene().add(api.TriangleMesh(
+        vertices=v * np.float32(0.8) + np.float32([0.0, 0.0, 3.0]),
+        faces=f))
+    static, params = scene.freeze()
+    ms = static.mesh_static[0]
+    tri = torch.as_tensor(params["mesh0_tri_packed"])
+    o = tuple(torch.zeros(4, 128) for _ in range(3))
+    d = (torch.zeros(4, 128), torch.zeros(4, 128), torch.ones(4, 128))
+    before = mt.mesh_candidates.launches
+    tree = _span_tree(lambda: [mt.mesh_candidates(ms, tri, o, d, 1e-3, 1e4,
+                                                  2) for _ in range(2)])
+    assert tree == [("mesh_candidates",
+                     [("kernel.mesh_candidates", [])])] * 2
+    assert mt.mesh_candidates.launches == before
 
 
 @pytest.mark.parametrize("entry", ["render_sequence", "render"])
@@ -163,6 +189,6 @@ def test_annotate_is_free_without_a_profiler(monkeypatch):
         assert inner is not fn
         assert fn.__name__ == inner.__name__ and fn.__doc__ == inner.__doc__
     for fn in (rt.frame_fused, rt.render_tile, rt.trace_rays, rt.ao_fix,
-               rt.prime_tile, mt.mesh_tile):
+               rt.prime_tile, mt.mesh_tile, mt.mesh_candidates):
         assert isinstance(fn.launches, int)
     assert isinstance(rt.render_tile.crowd.launches, int)

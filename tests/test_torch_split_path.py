@@ -288,8 +288,9 @@ def test_capture_calls_records_every_split_kernel_call():
     with capture_calls() as calls:
         pt_api.render(scene, cam, st, device="cpu")
     assert kernels.RECORDED_CALLS is None
-    assert [c[0] for c in calls] == ["render_tile", "mesh_tile", "ao_fix",
-                                     "trace_rays", "mesh_tile"]
+    assert [c[0] for c in calls] == ["render_tile", "mesh_candidates",
+                                     "mesh_tile", "ao_fix", "trace_rays",
+                                     "mesh_candidates", "mesh_tile"]
     for k, (name, args) in enumerate(calls):
         err, got, ref = compare(name, args, f"call {k}")
         assert err == 0.0 and len(got) == len(ref) > 0
