@@ -536,7 +536,8 @@ def pass_launches(scene, camera, st, n_frames: int) -> dict:
     meshes = len(rt._split(static)[2])
     lights = len(static.ir.lights) * bool(st.shadows)
     crowd = "_crowd" if rt.launches_crowd(static, st) else ""
-    want = dict.fromkeys(list(_split_wrappers()) + ["frame_fused"], 0)
+    want = dict.fromkeys(list(_split_wrappers()) + ["frame_fused",
+                                                    "frame_fused_crowd"], 0)
     want["render_tile" + crowd] = passes
     want["trace_rays" + crowd] = passes * lights
     want["mesh_tile"] = passes * meshes * (1 + lights)
@@ -1433,7 +1434,8 @@ def crowd_mesh_phase(dev, smi: str) -> dict:
     mesh_id = len(scene.objects) - 1
     n_members = len(split_crowd(static, modes["config"])[0].members)
     rows = pass_rays(static, camera.intrinsics, modes["config"]) // LANES
-    wrappers = dict(_split_wrappers(), frame_fused=frame_fused)
+    wrappers = dict(_split_wrappers(), frame_fused=frame_fused,
+                    frame_fused_crowd=frame_fused.crowd)
     idx = [0, n_frames - 1]
     launches = dict.fromkeys(CROWD_SPLIT, 0)
     errs, frame, results, memo = {}, {}, {}, []
@@ -1843,12 +1845,13 @@ def bench_phase(dev, smi: str, hits3: dict) -> dict:
 
     from surfjax_torch import bench
     from surfjax_torch.kernels import mesh_tile as mt, render_tile as rt
-    from surfjax_torch.tools import bench_all, scenes
+    from surfjax_torch.tools import bench_all
     t22 = time.perf_counter()
     wrappers = {"frame_fused": rt.frame_fused, "render_tile": rt.render_tile,
                 "trace_rays": rt.trace_rays, "ao_fix": rt.ao_fix,
                 "mesh_tile": mt.mesh_tile, "prime_tile": rt.prime_tile,
-                "mesh_candidates": mt.mesh_candidates}
+                "mesh_candidates": mt.mesh_candidates,
+                "frame_fused_crowd": rt.frame_fused.crowd}
     totals = dict.fromkeys(BENCH_KERNELS + ("frame_fused_crowd",), 0)
     errs = dict.fromkeys(totals, 0.0)
 
@@ -1881,7 +1884,7 @@ def bench_phase(dev, smi: str, hits3: dict) -> dict:
     try:
         # (a) run_bench in this process
         hb, got = counted(lambda: bench.run_bench(device=dev))
-        want = dict.fromkeys(BENCH_KERNELS, 0)
+        want = dict.fromkeys(wrappers, 0)
         want["frame_fused"] = 2 * (1 + hb["repeats"])   # one per call
         if got != want:
             raise AssertionError(f"run_bench launched {got}, expected "
@@ -1908,23 +1911,20 @@ def bench_phase(dev, smi: str, hits3: dict) -> dict:
         for kind in ("matrix", "gated"):
             for workload, measure in bench_all.rows(kind, dev):
                 rows, got = counted(measure)
-                kf = got["frame_fused"]
-                others = {k: v for k, v in got.items() if k != "frame_fused"}
+                kf = got["frame_fused"] + got["frame_fused_crowd"]
+                others = {k: v for k, v in got.items()
+                          if k not in ("frame_fused", "frame_fused_crowd")}
                 if workload in ("c4_fixture", "c4_config"):
                     ok = kf == 0 and all(got[k] > 0 for k in C4_ROW_KERNELS)
                 else:
                     ok = kf > 0 and not any(others.values())
                 if not ok:
                     raise AssertionError(f"{kind} {workload}: launches {got}")
-                if workload == "crowd64":
+                if workload == "crowd64" and got["frame_fused"]:
                     # KF's launches on a crowd are its crowd instantiation's
-                    sc, _, st = scenes.crowd64()
-                    if rt.split_crowd(sc.freeze()[0], st)[0] is None:
-                        raise AssertionError("crowd64 forms no crowd")
-                    totals["frame_fused_crowd"] += kf
+                    raise AssertionError(f"crowd64 launched {got}")
                 for k, v in got.items():
-                    if not (workload == "crowd64" and k == "frame_fused"):
-                        totals[k] += v
+                    totals[k] += v
                 check_frames(seqs, timings, dev, errs,
                              f"{kind} {workload}")
                 for r in rows:
@@ -2222,7 +2222,8 @@ def main() -> int:
     n_frames = len(ps)
     n_objects = len(scene.objects)
     H, W = camera.intrinsics.height, camera.intrinsics.width
-    wrappers = dict(_split_wrappers(), frame_fused=frame_fused)
+    wrappers = dict(_split_wrappers(), frame_fused=frame_fused,
+                    frame_fused_crowd=frame_fused.crowd)
     mesh_results, mesh_launches, mesh_alone = {}, {}, {}
     for mode, st in modes.items():
         call = lambda st=st: render_sequence(scene, camera, (Rs, ps), st,
@@ -2368,9 +2369,9 @@ def main() -> int:
                 "(K1, K2 and ao_fix also to the masked plain versions)")
         else:
             scene_t = SceneTensors(static, params_to_device(params, dev))
-            before = frame_fused.launches
+            before = frame_fused.crowd.launches
             fb_on = render_sequence(scene8, cam8, (Rs, ps), on, device=dev)
-            if frame_fused.launches != before + 1:
+            if frame_fused.crowd.launches != before + 1:
                 raise AssertionError(f"{name}: expected one kernel launch")
             rows8 = cam_rows_of(Rs, ps, dev)
             ref = frame_fused_reference(scene_t, on, cam8.intrinsics, rows8)
@@ -2403,7 +2404,7 @@ def main() -> int:
     scene_t = SceneTensors(static, params_to_device(params, dev))
     rows = cam_rows_of(Rs, ps, dev)
     crowd_results = {}
-    frame_fused.launches = 0
+    frame_fused.crowd.launches = 0
     for mode, st in modes.items():
         call = lambda st=st: render_sequence(scene, camera, (Rs, ps), st,
                                              device=dev)
@@ -2411,7 +2412,7 @@ def main() -> int:
         torch.cuda.synchronize()
         times, fb = cuda_ms(call, 3)
         crowd_results[mode] = (times, st, fb)
-    crowd_launches = frame_fused.launches
+    crowd_launches = frame_fused.crowd.launches
     if crowd_launches < 1:
         raise AssertionError("the crowd main path launched no kernel")
     for mode, (times, st, fb) in crowd_results.items():

@@ -2385,12 +2385,19 @@ def _packed_on(static, vector_objects: bool, device: str):
 
 
 def launches_crowd(static, settings: RenderSettings) -> bool:
-    """Whether a split kernel's call on this scene launches the crowd
-    kernel (csrc/split_path.cu, csrc/ao_fix_crowd.cu; pack_scene forms a
-    crowd) rather than the staged kernel: the one test behind
-    split_launcher's choice, the wrappers' two counts and chip_smoke.py's
-    kernels line."""
-    return _packed(static, bool(settings.vector_objects))[1][2] > 0
+    """Whether a kernel's call on this scene launches its crowd
+    instantiation (KF's kf_frame_kernel<true>, csrc/split_path.cu,
+    csrc/ao_fix_crowd.cu; split_crowd, and so pack_scene, forms a crowd)
+    rather than the staged kernel: the one test behind split_launcher's
+    choice, the wrappers' two counts and spans and chip_smoke.py's kernels
+    line."""
+    return _forms_crowd(static, bool(settings.vector_objects))
+
+
+@functools.lru_cache(maxsize=16)
+def _forms_crowd(static, vector_objects: bool) -> bool:
+    return split_crowd(static, RenderSettings(
+        vector_objects=vector_objects))[0] is not None
 
 
 @functools.lru_cache(maxsize=16)
@@ -2568,7 +2575,7 @@ def _launch_kernel(scene_t, settings: RenderSettings, intr, cam_rows, t0):
                                      work.data_ptr(), dev.index, stream)
             entry = "ks_frame_fused"
     _raise_on(err, entry)
-    frame_fused.launches += 1
+    (frame_fused.crowd if counts[2] > 0 else frame_fused).launches += 1
     return tuple(out[k] for k in range(9))
 
 
@@ -2649,39 +2656,49 @@ def staged_occupancy(scene_t, settings: RenderSettings, dev) -> dict:
     return {"bytes": layout.bytes, "blocks_per_sm": blocks.value}
 
 
-@annotate("surfjax_torch.kernel.kf")
 def frame_fused(scene_t, settings: RenderSettings, intr, cam_rows, t0=None):
     """KF for F frames -> the 9 float32 (F, H, W) tensors of
     frame_fused_reference; t0 (F, H, W) float32 or None: the primed march
     starts.
 
-    CUDA tensors launch the hand-written kernel (and count the launch in
-    `frame_fused.launches`); CPU tensors run the plain twin. Anything the
-    kernel does not take raises."""
-    static, params = scene_t
-    check_scene(static, settings, dev=cam_rows.device)
-    if settings.march_cap or settings.shadow_march_cap:
-        raise NotImplementedError(
-            "frame_fused takes no march_cap / shadow_march_cap (surfjax's KF "
-            "reads none); capped frames take the split path "
-            "(fused_frame_ok)")
-    if cam_rows.dim() != 2 or cam_rows.shape[1] != 12:
-        raise ValueError(f"cam_rows must be (F, 12); got "
-                         f"{tuple(cam_rows.shape)}")
-    if cam_rows.dtype != torch.float32:
-        raise ValueError(f"cam_rows must be float32; got {cam_rows.dtype}")
-    if t0 is not None and tuple(t0.shape) != (
-            cam_rows.shape[0], intr.height, intr.width):
-        raise ValueError(f"t0 must be (F, H, W); got {tuple(t0.shape)}")
-    if cam_rows.device.type == "cuda":
-        return _launch_kernel(scene_t, settings, intr, cam_rows.contiguous(),
-                              t0)
-    if cam_rows.device.type == "cpu":
-        return frame_fused_reference(scene_t, settings, intr, cam_rows, t0)
-    raise ValueError(f"unsupported device {cam_rows.device}")
+    CUDA tensors launch the hand-written kernel and count the launch in
+    `frame_fused.launches`, with a crowd (its instantiation
+    kf_frame_kernel<true>) in `frame_fused.crowd.launches`; CPU tensors
+    run the plain twin. The call is the span `surfjax_torch.kernel.kf`,
+    with a crowd `surfjax_torch.kernel.kf_crowd`. Anything the kernel does
+    not take raises."""
+    crowd = launches_crowd(scene_t.static, settings)
+    with annotate("surfjax_torch.kernel.kf_crowd" if crowd
+                  else "surfjax_torch.kernel.kf"):
+        static, params = scene_t
+        check_scene(static, settings, dev=cam_rows.device)
+        if settings.march_cap or settings.shadow_march_cap:
+            raise NotImplementedError(
+                "frame_fused takes no march_cap / shadow_march_cap "
+                "(surfjax's KF reads none); capped frames take the split "
+                "path (fused_frame_ok)")
+        if cam_rows.dim() != 2 or cam_rows.shape[1] != 12:
+            raise ValueError(f"cam_rows must be (F, 12); got "
+                             f"{tuple(cam_rows.shape)}")
+        if cam_rows.dtype != torch.float32:
+            raise ValueError(f"cam_rows must be float32; got "
+                             f"{cam_rows.dtype}")
+        if t0 is not None and tuple(t0.shape) != (
+                cam_rows.shape[0], intr.height, intr.width):
+            raise ValueError(f"t0 must be (F, H, W); got {tuple(t0.shape)}")
+        if cam_rows.device.type == "cuda":
+            return _launch_kernel(scene_t, settings, intr,
+                                  cam_rows.contiguous(), t0)
+        if cam_rows.device.type == "cpu":
+            return frame_fused_reference(scene_t, settings, intr, cam_rows,
+                                         t0)
+        raise ValueError(f"unsupported device {cam_rows.device}")
 
 
 frame_fused.launches = 0
+# the crowd instantiation's launches (csrc/frame_fused.cu), apart from the
+# staged kernel's
+frame_fused.crowd = types.SimpleNamespace(launches=0)
 
 
 @annotate("surfjax_torch.outputs")

@@ -104,7 +104,9 @@ def measure(n: int, vector_objects: bool, kind: str = "sphere",
     def call():
         return api.render_sequence(scene, cam, seq, st, device=dev)
 
-    before = rt.frame_fused.launches
+    kf = rt.frame_fused.crowd if rt.launches_crowd(scene.freeze()[0], st) \
+        else rt.frame_fused
+    before = kf.launches
     t0 = time.perf_counter()
     fb = call()
     if cuda:
@@ -125,7 +127,7 @@ def measure(n: int, vector_objects: bool, kind: str = "sphere",
             else "per-object", "kind": kind, "frames": frames,
             "first_s": first_s,
             "ms_frame": min(times) if times else None,
-            "launches": rt.frame_fused.launches - before,
+            "launches": kf.launches - before,
             "hit_fraction": float(fb.hit.float().mean())}
 
 

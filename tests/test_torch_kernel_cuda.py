@@ -386,10 +386,11 @@ def test_crowd_kernel_matches_twin_and_crowd_off(cuda_device, name):
         [np.asarray(cam.rotation, np.float32).reshape(1, 9),
          np.asarray(cam.position, np.float32).reshape(1, 3)], axis=1),
         device=cuda_device)
-    before = frame_fused.launches
+    before = (frame_fused.launches, frame_fused.crowd.launches)
     got = frame_fused(scene_t, on, cam.intrinsics, rows)
     torch.cuda.synchronize()
-    assert frame_fused.launches == before + 1
+    assert (frame_fused.launches, frame_fused.crowd.launches) == (
+        before[0], before[1] + 1)
     ref = frame_fused_reference(scene_t, on, cam.intrinsics, rows)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
@@ -797,7 +798,9 @@ def test_limit_case_kernels_match_plain(cuda_device, name):
     it takes the KF_WIDE build of K1, K2 and ao_fix with a crowd."""
     from surfjax_torch import api
     from surfjax_torch.core.camera import flat_camera_rays
-    from surfjax_torch.kernels.render_tile import render_rays_pallas
+    from surfjax_torch.kernels.render_tile import (
+        launches_crowd, render_rays_pallas,
+    )
     from surfjax_torch.tools.kernel_check import KERNELS, capture_calls, flat
     scene, cam, st = _limit_case(name)
     static, params = scene.freeze()
@@ -815,9 +818,11 @@ def test_limit_case_kernels_match_plain(cuda_device, name):
                            device=cuda_device)
             calls += got_calls
     else:
-        before = frame_fused.launches
+        kf = frame_fused.crowd if launches_crowd(static, st) \
+            else frame_fused
+        before = kf.launches
         got = frame_fused(scene_t, st, cam.intrinsics, rows)
-        assert frame_fused.launches == before + 1
+        assert kf.launches == before + 1
         ref = frame_fused_reference(scene_t, st, cam.intrinsics, rows)
         for a, b in zip(got, ref):
             assert torch.equal(a, b)

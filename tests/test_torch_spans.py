@@ -10,7 +10,9 @@ functions.
     candidates and mesh kernel per mesh; the shading and the outputs
     last; mesh_candidates called alone leaves its span and its kernel's;
   * a mesh-free sequence and frame: KF and the outputs in the pass, no
-    span of the split path;
+    span of the split path; KF's span is `kernel.kf_crowd` where the scene
+    forms a crowd (its crowd instantiation) and `kernel.kf` where not, and
+    on the card each counts its launches apart;
   * with no profiler running a span records nothing, and the decorated
     functions keep their names, docstrings and launch counters.
 """
@@ -153,6 +155,53 @@ def test_fused_pass_spans(entry):
     assert all(kids == [] for _, kids in top)
 
 
+def _kf_scene(crowd: bool):
+    """Two spheres over a plane, 24x16: with the crowd on, the spheres form
+    KF's crowd; with it off, the staged kernel takes every object."""
+    scene = api.Scene()
+    for x in (-0.4, 0.4):
+        scene.add(api.Sphere(center=(x, 0.0, 3.0), radius=0.3),
+                  api.Material.lambert(albedo=(0.8, 0.4, 0.3)))
+    scene.add(api.Plane(normal=(0.0, 1.0, 0.0), offset=-0.5),
+              api.Material.lambert())
+    scene.add_light(api.PointLight(position=(3.0, 4.0, -1.0)))
+    cam = api.Camera.pinhole(24, 16, 45.0, position=(0.0, 0.3, 0.0),
+                             target=(0.0, 0.0, 3.0))
+    st = api.RenderSettings(shadows=True, ao=True, backend="pallas",
+                            vector_objects=crowd)
+    assert rt.launches_crowd(scene.freeze()[0], st) == crowd
+    return scene, cam, st
+
+
+@pytest.mark.parametrize("crowd", [True, False])
+def test_kf_span_names_the_crowd_instantiation(crowd):
+    scene, cam, st = _kf_scene(crowd)
+    poses = workload.poses(cam, 2, np.zeros((2, 3)))
+    tree = _span_tree(lambda: api.render_sequence(scene, cam, poses, st,
+                                                  device="cpu"))
+    top = _child(_child(tree, "render_sequence"), "pass")
+    kf = "kernel.kf_crowd" if crowd else "kernel.kf"
+    assert _names(top) == [kf, "outputs"], top
+    assert isinstance(rt.frame_fused.crowd.launches, int)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crowd", [True, False])
+def test_kf_launches_count_apart_on_card(crowd):
+    """One render_sequence call: one launch, in `frame_fused.crowd` with a
+    crowd and in `frame_fused` without, the other count unmoved."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    scene, cam, st = _kf_scene(crowd)
+    poses = workload.poses(cam, 2, np.zeros((2, 3)))
+    counts = lambda: (rt.frame_fused.crowd.launches, rt.frame_fused.launches)
+    before = counts()
+    api.render_sequence(scene, cam, poses, st, device="cuda")
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(counts(), before))
+    assert got == ((1, 0) if crowd else (0, 1))
+
+
 def test_annotate_is_free_without_a_profiler(monkeypatch):
     opened = []
     real = torch.profiler.record_function
@@ -180,8 +229,7 @@ def test_annotate_is_free_without_a_profiler(monkeypatch):
     names = {e.name() for e in prof.profiler.kineto_results.events()}
     assert {"test.block", "test.fn"} <= names
     assert double.__name__ == "double" and double.__doc__ == "Twice x."
-    for fn in (frame.render_sequence, frame.render_frame, rt.frame_fused,
-               rt.frame_buffers, rt.render_tile, rt.render_tile_redo,
+    for fn in (frame.render_sequence, frame.render_frame, rt.frame_buffers, rt.render_tile, rt.render_tile_redo,
                rt.trace_rays, rt.trace_rays_redo, rt.ao_fix, rt.prime_tile,
                rt._render_pass, rt._pallas_primary, rt._pallas_vis,
                rt._light_terms, mt.mesh_candidates, mt.mesh_tile):
@@ -192,3 +240,4 @@ def test_annotate_is_free_without_a_profiler(monkeypatch):
                rt.prime_tile, mt.mesh_tile, mt.mesh_candidates):
         assert isinstance(fn.launches, int)
     assert isinstance(rt.render_tile.crowd.launches, int)
+    assert isinstance(rt.frame_fused.crowd.launches, int)
